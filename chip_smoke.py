@@ -7,26 +7,34 @@ Run from the repository root with no arguments:
 
 It needs one CUDA device, ``nvcc`` and nothing from the network. It
 1. prints the card's name and power limit, the torch/CUDA versions, and builds
-   both CUDA kernels from ``src/repro_torch/kernels/csrc`` (in parallel);
+   the three CUDA sources of ``src/repro_torch/kernels/csrc`` (in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main path uses plus a ragged one, and times kernel, plain
-   version, the bound and (for the matmul) one library call;
-3. drives the main path at the full width of granite-3-8b: random weights from
-   a seed, SQuant w8 quantization of the whole tree, six requests served
-   real-quantized through ``ServeEngine`` (round scheduler, contiguous KV
-   cache), with the kernels' launch counters read around that run;
+   shapes the main paths use plus a ragged one, and times kernel, plain
+   version, the bound and one library call;
+3. drives the round-scheduler path at the full width of granite-3-8b: random
+   weights from a seed, SQuant w8 quantization of the whole tree, six
+   requests served real-quantized through ``ServeEngine`` (round scheduler,
+   contiguous KV cache), with the kernels' launch counters read around it;
 4. does the same with 4-bit weights at a reduced depth;
-5. runs prefill + 8 decode steps at full width and 2 layers in float32 once
-   through the kernels and once through their plain versions and compares
-   codes, logits and greedy tokens.
-The phases run in the order 1, 4, 3, 2, 5: the short w4 run pays the one-time
-start-up costs, and phase 2 times kernel A at the bucket shapes phase 3's tree
-produced. The last three lines are the card line, the ``kernels`` line and the
-``ok`` line.
+5. runs prefill + 8 decode steps at full width and 2 layers in float32, and
+   the paged continuous path at 2 layers, once through the kernels and once
+   through their plain versions, and compares codes, logits and tokens;
+6. drives this slice's main path at full width and full depth: SQuant w8,
+   the continuous scheduler on the paged KV cache with chunked admission,
+   twelve chat requests sharing a 192-token system prefix (prefix hits,
+   copy-on-write, mid-flight admission, retirement), launch counters read
+   around the run, the block pool checked after it, and teacher-forced
+   greedy agreement against the contiguous continuous engine;
+7. does the same traffic with the int8 KV pool at a reduced depth, held to
+   the reference's ``int8_kv`` agreement budget against the fp paged pool.
+The phases run in the order 1, 4, 3, 6, 7, 2, 5: the short w4 run pays the
+one-time start-up costs, and phase 2 times the kernels at the shapes phases
+3 and 6 produced. The last three lines are the card line, the ``kernels``
+line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
-Depth of phases 3 and 4 can be cut with ``--layers`` / ``--layers4``; widths
-are never cut.
+Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4)
+and ``--layers7`` (phase 7); widths are never cut.
 """
 import argparse
 import dataclasses
@@ -53,6 +61,12 @@ KERNEL_A = {"name": "squant_flip", "route": "cuda",
 KERNEL_B = {"name": "dequant_matmul", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/dequant_matmul.cu",
             "replaces": "src/repro/kernels/dequant_matmul.py:35"}
+KERNEL_C = {"name": "paged_attention", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:79"}
+KERNEL_D = {"name": "paged_attention_quant", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention_quant.py:88"}
 
 
 def emit(obj):
@@ -477,26 +491,518 @@ def slice_vs_plain(dev, seed):
         raise AssertionError(f"greedy tokens differ: {tk} vs {tp}")
     if err > tol * mag:
         raise AssertionError(f"logits differ by {err} (max |logit| {mag})")
+    paged = paged_vs_plain(dev, seed)
     emit({"phase": "5 slice vs plain versions", "layers": 2,
           "dtype": "float32", "codes_tie_rule": ties,
           "logits_max_abs_err": err, "logits_max_abs": mag,
           "tolerance": f"{tol} * max|logit|", "greedy_tokens_equal": True,
-          "tokens": tk})
+          "tokens": tk, **paged})
+
+
+# ---------------------------------------------------------------------------
+# phase 2c: kernels C and D against their plain versions
+# ---------------------------------------------------------------------------
+
+def _paged_inputs(dev, gen, b, kv, rep, d, bs, nb, lengths, dtype, quant,
+                  poison=True):
+    """Pools with spare blocks (trash block 0 included), distinct blocks per
+    slot, table tails past a slot's length pointing at the trash block, and
+    every position no slot reads unmasked poisoned with +1e6 (codes +127 and
+    scales 1e6 for the int8 pool)."""
+    from repro_torch.models.attention import _quant_tok
+    n = b * nb + 2
+    perm = torch.randperm(n - 1, generator=gen, device=dev)[:b * nb] + 1
+    bt = perm.reshape(b, nb).to(torch.int32)
+    live = torch.zeros(n, bs, dtype=torch.bool, device=dev)
+    for i, L in enumerate(lengths):
+        used = min(nb, L // bs + 1)
+        bt[i, used:] = 0
+        cols = torch.arange(used * bs, device=dev)
+        cols = cols[cols <= L]
+        live[bt[i, (cols // bs)].long(), cols % bs] = True
+    q = torch.randn(b, kv * rep, d, generator=gen, device=dev).to(dtype)
+    dead = ~live
+    if quant:
+        kq, ks = _quant_tok(torch.randn(n, bs, kv, d, generator=gen,
+                                        device=dev))
+        vq, vs = _quant_tok(torch.randn(n, bs, kv, d, generator=gen,
+                                        device=dev))
+        if poison:
+            kq[dead], vq[dead], ks[dead], vs[dead] = 127, 127, 1e6, 1e6
+        pools = [kq, vq, ks, vs]
+    else:
+        k = torch.randn(n, bs, kv, d, generator=gen, device=dev)
+        v = torch.randn(n, bs, kv, d, generator=gen, device=dev)
+        if poison:
+            k[dead] += 1e6
+            v[dead] += 1e6
+        pools = [k.to(dtype), v.to(dtype)]
+    return [q] + pools + [bt, torch.tensor(lengths, dtype=torch.int32,
+                                           device=dev)]
+
+
+def check_kernels_cd(dev, gen, path_lengths):
+    """Kernels C and D against their plain versions at the main path's
+    shape (B=8, H=32, KV=8, D=128, bs=16, nb=32, the per-slot lengths of a
+    step of phase 6) in bfloat16 and float32, and at a ragged shape (rep=1,
+    D=64, lengths {0, bs-1, bs, full}, tails at the trash block, masked
+    positions poisoned). Times by CUDA-graph replay beside the bound, the
+    plain version and ``scaled_dot_product_attention`` on K/V already
+    gathered to contiguous form (and, for D, already dequantized: the gather
+    and the dequantization are not in its time)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+
+    cases = [("path", dict(b=8, kv=8, rep=4, d=128, bs=16, nb=32,
+                           lengths=list(path_lengths))),
+             ("ragged", dict(b=4, kv=2, rep=1, d=64, bs=16, nb=4,
+                             lengths=[0, 15, 16, 63]))]
+    entries = {}
+    for quant in (False, True):
+        mod = paq if quant else pa
+        kern = paq.paged_attention_quant if quant else pa.paged_attention
+        plain = paq.paged_attention_quant_plain if quant \
+            else pa.paged_attention_plain
+        shapes, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+        launches_before = mod.launches
+        for tag, c in cases:
+            for dt in (torch.bfloat16, torch.float32):
+                name = str(dt).replace("torch.", "")
+                args = _paged_inputs(dev, gen, c["b"], c["kv"], c["rep"],
+                                     c["d"], c["bs"], c["nb"], c["lengths"],
+                                     dt, quant)
+                scale = c["d"] ** -0.5
+                got = kern(*args, scale=scale).float()
+                want = plain(*args, scale=scale).float()
+                torch.cuda.synchronize()
+                # float32: both sum in float32 in another order; bfloat16:
+                # the plain version rounds its products to bfloat16
+                tol = 2e-5 if dt == torch.float32 else 2e-2
+                err = float((got - want).abs().max())
+                worst[name] = max(worst[name], err)
+                if not bool(torch.isfinite(got).all()) or \
+                        not torch.allclose(got, want, rtol=tol, atol=tol):
+                    raise AssertionError(f"{mod.__name__} != plain at {tag} "
+                                         f"{name}: max abs err {err}")
+                # the same draw without poison gives the same output bits
+                g2 = torch.Generator(device=dev)
+                g2.manual_seed(1234)
+                clean = _paged_inputs(dev, g2, c["b"], c["kv"], c["rep"],
+                                      c["d"], c["bs"], c["nb"], c["lengths"],
+                                      dt, quant, poison=False)
+                g2.manual_seed(1234)
+                dirty = _paged_inputs(dev, g2, c["b"], c["kv"], c["rep"],
+                                      c["d"], c["bs"], c["nb"], c["lengths"],
+                                      dt, quant, poison=True)
+                if not torch.equal(kern(*clean, scale=scale),
+                                   kern(*dirty, scale=scale)):
+                    raise AssertionError(f"{mod.__name__}: poisoned masked "
+                                         f"positions changed the output "
+                                         f"({tag} {name})")
+                ms = time_ms([lambda: kern(*args, scale=scale)], 200)
+                plain_ms = time_ms([lambda: plain(*args, scale=scale)], 5,
+                                   graph=False)
+                # library yardstick: SDPA over the slots' K/V gathered to a
+                # contiguous (B, KV, T, D) form beforehand
+                q, pools, bt, ln = args[0], args[1:-2], args[-2], args[-1]
+                b_, h_, d_ = q.shape
+                t = c["nb"] * c["bs"]
+                kc = pools[0][bt.long()].reshape(b_, t, c["kv"], d_)
+                vc = pools[1][bt.long()].reshape(b_, t, c["kv"], d_)
+                if quant:
+                    kc = (kc.float() * pools[2][bt.long()].reshape(
+                        b_, t, c["kv"], 1)).to(dt)
+                    vc = (vc.float() * pools[3][bt.long()].reshape(
+                        b_, t, c["kv"], 1)).to(dt)
+                kc = kc.transpose(1, 2).contiguous()
+                vc = vc.transpose(1, 2).contiguous()
+                mask = (torch.arange(t, device=dev)[None, :]
+                        <= ln[:, None])[:, None, None, :]
+                q4 = q[:, :, None, :]
+                lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
+                    q4, kc, vc, attn_mask=mask, scale=scale,
+                    enable_gqa=True)], 200)
+                esz = 2 if dt == torch.bfloat16 else 4
+                rows = sum(L + 1 for L in c["lengths"]) * c["kv"]
+                per_row = 2 * d_ + 8 if quant else 2 * d_ * esz
+                nbytes = rows * per_row + 2 * b_ * h_ * d_ * esz
+                ops_ = 4.0 * sum(L + 1 for L in c["lengths"]) * h_ * d_
+                t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                t_ops = ops_ / PEAK_FLOPS["float32"] * 1e3
+                shapes.append({"case": tag, "dtype": name, "batch": b_,
+                               "heads": h_, "kv_heads": c["kv"],
+                               "head_dim": d_, "block_size": c["bs"],
+                               "blocks_per_slot": c["nb"],
+                               "lengths": c["lengths"], "max_abs_err": err,
+                               "ms": ms, "plain_ms": plain_ms,
+                               "library_ms": lib_ms,
+                               "bound_ms": max(t_bytes, t_ops),
+                               "bound_by": "bytes" if t_bytes >= t_ops
+                               else "operations"})
+                del args, clean, dirty, kc, vc
+        mod.launches = launches_before     # comparisons do not count
+        head = shapes[0]                   # the path's shape in bfloat16
+        entries[quant] = dict(
+            KERNEL_D if quant else KERNEL_C,
+            max_abs_err=worst["bfloat16"],
+            max_abs_err_float32=worst["float32"],
+            tolerance="float32: rtol=atol=2e-5; bfloat16: rtol=atol=2e-2 "
+            "(the plain version rounds its products to bfloat16); poisoned "
+            "masked positions: output bits equal",
+            numbers_are="one launch at the main path's shape (B=8, H=32, "
+            "KV=8, D=128, bs=16, nb=32, bfloat16, lengths of a phase-6 "
+            "decode step)",
+            timing="ms, library_ms: device time (CUDA graph replay); "
+            "plain_ms: eager calls; library_ms is "
+            "scaled_dot_product_attention(enable_gqa=True) on K/V gathered "
+            "beforehand" + (" and dequantized beforehand" if quant else "")
+            + ": the gather" + (" and the dequantization are" if quant
+                                 else " is") + " not in its time",
+            ms=head["ms"], plain_ms=head["plain_ms"],
+            library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+            bound_by=head["bound_by"], shapes=shapes)
+    return entries[False], entries[True]
+
+
+# ---------------------------------------------------------------------------
+# phases 6 and 7: continuous scheduler + paged KV cache + chunked admission
+# ---------------------------------------------------------------------------
+
+def chat_requests(seed, vocab, max_new=32, prefix=192, bs=16):
+    """Twelve chat requests: a shared 192-token system prefix (12 full
+    blocks) and a user suffix of 8-160 tokens each for requests 0-7;
+    requests 8-11 are second turns of requests 4-7 (their whole prompt plus
+    8-40 new tokens), admitted while those are still decoding, so they share
+    their full blocks and the partial tail block (copy-on-write)."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, size=prefix).tolist()
+    prompts = []
+    for i in range(8):
+        n = int(rng.integers(8, 161))
+        if i >= 4 and (prefix + n) % bs == 0:
+            n += 1                        # keep a partial tail to share
+        prompts.append(system + rng.integers(0, vocab, size=n).tolist())
+    for i in range(4):
+        n = int(rng.integers(8, 41))
+        prompts.append(prompts[4 + i] + rng.integers(0, vocab,
+                                                     size=n).tolist())
+    return [Request(p, max_new, request_id=i) for i, p in enumerate(prompts)]
+
+
+class _Counted:
+    """Wraps an engine entry point: counts its calls, and optionally keeps
+    what ``record(args, out)`` returns for each."""
+
+    def __init__(self, fn, record=None):
+        self.fn, self.record, self.calls, self.log = fn, record, 0, []
+
+    def __call__(self, *args):
+        self.calls += 1
+        out = self.fn(*args)
+        if self.record is not None:
+            self.log.append(self.record(args, out))
+        return out
+
+
+def paged_config(**over):
+    from repro_torch.serving import ServeConfig
+    kw = dict(scheduler="continuous", kv_backend="paged", max_slots=8,
+              max_len=512, block_size=16, prefill_chunk=64,
+              quantize_weights="squant", weight_bits=8,
+              dequantize_for_compute=False)
+    kw.update(over)
+    return ServeConfig(**kw)
+
+
+def _retyped(tree, dtype):
+    """The serving tree with its model-dtype leaves (the embedding, an
+    untied fp head) cast to ``dtype``; quantized linears and float32 norms
+    are shared as they are."""
+    out = dict(tree)
+    out["embedding"] = {"embedding": tree["embedding"]["embedding"].to(dtype)}
+    head = tree.get("lm_head", {}).get("w")
+    if isinstance(head, torch.Tensor):
+        out["lm_head"] = {"w": head.to(dtype)}
+    return out
+
+
+def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype):
+    """Teacher-forced greedy agreement of the paged chunked engine (phase 6's
+    serve config, ``quantize_kv`` as given) against its oracle on the same
+    quantized tree, with activations in ``dtype``: the fp paged pool for an
+    int8 pool, else the contiguous continuous engine without chunking and
+    with ONE slot — a contiguous pool left-pads every prompt to the shared
+    clock and the pad tokens are attended (the reference's semantics), so
+    only a one-slot run sees the paged slots' context (positions 0..L-1).
+    Returns the report and the oracle's seconds."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine, WeightStore
+    from repro_torch.serving.equivalence import (greedy_token_agreement,
+                                                 oracle_tokens)
+
+    name = str(dtype).replace("torch.", "")
+    m = build_model(dataclasses.replace(model.cfg, dtype=name))
+    store = WeightStore(serving_params=_retyped(tree, dtype), device=dev)
+    ocfg = paged_config() if quantize_kv else paged_config(
+        kv_backend="contiguous", prefill_chunk=0, max_slots=1)
+    t0 = time.perf_counter()
+    oracle = oracle_tokens(ServeEngine(m, None, ocfg, store=store,
+                                       device=dev).generate(reqs))
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    rep = greedy_token_agreement(
+        ServeEngine(m, None, paged_config(quantize_kv=quantize_kv),
+                    store=store, device=dev), reqs, oracle)
+    return rep, oracle_s
+
+
+def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
+    """The continuous + paged + chunked path on granite-3-8b w8: one counted
+    run through ``ServeEngine.generate`` (the main path), then the agreement
+    check against its oracle engine, which shares the quantized tree."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.equivalence import AGREEMENT_BUDGETS
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    reqs = chat_requests(seed, cfg.vocab)
+    kernel_mod = paq if quantize_kv else pa
+
+    sf.launches = dm.launches = pa.launches = paq.launches = 0
+    eng = ServeEngine(model, params, paged_config(quantize_kv=quantize_kv),
+                      device=dev)
+    del params
+    torch.cuda.empty_cache()
+    a_launches = sf.launches
+    kv = eng.scheduler.kv
+    dec = eng._decode = _Counted(eng._decode,
+                                 lambda a, o: kv._lengths.copy().tolist())
+    chk = eng._prefill_chunk = _Counted(eng._prefill_chunk)
+    pre = eng._prefill = _Counted(eng._prefill)
+    torch.cuda.reset_peak_memory_stats()
+    sf.launches = dm.launches = pa.launches = paq.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    b_launches, k_launches = dm.launches, kernel_mod.launches
+    other = (pa if quantize_kv else paq).launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    st = eng.stats()["scheduler"]
+    forwards = dec.calls + chk.calls + pre.calls
+    if chk.calls != st.chunk_steps or pre.calls != 0:
+        raise AssertionError(f"chunk forwards {chk.calls} vs stats "
+                             f"{st.chunk_steps}, monolithic {pre.calls}")
+    if b_launches != 7 * layers * forwards or b_launches == 0:
+        raise AssertionError(f"kernel B launches {b_launches}, path implies "
+                             f"{7 * layers * forwards}")
+    if k_launches != layers * dec.calls or k_launches == 0 or other:
+        raise AssertionError(f"{kernel_mod.__name__} launches {k_launches} "
+                             f"(other paged kernel {other}), path implies "
+                             f"{layers * dec.calls}")
+    kv.check_invariants()
+    kst = st.kv
+    if kst["blocks_active"] or kst["blocks_reserved"]:
+        raise AssertionError(f"blocks not returned after the run: {kst}")
+    if not (kst["prefix_hits"] and kst["cow_copies"]):
+        raise AssertionError(f"no prefix hit or no copy-on-write: {kst}")
+    if st.admitted != len(reqs) or st.waves != 1 or st.pendings_started < 2:
+        raise AssertionError(f"expected one fresh wave and mid-flight "
+                             f"admissions: {st}")
+    for o, r in zip(outs, reqs):
+        if len(o.tokens) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in o.tokens):
+            raise AssertionError(f"request {r.request_id}: bad tokens")
+
+    # agreement, measured with bfloat16 activations (the main path's) and
+    # with float32 activations on the same quantized tree; the budget is
+    # held in float32, where the random model's near-tied logits are not
+    # flipped by bfloat16 rounding (PERF.md, ROADMAP "Faults")
+    label = "int8 KV vs fp paged pool" if quantize_kv else \
+        "paged vs contiguous (one slot)"
+    budget = AGREEMENT_BUDGETS["int8_kv"] if quantize_kv else 0.98
+    rep16, oracle_s = measure_agreement(dev, model, eng.params, reqs,
+                                        quantize_kv, torch.bfloat16)
+    rep, oracle32_s = measure_agreement(dev, model, eng.params, reqs,
+                                        quantize_kv, torch.float32)
+    entry = {"phase": phase, "model": cfg.name, "layers": layers,
+             "full_depth": layers == get_config("granite-3-8b").n_layers,
+             "weight_bits": 8, "quantize_kv": quantize_kv,
+             "serve_config": {k: getattr(eng.cfg, k) for k in (
+                 "scheduler", "kv_backend", "max_slots", "max_len",
+                 "block_size", "prefill_chunk")},
+             "requests": len(reqs),
+             "prompt_lengths": [len(r.prompt) for r in reqs],
+             "max_new_tokens": reqs[0].max_new_tokens,
+             "run_s": run_s, "oracle_run_s_bfloat16": oracle_s,
+             "oracle_run_s_float32": oracle32_s,
+             "sampling_steps": st.steps, "decode_forwards": dec.calls,
+             "chunk_forwards": chk.calls,
+             "step_ms": st.step_ms,
+             "prefill_ms_per_admission": [o.prefill_ms for o in outs],
+             "kv": kst, "peak_memory_gb": peak_gb,
+             "launches": {"squant_flip": a_launches,
+                          "dequant_matmul": b_launches,
+                          kernel_mod.__name__.split(".")[-1]: k_launches},
+             "agreement": {"against": label, "budget": budget,
+                           "gated": "float32 activations",
+                           "rate": rep.rate, "matched": rep.matched,
+                           "compared": rep.compared,
+                           "rate_bfloat16": rep16.rate,
+                           "matched_bfloat16": rep16.matched},
+             "tokens": [o.tokens for o in outs]}
+    emit(entry)
+    if rep.rate < budget:
+        raise AssertionError(f"{label}: teacher-forced greedy agreement "
+                             f"{rep.rate:.4f} < {budget}")
+    lengths = max(dec.log, key=sum)        # the step with the most context
+    eng.close()
+    del eng, outs
+    torch.cuda.empty_cache()
+    return a_launches, b_launches, k_launches, lengths
+
+
+def paged_vs_plain(dev, seed):
+    """The paged continuous path at 2 layers in float32, once through the
+    kernels and once under ``force_backend("ref")``, on one quantized tree:
+    greedy tokens equal, logits within 1e-3 of the largest."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine, WeightStore
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
+                              dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    tree, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+    del params
+    reqs = chat_requests(seed, cfg.vocab, max_new=8, prefix=32)[:6]
+
+    def run():
+        eng = ServeEngine(model, None, paged_config(
+            max_slots=4, max_len=256, prefill_chunk=16),
+            store=WeightStore(serving_params=tree, device=dev), device=dev)
+        sch = eng.scheduler
+
+        def keep(a, o):
+            # only the rows of live slots: retired rows read the trash
+            # block, whose content depends on the order of racing writes
+            rows = [i for i, s in enumerate(sch.slots) if s is not None]
+            return o[0][rows].float().cpu()
+
+        eng._decode = _Counted(eng._decode, keep)
+        eng._prefill_chunk = _Counted(eng._prefill_chunk,
+                                      lambda a, o: o[0].float().cpu())
+        outs = eng.generate(reqs)
+        return ([o.tokens for o in outs], torch.cat(eng._decode.log),
+                torch.cat([x[None] for x in eng._prefill_chunk.log]))
+
+    tk, dk, ck = run()
+    with ops.force_backend("ref"):
+        tp, dp, cp = run()
+    err = max(float((dk - dp).abs().max()), float((ck - cp).abs().max()))
+    mag = max(float(dp.abs().max()), float(cp.abs().max()))
+    tol = 1e-3          # of the largest logit: float32 sum order, two layers
+    if tk != tp:
+        raise AssertionError(f"paged path: greedy tokens differ: {tk} vs {tp}")
+    if err > tol * mag:
+        raise AssertionError(f"paged path: logits differ by {err} (max "
+                             f"|logit| {mag})")
+    return {"paged_logits_max_abs_err": err, "paged_logits_max_abs": mag,
+            "paged_greedy_tokens_equal": True,
+            "paged_decode_forwards": int(dk.shape[0])}
 
 
 # ---------------------------------------------------------------------------
 # optional: where a decode step's time goes (--profile)
 # ---------------------------------------------------------------------------
 
-def profile_decode(dev, seed, layers, batch=4, steps=4):
-    """Trace a few decode steps of the w8 main path with ``torch.profiler``
-    and print device time by kernel, the device's busy share of the wall
-    time, and the number of device kernels per step."""
+def _profile_steps(step, steps, phase, extra):
+    """Trace ``steps`` calls of ``step()`` (after two warm ones) with
+    ``torch.profiler`` and print device time by kernel, the device's busy
+    share of the untraced wall time, the number of device kernels per step,
+    and the device time split into kernel C, kernel B, host-to-device copies
+    and everything else."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    for _ in range(2):                                   # warm
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    t1 = time.perf_counter()
+    for _ in range(steps):                               # the same, untraced
+        step()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t1) * 1e3
+    rows = []
+    dev_us = 0.0
+    n_kernels = 0
+    split = {"paged_attention": 0.0, "dequant_matmul": 0.0,
+             "host_to_device_copies": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        # device-side events only: the host-side op rows carry the time of
+        # the kernels they launched as well and would count it twice
+        if getattr(e, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", 0.0) or 0.0
+        if us > 0:
+            dev_us += us
+            n_kernels += e.count
+            rows.append((us, e.key[:70], e.count))
+            k = e.key
+            if "paged_decode_kernel" in k:
+                split["paged_attention"] += us
+            elif any(n in k for n in ("gemv_kernel", "mma_kernel",
+                                      "tiled_kernel")):
+                split["dequant_matmul"] += us
+            elif "HtoD" in k:
+                split["host_to_device_copies"] += us
+            else:
+                split["other"] += us
+    rows.sort(reverse=True)
+    emit({"phase": phase, **extra,
+          "steps": steps, "wall_ms_per_step_traced": wall_ms / steps,
+          "wall_ms_per_step_untraced": untraced_ms / steps,
+          "device_ms_per_step": dev_us / 1e3 / steps,
+          "device_busy_share_of_untraced_wall": dev_us / 1e3 / untraced_ms,
+          "device_kernels_per_step": n_kernels / steps,
+          "device_ms_per_step_by_part": {k: v / 1e3 / steps
+                                         for k, v in split.items()},
+          "top_device_time": [{"name": n, "ms_per_step": us / 1e3 / steps,
+                               "calls_per_step": c / steps}
+                              for us, n, c in rows[:12]]})
+
+
+def profile_decode(dev, seed, layers, batch=4, steps=4):
+    """Where a decode step's time goes, round path and paged continuous
+    path (``--profile``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    from repro_torch.serving import ServeConfig, ServeEngine
+    from repro_torch.serving import ServeConfig, ServeEngine, WeightStore
 
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
     model = build_model(cfg)
@@ -509,61 +1015,131 @@ def profile_decode(dev, seed, layers, batch=4, steps=4):
     del params
     torch.cuda.empty_cache()
     prompt = torch.randint(0, cfg.vocab, (batch, 96), generator=gen, device=dev)
-    cache = eng.model.init_cache(batch, 256, device=dev)
-    lg, cache = eng.model.prefill(eng.params, {"tokens": prompt}, cache)
-    for _ in range(2):                                   # warm
-        lg, cache = eng.model.decode_step(eng.params, lg.argmax(-1)[:, None],
-                                          cache)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            nxt = lg.argmax(-1)
-            nxt.cpu()                                    # the step's host sync
-            lg, cache = eng.model.decode_step(eng.params, nxt[:, None], cache)
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    t1 = time.perf_counter()
-    for _ in range(steps):                               # the same, untraced
-        nxt = lg.argmax(-1)
-        nxt.cpu()
-        lg, cache = eng.model.decode_step(eng.params, nxt[:, None], cache)
-    torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t1) * 1e3
-    rows = []
-    dev_us = 0.0
-    n_kernels = 0
-    from torch.autograd import DeviceType
-    for e in prof.key_averages():
-        # device-side events only: the host-side op rows carry the time of
-        # the kernels they launched as well and would count it twice
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if us > 0:
-            dev_us += us
-            n_kernels += e.count
-            rows.append((us, e.key[:70], e.count))
-    rows.sort(reverse=True)
-    emit({"phase": "profile of decode steps", "layers": layers, "batch": batch,
-          "steps": steps, "wall_ms_per_step_traced": wall_ms / steps,
-          "wall_ms_per_step_untraced": untraced_ms / steps,
-          "device_ms_per_step": dev_us / 1e3 / steps,
-          "device_busy_share_of_untraced_wall": dev_us / 1e3 / untraced_ms,
-          "device_kernels_per_step": n_kernels / steps,
-          "top_device_time": [{"name": n, "ms_per_step": us / 1e3 / steps,
-                               "calls_per_step": c / steps}
-                              for us, n, c in rows[:12]]})
+    state = {"cache": eng.model.init_cache(batch, 256, device=dev)}
+    state["lg"], state["cache"] = eng.model.prefill(
+        eng.params, {"tokens": prompt}, state["cache"])
+
+    def round_step():
+        nxt = state["lg"].argmax(-1)
+        nxt.cpu()                                        # the step's host sync
+        state["lg"], state["cache"] = eng.model.decode_step(
+            eng.params, nxt[:, None], state["cache"])
+
+    _profile_steps(round_step, steps, "profile of decode steps, round path",
+                   {"layers": layers, "batch": batch})
+
+    # the paged continuous path: 8 slots of phase 6's traffic admitted into
+    # the block pool, then the scheduler's decode step (table push included)
+    peng = ServeEngine(model, None, paged_config(),
+                       store=WeightStore(serving_params=eng.params,
+                                         device=dev), device=dev)
+    kv = peng.scheduler.kv
+    reqs = chat_requests(seed, cfg.vocab)[:8]
+    kv.admit([(i, r) for i, r in enumerate(reqs)], list(range(8)), None,
+             peng.params)
+    slots = list(range(8))
+
+    def paged_step():
+        nxt = kv.logits.argmax(-1).to(torch.int32)
+        nxt.cpu()                                        # the step's host sync
+        kv.decode(peng.params, nxt, slots)
+
+    _profile_steps(paged_step, steps,
+                   "profile of decode steps, paged continuous path",
+                   {"layers": layers, "batch": 8,
+                    "context_lengths": kv._lengths.tolist()})
     eng.close()
+    peng.close()
+
+
+# ---------------------------------------------------------------------------
+# optional: which kernel costs the paged path its agreement (--agreement-
+# variants)
+# ---------------------------------------------------------------------------
+
+def agreement_variants(dev, seed, layers, layers7):
+    """Teacher-forced greedy agreement of phase 6's paged engine against its
+    one-slot contiguous oracle with bfloat16 activations, with one kernel at
+    a time swapped for its plain version in both engines (kernel C, kernel
+    B, both) and with float32 activations; then phase 7's int8 pool against
+    the fp pool in bfloat16 and float32 at ``layers7`` and at 2 layers. Also
+    the oracle's top-1 minus top-2 logit gap over the sampled positions."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine
+
+    originals = {"pa": ops.paged_attention, "dm": ops.dequant_matmul}
+
+    def plain(fn):
+        def call(*a, **kw):
+            kw["backend"] = "ref"
+            return fn(*a, **kw)
+        return call
+
+    runs = [(layers, False, torch.bfloat16, "kernels"),
+            (layers, False, torch.bfloat16, "C plain"),
+            (layers, False, torch.bfloat16, "B plain"),
+            (layers, False, torch.bfloat16, "B and C plain"),
+            (layers, False, torch.float32, "kernels"),
+            (layers7, True, torch.bfloat16, "kernels"),
+            (layers7, True, torch.float32, "kernels"),
+            (2, True, torch.bfloat16, "kernels"),
+            (2, True, torch.float32, "kernels")]
+    trees = {}
+    out = []
+    for depth, quant, dtype, swap in runs:
+        if depth not in trees:
+            trees.clear()
+            torch.cuda.empty_cache()
+            cfg = dataclasses.replace(get_config("granite-3-8b"),
+                                      n_layers=depth)
+            model = build_model(cfg)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+            params = model.init(gen, device=dev)
+            trees[depth] = (model, ServeEngine(
+                model, params, paged_config(), device=dev).params)
+            del params
+            torch.cuda.empty_cache()
+        model, tree = trees[depth]
+        ops.paged_attention = plain(originals["pa"]) \
+            if "C plain" in swap or swap == "B and C plain" \
+            else originals["pa"]
+        ops.dequant_matmul = plain(originals["dm"]) \
+            if swap in ("B plain", "B and C plain") else originals["dm"]
+        reqs = chat_requests(seed, model.cfg.vocab)
+        t0 = time.perf_counter()
+        rep, _ = measure_agreement(dev, model, tree, reqs, quant, dtype)
+        row = {"phase": "agreement variant", "layers": depth,
+               "pool": "int8 vs fp paged" if quant
+               else "paged vs one-slot contiguous",
+               "activations": str(dtype).replace("torch.", ""),
+               "swap": swap, "rate": rep.rate, "matched": rep.matched,
+               "compared": rep.compared,
+               "seconds": time.perf_counter() - t0}
+        emit(row)
+        out.append(row)
+    ops.paged_attention, ops.dequant_matmul = originals["pa"], \
+        originals["dm"]
+    return out
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--layers", type=int, default=40,
-                    help="depth of the w8 main-path run (40 = the full model)")
+                    help="depth of the w8 runs of phases 3 and 6 (40 = the "
+                    "full model)")
     ap.add_argument("--layers4", type=int, default=4,
                     help="depth of the w4 main-path run")
+    ap.add_argument("--layers7", type=int, default=4,
+                    help="depth of the int8-KV continuous run")
+    ap.add_argument("--agreement-variants", action="store_true",
+                    help="only build, then measure phase 6's and 7's "
+                    "agreement with one kernel at a time swapped for its "
+                    "plain version, and with float32 activations (and "
+                    "--profile, if given); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps with torch.profiler "
                     "and print where their time goes")
@@ -587,6 +1163,12 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_seconds": built, "nvcc_flags": " ".join(_build.NVCC_FLAGS)})
 
+    if args.agreement_variants:
+        agreement_variants(dev, args.seed, args.layers, args.layers7)
+        if args.profile:
+            profile_decode(dev, args.seed, args.layers)
+        return 1
+
     lengths = [17, 96, 40, 64, 33, 128]       # two rounds of max_batch 4
     max_batch, max_new = 4, 16
     # The reduced-depth w4 run goes first: it also pays the one-time costs
@@ -599,23 +1181,37 @@ def main():
                                   max_batch, max_new,
                                   "3 main path, granite-3-8b w8")
 
+    _, _, c_n, path_lengths = drive_continuous(
+        dev, args.seed, args.layers,
+        "6 main path, continuous + paged + chunked, granite-3-8b w8")
+    _, _, d_n, _ = drive_continuous(
+        dev, args.seed, args.layers7,
+        "7 int8 KV, continuous + paged + chunked, granite-3-8b w8",
+        quantize_kv=True)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     ka = check_kernel_a(dev, gen, tree_shapes)
     prefill_rows = [4 * 96, 2 * 128]
     kb = check_kernel_b(dev, gen, max_batch, prefill_rows)
+    kc, kd = check_kernels_cd(dev, gen, path_lengths)
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance")},
         "dequant_matmul": {k: kb[k] for k in ("comparisons", "max_rel_err",
-                                              "tolerance")}})
+                                              "tolerance")},
+        "paged_attention": {k: kc[k] for k in (
+            "max_abs_err", "max_abs_err_float32", "tolerance")},
+        "paged_attention_quant": {k: kd[k] for k in (
+            "max_abs_err", "max_abs_err_float32", "tolerance")}})
     slice_vs_plain(dev, args.seed)
     if args.profile:
         profile_decode(dev, args.seed, args.layers)
 
     ka["launches"], kb["launches"] = a_n, b_n
+    kc["launches"], kd["launches"] = c_n, d_n
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"kernels": [ka, kb]})
+    emit({"kernels": [ka, kb, kc, kd]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -23,7 +23,7 @@ from typing import Dict, Optional, Sequence
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
-SOURCES = ("squant_flip", "dequant_matmul")
+SOURCES = ("squant_flip", "dequant_matmul", "paged_attention")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -77,7 +77,8 @@ def _finish(name: str, out: str, proc_rc: int, log: str, t0: float) -> None:
 
 # per-source extra flags: the flip kernel's arithmetic must not be contracted
 # into fused multiply-adds (q - w/s decides every flip)
-EXTRA_FLAGS = {"squant_flip": ("-fmad=false",), "dequant_matmul": ()}
+EXTRA_FLAGS = {"squant_flip": ("-fmad=false",), "dequant_matmul": (),
+               "paged_attention": ()}
 
 
 def build_all(names: Optional[Sequence[str]] = None, verbose: bool = False

@@ -24,6 +24,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import dequant_matmul as _dm
+from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import paged_attention_quant as _paq
 from repro_torch.kernels import squant_flip as _sf
 from repro_torch.quant.qtypes import QuantizedTensor
 
@@ -128,3 +130,32 @@ def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
                                   group_size=gs)
     return _dm.dequant_matmul_plain(x, qt.data, scale, bits=qt.bits,
                                     group_size=gs)
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor, *, scale: float,
+                    backend: str = "auto") -> torch.Tensor:
+    """Block-table decode attention over a model-dtype pool (see
+    :mod:`repro_torch.kernels.paged_attention`)."""
+    if _use_kernel(q, backend):
+        return _pa.paged_attention(q, k_pool, v_pool, block_tables, lengths,
+                                   scale=scale)
+    return _pa.paged_attention_plain(q, k_pool, v_pool, block_tables,
+                                     lengths, scale=scale)
+
+
+def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
+                          v_pool: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, block_tables: torch.Tensor,
+                          lengths: torch.Tensor, *, scale: float,
+                          backend: str = "auto") -> torch.Tensor:
+    """Block-table decode attention over an int8 pool with per-(position,
+    kv-head) scales (see :mod:`repro_torch.kernels.paged_attention_quant`)."""
+    if _use_kernel(q, backend):
+        return _paq.paged_attention_quant(q, k_pool, v_pool, k_scale,
+                                          v_scale, block_tables, lengths,
+                                          scale=scale)
+    return _paq.paged_attention_quant_plain(q, k_pool, v_pool, k_scale,
+                                            v_scale, block_tables, lengths,
+                                            scale=scale)

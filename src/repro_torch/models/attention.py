@@ -1,4 +1,5 @@
-"""Attention: dense grouped-query attention with a contiguous KV cache.
+"""Attention: dense grouped-query attention with contiguous and paged KV
+caches, optionally int8.
 
 Grouped-query attention uses the grouped einsum form at decode (no
 materialized KV repeat) and the repeated-KV, query-chunked form at prefill —
@@ -7,10 +8,17 @@ softmax and mask arithmetic match (``scaled_dot_product_attention`` is
 deliberately not used). Masked columns use the finite ``NEG_INF`` so they
 contribute exact zeros.
 
-Ported here: ``prefill`` and scalar-position ``decode`` on an fp cache.
+Modes: ``prefill``, scalar-position ``decode`` and ``chunk`` (a partial
+prefill continued at the cache clock) on a contiguous cache, and paged
+``decode`` through block tables (per-slot positions; the new row is written
+through the table, then the paged-attention kernel reads the pool). KV caches
+hold the model dtype, or int8 codes with one float32 scale per (position,
+kv-head) (``quantize_kv``, written by :func:`_quant_tok`). Caches are updated
+in place: the caller owns them.
+
 Not ported yet (each raises ``NotImplementedError`` naming itself): MLA,
-sliding-window ring caches, the ``chunk`` and ``verify`` modes, block-table
-(paged) decode, per-row decode positions and int8 KV caches.
+sliding-window ring caches, the speculative ``verify`` mode and per-row
+decode positions on a contiguous cache.
 """
 from __future__ import annotations
 
@@ -46,35 +54,69 @@ def init_attention(generator, cfg, device=None) -> Dict[str, Any]:
 
 
 # ---------------------------------------------------------------------------
-# KV cache (fp)
+# KV cache (optionally int8)
 # ---------------------------------------------------------------------------
 
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                   dtype=torch.bfloat16, quantize: bool = False,
                   window: Optional[int] = None, device=None) -> Dict[str, Any]:
-    if quantize:
-        raise NotImplementedError("not ported yet: int8 KV cache (quantize_kv)")
     if window:
         raise NotImplementedError("not ported yet: sliding-window ring cache")
     shape = (batch, max_len, n_kv, head_dim)
+    if quantize:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def _quant_tok(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., KV, D) → int8 codes + one float32 scale per (..., KV).
+
+    Per-(token, head) absmax scales with a 1e-6 floor, so all-zero rows
+    quantize to exact zeros. The scale is ``amax / 127`` (a division), codes
+    are ``round(x / scale)`` (a division, never a multiply by a reciprocal;
+    ``torch.round`` is half-to-even like ``jnp.round``), clipped to
+    [-127, 127] before the int8 cast so 128.0 can never wrap to -128. The
+    arithmetic runs in ``x``'s dtype, as in the reference."""
+    amax = x.abs().amax(dim=-1)
+    scale = torch.clamp_min(amax, 1e-6) / 127.0
+    codes = torch.clamp(torch.round(x / scale[..., None]), -127.0, 127.0)
+    return codes.to(torch.int8), scale.to(torch.float32)
+
+
 def _cache_write(cache, k, v, pos: int):
-    """Write new k/v (B, S, KV, D) at absolute position ``pos``. Updates the
-    cache tensors in place (the reference returns fresh arrays; here a round's
-    cache is owned by that round) and returns the same dict."""
+    """Write new k/v (B, S, KV, D) at absolute position ``pos`` (quantized
+    per (token, head) on an int8 cache). Updates the cache tensors in place
+    (the reference returns fresh arrays; here the caller owns the cache) and
+    returns the same dict."""
     s = k.shape[1]
     if pos + s > cache["k"].shape[1]:
         raise ValueError(f"cache write [{pos}, {pos + s}) exceeds the cache "
                          f"length {cache['k'].shape[1]}")
+    if "k_scale" in cache:
+        kq, ks = _quant_tok(k)
+        vq, vs = _quant_tok(v)
+        cache["k"][:, pos:pos + s] = kq
+        cache["v"][:, pos:pos + s] = vq
+        cache["k_scale"][:, pos:pos + s] = ks
+        cache["v_scale"][:, pos:pos + s] = vs
+        return cache
     cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
     cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
     return cache
 
 
 def _cache_read(cache) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's K/V; an int8 cache comes back dequantized in float32."""
+    if "k_scale" in cache:
+        k = cache["k"].to(torch.float32) * cache["k_scale"][..., None]
+        v = cache["v"].to(torch.float32) * cache["v_scale"][..., None]
+        return k, v
     return cache["k"], cache["v"]
 
 
@@ -153,19 +195,24 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     """Self-attention.
 
     mode: "train"/"prefill" (full sequence, causal mask; prefill also fills
-    the cache) or "decode" (a single new token against the cache at the
-    integer position ``pos`` shared by the whole batch).
+    the cache), "decode" (a single new token per row), or "chunk" (a
+    partial-prefill continuation: ``s`` prompt tokens written at the integer
+    position ``pos``, attending over the already-filled cache prefix with
+    the prefill einsums, so a chunked prefill matches the monolithic one).
+
+    Decode on a contiguous cache takes the integer clock ``pos`` shared by
+    the batch. ``block_tables`` (B, nb) switches decode to the paged layout:
+    the cache leaves are a block pool ``(num_blocks, block_size, KV, D)``
+    shared by all slots, ``pos`` is the per-slot position vector (B,) on the
+    device, and slot ``b`` reaches its K/V through its table row.
     """
     if cfg.mla is not None:
         raise NotImplementedError("not ported yet: MLA attention")
     if cfg.window:
         raise NotImplementedError("not ported yet: sliding-window attention")
-    if block_tables is not None:
-        raise NotImplementedError("not ported yet: block-table (paged) decode")
-    if mode in ("chunk", "verify"):
-        raise NotImplementedError(f"not ported yet: attention mode {mode!r}")
-    if cache is not None and "k_scale" in cache:
-        raise NotImplementedError("not ported yet: int8 KV cache (_quant_tok)")
+    if mode == "verify":
+        raise NotImplementedError(
+            "not ported yet: attention mode 'verify' (speculative decoding)")
     b, s, d = x.shape
     hd = cfg.head_dim
     cos_t, sin_t = rope                      # (s, hd/2) for current tokens
@@ -184,11 +231,46 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
                                  q_chunk=cfg.attn_q_chunk)
         if mode == "prefill":
             cache = _cache_write(cache, k, v, 0)
+    elif mode == "chunk":
+        # partial-prefill continuation: write this chunk at the clock, then
+        # run the prefill einsum against the whole cache with the rows'
+        # absolute positions masking the unwritten suffix (exact zeros)
+        cache = _cache_write(cache, k, v, pos)
+        kc, vc = _cache_read(cache)
+        out = _chunked_attention(q, kc.to(q.dtype), vc.to(q.dtype),
+                                 scale=scale, causal=True,
+                                 q_chunk=cfg.attn_q_chunk, row0=pos)
+    elif mode == "decode" and block_tables is not None:
+        # paged decode, s == 1: slot b's new row lands in physical block
+        # bt[b, pos//bs] at offset pos % bs (retired slots point at the
+        # trash block and are masked by length; their duplicate writes into
+        # it race harmlessly), then the kernel attends through the table
+        from repro_torch.kernels import ops                  # lazy import
+        bs_blk = cache["k"].shape[1]
+        rows = torch.arange(b, device=x.device)
+        pos_l = pos.to(torch.int64)
+        phys = block_tables[rows, pos_l // bs_blk].to(torch.int64)
+        off = pos_l % bs_blk
+        if "k_scale" in cache:
+            kq, ks = _quant_tok(k[:, 0])
+            vq, vs = _quant_tok(v[:, 0])
+            cache["k"][phys, off] = kq
+            cache["v"][phys, off] = vq
+            cache["k_scale"][phys, off] = ks
+            cache["v_scale"][phys, off] = vs
+            out = ops.paged_attention_quant(
+                q[:, 0], cache["k"], cache["v"], cache["k_scale"],
+                cache["v_scale"], block_tables, pos, scale=scale)[:, None]
+        else:
+            cache["k"][phys, off] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
+            out = ops.paged_attention(q[:, 0], cache["k"], cache["v"],
+                                      block_tables, pos, scale=scale)[:, None]
     elif mode == "decode":
         if not isinstance(pos, int):
             raise NotImplementedError(
-                "not ported yet: per-row decode positions (pos must be the "
-                "integer clock shared by the batch)")
+                "not ported yet: per-row decode positions on a contiguous "
+                "cache (pos must be the integer clock shared by the batch)")
         cache = _cache_write(cache, k, v, pos)
         kc, vc = _cache_read(cache)
         si = torch.arange(kc.shape[1], device=x.device)

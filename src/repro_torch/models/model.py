@@ -89,11 +89,22 @@ class LM:
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         tokens = batch["tokens"]
         b, s = tokens.shape
-        if caches is not None and caches.get("block_tables") is not None:
-            raise NotImplementedError("not ported yet: paged KV caches")
+        block_tables = caches.get("block_tables") \
+            if caches is not None else None
         if mode == "decode":
             pos = caches["pos"]
-            positions = torch.tensor([pos], device=tokens.device)
+            # contiguous caches keep ONE integer clock for the whole batch;
+            # paged caches keep a per-slot position vector on the device, so
+            # each row gets its own absolute position (rope shapes follow)
+            if isinstance(pos, int):
+                positions = torch.tensor([pos], device=tokens.device)
+            else:
+                positions = pos[:, None]
+        elif mode == "chunk":
+            # partial-prefill continuation: the cache clock is the chunk's
+            # start offset; rows live at absolute positions pos..pos+s-1
+            pos = caches["pos"]
+            positions = pos + torch.arange(s, device=tokens.device)
         elif mode in ("train", "prefill"):
             pos = 0
             positions = torch.arange(s, device=tokens.device)
@@ -104,9 +115,11 @@ class LM:
         x = self._embed(params, tokens)
         x, new_caches = apply_stack(params["stack"], x, cfg=self.cfg,
                                     rope=rope, mode=mode, caches=caches,
-                                    pos=pos)
+                                    pos=pos, block_tables=block_tables)
         if new_caches is not None:
             new_caches["pos"] = pos + s
+            if block_tables is not None:
+                new_caches["block_tables"] = block_tables
         return self._logits(params, x), new_caches
 
     # --------------------------------------------------------------- serve
@@ -128,8 +141,32 @@ class LM:
                                       mode="decode", caches=caches)
         return logits[:, -1], caches
 
-    def prefill_chunk(self, params, batch, caches):
-        raise NotImplementedError("not ported yet: chunked prefill")
+    def prefill_chunk(self, params, batch, caches
+                      ) -> Tuple[torch.Tensor, dict]:
+        """Consume the next ``s`` prompt tokens of a partial prefill.
+
+        ``caches["pos"]`` (an integer) is the chunk's start offset; the
+        chunk attends over the already-written cache prefix plus itself, so
+        feeding a prompt through this in any chunk split gives the cache and
+        last-token logits of one :meth:`prefill` call. Single-token chunks
+        are padded to two rows, as in the reference: a one-row product may
+        take another summation order than the monolithic prefill's (here:
+        the dequant-matmul kernel's weight-streaming variant), and the dummy
+        row, whose cache write lands one past the clock, is overwritten
+        before any read that is not masked."""
+        toks = batch["tokens"]
+        pad_ok = not any(f in ("moe", "mamba", "rwkv")
+                         for f in arch_features(self.cfg))
+        singleton = toks.shape[1] == 1 and pad_ok
+        if singleton:
+            p0 = caches["pos"]
+            toks = torch.cat([toks, toks[:, -1:]], dim=1)
+        logits, caches = self.forward(params, {"tokens": toks}, mode="chunk",
+                                      caches=caches)
+        if singleton:
+            caches["pos"] = p0 + 1
+            return logits[:, 0], caches
+        return logits[:, -1], caches
 
     def verify_step(self, params, tokens, caches):
         raise NotImplementedError("not ported yet: speculative verify")

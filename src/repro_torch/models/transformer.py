@@ -148,12 +148,14 @@ def init_cache(cfg, batch: int, max_len: int, quantize_kv: bool = False,
 
 def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
                 block_tables=None) -> Tuple[torch.Tensor, Any]:
-    """Run all layers. Returns (x, new_caches)."""
+    """Run all layers. Returns (x, new_caches). ``pos`` is the integer clock
+    of a contiguous cache or the per-slot position vector of a paged one;
+    ``block_tables`` (paged decode) reaches every layer's pool."""
     if "list" not in stack:
         raise ValueError("apply_stack takes the unrolled {'list': [...]} "
                          "stack; convert a stacked tree with unstack_stack")
     pattern = layer_plan(cfg)
-    needs_cache = mode in ("prefill", "decode")
+    needs_cache = mode in ("prefill", "decode", "chunk")
     new_list = []
     for li, pp in enumerate(stack["list"]):
         pc = caches["list"][li] if needs_cache else None

@@ -9,6 +9,20 @@ Scheduling lives in :mod:`repro_torch.serving.scheduler`:
 * ``scheduler="round"`` (default) — static rounds of up to ``max_batch``
   left-padded requests; every request in a round waits for the longest one,
   and weight swaps land only between rounds.
+* ``scheduler="continuous"`` — a fixed pool of ``max_slots`` decode slots
+  over one persistent KV cache: queued requests are admitted into free
+  slots at step boundaries, retire on EOS/max-tokens immediately, and a
+  staged weight reload drains admission and swaps at a step boundary
+  (force-swap after ``swap_deadline_ms``). With ``prefill_chunk > 0`` an
+  admission prefill is consumed chunk by chunk across engine steps while
+  resident slots keep decoding.
+
+KV-cache layout is a separate axis (``kv_backend``, see
+:mod:`repro_torch.serving.kvcache`): ``"contiguous"`` keeps one cache row
+per slot; ``"paged"`` (continuous scheduler only) stores K/V in fixed-size
+blocks behind per-slot block tables with refcounted shared-prefix reuse and
+copy-on-write, decoded through the paged-attention kernel. ``quantize_kv``
+stores int8 codes with per-(position, kv-head) scales in either layout.
 
 Weight ownership lives in :class:`repro_torch.serving.weights.WeightStore`,
 not the engine: the scheduler *acquires* a weight version at its swap points
@@ -17,11 +31,9 @@ request. ``Completion`` reports ``prefill_ms``/``decode_ms``/``swap_ms`` and
 the pinned ``weights_version``.
 
 Every ``ServeConfig`` field and every validity-gate row of the reference
-package is kept. A valid combination that this package cannot serve yet —
-``scheduler="continuous"``, ``kv_backend="paged"``, ``quantize_kv``,
-``speculative``, ``prefill_chunk > 0`` — raises
-``NotImplementedError("not ported yet: ...")`` in ``ServeEngine.__init__``;
-it never runs something else instead.
+package is kept. The one valid configuration this package cannot serve yet,
+``speculative=True``, raises ``NotImplementedError("not ported yet: ...")``
+in ``ServeEngine.__init__``; it never runs something else instead.
 """
 from __future__ import annotations
 
@@ -32,7 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.serving.api import Completion, Request
-from repro_torch.serving.scheduler import RoundScheduler
+from repro_torch.serving.kvcache import admit_rows
+from repro_torch.serving.scheduler import ContinuousScheduler, RoundScheduler
 from repro_torch.serving.weights import WeightStore, make_weight_pipeline
 
 __all__ = ["ServeConfig", "Request", "Completion", "ServeEngine",
@@ -250,11 +263,7 @@ class ServeConfig:
 
 # valid configurations whose machinery is not part of this package yet
 _NOT_PORTED: Tuple[Tuple[str, Callable[["ServeConfig"], bool]], ...] = (
-    ("scheduler='continuous'", lambda c: c.scheduler == "continuous"),
-    ("kv_backend='paged'", lambda c: c.kv_backend == "paged"),
-    ("quantize_kv (int8 KV cache)", lambda c: c.quantize_kv),
     ("speculative decoding", lambda c: c.speculative),
-    ("prefill_chunk > 0 (chunked prefill)", lambda c: c.prefill_chunk > 0),
 )
 
 
@@ -294,6 +303,12 @@ class ServeEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self.generator = generator
+        # the entry points the schedulers and the KV cache call: plain
+        # callables (no trace accounting — PyTorch runs eagerly)
+        self._prefill = self.model.prefill
+        self._prefill_chunk = self.model.prefill_chunk
+        self._decode = self.model.decode_step
+        self._admit_rows = admit_rows
         self._rounds_total = 0
         # bounded: a long-lived server must not grow per-round state
         self._round_log: collections.deque = collections.deque(maxlen=1024)
@@ -301,7 +316,16 @@ class ServeEngine:
         # with {"step", "recorded", "version", "draining", "t"} after each
         # lockstep sampling step
         self.on_step = None
-        self.scheduler = RoundScheduler(self)
+        if self.cfg.scheduler == "continuous":
+            self.scheduler = ContinuousScheduler(self)
+        else:
+            self.scheduler = RoundScheduler(self)
+
+    def _sync(self) -> None:
+        """Wait for the device work issued so far (callers time around
+        admissions and prefill chunks)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # ------------------------------------------------------------ weights
     @property
@@ -319,8 +343,9 @@ class ServeEngine:
 
     def stats(self) -> Dict[str, Any]:
         """Engine + scheduler + weight-store observability: per-round
-        timing log (last 1024 rounds), scheduler counters and swap/version
-        counters."""
+        timing log (round scheduler; last 1024 rounds), scheduler counters
+        (steps/admissions/drains/forced swaps, KV-backend stats) and
+        swap/version counters."""
         return {"rounds": self._rounds_total,
                 "round_log": list(self._round_log),
                 "scheduler": self.scheduler.stats(),

@@ -16,7 +16,8 @@ Model
   flip a scheduler performs only at its swap points via
   :meth:`WeightStore.acquire` — round boundaries for the round scheduler —
   so an in-flight round can never observe a torn tree: it holds the
-  ``WeightVersion`` it started with.
+  ``WeightVersion`` it started with. The continuous scheduler reports each
+  drain/swap through :meth:`WeightStore.note_drain`/:meth:`note_swap`.
 
 Not ported yet: ``watch()`` over a checkpoint directory (waits for the
 checkpoint module) and the speculative draft pipeline.
@@ -109,6 +110,11 @@ class WeightStore:
         self._worker: Optional[threading.Thread] = None
         self._staged_at = 0.0             # monotonic time of last staging
         self.swap_count = 0
+        # reload-aware scheduler observability (note_drain/note_swap)
+        self.drain_count = 0
+        self.forced_swap_count = 0
+        self.last_drain_ms = 0.0
+        self.last_drain_in_flight = 0
         # bounded: a persistently failing stager must not grow memory
         self.errors: collections.deque = collections.deque(maxlen=256)
         self._build_and_publish(fp_params, serving_params, report, source,
@@ -144,6 +150,22 @@ class WeightStore:
                 version=self._staged.version,
                 age_ms=(time.monotonic() - self._staged_at) * 1e3)
 
+    # ------------------------------------------------- scheduler drain hooks
+    def note_drain(self, in_flight: int = 0) -> None:
+        """A scheduler observed the staged version and began draining
+        (stopped admitting) with ``in_flight`` slots still decoding."""
+        with self._lock:
+            self.drain_count += 1
+            self.last_drain_in_flight = in_flight
+
+    def note_swap(self, forced: bool = False, drain_ms: float = 0.0) -> None:
+        """A scheduler swapped after draining for ``drain_ms``; ``forced``
+        means the swap deadline expired with slots still in flight."""
+        with self._lock:
+            if forced:
+                self.forced_swap_count += 1
+            self.last_drain_ms = drain_ms
+
     def acquire(self) -> Tuple[WeightVersion, float]:
         """Swap in any fully-staged version and return ``(live, swap_ms)``.
 
@@ -166,6 +188,10 @@ class WeightStore:
                     "step": live.step, "staged_ms": live.staged_ms,
                     "versions_built": self._counter,
                     "swaps": self.swap_count,
+                    "drains": self.drain_count,
+                    "forced_swaps": self.forced_swap_count,
+                    "last_drain_ms": self.last_drain_ms,
+                    "last_drain_in_flight": self.last_drain_in_flight,
                     "staged_pending": staged is not None,
                     "staged_version":
                         staged.version if staged is not None else None,

@@ -179,19 +179,46 @@ def test_ffn_kinds_match(rng, kind):
 @pytest.mark.parametrize("what", ["mla", "window", "chunk", "verify", "paged",
                                   "per_row_pos", "quant_kv"])
 def test_later_slices_raise_by_name(what):
+    """What a later slice ports raises ``NotImplementedError`` naming
+    itself; what has been ported since (the ``chunk`` mode, paged decode
+    through block tables, int8 KV caches) runs instead."""
     cfg = get_config("granite-3-8b", reduced=True)
     kw = dict(cfg=cfg, rope=None, mode="decode", cache={}, pos=0)
+    if what in ("chunk", "paged", "quant_kv"):
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        p = attn.init_attention(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        hd, kvh = cfg.head_dim, cfg.n_kv_heads
+        x = torch.randn(2, 1, cfg.d_model, generator=torch.Generator()
+                        .manual_seed(1))
+        pos = torch.tensor([3, 5], dtype=torch.int32)
+        if what == "paged":
+            cache = attn.init_kv_cache(5, 4, kvh, hd, torch.float32,
+                                       device="cpu")
+            bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+            out, _ = attn.attention(p, x, cfg=cfg, mode="decode",
+                                    rope=layers.rope(pos[:, None], hd,
+                                                     cfg.rope_theta),
+                                    cache=cache, pos=pos, block_tables=bt)
+        else:
+            cache = attn.init_kv_cache(2, 8, kvh, hd, torch.float32,
+                                       quantize=what == "quant_kv",
+                                       device="cpu")
+            out, cache = attn.attention(
+                p, x, cfg=cfg, mode=what if what == "chunk" else "decode",
+                rope=layers.rope(torch.tensor([3]), hd, cfg.rope_theta),
+                cache=cache, pos=3)
+            assert (cache["k_scale"][:, 3] > 0).all() \
+                if what == "quant_kv" else cache["k"][:, 3].abs().sum() > 0
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        return
     if what == "mla":
         from repro_torch.configs.base import MLAConfig
         kw["cfg"] = dataclasses.replace(cfg, mla=MLAConfig())
     elif what == "window":
         kw["cfg"] = dataclasses.replace(cfg, window=8)
-    elif what in ("chunk", "verify"):
+    elif what == "verify":
         kw["mode"] = what
-    elif what == "paged":
-        kw["block_tables"] = torch.zeros(1, 1)
-    elif what == "quant_kv":
-        kw["cache"] = {"k_scale": None}
     if what == "per_row_pos":
         model = build_model(dataclasses.replace(cfg, dtype="float32"))
         p = model.init(torch.Generator().manual_seed(0), device="cpu")

@@ -2,8 +2,8 @@
 scheduler over a contiguous KV cache — fp weights and SQuant w8 / w4
 real-quantized — must emit the same greedy tokens as the reference engine on
 the same (converted) weights, float32, mixed prompt lengths, two rounds,
-EOS truncation. Every config gate raises as in the reference; combinations
-the port cannot serve yet raise ``NotImplementedError``."""
+EOS truncation. Every config gate raises as in the reference; speculative
+decoding, which the port cannot serve yet, raises ``NotImplementedError``."""
 import dataclasses
 
 import jax
@@ -154,16 +154,37 @@ def test_arch_gates_and_config_fields_kept():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(scheduler="continuous"),
-    dict(scheduler="continuous", kv_backend="paged"),
-    dict(quantize_kv=True),
     dict(scheduler="continuous", kv_backend="paged", speculative=True),
-    dict(scheduler="continuous", prefill_chunk=4)])
+    dict(scheduler="continuous", kv_backend="paged", speculative=True,
+         prefill_chunk=4),
+    dict(scheduler="continuous", kv_backend="paged", speculative=True,
+         draft_bits=8),
+    dict(scheduler="continuous", kv_backend="paged", speculative=True,
+         draft_k=2, block_size=8),
+    dict(scheduler="continuous", kv_backend="paged", speculative=True,
+         quantize_weights="squant", dequantize_for_compute=False)])
 def test_unported_combinations_raise(pair, kw):
+    """Speculative decoding is the one valid configuration the port does
+    not serve yet: it raises, whatever it is combined with."""
     _, _, tmodel, tparams = pair
     with pytest.raises(NotImplementedError, match="not ported yet"):
         teng.ServeEngine(tmodel, tparams, teng.ServeConfig(**kw),
                          device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(scheduler="continuous"),
+    dict(scheduler="continuous", kv_backend="paged"),
+    dict(quantize_kv=True),
+    dict(scheduler="continuous", prefill_chunk=4),
+    dict(scheduler="continuous", kv_backend="paged", quantize_kv=True,
+         prefill_chunk=4)])
+def test_formerly_unported_combinations_serve(pair, kw):
+    _, _, tmodel, tparams = pair
+    te = teng.ServeEngine(tmodel, tparams, teng.ServeConfig(
+        max_len=32, **kw), device="cpu")
+    out = te.generate([Request([1, 2, 3], 3), Request([4], 2)])
+    assert [len(c.tokens) for c in out] == [3, 2]
 
 
 def test_weight_store_stage_and_swap_between_rounds(pair):
