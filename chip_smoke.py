@@ -9,8 +9,9 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 1. prints the card's name and power limit, the torch/CUDA versions, and builds
    the three CUDA sources of ``src/repro_torch/kernels/csrc`` (in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths use plus a ragged one, and times kernel, plain
-   version, the bound and one library call;
+   shapes the main paths use plus a ragged one (kernels C and D also at one
+   slot and at long contexts), and times kernel, plain version, the bound
+   and one library call (C, D and their yardstick with a cold L2);
 3. drives the round-scheduler path at the full width of granite-3-8b: random
    weights from a seed, SQuant w8 quantization of the whole tree, six
    requests served real-quantized through ``ServeEngine`` (round scheduler,
@@ -53,6 +54,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # CUDA cores / tensor cores
 A_OPS_PER_ELEMENT = 6          # divide, round, two clamps, subtract, add to the sum
+L2_COLD_BYTES = 2 * 50e6       # twice the H100's 50 MB L2: cycling input sets
+                               # whose reads exceed it times cold launches
 
 KERNEL_A = {"name": "squant_flip", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/squant_flip.cu",
@@ -541,24 +544,65 @@ def _paged_inputs(dev, gen, b, kv, rep, d, bs, nb, lengths, dtype, quant,
                                            device=dev)]
 
 
+def _paged_bytes_ops(c, quant, esz):
+    """Bytes the kernel must move (K/V rows and scales of positions <=
+    lengths once, q and the output once) and its flops."""
+    b, h, d = c["b"], c["kv"] * c["rep"], c["d"]
+    rows = sum(L + 1 for L in c["lengths"]) * c["kv"]
+    per_row = 2 * d + 8 if quant else 2 * d * esz
+    return (rows * per_row + 2 * b * h * d * esz,
+            4.0 * sum(L + 1 for L in c["lengths"]) * h * d)
+
+
+def _sdpa_inputs(args, c, quant, dt):
+    """q and the slots' K/V gathered to a contiguous (B, KV, T, D) form (and
+    dequantized, for the int8 pool), with the length mask: the library
+    yardstick's operands, built outside its time."""
+    q, pools, bt, ln = args[0], args[1:-2], args[-2], args[-1]
+    b_, _, d_ = q.shape
+    t = c["nb"] * c["bs"]
+    kc = pools[0][bt.long()].reshape(b_, t, c["kv"], d_)
+    vc = pools[1][bt.long()].reshape(b_, t, c["kv"], d_)
+    if quant:
+        kc = (kc.float() * pools[2][bt.long()].reshape(
+            b_, t, c["kv"], 1)).to(dt)
+        vc = (vc.float() * pools[3][bt.long()].reshape(
+            b_, t, c["kv"], 1)).to(dt)
+    mask = (torch.arange(t, device=q.device)[None, :]
+            <= ln[:, None])[:, None, None, :]
+    return (q[:, :, None, :], kc.transpose(1, 2).contiguous(),
+            vc.transpose(1, 2).contiguous(), mask)
+
+
 def check_kernels_cd(dev, gen, path_lengths):
     """Kernels C and D against their plain versions at the main path's
     shape (B=8, H=32, KV=8, D=128, bs=16, nb=32, the per-slot lengths of a
-    step of phase 6) in bfloat16 and float32, and at a ragged shape (rep=1,
-    D=64, lengths {0, bs-1, bs, full}, tails at the trash block, masked
-    positions poisoned). Times by CUDA-graph replay beside the bound, the
-    plain version and ``scaled_dot_product_attention`` on K/V already
-    gathered to contiguous form (and, for D, already dequantized: the gather
-    and the dequantization are not in its time)."""
+    step of phase 6), at a ragged shape (rep=1, D=64, lengths {0, bs-1, bs,
+    full}), at one slot (``single``: B=1, length 400, where the split
+    matters most) and at long contexts (``long``: nb=256, lengths drawn
+    from 1500-4095), in bfloat16 and float32, with tails at the trash block
+    and masked positions poisoned. Times by CUDA-graph replay with a cold
+    L2: the timed calls cycle through enough independent input sets that
+    the bytes they read exceed twice the 50 MB L2 (at most 128 sets, so the
+    tiny ragged case stays warm), for the kernel and for the library
+    yardstick alike (``scaled_dot_product_attention`` on K/V already
+    gathered to contiguous form and, for D, already dequantized: the
+    gather and the dequantization are not in its time)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_quant as paq
 
+    long_lengths = torch.randint(1500, 4096, (8,), generator=gen,
+                                 device=dev).tolist()
     cases = [("path", dict(b=8, kv=8, rep=4, d=128, bs=16, nb=32,
                            lengths=list(path_lengths))),
              ("ragged", dict(b=4, kv=2, rep=1, d=64, bs=16, nb=4,
-                             lengths=[0, 15, 16, 63]))]
+                             lengths=[0, 15, 16, 63])),
+             ("single", dict(b=1, kv=8, rep=4, d=128, bs=16, nb=32,
+                             lengths=[400])),
+             ("long", dict(b=8, kv=8, rep=4, d=128, bs=16, nb=256,
+                           lengths=long_lengths))]
     entries = {}
     for quant in (False, True):
         mod = paq if quant else pa
@@ -570,9 +614,13 @@ def check_kernels_cd(dev, gen, path_lengths):
         for tag, c in cases:
             for dt in (torch.bfloat16, torch.float32):
                 name = str(dt).replace("torch.", "")
-                args = _paged_inputs(dev, gen, c["b"], c["kv"], c["rep"],
-                                     c["d"], c["bs"], c["nb"], c["lengths"],
-                                     dt, quant)
+                esz = 2 if dt == torch.bfloat16 else 4
+                nbytes, ops_ = _paged_bytes_ops(c, quant, esz)
+                n_sets = max(2, min(128, math.ceil(L2_COLD_BYTES / nbytes)))
+                sets = [_paged_inputs(dev, gen, c["b"], c["kv"], c["rep"],
+                                      c["d"], c["bs"], c["nb"], c["lengths"],
+                                      dt, quant) for _ in range(n_sets)]
+                args = sets[0]
                 scale = c["d"] ** -0.5
                 got = kern(*args, scale=scale).float()
                 want = plain(*args, scale=scale).float()
@@ -601,47 +649,40 @@ def check_kernels_cd(dev, gen, path_lengths):
                     raise AssertionError(f"{mod.__name__}: poisoned masked "
                                          f"positions changed the output "
                                          f"({tag} {name})")
-                ms = time_ms([lambda: kern(*args, scale=scale)], 200)
+                del clean, dirty, got, want
+                ms = time_ms([lambda a=a: kern(*a, scale=scale)
+                              for a in sets], 200)
                 plain_ms = time_ms([lambda: plain(*args, scale=scale)], 5,
                                    graph=False)
-                # library yardstick: SDPA over the slots' K/V gathered to a
-                # contiguous (B, KV, T, D) form beforehand
-                q, pools, bt, ln = args[0], args[1:-2], args[-2], args[-1]
-                b_, h_, d_ = q.shape
-                t = c["nb"] * c["bs"]
-                kc = pools[0][bt.long()].reshape(b_, t, c["kv"], d_)
-                vc = pools[1][bt.long()].reshape(b_, t, c["kv"], d_)
-                if quant:
-                    kc = (kc.float() * pools[2][bt.long()].reshape(
-                        b_, t, c["kv"], 1)).to(dt)
-                    vc = (vc.float() * pools[3][bt.long()].reshape(
-                        b_, t, c["kv"], 1)).to(dt)
-                kc = kc.transpose(1, 2).contiguous()
-                vc = vc.transpose(1, 2).contiguous()
-                mask = (torch.arange(t, device=dev)[None, :]
-                        <= ln[:, None])[:, None, None, :]
-                q4 = q[:, :, None, :]
-                lib_ms = time_ms([lambda: F.scaled_dot_product_attention(
-                    q4, kc, vc, attn_mask=mask, scale=scale,
-                    enable_gqa=True)], 200)
-                esz = 2 if dt == torch.bfloat16 else 4
-                rows = sum(L + 1 for L in c["lengths"]) * c["kv"]
-                per_row = 2 * d_ + 8 if quant else 2 * d_ * esz
-                nbytes = rows * per_row + 2 * b_ * h_ * d_ * esz
-                ops_ = 4.0 * sum(L + 1 for L in c["lengths"]) * h_ * d_
+                lib = [_sdpa_inputs(a, c, quant, dt) for a in sets]
+                lib_ms = time_ms([lambda x=x: F.scaled_dot_product_attention(
+                    x[0], x[1], x[2], attn_mask=x[3], scale=scale,
+                    enable_gqa=True) for x in lib], 200)
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = ops_ / PEAK_FLOPS["float32"] * 1e3
-                shapes.append({"case": tag, "dtype": name, "batch": b_,
-                               "heads": h_, "kv_heads": c["kv"],
-                               "head_dim": d_, "block_size": c["bs"],
+                bound = max(t_bytes, t_ops)
+                sms, ctas = pa.card_ctas_per_sm(
+                    quant, dt == torch.bfloat16, c["rep"], c["d"], dev.index)
+                shapes.append({"case": tag, "dtype": name, "batch": c["b"],
+                               "heads": c["kv"] * c["rep"],
+                               "kv_heads": c["kv"], "head_dim": c["d"],
+                               "block_size": c["bs"],
                                "blocks_per_slot": c["nb"],
-                               "lengths": c["lengths"], "max_abs_err": err,
+                               "lengths": c["lengths"],
+                               "ctas_per_sm": ctas,
+                               "split_plan": pa.split_plan(
+                                   c["b"], c["kv"], c["nb"], c["bs"], sms,
+                                   ctas),
+                               "input_sets": n_sets,
+                               "l2_cold": n_sets * nbytes >= L2_COLD_BYTES,
+                               "max_abs_err": err,
                                "ms": ms, "plain_ms": plain_ms,
-                               "library_ms": lib_ms,
-                               "bound_ms": max(t_bytes, t_ops),
+                               "library_ms": lib_ms, "bound_ms": bound,
+                               "bound_share": bound / ms,
                                "bound_by": "bytes" if t_bytes >= t_ops
                                else "operations"})
-                del args, clean, dirty, kc, vc
+                del sets, args, lib
+                torch.cuda.empty_cache()
         mod.launches = launches_before     # comparisons do not count
         head = shapes[0]                   # the path's shape in bfloat16
         entries[quant] = dict(
@@ -651,17 +692,19 @@ def check_kernels_cd(dev, gen, path_lengths):
             tolerance="float32: rtol=atol=2e-5; bfloat16: rtol=atol=2e-2 "
             "(the plain version rounds its products to bfloat16); poisoned "
             "masked positions: output bits equal",
-            numbers_are="one launch at the main path's shape (B=8, H=32, "
-            "KV=8, D=128, bs=16, nb=32, bfloat16, lengths of a phase-6 "
-            "decode step)",
-            timing="ms, library_ms: device time (CUDA graph replay); "
-            "plain_ms: eager calls; library_ms is "
+            numbers_are="one call (split pass + merge pass) at the main "
+            "path's shape (B=8, H=32, KV=8, D=128, bs=16, nb=32, bfloat16, "
+            "lengths of a phase-6 decode step)",
+            timing="ms, library_ms: device time (CUDA graph replay) with a "
+            "cold L2: the calls cycle through input sets whose reads exceed "
+            "twice the L2; plain_ms: eager calls; library_ms is "
             "scaled_dot_product_attention(enable_gqa=True) on K/V gathered "
             "beforehand" + (" and dequantized beforehand" if quant else "")
             + ": the gather" + (" and the dequantization are" if quant
                                  else " is") + " not in its time",
             ms=head["ms"], plain_ms=head["plain_ms"],
             library_ms=head["library_ms"], bound_ms=head["bound_ms"],
+            bound_share=head["bound_share"],
             bound_by=head["bound_by"], shapes=shapes)
     return entries[False], entries[True]
 
@@ -974,7 +1017,7 @@ def _profile_steps(step, steps, phase, extra):
             n_kernels += e.count
             rows.append((us, e.key[:70], e.count))
             k = e.key
-            if "paged_decode_kernel" in k:
+            if "paged_decode_" in k:        # split pass and merge pass
                 split["paged_attention"] += us
             elif any(n in k for n in ("gemv_kernel", "mma_kernel",
                                       "tiled_kernel")):

@@ -5,7 +5,8 @@ The quantized sibling of :mod:`repro_torch.kernels.paged_attention`: the
 pool holds int8 K/V codes plus one float32 scale per (position, kv-head)
 (``(num_blocks, block_size, KV)``), written by ``models.attention.
 _quant_tok``. The kernel is the ``QUANT`` instance of the template in
-``csrc/paged_attention.cu``: codes are widened in registers, ``k_scale`` is
+``csrc/paged_attention.cu`` (the same split plan and merge pass as the fp
+pool): codes are read as 16-byte vectors and widened in registers, ``k_scale`` is
 multiplied into the scores after the QK dot and ``v_scale`` into the softmax
 weights before the PV dot, so no dequantized tile is formed.
 
@@ -24,7 +25,8 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.paged_attention import NEG_INF, check_args
+from repro_torch.kernels.paged_attention import (NEG_INF, check_args,
+                                                 launch_plan, ptr)
 
 launches = 0             # number of kernel launches (plain integer)
 
@@ -70,7 +72,7 @@ def _kernel():
     if _fn is None:
         fn = _build.load("paged_attention").paged_attention_quant_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + \
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + \
             [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         _fn = fn
     return _fn
@@ -102,10 +104,12 @@ def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
         return out
     global launches
     with _build.on_device(q.device):
+        splits, p, part_acc, part_ml = launch_plan(q, kv, nb, bs, True)
         err = _kernel()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                         k_scale.data_ptr(), v_scale.data_ptr(),
                         block_tables.data_ptr(), lengths.data_ptr(),
-                        out.data_ptr(), b, kv, rep, d, nb, bs, float(scale),
+                        out.data_ptr(), ptr(part_acc), ptr(part_ml), b, kv,
+                        rep, d, nb, bs, splits, p, float(scale),
                         int(q.dtype == torch.bfloat16),
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:

@@ -89,10 +89,8 @@ def _paged_case(dev, b, kv, rep, d, bs, nb, lengths, dtype, quant, seed=0,
     for i, L in enumerate(lengths):
         used = L // bs + 1
         bt[i, used:] = 0
-        for j in range(used):
-            for o in range(bs):
-                if j * bs + o <= L:
-                    live[int(bt[i, j]), o] = True
+        cols = torch.arange(L + 1)
+        live[bt[i, cols // bs].long(), cols % bs] = True
     q = torch.randn(b, kv * rep, d, generator=g).to(dtype)
     if quant:
         from repro_torch.models.attention import _quant_tok
@@ -123,6 +121,25 @@ PAGED_CASES = {
     # ragged: rep=1, D=64, lengths {0, bs-1, bs, full}
     "ragged": dict(b=4, kv=2, rep=1, d=64, bs=16, nb=4,
                    lengths=[0, 15, 16, 63]),
+    # minitron-4b: H=24, KV=8 (rep 3), D=128
+    "rep3": dict(b=4, kv=8, rep=3, d=128, bs=16, nb=32,
+                 lengths=[0, 17, 200, 511]),
+    # gemma-7b: H=KV=16 (rep 1), D=256
+    "d256": dict(b=3, kv=16, rep=1, d=256, bs=16, nb=16,
+                 lengths=[0, 100, 255]),
+    # long contexts: nb=256, many splits of many blocks
+    "long": dict(b=8, kv=8, rep=4, d=128, bs=16, nb=256,
+                 lengths=[1500, 2047, 2048, 3000, 3500, 4000, 4094, 4095]),
+    # one slot: the split axis alone fills the card
+    "single": dict(b=1, kv=8, rep=4, d=128, bs=16, nb=32, lengths=[400]),
+    "bs8": dict(b=4, kv=2, rep=4, d=64, bs=8, nb=16, lengths=[0, 7, 8, 127]),
+    "bs32": dict(b=4, kv=2, rep=2, d=128, bs=32, nb=8,
+                 lengths=[0, 31, 32, 255]),
+    # reduced configs' D=16; D=24 takes 8-byte int8 vectors; rep 5 and 12
+    # take one and several head groups
+    "d16": dict(b=3, kv=2, rep=2, d=16, bs=4, nb=8, lengths=[0, 3, 31]),
+    "d24rep5": dict(b=2, kv=2, rep=5, d=24, bs=16, nb=4, lengths=[10, 63]),
+    "rep12": dict(b=2, kv=1, rep=12, d=64, bs=16, nb=4, lengths=[5, 63]),
 }
 
 
@@ -153,13 +170,15 @@ def test_paged_attention_kernels_close_to_plain(dev, case, dtype, quant):
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("case", ["ragged", "single", "long"])
 @pytest.mark.parametrize("quant", [False, True])
-def test_paged_attention_kernel_poisoned_tail_exact(dev, quant):
+def test_paged_attention_kernel_poisoned_tail_exact(dev, quant, case):
     """Poisoning every masked position — the trash block and the tails
     that point at it included — cannot change the kernel's output at all:
-    masked columns contribute exact zeros."""
+    masked columns, and splits wholly past a slot's length, contribute
+    exact zeros."""
     from repro_torch.kernels import ops
-    c = PAGED_CASES["ragged"]
+    c = PAGED_CASES[case]
     shape = (c["b"], c["kv"], c["rep"], c["d"], c["bs"], c["nb"],
              c["lengths"], torch.float32, quant)
     clean = _paged_case(dev, *shape, seed=3, poison=False)
@@ -182,3 +201,31 @@ def test_paged_wrappers_raise_instead_of_falling_back(dev):
                            scale=1.0)
     with pytest.raises(ValueError):
         pa.paged_attention(q, pool, pool, bt.long(), ln, scale=1.0)
+
+
+@pytest.mark.parametrize("case", ["main", "long"])
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_attention_kernels_deterministic(dev, case, quant):
+    """Two launches on the same inputs give the same output bits: the
+    splits are merged in a fixed order, with no atomics."""
+    from repro_torch.kernels import ops
+    c = PAGED_CASES[case]
+    args = _paged_case(dev, c["b"], c["kv"], c["rep"], c["d"], c["bs"],
+                       c["nb"], c["lengths"], torch.bfloat16, quant)
+    fn = ops.paged_attention_quant if quant else ops.paged_attention
+    first = fn(*args, scale=0.1)
+    second = fn(*args, scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_wrappers_refuse_head_dim_not_multiple_of_8(dev, quant):
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    c = dict(PAGED_CASES["ragged"], d=12)
+    args = _paged_case(dev, c["b"], c["kv"], c["rep"], c["d"], c["bs"],
+                       c["nb"], c["lengths"], torch.float32, quant)
+    fn = paq.paged_attention_quant if quant else pa.paged_attention
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fn(*args, scale=1.0)
