@@ -11,15 +11,17 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 2. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main paths use plus a ragged one (kernels C and D also at one
    slot and at long contexts), and times kernel, plain version, the bound
-   and one library call (C, D and their yardstick with a cold L2);
+   and one library call (B, C, D and their yardsticks with a cold L2);
 3. drives the round-scheduler path at the full width of granite-3-8b: random
    weights from a seed, SQuant w8 quantization of the whole tree, six
    requests served real-quantized through ``ServeEngine`` (round scheduler,
    contiguous KV cache), with the kernels' launch counters read around it;
 4. does the same with 4-bit weights at a reduced depth;
-5. runs prefill + 8 decode steps at full width and 2 layers in float32, and
-   the paged continuous path at 2 layers, once through the kernels and once
-   through their plain versions, and compares codes, logits and tokens;
+5. runs prefill + 8 decode steps at full width and 2 layers in float32 (and
+   again in bfloat16, teacher-forced, with kernel B's launches by variant
+   checked), and the paged continuous path at 2 layers, once through the
+   kernels and once through their plain versions, and compares codes,
+   logits and tokens;
 6. drives this slice's main path at full width and full depth: SQuant w8,
    the continuous scheduler on the paged KV cache with chunked admission,
    twelve chat requests sharing a 192-token system prefix (prefix hits,
@@ -106,6 +108,21 @@ def time_ms(fns, iters, graph=True):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def host_ms(fns, iters):
+    """Mean host milliseconds to issue one call from Python, until the call
+    returns (not until its kernels end): what an eager decode step pays per
+    call. Few enough calls that the launch queue never fills."""
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t * 1e3 / iters
 
 
 # ---------------------------------------------------------------------------
@@ -220,9 +237,18 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
     return out
 
 
-def check_kernel_b(dev, gen, decode_batch, prefill_rows):
+def check_kernel_b(dev, gen, decode_batches, prefill_rows):
+    """Kernel B against its plain version at the main paths' shapes and a
+    ragged one, every variant and dtype; two launches bit-identical at the
+    decode shapes; then times at the seven projections' shapes, bfloat16,
+    int8, per-channel scales: the decode batches (the first, phase 6's, is
+    the headline sum over one layer), the prefill rows, and 4-bit codes at
+    the first decode batch. Kernel and ``torch.matmul`` yardstick alike are
+    timed by CUDA-graph replay with a cold L2: the calls cycle through input
+    sets whose reads exceed twice the L2."""
     from repro_torch.kernels import dequant_matmul as dm
 
+    launches_before = dict(dm.launches_by_variant), dm.launches
     layer = [("wq", 4096, 4096), ("wk", 1024, 4096), ("wv", 1024, 4096),
              ("wo", 4096, 4096), ("wi", 12800, 4096), ("wg", 12800, 4096),
              ("wdown", 4096, 12800)]
@@ -231,14 +257,12 @@ def check_kernel_b(dev, gen, decode_batch, prefill_rows):
     worst_rel = {"float32": 0.0, "bfloat16": 0.0}
     n_cmp = 0
     for (m, n) in mn + [(100, 1000)]:
-        for b in (1, decode_batch, 8, 512):
+        for b in sorted({1, 8, 16, 512} | set(decode_batches)):
             for bits in (8, 4):
                 for dt in (torch.float32, torch.bfloat16):
                     for per_group in (False, True):
                         if per_group and n % 128:
                             continue
-                        if dt == torch.bfloat16 and per_group and bits == 4:
-                            continue          # a subset at bf16
                         (data, sc), = _b_case(dev, gen, m, n, bits, per_group)
                         x = torch.randn((b, n), generator=gen,
                                         device=dev).to(dt)
@@ -263,11 +287,18 @@ def check_kernel_b(dev, gen, decode_batch, prefill_rows):
                             raise AssertionError(
                                 f"kernel B != plain at {(b, m, n, bits, name, per_group)}"
                                 f": max abs err {err}, max |ref| {scale_}")
+                        if b <= dm.GEMV_MAX_BATCH and not torch.equal(
+                                y, dm.dequant_matmul(x, data, sc, bits=bits,
+                                                     group_size=gs).float()):
+                            raise AssertionError(
+                                f"kernel B: two launches differ at "
+                                f"{(b, m, n, bits, name, per_group)}")
                         n_cmp += 1
 
     def timed(m, n, b, bits, dt):
-        copies = max(1, min(8, int(1.5e8 // (m * n * (0.5 if bits <= 4 else 1)))))
-        cases = _b_case(dev, gen, m, n, bits, False, copies)
+        wbytes = m * n // (2 if bits <= 4 else 1)
+        n_sets = max(2, min(64, math.ceil(L2_COLD_BYTES / wbytes)))
+        cases = _b_case(dev, gen, m, n, bits, False, n_sets)
         x = torch.randn((b, n), generator=gen, device=dev).to(dt)
         y = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=128).float()
         r = dm.dequant_matmul_plain(x, *cases[0], bits=bits,
@@ -277,56 +308,78 @@ def check_kernel_b(dev, gen, decode_batch, prefill_rows):
                               atol=tol * max(float(r.abs().max()), 1.0)):
             raise AssertionError(f"kernel B != plain at the main path's "
                                  f"{(b, m, n, bits)}")
-        iters = 40 if b <= 16 else 6
+        var, splits, _ = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
+        iters = max(40 if b <= 16 else 6, 2 * n_sets)
         calls = [(lambda d=d, s=s: dm.dequant_matmul(
             x, d, s, bits=bits, group_size=128)) for d, s in cases]
         ms = time_ms(calls, iters)
         wrapper_ms = time_ms(calls, iters, graph=False)
+        call_host_ms = host_ms(calls, iters)
         plain_ms = time_ms([(lambda d=d, s=s: dm.dequant_matmul_plain(
             x, d, s, bits=bits, group_size=128)) for d, s in cases[:2]], 4,
             graph=False)
         # the library's call for the same function: one matmul on weights
-        # dequantized beforehand (timed only; the port never calls it)
-        deq = [(dm.unpack_int4(d) if bits <= 4 else d).to(dt) * s.to(dt)
-               for d, s in cases[:4]]
-        lib_ms = time_ms([(lambda w=w: torch.matmul(x, w.T)) for w in deq],
-                         iters)
-        name = str(dt).replace("torch.", "")
+        # dequantized beforehand (timed only; the port never calls it), on
+        # enough copies that its reads too exceed twice the L2
         esz = 2 if dt == torch.bfloat16 else 4
-        nbytes = m * n * (0.5 if bits <= 4 else 1) + m * 4 + b * n * esz + b * m * esz
+        n_lib = max(2, math.ceil(L2_COLD_BYTES / (m * n * esz)))
+        deq = [(dm.unpack_int4(d) if bits <= 4 else d).to(dt) * s.to(dt)
+               for d, s in (cases[i % n_sets] for i in range(n_lib))]
+        lib_calls = [(lambda w=w: torch.matmul(x, w.T)) for w in deq]
+        lib_ms = time_ms(lib_calls, max(iters, 2 * n_lib))
+        lib_host_ms = host_ms(lib_calls, max(iters, 2 * n_lib))
+        del deq, cases
+        name = str(dt).replace("torch.", "")
+        nbytes = wbytes + m * 4 + b * n * esz + b * m * esz
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = 2.0 * b * m * n / PEAK_FLOPS[name] * 1e3
+        bound = max(t_bytes, t_ops)
         return {"m": m, "n": n, "batch": b, "bits": bits, "dtype": name,
-                "ms": ms, "eager_call_ms": wrapper_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": max(t_bytes, t_ops),
+                "variant": var, "splits": splits, "input_sets": n_sets,
+                "library_input_sets": n_lib,
+                "ms": ms, "eager_call_ms": wrapper_ms,
+                "host_ms": call_host_ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "library_host_ms": lib_host_ms,
+                "bound_ms": bound,
+                "bound_share": bound / ms,
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
     shapes = []
-    tot = {"ms": 0.0, "eager_call_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-           "library_ms": 0.0}
+    tot = {"ms": 0.0, "eager_call_ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
+           "bound_ms": 0.0, "library_ms": 0.0, "library_host_ms": 0.0}
+    head = decode_batches[0]
     per_mn = {}
     for (m, n) in mn:
-        per_mn[(m, n)] = timed(m, n, decode_batch, 8, torch.bfloat16)
+        per_mn[(m, n)] = timed(m, n, head, 8, torch.bfloat16)
         shapes.append(per_mn[(m, n)])
+        torch.cuda.empty_cache()
     for _, m, n in layer:                 # one decode step of one layer
         for k in tot:
             tot[k] += per_mn[(m, n)][k]
-    for (m, n) in mn:                     # the rest of the main path's shapes
-        for b in sorted(set(prefill_rows) | {1, 8}):
+    for (m, n) in mn:                     # the rest of the main paths' shapes
+        for b in list(decode_batches[1:]) + list(prefill_rows):
             shapes.append(timed(m, n, b, 8, torch.bfloat16))
-        shapes.append(timed(m, n, decode_batch, 4, torch.bfloat16))
+        shapes.append(timed(m, n, head, 4, torch.bfloat16))
+        torch.cuda.empty_cache()
+    # comparisons and timings are not the path's launches
+    dm.launches_by_variant, dm.launches = launches_before
     entry = dict(KERNEL_B, max_abs_err=worst["bfloat16"],
                  max_abs_err_float32=worst["float32"],
                  max_rel_err=worst_rel,
                  tolerance="float32: rtol 1e-4, atol 1e-4*max|ref| (sum order "
-                 "over N up to 12800); bfloat16: rtol 2e-2, atol 2e-2*max|ref|",
+                 "over N up to 12800); bfloat16: rtol 2e-2, atol 2e-2*max|ref|;"
+                 " two launches at batch <= 16: output bits equal",
                  comparisons=n_cmp,
                  numbers_are=f"sums over the seven projections of one layer in "
-                 f"one decode step: batch {decode_batch}, bfloat16, int8 codes, "
+                 f"one decode step: batch {head}, bfloat16, int8 codes, "
                  f"per-channel scales",
-                 timing="ms, library_ms: device time (CUDA graph replay); "
-                 "eager_call_ms: the wrapper called from Python, host cost "
-                 "included; plain_ms: eager calls",
+                 timing="ms, library_ms: device time (CUDA graph replay) with "
+                 "a cold L2: the calls cycle through input sets whose reads "
+                 "exceed twice the L2; eager_call_ms: the wrapper called from "
+                 "Python, host cost included; host_ms, library_host_ms: host "
+                 "time to issue one call (perf_counter, no sync); plain_ms: "
+                 "eager calls",
+                 bound_share=tot["bound_ms"] / tot["ms"],
                  bound_by="bytes", shapes=shapes, **tot)
     return entry
 
@@ -362,6 +415,7 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
 
     sf.launches = 0
     dm.launches = 0
+    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
     eng = ServeEngine(model, params, ServeConfig(
         max_batch=max_batch, max_len=256, quantize_weights="squant",
         weight_bits=bits, dequantize_for_compute=False), device=dev)
@@ -423,7 +477,9 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
           "quantize_sync_ms": rep.sync_millis,
           "staged_ms": eng.store.current.staged_ms,
           "rounds": rounds, "tokens": [o.tokens for o in outs],
-          "launches": {"squant_flip": a_launches, "dequant_matmul": b_launches},
+          "launches": {"squant_flip": a_launches, "dequant_matmul": b_launches,
+                       "dequant_matmul_by_variant": dict(
+                           dm.launches_by_variant)},
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     eng.close()
     del eng, outs, cache, lg
@@ -494,12 +550,66 @@ def slice_vs_plain(dev, seed):
         raise AssertionError(f"greedy tokens differ: {tk} vs {tp}")
     if err > tol * mag:
         raise AssertionError(f"logits differ by {err} (max |logit| {mag})")
+    bf16 = bf16_slice_vs_plain(dev, model, tree_k, prompt)
     paged = paged_vs_plain(dev, seed)
     emit({"phase": "5 slice vs plain versions", "layers": 2,
           "dtype": "float32", "codes_tie_rule": ties,
           "logits_max_abs_err": err, "logits_max_abs": mag,
           "tolerance": f"{tol} * max|logit|", "greedy_tokens_equal": True,
-          "tokens": tk, **paged})
+          "tokens": tk, "bfloat16": bf16, **paged})
+
+
+def bf16_slice_vs_plain(dev, model, tree, prompt, steps=8):
+    """The round path's prefill and decode steps with bfloat16 activations
+    (the main path's dtype, where the decode linears take ``tcgemv``) on
+    phase 5's quantized tree, through the kernels and under
+    ``force_backend("ref")``, both fed the plain run's greedy tokens so they
+    see one context: logits within 2e-2 of the largest (a bf16 rounding of
+    every linear's output, taken after float32 sums in another order), and
+    the kernels' launches by variant: every decode linear on ``tcgemv``,
+    every prefill linear (2 x 24 rows) on ``mma``."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+
+    m16 = build_model(dataclasses.replace(model.cfg, dtype="bfloat16"))
+    tree = _retyped(tree, torch.bfloat16)
+
+    def run(feed=None):
+        cache = m16.init_cache(prompt.shape[0], 64, device=dev)
+        lg, cache = m16.prefill(tree, {"tokens": prompt}, cache)
+        logits, fed = [lg], []
+        for i in range(steps):
+            nxt = lg.argmax(-1) if feed is None else feed[i]
+            fed.append(nxt)
+            lg, cache = m16.decode_step(tree, nxt[:, None], cache)
+            logits.append(lg)
+        return torch.stack(logits).float(), fed
+
+    with ops.force_backend("ref"):
+        lp, fed = run()
+    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+    lk, _ = run(fed)
+    torch.cuda.synchronize()
+    by = dict(dm.launches_by_variant)
+    linears = 7 * model.cfg.n_layers
+    want = {"gemv": 0, "tcgemv": linears * steps, "mma": linears, "tiled": 0}
+    if by != want:
+        raise AssertionError(f"bf16 slice: kernel B launches by variant {by}, "
+                             f"path implies {want}")
+    if lk.shape != lp.shape or not bool(torch.isfinite(lk).all()):
+        raise AssertionError(f"bf16 slice: logits {tuple(lk.shape)} not "
+                             f"finite or not of shape {tuple(lp.shape)}")
+    err = float((lk - lp).abs().max())
+    mag = float(lp.abs().max())
+    tol = 2e-2
+    if err > tol * mag:
+        raise AssertionError(f"bf16 slice: logits differ by {err} (max "
+                             f"|logit| {mag})")
+    same = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    return {"logits_max_abs_err": err, "logits_max_abs": mag,
+            "tolerance": f"{tol} * max|logit|", "launches_by_variant": by,
+            "greedy_argmax_agreement": same}
 
 
 # ---------------------------------------------------------------------------
@@ -837,11 +947,13 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     pre = eng._prefill = _Counted(eng._prefill)
     torch.cuda.reset_peak_memory_stats()
     sf.launches = dm.launches = pa.launches = paq.launches = 0
+    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     b_launches, k_launches = dm.launches, kernel_mod.launches
+    b_by_variant = dict(dm.launches_by_variant)
     other = (pa if quantize_kv else paq).launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -853,6 +965,14 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     if b_launches != 7 * layers * forwards or b_launches == 0:
         raise AssertionError(f"kernel B launches {b_launches}, path implies "
                              f"{7 * layers * forwards}")
+    # every decode linear (bfloat16, batch <= 16) goes through tcgemv: no
+    # launch took gemv or tiled, and only the rule's batch <= 16 reaches
+    # tcgemv or gemv (chunks of up to 16 rows count there too)
+    if b_by_variant["gemv"] or b_by_variant["tiled"] or \
+            b_by_variant["tcgemv"] < 7 * layers * dec.calls:
+        raise AssertionError(f"kernel B by variant {b_by_variant}: not every "
+                             f"one of the {7 * layers * dec.calls} decode "
+                             f"linears went through tcgemv")
     if k_launches != layers * dec.calls or k_launches == 0 or other:
         raise AssertionError(f"{kernel_mod.__name__} launches {k_launches} "
                              f"(other paged kernel {other}), path implies "
@@ -900,6 +1020,7 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
              "kv": kst, "peak_memory_gb": peak_gb,
              "launches": {"squant_flip": a_launches,
                           "dequant_matmul": b_launches,
+                          "dequant_matmul_by_variant": b_by_variant,
                           kernel_mod.__name__.split(".")[-1]: k_launches},
              "agreement": {"against": label, "budget": budget,
                            "gated": "float32 activations",
@@ -980,10 +1101,11 @@ def paged_vs_plain(dev, seed):
 
 def _profile_steps(step, steps, phase, extra):
     """Trace ``steps`` calls of ``step()`` (after two warm ones) with
-    ``torch.profiler`` and print device time by kernel, the device's busy
-    share of the untraced wall time, the number of device kernels per step,
-    and the device time split into kernel C, kernel B, host-to-device copies
-    and everything else."""
+    ``torch.profiler`` and print device time by kernel (summed over
+    kernels), the device's busy time (the union of the kernels' intervals)
+    and its share of the untraced wall time, the number of device kernels
+    per step, and the device time split into kernel C, kernel B,
+    host-to-device copies and everything else."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1019,19 +1141,33 @@ def _profile_steps(step, steps, phase, extra):
             k = e.key
             if "paged_decode_" in k:        # split pass and merge pass
                 split["paged_attention"] += us
-            elif any(n in k for n in ("gemv_kernel", "mma_kernel",
-                                      "tiled_kernel")):
+            elif any(n in k for n in ("tcgemv_", "gemv_kernel",
+                                      "mma_kernel", "tiled_kernel")):
                 split["dequant_matmul"] += us
             elif "HtoD" in k:
                 split["host_to_device_copies"] += us
             else:
                 split["other"] += us
     rows.sort(reverse=True)
+    # the union of the device intervals: a merge pass (kernels B and C)
+    # launched as a programmatic dependent starts while the pass before it
+    # runs, and the sum over kernels counts that overlap twice
+    busy_us, end = 0.0, None
+    for t0_, t1_ in sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if getattr(e, "device_type", None) == DeviceType.CUDA):
+        if end is None or t0_ > end:
+            busy_us += t1_ - t0_
+            end = t1_
+        elif t1_ > end:
+            busy_us += t1_ - end
+            end = t1_
     emit({"phase": phase, **extra,
           "steps": steps, "wall_ms_per_step_traced": wall_ms / steps,
           "wall_ms_per_step_untraced": untraced_ms / steps,
           "device_ms_per_step": dev_us / 1e3 / steps,
-          "device_busy_share_of_untraced_wall": dev_us / 1e3 / untraced_ms,
+          "device_busy_ms_per_step": busy_us / 1e3 / steps,
+          "device_busy_share_of_untraced_wall": busy_us / 1e3 / untraced_ms,
           "device_kernels_per_step": n_kernels / steps,
           "device_ms_per_step_by_part": {k: v / 1e3 / steps
                                          for k, v in split.items()},
@@ -1224,7 +1360,7 @@ def main():
                                   max_batch, max_new,
                                   "3 main path, granite-3-8b w8")
 
-    _, _, c_n, path_lengths = drive_continuous(
+    _, b6_n, c_n, path_lengths = drive_continuous(
         dev, args.seed, args.layers,
         "6 main path, continuous + paged + chunked, granite-3-8b w8")
     _, _, d_n, _ = drive_continuous(
@@ -1235,8 +1371,11 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     ka = check_kernel_a(dev, gen, tree_shapes)
-    prefill_rows = [4 * 96, 2 * 128]
-    kb = check_kernel_b(dev, gen, max_batch, prefill_rows)
+    # phase 6's decode batch (its slots) first, then the round path's; the
+    # prefill rows: phase 6's admission chunk and the round path's prefills
+    prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
+    kb = check_kernel_b(dev, gen, (paged_config().max_slots, max_batch),
+                        prefill_rows)
     kc, kd = check_kernels_cd(dev, gen, path_lengths)
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance")},
@@ -1251,6 +1390,7 @@ def main():
         profile_decode(dev, args.seed, args.layers)
 
     ka["launches"], kb["launches"] = a_n, b_n
+    kb["launches_phase6"] = b6_n
     kc["launches"], kd["launches"] = c_n, d_n
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)

@@ -1,11 +1,19 @@
 """Quantized-weight matmul ``y = x @ dequant(Wq).T``: wrapper, launch counter,
 plain version.
 
-The CUDA source is ``csrc/dequant_matmul.cu`` — a weight-streaming variant
-for small batches and a shared-memory tiled variant for large ones; see the
-note at its head. ``Wq`` holds int8 codes ``(M, N)``, or (every ``bits <= 4``)
-nibbles packed two-per-byte ``(M, N/2)``, low nibble = even column, with
-``(M, 1)`` per-channel or ``(M, N/G)`` per-group float32 scales.
+The CUDA source is ``csrc/dequant_matmul.cu``: four hand-written variants,
+one of which :func:`variant` picks per launch by one rule on shapes, types
+and alignment; see the note at the source's head. ``Wq`` holds int8 codes
+``(M, N)``, or (every ``bits <= 4``) nibbles packed two-per-byte
+``(M, N/2)``, low nibble = even column, with ``(M, 1)`` per-channel or
+``(M, N/G)`` per-group float32 scales.
+
+The decode variant ``tcgemv`` (bfloat16 x, ``B <= GEMV_MAX_BATCH``) splits K
+over CTAs by :func:`split_plan`, which depends on shapes, the SM count and
+the kernel's occupancy only, and adds the splits' float32 partials in
+ascending split order. :func:`dequant_matmul_tc_order` transcribes that
+order of summation in torch ops for the CPU tests; nothing on a CUDA tensor
+calls it.
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from the kernel to the plain
@@ -14,15 +22,22 @@ version.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.quant.qtypes import unpack_int4
 
-GEMV_MAX_BATCH = 16      # up to here the weight-streaming variant runs
+GEMV_MAX_BATCH = 16      # up to here the small-batch variants run
+                         # (SMALL_BATCH_MAX in the .cu file)
+VARIANTS = ("gemv", "tcgemv", "mma", "tiled")   # ids of the .cu's variants
+TC_ROWS = 128            # output rows per CTA of tcgemv (TC_ROWS in the .cu)
+TC_CTAS_PER_SM = 2       # tcgemv's split plan fills this many CTAs per SM
+                         # (at most the instance's occupancy)
 
 launches = 0             # number of kernel launches (plain integer)
+launches_by_variant = {v: 0 for v in VARIANTS}   # the same, by variant
 
 
 def dequant_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
@@ -39,6 +54,112 @@ def dequant_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
     return (x.to(torch.float32) @ w.T).to(x.dtype)
 
 
+def tc_krange(bits: int) -> int:
+    """Columns of one tcgemv k-range: a lane holds 16 code bytes of a row,
+    16 int8 codes or 32 nibbles, and four lanes share a row."""
+    return 128 if bits <= 4 else 64
+
+
+def tc_column_order(bits: int) -> torch.Tensor:
+    """The order in which tcgemv's k16 steps take the columns of one
+    k-range: entry ``16*j + s`` is the column (relative to the k-range)
+    behind k-slot ``s`` of step ``j``. Lane ``tig`` of a row quad holds
+    columns ``tig*KR/4 ..`` of the row; slots ``2*tig, 2*tig+1`` (fragment
+    registers a0/b0) and ``2*tig+8, 2*tig+9`` (a2/b1) are its. int8: step j
+    takes columns 4j, 4j+1 and 4j+2, 4j+3 of the lane's 16; int4: the nibble
+    pairs (8i+p, 8i+p+4) that one mask of a code word gives, i = j // 2,
+    p = 2*(j % 2) for a0 and p + 1 for a2."""
+    kr = tc_krange(bits)
+    order = []
+    for j in range(kr // 16):
+        for s in range(16):
+            tig, e, half = (s & 7) >> 1, s & 1, s >> 3
+            if bits <= 4:
+                p = 2 * (j & 1) + half
+                col = tig * 32 + 8 * (j >> 1) + p + 4 * e
+            else:
+                col = tig * 16 + 4 * j + 2 * half + e
+            order.append(col)
+    return torch.tensor(order, dtype=torch.int64)
+
+
+def variant(b: int, n: int, group_size: int, scols: int, bits: int,
+            bf16: bool, x_ptr: int, codes_ptr: int) -> str:
+    """Which variant of ``csrc/dequant_matmul.cu`` takes a launch: the one
+    rule, on shapes, types and alignment. ``tcgemv`` needs bfloat16 x,
+    ``B <= GEMV_MAX_BATCH``, a group size that is a whole number of its
+    k-ranges and 16-byte aligned x and codes; other small batches take
+    ``gemv`` (float32 x always does: it is never rounded to bf16). Larger
+    batches take ``mma`` for bfloat16 x with N a multiple of 128 and
+    128-column groups, else ``tiled``."""
+    aligned = x_ptr % 16 == 0 and codes_ptr % 16 == 0
+    if b <= GEMV_MAX_BATCH:
+        if bf16 and aligned and group_size % tc_krange(bits) == 0:
+            return "tcgemv"
+        return "gemv"
+    if bf16 and aligned and n % 128 == 0 and (scols == 1 or
+                                              group_size == 128):
+        return "mma"
+    return "tiled"
+
+
+def split_plan(m: int, n: int, group_size: int, sms: int = 132,
+               ctas_per_sm: int = TC_CTAS_PER_SM) -> Tuple[int, int]:
+    """``(splits, groups_per_split)`` of a tcgemv launch: ``M`` output rows
+    in tiles of ``TC_ROWS``, ``N / group_size`` scale groups, on a card of
+    ``sms`` SMs at ``ctas_per_sm`` CTAs each. Split ``s`` takes groups
+    ``[s*P, s*P + P)``; ``splits * P >= groups > (splits - 1) * P``. The
+    plan takes the most splits whose CTAs (row tiles times splits) fit one
+    wave of ``sms * ctas_per_sm``: a CTA past the wave would double its
+    SM's share of the work. It depends on shapes only, never on values: the
+    launch needs no host sync and is the same every decode step."""
+    if min(m, n, group_size, sms, ctas_per_sm) < 1 or n % group_size:
+        raise ValueError(f"split_plan needs positive shapes and N a multiple "
+                         f"of the group size, got m={m} n={n} "
+                         f"group_size={group_size} sms={sms} "
+                         f"ctas_per_sm={ctas_per_sm}")
+    ng = n // group_size
+    row_ctas = -(-m // TC_ROWS)
+    want = max(1, sms * ctas_per_sm // row_ctas)
+    p = -(-ng // min(want, ng))
+    return -(-ng // p), p
+
+
+def dequant_matmul_tc_order(x: torch.Tensor, codes: torch.Tensor,
+                            scale: torch.Tensor, *, bits: int,
+                            group_size: int, splits: int, gps: int
+                            ) -> torch.Tensor:
+    """tcgemv's order of summation in torch ops (for the CPU tests): within
+    a split, each scale group's float32 dot product over its columns in
+    :func:`tc_column_order`, times the group's scale, added to the split's
+    sum in ascending group order; then the splits' sums added in ascending
+    split order, and one rounding to x's dtype."""
+    m = codes.shape[0]
+    c = (unpack_int4(codes) if bits <= 4 else codes).to(torch.float32)
+    n = c.shape[1]
+    ng = n // group_size
+    if splits * gps < ng or (splits - 1) * gps >= ng:
+        raise ValueError(f"{splits} splits of {gps} groups do not cover "
+                         f"{ng} groups")
+    kr = tc_krange(bits)
+    if group_size % kr:
+        raise ValueError(f"group size {group_size} is not a whole number "
+                         f"of {kr}-column k-ranges")
+    s = scale.to(torch.float32).reshape(m, -1).expand(m, ng)
+    order = tc_column_order(bits)
+    in_group = (torch.arange(group_size // kr)[:, None] * kr
+                + order[None, :]).reshape(-1)
+    xf = x.to(torch.float32)
+    total = None
+    for sp in range(splits):
+        acc = torch.zeros((x.shape[0], m), dtype=torch.float32)
+        for g in range(sp * gps, min(ng, sp * gps + gps)):
+            cols = g * group_size + in_group
+            acc = acc + (xf[:, cols] @ c[:, cols].T) * s[:, g]
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
 _fn = None
 
 
@@ -47,18 +168,71 @@ def _kernel():
     if _fn is None:
         fn = _build.load("dequant_matmul").dequant_matmul_launch
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + \
+            [ctypes.c_void_p]
         _fn = fn
     return _fn
 
 
+_occ: Dict[tuple, Tuple[int, int]] = {}
+
+
+def card_ctas_per_sm(bits: int, b: int, device: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of tcgemv's instance for ``bits`` and batch
+    ``b`` on CUDA device ``device``, asked of the card once."""
+    packed = bits <= 4
+    nt = 1 if b <= 8 else 2
+    key = (packed, nt, device)
+    if key not in _occ:
+        fn = _build.load("dequant_matmul").dequant_matmul_tc_ctas_per_sm
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = fn(int(packed), b, ctypes.addressof(out))
+        if err != 0 or out.value < 1:
+            raise RuntimeError(f"tcgemv occupancy query failed (cuda error "
+                               f"{err}, {out.value} CTAs per SM)")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _occ[key] = (sms, out.value)
+    return _occ[key]
+
+
+_plans: Dict[tuple, Tuple[str, int, int]] = {}
+
+
+def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
+                scols: int, group_size: int, bits: int
+                ) -> Tuple[str, int, int]:
+    """``(variant, splits, groups_per_split)`` of a launch on x's card,
+    cached per shape, type and alignment."""
+    b, n = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    xp, cp = x.data_ptr(), codes.data_ptr()
+    dev = x.device.index if x.device.index is not None \
+        else torch.cuda.current_device()
+    key = (b, m, n, scols, group_size, bits, bf16, xp % 16, cp % 16, dev)
+    plan = _plans.get(key)
+    if plan is None:
+        v = variant(b, n, group_size, scols, bits, bf16, xp, cp)
+        splits, gps = 1, n // group_size
+        if v == "tcgemv":
+            sms, occ = card_ctas_per_sm(bits, b, dev)
+            splits, gps = split_plan(m, n, group_size, sms,
+                                     min(occ, TC_CTAS_PER_SM))
+        plan = _plans[key] = (v, splits, gps)
+    return plan
+
+
 def dequant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
-                   *, bits: int, group_size: int = 128) -> torch.Tensor:
+                   *, bits: int, group_size: int = 128,
+                   plan: Optional[Tuple[str, int, int]] = None
+                   ) -> torch.Tensor:
     """y[B, M] = x[B, N] @ (codes[M, N] * scale).T, float32 accumulation,
-    output in ``x.dtype`` (float32 or bfloat16)."""
+    output in ``x.dtype`` (float32 or bfloat16). ``plan`` is a
+    ``(variant, splits, groups_per_split)`` to launch instead of
+    :func:`launch_plan`'s, for timing another variant or split; the kernel
+    refuses one that cannot take the shape."""
     b, n = x.shape
     packed = bits <= 4
     m = codes.shape[0]
@@ -92,13 +266,20 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
     if b == 0 or m == 0:
         return out
     global launches
+    v, splits, gps = plan or launch_plan(x, codes, m, scale.shape[1],
+                                         group_size, bits)
+    part = torch.empty((splits, b, m), dtype=torch.float32,
+                       device=x.device) if splits > 1 else None
     with _build.on_device(x.device):
         err = _kernel()(x.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-                        out.data_ptr(), b, m, n, scale.shape[1], group_size,
-                        int(packed), int(x.dtype == torch.bfloat16),
-                        torch.cuda.current_stream().cuda_stream)
+                        out.data_ptr(), None if part is None
+                        else part.data_ptr(), b, m, n, scale.shape[1],
+                        group_size, int(packed),
+                        int(x.dtype == torch.bfloat16), VARIANTS.index(v),
+                        splits, gps, torch.cuda.current_stream().cuda_stream)
     if err != 0:
-        raise RuntimeError("dequant_matmul kernel launch failed "
-                           f"(cuda error {err})")
+        raise RuntimeError(f"dequant_matmul kernel launch failed ({v}, "
+                           f"cuda error {err})")
     launches += 1
+    launches_by_variant[v] += 1
     return out

@@ -59,6 +59,140 @@ def test_dequant_matmul_kernel_close_to_plain(dev, b, bits, dtype, m, n,
     torch.testing.assert_close(y.float(), r.float(), rtol=tol, atol=tol)
 
 
+def _dm_case(dev, m, n, bits, scols, seed=0, b=8, dtype=torch.bfloat16):
+    """Random codes, scales of the size SQuant gives weights of std
+    1/sqrt(N) (outputs of order 1), and x."""
+    from repro_torch.quant.qtypes import pack_int4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = 2 ** (bits - 1) - 1
+    codes = torch.randint(-q, q + 1, (m, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+    data = pack_int4(codes) if bits <= 4 else codes
+    sc = (torch.rand((m, scols), generator=gen, device=dev) + 0.5) * \
+        (3.0 / n ** 0.5 / q)
+    x = torch.randn((b, n), generator=gen, device=dev).to(dtype)
+    return x, data, sc
+
+
+def _dm_check(x, data, sc, bits, gs, want_variant):
+    """One launch: the variant the rule names ran, once, within the
+    tolerance of the plain version (float32 1e-4, bfloat16 2e-2)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    assert dm.variant(x.shape[0], x.shape[1], gs, sc.shape[1], bits,
+                      x.dtype == torch.bfloat16, x.data_ptr(),
+                      data.data_ptr()) == want_variant
+    before, by = dm.launches, dm.launches_by_variant[want_variant]
+    y = dm.dequant_matmul(x, data, sc, bits=bits, group_size=gs)
+    assert dm.launches == before + 1
+    assert dm.launches_by_variant[want_variant] == by + 1
+    assert y.dtype == x.dtype and y.shape == (x.shape[0], data.shape[0])
+    r = dm.dequant_matmul_plain(x, data, sc, bits=bits, group_size=gs)
+    tol = 1e-4 if x.dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), r.float(), rtol=tol, atol=tol)
+    return y
+
+
+@pytest.mark.parametrize("m,n", [(1024, 4096), (4096, 4096), (12800, 4096),
+                                 (4096, 12800)])
+@pytest.mark.parametrize("b", [1, 4, 8, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tcgemv_main_path_shapes(dev, m, n, b, bits):
+    """The decode linears of granite-3-8b: bf16 x, per-channel scales."""
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b)
+    _dm_check(x, data, sc, bits, 128, "tcgemv")
+
+
+@pytest.mark.parametrize("gs", [32, 64, 128])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_tcgemv_group_sizes(dev, gs, bits, b):
+    """Per-group scales; a group that is not a whole number of k-ranges
+    (64 columns int8, 128 packed) goes to gemv."""
+    from repro_torch.kernels import dequant_matmul as dm
+    m, n = 384, 1024
+    x, data, sc = _dm_case(dev, m, n, bits, n // gs, b=b)
+    want = "tcgemv" if gs % dm.tc_krange(bits) == 0 else "gemv"
+    _dm_check(x, data, sc, bits, gs, want)
+
+
+@pytest.mark.parametrize("m,n,want", [(200, 1024, "tcgemv"),
+                                      (1000, 4096, "tcgemv"),
+                                      (37, 192, "tcgemv"),
+                                      (100, 1000, "gemv"),
+                                      (64, 96, "gemv")])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tcgemv_ragged_rows_and_columns(dev, m, n, want, bits):
+    """M not a multiple of the 128-row tile is masked in tcgemv; N not a
+    whole number of k-ranges (the group is then the whole row) goes to
+    gemv."""
+    from repro_torch.kernels import dequant_matmul as dm
+    gs = 128 if n % 128 == 0 else n
+    if want == "tcgemv" and gs % dm.tc_krange(bits):
+        want = "gemv"
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=5)
+    _dm_check(x, data, sc, bits, gs, want)
+
+
+@pytest.mark.parametrize("offset,want", [(1, "gemv"), (16, "tcgemv")])
+def test_tcgemv_code_alignment(dev, offset, want):
+    """A contiguous code view that does not start on 16 bytes goes to
+    gemv; one that does stays on tcgemv."""
+    m, n = 256, 1024
+    x, data, sc = _dm_case(dev, m, n, 8, 1)
+    buf = torch.empty(m * n + 64, dtype=torch.int8, device=dev)
+    view = buf[offset:offset + m * n].view(m, n)
+    view.copy_(data)
+    _dm_check(x, view, sc, 8, 128, want)
+
+
+@pytest.mark.parametrize("m,n", [(1024, 4096), (4096, 12800)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tcgemv_deterministic(dev, m, n, bits):
+    """Split K (these shapes split) merges in a fixed order: two launches
+    give the same bits."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, m, n, bits, n // 128)
+    _, splits, _ = dm.launch_plan(x, data, m, sc.shape[1], 128, bits)
+    assert splits > 1
+    y1 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    y2 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("plan", [("tcgemv", 1, 32), ("tcgemv", 4, 8),
+                                  ("tcgemv", 32, 1), ("tcgemv", 3, 11),
+                                  ("gemv", 1, 32)])
+def test_explicit_plan_close_to_plain(dev, plan):
+    """A plan given to the wrapper (other splits, another variant) runs as
+    given, within the bf16 tolerance of the plain version."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1)
+    before = dm.launches_by_variant[plan[0]]
+    y = dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+    assert dm.launches_by_variant[plan[0]] == before + 1
+    r = dm.dequant_matmul_plain(x, data, sc, bits=8, group_size=128)
+    torch.testing.assert_close(y.float(), r.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("plan", [("tcgemv", 2, 8), ("tcgemv", 2, 32),
+                                  ("tcgemv", 0, 32)])
+def test_explicit_plan_refused(dev, plan):
+    """Splits that miss groups, hold none or no split at all are refused
+    by the kernel."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1)
+    with pytest.raises(RuntimeError):
+        dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+
+
+@pytest.mark.parametrize("m,n", [(4096, 4096), (4096, 12800)])
+@pytest.mark.parametrize("b", [1, 8, 16])
+def test_float32_small_batch_stays_on_cuda_cores(dev, m, n, b):
+    """float32 x keeps gemv (never rounded to bf16 or TF32): 1e-4."""
+    x, data, sc = _dm_case(dev, m, n, 8, 1, b=b, dtype=torch.float32)
+    _dm_check(x, data, sc, 8, 128, "gemv")
+
+
 def test_wrappers_raise_instead_of_falling_back(dev):
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import squant_flip as sf
