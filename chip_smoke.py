@@ -9,9 +9,12 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 1. prints the card's name and power limit, the torch/CUDA versions, and builds
    the three CUDA sources of ``src/repro_torch/kernels/csrc`` (in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths use plus a ragged one (kernels C and D also at one
+   shapes the main paths use plus ragged ones (kernel B also at 17, 43 and
+   64 prefill rows, two launches bit-identical; kernels C and D also at one
    slot and at long contexts), and times kernel, plain version, the bound
-   and one library call (B, C, D and their yardsticks with a cold L2);
+   and one library call (B, C, D and their yardsticks with a cold L2; B
+   summed over one layer at the decode batch and at each prefill row
+   count);
 3. drives the round-scheduler path at the full width of granite-3-8b: random
    weights from a seed, SQuant w8 quantization of the whole tree, six
    requests served real-quantized through ``ServeEngine`` (round scheduler,
@@ -19,9 +22,10 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 4. does the same with 4-bit weights at a reduced depth;
 5. runs prefill + 8 decode steps at full width and 2 layers in float32 (and
    again in bfloat16, teacher-forced, with kernel B's launches by variant
-   checked), and the paged continuous path at 2 layers, once through the
-   kernels and once through their plain versions, and compares codes,
-   logits and tokens;
+   checked), and the paged continuous path at 2 layers in float32 and, with
+   32-row admission chunks, in bfloat16 (teacher-forced, launches by
+   variant checked), once through the kernels and once through their plain
+   versions, and compares codes, logits and tokens;
 6. drives this slice's main path at full width and full depth: SQuant w8,
    the continuous scheduler on the paged KV cache with chunked admission,
    twelve chat requests sharing a 192-token system prefix (prefix hits,
@@ -238,14 +242,16 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows):
-    """Kernel B against its plain version at the main paths' shapes and a
-    ragged one, every variant and dtype; two launches bit-identical at the
-    decode shapes; then times at the seven projections' shapes, bfloat16,
-    int8, per-channel scales: the decode batches (the first, phase 6's, is
-    the headline sum over one layer), the prefill rows, and 4-bit codes at
-    the first decode batch. Kernel and ``torch.matmul`` yardstick alike are
-    timed by CUDA-graph replay with a cold L2: the calls cycle through input
-    sets whose reads exceed twice the L2."""
+    """Kernel B against its plain version at the main paths' shapes, a
+    ragged N and a ragged M, every variant and dtype (bfloat16 also at the
+    prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
+    whole chunk); two launches bit-identical at every comparison; then times
+    at the seven projections' shapes, bfloat16, int8, per-channel scales:
+    the decode batches (the first, phase 6's, is the headline sum over one
+    layer), the prefill rows (each summed over one layer too), and 4-bit
+    codes at the first decode batch. Kernel and ``torch.matmul`` yardstick
+    alike are timed by CUDA-graph replay with a cold L2: the calls cycle
+    through input sets whose reads exceed twice the L2."""
     from repro_torch.kernels import dequant_matmul as dm
 
     launches_before = dict(dm.launches_by_variant), dm.launches
@@ -256,10 +262,12 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
     worst = {"float32": 0.0, "bfloat16": 0.0}
     worst_rel = {"float32": 0.0, "bfloat16": 0.0}
     n_cmp = 0
-    for (m, n) in mn + [(100, 1000)]:
-        for b in sorted({1, 8, 16, 512} | set(decode_batches)):
+    for (m, n) in mn + [(100, 1000), (1000, 4096)]:
+        for b in sorted({1, 8, 16, 17, 43, 64, 512} | set(decode_batches)):
             for bits in (8, 4):
                 for dt in (torch.float32, torch.bfloat16):
+                    if dt == torch.float32 and b in (17, 43, 64):
+                        continue
                     for per_group in (False, True):
                         if per_group and n % 128:
                             continue
@@ -287,7 +295,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
                             raise AssertionError(
                                 f"kernel B != plain at {(b, m, n, bits, name, per_group)}"
                                 f": max abs err {err}, max |ref| {scale_}")
-                        if b <= dm.GEMV_MAX_BATCH and not torch.equal(
+                        if not torch.equal(
                                 y, dm.dequant_matmul(x, data, sc, bits=bits,
                                                      group_size=gs).float()):
                             raise AssertionError(
@@ -308,7 +316,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
                               atol=tol * max(float(r.abs().max()), 1.0)):
             raise AssertionError(f"kernel B != plain at the main path's "
                                  f"{(b, m, n, bits)}")
-        var, splits, _ = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
+        var, splits, ups = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
         iters = max(40 if b <= 16 else 6, 2 * n_sets)
         calls = [(lambda d=d, s=s: dm.dequant_matmul(
             x, d, s, bits=bits, group_size=128)) for d, s in cases]
@@ -335,7 +343,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
         t_ops = 2.0 * b * m * n / PEAK_FLOPS[name] * 1e3
         bound = max(t_bytes, t_ops)
         return {"m": m, "n": n, "batch": b, "bits": bits, "dtype": name,
-                "variant": var, "splits": splits, "input_sets": n_sets,
+                "variant": var, "splits": splits, "units_per_split": ups,
+                "input_sets": n_sets,
                 "library_input_sets": n_lib,
                 "ms": ms, "eager_call_ms": wrapper_ms,
                 "host_ms": call_host_ms, "plain_ms": plain_ms,
@@ -358,9 +367,24 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
             tot[k] += per_mn[(m, n)][k]
     for (m, n) in mn:                     # the rest of the main paths' shapes
         for b in list(decode_batches[1:]) + list(prefill_rows):
-            shapes.append(timed(m, n, b, 8, torch.bfloat16))
+            per_mn[(b, m, n)] = timed(m, n, b, 8, torch.bfloat16)
+            shapes.append(per_mn[(b, m, n)])
         shapes.append(timed(m, n, head, 4, torch.bfloat16))
         torch.cuda.empty_cache()
+    # one layer's seven projections at each prefill row count (an admission
+    # chunk of phase 6, the round path's prefills)
+    prefill_layers = {}
+    for b in prefill_rows:
+        rows = [per_mn[(b, m, n)] for _, m, n in layer]
+        lt = {k: sum(r[k] for r in rows) for k in (
+            "ms", "library_ms", "bound_ms", "plain_ms")}
+        prefill_layers[str(b)] = dict(
+            lt, bound_share=lt["bound_ms"] / lt["ms"],
+            library_bound_share=lt["bound_ms"] / lt["library_ms"],
+            faster_than_library_each=all(r["ms"] < r["library_ms"]
+                                         for r in rows),
+            variant=sorted({r["variant"] for r in rows}),
+            splits={f"({r['m']},{r['n']})": r["splits"] for r in rows})
     # comparisons and timings are not the path's launches
     dm.launches_by_variant, dm.launches = launches_before
     entry = dict(KERNEL_B, max_abs_err=worst["bfloat16"],
@@ -368,11 +392,12 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
                  max_rel_err=worst_rel,
                  tolerance="float32: rtol 1e-4, atol 1e-4*max|ref| (sum order "
                  "over N up to 12800); bfloat16: rtol 2e-2, atol 2e-2*max|ref|;"
-                 " two launches at batch <= 16: output bits equal",
+                 " two launches: output bits equal",
                  comparisons=n_cmp,
                  numbers_are=f"sums over the seven projections of one layer in "
                  f"one decode step: batch {head}, bfloat16, int8 codes, "
-                 f"per-channel scales",
+                 f"per-channel scales; prefill_layers: the same sums at each "
+                 f"prefill row count",
                  timing="ms, library_ms: device time (CUDA graph replay) with "
                  "a cold L2: the calls cycle through input sets whose reads "
                  "exceed twice the L2; eager_call_ms: the wrapper called from "
@@ -380,7 +405,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
                  "time to issue one call (perf_counter, no sync); plain_ms: "
                  "eager calls",
                  bound_share=tot["bound_ms"] / tot["ms"],
-                 bound_by="bytes", shapes=shapes, **tot)
+                 bound_by="bytes", prefill_layers=prefill_layers,
+                 shapes=shapes, **tot)
     return entry
 
 
@@ -480,6 +506,7 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
           "launches": {"squant_flip": a_launches, "dequant_matmul": b_launches,
                        "dequant_matmul_by_variant": dict(
                            dm.launches_by_variant)},
+          "mma_plans": dm.cached_plans("mma"),
           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9})
     eng.close()
     del eng, outs, cache, lg
@@ -551,6 +578,7 @@ def slice_vs_plain(dev, seed):
     if err > tol * mag:
         raise AssertionError(f"logits differ by {err} (max |logit| {mag})")
     bf16 = bf16_slice_vs_plain(dev, model, tree_k, prompt)
+    bf16["paged_chunked"] = bf16_paged_vs_plain(dev, seed, model, tree_k)
     paged = paged_vs_plain(dev, seed)
     emit({"phase": "5 slice vs plain versions", "layers": 2,
           "dtype": "float32", "codes_tie_rule": ties,
@@ -610,6 +638,82 @@ def bf16_slice_vs_plain(dev, model, tree, prompt, steps=8):
     return {"logits_max_abs_err": err, "logits_max_abs": mag,
             "tolerance": f"{tol} * max|logit|", "launches_by_variant": by,
             "greedy_argmax_agreement": same}
+
+
+def bf16_paged_vs_plain(dev, seed, model, tree, chunk=32):
+    """The paged continuous path with chunked admission (chunks of
+    ``chunk`` > 16 rows, so chunk forwards take kernel B's ``mma``) in
+    bfloat16 on phase 5's quantized tree: once under
+    ``force_backend("ref")``, then through the kernels with the
+    scheduler's token override feeding the plain run's tokens, so both see
+    one context. Logits of every chunk forward and of the live rows of
+    every decode forward within 2e-2 of the largest, and kernel B's
+    launches by variant exactly the path's: ``mma`` 7 x L per chunk forward
+    of more than 16 rows, ``tcgemv`` 7 x L per other forward, no ``gemv``
+    or ``tiled``."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine, WeightStore
+    from repro_torch.serving.equivalence import (greedy_token_agreement,
+                                                 oracle_tokens)
+
+    m16 = build_model(dataclasses.replace(model.cfg, dtype="bfloat16"))
+    tree16 = _retyped(tree, torch.bfloat16)
+    reqs = chat_requests(seed, model.cfg.vocab, max_new=8, prefix=32)[:6]
+
+    def run(oracle=None):
+        eng = ServeEngine(m16, None, paged_config(
+            max_slots=4, max_len=256, prefill_chunk=chunk),
+            store=WeightStore(serving_params=tree16, device=dev), device=dev)
+        sch = eng.scheduler
+
+        def keep(a, o):
+            # live slots only: retired rows read the trash block
+            rows = [i for i, s in enumerate(sch.slots) if s is not None]
+            return o[0][rows].float().cpu()
+
+        dec = eng._decode = _Counted(eng._decode, keep)
+        chk = eng._prefill_chunk = _Counted(
+            eng._prefill_chunk, lambda a, o: (int(a[1]["tokens"].numel()),
+                                              o[0].float().cpu()))
+        if oracle is None:
+            toks = oracle_tokens(eng.generate(reqs))
+        else:
+            toks = greedy_token_agreement(eng, reqs, oracle)
+        torch.cuda.synchronize()
+        return (toks, torch.cat(dec.log), [r for r, _ in chk.log],
+                torch.cat([lg[None] for _, lg in chk.log]), dec.calls)
+
+    with ops.force_backend("ref"):
+        oracle, dp, rows_p, cp, _ = run()
+    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+    rep, dk, rows_k, ck, n_dec = run(oracle)
+    by = dict(dm.launches_by_variant)
+    linears = 7 * model.cfg.n_layers
+    big = sum(1 for r in rows_k if r > 16)
+    want = {"gemv": 0, "tiled": 0, "mma": linears * big,
+            "tcgemv": linears * (n_dec + len(rows_k) - big)}
+    if rows_k != rows_p or dk.shape != dp.shape or big == 0:
+        raise AssertionError(f"bf16 paged: the runs differ in shape (chunk "
+                             f"rows {rows_k} vs {rows_p}, decode logits "
+                             f"{tuple(dk.shape)} vs {tuple(dp.shape)})")
+    if by != want:
+        raise AssertionError(f"bf16 paged: kernel B launches by variant "
+                             f"{by}, path implies {want}")
+    if not (bool(torch.isfinite(dk).all()) and bool(torch.isfinite(ck).all())):
+        raise AssertionError("bf16 paged: logits not finite")
+    err = max(float((dk - dp).abs().max()), float((ck - cp).abs().max()))
+    mag = max(float(dp.abs().max()), float(cp.abs().max()))
+    tol = 2e-2
+    if err > tol * mag:
+        raise AssertionError(f"bf16 paged: logits differ by {err} (max "
+                             f"|logit| {mag})")
+    return {"logits_max_abs_err": err, "logits_max_abs": mag,
+            "tolerance": f"{tol} * max|logit|", "prefill_chunk": chunk,
+            "chunk_rows": rows_k, "decode_forwards": n_dec,
+            "launches_by_variant": by,
+            "greedy_argmax_agreement": rep.rate}
 
 
 # ---------------------------------------------------------------------------
@@ -943,7 +1047,8 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     kv = eng.scheduler.kv
     dec = eng._decode = _Counted(eng._decode,
                                  lambda a, o: kv._lengths.copy().tolist())
-    chk = eng._prefill_chunk = _Counted(eng._prefill_chunk)
+    chk = eng._prefill_chunk = _Counted(
+        eng._prefill_chunk, lambda a, o: int(a[1]["tokens"].numel()))
     pre = eng._prefill = _Counted(eng._prefill)
     torch.cuda.reset_peak_memory_stats()
     sf.launches = dm.launches = pa.launches = paq.launches = 0
@@ -965,14 +1070,15 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     if b_launches != 7 * layers * forwards or b_launches == 0:
         raise AssertionError(f"kernel B launches {b_launches}, path implies "
                              f"{7 * layers * forwards}")
-    # every decode linear (bfloat16, batch <= 16) goes through tcgemv: no
-    # launch took gemv or tiled, and only the rule's batch <= 16 reaches
-    # tcgemv or gemv (chunks of up to 16 rows count there too)
-    if b_by_variant["gemv"] or b_by_variant["tiled"] or \
-            b_by_variant["tcgemv"] < 7 * layers * dec.calls:
-        raise AssertionError(f"kernel B by variant {b_by_variant}: not every "
-                             f"one of the {7 * layers * dec.calls} decode "
-                             f"linears went through tcgemv")
+    # every decode linear and chunk of up to 16 rows (bfloat16) goes
+    # through tcgemv, every chunk of more rows through mma; none through
+    # gemv or tiled
+    big = sum(1 for rows in chk.log if rows > 16)
+    want_by = {"gemv": 0, "tiled": 0, "mma": 7 * layers * big,
+               "tcgemv": 7 * layers * (dec.calls + chk.calls - big)}
+    if b_by_variant != want_by:
+        raise AssertionError(f"kernel B by variant {b_by_variant}, path "
+                             f"implies {want_by}")
     if k_launches != layers * dec.calls or k_launches == 0 or other:
         raise AssertionError(f"{kernel_mod.__name__} launches {k_launches} "
                              f"(other paged kernel {other}), path implies "
@@ -1015,6 +1121,7 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
              "oracle_run_s_float32": oracle32_s,
              "sampling_steps": st.steps, "decode_forwards": dec.calls,
              "chunk_forwards": chk.calls,
+             "chunk_forwards_over_16_rows": big,
              "step_ms": st.step_ms,
              "prefill_ms_per_admission": [o.prefill_ms for o in outs],
              "kv": kst, "peak_memory_gb": peak_gb,
@@ -1022,6 +1129,7 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
                           "dequant_matmul": b_launches,
                           "dequant_matmul_by_variant": b_by_variant,
                           kernel_mod.__name__.split(".")[-1]: k_launches},
+             "mma_plans": dm.cached_plans("mma"),
              "agreement": {"against": label, "budget": budget,
                            "gated": "float32 activations",
                            "rate": rep.rate, "matched": rep.matched,
@@ -1142,7 +1250,7 @@ def _profile_steps(step, steps, phase, extra):
             if "paged_decode_" in k:        # split pass and merge pass
                 split["paged_attention"] += us
             elif any(n in k for n in ("tcgemv_", "gemv_kernel",
-                                      "mma_kernel", "tiled_kernel")):
+                                      "pf_kernel", "tiled_kernel")):
                 split["dequant_matmul"] += us
             elif "HtoD" in k:
                 split["host_to_device_copies"] += us
@@ -1178,7 +1286,7 @@ def _profile_steps(step, steps, phase, extra):
 
 def profile_decode(dev, seed, layers, batch=4, steps=4):
     """Where a decode step's time goes, round path and paged continuous
-    path (``--profile``)."""
+    path, and where an admission chunk forward's goes (``--profile``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServeConfig, ServeEngine, WeightStore
@@ -1227,6 +1335,26 @@ def profile_decode(dev, seed, layers, batch=4, steps=4):
                    "profile of decode steps, paged continuous path",
                    {"layers": layers, "batch": 8,
                     "context_lengths": kv._lengths.tolist()})
+
+    # one admission chunk of phase 6's configuration: 64 rows after the
+    # 192-token shared prefix, on a one-row side cache (the same positions
+    # rewritten each call)
+    prefix, chunk = 192, paged_config().prefill_chunk
+    side = eng.model.init_cache(1, paged_config().max_len, device=dev)
+    _, side = eng.model.prefill(eng.params, {"tokens": torch.tensor(
+        [reqs[0].prompt[:prefix]], device=dev)}, side)
+    toks = torch.randint(0, cfg.vocab, (1, chunk), generator=gen, device=dev)
+
+    def chunk_step():
+        c = dict(side)
+        c["pos"] = prefix
+        lg, _ = eng.model.prefill_chunk(eng.params, {"tokens": toks}, c)
+        lg.cpu()                                         # the step's host sync
+
+    _profile_steps(chunk_step, steps,
+                   "profile of an admission chunk forward, paged continuous "
+                   "config", {"layers": layers, "chunk_rows": chunk,
+                              "start_position": prefix})
     eng.close()
     peng.close()
 
@@ -1320,8 +1448,9 @@ def main():
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a few decode steps with torch.profiler "
-                    "and print where their time goes")
+                    help="also trace a few decode steps and admission chunk "
+                    "forwards with torch.profiler and print where their "
+                    "time goes")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

@@ -85,8 +85,12 @@ def _unstack_periods(stack: dict) -> dict:
     return {"list": [take(stack["periods"], i) for i in range(periods)]}
 
 
-def from_jax_params(tree: Any, device="cpu") -> Any:
-    """Host-side (numpy-leaved) reference tree → this package's params."""
+def from_jax_params(tree: Any, device=None) -> Any:
+    """Host-side (numpy-leaved) reference tree → this package's params, on
+    ``device``: by default the current CUDA device, as every entry point of
+    the package; pass ``device="cpu"`` for host tensors."""
+    if device is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     if isinstance(tree, dict) and isinstance(tree.get("stack"), dict) \
             and "periods" in tree["stack"]:
         tree = dict(tree)

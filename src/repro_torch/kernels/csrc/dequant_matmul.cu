@@ -62,12 +62,43 @@
 //   product once per step. Partial sums are reduced over the warp by
 //   shuffles at the end. float32 x is never rounded to bf16 or TF32.
 //
-// * mma_kernel (larger B, bfloat16 x, N a multiple of 128: the prefill).
-//   Bound by operations: 2*B*M*N multiply-adds. They go to the tensor cores
-//   through mma.sync (bf16 in, float32 accumulate) from a 64 x 64 x 128 tile
-//   in shared memory; see the note above the kernel. No pipelining yet: the
-//   loads of a tile and its products take turns.
-//
+// * pf_kernel, variant id "mma" (bfloat16 x, B > SMALL_BATCH_MAX, N a
+//   multiple of 128, per-channel scales or groups of 128: every prefill
+//   linear and every admission chunk). Work: M*N code bytes (M*N/2 packed)
+//   and 2*B*M*N operations. At 64 rows it is bound by bytes (the bf16
+//   tensor cores need ~295 operations a byte, a 64-row chunk gives 128 per
+//   code byte); at 384 rows by operations. The PR 11 design (mma.sync from
+//   an unpipelined 64 x 64 tile, one I2F per code, at most one CTA per SM
+//   and no split of K; its times are kept in PERF.md) reached 1-11 % of
+//   either bound. Here
+//   - bytes: codes cross from device memory once, as int8 (or nibbles),
+//     never widened in device memory; one producer lane keeps a ring of
+//     3-4 stages of TMA copies (x tile and code tile, completion on an
+//     mbarrier per stage) in flight ahead of the consumer, two CTAs an SM;
+//   - filling the card: shapes with fewer output tiles than a wave of CTAs
+//     split K by whole 128-column units (the wrapper's prefill_plan:
+//     shapes, SM count and occupancy only; at most N / (2B) splits, so the
+//     float32 partials stay under the code bytes, and at least two units
+//     a split), the partials merged in ascending split order by tcgemv's
+//     merge pass, a programmatic dependent launch: deterministic, no
+//     atomics, capturable in a CUDA graph;
+//   - operations: the products run on wgmma.mma_async m64n128k16 (bf16 in,
+//     float32 accumulate). Layout: tokens are wgmma's M side and x is A,
+//     read from shared memory as TMA wrote it (128-byte swizzle); the
+//     consumer warpgroup widens the codes of a stage into a bf16 buffer
+//     that is B (K-major, the same swizzle), exactly, by the byte-permute
+//     arithmetic of widen_i8 / widen_i4_pair, while the tensor cores run
+//     the stage before. Chosen over weights-as-A-from-registers ("swap
+//     AB") because that puts the codes in the fragment's k order: x, which
+//     TMA can only reorder in 16-byte pieces, would need a pass of its own
+//     to match. Above 64 rows a CTA holds two m-tiles (128 tokens), so a
+//     code is widened once per 128 tokens.
+//   Measured on an H100 (PERF.md): the two big shapes at 64 rows take
+//   0.44-0.51 of the bytes bound, faster than torch.matmul; the two small
+//   ones pay ~5 us of launch, prologue and merge pass and stay ~10 %
+//   slower; at 256-384 rows 0.3-0.45 of the operations bound: x is read
+//   again for every 128 output rows and one warpgroup both widens and
+//   issues the products.
 // * tiled_kernel (larger B, everything else: float32 x, ragged N or group
 //   sizes). 2*B*M*N multiply-adds on the CUDA cores in float32. A 64 x 64
 //   output tile per block of 256 threads, a 4 x 4 micro-tile per thread, K
@@ -76,6 +107,7 @@
 //
 // Shapes that do not divide the tiles are masked, never refused.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -319,23 +351,10 @@ tiled_kernel(const void* __restrict__ x, const int8_t* __restrict__ codes,
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core variant for bfloat16 x, larger B, N a multiple of 128
+// tensor-core weight-streaming variant, bfloat16 x, B <= SMALL_BATCH_MAX
 // ---------------------------------------------------------------------------
-//
-// mma.sync m16n8k16 (bf16 x bf16 -> f32): A = a 16 x 16 piece of x, B = 8
-// output rows x 16 columns of codes widened to bf16 (exact: |code| <= 127),
-// D = 16 batch rows x 8 output rows. A block of 4 warps owns 64 batch rows x
-// 64 output rows and walks K in tiles of 128 columns = one scale group, so
-// each tile's sum is multiplied by its (output row, group) scale AFTER the
-// dot, in float32, as the reference kernel does. Tiles pass through shared
-// memory with rows padded to 136 elements, which spreads a fragment's eight
-// rows over all 32 banks.
 
-constexpr int MB = 64;      // batch rows per block
-constexpr int MM = 64;      // output rows per block
-constexpr int MK = 128;     // K tile = scale group
-constexpr int MS = 136;     // padded row stride in shared memory (bf16 elements)
-
+// mma.sync m16n8k16, bf16 in, float32 accumulate: d += a b.
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
                                          const unsigned (&b)[2]) {
   asm volatile(
@@ -344,128 +363,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
-
-template <bool PACKED>
-__global__ void __launch_bounds__(128)
-mma_kernel(const __nv_bfloat16* __restrict__ x, const int8_t* __restrict__ codes,
-           const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
-           int b, int m, int n, int scols) {
-  __shared__ __align__(16) __nv_bfloat16 xs[MB][MS];
-  __shared__ __align__(16) __nv_bfloat16 ws[MM][MS];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;      // fragment coordinates
-  const int wb = (warp >> 1) * 32;                // warp's batch rows in the tile
-  const int wm = (warp & 1) * 32;                 // warp's output rows in the tile
-  const int mt0 = blockIdx.x * MM, bt0 = blockIdx.y * MB;
-  const long long rowbytes = PACKED ? (n >> 1) : n;
-
-  float tot[2][4][4], grp[2][4][4];               // [batch 16-block][row 8-block][frag]
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) tot[i][j][e] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += MK) {
-    // x tile: 64 rows x 128 bf16 = 1024 vectors of 8
-    for (int v = tid; v < MB * (MK / 8); v += 128) {
-      const int r = v / (MK / 8), c8 = (v % (MK / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (bt0 + r < b)
-        val = *reinterpret_cast<const uint4*>(x + (long long)(bt0 + r) * n + k0 + c8);
-      *reinterpret_cast<uint4*>(&xs[r][c8]) = val;
-    }
-    // code tile: 64 rows x 128 codes, 16 bytes at a time, widened to bf16
-    constexpr int CPV = PACKED ? 32 : 16;         // codes per 16-byte vector
-    for (int v = tid; v < MM * (MK / CPV); v += 128) {
-      const int r = v / (MK / CPV), c0 = (v % (MK / CPV)) * CPV;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (mt0 + r < m)
-        val = *reinterpret_cast<const uint4*>(
-            codes + (long long)(mt0 + r) * rowbytes + ((k0 + c0) >> (PACKED ? 1 : 0)));
-      const unsigned words[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-      for (int wi = 0; wi < 4; ++wi) {
-        const int wv = (int)words[wi];
-        if (PACKED) {                             // 8 codes, low nibble first
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            ws[r][c0 + wi * 8 + t] =
-                __int2bfloat16_rn((wv << (28 - 4 * t)) >> 28);
-        } else {                                  // 4 codes
-#pragma unroll
-          for (int t = 0; t < 4; ++t)
-            ws[r][c0 + wi * 4 + t] =
-                __int2bfloat16_rn((wv << (24 - 8 * t)) >> 24);
-        }
-      }
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) grp[i][j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < MK; kk += 16) {
-      unsigned af[2][4], bf[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int r = wb + i * 16 + gid;
-        af[i][0] = *reinterpret_cast<const unsigned*>(&xs[r][kk + tig * 2]);
-        af[i][1] = *reinterpret_cast<const unsigned*>(&xs[r + 8][kk + tig * 2]);
-        af[i][2] = *reinterpret_cast<const unsigned*>(&xs[r][kk + tig * 2 + 8]);
-        af[i][3] = *reinterpret_cast<const unsigned*>(&xs[r + 8][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = wm + j * 8 + gid;
-        bf[j][0] = *reinterpret_cast<const unsigned*>(&ws[r][kk + tig * 2]);
-        bf[j][1] = *reinterpret_cast<const unsigned*>(&ws[r][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16(grp[i][j], af[i], bf[j]);
-    }
-    // this tile's scale, per output row: fragment columns tig*2 and tig*2+1
-    const int sidx = scols == 1 ? 0 : k0 / MK;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int row = mt0 + wm + j * 8 + tig * 2;
-      const float s0 = row < m ? scale[(long long)row * scols + sidx] : 0.f;
-      const float s1 = row + 1 < m ? scale[(long long)(row + 1) * scols + sidx] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        tot[i][j][0] += s0 * grp[i][j][0];
-        tot[i][j][1] += s1 * grp[i][j][1];
-        tot[i][j][2] += s0 * grp[i][j][2];
-        tot[i][j][3] += s1 * grp[i][j][3];
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int bi = bt0 + wb + i * 16 + gid + (e >> 1) * 8;
-        const int row = mt0 + wm + j * 8 + tig * 2 + (e & 1);
-        if (bi < b && row < m)
-          y[(long long)bi * m + row] = __float2bfloat16_rn(tot[i][j][e]);
-      }
-}
-
-// ---------------------------------------------------------------------------
-// tensor-core weight-streaming variant, bfloat16 x, B <= SMALL_BATCH_MAX
-// ---------------------------------------------------------------------------
 
 constexpr int TC_MT = 2;      // 16-row m-tiles per warp
 constexpr int TC_NSTAGE = 6;  // ring stages: TC_NSTAGE - 1 k-ranges in flight
@@ -765,6 +662,375 @@ tcgemv_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
   y[i] = __float2bfloat16_rn(v);
 }
 
+// ---------------------------------------------------------------------------
+// prefill variant: wgmma on a TMA-fed ring, bfloat16 x, B > SMALL_BATCH_MAX
+// ---------------------------------------------------------------------------
+//
+// CTA = one consumer warpgroup (warps 0-3) + one producer warp (warp 4).
+// The CTA owns PF_BN output rows and MT m-tiles of PF_BM tokens, and walks
+// its split's columns in stages of PF_BK. Per stage the producer's one
+// lane asks TMA for the x tile (MT*64 tokens x 64 bf16, 128-byte swizzle,
+// rows past B zero-filled) and the code tile (128 rows x 64 int8 codes or
+// 32 bytes of nibbles, 64- or 32-byte swizzle, rows past M zero-filled)
+// into a ring of pf_nstage<MT>() stages, with completion on the stage's
+// `full` mbarrier; the consumer frees a stage on its `empty` mbarrier once
+// the products that read it are done. Each consumer thread widens one code
+// row of a stage (exact byte-permute arithmetic, no I2F) into one of two
+// bf16 buffers laid out as wgmma's K-major, 128-byte-swizzled B operand,
+// while the tensor cores run the previous stage's wgmma.mma_async
+// m64n128k16 (A = the x tile, B = the widened codes, both from shared
+// memory, float32 accumulators in registers; rows of D are tokens, columns
+// output rows). The finished tile leaves through shared memory, 16 bytes a
+// thread along output rows.
+//
+// Scales: per-channel (scols == 1), the split's float32 sum is multiplied
+// by the row's scale once, at the end. Per-group (gs == PF_UNIT, MT == 1),
+// each group's two stages accumulate into `acc` from zero, and the group's
+// partial times its scale is added to `tot` in ascending group order.
+
+constexpr int PF_BN = 128;        // output rows per CTA (wgmma N)
+constexpr int PF_BM = 64;         // tokens per m-tile (wgmma M)
+constexpr int PF_BK = 64;         // columns per ring stage (128 bytes of x)
+constexpr int PF_UNIT = 128;      // columns of a split unit (= a scale group)
+constexpr int PF_MT1_MAX_B = 64;  // up to here one m-tile per CTA, above it
+                                  // two (per-channel scales only); the
+                                  // wrapper's PF_MT1_MAX_B
+constexpr int PF_WARPS = 5;
+constexpr int PF_THREADS = PF_WARPS * 32;
+constexpr int PF_B_BYTES = PF_BN * PF_BK * 2;      // one widened buffer
+constexpr int PF_ST = PF_BN + 8;    // float row stride of the output tile
+                                    // staged in shared memory (2-way banks)
+
+template <int MT> __host__ __device__ constexpr int pf_nstage() {
+  return MT == 1 ? 4 : 3;
+}
+template <int MT> __host__ __device__ constexpr int pf_x_bytes() {
+  return MT * PF_BM * PF_BK * 2;
+}
+template <bool PACKED> __host__ __device__ constexpr int pf_c_bytes() {
+  return PF_BN * PF_BK / (PACKED ? 2 : 1);
+}
+// ring stages, two widened buffers, 2 * NSTAGE mbarriers, and 1 KB of slack
+// to align the base to the 128-byte swizzle's 1024-byte period
+template <int MT, bool PACKED>
+__host__ __device__ constexpr int pf_ring_bytes() {
+  return pf_nstage<MT>() * (pf_x_bytes<MT>() + pf_c_bytes<PACKED>());
+}
+template <int MT, bool PACKED>
+__host__ __device__ constexpr int pf_smem_bytes() {
+  return 1024 + pf_ring_bytes<MT, PACKED>() + 2 * PF_B_BYTES +
+         16 * pf_nstage<MT>();
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map,
+                                            int c0, int c1, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(dst), "l"(reinterpret_cast<unsigned long long>(map)), "r"(c0),
+         "r"(c1), "r"(bar) : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with 128-byte swizzle:
+// rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), start address in
+// 16-byte units; a k16 step inside the swizzle atom adds 32 bytes.
+__device__ __forceinline__ unsigned long long pf_desc(unsigned addr) {
+  return (unsigned long long)((addr & 0x3FFFF) >> 4) |
+         ((unsigned long long)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128], bf16 in, float32 accumulate;
+// acc == 0 overwrites D.
+__device__ __forceinline__ void wgmma_128(float (&d)[64],
+                                          unsigned long long da,
+                                          unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// Two floats rounded to a bf16x2 word, the first in the low half.
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators
+// across the wgmma fence or wait.
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// One code row of a stage (64 columns) widened to bf16 into row r of a
+// widened buffer. Codes arrive with TMA's 64-byte (int8) or 32-byte
+// (nibbles) swizzle: 16-byte chunk c of row r lies at chunk c ^ ((r >> 1) &
+// 3), resp. c ^ ((r >> 2) & 1), so a warp's 32 rows read without bank
+// conflicts; the widened row is written with the 128-byte swizzle wgmma
+// reads (chunk c at c ^ (r & 7)).
+template <bool PACKED>
+__device__ __forceinline__ void pf_widen(const unsigned char* cs,
+                                         unsigned char* bb, int r) {
+  unsigned char* brow = bb + r * 128;
+  if (!PACKED) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          cs + r * 64 + ((c ^ ((r >> 1) & 3)) << 4));
+      uint4 lo, hi;
+      widen_i8(v.x, lo.x, lo.y);
+      widen_i8(v.y, lo.z, lo.w);
+      widen_i8(v.z, hi.x, hi.y);
+      widen_i8(v.w, hi.z, hi.w);
+      *reinterpret_cast<uint4*>(brow + (((2 * c) ^ (r & 7)) << 4)) = lo;
+      *reinterpret_cast<uint4*>(brow + (((2 * c + 1) ^ (r & 7)) << 4)) = hi;
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const uint4 v = *reinterpret_cast<const uint4*>(
+          cs + r * 32 + ((c ^ ((r >> 2) & 1)) << 4));
+#pragma unroll
+      for (int wi = 0; wi < 4; ++wi) {       // 8 nibbles = columns 8wi..
+        const unsigned u = word(v, wi) ^ 0x88888888u;
+        const unsigned p0 = widen_i4_pair(u, 0), p1 = widen_i4_pair(u, 1);
+        const unsigned p2 = widen_i4_pair(u, 2), p3 = widen_i4_pair(u, 3);
+        const uint4 o = make_uint4(__byte_perm(p0, p1, 0x5410),
+                                   __byte_perm(p2, p3, 0x5410),
+                                   __byte_perm(p0, p1, 0x7632),
+                                   __byte_perm(p2, p3, 0x7632));
+        *reinterpret_cast<uint4*>(brow + (((4 * c + wi) ^ (r & 7)) << 4)) = o;
+      }
+    }
+  }
+}
+
+// Grid (ceil(M / PF_BN), ceil(B / (MT * PF_BM)), splits). Split s takes the
+// PF_UNIT-column units [s*ups, s*ups + ups) and writes its float32 partial
+// to part[s][B][M] (splits > 1) or y itself (splits == 1).
+template <int MT, bool PACKED, bool GROUPED>
+__global__ void __launch_bounds__(PF_THREADS, GROUPED ? 1 : 2)
+pf_kernel(const __grid_constant__ CUtensorMap tmx,
+          const __grid_constant__ CUtensorMap tmc,
+          const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+          float* __restrict__ part, int b, int m, int n, int scols, int ups) {
+  static_assert(!GROUPED || MT == 1, "per-group scales take one m-tile");
+  static_assert(MT * PF_BM * PF_ST * 4 <=
+                    pf_ring_bytes<MT, PACKED>() + 2 * PF_B_BYTES,
+                "the output tile is staged in the drained ring and buffers");
+  constexpr int NS = pf_nstage<MT>();
+  constexpr int XB = pf_x_bytes<MT>();
+  constexpr int CB = pf_c_bytes<PACKED>();
+  constexpr int KPU = PF_UNIT / PF_BK;           // stages per unit
+  extern __shared__ __align__(16) unsigned char smem[];
+  // let the merge pass's CTAs launch early; they wait for this grid's end
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const unsigned raw = smem_addr(smem);
+  const unsigned base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem + (base - raw);
+  const unsigned xs0 = base, cs0 = xs0 + NS * XB, bb0 = cs0 + NS * CB;
+  const unsigned bar0 = bb0 + 2 * PF_B_BYTES;   // full[s], empty[s]
+  const int units = n / PF_UNIT;
+  const int u0 = blockIdx.z * ups;
+  const int nk = (min(units, u0 + ups) - u0) * KPU;
+  const int col0 = u0 * PF_UNIT;
+  const int row0 = blockIdx.x * PF_BN;           // first output row
+  const int tok0 = blockIdx.y * MT * PF_BM;      // first token
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < 2 * NS; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {                      // the producer warp
+    if (threadIdx.x == 128) {
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(
+          reinterpret_cast<unsigned long long>(&tmx)) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" :: "l"(
+          reinterpret_cast<unsigned long long>(&tmc)) : "memory");
+      for (int k = 0; k < nk; ++k) {
+        const int s = k % NS;
+        if (k >= NS) mbar_wait(bar0 + 8 * (NS + s), ((k / NS) & 1) ^ 1);
+        mbar_expect_tx(bar0 + 8 * s, XB + CB);
+        const int col = col0 + k * PF_BK;
+        tma_load_2d(xs0 + s * XB, &tmx, col, tok0, bar0 + 8 * s);
+        tma_load_2d(cs0 + s * CB, &tmc, PACKED ? col >> 1 : col, row0,
+                    bar0 + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: thread t widens code row t of each stage and
+  // holds the D fragments of rows 16*warp + gid (+8) of each m-tile,
+  // columns 8j + 2*tig (+1)
+  const int t = threadIdx.x;
+  const int warp = t >> 5, lane = t & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+  float acc[MT][64];
+  float tot[GROUPED ? 64 : 1];
+  float sreg[32];                                // scales of columns 8j+2tig+e
+  auto load_scales = [&](int g) {
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = row0 + 8 * j + 2 * tig + e;
+        sreg[2 * j + e] = r < m ? __ldg(scale + (long long)r * scols + g) : 0.f;
+      }
+  };
+  if constexpr (GROUPED) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) tot[i] = 0.f;
+  }
+
+  auto widen_stage = [&](int k) {
+    const int s = k % NS;
+    mbar_wait(bar0 + 8 * s, (k / NS) & 1);
+    pf_widen<PACKED>(gbase + (cs0 - base) + s * CB,
+                     gbase + (bb0 - base) + (k & 1) * PF_B_BYTES, t);
+    // the widened rows are read by wgmma (the async proxy)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  };
+
+  widen_stage(0);
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  for (int k = 0; k < nk; ++k) {
+    const int s = k % NS;
+    const bool first = GROUPED ? (k % KPU == 0) : (k == 0);
+    if (GROUPED && k % KPU == 0) load_scales((col0 + k * PF_BK) / PF_UNIT);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int kk = 0; kk < PF_BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+        wgmma_128(acc[i], pf_desc(xs0 + s * XB + i * PF_BM * 128 + kk * 32),
+                  pf_desc(bb0 + (k & 1) * PF_B_BYTES + kk * 32),
+                  (first && kk == 0) ? 0 : 1);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    if (k + 1 < nk) widen_stage(k + 1);         // overlaps the products
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
+    if constexpr (GROUPED) {
+      if (k % KPU == KPU - 1) {                  // the group ends
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          tot[i] = fmaf(sreg[2 * (i >> 2) + (i & 1)], acc[0][i], tot[i]);
+      }
+    }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (t == 0) mbar_arrive(bar0 + 8 * (NS + s));   // stage s is free
+  }
+
+  // The tile goes out through shared memory (the ring and the widened
+  // buffers are drained: every stage and product was waited for), so that
+  // global stores are 16 bytes a thread along output rows instead of the
+  // fragments' scattered 4 bytes.
+  if constexpr (!GROUPED) load_scales(0);   // per-channel: once, after the sum
+  float* st = reinterpret_cast<float*>(gbase);
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int q = 0; q < 32; ++q) {               // registers 2q, 2q + 1
+      const int tl = i * PF_BM + 16 * warp + gid + 8 * (q & 1);
+      const int j = 2 * (q >> 1);
+      float2 v;
+      if constexpr (GROUPED) {
+        v = make_float2(tot[2 * q], tot[2 * q + 1]);
+      } else {
+        v = make_float2(acc[i][2 * q] * sreg[j], acc[i][2 * q + 1] * sreg[j + 1]);
+      }
+      *reinterpret_cast<float2*>(st + tl * PF_ST + 4 * j + 2 * tig) = v;
+    }
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  float* pp = part + (long long)blockIdx.z * b * m;
+  const bool vec = gridDim.z == 1 ? m % 8 == 0 : m % 4 == 0;
+  for (int e = t; e < MT * PF_BM * (PF_BN / 8); e += 128) {
+    const int tl = e / (PF_BN / 8), c8 = (e % (PF_BN / 8)) * 8;
+    const int tok = tok0 + tl, row = row0 + c8;
+    if (tok >= b || row >= m) continue;
+    const float4 lo = *reinterpret_cast<const float4*>(st + tl * PF_ST + c8);
+    const float4 hi = *reinterpret_cast<const float4*>(st + tl * PF_ST + c8 + 4);
+    const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+    const long long o = (long long)tok * m + row;
+    if (vec && row + 8 <= m) {
+      if (gridDim.z == 1) {
+        uint4 w;
+        w.x = pack_bf16x2(v[0], v[1]);
+        w.y = pack_bf16x2(v[2], v[3]);
+        w.z = pack_bf16x2(v[4], v[5]);
+        w.w = pack_bf16x2(v[6], v[7]);
+        *reinterpret_cast<uint4*>(y + o) = w;
+      } else {
+        *reinterpret_cast<float4*>(pp + o) = lo;
+        *reinterpret_cast<float4*>(pp + o + 4) = hi;
+      }
+    } else {
+      for (int c = 0; c < 8 && row + c < m; ++c) {
+        if (gridDim.z == 1) y[o + c] = __float2bfloat16_rn(v[c]);
+        else pp[o + c] = v[c];
+      }
+    }
+  }
+}
+
 template <bool PACKED, bool BF16>
 void launch_gemv(const void* x, const int8_t* codes, const float* scale, void* y,
                  int b, int m, int n, int scols, int gs, cudaStream_t st) {
@@ -791,6 +1057,88 @@ struct Args {
   cudaStream_t st;
 };
 
+// cuTensorMapEncodeTiled from the driver, found at run time so that the
+// library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &q) != cudaSuccess)
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess)
+#endif
+      p = nullptr;
+    return q == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p)
+                                            : nullptr;
+  }();
+  return fn;
+}
+
+// A 2-D tensor map of `rows` rows of `cols` elements (row stride `cols`),
+// read in boxes of box_rows x box_cols; boxes past the edge are zero-filled.
+bool tensor_map(CUtensorMap* map, const void* ptr, CUtensorMapDataType dt,
+                int esz, long long cols, long long rows, int box_cols,
+                int box_rows, CUtensorMapSwizzle swz) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)(cols * esz)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  return enc(map, dt, 2, const_cast<void*>(ptr), dims, strides, box, estr,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Sets a kernel's dynamic-shared-memory limit once per device (a race sets
+// it twice, harmlessly); `ready` is the kernel's own bitmask of devices.
+template <typename Kernel>
+int smem_attr_once(Kernel kern, int smem,
+                   std::atomic<unsigned long long>& ready) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(ready.load(std::memory_order_relaxed) & bit)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return (int)e;
+    ready.fetch_or(bit, std::memory_order_relaxed);
+  }
+  return 0;
+}
+
+// A pass of 256-thread blocks over `count` outputs, launched on `st` as a
+// programmatic dependent of the pass before it (a merge pass).
+template <typename Kernel, typename... Ts>
+int launch_dependent(Kernel kern, long long count, cudaStream_t st,
+                     Ts... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((count + 255) / 256));
+  cfg.blockDim = dim3(256);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+
 // Launch tcgemv's instance for NT n-tiles, or (occ given) only report how
 // many of its CTAs an SM holds at once.
 template <int NT, bool PACKED>
@@ -798,19 +1146,10 @@ int launch_tc(const Args& a, int* occ) {
   auto kern = tcgemv_kernel<NT, PACKED>;
   constexpr int smem = tc_smem_bytes<NT, PACKED>();
   // the shared-memory limit is an attribute of the function on a device:
-  // set once per device, not per launch (a race sets it twice, harmlessly)
+  // set once per device, not per launch
   static std::atomic<unsigned long long> ready{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(ready.load(std::memory_order_relaxed) & bit)) {
-    e = cudaFuncSetAttribute(kern,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-    if (e != cudaSuccess) return (int)e;
-    ready.fetch_or(bit, std::memory_order_relaxed);
-  }
+  const int ae = smem_attr_once(kern, smem, ready);
+  if (ae != 0) return ae;
   if (occ)
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         occ, kern, TC_THREADS, smem);
@@ -820,28 +1159,62 @@ int launch_tc(const Args& a, int* occ) {
       static_cast<const int8_t*>(a.codes), a.scale,
       static_cast<__nv_bfloat16*>(a.y), a.part, a.b, a.m, a.n, a.scols, a.gs,
       a.gps);
-  e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long long bm = (long long)a.b * a.m;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)((bm + 255) / 256));
-  cfg.blockDim = dim3(256);
-  cfg.stream = a.st;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, tcgemv_merge, (const float*)a.part,
-                         static_cast<__nv_bfloat16*>(a.y), a.splits, bm);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  return launch_dependent(tcgemv_merge, bm, a.st, (const float*)a.part,
+                          static_cast<__nv_bfloat16*>(a.y), a.splits, bm);
 }
 
 template <bool PACKED>
 int launch_tc_nt(const Args& a, int* occ) {
   if (a.b <= 8) return launch_tc<1, PACKED>(a, occ);
   return launch_tc<2, PACKED>(a, occ);
+}
+
+// m-tiles of the prefill CTA: the wrapper's prefill_tile_rows states the
+// same rule
+int pf_mt(int b, int scols) { return scols == 1 && b > PF_MT1_MAX_B ? 2 : 1; }
+
+// Launch the prefill instance (MT, PACKED, GROUPED), or (occ given) only
+// report how many of its CTAs an SM holds at once.
+template <int MT, bool PACKED, bool GROUPED>
+int launch_pf(const Args& a, int* occ) {
+  auto kern = pf_kernel<MT, PACKED, GROUPED>;
+  constexpr int smem = pf_smem_bytes<MT, PACKED>();
+  static std::atomic<unsigned long long> ready{0};
+  const int e = smem_attr_once(kern, smem, ready);
+  if (e != 0) return e;
+  if (occ)
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kern, PF_THREADS, smem);
+  CUtensorMap tmx, tmc;
+  const long long rowbytes = PACKED ? a.n / 2 : a.n;
+  if (!tensor_map(&tmx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.n, a.b,
+                  PF_BK, MT * PF_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !tensor_map(&tmc, a.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rowbytes,
+                  a.m, PACKED ? PF_BK / 2 : PF_BK, PF_BN,
+                  PACKED ? CU_TENSOR_MAP_SWIZZLE_32B
+                         : CU_TENSOR_MAP_SWIZZLE_64B))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((a.m + PF_BN - 1) / PF_BN),
+                  (unsigned)((a.b + MT * PF_BM - 1) / (MT * PF_BM)),
+                  (unsigned)a.splits);
+  kern<<<grid, PF_THREADS, smem, a.st>>>(
+      tmx, tmc, a.scale, static_cast<__nv_bfloat16*>(a.y), a.part, a.b, a.m,
+      a.n, a.scols, a.gps);
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess || a.splits == 1) return (int)le;
+  const long long bm = (long long)a.b * a.m;
+  return launch_dependent(tcgemv_merge, bm, a.st, (const float*)a.part,
+                          static_cast<__nv_bfloat16*>(a.y), a.splits, bm);
+}
+
+template <bool PACKED>
+int launch_pf_mt(const Args& a, int* occ) {
+  if (a.scols != 1) return launch_pf<1, PACKED, true>(a, occ);
+  if (pf_mt(a.b, a.scols) == 2) return launch_pf<2, PACKED, false>(a, occ);
+  return launch_pf<1, PACKED, false>(a, occ);
 }
 
 bool aligned16(const void* p) {
@@ -866,18 +1239,14 @@ int launch(const Args& a, int variant) {
           (a.splits > 1 && a.part == nullptr))
         return (int)cudaErrorInvalidValue;
       return launch_tc_nt<PACKED>(a, nullptr);
-    case MMA: {
-      if (!BF16 || a.n % MK != 0 || (a.scols != 1 && a.gs != MK) ||
-          !aligned16(a.x) || !aligned16(a.codes))
+    case MMA:
+      if (!BF16 || a.n % PF_UNIT != 0 || (a.scols != 1 && a.gs != PF_UNIT) ||
+          !aligned16(a.x) || !aligned16(a.codes) || a.splits < 1 ||
+          a.gps < 1 || (long long)a.splits * a.gps < a.n / PF_UNIT ||
+          (long long)(a.splits - 1) * a.gps >= a.n / PF_UNIT ||
+          (a.splits > 1 && a.part == nullptr))
         return (int)cudaErrorInvalidValue;
-      const dim3 grid((unsigned)((a.m + MM - 1) / MM),
-                      (unsigned)((a.b + MB - 1) / MB));
-      mma_kernel<PACKED><<<grid, 128, 0, a.st>>>(
-          static_cast<const __nv_bfloat16*>(a.x),
-          static_cast<const int8_t*>(a.codes), a.scale,
-          static_cast<__nv_bfloat16*>(a.y), a.b, a.m, a.n, a.scols);
-      return (int)cudaGetLastError();
-    }
+      return launch_pf_mt<PACKED>(a, nullptr);
     case TILED: {
       const dim3 grid((unsigned)((a.m + TM - 1) / TM),
                       (unsigned)((a.b + TB - 1) / TB));
@@ -897,12 +1266,14 @@ extern "C" {
 // y[B, M] = x[B, N] @ (codes * scale)^T through the variant the wrapper
 // chose (0 gemv, 1 tcgemv, 2 mma, 3 tiled). `scols` is 1 (per-channel
 // scales) or n / gs (per-group); `packed` says two 4-bit codes per byte;
-// `bf16` says x and y are bfloat16 (else float32). tcgemv only: `splits`
+// `bf16` says x and y are bfloat16 (else float32). tcgemv: `splits`
 // CTAs per row tile of `gps` scale groups each (splits * gps >= n / gs >
 // (splits - 1) * gps), `part` float32 scratch of splits * B * M (unused,
 // may be null, when splits == 1). Launches on `stream`, allocates nothing,
 // does not synchronise. Returns the CUDA error of the launches (0: ok);
-// cudaErrorInvalidValue when the variant cannot take the shape.
+// cudaErrorInvalidValue when the variant cannot take the shape. mma:
+// `splits` CTAs per output tile of `gps` 128-column units each (the same
+// cover rule over n / 128 units), `part` as for tcgemv.
 int dequant_matmul_launch(const void* x, const void* codes, const void* scale,
                           void* y, void* part, int b, int m, int n, int scols,
                           int gs, int packed, int bf16, int variant,
@@ -924,6 +1295,14 @@ int dequant_matmul_tc_ctas_per_sm(int packed, int b, int* out) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, 1, 1, 1,
                1, 1, nullptr};
   return packed ? launch_tc_nt<true>(a, out) : launch_tc_nt<false>(a, out);
+}
+
+// How many CTAs of the prefill instance for (packed, batch b, scols) an SM
+// holds at once, into *out; the wrapper's prefill plan aims at a wave.
+int dequant_matmul_pf_ctas_per_sm(int packed, int b, int scols, int* out) {
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, 1, scols,
+               1, 1, 1, nullptr};
+  return packed ? launch_pf_mt<true>(a, out) : launch_pf_mt<false>(a, out);
 }
 
 }  // extern "C"

@@ -9,11 +9,12 @@ and alignment; see the note at the source's head. ``Wq`` holds int8 codes
 ``(M, N/G)`` per-group float32 scales.
 
 The decode variant ``tcgemv`` (bfloat16 x, ``B <= GEMV_MAX_BATCH``) splits K
-over CTAs by :func:`split_plan`, which depends on shapes, the SM count and
-the kernel's occupancy only, and adds the splits' float32 partials in
-ascending split order. :func:`dequant_matmul_tc_order` transcribes that
-order of summation in torch ops for the CPU tests; nothing on a CUDA tensor
-calls it.
+over CTAs by :func:`split_plan`, the prefill variant ``mma`` (bfloat16 x,
+more rows) by :func:`prefill_plan`; both depend on shapes, the SM count and
+the kernel's occupancy only, and add the splits' float32 partials in
+ascending split order. :func:`dequant_matmul_tc_order` and
+:func:`dequant_matmul_mma_order` transcribe those orders of summation in
+torch ops for the CPU tests; nothing on a CUDA tensor calls them.
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from the kernel to the plain
@@ -35,6 +36,14 @@ VARIANTS = ("gemv", "tcgemv", "mma", "tiled")   # ids of the .cu's variants
 TC_ROWS = 128            # output rows per CTA of tcgemv (TC_ROWS in the .cu)
 TC_CTAS_PER_SM = 2       # tcgemv's split plan fills this many CTAs per SM
                          # (at most the instance's occupancy)
+
+PF_ROWS = 128            # output rows per CTA of mma (PF_BN in the .cu)
+PF_M_TILE = 64           # tokens per m-tile of mma (PF_BM in the .cu)
+PF_MT1_MAX_B = 64        # up to here one m-tile per mma CTA, above two
+                         # (per-channel scales; PF_MT1_MAX_B in the .cu)
+PF_UNIT = 128            # columns of an mma split unit (PF_UNIT in the .cu)
+PF_CTAS_PER_SM = 2       # mma's plan fills this many CTAs per SM (at most
+                         # the instance's occupancy)
 
 launches = 0             # number of kernel launches (plain integer)
 launches_by_variant = {v: 0 for v in VARIANTS}   # the same, by variant
@@ -125,6 +134,81 @@ def split_plan(m: int, n: int, group_size: int, sms: int = 132,
     return -(-ng // p), p
 
 
+def prefill_tile_rows(b: int, per_group: bool) -> int:
+    """Tokens per CTA of the ``mma`` variant: one 64-row m-tile up to
+    ``PF_MT1_MAX_B`` rows or with per-group scales (whose group partials
+    need a second set of accumulators), else two."""
+    return PF_M_TILE if per_group or b <= PF_MT1_MAX_B else 2 * PF_M_TILE
+
+
+def prefill_plan(b: int, m: int, n: int, group_size: Optional[int],
+                 sms: int = 132, ctas_per_sm: int = PF_CTAS_PER_SM
+                 ) -> Tuple[int, int]:
+    """``(splits, units_per_split)`` of an ``mma`` launch: ``M`` output rows
+    in tiles of ``PF_ROWS``, ``B`` tokens in tiles of
+    :func:`prefill_tile_rows`, ``N / PF_UNIT`` column units (a unit is a
+    scale group when ``group_size`` is given; ``None`` means per-channel
+    scales), on a card of ``sms`` SMs at ``ctas_per_sm`` CTAs each. Split
+    ``s`` takes units ``[s*P, s*P + P)``; ``splits * P >= units > (splits -
+    1) * P``. The plan takes the most splits whose CTAs (output tiles times
+    splits) fit one wave, but no more than ``N / (2B)`` (their float32
+    partials, ``4 * B * M`` bytes a split, stay under the ``M * N`` code
+    bytes) and none of fewer than two units. It depends on shapes only,
+    never on values."""
+    if min(b, m, n, sms, ctas_per_sm) < 1 or n % PF_UNIT or \
+            group_size not in (None, PF_UNIT):
+        raise ValueError(f"prefill_plan needs positive shapes, N a multiple "
+                         f"of {PF_UNIT} and per-channel scales or groups of "
+                         f"{PF_UNIT}, got b={b} m={m} n={n} "
+                         f"group_size={group_size} sms={sms} "
+                         f"ctas_per_sm={ctas_per_sm}")
+    units = n // PF_UNIT
+    tiles = -(-m // PF_ROWS) * -(-b // prefill_tile_rows(
+        b, group_size is not None))
+    most = max(1, min(sms * ctas_per_sm // tiles, n // (2 * b), units // 2))
+    p = -(-units // most)
+    return -(-units // p), p
+
+
+def dequant_matmul_mma_order(x: torch.Tensor, codes: torch.Tensor,
+                             scale: torch.Tensor, *, bits: int,
+                             splits: int, ups: int) -> torch.Tensor:
+    """The ``mma`` variant's order of summation in torch ops (for the CPU
+    tests). Split ``s`` takes the ``PF_UNIT``-column units ``[s*ups,
+    s*ups + ups)``. Per-channel scales (one column): the split's float32
+    dot product over all its columns, times the row's scale once. Per-group
+    scales (groups of ``PF_UNIT``): each group's float32 dot product times
+    the group's scale, added to the split's sum in ascending group order.
+    Then the splits' sums added in ascending split order, and one rounding
+    to x's dtype."""
+    m = codes.shape[0]
+    c = (unpack_int4(codes) if bits <= 4 else codes).to(torch.float32)
+    n = c.shape[1]
+    units = n // PF_UNIT
+    if n % PF_UNIT or splits * ups < units or (splits - 1) * ups >= units:
+        raise ValueError(f"{splits} splits of {ups} units do not cover "
+                         f"{units} units of {PF_UNIT} columns")
+    s = scale.to(torch.float32).reshape(m, -1)
+    if s.shape[1] not in (1, units):
+        raise ValueError(f"scale has {s.shape[1]} columns; the mma variant "
+                         f"takes 1 or {units}")
+    xf = x.to(torch.float32)
+    total = None
+    for sp in range(splits):
+        lo, hi = sp * ups, min(units, sp * ups + ups)
+        if s.shape[1] == 1:
+            cols = slice(lo * PF_UNIT, hi * PF_UNIT)
+            acc = (xf[:, cols] @ c[:, cols].T) * s[:, 0]
+        else:
+            acc = None
+            for g in range(lo, hi):
+                cols = slice(g * PF_UNIT, (g + 1) * PF_UNIT)
+                part = (xf[:, cols] @ c[:, cols].T) * s[:, g]
+                acc = part if acc is None else acc + part
+        total = acc if total is None else total + acc
+    return total.to(x.dtype)
+
+
 def dequant_matmul_tc_order(x: torch.Tensor, codes: torch.Tensor,
                             scale: torch.Tensor, *, bits: int,
                             group_size: int, splits: int, gps: int
@@ -177,25 +261,44 @@ def _kernel():
 _occ: Dict[tuple, Tuple[int, int]] = {}
 
 
-def card_ctas_per_sm(bits: int, b: int, device: int) -> Tuple[int, int]:
-    """``(SMs, CTAs per SM)`` of tcgemv's instance for ``bits`` and batch
-    ``b`` on CUDA device ``device``, asked of the card once."""
-    packed = bits <= 4
-    nt = 1 if b <= 8 else 2
-    key = (packed, nt, device)
+def _card_occupancy(key: tuple, query: str, args: Tuple[int, ...],
+                    device: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of a kernel instance on CUDA device
+    ``device``: the occupancy query ``query`` of the ``.cu`` asked once per
+    ``key``."""
     if key not in _occ:
-        fn = _build.load("dequant_matmul").dequant_matmul_tc_ctas_per_sm
+        fn = getattr(_build.load("dequant_matmul"), query)
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            err = fn(int(packed), b, ctypes.addressof(out))
+            err = fn(*args, ctypes.addressof(out))
         if err != 0 or out.value < 1:
-            raise RuntimeError(f"tcgemv occupancy query failed (cuda error "
-                               f"{err}, {out.value} CTAs per SM)")
+            raise RuntimeError(f"{query} failed (cuda error {err}, "
+                               f"{out.value} CTAs per SM)")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         _occ[key] = (sms, out.value)
     return _occ[key]
+
+
+def card_ctas_per_sm(bits: int, b: int, device: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of tcgemv's instance for ``bits`` and batch
+    ``b`` on CUDA device ``device``."""
+    packed = bits <= 4
+    return _card_occupancy(("tcgemv", packed, 1 if b <= 8 else 2, device),
+                           "dequant_matmul_tc_ctas_per_sm", (int(packed), b),
+                           device)
+
+
+def card_pf_ctas_per_sm(bits: int, b: int, scols: int,
+                        device: int) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of the ``mma`` instance for ``bits``, ``b``
+    rows and ``scols`` scale columns on CUDA device ``device``."""
+    packed = bits <= 4
+    return _card_occupancy(
+        ("mma", packed, prefill_tile_rows(b, scols != 1), scols != 1,
+         device), "dequant_matmul_pf_ctas_per_sm", (int(packed), b, scols),
+        device)
 
 
 _plans: Dict[tuple, Tuple[str, int, int]] = {}
@@ -205,7 +308,8 @@ def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
                 scols: int, group_size: int, bits: int
                 ) -> Tuple[str, int, int]:
     """``(variant, splits, groups_per_split)`` of a launch on x's card,
-    cached per shape, type and alignment."""
+    cached per shape, type and alignment. For ``mma`` the third entry
+    counts ``PF_UNIT``-column units."""
     b, n = x.shape
     bf16 = x.dtype == torch.bfloat16
     xp, cp = x.data_ptr(), codes.data_ptr()
@@ -220,8 +324,22 @@ def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
             sms, occ = card_ctas_per_sm(bits, b, dev)
             splits, gps = split_plan(m, n, group_size, sms,
                                      min(occ, TC_CTAS_PER_SM))
+        elif v == "mma":
+            sms, occ = card_pf_ctas_per_sm(bits, b, scols, dev)
+            splits, gps = prefill_plan(b, m, n, None if scols == 1
+                                       else group_size, sms,
+                                       min(occ, PF_CTAS_PER_SM))
         plan = _plans[key] = (v, splits, gps)
     return plan
+
+
+def cached_plans(variant_: Optional[str] = None) -> list:
+    """The plans :func:`launch_plan` has made so far (of ``variant_`` only,
+    if given), one dict per shape: for reports."""
+    return [{"b": k[0], "m": k[1], "n": k[2], "scols": k[3], "bits": k[5],
+             "variant": v, "splits": sp, "per_split": p}
+            for k, (v, sp, p) in sorted(_plans.items())
+            if variant_ in (None, v)]
 
 
 def dequant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

@@ -208,6 +208,96 @@ def test_wrappers_raise_instead_of_falling_back(dev):
                           torch.ones(4, 1, device=dev), bits=8)
 
 
+PREFILL_MN = [(1024, 4096), (4096, 4096), (12800, 4096), (4096, 12800)]
+
+
+@pytest.mark.parametrize("m,n", PREFILL_MN)
+@pytest.mark.parametrize("b", [17, 43, 64, 256, 384])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma_main_path_shapes(dev, m, n, b, bits):
+    """The prefill linears of granite-3-8b (admission chunks, round-path
+    prefills, chunk tails): bf16 x, per-channel scales."""
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b)
+    _dm_check(x, data, sc, bits, 128, "mma")
+
+
+@pytest.mark.parametrize("b", [17, 64, 300])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma_group_scales(dev, b, bits):
+    """Per-group scales (groups of 128): one m-tile per CTA, each group's
+    partial times its scale."""
+    m, n = 384, 2048
+    x, data, sc = _dm_case(dev, m, n, bits, n // 128, b=b)
+    _dm_check(x, data, sc, bits, 128, "mma")
+
+
+@pytest.mark.parametrize("m", [100, 1000])
+@pytest.mark.parametrize("b", [43, 200])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma_ragged_rows(dev, m, b, bits):
+    """M not a multiple of the 128-row tile and B not a multiple of the
+    m-tile: TMA zero-fills the edge, the store masks it."""
+    x, data, sc = _dm_case(dev, m, 1024, bits, 1, b=b)
+    _dm_check(x, data, sc, bits, 128, "mma")
+
+
+@pytest.mark.parametrize("m,n", [(1024, 4096), (4096, 12800)])
+@pytest.mark.parametrize("b", [64, 384])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma_deterministic(dev, m, n, b, bits):
+    """Two launches give the same bits (split K merged in a fixed
+    order)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b)
+    _, splits, _ = dm.launch_plan(x, data, m, 1, 128, bits)
+    assert splits > 1 or m == 12800
+    y1 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    y2 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("plan", [("mma", 1, 32), ("mma", 4, 8),
+                                  ("mma", 32, 1), ("mma", 3, 11)])
+@pytest.mark.parametrize("b", [64, 200])
+def test_mma_explicit_plan_close_to_plain(dev, plan, b):
+    """Plans given to the wrapper (no split, even and uneven splits, one
+    unit a split) run as given, within the bf16 tolerance of the plain
+    version."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1, b=b)
+    before = dm.launches_by_variant["mma"]
+    y = dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+    assert dm.launches_by_variant["mma"] == before + 1
+    r = dm.dequant_matmul_plain(x, data, sc, bits=8, group_size=128)
+    torch.testing.assert_close(y.float(), r.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("plan", [("mma", 2, 8), ("mma", 2, 32),
+                                  ("mma", 0, 32), ("mma", 33, 1)])
+def test_mma_explicit_plan_refused(dev, plan):
+    """Splits that miss units, hold none or no split at all are
+    refused."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1, b=64)
+    with pytest.raises(RuntimeError):
+        dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+
+
+def test_mma_refuses_misaligned_x(dev):
+    """x that does not start on 16 bytes: the mma launch is refused with an
+    error, and the rule names tiled for it (counted as tiled), never mma."""
+    from repro_torch.kernels import dequant_matmul as dm
+    b, m, n = 64, 256, 1024
+    x, data, sc = _dm_case(dev, m, n, 8, 1, b=b)
+    buf = torch.empty(b * n + 8, dtype=torch.bfloat16, device=dev)
+    xv = buf[1:1 + b * n].view(b, n)
+    xv.copy_(x)
+    with pytest.raises(RuntimeError):
+        dm.dequant_matmul(xv, data, sc, bits=8, group_size=128,
+                          plan=("mma", 1, n // 128))
+    _dm_check(xv, data, sc, 8, 128, "tiled")
+
+
 def _paged_case(dev, b, kv, rep, d, bs, nb, lengths, dtype, quant, seed=0,
                 poison=True):
     """Pools with two spare blocks (trash block 0 included), each slot's

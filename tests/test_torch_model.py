@@ -132,7 +132,8 @@ def test_convert_bf16_and_unstack():
     import ml_dtypes
     a = np.arange(12, dtype=np.float32).reshape(3, 4).astype(ml_dtypes.bfloat16)
     t = convert.from_jax_params({"x": a, "stack": {"periods": {
-        "b0": {"w": np.arange(24, dtype=np.float32).reshape(2, 3, 4)}}}})
+        "b0": {"w": np.arange(24, dtype=np.float32).reshape(2, 3, 4)}}}},
+        device="cpu")
     assert t["x"].dtype == torch.bfloat16
     np.testing.assert_array_equal(t["x"].float().numpy(),
                                   a.astype(np.float32))
@@ -140,6 +141,18 @@ def test_convert_bf16_and_unstack():
         [(3, 4), (3, 4)]
     st = unstack_stack({"periods": {"w": torch.arange(6).reshape(2, 3)}}, 2)
     assert torch.equal(st["list"][1]["w"], torch.tensor([3, 4, 5]))
+
+
+def test_convert_defaults_to_the_cuda_device():
+    """With no device given the tree goes to the current CUDA device, as
+    every entry point of the port does; without one the call raises and
+    never quietly returns host tensors."""
+    tree = {"w": np.ones((2, 3), dtype=np.float32)}
+    if torch.cuda.is_available():
+        assert convert.from_jax_params(tree)["w"].is_cuda
+        return
+    with pytest.raises((AssertionError, RuntimeError)):
+        convert.from_jax_params(tree)
 
 
 def test_rope_and_masks_match(rng):
@@ -171,7 +184,8 @@ def test_ffn_kinds_match(rng, kind):
              .astype(np.float32)} for n in names}
     x = rng.normal(size=(2, 5, 8)).astype(np.float32)
     want = jffn(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x), kind)
-    got = tffn(convert.from_jax_params(p), torch.from_numpy(x), kind)
+    got = tffn(convert.from_jax_params(p, device="cpu"), torch.from_numpy(x),
+               kind)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
