@@ -9,14 +9,18 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
 1. prints the card's name and power limit, the torch/CUDA versions, and builds
    the three CUDA sources of ``src/repro_torch/kernels/csrc`` (in parallel);
 2. holds each kernel against its plain PyTorch version on the card, at the
-   shapes the main paths use plus ragged ones (kernel B also at 17, 43 and
-   64 prefill rows, two launches bit-identical; kernels C and D also at one
-   slot and at long contexts), and times kernel, plain version, the bound
-   and one library call (B, C, D and their yardsticks with a cold L2; B
-   summed over one layer at the decode batch and at each prefill row
+   shapes the main paths use plus ragged ones (kernel A on (in, out) leaves
+   as stored, at each bucket's real leaf count and shape, with its scale
+   pass held bit for bit against ``core.dispatch._scales``; kernel B also at
+   17, 43 and 64 prefill rows, two launches bit-identical; kernels C and D
+   also at one slot and at long contexts), and times kernel, plain version,
+   the bound and one library call (B, C, D and their yardsticks with a cold
+   L2; B summed over one layer at the decode batch and at each prefill row
    count);
 3. drives the round-scheduler path at the full width of granite-3-8b: random
-   weights from a seed, SQuant w8 quantization of the whole tree, six
+   weights from a seed, SQuant w8 quantization of the whole tree (one
+   kernel-A launch and one scale pass per bucket, every bucket read where it
+   is stored; the quantize breakdown and its peak memory printed), six
    requests served real-quantized through ``ServeEngine`` (round scheduler,
    contiguous KV cache), with the kernels' launch counters read around it;
 4. does the same with 4-bit weights at a reduced depth;
@@ -31,7 +35,8 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    twelve chat requests sharing a 192-token system prefix (prefix hits,
    copy-on-write, mid-flight admission, retirement), launch counters read
    around the run, the block pool checked after it, and teacher-forced
-   greedy agreement against the contiguous continuous engine;
+   greedy agreement against the contiguous continuous engine (in bfloat16
+   also the float32 oracle's top-2 logit margin at every disagreement);
 7. does the same traffic with the int8 KV pool at a reduced depth, held to
    the reference's ``int8_kv`` agreement budget against the fp paged pool.
 The phases run in the order 1, 4, 3, 6, 7, 2, 5: the short w4 run pays the
@@ -73,6 +78,11 @@ KERNEL_B = {"name": "dequant_matmul", "route": "cuda",
 KERNEL_C = {"name": "paged_attention", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention.py:79"}
+KERNEL_SCALE = {"name": "squant_scale", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/squant_flip.cu",
+                "replaces": "src/repro/core/dispatch.py:60",
+                "note": "the bucket scales kernel A divides by; the reference "
+                        "computes them with jnp ops (no Pallas kernel)"}
 KERNEL_D = {"name": "paged_attention_quant", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": "src/repro/kernels/paged_attention_quant.py:88"}
@@ -133,7 +143,7 @@ def host_ms(fns, iters):
 # phase 2a: kernel A against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernel_a(dev, gen, tree_shapes):
+def check_kernel_a(dev, gen, buckets):
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
     from repro_torch.quant.scales import compute_scale
@@ -183,43 +193,108 @@ def check_kernel_a(dev, gen, tree_shapes):
                                                 group_size=128)):
             raise AssertionError("kernel A != plain under heavy clipping")
 
-    # timing at the (rows, N) of every launch quantize_tree makes on the tree
-    shapes = []
+    # the native-layout launches at each bucket's real B x (in, out) of the
+    # main path's tree: random leaves, the scale pass and the flip timed,
+    # every leaf held against the plain versions
+    from repro_torch.core.dispatch import _scales
+    a0 = dict(sf.launches_by_route)
+    shapes, scale_rows = [], []
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-    for (rows, n), count in sorted(tree_shapes.items()):
-        w = torch.randn((rows, n), generator=gen, device=dev)
-        s = compute_scale(w, 8, "max")
-        kw = dict(bits=8, group_size=128)
-        res = explain_code_differences(w, s, sf.squant_flip(w, s, **kw),
-                                       sf.squant_flip_plain(w, s, **kw), **kw)
-        for k in ties:
-            ties[k] += res[k]
-        if res["unexplained"]:
-            raise AssertionError(f"kernel A differs from plain beyond the tie "
-                                 f"rule at the main path's {(rows, n)}: {res}")
-        ms = time_ms([lambda: sf.squant_flip(w, s, **kw)], 5)
-        plain_ms = time_ms([lambda: sf.squant_flip_plain(w, s, **kw)], 1,
-                           graph=False)
-        nbytes = rows * n * 4 + rows * 4 + rows * n
+    stot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    kw = dict(bits=8, group_size=128)
+    for nb, kin, nch in buckets:
+        leaves = [torch.randn((kin, nch), generator=gen, device=dev)
+                  for _ in range(nb)]
+        # exact inputs on the first leaf's shape: codes equal
+        gw = torch.randint(-400, 401, (kin, nch), generator=gen,
+                           device=dev).float() / 64.0
+        gs = torch.full((1, nch), 0.5, device=dev)
+        if not torch.equal(sf.squant_flip_leaves([gw], gs, **kw),
+                           sf.squant_flip_leaves_plain([gw], gs, **kw)):
+            raise AssertionError(f"kernel A (native) != plain on exact inputs "
+                                 f"at {(kin, nch)}")
+        del gw
+        s = sf.squant_scales(leaves, 8)
+        for b, leaf in enumerate(leaves):
+            if not torch.equal(s[b], _scales(leaf.T[None], 8, "max")[0, :, 0]):
+                raise AssertionError(f"scale pass != _scales at {(kin, nch)}")
+        s_ms = time_ms([lambda: sf.squant_scales(leaves, 8)], 3)
+        s_plain = time_ms([lambda: sf.squant_scales_plain(leaves, 8)], 1,
+                          graph=False)
+        lib_ms = time_ms([lambda: [torch.linalg.vector_norm(
+            leaf, float("inf"), dim=0) for leaf in leaves]], 1, graph=False)
+        s_bytes = nb * (kin * nch * 4 + nch * 4)
+        s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
+        scale_rows.append({"leaves": nb, "in": kin, "out": nch, "ms": s_ms,
+                           "bound_ms": s_bound, "bound_share": s_bound / s_ms,
+                           "plain_ms": s_plain, "library_ms": lib_ms})
+        stot["ms"] += s_ms
+        stot["plain_ms"] += s_plain
+        stot["bound_ms"] += s_bound
+        stot["library_ms"] += lib_ms
+
+        got = sf.squant_flip_leaves(leaves, s, **kw)
+        again = sf.squant_flip_leaves(leaves, s, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"kernel A (native) launches differ at "
+                                 f"{(nb, kin, nch)}")
+        del again
+        plain_ms = 0.0
+        for b, leaf in enumerate(leaves):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            want = sf.squant_flip_leaves_plain([leaf], s[b:b + 1], **kw)[0]
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms += e0.elapsed_time(e1)
+            res = explain_code_differences(leaf.T, s[b][:, None], got[b],
+                                           want, **kw)
+            worst = max(worst, int((got[b].int() - want.int()).abs().max()))
+            for k in ties:
+                ties[k] += res[k]
+            if res["unexplained"]:
+                raise AssertionError(f"kernel A (native) differs from plain "
+                                     f"beyond the tie rule at "
+                                     f"{(nb, kin, nch)}: {res}")
+            del want
+        ms = time_ms([lambda: sf.squant_flip_leaves(leaves, s, **kw)], 3)
+        nbytes = nb * (kin * nch * 5 + nch * 4)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = A_OPS_PER_ELEMENT * rows * n / PEAK_FLOPS["float32"] * 1e3
+        t_ops = A_OPS_PER_ELEMENT * nb * kin * nch / PEAK_FLOPS["float32"] * 1e3
         bound = max(t_bytes, t_ops)
-        shapes.append({"rows": rows, "n": n, "launches_per_tree": count,
-                       "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        shapes.append({"leaves": nb, "in": kin, "out": nch,
+                       "route": sf.route(nch, True), "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bound,
+                       "bound_share": bound / ms,
                        "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-        tot["ms"] += count * ms
-        tot["plain_ms"] += count * plain_ms
-        tot["bound_ms"] += count * bound
-        del w, s
+        tot["ms"] += ms
+        tot["plain_ms"] += plain_ms
+        tot["bound_ms"] += bound
+        del leaves, s, got
         torch.cuda.empty_cache()
+    routes = {k: sf.launches_by_route[k] - a0[k] for k in a0}
+    if routes["cp16"] == 0:
+        raise AssertionError(f"no native launch took the 16-byte route: "
+                             f"{routes}")
     entry = dict(KERNEL_A, max_abs_err=worst, tolerance="codes equal; rows that "
                  "differ must be explained by a float32 tie (1e-4) and keep "
                  "the paper's invariants", tie_rule=ties,
-                 numbers_are="sums over every launch of one quantize_tree of "
-                 "the main path's model", timing="ms: device time (CUDA graph "
-                 "replay); plain_ms: eager calls", library_ms=None,
-                 bound_by="bytes", shapes=shapes, **tot)
-    return entry
+                 numbers_are="sums over the launches of one quantize_tree of "
+                 "the main path's model (one per bucket)", timing="ms: device "
+                 "time (CUDA graph replay); plain_ms: eager calls, leaf by "
+                 "leaf", library_ms=None, bound_by="bytes", shapes=shapes,
+                 bound_share=tot["bound_ms"] / tot["ms"], **tot)
+    scale = dict(KERNEL_SCALE, max_abs_err=0.0, tolerance="bit-identical to "
+                 "core.dispatch._scales on every leaf", bound_by="bytes",
+                 numbers_are="sums over the launches of one quantize_tree of "
+                 "the main path's model (one per bucket)", timing="ms: device "
+                 "time (CUDA graph replay); plain_ms and library_ms: eager "
+                 "calls", library="torch.linalg.vector_norm(leaf, inf, "
+                 "dim=0), one call a leaf", bound_share=stot["bound_ms"] /
+                 stot["ms"], shapes=scale_rows, **stot)
+    return entry, scale
 
 
 # ---------------------------------------------------------------------------
@@ -439,12 +514,18 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
     torch.cuda.synchronize()
     init_ms = (time.perf_counter() - t0) * 1e3
 
-    sf.launches = 0
+    sf.launches = sf.scale_launches = 0
+    sf.launches_by_route = dict.fromkeys(sf.ROUTES, 0)
     dm.launches = 0
     dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+    weights_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(model, params, ServeConfig(
         max_batch=max_batch, max_len=256, quantize_weights="squant",
         weight_bits=bits, dequantize_for_compute=False), device=dev)
+    quant_peak_gb = (torch.cuda.max_memory_allocated() - weights_bytes) / 1e9
+    scale_launches = sf.scale_launches
+    a_routes = dict(sf.launches_by_route)
     del params
     torch.cuda.empty_cache()
     rep = eng.quant_report
@@ -469,12 +550,18 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
     if st["scheduler"].steps != len(rounds) * max_new:
         raise AssertionError(f"sampling steps {st['scheduler'].steps} != "
                              f"{len(rounds) * max_new}")
+    # one kernel-A launch and one scale pass per bucket, every bucket read
+    # where it is stored (the native route): nothing stacked
     want_a = len(rep.buckets)
     want_b = 7 * layers * forwards
     if not all("g128" in b.key for b in rep.buckets):
         raise AssertionError("a bucket of the full-width tree is not grouped")
-    if a_launches != want_a or a_launches == 0:
-        raise AssertionError(f"kernel A launches {a_launches}, path implies {want_a}")
+    if not all(b.route == "native" for b in rep.buckets):
+        raise AssertionError(f"a bucket took the stacked route: "
+                             f"{[(b.key, b.route) for b in rep.buckets]}")
+    if a_launches != want_a or a_launches == 0 or scale_launches != want_a:
+        raise AssertionError(f"kernel A launches {a_launches} (scale pass "
+                             f"{scale_launches}), path implies {want_a}")
     if b_launches != want_b or b_launches == 0:
         raise AssertionError(f"kernel B launches {b_launches}, path implies {want_b}")
     for o, r in zip(outs, reqs):
@@ -487,12 +574,11 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
         [reqs[0].prompt[:16]], device=dev)}, cache)
     if tuple(lg.shape) != (1, cfg.vocab) or not bool(torch.isfinite(lg).all()):
         raise AssertionError("logits of the served tree are not finite")
-    tree_shapes = {}
-    for b in rep.buckets:                   # "(M,N)xB dtype gG"
+    buckets = []                            # (leaves, in, out)
+    for b in rep.buckets:                   # "(M,N)xB dtype gG", M = out
         mn, rest = b.key.split(")x")
         m, n = (int(v) for v in mn[1:].split(","))
-        rows = m * int(rest.split(" ")[0])
-        tree_shapes[(rows, n)] = tree_shapes.get((rows, n), 0) + 1
+        buckets.append((int(rest.split(" ")[0]), n, m))
     emit({"phase": phase, "model": cfg.name, "layers": layers,
           "full_depth": layers == full.n_layers, "d_model": cfg.d_model,
           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "weight_bits": bits,
@@ -502,8 +588,15 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
           "quantize_dispatch_ms": rep.dispatch_millis,
           "quantize_sync_ms": rep.sync_millis,
           "staged_ms": eng.store.current.staged_ms,
+          "quantize_buckets": [{"key": b.key, "route": b.route,
+                                "dispatch_ms": b.dispatch_millis}
+                               for b in rep.buckets],
+          "quantize_peak_gb_above_weights": quant_peak_gb,
           "rounds": rounds, "tokens": [o.tokens for o in outs],
-          "launches": {"squant_flip": a_launches, "dequant_matmul": b_launches,
+          "launches": {"squant_flip": a_launches,
+                       "squant_flip_by_route": a_routes,
+                       "squant_scale": scale_launches,
+                       "dequant_matmul": b_launches,
                        "dequant_matmul_by_variant": dict(
                            dm.launches_by_variant)},
           "mma_plans": dm.cached_plans("mma"),
@@ -511,7 +604,7 @@ def drive(dev, seed, layers, bits, lengths, max_batch, max_new, phase):
     eng.close()
     del eng, outs, cache, lg
     torch.cuda.empty_cache()
-    return a_launches, b_launches, tree_shapes
+    return a_launches, b_launches, buckets, scale_launches
 
 
 # ---------------------------------------------------------------------------
@@ -1014,7 +1107,55 @@ def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype):
     rep = greedy_token_agreement(
         ServeEngine(m, None, paged_config(quantize_kv=quantize_kv),
                     store=store, device=dev), reqs, oracle)
-    return rep, oracle_s
+    return rep, oracle_s, oracle
+
+
+def oracle_margins(dev, model, tree, reqs, forced):
+    """The float32 one-slot contiguous oracle (measure_agreement's) teacher-
+    forced on ``forced`` ({request id: tokens}): its top-1 minus top-2 logit
+    at every sampled position, {(request id, position): margin}."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine, WeightStore
+    from repro_torch.serving import scheduler as sched
+
+    m = build_model(dataclasses.replace(model.cfg, dtype="float32"))
+    store = WeightStore(serving_params=_retyped(tree, torch.float32),
+                        device=dev)
+    eng = ServeEngine(m, None, paged_config(
+        kv_backend="contiguous", prefill_chunk=0, max_slots=1), store=store,
+        device=dev)
+    margins, where = [], []
+    real = sched.sample
+
+    def sample(logits, *a, **kw):              # one slot: one row a step
+        top = logits.float().topk(2, dim=-1).values[0]
+        margins.append(float(top[0] - top[1]))
+        return real(logits, *a, **kw)
+
+    def override(rid, t, proposed):
+        where.append((rid, t))
+        toks = forced.get(rid)
+        return None if toks is None or t >= len(toks) else int(toks[t])
+
+    sched.sample = sample
+    eng.scheduler.token_override = override
+    try:
+        eng.generate(reqs)
+    finally:
+        sched.sample = real
+    if len(where) != len(margins):
+        raise AssertionError(f"{len(margins)} sampling steps, {len(where)} "
+                             "sampled positions: not one slot")
+    eng.close()
+    return dict(zip(where, margins))
+
+
+def _quantiles(xs):
+    import numpy as np
+    if not xs:
+        return None
+    q = np.quantile(np.asarray(xs, np.float64), [0.0, 0.1, 0.5, 0.9, 1.0])
+    return dict(zip(("min", "p10", "p50", "p90", "max"), q.tolist()))
 
 
 def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
@@ -1104,10 +1245,24 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     label = "int8 KV vs fp paged pool" if quantize_kv else \
         "paged vs contiguous (one slot)"
     budget = AGREEMENT_BUDGETS["int8_kv"] if quantize_kv else 0.98
-    rep16, oracle_s = measure_agreement(dev, model, eng.params, reqs,
-                                        quantize_kv, torch.bfloat16)
-    rep, oracle32_s = measure_agreement(dev, model, eng.params, reqs,
-                                        quantize_kv, torch.float32)
+    rep16, oracle_s, oracle16 = measure_agreement(
+        dev, model, eng.params, reqs, quantize_kv, torch.bfloat16)
+    rep, oracle32_s, _ = measure_agreement(dev, model, eng.params, reqs,
+                                           quantize_kv, torch.float32)
+    near_ties = None
+    if not quantize_kv:
+        # where the bf16 token differs from the bf16 oracle's: the float32
+        # oracle's top-2 logit margin on the same (teacher-forced) context,
+        # beside the margins at every compared position
+        margin = oracle_margins(dev, model, eng.params, reqs, oracle16)
+        missed = [margin[p] for p in rep16.mismatches if p in margin]
+        near_ties = {"disagreements": len(rep16.mismatches),
+                     "with_margin": len(missed),
+                     "margin_at_disagreements": _quantiles(missed),
+                     "margins_sorted": sorted(missed),
+                     "margin_at_all_positions": _quantiles(
+                         list(margin.values())),
+                     "positions": len(margin)}
     entry = {"phase": phase, "model": cfg.name, "layers": layers,
              "full_depth": layers == get_config("granite-3-8b").n_layers,
              "weight_bits": 8, "quantize_kv": quantize_kv,
@@ -1135,7 +1290,9 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
                            "rate": rep.rate, "matched": rep.matched,
                            "compared": rep.compared,
                            "rate_bfloat16": rep16.rate,
-                           "matched_bfloat16": rep16.matched},
+                           "matched_bfloat16": rep16.matched,
+                           "bfloat16_disagreements_float32_margin":
+                               near_ties},
              "tokens": [o.tokens for o in outs]}
     emit(entry)
     if rep.rate < budget:
@@ -1359,6 +1516,33 @@ def profile_decode(dev, seed, layers, batch=4, steps=4):
     peng.close()
 
 
+def profile_quantize(dev, seed, layers):
+    """Where one SQuant w8 quantization of the main path's tree spends its
+    device time (``--profile``): the serving pipeline's quantize function
+    traced as ``scripts/quantize_tree_ab.py`` traces it, after a warm call."""
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from quantize_tree_ab import trace
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeConfig
+    from repro_torch.serving.weights import make_weight_pipeline
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    _, quantize_fn, _ = make_weight_pipeline(model, ServeConfig(
+        quantize_weights="squant", weight_bits=8,
+        dequantize_for_compute=False), device=dev)
+    quantize_fn(params)
+    torch.cuda.synchronize()
+    emit({"phase": "profile of quantize_tree", "layers": layers,
+          **trace(lambda: quantize_fn(params))})
+    del params
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # optional: which kernel costs the paged path its agreement (--agreement-
 # variants)
@@ -1417,7 +1601,7 @@ def agreement_variants(dev, seed, layers, layers7):
             if swap in ("B plain", "B and C plain") else originals["dm"]
         reqs = chat_requests(seed, model.cfg.vocab)
         t0 = time.perf_counter()
-        rep, _ = measure_agreement(dev, model, tree, reqs, quant, dtype)
+        rep, _, _ = measure_agreement(dev, model, tree, reqs, quant, dtype)
         row = {"phase": "agreement variant", "layers": depth,
                "pool": "int8 vs fp paged" if quant
                else "paged vs one-slot contiguous",
@@ -1448,9 +1632,9 @@ def main():
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a few decode steps and admission chunk "
-                    "forwards with torch.profiler and print where their "
-                    "time goes")
+                    help="also trace a few decode steps, admission chunk "
+                    "forwards and one quantize_tree of the tree with "
+                    "torch.profiler and print where their time goes")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1485,7 +1669,7 @@ def main():
     # which times kernel A at the bucket shapes the full-depth tree produced.
     drive(dev, args.seed, args.layers4, 4, lengths, max_batch, max_new,
           "4 main path, granite-3-8b w4")
-    a_n, b_n, tree_shapes = drive(dev, args.seed, args.layers, 8, lengths,
+    a_n, b_n, buckets, s_n = drive(dev, args.seed, args.layers, 8, lengths,
                                   max_batch, max_new,
                                   "3 main path, granite-3-8b w8")
 
@@ -1499,7 +1683,7 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    ka = check_kernel_a(dev, gen, tree_shapes)
+    ka, ks = check_kernel_a(dev, gen, buckets)
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
@@ -1517,13 +1701,14 @@ def main():
     slice_vs_plain(dev, args.seed)
     if args.profile:
         profile_decode(dev, args.seed, args.layers)
+        profile_quantize(dev, args.seed, args.layers)
 
-    ka["launches"], kb["launches"] = a_n, b_n
+    ka["launches"], kb["launches"], ks["launches"] = a_n, b_n, s_n
     kb["launches_phase6"] = b6_n
     kc["launches"], kd["launches"] = c_n, d_n
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
-    emit({"kernels": [ka, kb, kc, kd]})
+    emit({"kernels": [ka, kb, kc, kd, ks]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

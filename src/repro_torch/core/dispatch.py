@@ -1,9 +1,17 @@
 """Backend dispatch for the batched quantization pipeline.
 
 ``quantize_tree`` groups same-(shape, dtype) leaves into buckets; this module
-turns one stacked bucket ``(B, M, N)`` into int8 codes + per-row scales with a
-fixed, small number of asynchronous dispatches — no host sync. The
-``backend`` string is threaded down to ``kernels/ops.squant_flip_batched``:
+turns one bucket into int8 codes + per-row scales with a fixed, small number
+of asynchronous dispatches — no host sync. A bucket comes in one of two
+forms (``core.pipeline.plan_buckets`` decides which):
+
+* native — the list of B ``(in, out)`` leaves as they are stored
+  (``quantize_codes_native``): one scale pass and one flip launch over them,
+  nothing copied;
+* stacked — a ``(B, M, N)`` stack of ``(out, in)``-major views
+  (``quantize_codes_batched``).
+
+The ``backend`` string is threaded down to ``kernels/ops``:
 
 * ``"ref"``   — the vectorized torch core (``core.squant.squant_codes``) on
                 whatever device the bucket lies; an explicit request.
@@ -13,9 +21,10 @@ fixed, small number of asynchronous dispatches — no host sync. The
 * ``"auto"``  — follows the bucket's device: CUDA tensor → the kernel, CPU
                 tensor → the torch core. Never the torch core on a CUDA tensor.
 
-Scales are computed by ONE function regardless of backend, so flip
-decisions (which compare ``w/s`` against the integer grid) are bitwise
-comparable across backends. RTN has no custom kernel (it is a pure
+Scales follow ONE formula regardless of backend and form (``_scales``; on
+the native form the scale pass computes the same bits), so flip decisions
+(which compare ``w/s`` against the integer grid) are bitwise comparable
+across backends. RTN has no custom kernel (it is a pure
 elementwise round); it runs on torch ops regardless of backend.
 
 The serial per-layer path in ``core.pipeline`` calls these same helpers with
@@ -24,7 +33,7 @@ Row-sharded dispatch over several devices is not part of this module yet.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -96,3 +105,29 @@ def quantize_codes_batched(ws: torch.Tensor, *, method: str, bits: int,
             ws, scales, bits=bits, group_size=group_size,
             enable_k=enable_k, enable_c=enable_c, backend=backend)
     return codes, scales
+
+
+def quantize_codes_native(leaves: Sequence[torch.Tensor], *, method: str,
+                          bits: int, group_size: int,
+                          scale_method: str = "max", backend: str = "ref"
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize one bucket of B same-shape ``(in, out)`` leaves where they
+    are stored (output channel ``c`` is the column ``leaf[:, c]``).
+
+    Returns ``(codes int8 (B, out, in), scales (B, out, 1))``, the same
+    values ``quantize_codes_batched`` gives for the stack of ``leaf.T``. The
+    ``"max"`` scales come from one pass over the leaves; other scale methods
+    keep ``compute_scale`` on the transposed stack. ``method`` is one the
+    flip kernel implements (``squant``, ``squant_e``, ``squant_ek``).
+    """
+    b = len(leaves)
+    if scale_method == "max":
+        scales = ops.squant_scales(leaves, bits, backend=backend)
+    else:
+        scales = compute_scale(torch.stack([leaf.T for leaf in leaves]),
+                               bits, scale_method).reshape(b, -1)
+    enable_k, enable_c = _METHOD_FLAGS[method]
+    codes = ops.squant_flip_leaves(leaves, scales, bits=bits,
+                                   group_size=group_size, enable_k=enable_k,
+                                   enable_c=enable_c, backend=backend)
+    return codes, scales.reshape(b, -1, 1)

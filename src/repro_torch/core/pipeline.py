@@ -8,11 +8,17 @@ no back-prop, wall time recorded (Table 3's protocol).
 Execution modes:
 
 * ``batched=True`` (default) — leaves are grouped into same-(2-D view shape,
-  dtype, group) buckets; each bucket is stacked and quantized with ONE
-  asynchronous dispatch (a single flattened kernel launch on a CUDA device,
-  the vectorized torch core on the CPU, see ``core.dispatch``), and the whole
-  tree synchronizes with the device ONCE at the end. ``QuantReport`` carries
-  the per-bucket wall times plus a dispatch/sync breakdown.
+  dtype, group) buckets (``plan_buckets``); each bucket is quantized with ONE
+  asynchronous dispatch, and the whole tree synchronizes with the device
+  ONCE at the end. On a CUDA device a bucket of 2-D float32 leaves takes the
+  *native* route: the kernels read the ``(in, out)`` leaves where they are
+  stored, one scale pass and one flip launch per bucket, nothing stacked.
+  Every other bucket (conv and expert leaves, other dtypes, the whole-row
+  and E&C-without-K configurations, RTN, and every bucket on the CPU) takes
+  the *stacked* route: the ``(out, in)`` views are stacked, in chunks of at
+  most ``_MAX_STACK_BYTES``, and quantized as rows (see ``core.dispatch``).
+  ``QuantReport`` carries the per-bucket wall times and routes plus a
+  dispatch/sync breakdown.
 * ``batched=False`` — the per-layer reference path: one quantization call and
   one device sync per leaf, always through the torch core. Kept as the
   bit-exactness oracle and the serial baseline.
@@ -36,12 +42,14 @@ report order do not depend on how a tree was assembled.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.dispatch import quantize_codes_batched, resolve_backend
+from repro_torch.core.dispatch import (quantize_codes_batched,
+                                       quantize_codes_native, resolve_backend)
 from repro_torch.quant.qtypes import (BucketReport, LayerReport, QuantReport,
                                       from_codes)
 
@@ -102,36 +110,110 @@ def _rebuild(tree: Any, leaves) -> Any:
 # Leaf planning: every quantizable leaf maps to a 2-D (out, in)-major view
 # ---------------------------------------------------------------------------
 
-def _plan_leaf(leaf: torch.Tensor, method: str, group_size: Optional[int]
-               ) -> Tuple[torch.Tensor, Tuple[int, ...], Optional[int]]:
-    """Return ``(w2d, qt_shape, eff_group)`` for one kernel leaf.
+def _view_shape(shape: Tuple[int, ...], method: str,
+                group_size: Optional[int]
+                ) -> Tuple[Tuple[int, int], Tuple[int, ...], Optional[int]]:
+    """Return ``((M, N), qt_shape, eff_group)`` for a kernel leaf's shape:
+    its ``(out, in)``-major 2-D view, the stored QuantizedTensor shape, and
+    the effective group.
 
     ``eff_group`` mirrors the clamping in ``core.squant.squant`` exactly
     (group >= row length degenerates to the whole-row FC path; conv kernels
     use K=KH*KW as the natural group) so batched results are bit-identical to
     the per-layer path.
     """
-    if leaf.ndim == 2:                       # (in, out) -> (out, in)
-        w2d = leaf.T
-        qt_shape = (leaf.shape[1], leaf.shape[0])
-    elif leaf.ndim == 3:                     # (E, in, out) -> (E*out, in)
-        e, i, o = leaf.shape
-        w2d = leaf.permute(0, 2, 1).reshape(e * o, i)
-        qt_shape = (e * o, i)
-    elif leaf.ndim == 4:                     # conv (KH,KW,in,out) -> (out, in*K)
-        kh, kw, ci, co = leaf.shape
+    if len(shape) == 2:                      # (in, out) -> (out, in)
+        mn = qt_shape = (shape[1], shape[0])
+    elif len(shape) == 3:                    # (E, in, out) -> (E*out, in)
+        e, i, o = shape
+        mn = qt_shape = (e * o, i)
+    elif len(shape) == 4:                    # conv (KH,KW,in,out) -> (out, in*K)
+        kh, kw, ci, co = shape
         k = kh * kw
-        w2d = leaf.permute(3, 2, 0, 1).reshape(co, ci * k)
         if method == "rtn":
-            return w2d, (co, ci * k), None
-        return w2d, (co, ci, k), (None if k == 1 else k)
+            return (co, ci * k), (co, ci * k), None
+        return (co, ci * k), (co, ci, k), (None if k == 1 else k)
     else:
-        raise ValueError(f"unsupported kernel rank {leaf.ndim}")
+        raise ValueError(f"unsupported kernel rank {len(shape)}")
     if method == "rtn":
-        return w2d, qt_shape, None
-    n = w2d.shape[1]
-    eff = None if (group_size is None or group_size >= n) else group_size
+        return mn, qt_shape, None
+    eff = None if (group_size is None or group_size >= mn[1]) else group_size
+    return mn, qt_shape, eff
+
+
+def _plan_leaf(leaf: torch.Tensor, method: str, group_size: Optional[int]
+               ) -> Tuple[torch.Tensor, Tuple[int, ...], Optional[int]]:
+    """Return ``(w2d, qt_shape, eff_group)`` for one kernel leaf: the
+    ``(out, in)``-major view of ``_view_shape``."""
+    mn, qt_shape, eff = _view_shape(tuple(leaf.shape), method, group_size)
+    if leaf.ndim == 2:
+        w2d = leaf.T
+    elif leaf.ndim == 3:
+        w2d = leaf.permute(0, 2, 1).reshape(mn)
+    else:
+        w2d = leaf.permute(3, 2, 0, 1).reshape(mn)
     return w2d, qt_shape, eff
+
+
+# ---------------------------------------------------------------------------
+# Bucket planning: a pure function of the leaves' shapes and dtypes
+# ---------------------------------------------------------------------------
+
+# Cap on the transient buffer of a stacked bucket: buckets whose stack would
+# exceed this many bytes are dispatched in chunks, bounding peak memory at
+# params + one chunk instead of params + the largest bucket. Still one device
+# sync per tree.
+_MAX_STACK_BYTES = 1 << 30
+
+# methods whose flip the kernel implements (E, E&K, E&K&C)
+_NATIVE_METHODS = ("squant", "squant_e", "squant_ek")
+
+
+@dataclasses.dataclass
+class BucketPlan:
+    """One bucket: its key ``((M, N), dtype, eff_group)``, the positions of
+    its leaves in the planned list, its route (``"native"`` or
+    ``"stacked"``) and the dispatches it takes (``chunks``, lists of
+    positions; one for a native bucket)."""
+    key: Tuple
+    entries: List[int]
+    route: str
+    chunks: List[List[int]]
+
+
+def plan_buckets(leaves: Sequence[Tuple[Tuple[int, ...], str, int, bool]],
+                 method: str, group_size: Optional[int], native: bool
+                 ) -> List[BucketPlan]:
+    """Group leaves given as ``(shape, dtype name, element size,
+    contiguous)`` into buckets, in first-seen order, and route each.
+
+    A bucket is native when ``native`` (a CUDA device under the kernel
+    backend) and every leaf in it is a contiguous 2-D float32 ``(in, out)``
+    leaf of a grouped, kernel-implemented method; it is then one dispatch.
+    Any other bucket is stacked, in chunks of at most ``_MAX_STACK_BYTES``
+    of stacked weights.
+    """
+    groups: Dict[Tuple, List[int]] = {}
+    ok: Dict[Tuple, bool] = {}
+    sizes: Dict[Tuple, int] = {}
+    for pos, (shape, dtype, itemsize, contiguous) in enumerate(leaves):
+        mn, _, eff = _view_shape(tuple(shape), method, group_size)
+        key = (mn, dtype, eff)
+        groups.setdefault(key, []).append(pos)
+        sizes[key] = mn[0] * mn[1] * itemsize
+        ok[key] = ok.get(key, True) and native and len(shape) == 2 \
+            and dtype == "float32" and contiguous and eff is not None \
+            and method in _NATIVE_METHODS
+    plans = []
+    for key, pos in groups.items():
+        if ok[key]:
+            plans.append(BucketPlan(key, pos, "native", [pos]))
+            continue
+        chunk = max(1, min(len(pos), _MAX_STACK_BYTES // max(sizes[key], 1)))
+        plans.append(BucketPlan(key, pos, "stacked",
+                                [pos[c:c + chunk]
+                                 for c in range(0, len(pos), chunk)]))
+    return plans
 
 
 def _restore_dense(wq: torch.Tensor, leaf_shape: Tuple[int, ...]
@@ -183,51 +265,49 @@ def _quantize_tree_serial(flat, pred, method, bits, group_size,
 
 
 # ---------------------------------------------------------------------------
-# Batched path: bucket -> stack -> one dispatch per bucket -> one sync total
+# Batched path: one dispatch per bucket (or stack chunk) -> one sync total
 # ---------------------------------------------------------------------------
-
-# Cap on the transient stacked-bucket buffer: buckets whose stack would
-# exceed this many bytes are dispatched in chunks, bounding peak memory at
-# params + one chunk instead of params + the largest bucket. Still one device
-# sync per tree.
-_MAX_STACK_BYTES = 1 << 30
-
 
 def _quantize_tree_batched(flat, pred, method, bits, group_size,
                            scale_method, dequantize, backend, device):
     t_begin = time.perf_counter()
     out_leaves: List[Any] = [None] * len(flat)
-    # bucket key -> list of (leaf index, path, leaf, w2d, qt_shape)
-    buckets: Dict[Tuple, List] = {}
+    todo = []                                  # (leaf index, path, leaf)
     for idx, (path, leaf) in enumerate(flat):
         if not pred(path, leaf):
             out_leaves[idx] = leaf
             continue
-        leaf = leaf.to(device)
-        w2d, qt_shape, eff = _plan_leaf(leaf, method, group_size)
-        key = (tuple(w2d.shape), str(w2d.dtype).replace("torch.", ""), eff)
-        buckets.setdefault(key, []).append(
-            (idx, path, leaf, w2d, qt_shape))
+        todo.append((idx, path, leaf.to(device)))
+    plans = plan_buckets(
+        [(tuple(leaf.shape), str(leaf.dtype).replace("torch.", ""),
+          leaf.element_size(), leaf.is_contiguous()) for _, _, leaf in todo],
+        method, group_size, native=device.type == "cuda" and backend == "cuda")
 
     layer_reports: List[LayerReport] = []
     bucket_reports: List[BucketReport] = []
-    n_q = sum(len(v) for v in buckets.values())
-    for key, all_entries in buckets.items():
-        (m, n), dtype, eff = key[0], key[1], key[2]
-        layer_bytes = m * n * all_entries[0][3].element_size()
-        chunk = max(1, min(len(all_entries), _MAX_STACK_BYTES // layer_bytes))
-        for c0 in range(0, len(all_entries), chunk):
-            entries = all_entries[c0:c0 + chunk]
-            tag = f"({m},{n})x{len(entries)} {dtype} g{eff}"
+    for plan in plans:
+        eff = plan.key[2]
+        for chunk in plan.chunks:
+            entries = [todo[p] for p in chunk]
+            tag = f"({plan.key[0][0]},{plan.key[0][1]})x{len(entries)} " \
+                  f"{plan.key[1]} g{eff}"
             tb0 = time.perf_counter()
-            if len(entries) == 1:                        # singleton: no copy
-                ws = entries[0][3][None]
+            if plan.route == "native":
+                codes, scales = quantize_codes_native(
+                    [e[2] for e in entries], method=method, bits=bits,
+                    group_size=eff, scale_method=scale_method,
+                    backend=backend)
             else:
-                ws = torch.stack([e[3] for e in entries])  # (B, M, N)
-            codes, scales = quantize_codes_batched(
-                ws, method=method, bits=bits, group_size=eff,
-                scale_method=scale_method, backend=backend)
-            for bi, (idx, path, leaf, _, qt_shape) in enumerate(entries):
+                views = [_plan_leaf(e[2], method, group_size)[0]
+                         for e in entries]
+                # a singleton needs no stack
+                ws = views[0][None] if len(views) == 1 else torch.stack(views)
+                codes, scales = quantize_codes_batched(
+                    ws, method=method, bits=bits, group_size=eff,
+                    scale_method=scale_method, backend=backend)
+            for bi, (idx, path, leaf) in enumerate(entries):
+                qt_shape = _view_shape(tuple(leaf.shape), method,
+                                       group_size)[1]
                 qt = from_codes(codes[bi].reshape(qt_shape), scales[bi], bits)
                 if dequantize:
                     out = _restore_dense(qt.dequantize(leaf.dtype),
@@ -236,8 +316,9 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
                     out = qt
                 out_leaves[idx] = out
             bucket_ms = (time.perf_counter() - tb0) * 1e3
-            bucket_reports.append(BucketReport(tag, len(entries), bucket_ms))
-            for idx, path, leaf, _, _ in entries:
+            bucket_reports.append(BucketReport(tag, len(entries), bucket_ms,
+                                               route=plan.route))
+            for idx, path, leaf in entries:
                 layer_reports.append(LayerReport("/".join(path),
                                                  tuple(leaf.shape),
                                                  bucket_ms / len(entries),
@@ -249,7 +330,7 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
     sync_ms = (time.perf_counter() - t_sync0) * 1e3
     # fold the sync into per-layer numbers so Σ layer.millis ≈ total
     for lr in layer_reports:
-        lr.millis += sync_ms / max(n_q, 1)
+        lr.millis += sync_ms / max(len(todo), 1)
 
     total_ms = (time.perf_counter() - t_begin) * 1e3
     return out_leaves, QuantReport(layer_reports, total_ms, method, bits,

@@ -113,6 +113,7 @@ class BucketReport:
     key: str                   # "(M, N)xB dtype gG"
     num_layers: int
     dispatch_millis: float     # host time to stack + dispatch this bucket
+    route: str = "stacked"     # "native": leaves read where they are stored
 
 
 @dataclasses.dataclass

@@ -74,6 +74,8 @@ class AgreementReport:
     matched: int
     compared: int
     per_request: Dict[int, Tuple[int, int]]   # rid -> (matched, compared)
+    # (rid, position) of every compared token that differed from the oracle's
+    mismatches: List[Tuple[int, int]] = dataclasses.field(default_factory=list)
 
     @property
     def rate(self) -> float:
@@ -116,6 +118,7 @@ def greedy_token_agreement(engine, requests: Sequence,
     matched = 0
     compared = 0
     per: Dict[int, Tuple[int, int]] = {}
+    missed: List[Tuple[int, int]] = []
 
     def override(rid: int, t: int, proposed: int) -> Optional[int]:
         nonlocal matched, compared
@@ -127,6 +130,8 @@ def greedy_token_agreement(engine, requests: Sequence,
         per[rid] = (m + hit, n + 1)
         matched += hit
         compared += 1
+        if not hit:
+            missed.append((rid, t))
         return int(toks[t])
 
     prev = sch.token_override
@@ -135,4 +140,4 @@ def greedy_token_agreement(engine, requests: Sequence,
         engine.generate(list(requests))
     finally:
         sch.token_override = prev
-    return AgreementReport(matched, compared, per)
+    return AgreementReport(matched, compared, per, missed)

@@ -453,3 +453,183 @@ def test_paged_wrappers_refuse_head_dim_not_multiple_of_8(dev, quant):
     fn = paq.paged_attention_quant if quant else pa.paged_attention
     with pytest.raises(ValueError, match="multiple of 8"):
         fn(*args, scale=1.0)
+
+
+# ---- kernel A on (in, out) leaves as they are stored -----------------------
+
+NATIVE_SHAPES = [(4096, 4096), (4096, 1024), (4096, 12800), (12800, 4096),
+                 (1000, 37), (1001, 33), (300, 16)]
+STAGES = {"E": (False, False), "EK": (True, False), "EKC": (True, True)}
+
+
+def _grid_leaves(dev, kin, nch, bits, b, seed=0):
+    """Weights on a binary grid with a power-of-two scale: every float32 sum
+    of the flip is exact in any order, so codes must be equal bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    leaves = [torch.randint(-400, 401, (kin, nch), generator=gen,
+                            device=dev).float() / 64 for _ in range(b)]
+    s = torch.full((b, nch), 0.5 if bits >= 6 else 1.0, device=dev)
+    return leaves, s
+
+
+def _native_check(leaves, s, **kw):
+    """One launch of the instance the route rule names; codes equal the
+    plain version's."""
+    from repro_torch.kernels import squant_flip as sf
+    nch = leaves[0].shape[1]
+    want_route = sf.route(nch, all(l.data_ptr() % 16 == 0 for l in leaves))
+    before, by = sf.launches, sf.launches_by_route[want_route]
+    got = sf.squant_flip_leaves(leaves, s, **kw)
+    assert sf.launches == before + 1
+    assert sf.launches_by_route[want_route] == by + 1
+    want = sf.squant_flip_leaves_plain(leaves, s, **kw)
+    assert got.shape == want.shape == (len(leaves), nch, leaves[0].shape[0])
+    assert torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("kin,nch", NATIVE_SHAPES)
+@pytest.mark.parametrize("g", [128, 64, 12])
+@pytest.mark.parametrize("stage", sorted(STAGES))
+@pytest.mark.parametrize("bits", [8, 4])
+def test_native_flip_exact_inputs_equal_plain(dev, kin, nch, g, stage, bits):
+    ek, ec = STAGES[stage]
+    b = 2 if kin * nch < 4096 * 4096 else 1
+    leaves, s = _grid_leaves(dev, kin, nch, bits, b)
+    _native_check(leaves, s, bits=bits, group_size=g, enable_k=ek,
+                  enable_c=ec)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 5, 6, 7])
+@pytest.mark.parametrize("kin,nch,g", [(1001, 33, 12), (4096, 1024, 128),
+                                       (300, 16, 64)])
+def test_native_flip_all_bit_widths(dev, bits, kin, nch, g):
+    leaves, s = _grid_leaves(dev, kin, nch, bits, 2)
+    for ek, ec in STAGES.values():
+        _native_check(leaves, s, bits=bits, group_size=g, enable_k=ek,
+                      enable_c=ec)
+
+
+@pytest.mark.parametrize("kin,nch", [(4096, 4096), (12800, 4096), (1000, 37)])
+def test_native_flip_random_inputs_tie_rule(dev, kin, nch):
+    """Normal weights through the max scales: rows may differ only where a
+    float32 tie of the plain version's own sums explains it."""
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.kernels.ref import explain_code_differences
+    gen = torch.Generator(device=dev).manual_seed(1)
+    w = torch.randn((kin, nch), generator=gen, device=dev)
+    s = sf.squant_scales([w], 8)
+    kw = dict(bits=8, group_size=128)
+    got = sf.squant_flip_leaves([w], s, **kw)[0]
+    want = sf.squant_flip_leaves_plain([w], s, **kw)[0]
+    res = explain_code_differences(w.T, s[0], got, want, **kw)
+    assert res["unexplained"] == 0, res
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+def test_native_flip_heavy_clipping(dev, bits):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    leaves = [torch.round(torch.randn((1024, 64), generator=gen, device=dev)
+                          * 64) / 16 for _ in range(3)]
+    s = torch.full((3, 64), 0.5, device=dev)
+    _native_check(leaves, s, bits=bits, group_size=128)
+
+
+@pytest.mark.parametrize("kin,nch", [(4096, 4096), (1001, 33)])
+def test_native_flip_deterministic(dev, kin, nch):
+    from repro_torch.kernels import squant_flip as sf
+    gen = torch.Generator(device=dev).manual_seed(3)
+    leaves = [torch.randn((kin, nch), generator=gen, device=dev)
+              for _ in range(2)]
+    s = sf.squant_scales(leaves, 8)
+    first = sf.squant_flip_leaves(leaves, s, bits=8, group_size=128)
+    second = sf.squant_flip_leaves(leaves, s, bits=8, group_size=128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("kin,nch", NATIVE_SHAPES)
+@pytest.mark.parametrize("bits", [4, 8])
+def test_native_scales_bit_identical_to_dispatch(dev, kin, nch, bits):
+    from repro_torch.core.dispatch import _scales
+    from repro_torch.kernels import squant_flip as sf
+    gen = torch.Generator(device=dev).manual_seed(4)
+    leaves = [torch.randn((kin, nch), generator=gen, device=dev)
+              * (i + 0.5) for i in range(2)]
+    leaves[1][:, 1] = 0.0                 # an all-zero channel: the eps clamp
+    before = sf.scale_launches
+    got = sf.squant_scales(leaves, bits)
+    assert sf.scale_launches == before + 1
+    want = _scales(torch.stack([l.T for l in leaves]), bits, "max")[..., 0]
+    assert torch.equal(got, want)
+
+
+def test_native_flip_table_of_more_leaves_than_one_launch_takes(dev):
+    from repro_torch.kernels import squant_flip as sf
+    n = sf.MAX_LEAVES + 5
+    leaves, s = _grid_leaves(dev, 256, 8, 8, n)
+    before = sf.launches
+    got = sf.squant_flip_leaves(leaves, s, bits=8, group_size=128)
+    assert sf.launches == before + 2          # tables of MAX_LEAVES
+    assert torch.equal(got, sf.squant_flip_leaves_plain(leaves, s, bits=8,
+                                                        group_size=128))
+
+
+def test_row_major_entry_reads_a_transposed_view(dev):
+    from repro_torch.kernels import squant_flip as sf
+    leaves, s = _grid_leaves(dev, 1001, 36, 8, 1)
+    got = sf.squant_flip(leaves[0].T, s[0, :, None], bits=8, group_size=128)
+    assert torch.equal(got, sf.squant_flip_plain(leaves[0].T, s[0, :, None],
+                                                 bits=8, group_size=128))
+
+
+def test_native_wrappers_refuse_what_they_would_copy(dev):
+    from repro_torch.kernels import squant_flip as sf
+    w = torch.zeros(256, 64, device=dev)
+    s = torch.ones(1, 64, device=dev)
+    for bad in (w.T.contiguous().T, w.bfloat16()):
+        with pytest.raises(ValueError):
+            sf.squant_flip_leaves([bad], s, bits=8, group_size=128)
+        with pytest.raises(ValueError):
+            sf.squant_scales([bad], 8)
+    with pytest.raises(ValueError):
+        sf.squant_flip_leaves([w, torch.zeros(256, 32, device=dev)], s,
+                              bits=8, group_size=128)
+
+
+def test_quantize_tree_on_the_card_native_route(dev, monkeypatch):
+    """The whole pipeline on the card: one device sync, one kernel-A launch
+    and one scale pass per native bucket, the stacked route for the expert
+    and conv leaves, codes and scales equal to the plain tree's."""
+    from repro_torch.core import pipeline
+    from repro_torch.kernels import squant_flip as sf
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def w(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    tree = {"a": {"w": w(512, 64)}, "b": {"w": w(512, 64)},
+            "odd": {"w": w(1001, 33)}, "small": {"w": w(300, 16)},
+            "moe": {"w": w(2, 256, 8)}, "conv": {"w_conv": w(3, 3, 4, 8)}}
+    syncs = []
+    real = pipeline._sync
+    monkeypatch.setattr(pipeline, "_sync",
+                        lambda d: (syncs.append(1), real(d))[1])
+    n0, s0 = sf.launches, sf.scale_launches
+    got, rep = pipeline.quantize_tree(tree, bits=8, group_size=128,
+                                      device=dev)
+    assert len(syncs) == 1
+    routes = {b.key: b.route for b in rep.buckets}
+    assert routes == {"(64,512)x2 float32 g128": "native",
+                      "(33,1001)x1 float32 g128": "native",
+                      "(16,300)x1 float32 g128": "native",
+                      "(16,256)x1 float32 g128": "stacked",
+                      "(8,36)x1 float32 g9": "stacked"}
+    assert sf.scale_launches - s0 == 3
+    assert sf.launches - n0 == 5 == len(rep.buckets)
+    want, _ = pipeline.quantize_tree(tree, bits=8, group_size=128,
+                                     device=dev, backend="ref")
+    for k in tree:
+        a = got[k]["w_conv" if k == "conv" else "w"]
+        b = want[k]["w_conv" if k == "conv" else "w"]
+        assert torch.equal(a.data, b.data) and torch.equal(a.scale, b.scale)
