@@ -32,13 +32,23 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    versions, and compares codes, logits and tokens;
 6. drives this slice's main path at full width and full depth: SQuant w8,
    the continuous scheduler on the paged KV cache with chunked admission,
-   twelve chat requests sharing a 192-token system prefix (prefix hits,
-   copy-on-write, mid-flight admission, retirement), launch counters read
-   around the run, the block pool checked after it, and teacher-forced
-   greedy agreement against the contiguous continuous engine (in bfloat16
-   also the float32 oracle's top-2 logit margin at every disagreement);
-7. does the same traffic with the int8 KV pool at a reduced depth, held to
-   the reference's ``int8_kv`` agreement budget against the fp paged pool.
+   its decode step and each chunk width captured as CUDA graphs (one
+   capture each, counted in ``trace_counts``), twelve chat requests sharing
+   a 192-token system prefix (prefix hits, copy-on-write, mid-flight
+   admission, retirement), launch counters read around the run, the block
+   pool checked after it; the same requests twice more on that engine (no
+   capture for a shape seen before), a fresh set of requests (new widths
+   captured while requests wait), and once on the same configuration run
+   eagerly (``capture=False``): greedy tokens bit-identical, and launch
+   counts equal, the captured run's read as what the wrappers issued plus
+   what each graph launches in a replay, read by kernel name from its nodes
+   through the driver, times its replays; then every chunk width captured
+   (the cost of capturing them all up front); then teacher-forced greedy
+   agreement against the contiguous continuous engine (in bfloat16 also
+   the float32 oracle's top-2 logit margin at every disagreement);
+7. does the same traffic with the int8 KV pool at a reduced depth, with the
+   same captured-vs-eager checks, held to the reference's ``int8_kv``
+   agreement budget against the fp paged pool.
 The phases run in the order 1, 4, 3, 6, 7, 2, 5: the short w4 run pays the
 one-time start-up costs, and phase 2 times the kernels at the shapes phases
 3 and 6 produced. The last three lines are the card line, the ``kernels``
@@ -744,7 +754,6 @@ def bf16_paged_vs_plain(dev, seed, model, tree, chunk=32):
     launches by variant exactly the path's: ``mma`` 7 x L per chunk forward
     of more than 16 rows, ``tcgemv`` 7 x L per other forward, no ``gemv``
     or ``tiled``."""
-    from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServeEngine, WeightStore
@@ -770,19 +779,24 @@ def bf16_paged_vs_plain(dev, seed, model, tree, chunk=32):
         chk = eng._prefill_chunk = _Counted(
             eng._prefill_chunk, lambda a, o: (int(a[1]["tokens"].numel()),
                                               o[0].float().cpu()))
+        c0 = ops.launch_counts()
         if oracle is None:
             toks = oracle_tokens(eng.generate(reqs))
         else:
             toks = greedy_token_agreement(eng, reqs, oracle)
         torch.cuda.synchronize()
+        # what the wrappers issued plus what the replays launched (read
+        # from the graphs' kernel nodes)
+        launched = ops.combine_launches(
+            ops.launches_between(c0, ops.launch_counts()),
+            eng.replay_launches())
         return (toks, torch.cat(dec.log), [r for r, _ in chk.log],
-                torch.cat([lg[None] for _, lg in chk.log]), dec.calls)
+                torch.cat([lg[None] for _, lg in chk.log]), dec.calls,
+                launched["dequant_matmul.launches_by_variant"])
 
     with ops.force_backend("ref"):
-        oracle, dp, rows_p, cp, _ = run()
-    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
-    rep, dk, rows_k, ck, n_dec = run(oracle)
-    by = dict(dm.launches_by_variant)
+        oracle, dp, rows_p, cp, _, _ = run()
+    rep, dk, rows_k, ck, n_dec, by = run(oracle)
     linears = 7 * model.cfg.n_layers
     big = sum(1 for r in rows_k if r > 16)
     want = {"gemv": 0, "tiled": 0, "mma": linears * big,
@@ -1050,9 +1064,9 @@ class _Counted:
     def __init__(self, fn, record=None):
         self.fn, self.record, self.calls, self.log = fn, record, 0, []
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kw):
         self.calls += 1
-        out = self.fn(*args)
+        out = self.fn(*args, **kw)
         if self.record is not None:
             self.log.append(self.record(args, out))
         return out
@@ -1150,6 +1164,13 @@ def oracle_margins(dev, model, tree, reqs, forced):
     return dict(zip(where, margins))
 
 
+def _percentiles(xs):
+    """p50/p95/p99 of ``xs``, as ``ContinuousScheduler.stats`` gives them."""
+    import numpy as np
+    return {f"p{q}": float(np.percentile(np.asarray(xs, np.float64), q))
+            for q in (50, 95, 99)} if xs else {}
+
+
 def _quantiles(xs):
     import numpy as np
     if not xs:
@@ -1158,17 +1179,32 @@ def _quantiles(xs):
     return dict(zip(("min", "p10", "p50", "p90", "max"), q.tolist()))
 
 
+def _reset_launches(dm, pa, paq, sf):
+    sf.launches = sf.scale_launches = dm.launches = pa.launches = \
+        paq.launches = 0
+    sf.launches_by_route = dict.fromkeys(sf.ROUTES, 0)
+    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+
+
 def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     """The continuous + paged + chunked path on granite-3-8b w8: one counted
-    run through ``ServeEngine.generate`` (the main path), then the agreement
-    check against its oracle engine, which shares the quantized tree."""
+    run through ``ServeEngine.generate`` (the main path, its decode step and
+    chunk widths captured as CUDA graphs), two repeats of the same requests
+    on that engine (captures only for chunk widths the first run did not
+    have, none in the third), a fresh request set, the same configuration
+    run eagerly (``capture=False``) on the same tree and requests (tokens
+    bit-identical, launch counts equal: the main run's replays measured by
+    ``ServeEngine.replay_launches``), every chunk width captured, then the
+    agreement check against its oracle engine, which shares the quantized
+    tree."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_quant as paq
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.models.model import build_model
-    from repro_torch.serving import ServeEngine
+    from repro_torch.serving import ServeEngine, WeightStore
     from repro_torch.serving.equivalence import AGREEMENT_BUDGETS
 
     cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
@@ -1192,38 +1228,58 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
         eng._prefill_chunk, lambda a, o: int(a[1]["tokens"].numel()))
     pre = eng._prefill = _Counted(eng._prefill)
     torch.cuda.reset_peak_memory_stats()
-    sf.launches = dm.launches = pa.launches = paq.launches = 0
-    dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+    _reset_launches(dm, pa, paq, sf)
     t0 = time.perf_counter()
     outs = eng.generate(reqs)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    b_launches, k_launches = dm.launches, kernel_mod.launches
-    b_by_variant = dict(dm.launches_by_variant)
-    other = (pa if quantize_kv else paq).launches
+    # the main run's launches: what the wrappers issued (eager warm-ups,
+    # everything not replayed) plus what its replays launched, measured:
+    # each graph's kernel nodes read from the driver, counted by name, held
+    # to its capture's tally, times its replays
+    issued = ops.launch_counts()
+    replayed = eng.replay_launches()
+    replays = {f"{name}{list(key)}": g.replays
+               for name, gs in eng._graphs.items() for key, g in gs.items()}
+    captured_launches = ops.combine_launches(issued, replayed)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     st = eng.stats()["scheduler"]
+    graphs = eng.stats()["graphs"]
+    tc = dict(eng.trace_counts)
+    widths = sorted(set(chk.log))
+    if tc != {"prefill": 0, "prefill_chunk": len(widths), "decode": 1,
+              "admit": 0}:
+        raise AssertionError(f"captures {tc}: expected one decode capture "
+                             f"and one per chunk width {widths}")
     forwards = dec.calls + chk.calls + pre.calls
     if chk.calls != st.chunk_steps or pre.calls != 0:
         raise AssertionError(f"chunk forwards {chk.calls} vs stats "
                              f"{st.chunk_steps}, monolithic {pre.calls}")
-    if b_launches != 7 * layers * forwards or b_launches == 0:
-        raise AssertionError(f"kernel B launches {b_launches}, path implies "
-                             f"{7 * layers * forwards}")
-    # every decode linear and chunk of up to 16 rows (bfloat16) goes
-    # through tcgemv, every chunk of more rows through mma; none through
-    # gemv or tiled
+    # what the main run's launches must be: kernel B seven times per layer
+    # and forward, every decode linear and chunk of up to 16 rows
+    # (bfloat16) through tcgemv, every chunk of more rows through mma, none
+    # through gemv or tiled; C (or D) once per layer and decode
     big = sum(1 for rows in chk.log if rows > 16)
     want_by = {"gemv": 0, "tiled": 0, "mma": 7 * layers * big,
                "tcgemv": 7 * layers * (dec.calls + chk.calls - big)}
+    want_b, want_k = 7 * layers * forwards, layers * dec.calls
+    b_launches = captured_launches["dequant_matmul.launches"]
+    b_by_variant = captured_launches["dequant_matmul.launches_by_variant"]
+    k_launches = captured_launches[
+        f"{kernel_mod.__name__.split('.')[-1]}.launches"]
+    other = captured_launches[
+        f"{(pa if quantize_kv else paq).__name__.split('.')[-1]}.launches"]
+    if b_launches != want_b or b_launches == 0:
+        raise AssertionError(f"kernel B launches {b_launches}, path implies "
+                             f"{want_b}")
     if b_by_variant != want_by:
         raise AssertionError(f"kernel B by variant {b_by_variant}, path "
                              f"implies {want_by}")
-    if k_launches != layers * dec.calls or k_launches == 0 or other:
+    if k_launches != want_k or k_launches == 0 or other:
         raise AssertionError(f"{kernel_mod.__name__} launches {k_launches} "
                              f"(other paged kernel {other}), path implies "
-                             f"{layers * dec.calls}")
+                             f"{want_k}")
     kv.check_invariants()
     kst = st.kv
     if kst["blocks_active"] or kst["blocks_reserved"]:
@@ -1237,6 +1293,100 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
         if len(o.tokens) != r.max_new_tokens or \
                 not all(0 <= t < cfg.vocab for t in o.tokens):
             raise AssertionError(f"request {r.request_id}: bad tokens")
+
+    # the main run's forwards, before the repeats add to the counts
+    n_dec, n_chk, dec_log = dec.calls, chk.calls, list(dec.log)
+    # the same requests again: the prefix registry now shortens every
+    # suffix, so the second run may use widths the first did not (one
+    # capture each); the third repeats the second's shapes exactly
+    repeats = []
+    for _ in range(2):
+        n0 = len(chk.log)
+        before = dict(eng.trace_counts)
+        steps0 = list(eng.scheduler.step_ms_log)
+        t0 = time.perf_counter()
+        eng.generate(reqs)
+        torch.cuda.synchronize()
+        steps = list(eng.scheduler.step_ms_log)[len(steps0):]
+        widths_all = sorted(set(chk.log))
+        new_widths = sorted(set(chk.log[n0:]) - set(chk.log[:n0]))
+        repeats.append({"run_s": time.perf_counter() - t0,
+                        "step_ms": _percentiles(steps),
+                        "chunk_widths": sorted(set(chk.log[n0:])),
+                        "new_captures": {k: eng.trace_counts[k] - before[k]
+                                         for k in before}})
+        if eng.trace_counts != dict(tc, prefill_chunk=len(widths_all)) \
+                or repeats[-1]["new_captures"]["prefill_chunk"] \
+                != len(new_widths):
+            raise AssertionError(f"repeated run: captures "
+                                 f"{eng.trace_counts}, chunk widths so far "
+                                 f"{widths_all}")
+    if any(repeats[-1]["new_captures"].values()):
+        raise AssertionError(f"a run repeating the last one's shapes "
+                             f"captured again: {repeats[-1]}")
+    kv.check_invariants()
+    # fresh traffic after those: another system prefix and other suffix
+    # lengths, so new chunk widths are captured while requests wait
+    fresh = chat_requests(seed + 1, cfg.vocab)
+    before, ms0 = dict(eng.trace_counts), eng.capture_ms
+    steps0 = list(eng.scheduler.step_ms_log)
+    t0 = time.perf_counter()
+    fresh_outs = eng.generate(fresh)
+    torch.cuda.synchronize()
+    fresh_run = {"run_s": time.perf_counter() - t0,
+                 "step_ms": _percentiles(
+                     list(eng.scheduler.step_ms_log)[len(steps0):]),
+                 "prefill_ms_per_admission": _percentiles(
+                     [o.prefill_ms for o in fresh_outs]),
+                 "new_captures": {k: eng.trace_counts[k] - before[k]
+                                  for k in before},
+                 "capture_ms": eng.capture_ms - ms0}
+    kv.check_invariants()
+
+    # the same configuration eagerly, on the same tree and requests
+    eager = ServeEngine(model, None, paged_config(quantize_kv=quantize_kv),
+                        store=WeightStore(serving_params=eng.params,
+                                          device=dev),
+                        device=dev, capture=False)
+    _reset_launches(dm, pa, paq, sf)
+    t0 = time.perf_counter()
+    eager_outs = eager.generate(reqs)
+    torch.cuda.synchronize()
+    eager_run_s = time.perf_counter() - t0
+    eager_launches = ops.launch_counts()
+    est = eager.stats()
+    eager.close()
+    del eager
+    torch.cuda.empty_cache()
+    differing = [r.request_id for o, e, r in zip(outs, eager_outs, reqs)
+                 if o.tokens != e.tokens]
+    if differing:
+        raise AssertionError(f"captured tokens differ from the eager path's "
+                             f"for requests {differing}")
+    if est["trace_counts"] != dict.fromkeys(tc, 0):
+        raise AssertionError(f"eager engine captured: {est['trace_counts']}")
+
+    if eager_launches != captured_launches:
+        raise AssertionError(f"launches captured {captured_launches} vs "
+                             f"eager {eager_launches}")
+
+    # the cost of capturing every chunk width up front: each width of 1 to
+    # prefill_chunk not captured yet, driven once on the one-row side cache
+    side = kv.side_cache(1)
+    rng = torch.Generator().manual_seed(seed)
+    n0, ms0 = eng.trace_counts["prefill_chunk"], eng.capture_ms
+    for n in range(1, eng.cfg.prefill_chunk + 1):
+        t, clock = kv.chunk_inputs(torch.randint(
+            0, cfg.vocab, (n,), generator=rng).numpy(), 0)
+        chk.fn(eng.params, {"tokens": t}, dict(side, pos=clock))
+    torch.cuda.synchronize()
+    all_widths = {"widths": eng.cfg.prefill_chunk,
+                  "captured_now": eng.trace_counts["prefill_chunk"] - n0,
+                  "capture_ms_now": eng.capture_ms - ms0,
+                  "graphs": eng.stats()["graphs"]}
+    if eng.trace_counts["prefill_chunk"] != eng.cfg.prefill_chunk:
+        raise AssertionError(f"captures {eng.trace_counts} after driving "
+                             f"every width 1..{eng.cfg.prefill_chunk}")
 
     # agreement, measured with bfloat16 activations (the main path's) and
     # with float32 activations on the same quantized tree; the budget is
@@ -1274,16 +1424,29 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
              "max_new_tokens": reqs[0].max_new_tokens,
              "run_s": run_s, "oracle_run_s_bfloat16": oracle_s,
              "oracle_run_s_float32": oracle32_s,
-             "sampling_steps": st.steps, "decode_forwards": dec.calls,
-             "chunk_forwards": chk.calls,
+             "sampling_steps": st.steps, "decode_forwards": n_dec,
+             "chunk_forwards": n_chk,
              "chunk_forwards_over_16_rows": big,
              "step_ms": st.step_ms,
+             "trace_counts": tc, "chunk_widths": widths,
+             "graphs": graphs,
+             "repeat_runs_note": "the same requests again; the third run "
+                                 "has every width it uses already captured",
+             "repeat_runs": repeats,
+             "fresh_run": fresh_run, "all_widths_captured": all_widths,
+             "eager": {"run_s": eager_run_s,
+                       "step_ms": est["scheduler"].step_ms,
+                       "launches": eager_launches,
+                       "tokens_equal_captured": True},
              "prefill_ms_per_admission": [o.prefill_ms for o in outs],
              "kv": kst, "peak_memory_gb": peak_gb,
              "launches": {"squant_flip": a_launches,
                           "dequant_matmul": b_launches,
                           "dequant_matmul_by_variant": b_by_variant,
                           kernel_mod.__name__.split(".")[-1]: k_launches},
+             "launches_issued_by_wrappers": issued,
+             "launches_measured_in_replays": replayed,
+             "replays": replays,
              "mma_plans": dm.cached_plans("mma"),
              "agreement": {"against": label, "budget": budget,
                            "gated": "float32 activations",
@@ -1298,7 +1461,7 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     if rep.rate < budget:
         raise AssertionError(f"{label}: teacher-forced greedy agreement "
                              f"{rep.rate:.4f} < {budget}")
-    lengths = max(dec.log, key=sum)        # the step with the most context
+    lengths = max(dec_log, key=sum)        # the step with the most context
     eng.close()
     del eng, outs
     torch.cuda.empty_cache()
@@ -1473,47 +1636,58 @@ def profile_decode(dev, seed, layers, batch=4, steps=4):
                    {"layers": layers, "batch": batch})
 
     # the paged continuous path: 8 slots of phase 6's traffic admitted into
-    # the block pool, then the scheduler's decode step (table push included)
-    peng = ServeEngine(model, None, paged_config(),
-                       store=WeightStore(serving_params=eng.params,
-                                         device=dev), device=dev)
-    kv = peng.scheduler.kv
+    # the block pool, then the scheduler's decode step (table push
+    # included), captured, then eager (capture=False); then one
+    # admission chunk of phase 6's configuration, 64 rows after the
+    # 192-token shared prefix on the one-row side cache (the same positions
+    # rewritten each call), through the engine's chunk entry point
     reqs = chat_requests(seed, cfg.vocab)[:8]
-    kv.admit([(i, r) for i, r in enumerate(reqs)], list(range(8)), None,
-             peng.params)
-    slots = list(range(8))
-
-    def paged_step():
-        nxt = kv.logits.argmax(-1).to(torch.int32)
-        nxt.cpu()                                        # the step's host sync
-        kv.decode(peng.params, nxt, slots)
-
-    _profile_steps(paged_step, steps,
-                   "profile of decode steps, paged continuous path",
-                   {"layers": layers, "batch": 8,
-                    "context_lengths": kv._lengths.tolist()})
-
-    # one admission chunk of phase 6's configuration: 64 rows after the
-    # 192-token shared prefix, on a one-row side cache (the same positions
-    # rewritten each call)
     prefix, chunk = 192, paged_config().prefill_chunk
-    side = eng.model.init_cache(1, paged_config().max_len, device=dev)
-    _, side = eng.model.prefill(eng.params, {"tokens": torch.tensor(
-        [reqs[0].prompt[:prefix]], device=dev)}, side)
-    toks = torch.randint(0, cfg.vocab, (1, chunk), generator=gen, device=dev)
+    toks = torch.randint(0, cfg.vocab, (chunk,), generator=gen,
+                         device=dev).cpu().numpy()
+    for capture in (True, False):
+        label = "captured" if capture else "eager"
+        peng = ServeEngine(model, None, paged_config(),
+                           store=WeightStore(serving_params=eng.params,
+                                             device=dev), device=dev,
+                           capture=capture)
+        kv = peng.scheduler.kv
+        kv.admit([(i, r) for i, r in enumerate(reqs)], list(range(8)), None,
+                 peng.params)
+        slots = list(range(8))
 
-    def chunk_step():
-        c = dict(side)
-        c["pos"] = prefix
-        lg, _ = eng.model.prefill_chunk(eng.params, {"tokens": toks}, c)
-        lg.cpu()                                         # the step's host sync
+        def paged_step():
+            nxt = kv.logits.argmax(-1).to(torch.int32)
+            nxt.cpu()                                    # the step's host sync
+            kv.decode(peng.params, nxt, slots)
 
-    _profile_steps(chunk_step, steps,
-                   "profile of an admission chunk forward, paged continuous "
-                   "config", {"layers": layers, "chunk_rows": chunk,
-                              "start_position": prefix})
+        _profile_steps(paged_step, steps,
+                       f"profile of decode steps, paged continuous path, "
+                       f"{label}",
+                       {"layers": layers, "batch": 8, "capture": capture,
+                        "context_lengths": kv._lengths.tolist()})
+        side = kv.side_cache(1)
+        _, side = peng.model.prefill(peng.params, {"tokens": torch.tensor(
+            [reqs[0].prompt[:prefix]], device=dev)}, side)
+
+        def chunk_step():
+            t, clock = kv.chunk_inputs(toks, prefix)
+            lg, _ = peng._prefill_chunk(peng.params, {"tokens": t},
+                                        dict(side, pos=clock))
+            lg.cpu()                                     # the step's host sync
+
+        _profile_steps(chunk_step, steps,
+                       f"profile of an admission chunk forward, paged "
+                       f"continuous config, {label}",
+                       {"layers": layers, "chunk_rows": chunk,
+                        "start_position": prefix, "capture": capture})
+        emit({"phase": f"profiled paged engine, {label}",
+              "trace_counts": dict(peng.trace_counts),
+              "graphs": peng.stats()["graphs"]})
+        peng.close()
+        del peng, kv, side
+        torch.cuda.empty_cache()
     eng.close()
-    peng.close()
 
 
 def profile_quantize(dev, seed, layers):
@@ -1632,9 +1806,10 @@ def main():
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a few decode steps, admission chunk "
-                    "forwards and one quantize_tree of the tree with "
-                    "torch.profiler and print where their time goes")
+                    help="also trace a few decode steps and admission chunk "
+                    "forwards (the paged ones captured and eager) and one "
+                    "quantize_tree of the tree with torch.profiler and "
+                    "print where their time goes")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():

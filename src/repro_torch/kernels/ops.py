@@ -18,8 +18,11 @@ here takes the plain version.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import functools
 import math
-from typing import Optional, Sequence
+import re
+from typing import Any, Dict, Iterable, Optional, Sequence
 
 import torch
 
@@ -187,3 +190,170 @@ def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
     return _paq.paged_attention_quant_plain(q, k_pool, v_pool, k_scale,
                                             v_scale, block_tables, lengths,
                                             scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# launch counters: one view over every wrapper's plain-integer counts
+# ---------------------------------------------------------------------------
+
+_COUNTERS = ((_dm, "launches"), (_dm, "launches_by_variant"),
+             (_pa, "launches"), (_paq, "launches"),
+             (_sf, "launches"), (_sf, "launches_by_route"),
+             (_sf, "scale_launches"))
+
+
+def _counter_key(mod, name: str) -> str:
+    return f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+
+
+def launch_counts() -> Dict[str, Any]:
+    """A snapshot of every wrapper's launch counters, keyed
+    ``"<module>.<counter>"`` (the by-variant and by-route dicts copied)."""
+    out = {}
+    for mod, name in _COUNTERS:
+        v = getattr(mod, name)
+        out[_counter_key(mod, name)] = dict(v) if isinstance(v, dict) else v
+    return out
+
+
+def launches_between(before: Dict[str, Any], after: Dict[str, Any]
+                     ) -> Dict[str, Any]:
+    """What was launched between two :func:`launch_counts` snapshots."""
+    return combine_launches(after, before, -1)
+
+
+def set_launch_counts(counts: Dict[str, Any]) -> None:
+    """Put the counters back to a :func:`launch_counts` snapshot. A CUDA
+    graph's capture calls the wrappers, which count, but runs nothing: the
+    engine takes those counts back this way after every capture."""
+    for mod, name in _COUNTERS:
+        v = counts[_counter_key(mod, name)]
+        setattr(mod, name, dict(v) if isinstance(v, dict) else v)
+
+
+def combine_launches(base: Dict[str, Any], tally: Dict[str, Any],
+                     times: int = 1) -> Dict[str, Any]:
+    """``base`` plus ``times`` x ``tally`` (both :func:`launch_counts`
+    form), as a new dict."""
+    return {k: ({j: n + times * tally[k].get(j, 0) for j, n in v.items()}
+                if isinstance(v, dict) else v + times * tally[k])
+            for k, v in base.items()}
+
+
+# the device symbol each wrapper launches once per call (a merge pass that
+# follows it is not counted, as its wrapper does not count it)
+_SYMBOL = re.compile(r"::(tcgemv_kernel|pf_kernel|gemv_kernel|tiled_kernel|"
+                     r"paged_decode_split|squant_flip_kernel|"
+                     r"squant_scale_kernel)(?:<([^()]*)>)?\(")
+_VARIANT = {"tcgemv_kernel": "tcgemv", "pf_kernel": "mma",
+            "gemv_kernel": "gemv", "tiled_kernel": "tiled"}
+
+
+def count_kernels(names: Iterable[str]) -> Dict[str, Any]:
+    """The :func:`launch_counts` that device kernels of these (demangled)
+    names make, one count per wrapper call: kernel B's variant by its
+    symbol, kernel C or D by ``paged_decode_split``'s QUANT argument,
+    kernel A's route by ``squant_flip_kernel``'s V16 argument. Other
+    kernels (PyTorch's, the merge passes) are not counted."""
+    out = {k: ({j: 0 for j in v} if isinstance(v, dict) else 0)
+           for k, v in launch_counts().items()}
+    for nm in names:
+        m = _SYMBOL.search(nm)
+        if m is None:
+            continue
+        sym, args = m.group(1), [a.strip() for a in
+                                 (m.group(2) or "").split(",")]
+        if sym in _VARIANT:
+            out["dequant_matmul.launches"] += 1
+            out["dequant_matmul.launches_by_variant"][_VARIANT[sym]] += 1
+        elif sym == "paged_decode_split":
+            quant = args[2] == "true"
+            out["paged_attention_quant.launches" if quant
+                else "paged_attention.launches"] += 1
+        elif sym == "squant_flip_kernel":
+            out["squant_flip.launches"] += 1
+            out["squant_flip.launches_by_route"][
+                "cp16" if args[0] == "true" else "cp4"] += 1
+        else:
+            out["squant_flip.scale_launches"] += 1
+    return out
+
+
+class _KernelNodeParams(ctypes.Structure):
+    # CUDA_KERNEL_NODE_PARAMS_v2 (cuda.h)
+    _fields_ = [("func", ctypes.c_void_p)] + \
+        [(f, ctypes.c_uint) for f in ("gx", "gy", "gz", "bx", "by", "bz",
+                                      "smem")] + \
+        [(f, ctypes.c_void_p) for f in ("params", "extra", "kern", "ctx")]
+
+
+@functools.lru_cache(maxsize=None)
+def _cxx():
+    """The C++ runtime's demangler and C's ``free``."""
+    cxx = ctypes.CDLL("libstdc++.so.6")
+    cxx.__cxa_demangle.restype = ctypes.c_void_p
+    return cxx.__cxa_demangle, ctypes.CDLL(None).free
+
+
+def _demangle(name: bytes) -> str:
+    demangle, free = _cxx()
+    status = ctypes.c_int()
+    p = demangle(name, None, None, ctypes.byref(status))
+    if status.value != 0 or not p:
+        return name.decode()
+    try:
+        return ctypes.string_at(p).decode()
+    finally:
+        free(ctypes.c_void_p(p))
+
+
+@functools.lru_cache(maxsize=None)
+def _driver():
+    return ctypes.CDLL("libcuda.so.1")
+
+
+def graph_kernel_names(raw_graph: int) -> list:
+    """The demangled names of the kernel nodes of a ``cudaGraph_t`` (an
+    address, as ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it), read
+    through the driver API: the kernels that every launch of the graph
+    runs."""
+    cu = _driver()
+
+    def check(r, what):
+        if r != 0:
+            raise RuntimeError(f"{what} failed (CUresult {r})")
+
+    g, n = ctypes.c_void_p(raw_graph), ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
+              "cuGraphNodeGetType")
+        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        prm = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(prm)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if prm.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(prm.func)),
+                  "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(prm.kern)),
+                  "cuKernelGetName")
+        names.append(_demangle(name.value))
+    return names
+
+
+def graph_launches(graph: "torch.cuda.CUDAGraph") -> Dict[str, Any]:
+    """What one replay of ``graph`` launches, read from the graph the driver
+    holds (:func:`graph_kernel_names`) and counted by name
+    (:func:`count_kernels`). ``graph`` must be captured with
+    ``keep_graph=True``; nothing is launched."""
+    return count_kernels(graph_kernel_names(graph.raw_cuda_graph()))

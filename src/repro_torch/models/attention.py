@@ -111,6 +111,27 @@ def _cache_write(cache, k, v, pos: int):
     return cache
 
 
+def _cache_write_at(cache, k, v, pos):
+    """Write new k/v (B, S, KV, D) at positions ``pos .. pos + S - 1`` along
+    the position axis with ``index_copy_`` (quantized per (token, head) on
+    an int8 cache), in place. ``pos`` is a host integer or a 0-d int64
+    device tensor (a captured chunk forward's clock): the same values land
+    in the same places either way. Bounds are the host caller's to check
+    (``LM.check_chunk``): it knows the integer."""
+    rows = pos + torch.arange(k.shape[1], device=k.device)
+    if "k_scale" in cache:
+        kq, ks = _quant_tok(k)
+        vq, vs = _quant_tok(v)
+        cache["k"].index_copy_(1, rows, kq)
+        cache["v"].index_copy_(1, rows, vq)
+        cache["k_scale"].index_copy_(1, rows, ks)
+        cache["v_scale"].index_copy_(1, rows, vs)
+        return cache
+    cache["k"].index_copy_(1, rows, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, rows, v.to(cache["v"].dtype))
+    return cache
+
+
 def _cache_read(cache) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cache's K/V; an int8 cache comes back dequantized in float32."""
     if "k_scale" in cache:
@@ -146,12 +167,14 @@ Q_CHUNK = 1024   # query-block size bounding the (B,H,Cq,T) score tensor
 
 
 def _chunked_attention(q, k, v, *, scale, causal: bool,
-                       q_chunk: int = Q_CHUNK, row0: int = 0) -> torch.Tensor:
+                       q_chunk: int = Q_CHUNK, row0=0) -> torch.Tensor:
     """Prefill attention: KV repeated to H heads and queries processed in
     blocks — the (B, H, Cq, T) block, not (B, H, S, T), bounds the working
     set. Softmax sees the full key axis per row, so this is exact.
 
     q: (B,S,H,D); k/v: (B,T,KV,Dv) — repeated internally when KV < H.
+    ``row0``: the absolute position of q's first row (an integer or a 0-d
+    device tensor).
     """
     b, s, h, dq = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -196,9 +219,10 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
 
     mode: "train"/"prefill" (full sequence, causal mask; prefill also fills
     the cache), "decode" (a single new token per row), or "chunk" (a
-    partial-prefill continuation: ``s`` prompt tokens written at the integer
-    position ``pos``, attending over the already-filled cache prefix with
-    the prefill einsums, so a chunked prefill matches the monolithic one).
+    partial-prefill continuation: ``s`` prompt tokens written at the clock
+    ``pos``, a host integer or a 0-d int64 device tensor, attending over
+    the already-filled cache prefix with the prefill einsums, so a chunked
+    prefill matches the monolithic one).
 
     Decode on a contiguous cache takes the integer clock ``pos`` shared by
     the batch. ``block_tables`` (B, nb) switches decode to the paged layout:
@@ -232,10 +256,11 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
         if mode == "prefill":
             cache = _cache_write(cache, k, v, 0)
     elif mode == "chunk":
-        # partial-prefill continuation: write this chunk at the clock, then
-        # run the prefill einsum against the whole cache with the rows'
-        # absolute positions masking the unwritten suffix (exact zeros)
-        cache = _cache_write(cache, k, v, pos)
+        # partial-prefill continuation: write this chunk at the clock (an
+        # integer or a 0-d device tensor), then run the prefill einsum
+        # against the whole cache with the rows' absolute positions masking
+        # the unwritten suffix (exact zeros)
+        cache = _cache_write_at(cache, k, v, pos)
         kc, vc = _cache_read(cache)
         out = _chunked_attention(q, kc.to(q.dtype), vc.to(q.dtype),
                                  scale=scale, causal=True,

@@ -102,8 +102,13 @@ class LM:
                 positions = pos[:, None]
         elif mode == "chunk":
             # partial-prefill continuation: the cache clock is the chunk's
-            # start offset; rows live at absolute positions pos..pos+s-1
+            # start offset; rows live at absolute positions pos..pos+s-1. A
+            # host integer is bounds-checked here; a 0-d device tensor (a
+            # captured forward's clock) by the caller that filled it
             pos = caches["pos"]
+            if isinstance(pos, int):
+                self.check_chunk(pos, s,
+                                 caches["list"][0]["b0"]["k"].shape[1])
             positions = pos + torch.arange(s, device=tokens.device)
         elif mode in ("train", "prefill"):
             pos = 0
@@ -141,23 +146,38 @@ class LM:
                                       mode="decode", caches=caches)
         return logits[:, -1], caches
 
+    def chunk_rows(self, s: int) -> int:
+        """Cache rows a :meth:`prefill_chunk` of ``s`` tokens writes: a
+        singleton is padded to two rows where the stack allows it."""
+        pad_ok = not any(f in ("moe", "mamba", "rwkv")
+                         for f in arch_features(self.cfg))
+        return 2 if s == 1 and pad_ok else s
+
+    @staticmethod
+    def check_chunk(pos: int, rows: int, max_len: int) -> None:
+        """The host's bounds check of a chunk writing ``rows`` cache rows at
+        the integer clock ``pos`` (ValueError past ``max_len``)."""
+        if pos < 0 or pos + rows > max_len:
+            raise ValueError(f"cache write [{pos}, {pos + rows}) exceeds the "
+                             f"cache length {max_len}")
+
     def prefill_chunk(self, params, batch, caches
                       ) -> Tuple[torch.Tensor, dict]:
         """Consume the next ``s`` prompt tokens of a partial prefill.
 
-        ``caches["pos"]`` (an integer) is the chunk's start offset; the
-        chunk attends over the already-written cache prefix plus itself, so
-        feeding a prompt through this in any chunk split gives the cache and
-        last-token logits of one :meth:`prefill` call. Single-token chunks
-        are padded to two rows, as in the reference: a one-row product may
-        take another summation order than the monolithic prefill's (here:
-        the dequant-matmul kernel's weight-streaming variant), and the dummy
-        row, whose cache write lands one past the clock, is overwritten
-        before any read that is not masked."""
+        ``caches["pos"]`` (an integer, or a 0-d int64 device tensor that
+        the caller filled after :meth:`check_chunk`) is the chunk's start
+        offset; the chunk attends over the already-written cache prefix
+        plus itself, so feeding a prompt through this in any chunk split
+        gives the cache and last-token logits of one :meth:`prefill` call.
+        Single-token chunks are padded to two rows, as in the reference: a
+        one-row product may take another summation order than the
+        monolithic prefill's (here: the dequant-matmul kernel's
+        weight-streaming variant), and the dummy row, whose cache write
+        lands one past the clock, is overwritten before any read that is
+        not masked."""
         toks = batch["tokens"]
-        pad_ok = not any(f in ("moe", "mamba", "rwkv")
-                         for f in arch_features(self.cfg))
-        singleton = toks.shape[1] == 1 and pad_ok
+        singleton = self.chunk_rows(toks.shape[1]) != toks.shape[1]
         if singleton:
             p0 = caches["pos"]
             toks = torch.cat([toks, toks[:, -1:]], dim=1)

@@ -30,6 +30,18 @@ and pins it per round, so a concurrent reload can never tear an in-flight
 request. ``Completion`` reports ``prefill_ms``/``decode_ms``/``swap_ms`` and
 the pinned ``weights_version``.
 
+The compiled step: where the reference jits its forwards and counts the
+traces (``trace_counts``), this engine captures CUDA graphs and counts the
+captures under the same four keys. On a CUDA device the paged decode step
+(one graph at ``(max_slots, 1)``) and each admission-chunk width of the
+paged chunked admission (one graph per width, on the 1-row side cache) are
+captured on first use and replayed after. Everything else runs eagerly and
+its key stays 0: the round scheduler, the contiguous continuous path (a
+host-integer shared clock), monolithic admission prefill and ``admit_rows``
+(``ROADMAP.md`` M1b); quantization is outside the step. All graphs are
+dropped, and captured again on next use, when the scheduler acquires a new
+weight version. On the CPU everything runs eagerly and the counts stay 0.
+
 Every ``ServeConfig`` field and every validity-gate row of the reference
 package is kept. The one valid configuration this package cannot serve yet,
 ``speculative=True``, raises ``NotImplementedError("not ported yet: ...")``
@@ -39,10 +51,13 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.kernels import ops
 from repro_torch.serving.api import Completion, Request
 from repro_torch.serving.kvcache import admit_rows
 from repro_torch.serving.scheduler import ContinuousScheduler, RoundScheduler
@@ -267,18 +282,57 @@ _NOT_PORTED: Tuple[Tuple[str, Callable[["ServeConfig"], bool]], ...] = (
 )
 
 
+class _StepGraph:
+    """One captured forward: the CUDA graph, the tensors it was captured on
+    (checked before every replay, so a graph whose weights or caches were
+    replaced raises instead of reading freed or stale memory), its static
+    logits, what its capture's wrapper calls counted (``tally``, in
+    ``ops.launch_counts`` form) and its replays. A replay launches its
+    kernels without their wrappers, so it counts nothing:
+    :meth:`ServeEngine.replay_launches` measures what a replay launches."""
+
+    def __init__(self, graph, params, inputs, logits, tally):
+        self.graph, self.params, self.inputs = graph, params, inputs
+        self.logits, self.tally, self.replays = logits, tally, 0
+
+    def replay(self, params, inputs) -> torch.Tensor:
+        if params is not self.params or len(inputs) != len(self.inputs) \
+                or any(a is not b for a, b in zip(inputs, self.inputs)):
+            raise RuntimeError(
+                "a captured step was called on other weights or buffers "
+                "than it was captured on (its graphs were not dropped)")
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+
+def _static_inputs(batch, caches, out) -> tuple:
+    """What a captured forward reads by address: the tokens, the clock, the
+    block tables, the first cache leaf (standing for the cache) and the
+    logits buffer it writes."""
+    tokens = batch["tokens"] if isinstance(batch, dict) else batch
+    return (tokens, caches["pos"], caches.get("block_tables"),
+            caches["list"][0]["b0"]["k"], out)
+
+
 class ServeEngine:
     def __init__(self, model, params=None, cfg: ServeConfig = None, *,
                  store: Optional[WeightStore] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 capture: bool = True):
         """``device``: where weights are quantized, caches live and the
         model runs (default: the CUDA device). ``generator``: source of
         randomness for temperature/top-k sampling; must live on ``device``
-        (default: a fresh generator there, seeded with 0)."""
+        (default: a fresh generator there, seeded with 0). ``capture``: on a
+        CUDA device, run the paged decode step and the chunk forwards as
+        CUDA graphs (see the module docstring); False runs the same path
+        eagerly, for A/B comparisons and tests. The CPU always runs
+        eagerly."""
         self.cfg = cfg or ServeConfig()
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        self.capture = capture and self.device.type == "cuda"
         # weight preparation (stack unroll + quantize_tree) lives in
         # serving.weights; the engine only consumes versioned serving trees
         self.model, quantize_fn, prepare_fn = \
@@ -303,11 +357,22 @@ class ServeEngine:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(0)
         self.generator = generator
-        # the entry points the schedulers and the KV cache call: plain
-        # callables (no trace accounting — PyTorch runs eagerly)
+        # entry points with capture accounting: a counter increments only
+        # when a CUDA graph is captured for a new token shape, so tests can
+        # assert that same-shape steps never recapture. Monolithic prefill
+        # and admit_rows stay eager (their counts stay 0)
+        self.trace_counts: Dict[str, int] = \
+            {"prefill": 0, "prefill_chunk": 0, "decode": 0, "admit": 0}
+        self._graphs: Dict[str, Dict[tuple, _StepGraph]] = {}
+        self._graph_pool = None       # one memory pool for all graphs
+        self._graph_stream = None     # the side stream of the eager warm-ups
+        self.capture_ms = 0.0         # host ms spent capturing, cumulative
         self._prefill = self.model.prefill
-        self._prefill_chunk = self.model.prefill_chunk
-        self._decode = self.model.decode_step
+        # chunk continuation: one capture per chunk width (the start offset
+        # is the static 0-d clock, so it never recaptures)
+        self._prefill_chunk = self._graph_counted("prefill_chunk",
+                                                  self.model.prefill_chunk)
+        self._decode = self._graph_counted("decode", self.model.decode_step)
         self._admit_rows = admit_rows
         self._rounds_total = 0
         # bounded: a long-lived server must not grow per-round state
@@ -320,6 +385,124 @@ class ServeEngine:
             self.scheduler = ContinuousScheduler(self)
         else:
             self.scheduler = RoundScheduler(self)
+
+    def _graph_counted(self, name: str, fn):
+        """The counterpart of the reference's ``_jit_counted``: the model
+        entry point ``fn(params, batch, caches)`` captured as one CUDA graph
+        per token shape (the reference's trace key), ``trace_counts[name]``
+        bumped per capture, and replayed after. Only a call whose clock
+        ``caches["pos"]`` is a device tensor is captured (the paged decode
+        step, a paged chunk forward): a host integer would be frozen into
+        the graph, so those calls, the CPU and ``capture=False`` run ``fn``
+        eagerly. The caller passes the same static buffers on every call.
+        ``out``: a static buffer the logits are written into (the KV
+        cache's, which admissions write in place). Returns ``(logits,
+        caches)``; a captured call returns the caller's ``caches`` (updated
+        in place; its clock is the caller's input, not advanced)."""
+        graphs = self._graphs.setdefault(name, {})
+
+        def counted(params, batch, caches, out=None):
+            if not (self.capture and isinstance(caches.get("pos"),
+                                                torch.Tensor)):
+                return self._run(fn, params, batch, caches, out)
+            inputs = _static_inputs(batch, caches, out)
+            key = tuple(inputs[0].shape)
+            g = graphs.get(key)
+            if g is None:
+                lg, graphs[key] = self._capture(fn, params, batch, caches,
+                                                out, inputs)
+                self.trace_counts[name] += 1
+                return lg, caches
+            return g.replay(params, inputs), caches
+        return counted
+
+    @staticmethod
+    def _run(fn, params, batch, caches, out):
+        lg, caches = fn(params, batch, caches)
+        if out is not None:
+            out.copy_(lg)
+            lg = out
+        return lg, caches
+
+    def _capture(self, fn, params, batch, caches, out, inputs):
+        """Run ``fn`` once eagerly on a side stream, as ``torch.cuda.graphs``
+        asks: that run is this step's own (its launches count as usual) and
+        it makes the kernels' one-time attribute and occupancy calls
+        outside the capture. Then capture ``fn`` on the same stream into
+        the engine's graph pool. A failure raises; nothing carries on
+        eagerly."""
+        cur = torch.cuda.current_stream(self.device)
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        if self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        side = self._graph_stream
+        side.wait_stream(cur)
+        # keep_graph: the graph's kernel nodes stay readable
+        # (ops.graph_launches); it is instantiated here, as without it
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.stream(side):
+            lg, _ = self._run(fn, params, batch, caches, out)
+            t0 = time.perf_counter()
+            before = ops.launch_counts()
+            # not torch.cuda.graph: it also synchronizes and empties the
+            # allocator's cache, which costs more than the capture.
+            # thread_local: the weight store's staging thread may use the
+            # card while this thread captures
+            # and no garbage collection inside the capture: an object left
+            # to the collector that holds a graph (another engine's) would
+            # destroy it mid-capture, which invalidates the capture
+            collecting = gc.isenabled()
+            gc.disable()
+            graph.capture_begin(self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                glg, _ = self._run(fn, params, batch, caches, out)
+            finally:
+                graph.capture_end()
+                if collecting:
+                    gc.enable()
+            graph.instantiate()
+            tally = ops.launches_between(before, ops.launch_counts())
+            ops.set_launch_counts(before)    # the capture itself ran nothing
+            self.capture_ms += (time.perf_counter() - t0) * 1e3
+        cur.wait_stream(side)
+        return lg, _StepGraph(graph, params, inputs, glg, tally)
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes in the segments of the graphs' memory pool."""
+        if self._graph_pool is None:
+            return 0
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def replay_launches(self) -> Dict[str, Any]:
+        """The kernel launches of the live graphs' replays so far,
+        measured: each graph's kernel nodes read from the graph the driver
+        holds (``ops.graph_launches``: what every replay of it runs), held
+        to what its capture's wrapper calls counted (RuntimeError if they
+        differ), times its replays. ``ops.launch_counts`` form."""
+        now = ops.launch_counts()
+        total = ops.launches_between(now, now)
+        for name, gs in self._graphs.items():
+            for key, g in gs.items():
+                measured = ops.graph_launches(g.graph)
+                if measured != g.tally:
+                    raise RuntimeError(
+                        f"the {name} graph at {key} launches {measured} in "
+                        f"a replay; its capture counted {g.tally}")
+                total = ops.combine_launches(total, measured, g.replays)
+        return total
+
+    def _drop_graphs(self) -> None:
+        """Drop every captured graph; each is captured again, and counted
+        again, on its next call. A graph holds the addresses of the weights
+        and caches it was captured on: the scheduler drops them when it
+        acquires a new weight version."""
+        for gs in self._graphs.values():
+            gs.clear()
+        self._graph_pool = None           # the pool goes with its graphs
 
     def _sync(self) -> None:
         """Wait for the device work issued so far (callers time around
@@ -344,14 +527,21 @@ class ServeEngine:
     def stats(self) -> Dict[str, Any]:
         """Engine + scheduler + weight-store observability: per-round
         timing log (round scheduler; last 1024 rounds), scheduler counters
-        (steps/admissions/drains/forced swaps, KV-backend stats) and
-        swap/version counters."""
+        (steps/admissions/drains/forced swaps, KV-backend stats), capture
+        counts (``trace_counts``) and the live graphs (count, cumulative
+        capture ms, graph-pool bytes), and swap/version counters."""
         return {"rounds": self._rounds_total,
                 "round_log": list(self._round_log),
                 "scheduler": self.scheduler.stats(),
+                "trace_counts": dict(self.trace_counts),
+                "graphs": {"live": sum(map(len, self._graphs.values())),
+                           "capture_ms": self.capture_ms,
+                           "pool_bytes": self.graph_pool_bytes()},
                 "weights": self.store.stats()}
 
     def close(self):
+        # the graphs and their pool go now, not at some later collection
+        self._drop_graphs()
         self.store.close()
 
     # ------------------------------------------------------------------ api

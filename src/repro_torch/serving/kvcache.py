@@ -42,10 +42,16 @@ operations here (:func:`admit_rows`, :func:`gather_blocks`,
 pool *in place*, on the current stream, so each completes before any later
 write it protects. Side caches are separate allocations, never views of the
 pool. Host tables and lengths are pushed to the device from snapshots that
-the host never mutates (a blocking copy), never from views of state that
-changes right after the decode is issued. Int8 pools (``quantize_kv``) move
-their four leaves (``k``, ``v``, ``k_scale``, ``v_scale``) through every
-block operation.
+the host does not mutate before the copy has run, never from views of
+state that changes right after the decode is launched. Int8 pools
+(``quantize_kv``) move their four leaves (``k``, ``v``, ``k_scale``,
+``v_scale``) through every block operation.
+
+The paged backend feeds its decode step and its admission chunks through
+static device buffers (the tokens, the per-slot positions and block tables,
+the chunk's tokens per width and its 0-d clock) and one logits buffer that
+is never rebound, so the engine can capture them as CUDA graphs
+(:meth:`ServeEngine._graph_counted`); the host keeps its integer clocks.
 
 Speculative decoding's ``ensure_rows``/``verify``/``carry_logits``/
 ``rewind`` are not ported yet and raise ``NotImplementedError``.
@@ -361,6 +367,11 @@ class PagedKVCache(KVCache):
         # its position, and an in-flight slot sits at position 0 with an
         # all-TRASH table, so a pinned registered block is never written
         self._pending_pins: Dict[int, List[int]] = {}
+        # static inputs of the decode step (made with the pool) and of the
+        # chunk forwards: a captured forward reads them by address
+        self._dec_tokens = self._dec_pos = self._dec_tables = None
+        self._chunk_tokens: Dict[int, torch.Tensor] = {}    # width -> (1, n)
+        self._chunk_clock: Optional[torch.Tensor] = None     # 0-d int64
         # prefix registry: chain hash -> (phys, block tokens) for full
         # blocks (content-verified on match), parent hash -> (phys, fill,
         # tokens) for one partial tail per chain position
@@ -531,11 +542,28 @@ class PagedKVCache(KVCache):
         if self._cache is None:
             # the pool inherits the config's KV dtype (int8 codes + scale
             # pools under quantize_kv), as the side caches do
+            dev = self.eng.device
             self._cache = self.model.init_cache(
                 self.num_blocks, self.block_size,
-                quantize_kv=self.cfg.quantize_kv, device=self.eng.device)
+                quantize_kv=self.cfg.quantize_kv, device=dev)
+            # one logits buffer for the pool's life: the decode writes it,
+            # admissions write their slot's row in place, sampling reads it
             self._logits = torch.zeros((self.max_slots, lg.shape[-1]),
                                        dtype=lg.dtype, device=lg.device)
+            n = self.max_slots
+            self._dec_tokens = torch.zeros((n, 1), dtype=torch.int64,
+                                           device=dev)
+            self._dec_pos = torch.zeros((n,), dtype=torch.int32, device=dev)
+            self._dec_tables = torch.zeros((n, self.nb_per_slot),
+                                           dtype=torch.int32, device=dev)
+            pin = dev.type == "cuda"
+            self._pos_host = torch.zeros((n,), dtype=torch.int32,
+                                         pin_memory=pin)
+            self._tables_host = torch.zeros((n, self.nb_per_slot),
+                                            dtype=torch.int32,
+                                            pin_memory=pin)
+            self._cache["pos"] = self._dec_pos
+            self._cache["block_tables"] = self._dec_tables
 
     def _pin_prefix(self, slot: int, prompt) -> Tuple[int, dict]:
         """The start of every paged admission: longest-registered-prefix
@@ -637,6 +665,28 @@ class PagedKVCache(KVCache):
         self._slot_reserved[slot] = rem
         self.eng._sync()
 
+    def chunk_inputs(self, tokens: np.ndarray, pos: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The static inputs of a chunk forward of ``tokens`` (1-D) at the
+        host clock ``pos``: this width's ``(1, n)`` token buffer and the 0-d
+        clock, filled in place after the host's bounds check (ValueError
+        past ``max_len``). A blocking copy of a fresh host array: the chunk
+        is synchronized right after anyway."""
+        n = len(tokens)
+        self.model.check_chunk(pos, self.model.chunk_rows(n),
+                               self.cfg.max_len)
+        dev = self.eng.device
+        buf = self._chunk_tokens.get(n)
+        if buf is None:
+            buf = self._chunk_tokens[n] = torch.zeros((1, n),
+                                                      dtype=torch.int64,
+                                                      device=dev)
+        if self._chunk_clock is None:
+            self._chunk_clock = torch.zeros((), dtype=torch.int64, device=dev)
+        buf.copy_(torch.from_numpy(np.asarray(tokens, np.int64)[None]))
+        self._chunk_clock.fill_(pos)
+        return buf, self._chunk_clock
+
     def abandon_chunked_admit(self, slot: int) -> None:
         """A forced swap abandons a pending entry mid-prefill: unpin the
         shared-prefix blocks it pinned at begin and release the slot's
@@ -693,15 +743,20 @@ class PagedKVCache(KVCache):
         bs = self.block_size
         for i in active_ids:
             self._writable_block(i, int(self._lengths[i]) // bs)
-        # snapshots, not views: ``_lengths``/``_tables`` are mutated right
-        # after the decode is issued, so the device copies are made from
-        # host arrays nothing else touches
-        dev = self.eng.device
-        self._cache["pos"] = torch.from_numpy(self._lengths.copy()).to(dev)
-        self._cache["block_tables"] = \
-            torch.from_numpy(self._tables.copy()).to(dev)
-        self._logits, self._cache = self.eng._decode(
-            params, nxt[:, None].to(torch.int64), self._cache)
+        # the step's inputs go into the static buffers the (captured) decode
+        # reads. Snapshots, not views: ``_lengths``/``_tables`` are mutated
+        # right after the decode is launched, so they are first copied into
+        # (pinned) staging buffers nothing else touches. The non-blocking
+        # copies from the staging are safe because it is next written at
+        # the next decode, after the step's one host sync (the scheduler
+        # reading the sampled tokens back) has waited for them
+        self._pos_host.copy_(torch.from_numpy(self._lengths))
+        self._tables_host.copy_(torch.from_numpy(self._tables))
+        self._dec_pos.copy_(self._pos_host, non_blocking=True)
+        self._dec_tables.copy_(self._tables_host, non_blocking=True)
+        self._dec_tokens.copy_(nxt[:, None])
+        self.eng._decode(params, self._dec_tokens, self._cache,
+                         out=self._logits)
         self._lengths[active_ids] += 1
 
     # ------------------------------------------------- speculative verify

@@ -582,8 +582,10 @@ class ContinuousScheduler(_SchedulerBase):
             p.chunks = 0
             p.entry_ms = 0.0
         n = min(self.chunk, len(p.suffix) - p.done)
-        toks = torch.from_numpy(p.suffix[None, p.done:p.done + n].copy()
-                                ).to(self.eng.device)
+        # static inputs (this width's token buffer, the 0-d clock) for the
+        # chunk graph of width n; the host keeps the integer clock
+        toks, p.cache["pos"] = self.kv.chunk_inputs(
+            p.suffix[p.done:p.done + n], p.lp + p.done)
         p.logits, p.cache = self.eng._prefill_chunk(
             params, {"tokens": toks}, p.cache)
         self.eng._sync()
@@ -652,12 +654,15 @@ class ContinuousScheduler(_SchedulerBase):
         self.pendings_abandoned += 1
 
     def _sync_kv_version(self, version: int) -> None:
-        """Cached prefix K/V blocks depend on the weight version: whenever
-        the acquired version differs from the one the KV cache was built
-        under, flush its reuse state before any admission runs on it."""
+        """Cached prefix K/V blocks and captured steps depend on the weight
+        version: whenever the acquired version differs from the one the KV
+        cache was built under, flush its reuse state and drop the engine's
+        graphs before any admission runs on it."""
         if self._kv_version != version:
             if self._kv_version is not None:
                 self.kv.on_weight_swap()
+                # captured steps hold the outgoing weights' addresses
+                self.eng._drop_graphs()
             self._kv_version = version
 
     def _admit(self, chosen, free_ids, clock, params, version: int):
