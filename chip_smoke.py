@@ -48,15 +48,24 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    the float32 oracle's top-2 logit margin at every disagreement);
 7. does the same traffic with the int8 KV pool at a reduced depth, with the
    same captured-vs-eager checks, held to the reference's ``int8_kv``
-   agreement budget against the fp paged pool.
-The phases run in the order 1, 4, 3, 6, 7, 2, 5: the short w4 run pays the
-one-time start-up costs, and phase 2 times the kernels at the shapes phases
-3 and 6 produced. The last three lines are the card line, the ``kernels``
+   agreement budget against the fp paged pool;
+8. serves phase 6's traffic and configuration with self-speculative
+   decoding at full width and depth: the w4 tree of the same fp weights
+   drafts four tokens a cycle, the w8 tree verifies them in one forward
+   (its verify forward and the draft chain captured as CUDA graphs, one per
+   width); a first run (launches held to the eager run's and to what the
+   path implies), a second, a repeat that captures nothing, an eager run
+   and the verifier-only engine: tokens of every request bit-identical to
+   verifier-only decode (also in float32 at 2 layers), acceptance,
+   tokens per second against the verifier alone in the same call.
+The phases run in the order 1, 4, 3, 6, 7, 8, 2, 5: the short w4 run pays
+the one-time start-up costs, and phase 2 times the kernels at the shapes
+phases 3, 6 and 8 produced. The last three lines are the card line, the ``kernels``
 line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
-Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4)
-and ``--layers7`` (phase 7); widths are never cut.
+Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
+``--layers7`` (phase 7) and ``--layers8`` (phase 8); widths are never cut.
 """
 import argparse
 import dataclasses
@@ -326,15 +335,17 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
     return out
 
 
-def check_kernel_b(dev, gen, decode_batches, prefill_rows):
+def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=()):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
     whole chunk); two launches bit-identical at every comparison; then times
     at the seven projections' shapes, bfloat16, int8, per-channel scales:
     the decode batches (the first, phase 6's, is the headline sum over one
-    layer), the prefill rows (each summed over one layer too), and 4-bit
-    codes at the first decode batch. Kernel and ``torch.matmul`` yardstick
+    layer), the prefill rows (each summed over one layer too), 4-bit
+    codes at the first decode batch, and 4-bit codes on the ``mma``
+    variant at phase 8's drafter admission prefills (``draft_rows``, at
+    (4096, 4096) and (12800, 4096)). Kernel and ``torch.matmul`` yardstick
     alike are timed by CUDA-graph replay with a cold L2: the calls cycle
     through input sets whose reads exceed twice the L2."""
     from repro_torch.kernels import dequant_matmul as dm
@@ -456,6 +467,16 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
             shapes.append(per_mn[(b, m, n)])
         shapes.append(timed(m, n, head, 4, torch.bfloat16))
         torch.cuda.empty_cache()
+    # kernel B int4 on the mma variant at the drafter's admission prefill
+    # rows (phase 8): compared with the plain version and timed
+    draft_prefill = []
+    for b in draft_rows:
+        for (m, n) in ((4096, 4096), (12800, 4096)):
+            row = timed(m, n, b, 4, torch.bfloat16)
+            if row["variant"] != "mma":
+                raise AssertionError(f"int4 at {b} rows took {row}")
+            draft_prefill.append(row)
+        torch.cuda.empty_cache()
     # one layer's seven projections at each prefill row count (an admission
     # chunk of phase 6, the round path's prefills)
     prefill_layers = {}
@@ -491,6 +512,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows):
                  "eager calls",
                  bound_share=tot["bound_ms"] / tot["ms"],
                  bound_by="bytes", prefill_layers=prefill_layers,
+                 draft_prefill_int4=draft_prefill,
                  shapes=shapes, **tot)
     return entry
 
@@ -1524,6 +1546,332 @@ def paged_vs_plain(dev, seed):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: self-speculative decoding (w4 drafts, w8 verifier) on the paged
+# continuous path
+# ---------------------------------------------------------------------------
+
+def _tokens_per_s(outs, run_s):
+    return sum(len(o.tokens) for o in outs) / run_s
+
+
+def _spec_path_launches(layers, chunk_rows, verify_s, chain_s, draft_rows):
+    """What a speculative run's launches must be: kernel B seven times per
+    layer and forward: the verify forward once per position (its B rows,
+    ``tcgemv`` int8), the draft chain once per feed (``tcgemv`` int4), the
+    chunk forwards as phase 6 (``mma`` above 16 rows), the drafter's
+    admission prefill (``mma`` int4 above 16 rows); kernel C once per layer
+    and verify position. No decode step runs."""
+    big = sum(1 for r in chunk_rows if r > 16)
+    draft_big = sum(1 for r in draft_rows if r > 16)
+    tc8 = 7 * layers * (sum(verify_s) + len(chunk_rows) - big)
+    tc4 = 7 * layers * (sum(chain_s) + len(draft_rows) - draft_big)
+    mma8, mma4 = 7 * layers * big, 7 * layers * draft_big
+    return {"by_variant": {"gemv": 0, "tiled": 0, "tcgemv": tc8 + tc4,
+                           "mma": mma8 + mma4},
+            "split": {"tcgemv_int8": tc8, "tcgemv_int4": tc4,
+                      "mma_int8": mma8, "mma_int4": mma4},
+            "paged_attention": layers * sum(verify_s)}
+
+
+def _instrument_spec(eng):
+    """Counters on a speculative engine's entry points: verify widths,
+    chain widths, chunk widths, drafter admission rows, decode calls,
+    cycle wall ms and each capture's ms by graph."""
+    kv, spec = eng.scheduler.kv, eng.scheduler.spec
+    rec = {"verify": _Counted(kv._verify, lambda a, o: int(a[1].shape[1])),
+           "chain": _Counted(spec._chain, lambda a, o: int(a[1].shape[1])),
+           "chunk": _Counted(eng._prefill_chunk,
+                             lambda a, o: int(a[1]["tokens"].numel())),
+           "draft_admit": _Counted(spec.admit_slot,
+                                   lambda a, o: len(a[1])),
+           "decode": _Counted(eng._decode), "cycle_ms": [],
+           "capture_ms": []}
+    kv._verify, spec._chain = rec["verify"], rec["chain"]
+    eng._prefill_chunk, eng._decode = rec["chunk"], rec["decode"]
+    spec.admit_slot = rec["draft_admit"]
+    run_cycle, capture = spec.run_cycle, eng._capture
+
+    def cycle(*a):
+        t0 = time.perf_counter()
+        out = run_cycle(*a)                  # ends in the cycle's host sync
+        rec["cycle_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def captured(fn, params, batch, caches, out, inputs):
+        t0 = time.perf_counter()
+        res = capture(fn, params, batch, caches, out, inputs)
+        rec["capture_ms"].append(
+            {"graph": getattr(fn, "__name__", type(fn).__name__),
+             "tokens": list(inputs[0].shape),
+             "ms": (time.perf_counter() - t0) * 1e3})
+        return res
+    spec.run_cycle, eng._capture = cycle, captured
+    return rec
+
+
+def _run_counted(eng, reqs, rec=None):
+    """One counted run: outputs, seconds, this run's step ms, cycle ms and
+    capture log (from ``rec``'s logs), new captures."""
+    before = dict(eng.trace_counts)
+    steps0 = len(eng.scheduler.step_ms_log)
+    n = {k: len(v.log) if isinstance(v, _Counted) else len(v)
+         for k, v in (rec or {}).items()}
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    run = {"run_s": run_s, "tokens_per_s": _tokens_per_s(outs, run_s),
+           "step_ms": _percentiles(list(eng.scheduler.step_ms_log)[steps0:]),
+           "new_captures": {k: eng.trace_counts[k] - before.get(k, 0)
+                            for k in eng.trace_counts}}
+    if rec:
+        log = {k: (v.log if isinstance(v, _Counted) else v)[n[k]:]
+               for k, v in rec.items()}
+        run.update(cycle_ms=_percentiles(log["cycle_ms"]),
+                   captures=log["capture_ms"],
+                   verify_widths=sorted(set(log["verify"])),
+                   chain_widths=sorted(set(log["chain"])))
+    return outs, run
+
+
+def drive_speculative(dev, seed, layers, profile=False):
+    """Self-speculative decoding on phase 6's paged chunked configuration,
+    granite-3-8b full width at ``layers`` layers, bfloat16: the w8 tree
+    verifies what the w4 tree of the same fp weights drafts (``draft_k`` 4).
+    A captured first run (the main path, launches counted), a second run
+    (prefix hits give new chunk widths), a repeat that captures nothing,
+    the same configuration eagerly (``capture=False``) and the
+    verifier-only engine (phase 6's configuration) on the same trees and
+    requests: tokens bit-identical everywhere, launches of the captured run
+    equal to the eager run's and to what the path implies. Then the same
+    pair in float32 at 2 layers. Returns the main run's kernel B and C
+    launches and the drafter's admission prefill row counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine, WeightStore
+
+    spec_kw = dict(speculative=True, draft_bits=4, draft_k=4)
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    reqs = chat_requests(seed, cfg.vocab)
+
+    _reset_launches(dm, pa, paq, sf)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, paged_config(**spec_kw), device=dev)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    a_launches, a_scale = sf.launches, sf.scale_launches
+    del params
+    torch.cuda.empty_cache()
+    tree, draft = eng.params, eng.store.current.draft_params
+
+    def shared_store():
+        # both trees of the pair, shared (no second quantization)
+        return WeightStore(lambda _: (tree, None), fp_params=tree,
+                           draft_quantize_fn=lambda _: draft, device=dev)
+
+    rec = _instrument_spec(eng)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(dm, pa, paq, sf)
+    outs, first = _run_counted(eng, reqs, rec)
+    issued = ops.launch_counts()
+    replayed = eng.replay_launches()
+    captured_launches = ops.combine_launches(issued, replayed)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.scheduler.stats()
+    kv = eng.scheduler.kv
+    kv.check_invariants()
+    kst = st.kv
+    if kst["blocks_active"] or kst["blocks_reserved"]:
+        raise AssertionError(f"blocks not returned after the run: {kst}")
+    want = _spec_path_launches(layers, rec["chunk"].log, rec["verify"].log,
+                               rec["chain"].log, rec["draft_admit"].log)
+    b_by = captured_launches["dequant_matmul.launches_by_variant"]
+    c_n = captured_launches["paged_attention.launches"]
+    if rec["decode"].calls or b_by != want["by_variant"] \
+            or c_n != want["paged_attention"] \
+            or captured_launches["paged_attention_quant.launches"]:
+        raise AssertionError(f"launches {captured_launches}, decode calls "
+                             f"{rec['decode'].calls}; the path implies "
+                             f"{want}")
+    tc = dict(eng.trace_counts)
+    if tc["verify"] != len(first["verify_widths"]) \
+            or tc["draft_chain"] != len(first["chain_widths"]) \
+            or tc["decode"] or tc["prefill"] or tc["admit"] \
+            or tc["spec_carry"] or tc["draft_prefill"] or tc["draft_admit"]:
+        raise AssertionError(f"captures {tc}: expected one verify graph per "
+                             f"S {first['verify_widths']} and one chain "
+                             f"graph per k_eff {first['chain_widths']}")
+    if not st.draft_tokens_accepted > 0:
+        raise AssertionError(f"no draft token accepted: {st}")
+    for o, r in zip(outs, reqs):
+        if len(o.tokens) != r.max_new_tokens or \
+                not all(0 <= t < cfg.vocab for t in o.tokens):
+            raise AssertionError(f"request {r.request_id}: bad tokens")
+    spec_stats = {k: st[k] for k in (
+        "spec_cycles", "draft_tokens_proposed", "draft_tokens_accepted",
+        "acceptance_rate", "accepted_len", "steps", "chunk_steps")}
+    tokens_total = sum(len(o.tokens) for o in outs)
+    # a slot's sampling steps per token it emitted (verifier-only: 1)
+    steps_per_token = sum(o.steps for o in outs) / tokens_total
+
+    # the second run meets the widths the prefix hits give; the third
+    # repeats its shapes and must capture nothing
+    _, second = _run_counted(eng, reqs, rec)
+    outs3, repeat = _run_counted(eng, reqs, rec)
+    if any(repeat["new_captures"].values()):
+        raise AssertionError(f"the repeat captured: {repeat}")
+    st3 = eng.scheduler.stats()
+    graphs = eng.stats()["graphs"]
+
+    # --profile: one verify forward and one draft chain, replayed at the
+    # positions of eight admitted slots of the same traffic
+    if profile:
+        spec = eng.scheduler.spec
+        slots = list(range(8))
+        kv.admit([(i, r) for i, r in enumerate(reqs[:8])], slots, None,
+                 tree)
+        for i, r in zip(slots, reqs):
+            spec.admit_slot.fn(i, r.prompt, draft)
+            kv.ensure_rows(i, int(kv._lengths[i]), 5)
+        kv._push_positions()
+        t0_tok = kv.logits.argmax(-1).to(torch.int32)
+        run = spec.propose(draft, t0_tok, 4)
+        extra = {"layers": layers, "slots": 8, "draft_k": 4,
+                 "context_lengths": kv._lengths.tolist()}
+
+        def verify_step():
+            (_, verdict), _ = kv._verify.fn(tree, run, kv._cache)
+            verdict.cpu()
+
+        def chain_step():
+            spec._chain.fn(draft, run, spec._draft_cache)
+            run.cpu()
+
+        _profile_steps(verify_step, 4, "8 profile of a verify forward "
+                       "(S = 5), captured", extra)
+        _profile_steps(chain_step, 4, "8 profile of a draft chain (k = 4, "
+                       "5 feeds of the w4 tree), captured", extra)
+        for i in slots:
+            kv.retire(i)
+            spec.retire_slot(i)
+        kv.check_invariants()
+
+    # the same configuration eagerly, on the same pair and requests
+    eager = ServeEngine(model, None, paged_config(**spec_kw),
+                        store=shared_store(), device=dev, capture=False)
+    _reset_launches(dm, pa, paq, sf)
+    eager_outs, eager_run = _run_counted(eager, reqs)
+    eager_launches = ops.launch_counts()
+    est = eager.stats()
+    eager.close()
+    del eager
+    if est["trace_counts"] != dict.fromkeys(tc, 0):
+        raise AssertionError(f"eager engine captured: {est['trace_counts']}")
+    if eager_launches != captured_launches:
+        raise AssertionError(f"launches captured {captured_launches} vs "
+                             f"eager {eager_launches}")
+
+    # the verifier alone (phase 6's configuration), on the same w8 tree:
+    # first run, second, and the repeat timed against the speculative one
+    plain = ServeEngine(model, None, paged_config(),
+                        store=WeightStore(serving_params=tree, device=dev),
+                        device=dev)
+    plain_outs, plain_first = _run_counted(plain, reqs)
+    _, plain_second = _run_counted(plain, reqs)
+    plain_outs3, plain_repeat = _run_counted(plain, reqs)
+    plain_repeat["steps_per_token"] = sum(o.steps for o in plain_outs3) / \
+        sum(len(o.tokens) for o in plain_outs3)
+    plain.close()
+    del plain
+    torch.cuda.empty_cache()
+    for label, got in (("captured", outs), ("eager", eager_outs),
+                       ("repeat", outs3)):
+        ref = plain_outs3 if label == "repeat" else plain_outs
+        differing = [r.request_id for o, p, r in zip(got, ref, reqs)
+                     if o.tokens != p.tokens]
+        if differing:
+            raise AssertionError(f"speculative ({label}) tokens differ from "
+                                 f"verifier-only decode for requests "
+                                 f"{differing}")
+
+    eng.close()
+    del eng, tree, draft, outs, outs3, eager_outs, plain_outs, plain_outs3
+    torch.cuda.empty_cache()
+
+    # float32 at 2 layers: speculative tokens == verifier-only tokens
+    f32 = build_model(dataclasses.replace(cfg, n_layers=2, dtype="float32"))
+    gen.manual_seed(seed)
+    p32 = f32.init(gen, device=dev)
+    s32 = ServeEngine(f32, p32, paged_config(**spec_kw), device=dev)
+    v32 = ServeEngine(f32, None, paged_config(),
+                      store=WeightStore(serving_params=s32.params,
+                                        device=dev), device=dev)
+    del p32
+    o32, v32o = s32.generate(reqs), v32.generate(reqs)
+    st32 = s32.scheduler.stats()
+    differing32 = [r.request_id for a, b, r in zip(o32, v32o, reqs)
+                   if a.tokens != b.tokens]
+    s32.close()
+    v32.close()
+    del s32, v32
+    torch.cuda.empty_cache()
+    if differing32:
+        raise AssertionError(f"float32, 2 layers: speculative tokens differ "
+                             f"from verifier-only for requests {differing32}")
+
+    emit({"phase": "8 speculative decoding, continuous + paged + chunked, "
+          "granite-3-8b w8 verifier, w4 drafter", "model": cfg.name,
+          "layers": layers,
+          "full_depth": layers == get_config("granite-3-8b").n_layers,
+          "serve_config": {k: getattr(paged_config(**spec_kw), k) for k in (
+              "scheduler", "kv_backend", "max_slots", "max_len",
+              "block_size", "prefill_chunk", "speculative", "draft_bits",
+              "draft_k", "weight_bits")},
+          "requests": len(reqs), "max_new_tokens": reqs[0].max_new_tokens,
+          "stage_ms_w8_and_w4": stage_ms,
+          "squant_flip_launches_stage": a_launches,
+          "squant_scale_launches_stage": a_scale,
+          "speculative": spec_stats,
+          "steps_per_token": steps_per_token,
+          "cycles_per_token": spec_stats["spec_cycles"] / tokens_total,
+          "first_run": first, "second_run": second, "repeat_run": repeat,
+          "repeat_acceptance_rate": st3["acceptance_rate"],
+          "eager_run": eager_run,
+          "verifier_only": {"first_run": plain_first,
+                            "second_run": plain_second,
+                            "repeat_run": plain_repeat},
+          "tokens_per_s_repeat": {
+              "speculative": repeat["tokens_per_s"],
+              "verifier_only": plain_repeat["tokens_per_s"],
+              "ratio": repeat["tokens_per_s"] / plain_repeat["tokens_per_s"]},
+          "tokens_equal_verifier_only": True,
+          "tokens_equal_eager": True,
+          "float32_2_layers": {"tokens_equal_verifier_only": True,
+                               "spec_cycles": st32["spec_cycles"],
+                               "acceptance_rate": st32["acceptance_rate"]},
+          "trace_counts": tc, "graphs": graphs,
+          "launches": {"dequant_matmul_by_variant": b_by,
+                       "dequant_matmul_by_variant_and_bits": want["split"],
+                       "paged_attention": c_n},
+          "launches_issued_by_wrappers": issued,
+          "launches_measured_in_replays": replayed,
+          "eager_launches_equal_captured": True,
+          "drafter_admission_rows": rec["draft_admit"].log[:len(reqs)],
+          "kv": kst, "peak_memory_gb": peak_gb})
+    return (captured_launches["dequant_matmul.launches"], c_n,
+            rec["draft_admit"].log[:len(reqs)])
+
+
+# ---------------------------------------------------------------------------
 # optional: where a decode step's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -1800,6 +2148,9 @@ def main():
                     help="depth of the w4 main-path run")
     ap.add_argument("--layers7", type=int, default=4,
                     help="depth of the int8-KV continuous run")
+    ap.add_argument("--layers8", type=int, default=40,
+                    help="depth of the speculative run (w8 verifier, w4 "
+                    "drafter)")
     ap.add_argument("--agreement-variants", action="store_true",
                     help="only build, then measure phase 6's and 7's "
                     "agreement with one kernel at a time swapped for its "
@@ -1807,9 +2158,10 @@ def main():
                     "--profile, if given); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
-                    "forwards (the paged ones captured and eager) and one "
-                    "quantize_tree of the tree with torch.profiler and "
-                    "print where their time goes")
+                    "forwards (the paged ones captured and eager), a verify "
+                    "forward and a draft chain, and one quantize_tree of "
+                    "the tree with torch.profiler and print where their "
+                    "time goes")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1855,6 +2207,8 @@ def main():
         dev, args.seed, args.layers7,
         "7 int8 KV, continuous + paged + chunked, granite-3-8b w8",
         quantize_kv=True)
+    b8_n, c8_n, draft_rows = drive_speculative(dev, args.seed, args.layers8,
+                                               profile=args.profile)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -1863,7 +2217,7 @@ def main():
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
     kb = check_kernel_b(dev, gen, (paged_config().max_slots, max_batch),
-                        prefill_rows)
+                        prefill_rows, (min(draft_rows), max(draft_rows)))
     kc, kd = check_kernels_cd(dev, gen, path_lengths)
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance")},
@@ -1879,8 +2233,9 @@ def main():
         profile_quantize(dev, args.seed, args.layers)
 
     ka["launches"], kb["launches"], ks["launches"] = a_n, b_n, s_n
-    kb["launches_phase6"] = b6_n
+    kb["launches_phase6"], kb["launches_phase8"] = b6_n, b8_n
     kc["launches"], kd["launches"] = c_n, d_n
+    kc["launches_phase8"] = c8_n
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

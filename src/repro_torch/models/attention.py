@@ -8,17 +8,18 @@ softmax and mask arithmetic match (``scaled_dot_product_attention`` is
 deliberately not used). Masked columns use the finite ``NEG_INF`` so they
 contribute exact zeros.
 
-Modes: ``prefill``, scalar-position ``decode`` and ``chunk`` (a partial
-prefill continued at the cache clock) on a contiguous cache, and paged
-``decode`` through block tables (per-slot positions; the new row is written
-through the table, then the paged-attention kernel reads the pool). KV caches
-hold the model dtype, or int8 codes with one float32 scale per (position,
-kv-head) (``quantize_kv``, written by :func:`_quant_tok`). Caches are updated
-in place: the caller owns them.
+Modes: ``prefill``, ``decode`` and ``chunk`` (a partial prefill continued
+at the cache clock) on a contiguous cache, whose decode takes the integer
+clock shared by the batch or a per-row position vector (the speculative
+drafter's cache); paged ``decode`` through block tables (per-slot positions;
+the new row is written through the table, then the paged-attention kernel
+reads the pool); and paged ``verify``, speculative decoding's multi-position
+forward. KV caches hold the model dtype, or int8 codes with one float32
+scale per (position, kv-head) (``quantize_kv``, written by
+:func:`_quant_tok`). Caches are updated in place: the caller owns them.
 
-Not ported yet (each raises ``NotImplementedError`` naming itself): MLA,
-sliding-window ring caches, the speculative ``verify`` mode and per-row
-decode positions on a contiguous cache.
+Not ported yet (each raises ``NotImplementedError`` naming itself): MLA and
+sliding-window ring caches.
 """
 from __future__ import annotations
 
@@ -26,8 +27,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import (_init_dense, apply_rotary, init_norm,
-                                       linear, rms_norm)
+from repro_torch.models.layers import (_init_dense, apply_rotary,
+                                       by_position, init_norm, linear,
+                                       linear_by_position, rms_norm)
 
 NEG_INF = -2.0 ** 30
 
@@ -225,27 +227,47 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     prefill matches the monolithic one).
 
     Decode on a contiguous cache takes the integer clock ``pos`` shared by
-    the batch. ``block_tables`` (B, nb) switches decode to the paged layout:
+    the batch, or a per-row position vector (B,) on the device (the
+    speculative drafter's cache: each row writes and masks at its own
+    position). ``block_tables`` (B, nb) switches decode to the paged layout:
     the cache leaves are a block pool ``(num_blocks, block_size, KV, D)``
     shared by all slots, ``pos`` is the per-slot position vector (B,) on the
     device, and slot ``b`` reaches its K/V through its table row.
+
+    ``verify`` (paged, fp pool only): slot b's S tokens are written through
+    its table at ``pos[b] .. pos[b]+S-1``, then row (b, j) attends over
+    positions ``0 .. pos[b]+j``. The products, norms and the kernel run
+    position by position on the B rows (``layers.by_position``), each call
+    a decode step's, so every row is bit for bit the decode step's at that
+    position; elementwise work runs on all rows at once.
     """
     if cfg.mla is not None:
         raise NotImplementedError("not ported yet: MLA attention")
     if cfg.window:
         raise NotImplementedError("not ported yet: sliding-window attention")
     if mode == "verify":
-        raise NotImplementedError(
-            "not ported yet: attention mode 'verify' (speculative decoding)")
+        if block_tables is None:
+            raise NotImplementedError(
+                "verify mode requires the paged KV layout (block tables); "
+                "the contiguous cache has one shared clock and cannot "
+                "score per-slot multi-position runs")
+        if "k_scale" in cache:
+            raise NotImplementedError(
+                "verify mode requires an fp KV pool (speculative "
+                "acceptance is gated off quantize_kv)")
+        lin = linear_by_position
+    else:
+        lin = linear
     b, s, d = x.shape
     hd = cfg.head_dim
     cos_t, sin_t = rope                      # (s, hd/2) for current tokens
-    q = linear(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = linear(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    q = lin(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = lin(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    v = lin(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
-        q = rms_norm(params["q_ln"], q)
-        k = rms_norm(params["k_ln"], k)
+        rows = by_position if mode == "verify" else (lambda fn, t: fn(t))
+        q = rows(lambda t: rms_norm(params["q_ln"], t), q)
+        k = rows(lambda t: rms_norm(params["k_ln"], t), k)
     q = apply_rotary(q, cos_t, sin_t)
     k = apply_rotary(k, cos_t, sin_t)
     scale = hd ** -0.5
@@ -291,11 +313,40 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
             cache["v"][phys, off] = v[:, 0].to(cache["v"].dtype)
             out = ops.paged_attention(q[:, 0], cache["k"], cache["v"],
                                       block_tables, pos, scale=scale)[:, None]
-    elif mode == "decode":
-        if not isinstance(pos, int):
+    elif mode == "verify":
+        # slot b's S rows land at pos[b]+j through its table (retired slots'
+        # all-trash tables take theirs into the trash block), then one
+        # kernel launch per position j over the B slots at lengths pos+j:
+        # the launch, shapes and split plan of a decode step there
+        from repro_torch.kernels import ops                  # lazy import
+        bs_blk = cache["k"].shape[1]
+        idx = pos.to(torch.int64)[:, None] + torch.arange(s, device=x.device)
+        rows = torch.arange(b, device=x.device)[:, None]
+        phys = block_tables[rows, idx // bs_blk].to(torch.int64)
+        off = idx % bs_blk
+        cache["k"][phys, off] = k.to(cache["k"].dtype)
+        cache["v"][phys, off] = v.to(cache["v"].dtype)
+        out = torch.stack([
+            ops.paged_attention(q[:, j].contiguous(), cache["k"], cache["v"],
+                                block_tables, pos + j, scale=scale)
+            for j in range(s)], dim=1)
+    elif mode == "decode" and not isinstance(pos, int):
+        # per-row positions on a contiguous cache (the drafter's): row b
+        # writes at pos[b] and masks every column past it
+        if "k_scale" in cache:
             raise NotImplementedError(
-                "not ported yet: per-row decode positions on a contiguous "
-                "cache (pos must be the integer clock shared by the batch)")
+                "per-row decode positions are not implemented for "
+                "sliding-window or quantized contiguous caches")
+        rows = torch.arange(b, device=x.device)
+        pos_l = pos.to(torch.int64)
+        cache["k"][rows, pos_l] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][rows, pos_l] = v[:, 0].to(cache["v"].dtype)
+        si = torch.arange(cache["k"].shape[1], device=x.device)
+        mask = torch.where(si[None, :] <= pos_l[:, None], 0.0, NEG_INF)
+        out = _grouped_attention(q, cache["k"].to(q.dtype),
+                                 cache["v"].to(q.dtype),
+                                 mask[:, None, None, None, :], scale)
+    elif mode == "decode":
         cache = _cache_write(cache, k, v, pos)
         kc, vc = _cache_read(cache)
         si = torch.arange(kc.shape[1], device=x.device)
@@ -305,4 +356,4 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(b, s, cfg.n_heads * hd)
-    return linear(params["wo"], out), cache
+    return lin(params["wo"], out), cache

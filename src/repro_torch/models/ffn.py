@@ -19,14 +19,17 @@ def init_ffn(generator, d_model: int, d_ff: int, kind: str = "swiglu",
             "wdown": _init_dense(generator, d_ff, d_model, device=device)}
 
 
-def ffn(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+def ffn(params, x: torch.Tensor, kind: str = "swiglu",
+        lin=linear) -> torch.Tensor:
+    """``lin``: the dense product (the verify forward passes one that runs
+    position by position, ``layers.by_position``)."""
     if kind == "swiglu":
-        h = F.silu(linear(params["wg"], x)) * linear(params["wi"], x)
+        h = F.silu(lin(params["wg"], x)) * lin(params["wi"], x)
     elif kind == "geglu":
-        h = F.gelu(linear(params["wg"], x), approximate="tanh") * \
-            linear(params["wi"], x)
+        h = F.gelu(lin(params["wg"], x), approximate="tanh") * \
+            lin(params["wi"], x)
     elif kind == "gelu":
-        h = F.gelu(linear(params["wi"], x), approximate="tanh")
+        h = F.gelu(lin(params["wi"], x), approximate="tanh")
     else:  # relu
-        h = F.relu(linear(params["wi"], x))
-    return linear(params["wdown"], h)
+        h = F.relu(lin(params["wi"], x))
+    return lin(params["wdown"], h)

@@ -43,6 +43,28 @@ def linear(params, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     return x @ w.to(x.dtype)
 
 
+def by_position(fn, x: torch.Tensor) -> torch.Tensor:
+    """``fn`` applied to each position's rows of ``x`` (B, S, ...) as one
+    contiguous (B, 1, ...) tensor, the results concatenated along positions.
+
+    The speculative verify forward runs every operation whose per-row
+    result may depend on how many rows share the call (kernel B picks its
+    variant and split plan by row count, a reduction its block shape, a
+    matmul library its algorithm) this way: each call then has the shape
+    and the launch of a decode step over the same B rows, so row (b, j)
+    comes out bit for bit as a decode step at that position gives it."""
+    s = x.shape[1]
+    if s == 1:
+        return fn(x)
+    return torch.cat([fn(x[:, j:j + 1].contiguous()) for j in range(s)],
+                     dim=1)
+
+
+def linear_by_position(params, x: torch.Tensor) -> torch.Tensor:
+    """:func:`linear`, position by position (:func:`by_position`)."""
+    return by_position(lambda t: linear(params, t), x)
+
+
 def rms_norm(params, x: torch.Tensor, eps: float = 1e-6,
              plus_one: bool = False) -> torch.Tensor:
     """RMSNorm. ``plus_one=True`` uses the Gemma (1+g) parameterization."""

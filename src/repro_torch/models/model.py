@@ -11,8 +11,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import (init_embedding, init_norm, linear,
-                                       rms_norm)
+from repro_torch.models.layers import (by_position, init_embedding,
+                                       init_norm, linear, rms_norm)
 from repro_torch.models.transformer import (_rope_dim, apply_stack,
                                             init_cache, init_stack,
                                             layer_plan, rope_values)
@@ -93,9 +93,10 @@ class LM:
             if caches is not None else None
         if mode == "decode":
             pos = caches["pos"]
-            # contiguous caches keep ONE integer clock for the whole batch;
-            # paged caches keep a per-slot position vector on the device, so
-            # each row gets its own absolute position (rope shapes follow)
+            # a contiguous cache keeps ONE integer clock for the whole batch
+            # (or, the drafter's, a per-row position vector); paged caches
+            # keep a per-slot position vector on the device, so each row
+            # gets its own absolute position (rope shapes follow)
             if isinstance(pos, int):
                 positions = torch.tensor([pos], device=tokens.device)
             else:
@@ -110,13 +111,26 @@ class LM:
                 self.check_chunk(pos, s,
                                  caches["list"][0]["b0"]["k"].shape[1])
             positions = pos + torch.arange(s, device=tokens.device)
+        elif mode == "verify":
+            # speculative multi-position verify on the paged cache: row
+            # (b, j) sits at absolute position pos[b] + j
+            pos = caches["pos"]
         elif mode in ("train", "prefill"):
             pos = 0
             positions = torch.arange(s, device=tokens.device)
         else:
             raise NotImplementedError(f"not ported yet: forward mode {mode!r}")
-        rope = rope_values(positions, _rope_dim(self.cfg),
-                           self.cfg.rope_theta)
+        if mode == "verify":
+            # the rotary tables position by position, each a decode step's
+            # (B, 1) computation (the CPU's vectorized and scalar cos/sin
+            # may differ in the last bit, and which elements take which
+            # depends on the tensor's size)
+            tables = [rope_values(pos[:, None] + j, _rope_dim(self.cfg),
+                                  self.cfg.rope_theta) for j in range(s)]
+            rope = tuple(torch.cat(t, dim=1) for t in zip(*tables))
+        else:
+            rope = rope_values(positions, _rope_dim(self.cfg),
+                               self.cfg.rope_theta)
         x = self._embed(params, tokens)
         x, new_caches = apply_stack(params["stack"], x, cfg=self.cfg,
                                     rope=rope, mode=mode, caches=caches,
@@ -125,6 +139,11 @@ class LM:
             new_caches["pos"] = pos + s
             if block_tables is not None:
                 new_caches["block_tables"] = block_tables
+        if mode == "verify":
+            # the final norm and the logits product (cuBLAS under a tied
+            # embedding) position by position, as decode runs them
+            return by_position(lambda t: self._logits(params, t), x), \
+                new_caches
         return self._logits(params, x), new_caches
 
     # --------------------------------------------------------------- serve
@@ -188,8 +207,18 @@ class LM:
             return logits[:, 0], caches
         return logits[:, -1], caches
 
-    def verify_step(self, params, tokens, caches):
-        raise NotImplementedError("not ported yet: speculative verify")
+    def verify_step(self, params, tokens, caches
+                    ) -> Tuple[torch.Tensor, dict]:
+        """tokens: (B, S) — S-token runs written and scored at per-slot
+        absolute positions ``pos[b] .. pos[b]+S-1`` on the paged cache.
+
+        Returns ALL S per-position logits ``(B, S, vocab)``: row ``j``
+        conditions on everything through position ``pos[b]+j`` and is bit
+        for bit the logits a decode step at that position gives (every
+        row-count-dependent call runs on the B rows of one position, see
+        attention's verify mode)."""
+        return self.forward(params, {"tokens": tokens}, mode="verify",
+                            caches=caches)
 
     def arch_features(self) -> Tuple[str, ...]:
         """See :func:`arch_features`."""

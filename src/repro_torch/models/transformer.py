@@ -16,7 +16,8 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
-from repro_torch.models.layers import init_norm, rms_norm, rope
+from repro_torch.models.layers import (by_position, init_norm, linear,
+                                       linear_by_position, rms_norm, rope)
 
 
 def rope_values(positions: torch.Tensor, rope_dim: int, theta: float,
@@ -55,13 +56,23 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
     if kind != "a" or use_moe:
         raise NotImplementedError(
             f"not ported yet: block kind {kind!r} (moe={use_moe})")
+    po = cfg.norm_plus_one
+    if mode == "verify":
+        # the norms and products position by position (a decode step's
+        # calls, see attention's verify mode); residual adds and the
+        # activation on all rows
+        def norm(g, t):
+            return by_position(lambda u: rms_norm(g, u, plus_one=po), t)
+        lin = linear_by_position
+    else:
+        def norm(g, t):
+            return rms_norm(g, t, plus_one=po)
+        lin = linear
     h, new_cache = attn_lib.attention(
-        p["attn"], rms_norm(p["ln1"], x, plus_one=cfg.norm_plus_one),
-        cfg=cfg, rope=rope, mode=mode, cache=cache, pos=pos,
-        block_tables=block_tables)
+        p["attn"], norm(p["ln1"], x), cfg=cfg, rope=rope, mode=mode,
+        cache=cache, pos=pos, block_tables=block_tables)
     x = x + h
-    h2 = rms_norm(p["ln2"], x, plus_one=cfg.norm_plus_one)
-    x = x + ffn_lib.ffn(p["ffn"], h2, cfg.ffn_kind)
+    x = x + ffn_lib.ffn(p["ffn"], norm(p["ln2"], x), cfg.ffn_kind, lin=lin)
     return x, new_cache
 
 
@@ -155,7 +166,7 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
         raise ValueError("apply_stack takes the unrolled {'list': [...]} "
                          "stack; convert a stacked tree with unstack_stack")
     pattern = layer_plan(cfg)
-    needs_cache = mode in ("prefill", "decode", "chunk")
+    needs_cache = mode in ("prefill", "decode", "chunk", "verify")
     new_list = []
     for li, pp in enumerate(stack["list"]):
         pc = caches["list"][li] if needs_cache else None

@@ -30,22 +30,31 @@ and pins it per round, so a concurrent reload can never tear an in-flight
 request. ``Completion`` reports ``prefill_ms``/``decode_ms``/``swap_ms`` and
 the pinned ``weights_version``.
 
+Self-speculative decoding (``speculative=True``, paged continuous and
+greedy only): the store stages (target, draft) pairs, the draft tree
+``draft_bits`` wide from the same fp source, and the scheduler runs
+draft→verify cycles (:mod:`repro_torch.serving.speculative`) whose tokens
+are bit-identical to verifier-only decode.
+
 The compiled step: where the reference jits its forwards and counts the
 traces (``trace_counts``), this engine captures CUDA graphs and counts the
-captures under the same four keys. On a CUDA device the paged decode step
-(one graph at ``(max_slots, 1)``) and each admission-chunk width of the
-paged chunked admission (one graph per width, on the 1-row side cache) are
-captured on first use and replayed after. Everything else runs eagerly and
-its key stays 0: the round scheduler, the contiguous continuous path (a
-host-integer shared clock), monolithic admission prefill and ``admit_rows``
-(``ROADMAP.md`` M1b); quantization is outside the step. All graphs are
-dropped, and captured again on next use, when the scheduler acquires a new
-weight version. On the CPU everything runs eagerly and the counts stay 0.
+captures under the same keys (four, plus ``verify``, ``spec_carry``,
+``draft_prefill``, ``draft_chain`` and ``draft_admit`` when speculation is
+on). On a CUDA device the paged decode step (one graph at ``(max_slots,
+1)``), each admission-chunk width of the paged chunked admission (one graph
+per width, on the 1-row side cache), the verify forward (one graph per
+``S = k_eff + 1``, its verdict argmax inside) and the draft chain (one graph
+per ``k_eff``) are captured on first use and replayed after. Everything
+else runs eagerly and its key stays 0: the round scheduler, the contiguous
+continuous path (a host-integer shared clock), monolithic admission prefill
+and ``admit_rows``, the drafter's admission prefill and row copy, the carry
+install (``ROADMAP.md`` M1b); quantization is outside the step. All graphs
+are dropped, and captured again on next use, when the scheduler acquires a
+new weight version. On the CPU everything runs eagerly and the counts stay
+0.
 
 Every ``ServeConfig`` field and every validity-gate row of the reference
-package is kept. The one valid configuration this package cannot serve yet,
-``speculative=True``, raises ``NotImplementedError("not ported yet: ...")``
-in ``ServeEngine.__init__``; it never runs something else instead.
+package is kept.
 """
 from __future__ import annotations
 
@@ -61,7 +70,8 @@ from repro_torch.kernels import ops
 from repro_torch.serving.api import Completion, Request
 from repro_torch.serving.kvcache import admit_rows
 from repro_torch.serving.scheduler import ContinuousScheduler, RoundScheduler
-from repro_torch.serving.weights import WeightStore, make_weight_pipeline
+from repro_torch.serving.weights import (WeightStore, make_draft_quantize_fn,
+                                         make_weight_pipeline)
 
 __all__ = ["ServeConfig", "Request", "Completion", "ServeEngine",
            "CONFIG_GATES", "ConfigGate", "ARCH_GATES", "ArchGate"]
@@ -276,12 +286,6 @@ class ServeConfig:
             gate.check(self)
 
 
-# valid configurations whose machinery is not part of this package yet
-_NOT_PORTED: Tuple[Tuple[str, Callable[["ServeConfig"], bool]], ...] = (
-    ("speculative decoding", lambda c: c.speculative),
-)
-
-
 class _StepGraph:
     """One captured forward: the CUDA graph, the tensors it was captured on
     (checked before every replay, so a graph whose weights or caches were
@@ -292,6 +296,8 @@ class _StepGraph:
     :meth:`ServeEngine.replay_launches` measures what a replay launches."""
 
     def __init__(self, graph, params, inputs, logits, tally):
+        # ``logits``: the captured forward's static output (a tensor, or a
+        # tuple of them: the verify graph's logits and verdict)
         self.graph, self.params, self.inputs = graph, params, inputs
         self.logits, self.tally, self.replays = logits, tally, 0
 
@@ -344,14 +350,22 @@ class ServeEngine:
         if self.cfg.scheduler not in ("round", "continuous"):
             raise ValueError(f"unknown scheduler {self.cfg.scheduler!r} "
                              "(expected 'round' or 'continuous')")
-        for what, hit in _NOT_PORTED:
-            if hit(self.cfg):
-                raise NotImplementedError(f"not ported yet: {what}")
         if store is None:
             if params is None:
                 raise ValueError("ServeEngine needs params or a store")
+            # speculative serving stages a versioned (target, draft) pair:
+            # both trees quantized from the one fp source, swapped together
+            # so a reload can never mix generations
+            draft_fn = make_draft_quantize_fn(model, self.cfg,
+                                              device=self.device) \
+                if self.cfg.speculative else None
             store = WeightStore(quantize_fn, fp_params=params,
-                                prepare_fn=prepare_fn, device=self.device)
+                                prepare_fn=prepare_fn,
+                                draft_quantize_fn=draft_fn,
+                                device=self.device)
+        if self.cfg.speculative and store.current.draft_params is None:
+            raise ValueError("speculative serving needs a store that stages "
+                             "(target, draft) pairs (a draft_quantize_fn)")
         self.store = store
         if generator is None:
             generator = torch.Generator(device=self.device)

@@ -53,8 +53,13 @@ the chunk's tokens per width and its 0-d clock) and one logits buffer that
 is never rebound, so the engine can capture them as CUDA graphs
 (:meth:`ServeEngine._graph_counted`); the host keeps its integer clocks.
 
-Speculative decoding's ``ensure_rows``/``verify``/``carry_logits``/
-``rewind`` are not ported yet and raise ``NotImplementedError``.
+Speculative decoding (paged only): :meth:`PagedKVCache.verify` writes and
+scores ``S`` positions per slot in one forward through the same static
+positions and tables as the decode step (captured per ``S``, the verdict
+argmax inside the graph), :meth:`PagedKVCache.carry_logits` installs the
+divergence row as a slot's pending logits, and :meth:`PagedKVCache.rewind`
+returns the rejected suffix's blocks to the slot's reservation. The
+contiguous backend shares one clock and cannot rewind a slot.
 """
 from __future__ import annotations
 
@@ -385,6 +390,21 @@ class PagedKVCache(KVCache):
         self.cow_copies = 0
         self.evictions = 0
         self.peak_blocks_active = 0
+        # the multi-position verifier forward (speculative decoding only:
+        # the counters are lazy, so other paged runs keep their exact
+        # trace_counts dict). Its graph, one per S, holds the forward and
+        # the verdict argmax; the carry install runs eagerly (spec_carry 0)
+        if cfg.speculative:
+            for name in ("verify", "spec_carry"):
+                engine.trace_counts.setdefault(name, 0)
+            model = self.model
+
+            def verify_fused(params, tokens, caches):
+                lg, caches = model.verify_step(params, tokens, caches)
+                verdict = torch.argmax(lg[:, :-1], dim=-1)
+                return (lg, verdict), caches
+
+            self._verify = engine._graph_counted("verify", verify_fused)
 
     # ---------------------------------------------------------------- clock
     @property
@@ -739,21 +759,25 @@ class PagedKVCache(KVCache):
             self._tables[i, j] = nb
             self.cow_copies += 1
 
-    def decode(self, params, nxt, active_ids) -> None:
-        bs = self.block_size
-        for i in active_ids:
-            self._writable_block(i, int(self._lengths[i]) // bs)
-        # the step's inputs go into the static buffers the (captured) decode
-        # reads. Snapshots, not views: ``_lengths``/``_tables`` are mutated
-        # right after the decode is launched, so they are first copied into
-        # (pinned) staging buffers nothing else touches. The non-blocking
-        # copies from the staging are safe because it is next written at
-        # the next decode, after the step's one host sync (the scheduler
-        # reading the sampled tokens back) has waited for them
+    def _push_positions(self) -> None:
+        """The step's positions and tables into the static buffers the
+        (captured) decode step and verify forward read. Snapshots, not
+        views: ``_lengths``/``_tables`` are mutated right after the forward
+        is launched, so they are first copied into (pinned) staging buffers
+        nothing else touches. The non-blocking copies from the staging are
+        safe because it is next written at the next forward, after the
+        step's host sync (the scheduler reading the sampled tokens, or a
+        cycle's drafts and verdict, back) has waited for them."""
         self._pos_host.copy_(torch.from_numpy(self._lengths))
         self._tables_host.copy_(torch.from_numpy(self._tables))
         self._dec_pos.copy_(self._pos_host, non_blocking=True)
         self._dec_tables.copy_(self._tables_host, non_blocking=True)
+
+    def decode(self, params, nxt, active_ids) -> None:
+        bs = self.block_size
+        for i in active_ids:
+            self._writable_block(i, int(self._lengths[i]) // bs)
+        self._push_positions()
         self._dec_tokens.copy_(nxt[:, None])
         self.eng._decode(params, self._dec_tokens, self._cache,
                          out=self._logits)
@@ -761,21 +785,68 @@ class PagedKVCache(KVCache):
 
     # ------------------------------------------------- speculative verify
     def ensure_rows(self, slot: int, start: int, n: int) -> None:
-        raise NotImplementedError(
-            "not ported yet: PagedKVCache.ensure_rows (speculative decoding)")
+        """Make positions ``start .. start+n-1`` of ``slot`` writable
+        before a multi-position verify: allocate reserved blocks at TRASH
+        boundaries exactly as decode does, and privatize (COW) any block
+        with other sharers in the write range."""
+        bs = self.block_size
+        for j in range(start // bs, -(-(start + n) // bs)):
+            self._writable_block(slot, j)
 
-    def verify(self, params, t0, drafts, active_ids):
-        raise NotImplementedError(
-            "not ported yet: PagedKVCache.verify (speculative decoding)")
+    def verify(self, params, tokens: torch.Tensor, active_ids):
+        """One multi-position verifier forward over ``tokens`` (``(max_slots,
+        S)`` on the device, ``[t0, d_1..d_k]`` per slot; a static buffer of
+        the caller's, one per ``S``, as a captured forward reads it by
+        address): slot ``b`` writes K/V for, and scores, positions
+        ``lengths[b] .. lengths[b]+S-1``. Returns the ``(max_slots, S,
+        vocab)`` logits, row ``j`` conditioned on everything through
+        position ``lengths[b]+j``, and the ``(max_slots, S-1)`` verdict:
+        ``verdict[b, j]`` is the token verifier-only decode emits after
+        ``[t0, d_1..d_j]``. Active slots' lengths advance by S (the cycle
+        rewinds the rejected suffix); inactive slots' tables are all-TRASH
+        so their writes land in the trash block, as in decode."""
+        s = int(tokens.shape[1])
+        for i in active_ids:
+            self.ensure_rows(i, int(self._lengths[i]), s)
+        self._push_positions()
+        (lg, verdict), _ = self._verify(params, tokens, self._cache)
+        self._lengths[np.asarray(active_ids, np.int64)] += s
+        return lg, verdict
 
     def carry_logits(self, lg, slot_ids, rows) -> None:
-        raise NotImplementedError(
-            "not ported yet: PagedKVCache.carry_logits (speculative "
-            "decoding)")
+        """Install ``lg[slot, rows[slot]]`` as each listed slot's pending
+        logits: the verifier row at the divergence point, carried into the
+        scheduler's next sample, written in place into the logits buffer."""
+        dev = self._logits.device
+        idx = torch.as_tensor(np.asarray(slot_ids, np.int64), device=dev)
+        sel = torch.as_tensor(np.asarray(rows, np.int64), device=dev)
+        self._logits[idx] = lg[idx, sel].to(self._logits.dtype)
 
     def rewind(self, slot_id: int, n: int) -> None:
-        raise NotImplementedError(
-            "not ported yet: PagedKVCache.rewind (speculative decoding)")
+        """Roll ``slot_id`` back ``n`` positions (reject drafted tokens).
+
+        A block that no longer holds any live position returns to the
+        slot's *reservation* (``_slot_reserved``), never to another slot's
+        budget: the slot drew down its reservation when it allocated the
+        block and needs the claim back to finish its ``max_new_tokens``.
+        The physical block itself goes through ``_unref``: an exclusively
+        owned unregistered block lands on the free list (where the restored
+        reservation keeps it claimable), a registered one parks in the
+        cached set, and a block other slots still share just drops this
+        slot's ref, so the free/cached/active partition and the ``free +
+        cached - reserved`` admission budget both stay consistent."""
+        if n <= 0:
+            return
+        new_len = int(self._lengths[slot_id]) - n
+        assert new_len >= 0, "rewind past the start of the slot"
+        for j in range(-(-new_len // self.block_size), self.nb_per_slot):
+            ph = int(self._tables[slot_id, j])
+            if ph != TRASH:
+                self._unref(ph)
+                self._tables[slot_id, j] = TRASH
+                self._slot_reserved[slot_id] += 1
+                self._reserved += 1
+        self._lengths[slot_id] = new_len
 
     def retire(self, slot_id: int) -> None:
         """Drop the slot's refs; exclusively-owned unregistered blocks go

@@ -30,8 +30,13 @@ and every chunk size works mid-flight. A forced swap abandons the pending
 and re-queues its requests at the front.
 
 Each decode step synchronizes with the host exactly once (the sampled tokens
-are read back to decide EOS and to record them). Speculative decoding is
-not ported yet (the engine refuses it).
+are read back to decide EOS and to record them).
+
+Self-speculative decoding (``ServeConfig.speculative``, paged only): after
+each step's sampling the alive slots run one draft→verify cycle
+(:class:`~repro_torch.serving.speculative.SpeculativeDecoder`) instead of
+the decode step, with one more host sync for the drafts and the verdict;
+the emitted tokens are bit-identical to verifier-only decode.
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ import torch
 from repro_torch.serving.api import Completion, Request, SchedulerStats
 from repro_torch.serving.kvcache import KVCache
 from repro_torch.serving.sampling import sample
+from repro_torch.serving.speculative import SpeculativeDecoder
 
 
 def _req_eos(req: Request, cfg) -> int:
@@ -65,6 +71,8 @@ class _Slot:
     forced_swaps: int = 0
     tokens: List[int] = dataclasses.field(default_factory=list)
     steps: int = 0                # engine sampling steps this slot spanned
+    proposed: int = 0             # speculative: draft tokens offered
+    accepted: int = 0             # speculative: draft tokens kept
 
 
 @dataclasses.dataclass
@@ -259,6 +267,12 @@ class ContinuousScheduler(_SchedulerBase):
         self.chunk = int(self.cfg.prefill_chunk or 0)
         self.max_slots = self.kv.max_slots
         self.slots: List[Optional[_Slot]] = [None] * self.max_slots
+        # self-speculative decoding: the draft-side state and device
+        # plumbing (paged-only, greedy-only, no quantize_kv: CONFIG_GATES)
+        self.spec: Optional[SpeculativeDecoder] = None
+        if self.cfg.speculative:
+            self.spec = SpeculativeDecoder(engine, self.kv)
+            self.spec.bind(self)
         self._ver = None              # the currently-acquired WeightVersion
         self._pending_swap_ms = 0.0   # swap time to attribute at admission
         self._kv_version = None       # weight version the KV prefix cache
@@ -443,7 +457,12 @@ class ContinuousScheduler(_SchedulerBase):
                              "admit_ms": admit_ms})
             alive = [i for i, s in enumerate(self.slots) if s is not None]
             if alive:
-                self.kv.decode(params, nxt, alive)
+                if self.spec is not None:
+                    # the carry token's K/V row is written by the verify
+                    # forward with the draft run (no separate decode step)
+                    self._spec_cycle(results, params, nxt, alive)
+                else:
+                    self.kv.decode(params, nxt, alive)
         return results  # type: ignore[return-value]
 
     def _finish(self, results, slot: int, t_now: float) -> None:
@@ -452,10 +471,58 @@ class ContinuousScheduler(_SchedulerBase):
         results[s.order] = Completion(
             s.req.request_id, s.tokens, s.prefill_ms,
             (t_now - s.t0) * 1e3, s.swap_ms, s.version, s.forced_swaps,
-            steps=s.steps)
+            steps=s.steps, draft_tokens_proposed=s.proposed,
+            draft_tokens_accepted=s.accepted)
         self.slots[slot] = None
         self.kv.retire(slot)
+        if self.spec is not None:
+            self.spec.retire_slot(slot)
         self.retired += 1
+
+    def _spec_cycle(self, results, params, t0, alive: List[int]) -> None:
+        """One self-speculative cycle for the ``alive`` slots (their carry
+        tokens ``t0`` are already recorded): draft ``k_eff`` proposals,
+        verify all ``k_eff + 1`` positions in one forward, emit the longest
+        verifier-matching prefix per slot, rewind the rejected suffix, and
+        install the divergence-row logits as the slot's pending logits, so
+        the next sampled token is exactly what verifier-only decode would
+        have produced."""
+        cfg = self.cfg
+        k_eff, accept, drafts, lg = self.spec.run_cycle(
+            params, self._ver.draft_params, t0, alive)
+        survivors: List[int] = []
+        acc_rows: List[int] = []
+        t_now = time.perf_counter()
+        for i in alive:
+            s = self.slots[i]
+            a = int(accept[i])
+            eid = _req_eos(s.req, cfg)
+            emitted = 0
+            retired = False
+            for j in range(a):
+                tok = int(drafts[i, j])
+                s.tokens.append(tok)
+                emitted += 1
+                if (len(s.tokens) >= s.req.max_new_tokens
+                        or (eid >= 0 and tok == eid)):
+                    retired = True
+                    break
+            s.proposed += k_eff
+            s.accepted += emitted
+            self.spec.accepted += emitted
+            self.spec.accepted_len_log.append(1 + emitted)
+            if retired:
+                self._finish(results, i, t_now)
+            else:
+                # verify advanced the slot by k_eff + 1: keep the carry
+                # token and the accepted drafts, return the rest to the
+                # slot's block reservation
+                self.kv.rewind(i, k_eff - a)
+                self.spec.sync_slot(i)
+                survivors.append(i)
+                acc_rows.append(a)
+        if survivors:
+            self.kv.carry_logits(lg, survivors, acc_rows)
 
     def stats(self) -> SchedulerStats:
         ms = np.asarray(self.step_ms_log, np.float64)
@@ -474,7 +541,9 @@ class ContinuousScheduler(_SchedulerBase):
             pendings_started=self.pendings_started,
             pendings_abandoned=self.pendings_abandoned,
             step_ms=tail,
-            kv=self.kv.stats())
+            kv=self.kv.stats(),
+            speculative=self.spec is not None,
+            **(self.spec.stats() if self.spec is not None else {}))
 
     # ------------------------------------------- chunked admission pipeline
     def _start_pending(self, queue, free_ids, fresh: bool,
@@ -601,6 +670,11 @@ class ContinuousScheduler(_SchedulerBase):
                 order=order, req=r, version=p.version,
                 clock0=len(r.prompt), t0=time.perf_counter(),
                 prefill_ms=p.entry_ms, swap_ms=self._pending_swap_ms)
+            if self.spec is not None:
+                # the drafter needs its own prompt K/V before the slot's
+                # first cycle: one unpadded batch-1 prefill on the draft
+                # tree (only the verifier side is chunked)
+                self.spec.admit_slot(slot, r.prompt, self._ver.draft_params)
             self.admission_log.append(
                 {"request_id": r.request_id, "slot": slot,
                  "clock": len(r.prompt), "version": p.version,
@@ -682,6 +756,9 @@ class ContinuousScheduler(_SchedulerBase):
                 order=order, req=r, version=version, clock0=c0,
                 t0=t_now, prefill_ms=prefill_ms,
                 swap_ms=self._pending_swap_ms)
+            if self.spec is not None:
+                self.spec.admit_slot(slot_ids[j], r.prompt,
+                                     self._ver.draft_params)
             self.admission_log.append(
                 {"request_id": r.request_id, "slot": slot_ids[j],
                  "clock": c0, "version": version})

@@ -19,8 +19,12 @@ Model
   ``WeightVersion`` it started with. The continuous scheduler reports each
   drain/swap through :meth:`WeightStore.note_drain`/:meth:`note_swap`.
 
+Speculative serving stages a (target, draft) pair per version: both trees
+quantized from the one fp source (:func:`make_draft_quantize_fn`), swapped
+together, so a reload can never mix generations.
+
 Not ported yet: ``watch()`` over a checkpoint directory (waits for the
-checkpoint module) and the speculative draft pipeline.
+checkpoint module).
 """
 from __future__ import annotations
 
@@ -38,8 +42,9 @@ from repro_torch.quant.qtypes import QuantReport
 
 @dataclasses.dataclass(frozen=True)
 class WeightVersion:
-    """One immutable generation of serving weights. ``draft_params`` is kept
-    for the speculative drafter tree and is None until that is ported."""
+    """One immutable generation of serving weights. ``draft_params``: the
+    speculative drafter's tree, quantized from the same fp source (None
+    unless the store has a draft pipeline)."""
     version: int                       # monotonically increasing, from 1
     params: Any                        # serving tree (fp, fake-quant, quantized)
     report: Optional[QuantReport] = None
@@ -60,16 +65,9 @@ def make_weight_pipeline(model, cfg, device=None):
     """
     from repro_torch.core.pipeline import quantize_tree
     from repro_torch.models.model import build_model
-    from repro_torch.models.transformer import n_periods, unstack_stack
 
-    base_cfg = model.cfg
-    model = build_model(dataclasses.replace(base_cfg, scan_layers=False))
-
-    def _unstack(tree):
-        if isinstance(tree, dict) and "periods" in tree.get("stack", {}):
-            tree = dict(tree)
-            tree["stack"] = unstack_stack(tree["stack"], n_periods(base_cfg))
-        return tree
+    _unstack = _unstacker(model.cfg)
+    model = build_model(dataclasses.replace(model.cfg, scan_layers=False))
 
     def quantize_fn(fp_tree):
         fp_tree = _unstack(fp_tree)
@@ -83,6 +81,43 @@ def make_weight_pipeline(model, cfg, device=None):
     return model, quantize_fn, _unstack
 
 
+def _unstacker(base_cfg):
+    """A stacked ``{"periods": ...}`` tree → the unrolled layer list (other
+    trees pass through)."""
+    from repro_torch.models.transformer import n_periods, unstack_stack
+
+    def unstack(tree):
+        if isinstance(tree, dict) and "periods" in tree.get("stack", {}):
+            tree = dict(tree)
+            tree["stack"] = unstack_stack(tree["stack"], n_periods(base_cfg))
+        return tree
+    return unstack
+
+
+def make_draft_quantize_fn(model, cfg, device=None):
+    """``fp tree -> draft serving tree`` for self-speculative serving.
+
+    The drafter is the same checkpoint quantized at ``cfg.draft_bits``
+    (data-free, sub-second: SQuant makes draft models free), in the serving
+    format of the target pipeline (:func:`make_weight_pipeline`), on
+    ``device``. When the target serves fp (``quantize_weights`` None) the
+    drafter still quantizes, with 'squant': the ladder needs a cheaper tree
+    below the verifier."""
+    from repro_torch.core.pipeline import quantize_tree
+
+    unstack = _unstacker(model.cfg)
+    method = cfg.quantize_weights or "squant"
+
+    def draft_fn(fp_tree):
+        tree, _ = quantize_tree(unstack(fp_tree), method=method,
+                                bits=cfg.draft_bits,
+                                dequantize=cfg.dequantize_for_compute,
+                                device=device)
+        return tree
+
+    return draft_fn
+
+
 class WeightStore:
     """Double-buffered, versioned owner of serving weights.
 
@@ -94,6 +129,7 @@ class WeightStore:
     def __init__(self, quantize_fn: Optional[Callable] = None,
                  fp_params: Any = None, *, serving_params: Any = None,
                  prepare_fn: Optional[Callable] = None,
+                 draft_quantize_fn: Optional[Callable] = None,
                  report: Optional[QuantReport] = None, source: str = "init",
                  device=None):
         if (fp_params is None) == (serving_params is None):
@@ -101,6 +137,13 @@ class WeightStore:
                              "serving_params")
         self._quantize_fn = quantize_fn
         self._prepare_fn = prepare_fn or (lambda t: t)
+        # speculative serving: fp tree -> drafter tree, built beside the
+        # target in _build_and_publish so every version is a (target,
+        # draft) pair. It needs an fp source: a quantized serving tree
+        # cannot rebuild the drafter, so such a stage fails (into
+        # ``errors`` on the background path) and serving continues on the
+        # previous pair
+        self._draft_quantize_fn = draft_quantize_fn
         self._device = None if device is None else torch.device(device)
         self._lock = threading.Lock()
         self._counter = 0
@@ -209,6 +252,14 @@ class WeightStore:
                 raise ValueError("store has no quantize_fn; cannot stage "
                                  "fp params")
             tree, rep = self._quantize_fn(fp_params)
+        draft = None
+        if self._draft_quantize_fn is not None:
+            if fp_params is None:
+                raise ValueError(
+                    "speculative serving stages (target, draft) pairs from "
+                    "one fp source; a quantized-native serving tree cannot "
+                    "rebuild the drafter — reload fp checkpoints instead")
+            draft = self._draft_quantize_fn(fp_params)
         # materialize now so the round-boundary swap is a pointer flip
         if self._device is not None and self._device.type == "cuda":
             torch.cuda.synchronize(self._device)
@@ -216,7 +267,7 @@ class WeightStore:
         with self._lock:
             self._counter += 1
             self._staged = WeightVersion(self._counter, tree, rep, source,
-                                         step, staged_ms)
+                                         step, staged_ms, draft)
             self._staged_at = time.monotonic()
 
     def stage(self, fp_params: Any = None, *, serving_params: Any = None,

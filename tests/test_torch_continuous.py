@@ -189,10 +189,20 @@ def test_int8_kv_contiguous_and_chunked_compose():
 
 
 def test_speculative_still_not_ported():
+    """Speculative decoding, once refused here (the name is kept from
+    then), serves on the paged continuous path: its tokens equal the
+    reference engine's speculative tokens and the port's own verifier-only
+    tokens on the same config, and its cycle counters the reference's."""
+    kw = dict(max_len=32, scheduler="continuous", max_slots=2,
+              kv_backend="paged", block_size=4, speculative=True, draft_k=2)
+    jt, tt, te = _both(_pair(), _mixed_reqs(), **kw)
+    assert tt == jt
     model, params = _tiny()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        _eng(model, params, scheduler="continuous", kv_backend="paged",
-             speculative=True)
+    plain = _eng(model, params, **dict(kw, speculative=False))
+    assert [c.tokens for c in plain.generate(_mixed_reqs())] == tt
+    st = te.scheduler.stats()
+    assert st["spec_cycles"] > 0 and st["draft_tokens_accepted"] > 0
+    te.scheduler.kv.check_invariants()
 
 
 # ---------------------------------------------------------------------------

@@ -347,14 +347,38 @@ def test_paged_weight_swap_flushes_prefix_cache():
 
 
 def test_speculative_cache_operations_not_ported():
+    """The speculative cache operations, once refused here (the name is
+    kept from then), run on the paged backend: ``ensure_rows`` makes a
+    write range private across a block boundary, ``verify`` writes and
+    scores S positions a slot and advances the live slots, ``carry_logits``
+    installs a chosen row, ``rewind`` returns the blocks to the slot's
+    reservation, the invariants hold after each. The contiguous backend's
+    ``rewind`` still raises (one shared clock)."""
     model, params = _tiny()
-    kv = _paged(model, params).scheduler.kv
+    eng = _paged(model, params, speculative=True)
+    kv = eng.scheduler.kv
     assert isinstance(kv, PagedKVCache)
-    for call in (lambda: kv.rewind(0, 1), lambda: kv.ensure_rows(0, 0, 1),
-                 lambda: kv.verify(None, None, None, []),
-                 lambda: kv.carry_logits(None, [], [])):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            call()
+    sp = eng.store.current.params
+    kv.admit([(None, Request([1, 2, 3, 4, 5, 6], 8, request_id=0))], [0],
+             None, sp)
+    resv = int(kv._slot_reserved[0])
+    kv.ensure_rows(0, 6, 3)                  # positions 6..8: blocks 1, 2
+    assert kv._tables[0, 2] != TRASH
+    assert int(kv._slot_reserved[0]) == resv - 1
+    kv.check_invariants()
+    toks = torch.tensor([[7, 8, 9], [0, 0, 0]])
+    lg, verdict = kv.verify(sp, toks, [0])
+    assert lg.shape == (2, 3, 256) and verdict.shape == (2, 2)
+    assert torch.equal(verdict, lg[:, :-1].argmax(-1))
+    assert int(kv._lengths[0]) == 9 and int(kv._lengths[1]) == 0
+    kv.carry_logits(lg, [0], [1])
+    assert torch.equal(kv.logits[0], lg[0, 1])
+    kv.rewind(0, 2)                          # back to 7: block 2 returned
+    assert int(kv._lengths[0]) == 7 and kv._tables[0, 2] == TRASH
+    assert int(kv._slot_reserved[0]) == resv
+    kv.check_invariants()
+    kv.retire(0)
+    kv.check_invariants()
     cont = ServeEngine(model, params, ServeConfig(
         max_len=32, scheduler="continuous", max_slots=2), device="cpu")
     with pytest.raises(NotImplementedError, match="rewind"):

@@ -195,9 +195,43 @@ def test_ffn_kinds_match(rng, kind):
 def test_later_slices_raise_by_name(what):
     """What a later slice ports raises ``NotImplementedError`` naming
     itself; what has been ported since (the ``chunk`` mode, paged decode
-    through block tables, int8 KV caches) runs instead."""
+    through block tables, int8 KV caches, the speculative ``verify`` mode,
+    per-row decode positions on a contiguous cache) runs instead."""
     cfg = get_config("granite-3-8b", reduced=True)
     kw = dict(cfg=cfg, rope=None, mode="decode", cache={}, pos=0)
+    if what == "verify":
+        # two slots, three positions each, written through the tables
+        cfg = dataclasses.replace(cfg, dtype="float32")
+        p = attn.init_attention(torch.Generator().manual_seed(0), cfg,
+                                device="cpu")
+        hd, kvh = cfg.head_dim, cfg.n_kv_heads
+        x = torch.randn(2, 3, cfg.d_model, generator=torch.Generator()
+                        .manual_seed(1))
+        pos = torch.tensor([3, 5], dtype=torch.int32)
+        cache = attn.init_kv_cache(5, 4, kvh, hd, torch.float32,
+                                   device="cpu")
+        bt = torch.tensor([[1, 2], [3, 4]], dtype=torch.int32)
+        rows = pos[:, None] + torch.arange(3)
+        out, cache = attn.attention(p, x, cfg=cfg, mode="verify",
+                                    rope=layers.rope(rows, hd,
+                                                     cfg.rope_theta),
+                                    cache=cache, pos=pos, block_tables=bt)
+        assert out.shape == x.shape and torch.isfinite(out).all()
+        assert cache["k"][2, 1:].abs().sum() > 0     # slot 0: 5, 6 (block 2)
+        assert cache["k"][4, :].abs().sum() > 0      # slot 1: 5..7 (block 3+)
+        return
+    if what == "per_row_pos":
+        model = build_model(dataclasses.replace(cfg, dtype="float32"))
+        p = model.init(torch.Generator().manual_seed(0), device="cpu")
+        c = model.init_cache(2, 8, device="cpu")
+        c["pos"] = torch.tensor([1, 2])
+        lg, c2 = model.decode_step(p, torch.zeros(2, 1, dtype=torch.long), c)
+        assert lg.shape == (2, cfg.vocab) and torch.isfinite(lg).all()
+        k = c["list"][0]["b0"]["k"]
+        assert k[0, 1].abs().sum() > 0 and k[1, 2].abs().sum() > 0
+        assert k[0, 2].abs().sum() == 0 and k[1, 1].abs().sum() == 0
+        assert torch.equal(c2["pos"], torch.tensor([2, 3]))
+        return
     if what in ("chunk", "paged", "quant_kv"):
         cfg = dataclasses.replace(cfg, dtype="float32")
         p = attn.init_attention(torch.Generator().manual_seed(0), cfg,
@@ -231,15 +265,5 @@ def test_later_slices_raise_by_name(what):
         kw["cfg"] = dataclasses.replace(cfg, mla=MLAConfig())
     elif what == "window":
         kw["cfg"] = dataclasses.replace(cfg, window=8)
-    elif what == "verify":
-        kw["mode"] = what
-    if what == "per_row_pos":
-        model = build_model(dataclasses.replace(cfg, dtype="float32"))
-        p = model.init(torch.Generator().manual_seed(0), device="cpu")
-        c = model.init_cache(2, 8, device="cpu")
-        c["pos"] = torch.tensor([1, 2])
-        with pytest.raises((NotImplementedError, TypeError)):
-            model.decode_step(p, torch.zeros(2, 1, dtype=torch.long), c)
-        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
         attn.attention({}, torch.zeros(1, 1, cfg.d_model), **kw)

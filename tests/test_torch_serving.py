@@ -3,7 +3,8 @@ scheduler over a contiguous KV cache — fp weights and SQuant w8 / w4
 real-quantized — must emit the same greedy tokens as the reference engine on
 the same (converted) weights, float32, mixed prompt lengths, two rounds,
 EOS truncation. Every config gate raises as in the reference; speculative
-decoding, which the port cannot serve yet, raises ``NotImplementedError``."""
+decoding serves on the CPU in every combination, with the tokens of the
+same engine without it."""
 import dataclasses
 
 import jax
@@ -164,12 +165,24 @@ def test_arch_gates_and_config_fields_kept():
     dict(scheduler="continuous", kv_backend="paged", speculative=True,
          quantize_weights="squant", dequantize_for_compute=False)])
 def test_unported_combinations_raise(pair, kw):
-    """Speculative decoding is the one valid configuration the port does
-    not serve yet: it raises, whatever it is combined with."""
+    """Speculative decoding, the last valid configuration the port once
+    refused (the name is kept from then), now builds and serves on the CPU
+    whatever it is combined with: the same tokens as the same engine with
+    ``speculative=False``, and the (target, draft) pair staged."""
     _, _, tmodel, tparams = pair
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        teng.ServeEngine(tmodel, tparams, teng.ServeConfig(**kw),
-                         device="cpu")
+    reqs = [Request([1, 2, 3], 6, request_id=0), Request([4], 5,
+                                                         request_id=1)]
+    te = teng.ServeEngine(tmodel, tparams, teng.ServeConfig(**kw),
+                          device="cpu")
+    out = te.generate(reqs)
+    ref = teng.ServeEngine(tmodel, tparams, teng.ServeConfig(
+        **dict(kw, speculative=False)), device="cpu").generate(reqs)
+    assert [c.tokens for c in out] == [c.tokens for c in ref]
+    assert [len(c.tokens) for c in out] == [6, 5]
+    assert te.store.current.draft_params is not None
+    st = te.scheduler.stats()
+    assert st["speculative"] and st["spec_cycles"] > 0
+    te.scheduler.kv.check_invariants()
 
 
 @pytest.mark.parametrize("kw", [
