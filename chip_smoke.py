@@ -57,15 +57,31 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    path implies), a second, a repeat that captures nothing, an eager run
    and the verifier-only engine: tokens of every request bit-identical to
    verifier-only decode (also in float32 at 2 layers), acceptance,
-   tokens per second against the verifier alone in the same call.
-The phases run in the order 1, 4, 3, 6, 7, 8, 2, 5: the short w4 run pays
-the one-time start-up costs, and phase 2 times the kernels at the shapes
-phases 3, 6 and 8 produced. The last three lines are the card line, the ``kernels``
+   tokens per second against the verifier alone in the same call;
+9. native quantized serving checkpoints: (a) phase 6's fp tree quantized
+   into the ``w_q`` + ``w_scale`` serving format by ``quant.apply`` on the
+   card (kernel A, one launch a leaf), saved as a native w8 checkpoint
+   (``checkpoint.Checkpointer.save_serving``) in a temporary directory,
+   the device copies freed, restored onto the card and served in phase 6's
+   configuration, captured: tokens bit-identical to the never-saved tree,
+   leaves byte-equal, kernel B launches those of phase 6; quantize, save,
+   restore and stage times; (b) live reload at 4 layers: the engine watches
+   a directory while a writer saves an fp step, a native w8 step, a torn
+   step and a w4 step, requests flowing: every completion full length,
+   sources ``ckpt:1`` then ``ckpt:2``, the w4 step rejected, the torn one
+   unseen, tokens after the last swap those of a fresh engine on the
+   restored tree; what a device-wide synchronization does to another
+   thread's capture, in a process of its own; (c) the quantize and serve
+   CLIs as processes (serve swaps in the quantize CLI's checkpoint).
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 2, 5: the short w4 run
+pays the one-time start-up costs, and phase 2 times the kernels at the
+shapes phases 3, 6 and 8 produced. The last three lines are the card line, the ``kernels``
 line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
-``--layers7`` (phase 7) and ``--layers8`` (phase 8); widths are never cut.
+``--layers7`` (phase 7), ``--layers8`` (phase 8) and ``--layers9`` (phase
+9a); widths are never cut.
 """
 import argparse
 import dataclasses
@@ -1872,6 +1888,558 @@ def drive_speculative(dev, seed, layers, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: native quantized serving checkpoints (quant.apply → save_serving →
+# restore_serving → serve), live reload from a watched directory, the CLIs
+# ---------------------------------------------------------------------------
+
+def _leaves(tree, path=()):
+    """``{"a/b/0": tensor}`` of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_leaves(tree[k], path + (str(k),)))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_leaves(v, path + (str(i),)))
+        return out
+    return {"/".join(path): tree}
+
+
+def _same_bytes(a, b):
+    """Equal dtype, shape and bits (a bfloat16 tensor compared as int16)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
+    return torch.equal(a, b)
+
+
+def _rows_differing(qt_tree, qdict_tree):
+    """Rows of codes and of scales in which the ``quantize_tree`` tree
+    (QuantizedTensor leaves) and the ``quant.apply`` tree (``w_q`` +
+    ``w_scale``) of the same fp weights differ, over every linear."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+    flat = _leaves(qdict_tree)
+    out = {"linears": 0, "rows": 0, "code_rows_differing": 0,
+           "scale_rows_differing": 0}
+    for path, qt in _leaves(qt_tree).items():
+        if not isinstance(qt, QuantizedTensor):
+            continue
+        base = path.rsplit("/", 1)[0]
+        codes, scale = flat[base + "/w_q"], flat[base + "/w_scale"]
+        out["linears"] += 1
+        out["rows"] += codes.shape[0]
+        out["code_rows_differing"] += int(
+            (qt.data.reshape(codes.shape) != codes).any(dim=1).sum())
+        out["scale_rows_differing"] += int(
+            (qt.scale.reshape(-1) != scale.reshape(-1)).sum())
+    return out
+
+
+def _serve_paged(dev, model, tree, reqs):
+    """Phase 6's serve configuration (captured) on a store built around
+    ``tree``, one run of ``reqs``: tokens, launches (what the wrappers
+    issued plus what the replays launched, read from the graphs), the
+    kernel B and C launches the path implies, step ms, captures."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.serving import ServeEngine, WeightStore
+
+    eng = ServeEngine(model, None, paged_config(), device=dev,
+                      store=WeightStore(serving_params=tree, device=dev))
+    dec = eng._decode = _Counted(eng._decode)
+    chk = eng._prefill_chunk = _Counted(
+        eng._prefill_chunk, lambda a, o: int(a[1]["tokens"].numel()))
+    _reset_launches(dm, pa, paq, sf)
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ops.combine_launches(ops.launch_counts(),
+                                    eng.replay_launches())
+    layers = model.cfg.n_layers
+    big = sum(1 for rows in chk.log if rows > 16)
+    want = {"gemv": 0, "tiled": 0, "mma": 7 * layers * big,
+            "tcgemv": 7 * layers * (dec.calls + chk.calls - big)}
+    st = eng.stats()
+    res = {"tokens": [o.tokens for o in outs], "run_s": run_s,
+           "stage_ms": eng.store.current.staged_ms,
+           "step_ms": st["scheduler"].step_ms,
+           "decode_forwards": dec.calls, "chunk_forwards": chk.calls,
+           "trace_counts": st["trace_counts"], "graphs": st["graphs"],
+           "dequant_matmul": launches["dequant_matmul.launches"],
+           "dequant_matmul_by_variant":
+               launches["dequant_matmul.launches_by_variant"],
+           "path_implies_by_variant": want,
+           "paged_attention": launches["paged_attention.launches"],
+           "path_implies_paged_attention": layers * dec.calls}
+    if res["dequant_matmul_by_variant"] != want or not want["tcgemv"] \
+            or res["paged_attention"] != layers * dec.calls:
+        raise AssertionError(f"launches {res}: the path implies B {want} "
+                             f"and C {layers * dec.calls}")
+    if any(len(o.tokens) != r.max_new_tokens for o, r in zip(outs, reqs)):
+        raise AssertionError("a completion is short")
+    eng.close()
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def drive_native_checkpoint(dev, seed, layers, phase6_b_launches=None):
+    """9a: phase 6's fp tree quantized into the serving format by
+    ``quant.apply`` on the card (kernel A, one launch a leaf), written as a
+    native w8 checkpoint, the fp tree and the tree's device copy freed,
+    restored onto the card with the serve config's expectations, and served
+    in phase 6's configuration, captured: tokens bit-identical to the same
+    engine on the never-saved tree, restored leaves byte-equal to the saved
+    ones (the bfloat16 embedding included), kernel B launches by variant
+    those of the never-saved run and (in total) of phase 6. Returns the
+    kernel A launches of the quantization and the kernel B and C launches
+    of the restored run."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models.model import build_model
+    from repro_torch.quant import apply
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    reqs = chat_requests(seed, cfg.vocab)
+    tree6, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+    # without this the earlier phases' cached blocks leave the allocator
+    # freeing and retrying under this phase's ~49 GB, which the quantize
+    # time would measure (scripts/quant_apply_time.py times it alone)
+    torch.cuda.empty_cache()
+    _reset_launches(dm, pa, paq, sf)
+    tree, meta = apply.quantize_params_serving(params, 8, "squant")
+    a_launches = {"squant_flip": sf.launches,
+                  "squant_flip_by_route": dict(sf.launches_by_route),
+                  "squant_scale": sf.scale_launches}
+    linears = 7 * layers + (0 if cfg.tie_embeddings else 1)
+    if sf.launches != linears or sf.scale_launches:
+        raise AssertionError(f"kernel A launches {a_launches}: one a leaf "
+                             f"({linears}) expected")
+    rows = _rows_differing(tree6, tree)
+    del params
+    torch.cuda.empty_cache()
+
+    served6 = _serve_paged(dev, model, tree6, reqs)     # phase 6's tokens
+    del tree6
+    torch.cuda.empty_cache()
+    never_saved = _serve_paged(dev, model, tree, reqs)
+
+    saved = {k: v.cpu() for k, v in _leaves(tree).items()}
+    nbytes = {"codes": 0, "scales": 0, "other": 0}
+    for k, v in saved.items():
+        part = "codes" if k.endswith(("/w_q", "/w_q4")) else \
+            "scales" if k.endswith("/w_scale") else "other"
+        nbytes[part] += v.numel() * v.element_size()
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        free = shutil.disk_usage(d).free
+        if free < 1.1 * sum(nbytes.values()):
+            raise AssertionError(f"{free} bytes free in {d}: the checkpoint "
+                                 f"needs {sum(nbytes.values())}")
+        ck = Checkpointer(d)                 # snapshot now, write on a thread
+        t0 = time.perf_counter()
+        ck.save_serving(1, tree, quant_meta=meta)
+        d2h_ms = ck.timings["d2h_ms"]
+        ck.wait()
+        save_ms = (time.perf_counter() - t0) * 1e3
+        write_ms = ck.timings["write_ms"]
+        step_dir = os.path.join(d, "step_00000001")
+        disk_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                         for f in os.listdir(step_dir))
+        del tree
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        restored, rmeta, step = ck.restore_serving(
+            expect={"quantize_weights": "squant", "weight_bits": 8},
+            device=dev)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        read_ms, h2d_ms = ck.timings["read_ms"], ck.timings["h2d_ms"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    got = _leaves(restored)
+    differing = sorted(set(saved) ^ set(got)) + [
+        k for k in saved if k in got and not _same_bytes(got[k].cpu(),
+                                                         saved[k])]
+    if differing or step != 1 or rmeta["format"] != "quantized" or \
+            any(t.device != dev for t in got.values()):
+        raise AssertionError(f"restored leaves differ from the saved ones: "
+                             f"{differing[:8]} (step {step}, "
+                             f"{rmeta['format']})")
+    emb = got["embedding/embedding"]
+    emb_meta = {"dtype": str(emb.dtype).replace("torch.", ""),
+                "shape": list(emb.shape)}
+    del saved, got, emb
+    served = _serve_paged(dev, model, restored, reqs)
+    bad = [i for i, (a, b) in enumerate(zip(served["tokens"],
+                                            never_saved["tokens"]))
+           if a != b]
+    if bad or len(served["tokens"]) != len(reqs):
+        raise AssertionError(f"restored tree: tokens differ from the "
+                             f"never-saved tree's for requests {bad}")
+    if served["dequant_matmul_by_variant"] != \
+            never_saved["dequant_matmul_by_variant"] or (
+                phase6_b_launches is not None
+                and served["dequant_matmul"] != phase6_b_launches):
+        raise AssertionError(f"kernel B launches {served} vs never-saved "
+                             f"{never_saved} and phase 6 "
+                             f"{phase6_b_launches}")
+    pairs = [(a, b) for x, y in zip(served["tokens"], served6["tokens"])
+             for a, b in zip(x, y)]
+    emit({"phase": "9a native w8 checkpoint: quant.apply, save_serving, "
+                   "restore_serving, serve (continuous + paged + chunked, "
+                   "captured)",
+          "model": cfg.name, "layers": layers,
+          "full_depth": layers == get_config("granite-3-8b").n_layers,
+          "quantize_ms": meta["quantize_ms"], "launches_quantize": a_launches,
+          "bytes_on_disk": disk_bytes, "bytes_by_part": nbytes,
+          "embedding": emb_meta,
+          "save_ms": save_ms, "save_d2h_ms": d2h_ms, "save_write_ms": write_ms,
+          "restore_ms": restore_ms, "restore_read_ms": read_ms,
+          "restore_h2d_ms": h2d_ms, "stage_ms": served["stage_ms"],
+          "restored_byte_equal": True, "tokens_equal_never_saved": True,
+          "step_ms": served["step_ms"],
+          "step_ms_never_saved": never_saved["step_ms"],
+          "step_ms_quantize_tree_tree": served6["step_ms"],
+          "run_s": served["run_s"],
+          "vs_quantize_tree_tree": rows,
+          "greedy_agreement_with_phase6_tokens": {
+              "equal_positions": sum(a == b for a, b in pairs),
+              "positions": len(pairs),
+              "requests_identical": sum(x == y for x, y in zip(
+                  served["tokens"], served6["tokens"]))},
+          "launches": {k: served[k] for k in (
+              "dequant_matmul", "dequant_matmul_by_variant",
+              "paged_attention")},
+          "launches_phase6_dequant_matmul": phase6_b_launches,
+          "trace_counts": served["trace_counts"], "graphs": served["graphs"],
+          "tokens": served["tokens"]})
+    del restored
+    torch.cuda.empty_cache()
+    return (a_launches["squant_flip"], served["dequant_matmul"],
+            served["paged_attention"])
+
+
+def _wait_until(cond, timeout, what):
+    t_end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.01)
+
+
+def _overlaps(a, b):
+    """Pairs of intervals ``(t0, t1, ...)`` of ``a`` and ``b`` that
+    overlap in time."""
+    return [(x, y) for x in a for y in b if x[0] < y[1] and y[0] < x[1]]
+
+
+def drive_live_reload(dev, seed, layers=4):
+    """9b: phase 6's engine (w8, paged continuous, chunked, captured) at
+    full width and ``layers`` layers watches a fresh directory
+    (``poll_s=0.05``) while a writer thread saves, with requests flowing:
+    step 1 an fp ``save`` (another seed; quantized on the fly), step 2 a
+    native w8 checkpoint of a third seed, a torn step 3 (no COMMITTED), step
+    4 a w4-metadata checkpoint. Every completion is full length, versions
+    never go backwards, the sources read ``ckpt:1`` then ``ckpt:2``, the
+    only error is step 4's rejection, and the tokens after the last swap
+    equal a fresh engine's on the restored step-2 tree. Records the reloads
+    that ran while the scheduler's thread captured a new chunk width, each
+    swap's stage ms (and restore + stage ms) and the recapture after it."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.quant import apply
+    from repro_torch.serving import ServeEngine, WeightStore
+
+    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    model = build_model(cfg)
+
+    def init(s):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s)
+        return model.init(gen, device=dev)
+
+    eng = ServeEngine(model, init(seed), paged_config(), device=dev)
+    fp1 = init(seed + 1)
+    q2, m2 = apply.quantize_params_serving(init(seed + 2), 8, "squant")
+    q4, m4 = apply.quantize_params_serving(init(seed + 3), 4, "squant")
+    torch.cuda.empty_cache()
+
+    captures, reloads, versions = [], [], []
+    real_capture, real_poll = eng._capture, eng.store.poll_checkpoints
+
+    def capture(fn, params, batch, caches, out, inputs):
+        t0 = time.perf_counter()
+        try:
+            return real_capture(fn, params, batch, caches, out, inputs)
+        finally:
+            captures.append((t0, time.perf_counter(),
+                             list(inputs[0].shape)))
+
+    def poll(*a, **kw):
+        t0 = time.perf_counter()
+        step = real_poll(*a, **kw)
+        if step is not None:                 # a restore and a stage ran
+            reloads.append((t0, time.perf_counter(), step))
+        return step
+
+    def on_step(info):
+        if not versions or versions[-1]["version"] != info["version"]:
+            cur = eng.store.current
+            versions.append({"version": info["version"],
+                             "source": cur.source, "stage_ms": cur.staged_ms,
+                             "t": time.perf_counter(),
+                             "capture_ms": eng.capture_ms,
+                             "captures": sum(eng.trace_counts.values())})
+    eng._capture, eng.store.poll_checkpoints = capture, poll
+    eng.on_step = on_step
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_watch_")
+    side = tempfile.mkdtemp(prefix="chip_smoke_torn_")
+    writes, writer_error = {}, []
+
+    def writer():
+        try:
+            ck = Checkpointer(d, async_save=False)
+            time.sleep(0.5)
+            t0 = time.perf_counter()
+            ck.save(1, fp1, {"step": 1})
+            writes["1 fp save ms"] = (time.perf_counter() - t0) * 1e3
+            _wait_until(lambda: eng.store.version >= 2, 300,
+                        "step 1 swapped in")
+            t0 = time.perf_counter()
+            ck.save_serving(2, q2, quant_meta=m2)
+            writes["2 w8 save ms"] = (time.perf_counter() - t0) * 1e3
+            _wait_until(lambda: eng.store.version >= 3, 300,
+                        "step 2 swapped in")
+            # a torn step appears whole but without its COMMITTED marker
+            Checkpointer(side, async_save=False).save_serving(
+                3, q2, quant_meta=m2)
+            os.remove(os.path.join(side, "step_00000003", "COMMITTED"))
+            os.rename(os.path.join(side, "step_00000003"),
+                      os.path.join(d, "step_00000003"))
+            time.sleep(0.5)                     # several polls see it
+            ck.save_serving(4, q4, quant_meta=m4)
+            _wait_until(lambda: eng.store.errors, 300, "step 4 rejected")
+        except BaseException as e:            # re-raised by the main thread
+            writer_error.append(e)
+
+    outs, k = [], 0
+    try:
+        eng.watch_checkpoints(d, poll_s=0.05)
+        th = threading.Thread(target=writer, daemon=True)
+        t_start = time.perf_counter()
+        th.start()
+        while th.is_alive() and time.perf_counter() - t_start < 600:
+            reqs = chat_requests(seed + 100 + k, cfg.vocab, max_new=16)
+            outs += list(zip(eng.generate(reqs), reqs))
+            k += 1
+        th.join(timeout=60)
+        if th.is_alive() or writer_error:
+            raise AssertionError(f"writer: {writer_error or 'still running'}")
+        # after the last swap: fresh requests, then a fresh engine on the
+        # restored step-2 tree
+        final = chat_requests(seed + 99, cfg.vocab, max_new=16)
+        live = [o.tokens for o in eng.generate(final)]
+        st = eng.stats()
+        tree2, _, _ = Checkpointer(d).restore_serving(
+            2, expect={"quantize_weights": "squant", "weight_bits": 8},
+            device=dev)
+    finally:
+        eng.close()
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(side, ignore_errors=True)
+    fresh = ServeEngine(model, None, paged_config(), device=dev,
+                        store=WeightStore(serving_params=tree2, device=dev))
+    fresh_tokens = [o.tokens for o in fresh.generate(final)]
+    fresh.close()
+    del fresh, tree2, fp1, q2, q4, eng
+    torch.cuda.empty_cache()
+
+    w = st["weights"]
+    seq = [v["version"] for v in versions]
+    sources = [v["source"] for v in versions]
+    short = [r.request_id for o, r in outs if len(o.tokens)
+             != r.max_new_tokens]
+    errors = w["errors"]
+    landed = _overlaps(reloads, captures)
+    problems = []
+    if short:
+        problems.append(f"short completions {short}")
+    if seq != sorted(seq):
+        problems.append(f"versions went backwards: {seq}")
+    if sources != ["init", "ckpt:1", "ckpt:2"]:
+        problems.append(f"sources {sources}")
+    if len(errors) != 1 or "rejected" not in errors[0] \
+            or "step 4" not in errors[0]:
+        problems.append(f"errors {errors}")
+    if live != fresh_tokens:
+        problems.append("tokens after the last swap differ from a fresh "
+                        "engine's on the restored step-2 tree")
+    swaps = []
+    for v, nxt in zip(versions, versions[1:] + [None]):
+        after = nxt if nxt is not None else {
+            "capture_ms": st["graphs"]["capture_ms"],
+            "captures": sum(st["trace_counts"].values())}
+        swaps.append({"version": v["version"], "source": v["source"],
+                      "stage_ms": v["stage_ms"],
+                      "restore_and_stage_ms": next(
+                          ((t1 - t0) * 1e3 for t0, t1, step in reloads
+                           if v["source"] == f"ckpt:{step}"), None),
+                      "recaptures": after["captures"] - v["captures"],
+                      "recapture_ms": after["capture_ms"] - v["capture_ms"]})
+    emit({"phase": "9b live reload, granite-3-8b w8, continuous + paged + "
+                   "chunked, captured",
+          "layers": layers, "poll_s": 0.05, "requests": len(outs),
+          "generate_calls": k + 1, "versions_seen": seq, "sources": sources,
+          "errors": errors, "swaps": swaps, "writer": writes,
+          "stages_while_capturing": {
+              "count": len(landed),
+              "note": "reloads (restore and stage of a checkpoint on "
+                      "the watcher's thread) whose interval overlapped a "
+                      "capture on the scheduler's thread" if landed
+                      else "none did in this run",
+              "widths": sorted({tuple(c[2]) for _, c in landed})},
+          "captures": len(captures), "step_ms": st["scheduler"].step_ms,
+          "drains": st["scheduler"].drains,
+          "forced_swaps": st["scheduler"].forced_swaps,
+          "tokens_equal_fresh_engine_step2": live == fresh_tokens})
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
+def capture_sync_probe(dev):
+    """What another thread's synchronization does to a CUDA-graph capture
+    in progress (``thread_local`` mode, as the engine captures): for a
+    synchronization of the other thread's own stream and of the whole
+    device, whether the other thread's call raised, and whether the
+    capture ended with a graph that replays right. Run it in a process of
+    its own: a broken capture may leave the allocator in capture mode."""
+    import threading
+    out = {}
+    for mode in ("stream_sync", "device_sync"):
+        x = torch.ones(1 << 16, device=dev)
+        began, done, other = threading.Event(), threading.Event(), {}
+
+        def sync():
+            began.wait(30)
+            try:
+                s = torch.cuda.Stream(dev)
+                with torch.cuda.stream(s):       # no RNG: the capture
+                    torch.ones(1 << 20, device=dev).sum()   # holds it
+                if mode == "device_sync":
+                    torch.cuda.synchronize(dev)
+                else:
+                    s.synchronize()
+            except Exception as e:
+                other["error"] = repr(e)
+            done.set()
+
+        th = threading.Thread(target=sync)
+        th.start()
+        side, g, res = torch.cuda.Stream(dev), torch.cuda.CUDAGraph(), {}
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            y = x * 2                                # warm-up
+            try:
+                g.capture_begin(capture_error_mode="thread_local")
+                try:
+                    y = x * 2
+                    began.set()
+                    done.wait(30)
+                    y = y + 1
+                finally:
+                    g.capture_end()
+                x.fill_(2.0)
+                g.replay()
+                side.synchronize()
+                res["capture_ok"] = bool((y == 5).all())
+            except Exception as e:
+                res["capture_ok"], res["capture_error"] = False, repr(e)
+        began.set()
+        th.join(30)
+        res["other_thread_error"] = other.get("error")
+        out[mode] = res
+    return out
+
+
+def run_capture_sync_probe():
+    """:func:`capture_sync_probe` in a process of its own; its result."""
+    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--capture-sync-probe"], capture_output=True,
+                       text=True, timeout=300, cwd=ROOT)
+    lines = p.stdout.strip().splitlines()
+    if p.returncode != 0 or not lines:
+        return {"returncode": p.returncode, "stderr": p.stderr[-2000:]}
+    return json.loads(lines[-1])
+
+
+def drive_clis(dev):
+    """9c: the two CLIs as processes at their reduced config on the card:
+    quantize writes a native w8 serving checkpoint, serve (continuous,
+    paged) watches it and swaps it in (source ``ckpt:0``)."""
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    serving = os.path.join(d, "serving")
+    cmds = {"quantize": ["-m", "repro_torch.launch.quantize", "--bits", "8",
+                         "--out", os.path.join(d, "out"),
+                         "--serving-ckpt", serving],
+            "serve": ["-m", "repro_torch.launch.serve", "--quantize",
+                      "squant", "--bits", "8", "--scheduler", "continuous",
+                      "--kv-backend", "paged", "--reload-from", serving,
+                      "--reload-poll", "0.01", "--rounds", "3",
+                      "--max-new", "64", "--prompts", "hello world",
+                      "the quick brown fox", "a", "SQuant on the fly"]}
+    res, lines = {}, {}
+    try:
+        for name, args in cmds.items():
+            t0 = time.perf_counter()
+            p = subprocess.run([sys.executable] + args, capture_output=True,
+                               text=True, timeout=300, cwd=ROOT, env=env)
+            lines[name] = p.stdout.splitlines()
+            res[name] = {"returncode": p.returncode,
+                         "seconds": time.perf_counter() - t0,
+                         "stdout_tail": p.stdout.strip().splitlines()[-6:],
+                         "stderr_tail": p.stderr.strip().splitlines()[-6:]}
+            if p.returncode != 0:
+                break
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    swapped = [ln for ln in lines.get("serve", [])
+               if "scheduler=continuous" in ln and "source ckpt:0" in ln]
+    emit({"phase": "9c the quantize and serve CLIs (reduced config, on the "
+                   "card)", "runs": res, "swapped_to_ckpt_0": bool(swapped)})
+    if any(r["returncode"] != 0 for r in res.values()) or not swapped:
+        raise AssertionError(f"CLIs: {res}")
+
+
+# ---------------------------------------------------------------------------
 # optional: where a decode step's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -2151,6 +2719,12 @@ def main():
     ap.add_argument("--layers8", type=int, default=40,
                     help="depth of the speculative run (w8 verifier, w4 "
                     "drafter)")
+    ap.add_argument("--layers9", type=int, default=40,
+                    help="depth of the native checkpoint run (9a)")
+    ap.add_argument("--capture-sync-probe", action="store_true",
+                    help="only print what another thread's stream and "
+                    "device synchronization do to a CUDA-graph capture "
+                    "(phase 9b runs this in a process of its own)")
     ap.add_argument("--agreement-variants", action="store_true",
                     help="only build, then measure phase 6's and 7's "
                     "agreement with one kernel at a time swapped for its "
@@ -2173,6 +2747,9 @@ def main():
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
+    if args.capture_sync_probe:
+        emit(capture_sync_probe(dev))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2209,6 +2786,19 @@ def main():
         quantize_kv=True)
     b8_n, c8_n, draft_rows = drive_speculative(dev, args.seed, args.layers8,
                                                profile=args.profile)
+    a9_n, b9_n, c9_n = drive_native_checkpoint(
+        dev, args.seed, args.layers9,
+        b6_n if args.layers9 == args.layers else None)
+    t9 = time.perf_counter()
+    drive_live_reload(dev, args.seed)
+    probe = run_capture_sync_probe()
+    emit({"phase": "9b a synchronization in another thread during a "
+                   "capture (thread_local), in a process of its own",
+          "probe": probe, "seconds": time.perf_counter() - t9})
+    if not probe.get("stream_sync", {}).get("capture_ok"):
+        raise AssertionError(f"a stream synchronization in another thread "
+                             f"broke a capture: {probe}")
+    drive_clis(dev)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
@@ -2236,6 +2826,8 @@ def main():
     kb["launches_phase6"], kb["launches_phase8"] = b6_n, b8_n
     kc["launches"], kd["launches"] = c_n, d_n
     kc["launches_phase8"] = c8_n
+    ka["launches_phase9"] = a9_n
+    kb["launches_phase9"], kc["launches_phase9"] = b9_n, c9_n
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

@@ -57,11 +57,14 @@ METHODS = ("rtn", "squant", "squant_e", "squant_ek", "squant_ec")
 
 
 def _sync(device: torch.device) -> None:
-    """Wait for the device. Module-level so tests can count
-    synchronizations: the batched path calls this exactly once per
-    ``quantize_tree``, the serial path once per quantized leaf."""
+    """Wait for the work issued on the calling thread's stream (all of a
+    quantization's; a device-wide synchronization would also wait for, and
+    on another thread's CUDA-graph capture, disturb, other streams).
+    Module-level so tests can count synchronizations: the batched path
+    calls this exactly once per ``quantize_tree``, the serial path once per
+    quantized leaf."""
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def is_quantizable(path: Tuple[str, ...], leaf: Any) -> bool:

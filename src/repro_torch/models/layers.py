@@ -3,8 +3,8 @@
 Params are plain nested dicts of tensors. Kernels are named ``w`` with shape
 (in, out) (the quantization pipeline keys off this convention). ``linear``
 transparently consumes a QuantizedTensor (SQuant serving format, (out,
-in)-major): on a CUDA device through the dequant-matmul kernel, on the CPU
-through its plain version.
+in)-major) or the ``w_q``/``w_q4`` dict of ``quant.apply``: on a CUDA device
+through the dequant-matmul kernel, on the CPU through its plain version.
 """
 from __future__ import annotations
 
@@ -26,14 +26,17 @@ def _init_dense(generator: torch.Generator, d_in: int, d_out: int,
 
 
 def linear(params, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """x @ W. Accepts two kernel formats:
+    """x @ W. Accepts three kernel formats:
     * ``{"w": (in, out) float}`` — dense (``torch.matmul``);
-    * ``{"w": QuantizedTensor}`` — real-quantized (dequant-matmul kernel).
-    The sharded ``w_q``/``w_q4`` dict format is not part of this package yet."""
+    * ``{"w": QuantizedTensor}`` — real-quantized (dequant-matmul kernel);
+    * ``{"w_q"/"w_q4", "w_scale"}`` — the checkpointable serving format of
+      ``quant.apply``, through the same kernel on a zero-copy
+      ``QuantizedTensor`` view of its two tensors."""
     if "w_q" in params or "w_q4" in params:
-        raise NotImplementedError(
-            "not ported yet: the w_q/w_q4 serving-dict format (quant/apply)")
-    w = params["w"]
+        from repro_torch.quant.apply import qdict_view
+        w = qdict_view(params)
+    else:
+        w = params["w"]
     if isinstance(w, QuantizedTensor):
         from repro_torch.kernels import ops                  # lazy import
         lead = x.shape[:-1]

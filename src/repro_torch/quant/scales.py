@@ -16,12 +16,22 @@ _EPS = 1e-12
 
 
 def _absmax(w2d: torch.Tensor) -> torch.Tensor:
-    return w2d.abs().amax(dim=-1, keepdim=True)
+    # max |w| (exact in any order) in one read, no |w| copy
+    return torch.linalg.vector_norm(w2d, ord=float("inf"), dim=-1,
+                                    keepdim=True)
+
+
+def _div(x: torch.Tensor, qmax: int) -> torch.Tensor:
+    """``x / qmax`` as a true division on every device. (On a CUDA tensor
+    PyTorch divides by a Python number as a multiplication by its float32
+    reciprocal, one ulp away from the division on some rows.)"""
+    # a 0-d tensor made on the device: no host copy, no synchronization
+    return x / torch.full((), float(qmax), dtype=x.dtype, device=x.device)
 
 
 def max_scale(w2d: torch.Tensor, bits: int) -> torch.Tensor:
     """Per-row symmetric max scale. w2d: (..., M, N) → (..., M, 1)."""
-    return torch.clamp_min(_absmax(w2d), _EPS) / qmax_for_bits(bits)
+    return _div(torch.clamp_min(_absmax(w2d), _EPS), qmax_for_bits(bits))
 
 
 def mse_scale(w2d: torch.Tensor, bits: int, num_candidates: int = 40,
@@ -40,7 +50,7 @@ def mse_scale(w2d: torch.Tensor, bits: int, num_candidates: int = 40,
     best_err = None
     best = None
     for r in ratios.tolist():
-        s = base * torch.tensor(r, dtype=w2d.dtype) / qmax
+        s = _div(base * torch.tensor(r, dtype=w2d.dtype), qmax)
         q = torch.clamp(torch.round(w2d / s), -qmax, qmax)
         err = ((q * s - w2d) ** 2).sum(dim=-1, keepdim=True)
         if best is None:

@@ -519,10 +519,11 @@ class ServeEngine:
         self._graph_pool = None           # the pool goes with its graphs
 
     def _sync(self) -> None:
-        """Wait for the device work issued so far (callers time around
-        admissions and prefill chunks)."""
+        """Wait for the work this thread's stream has issued so far
+        (callers time around admissions and prefill chunks). Not the whole
+        device: a weight stage runs on the store's own stream meanwhile."""
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            torch.cuda.current_stream(self.device).synchronize()
 
     # ------------------------------------------------------------ weights
     @property
@@ -534,9 +535,16 @@ class ServeEngine:
     def quant_report(self):
         return self.store.current.report
 
-    def watch_checkpoints(self, ckpt_dir: str, poll_s: float = 1.0):
-        raise NotImplementedError(
-            "not ported yet: checkpoint hot-reload (WeightStore.watch)")
+    def watch_checkpoints(self, ckpt_dir: str, poll_s: float = 1.0,
+                          mesh=None):
+        """Hot-reload: poll ``ckpt_dir`` for new COMMITTED steps and stage
+        them (quantizing fp trees on the fly, loading quantized trees
+        natively); swaps land at the scheduler's next swap point (round
+        boundary, or continuous drain/deadline), where the captured steps
+        are dropped and captured again on the new tree."""
+        self.store.watch(ckpt_dir, poll_s=poll_s, mesh=mesh,
+                         expect={"quantize_weights": self.cfg.quantize_weights,
+                                 "weight_bits": self.cfg.weight_bits})
 
     def stats(self) -> Dict[str, Any]:
         """Engine + scheduler + weight-store observability: per-round

@@ -19,16 +19,29 @@ Model
   ``WeightVersion`` it started with. The continuous scheduler reports each
   drain/swap through :meth:`WeightStore.note_drain`/:meth:`note_swap`.
 
+* ``watch()`` — a poll thread over a checkpoint directory
+  (``checkpoint.Checkpointer`` layout). New COMMITTED steps are restored
+  (torn/corrupt step dirs are skipped), validated against the serve
+  config's quant expectations, and staged: quantized checkpoints
+  (``w_q``/``w_q4``/``w_scale`` serving trees) are served directly with no
+  re-quantization; fp checkpoints go through the store's quantize_fn.
+
 Speculative serving stages a (target, draft) pair per version: both trees
 quantized from the one fp source (:func:`make_draft_quantize_fn`), swapped
 together, so a reload can never mix generations.
 
-Not ported yet: ``watch()`` over a checkpoint directory (waits for the
-checkpoint module).
+On a CUDA device every stage (restore, quantize, prepare) runs on the
+store's own stream, which first waits on the device for the work already
+issued on the calling thread's stream (the inputs a stage may read), and
+is the only stream the stage synchronizes: the scheduler, which
+synchronizes its own stream, never waits for a stage, and no stage makes a
+device-wide synchronization while the scheduler's thread may be capturing
+a CUDA graph. Reshard-on-restore (``mesh=``) is not ported yet (M7).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -48,7 +61,7 @@ class WeightVersion:
     version: int                       # monotonically increasing, from 1
     params: Any                        # serving tree (fp, fake-quant, quantized)
     report: Optional[QuantReport] = None
-    source: str = "init"               # "init" | caller tag
+    source: str = "init"               # "init" | "ckpt:<step>" | caller tag
     step: Optional[int] = None         # checkpoint step, when applicable
     staged_ms: float = 0.0             # quantize/prepare + device wall time
     draft_params: Any = None
@@ -145,12 +158,20 @@ class WeightStore:
         # previous pair
         self._draft_quantize_fn = draft_quantize_fn
         self._device = None if device is None else torch.device(device)
+        # the stages' own stream (see the module docstring)
+        self._stream = torch.cuda.Stream(self._device) \
+            if self._device is not None and self._device.type == "cuda" \
+            else None
         self._lock = threading.Lock()
         self._counter = 0
         self._live: Optional[WeightVersion] = None
         self._staged: Optional[WeightVersion] = None
         self._queue: "queue.Queue" = queue.Queue()
         self._worker: Optional[threading.Thread] = None
+        self._watch_stop: Optional[threading.Event] = None
+        self._watch_thread: Optional[threading.Thread] = None
+        self._last_ckpt_step = -1
+        self._ckpt_retries = 0            # transient-failure retries per step
         self._staged_at = 0.0             # monotonic time of last staging
         self.swap_count = 0
         # reload-aware scheduler observability (note_drain/note_swap)
@@ -158,7 +179,8 @@ class WeightStore:
         self.forced_swap_count = 0
         self.last_drain_ms = 0.0
         self.last_drain_in_flight = 0
-        # bounded: a persistently failing stager must not grow memory
+        # bounded: a persistently failing watcher (e.g. deleted ckpt dir)
+        # appends per poll and must not grow a long-lived server's memory
         self.errors: collections.deque = collections.deque(maxlen=256)
         self._build_and_publish(fp_params, serving_params, report, source,
                                 None)
@@ -238,31 +260,41 @@ class WeightStore:
                     "staged_pending": staged is not None,
                     "staged_version":
                         staged.version if staged is not None else None,
-                    "watching": False,
+                    "watching": self._watch_thread is not None,
                     "errors": list(self.errors)}
 
     # --------------------------------------------------------------- staging
+    def _staging(self):
+        """The context a stage runs in: the store's stream, made to wait
+        for what the calling thread's stream has issued so far."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        self._stream.wait_stream(torch.cuda.current_stream(self._device))
+        return torch.cuda.stream(self._stream)
+
     def _build_and_publish(self, fp_params, serving_params, report, source,
                            step):
         t0 = time.perf_counter()
-        if serving_params is not None:
-            tree, rep = self._prepare_fn(serving_params), report
-        else:
-            if self._quantize_fn is None:
-                raise ValueError("store has no quantize_fn; cannot stage "
-                                 "fp params")
-            tree, rep = self._quantize_fn(fp_params)
-        draft = None
-        if self._draft_quantize_fn is not None:
-            if fp_params is None:
-                raise ValueError(
-                    "speculative serving stages (target, draft) pairs from "
-                    "one fp source; a quantized-native serving tree cannot "
-                    "rebuild the drafter — reload fp checkpoints instead")
-            draft = self._draft_quantize_fn(fp_params)
-        # materialize now so the round-boundary swap is a pointer flip
-        if self._device is not None and self._device.type == "cuda":
-            torch.cuda.synchronize(self._device)
+        with self._staging():
+            if serving_params is not None:
+                tree, rep = self._prepare_fn(serving_params), report
+            else:
+                if self._quantize_fn is None:
+                    raise ValueError("store has no quantize_fn; cannot stage "
+                                     "fp params")
+                tree, rep = self._quantize_fn(fp_params)
+            draft = None
+            if self._draft_quantize_fn is not None:
+                if fp_params is None:
+                    raise ValueError(
+                        "speculative serving stages (target, draft) pairs "
+                        "from one fp source; a quantized-native serving "
+                        "tree cannot rebuild the drafter — reload fp "
+                        "checkpoints instead")
+                draft = self._draft_quantize_fn(fp_params)
+            # materialize now so the round-boundary swap is a pointer flip
+            if self._stream is not None:
+                self._stream.synchronize()
         staged_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             self._counter += 1
@@ -325,12 +357,89 @@ class WeightStore:
             time.sleep(0.005)
         return False
 
-    def watch(self, ckpt_dir, poll_s: float = 1.0, expect=None):
-        raise NotImplementedError(
-            "not ported yet: WeightStore.watch (checkpoint hot-reload)")
+    # ------------------------------------------------------ checkpoint watch
+    def poll_checkpoints(self, checkpointer, expect: Optional[dict] = None,
+                         mesh=None) -> Optional[int]:
+        """One watcher step: stage the newest unseen COMMITTED checkpoint.
+
+        Torn step dirs (no COMMITTED) and corrupt ``index.json`` are
+        invisible via ``list_steps``. Failures are recorded in ``errors``;
+        metadata mismatches (permanent) are never retried, transient
+        restore/stage failures are retried on the next few polls before the
+        step is given up on. Returns the staged step, or None. The restore
+        runs on the store's stream, onto the store's device (default: the
+        current CUDA device).
+        """
+        from repro_torch.checkpoint.checkpointer import CheckpointMetaError
+
+        if mesh is not None:
+            raise NotImplementedError(
+                "not ported yet: reshard-on-restore (M7)")
+        steps = checkpointer.list_steps()
+        if not steps or steps[-1] < self._last_ckpt_step or (
+                steps[-1] == self._last_ckpt_step and
+                self._ckpt_retries == 0):
+            return None
+        step = steps[-1]
+        if step > self._last_ckpt_step:
+            self._last_ckpt_step, self._ckpt_retries = step, 3
+        try:
+            with self._staging():
+                tree, meta, _ = checkpointer.restore_serving(
+                    step, expect=expect, device=self._device)
+            src = f"ckpt:{step}"
+            if meta.get("format") == "quantized":
+                self.stage(serving_params=tree, source=src, step=step,
+                           block=True)
+            else:
+                self.stage(fp_params=tree, source=src, step=step,
+                           block=True)
+        except CheckpointMetaError as e:
+            self._ckpt_retries = 0       # permanent: wrong bits/method
+            with self._lock:
+                self.errors.append(f"reload step {step} rejected: {e}")
+            return None
+        except Exception as e:
+            self._ckpt_retries -= 1      # transient? retry a few polls
+            with self._lock:
+                self.errors.append(f"reload step {step} failed "
+                                   f"({self._ckpt_retries} retries left): "
+                                   f"{e!r}")
+            return None
+        self._ckpt_retries = 0
+        return step
+
+    def watch(self, ckpt_dir, poll_s: float = 1.0,
+              expect: Optional[dict] = None, mesh=None):
+        """Poll ``ckpt_dir`` (a path or a ``Checkpointer``) in a daemon
+        thread and stage new steps."""
+        from repro_torch.checkpoint.checkpointer import Checkpointer
+        if mesh is not None:
+            raise NotImplementedError(
+                "not ported yet: reshard-on-restore (M7)")
+        ck = Checkpointer(ckpt_dir, async_save=False) \
+            if isinstance(ckpt_dir, str) else ckpt_dir
+        if self._watch_thread is not None:
+            raise RuntimeError("already watching a checkpoint directory")
+        self._watch_stop = threading.Event()
+
+        def loop():
+            while not self._watch_stop.wait(poll_s):
+                try:
+                    self.poll_checkpoints(ck, expect=expect)
+                except Exception as e:
+                    with self._lock:
+                        self.errors.append(f"watcher: {e!r}")
+
+        self._watch_thread = threading.Thread(target=loop, daemon=True)
+        self._watch_thread.start()
 
     def close(self):
-        """Stop the staging worker (idempotent)."""
+        """Stop the watcher and the staging worker (idempotent)."""
+        if self._watch_stop is not None:
+            self._watch_stop.set()
+            self._watch_thread.join(timeout=5)
+            self._watch_thread, self._watch_stop = None, None
         if self._worker is not None and self._worker.is_alive():
             self._queue.put(None)
             self._worker.join(timeout=5)

@@ -200,7 +200,7 @@ def test_formerly_unported_combinations_serve(pair, kw):
     assert [len(c.tokens) for c in out] == [3, 2]
 
 
-def test_weight_store_stage_and_swap_between_rounds(pair):
+def test_weight_store_stage_and_swap_between_rounds(pair, tmp_path):
     _, _, tmodel, tparams = pair
     te = teng.ServeEngine(tmodel, tparams, teng.ServeConfig(
         max_batch=2, max_len=32, quantize_weights="squant", weight_bits=8,
@@ -217,9 +217,12 @@ def test_weight_store_stage_and_swap_between_rounds(pair):
     assert st["versions_built"] == 3 and st["swaps"] == 1
     with pytest.raises(ValueError):
         store.stage()
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        store.watch("dir")
+    store.watch(str(tmp_path), poll_s=0.01)         # checkpoint hot-reload
+    assert store.stats()["watching"]
+    with pytest.raises(RuntimeError, match="already watching"):
+        store.watch(str(tmp_path))
     te.close()
+    assert not store.stats()["watching"]
 
 
 def test_sampling(rng):
