@@ -16,7 +16,12 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    also at one slot and at long contexts), and times kernel, plain version,
    the bound and one library call (B, C, D and their yardsticks with a cold
    L2; B summed over one layer at the decode batch and at each prefill row
-   count);
+   count); also at phase 10's shapes: kernel A on its expert buckets read
+   in place, kernel B at its expert banks' shapes (2048 -> 1408, 1408 ->
+   2048) at 8 rows (``tcgemv``) and at a monolithic admission's capacity
+   (``mma``), summed over one layer's 192 expert launches beside the
+   reference's form (each bank dequantized, one batched matmul), kernel C
+   at 16/16 heads (rep 1);
 3. drives the round-scheduler path at the full width of granite-3-8b: random
    weights from a seed, SQuant w8 quantization of the whole tree (one
    kernel-A launch and one scale pass per bucket, every bucket read where it
@@ -72,16 +77,31 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    unseen, tokens after the last swap those of a fresh engine on the
    restored tree; what a device-wide synchronization does to another
    thread's capture, in a process of its own; (c) the quantize and serve
-   CLIs as processes (serve swaps in the quantize CLI's checkpoint).
-The phases run in the order 1, 4, 3, 6, 7, 8, 9, 2, 5: the short w4 run
-pays the one-time start-up costs, and phase 2 times the kernels at the
-shapes phases 3, 6 and 8 produced. The last three lines are the card line, the ``kernels``
+   CLIs as processes (serve swaps in the quantize CLI's checkpoint);
+10. a fine-grained mixture of experts, ``moonshot-v1-16b-a3b`` (64
+   experts top-6) at full width and 16 of its 48 layers (the cut is listed
+   in the phase's line: 48 layers of float32 weights do not fit one card):
+   (a) SQuant w8 of the whole tree, every expert bank quantized where it is
+   stored (native route, nothing stacked), phase 6's serve configuration
+   and traffic, captured, repeated and eager (tokens bit-identical,
+   launches equal; kernel B's launches split into experts and attention by
+   variant, every expert launch ``tcgemv``); (b) 2 layers in float32
+   through the kernels against the plain versions; (c) 2 layers in float32,
+   teacher-forced agreement against a one-slot contiguous oracle that
+   admits in the same 64-token chunks, held to the reference's ``moe``
+   budget (0.85), and, printed beside it, against the monolithic one; (d)
+   the Hessian analysis
+   (approximation precision) and the AdaRound and RTN baselines on one
+   layer on the card.
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 2, 5: the short w4
+run pays the one-time start-up costs, and phase 2 times the kernels at the
+shapes phases 3, 6, 8 and 10 produced. The last three lines are the card line, the ``kernels``
 line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
-``--layers7`` (phase 7), ``--layers8`` (phase 8) and ``--layers9`` (phase
-9a); widths are never cut.
+``--layers7`` (phase 7), ``--layers8`` (phase 8), ``--layers9`` (phase
+9a) and ``--layers10`` (phase 10a); widths are never cut.
 """
 import argparse
 import dataclasses
@@ -178,7 +198,14 @@ def host_ms(fns, iters):
 # phase 2a: kernel A against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernel_a(dev, gen, buckets):
+def check_kernel_a(dev, gen, buckets, moe_buckets=()):
+    """Kernel A against its plain version (exact and random inputs, heavy
+    clipping), then the native-layout launches at each bucket of the main
+    path's tree (``buckets``: (leaves, in, out)) and of phase 10's
+    (``moe_buckets``: (leaves, experts, in, out), an expert bucket's
+    leaves the expert slices of its banks, read where they are stored):
+    every leaf against the plain versions, the scale pass and the flip
+    timed against their bytes bound."""
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
     from repro_torch.quant.scales import compute_scale
@@ -237,9 +264,18 @@ def check_kernel_a(dev, gen, buckets):
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     stot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
     kw = dict(bits=8, group_size=128)
-    for nb, kin, nch in buckets:
-        leaves = [torch.randn((kin, nch), generator=gen, device=dev)
-                  for _ in range(nb)]
+    moe_tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "scale_ms": 0.0,
+               "scale_bound_ms": 0.0}
+    moe_rows = []
+    for i, (nb, experts, kin, nch) in enumerate(
+            [(nb, 1, kin, nch) for nb, kin, nch in buckets]
+            + list(moe_buckets)):
+        is_moe = i >= len(buckets)
+        # an expert bucket: nb / experts banks (experts, in, out), each
+        # expert's slice one (in, out) leaf
+        leaves = [sl for _ in range(nb // experts)
+                  for sl in torch.randn((experts, kin, nch), generator=gen,
+                                        device=dev).unbind(0)]
         # exact inputs on the first leaf's shape: codes equal
         gw = torch.randint(-400, 401, (kin, nch), generator=gen,
                            device=dev).float() / 64.0
@@ -260,13 +296,18 @@ def check_kernel_a(dev, gen, buckets):
             leaf, float("inf"), dim=0) for leaf in leaves]], 1, graph=False)
         s_bytes = nb * (kin * nch * 4 + nch * 4)
         s_bound = s_bytes / HBM_BYTES_PER_S * 1e3
-        scale_rows.append({"leaves": nb, "in": kin, "out": nch, "ms": s_ms,
-                           "bound_ms": s_bound, "bound_share": s_bound / s_ms,
-                           "plain_ms": s_plain, "library_ms": lib_ms})
-        stot["ms"] += s_ms
-        stot["plain_ms"] += s_plain
-        stot["bound_ms"] += s_bound
-        stot["library_ms"] += lib_ms
+        srow = {"leaves": nb, "in": kin, "out": nch, "ms": s_ms,
+                "bound_ms": s_bound, "bound_share": s_bound / s_ms,
+                "plain_ms": s_plain, "library_ms": lib_ms}
+        if is_moe:
+            moe_tot["scale_ms"] += s_ms
+            moe_tot["scale_bound_ms"] += s_bound
+        else:
+            scale_rows.append(srow)
+            stot["ms"] += s_ms
+            stot["plain_ms"] += s_plain
+            stot["bound_ms"] += s_bound
+            stot["library_ms"] += lib_ms
 
         got = sf.squant_flip_leaves(leaves, s, **kw)
         again = sf.squant_flip_leaves(leaves, s, **kw)
@@ -299,14 +340,22 @@ def check_kernel_a(dev, gen, buckets):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = A_OPS_PER_ELEMENT * nb * kin * nch / PEAK_FLOPS["float32"] * 1e3
         bound = max(t_bytes, t_ops)
-        shapes.append({"leaves": nb, "in": kin, "out": nch,
-                       "route": sf.route(nch, True), "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bound,
-                       "bound_share": bound / ms,
-                       "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-        tot["ms"] += ms
-        tot["plain_ms"] += plain_ms
-        tot["bound_ms"] += bound
+        row = {"leaves": nb, "in": kin, "out": nch,
+               "route": sf.route(nch, True), "ms": ms,
+               "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_share": bound / ms,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        if is_moe:
+            row.update(experts=experts, banks=nb // experts,
+                       launches=-(-nb // sf.MAX_LEAVES), scale_ms=s_ms,
+                       scale_bound_ms=s_bound)
+            moe_rows.append(row)
+            for k in ("ms", "plain_ms", "bound_ms"):
+                moe_tot[k] += row[k]
+        else:
+            shapes.append(row)
+            for k in tot:
+                tot[k] += row[k]
         del leaves, s, got
         torch.cuda.empty_cache()
     routes = {k: sf.launches_by_route[k] - a0[k] for k in a0}
@@ -321,6 +370,14 @@ def check_kernel_a(dev, gen, buckets):
                  "time (CUDA graph replay); plain_ms: eager calls, leaf by "
                  "leaf", library_ms=None, bound_by="bytes", shapes=shapes,
                  bound_share=tot["bound_ms"] / tot["ms"], **tot)
+    if moe_rows:
+        entry["moe_tree"] = dict(
+            moe_tot, model=MOE_ARCH, buckets=moe_rows,
+            bound_share=moe_tot["bound_ms"] / moe_tot["ms"],
+            numbers_are="sums over the launches of one quantize_tree of "
+            "phase 10's tree: the expert buckets read in place (the flip "
+            "takes up to MAX_LEAVES slices a launch) and the attention "
+            "bucket")
     scale = dict(KERNEL_SCALE, max_abs_err=0.0, tolerance="bit-identical to "
                  "core.dispatch._scales on every leaf", bound_by="bytes",
                  numbers_are="sums over the launches of one quantize_tree of "
@@ -351,7 +408,8 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
     return out
 
 
-def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=()):
+def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
+                   experts=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
@@ -363,10 +421,16 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=()):
     variant at phase 8's drafter admission prefills (``draft_rows``, at
     (4096, 4096) and (12800, 4096)). Kernel and ``torch.matmul`` yardstick
     alike are timed by CUDA-graph replay with a cold L2: the calls cycle
-    through input sets whose reads exceed twice the L2."""
+    through input sets whose reads exceed twice the L2. ``experts`` (phase
+    10's: ``n_experts``, ``banks`` as (name, out, in), ``rows``): kernel B
+    at each expert bank's shape and each capacity in ``rows``, against the
+    plain version, summed over one layer's launches (one per expert and
+    bank) beside their bound, and beside the reference's form of the same
+    products: each bank dequantized and one batched ``torch.matmul``."""
     from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
 
-    launches_before = dict(dm.launches_by_variant), dm.launches
+    launches_before = ops.launch_counts()
     layer = [("wq", 4096, 4096), ("wk", 1024, 4096), ("wv", 1024, 4096),
              ("wo", 4096, 4096), ("wi", 12800, 4096), ("wg", 12800, 4096),
              ("wdown", 4096, 12800)]
@@ -507,9 +571,32 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=()):
                                          for r in rows),
             variant=sorted({r["variant"] for r in rows}),
             splits={f"({r['m']},{r['n']})": r["splits"] for r in rows})
+    expert_layer = None
+    if experts is not None:
+        expert_layer = {}
+        e = experts["n_experts"]
+        for c in experts["rows"]:
+            per = {}
+            for _, m, n in experts["banks"]:
+                if (m, n) not in per:
+                    per[(m, n)] = timed(m, n, c, 8, torch.bfloat16)
+                    torch.cuda.empty_cache()
+            lt = {k: e * sum(per[(m, n)][k] for _, m, n in experts["banks"])
+                  for k in ("ms", "library_ms", "bound_ms", "plain_ms")}
+            yard = sum(_bank_matmul_ms(dev, gen, e, m, n, c)
+                       for _, m, n in experts["banks"])
+            expert_layer[str(c)] = dict(
+                lt, launches=e * len(experts["banks"]),
+                bound_share=lt["bound_ms"] / lt["ms"],
+                dequant_bank_matmul_ms=yard,
+                variant=sorted({r["variant"] for r in per.values()}),
+                per_launch=list(per.values()))
+            if expert_layer[str(c)]["variant"] != [_variant(c)]:
+                raise AssertionError(f"expert launches at {c} rows took "
+                                     f"{expert_layer[str(c)]['variant']}")
     # comparisons and timings are not the path's launches
-    dm.launches_by_variant, dm.launches = launches_before
-    entry = dict(KERNEL_B, max_abs_err=worst["bfloat16"],
+    ops.set_launch_counts(launches_before)
+    entry = dict(KERNEL_B, experts=expert_layer, max_abs_err=worst["bfloat16"],
                  max_abs_err_float32=worst["float32"],
                  max_rel_err=worst_rel,
                  tolerance="float32: rtol 1e-4, atol 1e-4*max|ref| (sum order "
@@ -531,6 +618,26 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=()):
                  draft_prefill_int4=draft_prefill,
                  shapes=shapes, **tot)
     return entry
+
+
+def _bank_matmul_ms(dev, gen, e, m, n, c):
+    """Device ms of the plain version of one expert bank's product on the
+    card, the reference's form: the ``(e*m, n)`` int8 bank dequantized to
+    bfloat16 and one batched ``torch.matmul`` on ``(e, c, n)`` rows
+    (``ops.expert_matmul`` under ``force_backend("ref")``), two banks
+    cycled (each ``e*m*n`` bytes, past the L2)."""
+    from repro_torch.kernels import ops
+    from repro_torch.quant.qtypes import QuantizedTensor
+    banks = [{"w": QuantizedTensor(data=d, scale=sc, bits=8,
+                                   shape=(e * m, n))}
+             for d, sc in _b_case(dev, gen, e * m, n, 8, False, 2)]
+    x = torch.randn((e, c, n), generator=gen, device=dev).to(torch.bfloat16)
+    with ops.force_backend("ref"):
+        ms = time_ms([(lambda b=b: ops.expert_matmul(x, b)) for b in banks],
+                     4)
+    del banks
+    torch.cuda.empty_cache()
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -828,6 +935,7 @@ def bf16_paged_vs_plain(dev, seed, model, tree, chunk=32):
         launched = ops.combine_launches(
             ops.launches_between(c0, ops.launch_counts()),
             eng.replay_launches())
+        eng.close()
         return (toks, torch.cat(dec.log), [r for r, _ in chk.log],
                 torch.cat([lg[None] for _, lg in chk.log]), dec.calls,
                 launched["dequant_matmul.launches_by_variant"])
@@ -933,13 +1041,15 @@ def _sdpa_inputs(args, c, quant, dt):
             vc.transpose(1, 2).contiguous(), mask)
 
 
-def check_kernels_cd(dev, gen, path_lengths):
+def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None):
     """Kernels C and D against their plain versions at the main path's
     shape (B=8, H=32, KV=8, D=128, bs=16, nb=32, the per-slot lengths of a
     step of phase 6), at a ragged shape (rep=1, D=64, lengths {0, bs-1, bs,
     full}), at one slot (``single``: B=1, length 400, where the split
     matters most) and at long contexts (``long``: nb=256, lengths drawn
-    from 1500-4095), in bfloat16 and float32, with tails at the trash block
+    from 1500-4095), and at phase 10's shape when ``moe_lengths`` is given
+    (``moe``: B=8, H=KV=16, rep=1, D=128, the per-slot lengths of a step of
+    phase 10), in bfloat16 and float32, with tails at the trash block
     and masked positions poisoned. Times by CUDA-graph replay with a cold
     L2: the timed calls cycle through enough independent input sets that
     the bytes they read exceed twice the 50 MB L2 (at most 128 sets, so the
@@ -962,6 +1072,9 @@ def check_kernels_cd(dev, gen, path_lengths):
                              lengths=[400])),
              ("long", dict(b=8, kv=8, rep=4, d=128, bs=16, nb=256,
                            lengths=long_lengths))]
+    if moe_lengths is not None:
+        cases.append(("moe", dict(b=8, kv=16, rep=1, d=128, bs=16, nb=32,
+                                  lengths=list(moe_lengths))))
     entries = {}
     for quant in (False, True):
         mod = paq if quant else pa
@@ -1064,7 +1177,12 @@ def check_kernels_cd(dev, gen, path_lengths):
             ms=head["ms"], plain_ms=head["plain_ms"],
             library_ms=head["library_ms"], bound_ms=head["bound_ms"],
             bound_share=head["bound_share"],
-            bound_by=head["bound_by"], shapes=shapes)
+            bound_by=head["bound_by"], shapes=shapes,
+            moe=next(({k: r[k] for k in ("ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_share",
+                                          "split_plan", "ctas_per_sm")}
+                      for r in shapes if r["case"] == "moe"
+                      and r["dtype"] == "bfloat16"), None))
     return entries[False], entries[True]
 
 
@@ -1132,7 +1250,8 @@ def _retyped(tree, dtype):
     return out
 
 
-def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype):
+def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype,
+                      **oracle_over):
     """Teacher-forced greedy agreement of the paged chunked engine (phase 6's
     serve config, ``quantize_kv`` as given) against its oracle on the same
     quantized tree, with activations in ``dtype``: the fp paged pool for an
@@ -1140,7 +1259,8 @@ def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype):
     with ONE slot — a contiguous pool left-pads every prompt to the shared
     clock and the pad tokens are attended (the reference's semantics), so
     only a one-slot run sees the paged slots' context (positions 0..L-1).
-    Returns the report and the oracle's seconds."""
+    ``oracle_over`` changes the oracle's serve config. Returns the report
+    and the oracle's seconds."""
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServeEngine, WeightStore
     from repro_torch.serving.equivalence import (greedy_token_agreement,
@@ -1149,16 +1269,19 @@ def measure_agreement(dev, model, tree, reqs, quantize_kv, dtype):
     name = str(dtype).replace("torch.", "")
     m = build_model(dataclasses.replace(model.cfg, dtype=name))
     store = WeightStore(serving_params=_retyped(tree, dtype), device=dev)
-    ocfg = paged_config() if quantize_kv else paged_config(
-        kv_backend="contiguous", prefill_chunk=0, max_slots=1)
+    ocfg = paged_config(**oracle_over) if quantize_kv else paged_config(
+        **dict(dict(kv_backend="contiguous", prefill_chunk=0, max_slots=1),
+               **oracle_over))
     t0 = time.perf_counter()
-    oracle = oracle_tokens(ServeEngine(m, None, ocfg, store=store,
-                                       device=dev).generate(reqs))
+    eng = ServeEngine(m, None, ocfg, store=store, device=dev)
+    oracle = oracle_tokens(eng.generate(reqs))
     torch.cuda.synchronize()
     oracle_s = time.perf_counter() - t0
-    rep = greedy_token_agreement(
-        ServeEngine(m, None, paged_config(quantize_kv=quantize_kv),
-                    store=store, device=dev), reqs, oracle)
+    eng.close()
+    eng = ServeEngine(m, None, paged_config(quantize_kv=quantize_kv),
+                      store=store, device=dev)
+    rep = greedy_token_agreement(eng, reqs, oracle)
+    eng.close()
     return rep, oracle_s, oracle
 
 
@@ -1217,14 +1340,138 @@ def _quantiles(xs):
     return dict(zip(("min", "p10", "p50", "p90", "max"), q.tolist()))
 
 
+def _tree_bytes(tree):
+    """Bytes of the tensors of a parameter tree (nested dicts and lists)."""
+    if torch.is_tensor(tree):
+        return tree.numel() * tree.element_size()
+    items = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (list, tuple)) else ()
+    return sum(_tree_bytes(t) for t in items)
+
+
+def phase_memory(label, log):
+    """Device memory still allocated after a phase, as it returns, after a
+    garbage collection and after PyTorch's cuBLAS workspaces are freed,
+    into ``log``, with the package's and this script's objects that only
+    the collection freed (a reference cycle held them) and the device
+    bytes of the tensors among them. Fails if anything is left after
+    that: every phase closes what it made."""
+    import gc
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    gc.set_debug(gc.DEBUG_SAVEALL)
+    try:
+        gc.collect()
+        cyclic, cuda_bytes = {}, 0
+        for o in gc.garbage:
+            mod = getattr(type(o), "__module__", "") or ""
+            if mod.startswith("repro_torch") or mod == __name__:
+                name = f"{mod}.{type(o).__qualname__}"
+                cyclic[name] = cyclic.get(name, 0) + 1
+            elif torch.is_tensor(o) and o.is_cuda:
+                cuda_bytes += o.numel() * o.element_size()
+    finally:
+        gc.set_debug(0)
+        gc.garbage.clear()
+    gc.collect()
+    after_gc = torch.cuda.memory_allocated()
+    # PyTorch keeps a cuBLAS workspace for every stream a matmul ran on
+    # (each engine's capture stream, each store's staging stream)
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    log.append({"after": label, "allocated_gb": held / 1e9,
+                "allocated_gb_after_gc": after_gc / 1e9,
+                "allocated_gb_after_cublas_workspaces": left / 1e9,
+                "cyclic_objects": cyclic,
+                "cyclic_cuda_tensor_gb": cuda_bytes / 1e9})
+    if left:
+        raise AssertionError(f"phase {label} left {left} bytes allocated "
+                             f"on the device: {log[-1]}")
+
+
 def _reset_launches(dm, pa, paq, sf):
     sf.launches = sf.scale_launches = dm.launches = pa.launches = \
         paq.launches = 0
     sf.launches_by_route = dict.fromkeys(sf.ROUTES, 0)
     dm.launches_by_variant = dict.fromkeys(dm.VARIANTS, 0)
+    dm.launches_by_shape = {}
 
 
-def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
+def _variant(rows):
+    """Kernel B's variant for bfloat16 activations of ``rows`` rows on the
+    path's aligned shapes (``dequant_matmul.variant``)."""
+    return "tcgemv" if rows <= 16 else "mma"
+
+
+def kernel_b_forward(cfg, layers, rows, dropless):
+    """Kernel B launches by variant that one forward of ``rows`` tokens
+    makes, split by part: ``attention`` (wq, wk, wv, wo of every layer) and
+    ``ffn`` (wi, wg, wdown of a dense layer) or ``experts`` (the same three
+    banks, one launch per expert on its capacity's rows: ``rows`` when
+    ``dropless``, else the GShard capacity rounded up)."""
+    from repro_torch.models.transformer import layer_plan
+    plan = layer_plan(cfg) * (layers // len(layer_plan(cfg)))
+    out = {"attention": {}, "ffn": {}, "experts": {}}
+
+    def add(part, var, n):
+        out[part][var] = out[part].get(var, 0) + n
+
+    for _, moe in plan:
+        add("attention", _variant(rows), 4)
+        if not moe:
+            add("ffn", _variant(rows), 3)
+            continue
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        cap = rows if dropless else min(rows, max(1, math.ceil(
+            rows * k * cfg.moe.capacity_factor / e)))
+        add("experts", _variant(cap), 3 * e)
+    return {k: v for k, v in out.items() if v}
+
+
+def kernel_b_parts(cfg, by_shape):
+    """Kernel B's measured launches (``launches_by_shape``: by variant and
+    weight (M, N), as the wrapper counts them and a graph's nodes hold
+    them) by part, as :func:`kernel_b_forward` splits them: a shape of
+    wq/wk/wv/wo is ``attention``, one of wi/wg/wdown ``experts`` in an MoE
+    stack, else ``ffn``."""
+    from repro_torch.models.transformer import layer_plan
+    moe = [m for _, m in layer_plan(cfg)]
+    if any(moe) and not all(moe):
+        raise ValueError("dense and MoE layers share the FFN's shapes")
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    part = {(q, cfg.d_model): "attention", (kv, cfg.d_model): "attention",
+            (cfg.d_model, q): "attention"}
+    for mn in ((cfg.d_ff, cfg.d_model), (cfg.d_model, cfg.d_ff)):
+        if mn in part:
+            raise ValueError(f"an FFN shape {mn} is an attention shape")
+        part[mn] = "experts" if all(moe) else "ffn"
+    out = {}
+    for key, n in by_shape.items():
+        if not n:
+            continue
+        var, shape = key.split()
+        mn = tuple(int(v) for v in shape.split("x"))
+        if mn not in part:
+            raise AssertionError(f"kernel B launched at {mn}, no linear's "
+                                 f"shape of {cfg.name}")
+        by = out.setdefault(part[mn], {})
+        by[var] = by.get(var, 0) + n
+    return out
+
+
+def _add_counts(a, b, times=1):
+    out = {k: dict(v) for k, v in a.items()}
+    for part, by in b.items():
+        for var, n in by.items():
+            out.setdefault(part, {})
+            out[part][var] = out[part].get(var, 0) + times * n
+    return out
+
+
+def drive_continuous(dev, seed, layers, phase, quantize_kv=False,
+                     arch="granite-3-8b", agreement=True,
+                     capture_all_widths=True, reduced=None, before_close=None):
     """The continuous + paged + chunked path on granite-3-8b w8: one counted
     run through ``ServeEngine.generate`` (the main path, its decode step and
     chunk widths captured as CUDA graphs), two repeats of the same requests
@@ -1232,9 +1479,13 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     have, none in the third), a fresh request set, the same configuration
     run eagerly (``capture=False``) on the same tree and requests (tokens
     bit-identical, launch counts equal: the main run's replays measured by
-    ``ServeEngine.replay_launches``), every chunk width captured, then the
-    agreement check against its oracle engine, which shares the quantized
-    tree."""
+    ``ServeEngine.replay_launches``), every chunk width captured
+    (``all_widths``), then the agreement check against its oracle engine,
+    which shares the quantized tree (``agreement``). ``arch`` names the
+    model, ``reduced`` the depth cut listed in the phase's line;
+    ``before_close(engine)`` runs before the engine closes. Returns
+    kernel A's, kernel B's and kernel C's (or D's) launches, the context
+    lengths of the step with the most context, and the phase's line."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
@@ -1245,20 +1496,49 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     from repro_torch.serving import ServeEngine, WeightStore
     from repro_torch.serving.equivalence import AGREEMENT_BUDGETS
 
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=layers)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    t0 = time.perf_counter()
     params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
     reqs = chat_requests(seed, cfg.vocab)
     kernel_mod = paq if quantize_kv else pa
 
-    sf.launches = dm.launches = pa.launches = paq.launches = 0
+    _reset_launches(dm, pa, paq, sf)
+    weights_bytes = _tree_bytes(params)
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     eng = ServeEngine(model, params, paged_config(quantize_kv=quantize_kv),
                       device=dev)
+    quant_peak_gb = (torch.cuda.max_memory_allocated() - allocated) / 1e9
     del params
     torch.cuda.empty_cache()
     a_launches = sf.launches
+    qrep = eng.quant_report
+    quantize = {"report": qrep.summary(), "total_ms": qrep.total_millis,
+                "dispatch_ms": qrep.dispatch_millis,
+                "sync_ms": qrep.sync_millis,
+                "staged_ms": eng.store.current.staged_ms,
+                "buckets": [{"key": b.key, "route": b.route,
+                             "dispatch_ms": b.dispatch_millis}
+                            for b in qrep.buckets],
+                "stacked_buckets": sum(b.route == "stacked"
+                                       for b in qrep.buckets),
+                "launches": {"squant_flip": a_launches,
+                             "squant_flip_by_route": dict(
+                                 sf.launches_by_route),
+                             "squant_scale": sf.scale_launches},
+                "peak_gb_above_weights": quant_peak_gb,
+                "weights_gb": weights_bytes / 1e9,
+                "allocated_gb_before": allocated / 1e9, "init_ms": init_ms}
+    if quantize["stacked_buckets"] or not all("g128" in b.key
+                                              for b in qrep.buckets):
+        raise AssertionError(f"a bucket took the stacked route or is not "
+                             f"grouped: {quantize['buckets']}")
     kv = eng.scheduler.kv
     dec = eng._decode = _Counted(eng._decode,
                                  lambda a, o: kv._lengths.copy().tolist())
@@ -1290,18 +1570,25 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
               "admit": 0}:
         raise AssertionError(f"captures {tc}: expected one decode capture "
                              f"and one per chunk width {widths}")
-    forwards = dec.calls + chk.calls + pre.calls
     if chk.calls != st.chunk_steps or pre.calls != 0:
         raise AssertionError(f"chunk forwards {chk.calls} vs stats "
                              f"{st.chunk_steps}, monolithic {pre.calls}")
-    # what the main run's launches must be: kernel B seven times per layer
-    # and forward, every decode linear and chunk of up to 16 rows
-    # (bfloat16) through tcgemv, every chunk of more rows through mma, none
-    # through gemv or tiled; C (or D) once per layer and decode
+    # what the main run's launches must be: kernel B on every linear of
+    # every forward (an MoE layer: once per expert and bank), through
+    # tcgemv up to 16 rows (bfloat16), mma above, never gemv or tiled; C
+    # (or D) once per layer and decode
     big = sum(1 for rows in chk.log if rows > 16)
-    want_by = {"gemv": 0, "tiled": 0, "mma": 7 * layers * big,
-               "tcgemv": 7 * layers * (dec.calls + chk.calls - big)}
-    want_b, want_k = 7 * layers * forwards, layers * dec.calls
+    b_parts = _add_counts({}, kernel_b_forward(cfg, layers,
+                                               eng.cfg.max_slots, True),
+                          dec.calls)
+    for rows in chk.log:
+        b_parts = _add_counts(b_parts, kernel_b_forward(cfg, layers, rows,
+                                                        False))
+    want_by = {"gemv": 0, "tiled": 0, "mma": 0, "tcgemv": 0}
+    for by in b_parts.values():
+        for var, n in by.items():
+            want_by[var] += n
+    want_b, want_k = sum(want_by.values()), layers * dec.calls
     b_launches = captured_launches["dequant_matmul.launches"]
     b_by_variant = captured_launches["dequant_matmul.launches_by_variant"]
     k_launches = captured_launches[
@@ -1314,6 +1601,14 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     if b_by_variant != want_by:
         raise AssertionError(f"kernel B by variant {b_by_variant}, path "
                              f"implies {want_by}")
+    # the same launches by part, as counted: the wrappers' and the graph
+    # nodes' (M, N) of every launch
+    b_parts_measured = kernel_b_parts(
+        cfg, captured_launches["dequant_matmul.launches_by_shape"])
+    if b_parts_measured != {p: {v: n for v, n in by.items() if n}
+                            for p, by in b_parts.items()}:
+        raise AssertionError(f"kernel B by part {b_parts_measured}, path "
+                             f"implies {b_parts}")
     if k_launches != want_k or k_launches == 0 or other:
         raise AssertionError(f"{kernel_mod.__name__} launches {k_launches} "
                              f"(other paged kernel {other}), path implies "
@@ -1410,21 +1705,24 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
 
     # the cost of capturing every chunk width up front: each width of 1 to
     # prefill_chunk not captured yet, driven once on the one-row side cache
-    side = kv.side_cache(1)
-    rng = torch.Generator().manual_seed(seed)
-    n0, ms0 = eng.trace_counts["prefill_chunk"], eng.capture_ms
-    for n in range(1, eng.cfg.prefill_chunk + 1):
-        t, clock = kv.chunk_inputs(torch.randint(
-            0, cfg.vocab, (n,), generator=rng).numpy(), 0)
-        chk.fn(eng.params, {"tokens": t}, dict(side, pos=clock))
-    torch.cuda.synchronize()
-    all_widths = {"widths": eng.cfg.prefill_chunk,
-                  "captured_now": eng.trace_counts["prefill_chunk"] - n0,
-                  "capture_ms_now": eng.capture_ms - ms0,
-                  "graphs": eng.stats()["graphs"]}
-    if eng.trace_counts["prefill_chunk"] != eng.cfg.prefill_chunk:
-        raise AssertionError(f"captures {eng.trace_counts} after driving "
-                             f"every width 1..{eng.cfg.prefill_chunk}")
+    all_widths = None
+    if capture_all_widths:
+        side = kv.side_cache(1)
+        rng = torch.Generator().manual_seed(seed)
+        n0, ms0 = eng.trace_counts["prefill_chunk"], eng.capture_ms
+        for n in range(1, eng.cfg.prefill_chunk + 1):
+            t, clock = kv.chunk_inputs(torch.randint(
+                0, cfg.vocab, (n,), generator=rng).numpy(), 0)
+            chk.fn(eng.params, {"tokens": t}, dict(side, pos=clock))
+        torch.cuda.synchronize()
+        all_widths = {"widths": eng.cfg.prefill_chunk,
+                      "captured_now": eng.trace_counts["prefill_chunk"] - n0,
+                      "capture_ms_now": eng.capture_ms - ms0,
+                      "graphs": eng.stats()["graphs"]}
+        if eng.trace_counts["prefill_chunk"] != eng.cfg.prefill_chunk:
+            raise AssertionError(f"captures {eng.trace_counts} after "
+                                 f"driving every width 1.."
+                                 f"{eng.cfg.prefill_chunk}")
 
     # agreement, measured with bfloat16 activations (the main path's) and
     # with float32 activations on the same quantized tree; the budget is
@@ -1433,12 +1731,13 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
     label = "int8 KV vs fp paged pool" if quantize_kv else \
         "paged vs contiguous (one slot)"
     budget = AGREEMENT_BUDGETS["int8_kv"] if quantize_kv else 0.98
-    rep16, oracle_s, oracle16 = measure_agreement(
-        dev, model, eng.params, reqs, quantize_kv, torch.bfloat16)
-    rep, oracle32_s, _ = measure_agreement(dev, model, eng.params, reqs,
-                                           quantize_kv, torch.float32)
-    near_ties = None
-    if not quantize_kv:
+    rep = rep16 = oracle_s = oracle32_s = near_ties = None
+    if agreement:
+        rep16, oracle_s, oracle16 = measure_agreement(
+            dev, model, eng.params, reqs, quantize_kv, torch.bfloat16)
+        rep, oracle32_s, _ = measure_agreement(dev, model, eng.params, reqs,
+                                               quantize_kv, torch.float32)
+    if agreement and not quantize_kv:
         # where the bf16 token differs from the bf16 oracle's: the float32
         # oracle's top-2 logit margin on the same (teacher-forced) context,
         # beside the margins at every compared position
@@ -1452,8 +1751,11 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
                          list(margin.values())),
                      "positions": len(margin)}
     entry = {"phase": phase, "model": cfg.name, "layers": layers,
-             "full_depth": layers == get_config("granite-3-8b").n_layers,
+             "full_depth": layers == full.n_layers, "reduced": reduced,
+             "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+             "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
              "weight_bits": 8, "quantize_kv": quantize_kv,
+             "quantize": quantize,
              "serve_config": {k: getattr(eng.cfg, k) for k in (
                  "scheduler", "kv_backend", "max_slots", "max_len",
                  "block_size", "prefill_chunk")},
@@ -1481,32 +1783,39 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False):
              "launches": {"squant_flip": a_launches,
                           "dequant_matmul": b_launches,
                           "dequant_matmul_by_variant": b_by_variant,
+                          "dequant_matmul_by_part": b_parts_measured,
+                          "dequant_matmul_by_shape": {
+                              k: v for k, v in captured_launches[
+                                  "dequant_matmul.launches_by_shape"].items()
+                              if v},
                           kernel_mod.__name__.split(".")[-1]: k_launches},
              "launches_issued_by_wrappers": issued,
              "launches_measured_in_replays": replayed,
              "replays": replays,
              "mma_plans": dm.cached_plans("mma"),
-             "agreement": {"against": label, "budget": budget,
-                           "gated": "float32 activations",
-                           "rate": rep.rate, "matched": rep.matched,
-                           "compared": rep.compared,
-                           "rate_bfloat16": rep16.rate,
-                           "matched_bfloat16": rep16.matched,
-                           "bfloat16_disagreements_float32_margin":
-                               near_ties},
+             "agreement": None if not agreement else {
+                 "against": label, "budget": budget,
+                 "gated": "float32 activations",
+                 "rate": rep.rate, "matched": rep.matched,
+                 "compared": rep.compared,
+                 "rate_bfloat16": rep16.rate,
+                 "matched_bfloat16": rep16.matched,
+                 "bfloat16_disagreements_float32_margin": near_ties},
              "tokens": [o.tokens for o in outs]}
     emit(entry)
-    if rep.rate < budget:
+    if agreement and rep.rate < budget:
         raise AssertionError(f"{label}: teacher-forced greedy agreement "
                              f"{rep.rate:.4f} < {budget}")
     lengths = max(dec_log, key=sum)        # the step with the most context
+    if before_close is not None:
+        before_close(eng)
     eng.close()
     del eng, outs
     torch.cuda.empty_cache()
-    return a_launches, b_launches, k_launches, lengths
+    return a_launches, b_launches, k_launches, lengths, entry
 
 
-def paged_vs_plain(dev, seed):
+def paged_vs_plain(dev, seed, arch="granite-3-8b"):
     """The paged continuous path at 2 layers in float32, once through the
     kernels and once under ``force_backend("ref")``, on one quantized tree:
     greedy tokens equal, logits within 1e-3 of the largest."""
@@ -1516,8 +1825,7 @@ def paged_vs_plain(dev, seed):
     from repro_torch.models.model import build_model
     from repro_torch.serving import ServeEngine, WeightStore
 
-    cfg = dataclasses.replace(get_config("granite-3-8b"), n_layers=2,
-                              dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), n_layers=2, dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -1538,12 +1846,13 @@ def paged_vs_plain(dev, seed):
             rows = [i for i, s in enumerate(sch.slots) if s is not None]
             return o[0][rows].float().cpu()
 
-        eng._decode = _Counted(eng._decode, keep)
-        eng._prefill_chunk = _Counted(eng._prefill_chunk,
-                                      lambda a, o: o[0].float().cpu())
+        dec = eng._decode = _Counted(eng._decode, keep)
+        chk = eng._prefill_chunk = _Counted(eng._prefill_chunk,
+                                            lambda a, o: o[0].float().cpu())
         outs = eng.generate(reqs)
-        return ([o.tokens for o in outs], torch.cat(eng._decode.log),
-                torch.cat([x[None] for x in eng._prefill_chunk.log]))
+        eng.close()
+        return ([o.tokens for o in outs], torch.cat(dec.log),
+                torch.cat([x[None] for x in chk.log]))
 
     tk, dk, ck = run()
     with ops.force_backend("ref"):
@@ -2440,17 +2749,295 @@ def drive_clis(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: a fine-grained mixture of experts (moonshot-v1-16b-a3b) on the
+# paged continuous path
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def moe_expert_shapes(cfg):
+    """The expert banks of one MoE layer as (name, out, in) (kernel B's
+    (M, N)): wi and wg d_model -> d_ff, wdown d_ff -> d_model."""
+    return [("wi", cfg.d_ff, cfg.d_model), ("wg", cfg.d_ff, cfg.d_model),
+            ("wdown", cfg.d_model, cfg.d_ff)]
+
+
+def profile_moe_decode(dev, seed, eng, steps=4):
+    """``--profile``: the captured paged decode step of phase 10's
+    configuration on its tree, eight slots of its traffic admitted, traced
+    (:func:`_profile_steps`), kernel B's device time split into expert and
+    attention launches by grid (an expert launch's ``tcgemv`` grid is
+    (ceil(out/128), splits) of its bank's shape)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.serving import ServeEngine, WeightStore
+    cfg = eng.model.cfg
+    sms, occ = dm.card_ctas_per_sm(8, eng.cfg.max_slots, dev.index)
+    grids = {}
+    for part, shapes in (("experts", [(m, n) for _, m, n in
+                                      moe_expert_shapes(cfg)]),
+                         ("attention", [(cfg.n_heads * cfg.head_dim,
+                                         cfg.d_model),
+                                        (cfg.n_kv_heads * cfg.head_dim,
+                                         cfg.d_model),
+                                        (cfg.d_model,
+                                         cfg.n_heads * cfg.head_dim)])):
+        for m, n in shapes:
+            sp, _ = dm.split_plan(m, n, 128, sms, min(occ, dm.TC_CTAS_PER_SM))
+            grids[(-(-m // dm.TC_ROWS), sp, 1)] = part
+    if len(set(grids.values())) != 2:
+        raise AssertionError(f"expert and attention grids coincide: {grids}")
+    peng = ServeEngine(eng.model, None, paged_config(),
+                       store=WeightStore(serving_params=eng.params,
+                                         device=dev), device=dev)
+    kv = peng.scheduler.kv
+    slots = list(range(peng.cfg.max_slots))
+    reqs = chat_requests(seed, cfg.vocab)[:len(slots)]
+    kv.admit([(i, r) for i, r in enumerate(reqs)], slots, None,
+             peng.params)
+
+    def step():
+        nxt = kv.logits.argmax(-1).to(torch.int32)
+        nxt.cpu()                                        # the step's host sync
+        kv.decode(peng.params, nxt, slots)
+
+    _profile_steps(step, steps, f"10 profile of the captured MoE decode "
+                   f"step, {cfg.name}", {
+                       "layers": cfg.n_layers, "slots": len(slots),
+                       "expert_grids": sorted([list(g), p]
+                                              for g, p in grids.items())},
+                   b_part=lambda grid: grids.get(grid, "unmatched"))
+    peng.close()
+
+
+def correlated_inputs(rng, samples, n, k):
+    """ReLU-like activations whose E[xxᵀ] has the paper's structure
+    (Appendix A.1): a channel-common floor, a per-kernel shared component
+    and element noise with decaying within-kernel correlation (the recipe
+    of ``tests/test_hessian.py``)."""
+    import numpy as np
+    common = rng.normal(size=(samples, 1, 1))
+    kern = rng.normal(size=(samples, n, 1))
+    elem = rng.normal(size=(samples, n, k + 4))
+    smooth = np.array([0.3, 0.7, 1.0, 0.7, 0.3])
+    sm = np.stack([elem[..., i:i + k] for i in range(5)], 0)
+    elem = (sm * smooth[:, None, None, None]).sum(0) / np.sqrt(
+        (smooth ** 2).sum())
+    x = 0.3 * common + 0.8 * kern + 0.45 * elem + 0.5
+    return np.maximum(x, 0).reshape(samples, n * k)
+
+
+def hessian_on_card(dev, seed):
+    """10d: the Hessian analysis and the baselines on the card, once, with
+    ``tests/test_hessian.py``'s layer: (32, 144) weights, kernels of 9,
+    4 bits, 4000 correlated activation samples from ``seed``. AP and
+    AP-exact > 0.9 as that test holds them; the flip recorder's codes equal
+    ``squant_codes``'; AdaRound's and RTN's output MSE on the samples."""
+    import numpy as np
+
+    from repro_torch.core import baselines, hessian
+    from repro_torch.core.squant import squant_codes
+    from repro_torch.quant.scales import max_scale
+
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(correlated_inputs(rng, 4000, 16, 9)).to(dev)
+    w = torch.from_numpy((rng.normal(size=(32, 144)) * 0.2).astype(
+        np.float32)).to(dev)
+    t0 = time.perf_counter()
+    rep = hessian.approximation_precision(w, x, bits=4, group_size=9)
+    ap_s = time.perf_counter() - t0
+    s = max_scale(w, 4)
+    codes, _, _ = squant_codes(w, s, bits=4, group_size=9, enable_k=True,
+                               enable_c=True)
+    rec, _, log = hessian._record_flips(
+        (w.double() / s.double()).cpu().numpy(), 4, 9, True)
+    recorder_equal = bool(np.array_equal(rec, codes.cpu().numpy()))
+    xf = x.float()
+    y = xf @ w.T
+    t0 = time.perf_counter()
+    ada = baselines.adaround(w, xf, bits=4)
+    torch.cuda.synchronize()
+    ada_s = time.perf_counter() - t0
+    rtn = baselines.rtn(w, 4)
+    mse = {k: float(torch.mean((xf @ q.dequantize().T - y) ** 2))
+           for k, q in (("adaround", ada), ("rtn", rtn))}
+    out = {"layer": [32, 144], "group_size": 9, "bits": 4, "samples": 4000,
+           "flipped": rep.flipped, "ap": rep.ap, "ap_exact": rep.ap_exact,
+           "ap_inorder": rep.ap_inorder, "by_stage": rep.by_stage,
+           "recorder_codes_equal_squant_codes": recorder_equal,
+           "flip_log_events": len(log), "output_mse": mse,
+           "approximation_precision_s": ap_s, "adaround_s": ada_s,
+           "device": str(ada.data.device)}
+    if not (rep.flipped > 100 and rep.ap > 0.9 and rep.ap_exact > 0.9
+            and recorder_equal and ada.data.is_cuda):
+        raise AssertionError(f"the Hessian analysis on the card: {out}")
+    return out
+
+
+# 10c's floor for second turns, whose prefix reuse shifts their chunk
+# boundaries off the oracle's: the reference engine's own lowest rate when
+# chunk boundaries differ at 64 experts top-6 (0.75, chunk 1 against
+# monolithic admission; FINE_GRAINED_REFERENCE_RATES in
+# tests/test_torch_moe_serving.py). First turns chunk as the oracle does
+# and owe equal tokens.
+SHIFTED_CHUNK_FLOOR = 0.75
+
+
+def agreement_by_turn(rep, reqs):
+    """An agreement report split into first turns and second turns (a
+    request whose prompt extends another's whole prompt): matched,
+    compared, rate and the mismatched (request, position) pairs of each."""
+    second = {r.request_id for r in reqs
+              if any(len(o.prompt) < len(r.prompt)
+                     and r.prompt[:len(o.prompt)] == o.prompt for o in reqs)}
+    out = {}
+    for name, ids in (("first", {r.request_id for r in reqs} - second),
+                      ("second", second)):
+        m = sum(rep.per_request.get(i, (0, 0))[0] for i in ids)
+        n = sum(rep.per_request.get(i, (0, 0))[1] for i in ids)
+        out[name] = {"requests": sorted(ids), "matched": m, "compared": n,
+                     "rate": m / n if n else 1.0,
+                     "mismatches": [list(p) for p in rep.mismatches
+                                    if p[0] in ids]}
+    return out
+
+
+def drive_moe(dev, seed, layers, profile=False):
+    """Phase 10: ``moonshot-v1-16b-a3b`` at full width (64 experts top-6,
+    d_model 2048, d_ff 1408, vocab 163 840) and ``layers`` of its 48 layers
+    on phase 6's path and traffic: (a) random weights, SQuant w8 of the
+    whole tree (every expert bank on the native route), served captured,
+    repeated and eager, tokens bit-identical and launches equal, kernel B's
+    launches counted by weight shape and split into experts and attention
+    by variant (every expert launch ``tcgemv``: capacity 8 at decode and at
+    a 64-row chunk); (b) 2 layers in float32 through the kernels against
+    the plain versions; (c) 2 layers in float32, teacher-forced agreement
+    of the paged chunked engine against the one-slot contiguous oracle that
+    admits in the same 64-token chunks: all of it the reference's ``moe``
+    budget, first turns (chunked as the oracle chunks) equal tokens,
+    second turns (their prefix reuse shifts their chunks)
+    ``SHIFTED_CHUNK_FLOOR``; and, not gated, against the one-slot
+    oracle with monolithic admission (capacity routing over a whole prompt
+    drops other tokens than per chunk: at 64 experts top-6 the reference's
+    own sweep falls below its 0.85 floor,
+    ``tests/test_torch_moe_serving.py``); (d) the Hessian analysis and the
+    baselines on the card.
+    Returns kernel A's, B's and C's launches of (a), the context lengths
+    of its fullest decode step and its line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.equivalence import agreement_budget
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    full = get_config(MOE_ARCH)
+
+    def before_close(eng):
+        if profile:
+            profile_moe_decode(dev, seed, eng)
+
+    a_n, b_n, c_n, lengths, entry = drive_continuous(
+        dev, seed, layers, f"10a fine-grained MoE, continuous + paged + "
+        f"chunked, {MOE_ARCH} w8", arch=MOE_ARCH, agreement=False,
+        capture_all_widths=False, before_close=before_close,
+        reduced=None if layers == full.n_layers else
+        {"n_layers": f"{full.n_layers} -> {layers}"})
+    parts = entry["launches"]["dequant_matmul_by_part"]
+    if set(parts["experts"]) != {"tcgemv"} or parts["experts"]["tcgemv"] \
+            != 3 * full.moe.n_experts * layers * (
+                entry["decode_forwards"] + entry["chunk_forwards"]):
+        raise AssertionError(f"expert launches {parts['experts']}: every "
+                             f"expert of every forward through tcgemv")
+    if entry["quantize"]["stacked_buckets"]:
+        raise AssertionError("an expert bucket took the stacked route")
+    torch.cuda.empty_cache()
+
+    # (b) and (c): two layers, float32 activations
+    plain = paged_vs_plain(dev, seed, arch=MOE_ARCH)
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    tree, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+    del params
+    reqs = chat_requests(seed, cfg.vocab)
+    budget = agreement_budget(paged_config(), cfg)
+    # the oracle admits in the same 64-token chunks, so each chunk routes
+    # with the same capacity: what is compared is the paged pool (block
+    # tables, prefix reuse, copy-on-write) against the contiguous cache
+    agree, oracle_s, _ = measure_agreement(
+        dev, model, tree, reqs, False, torch.float32,
+        prefill_chunk=paged_config().prefill_chunk)
+    agree_mono, _, _ = measure_agreement(dev, model, tree, reqs, False,
+                                         torch.float32)
+    turns = agreement_by_turn(agree, reqs)
+    del tree
+    torch.cuda.empty_cache()
+    m5 = hessian_on_card(dev, seed)
+    line = {"phase": "10b-d fine-grained MoE at 2 layers (float32) and the "
+                     "Hessian analysis on the card", "model": MOE_ARCH,
+            "kernels_vs_plain": dict(plain, tolerance="1e-3 * max|logit| "
+                                     "(phase 5's float32 tolerance)"),
+            "agreement": {"against": "contiguous, one slot, admission in "
+                          "the same 64-token chunks", "budget": budget,
+                          "gated": "float32 activations, 2 layers; all "
+                                   f">= {budget}, first turns equal "
+                                   "tokens, second turns "
+                                   f">= {SHIFTED_CHUNK_FLOOR}",
+                          "rate": agree.rate, "matched": agree.matched,
+                          "compared": agree.compared,
+                          "oracle_run_s": oracle_s, "by_turn": turns,
+                          "rate_against_monolithic_oracle_not_gated":
+                              agree_mono.rate,
+                          "matched_against_monolithic_oracle":
+                              agree_mono.matched},
+            "hessian": m5,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if budget != 0.85 or agree.rate < budget \
+            or turns["first"]["mismatches"] \
+            or turns["second"]["rate"] < SHIFTED_CHUNK_FLOOR:
+        raise AssertionError(f"MoE paged vs one-slot contiguous (chunked) "
+                             f"agreement {agree.rate:.4f} (budget {budget}), "
+                             f"by turn {turns}: first turns owe equal "
+                             f"tokens, second turns {SHIFTED_CHUNK_FLOOR}")
+    return a_n, b_n, c_n, lengths, entry
+
+
+# ---------------------------------------------------------------------------
 # optional: where a decode step's time goes (--profile)
 # ---------------------------------------------------------------------------
 
-def _profile_steps(step, steps, phase, extra):
+def _device_events(prof):
+    """The device activity of a ``torch.profiler`` run (kernels, copies,
+    memsets) as (start us, duration us, name, grid) from its Chrome trace,
+    in start order."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return sorted((float(e["ts"]), float(e.get("dur", 0.0)), e["name"],
+                   tuple(e.get("args", {}).get("grid", ())))
+                  for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+
+
+_B_KERNELS = ("tcgemv_kernel", "pf_kernel", "gemv_kernel", "tiled_kernel")
+
+
+def _profile_steps(step, steps, phase, extra, b_part=None):
     """Trace ``steps`` calls of ``step()`` (after two warm ones) with
     ``torch.profiler`` and print device time by kernel (summed over
     kernels), the device's busy time (the union of the kernels' intervals)
     and its share of the untraced wall time, the number of device kernels
     per step, and the device time split into kernel C, kernel B,
-    host-to-device copies and everything else."""
-    from torch.autograd import DeviceType
+    host-to-device copies and everything else. ``b_part(grid)`` names the
+    part a kernel-B launch of that grid serves: kernel B's time is then
+    split by part (a merge pass goes with the launch before it)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):                                   # warm
@@ -2467,57 +3054,53 @@ def _profile_steps(step, steps, phase, extra):
         step()
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t1) * 1e3
-    rows = []
-    dev_us = 0.0
-    n_kernels = 0
-    split = {"paged_attention": 0.0, "dequant_matmul": 0.0,
-             "host_to_device_copies": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        # device-side events only: the host-side op rows carry the time of
-        # the kernels they launched as well and would count it twice
-        if getattr(e, "device_type", None) != DeviceType.CUDA:
-            continue
-        us = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if us > 0:
-            dev_us += us
-            n_kernels += e.count
-            rows.append((us, e.key[:70], e.count))
-            k = e.key
-            if "paged_decode_" in k:        # split pass and merge pass
-                split["paged_attention"] += us
-            elif any(n in k for n in ("tcgemv_", "gemv_kernel",
-                                      "pf_kernel", "tiled_kernel")):
-                split["dequant_matmul"] += us
-            elif "HtoD" in k:
-                split["host_to_device_copies"] += us
-            else:
-                split["other"] += us
-    rows.sort(reverse=True)
+    split = {"paged_attention": 0.0, "host_to_device_copies": 0.0,
+             "other": 0.0}
+    by_name = {}
     # the union of the device intervals: a merge pass (kernels B and C)
     # launched as a programmatic dependent starts while the pass before it
     # runs, and the sum over kernels counts that overlap twice
-    busy_us, end = 0.0, None
-    for t0_, t1_ in sorted(
-            (e.time_range.start, e.time_range.end) for e in prof.events()
-            if getattr(e, "device_type", None) == DeviceType.CUDA):
-        if end is None or t0_ > end:
-            busy_us += t1_ - t0_
-            end = t1_
-        elif t1_ > end:
-            busy_us += t1_ - end
-            end = t1_
-    emit({"phase": phase, **extra,
-          "steps": steps, "wall_ms_per_step_traced": wall_ms / steps,
-          "wall_ms_per_step_untraced": untraced_ms / steps,
-          "device_ms_per_step": dev_us / 1e3 / steps,
-          "device_busy_ms_per_step": busy_us / 1e3 / steps,
-          "device_busy_share_of_untraced_wall": busy_us / 1e3 / untraced_ms,
-          "device_kernels_per_step": n_kernels / steps,
-          "device_ms_per_step_by_part": {k: v / 1e3 / steps
-                                         for k, v in split.items()},
-          "top_device_time": [{"name": n, "ms_per_step": us / 1e3 / steps,
-                               "calls_per_step": c / steps}
-                              for us, n, c in rows[:12]]})
+    dev_us, busy_us, end, owner = 0.0, 0.0, None, "dequant_matmul"
+    events = _device_events(prof)
+    for ts, dur, name, grid in events:
+        if end is None or ts > end:
+            busy_us, end = busy_us + dur, ts + dur
+        elif ts + dur > end:
+            busy_us, end = busy_us + ts + dur - end, ts + dur
+        dev_us += dur
+        row = by_name.setdefault(name[:70], [0.0, 0])
+        row[0] += dur
+        row[1] += 1
+        if "paged_decode_" in name:                  # split and merge pass
+            key = "paged_attention"
+        elif any(k in name for k in _B_KERNELS):
+            owner = "dequant_matmul" if b_part is None else \
+                f"dequant_matmul_{b_part(grid)}"
+            key = owner
+        elif "tcgemv_merge" in name:
+            key = owner
+        elif "HtoD" in name:
+            key = "host_to_device_copies"
+        else:
+            key = "other"
+        split[key] = split.get(key, 0.0) + dur
+    rows = sorted(((us, n, c) for n, (us, c) in by_name.items()),
+                  reverse=True)
+    line = {"phase": phase, **extra,
+            "steps": steps, "wall_ms_per_step_traced": wall_ms / steps,
+            "wall_ms_per_step_untraced": untraced_ms / steps,
+            "device_ms_per_step": dev_us / 1e3 / steps,
+            "device_busy_ms_per_step": busy_us / 1e3 / steps,
+            "device_busy_share_of_untraced_wall":
+                busy_us / 1e3 / untraced_ms,
+            "device_kernels_per_step": len(events) / steps,
+            "device_ms_per_step_by_part": {k: v / 1e3 / steps
+                                           for k, v in split.items()},
+            "top_device_time": [{"name": n, "ms_per_step": us / 1e3 / steps,
+                                 "calls_per_step": c / steps}
+                                for us, n, c in rows[:12]]}
+    emit(line)
+    return line
 
 
 def profile_decode(dev, seed, layers, batch=4, steps=4):
@@ -2721,6 +3304,10 @@ def main():
                     "drafter)")
     ap.add_argument("--layers9", type=int, default=40,
                     help="depth of the native checkpoint run (9a)")
+    ap.add_argument("--layers10", type=int, default=16,
+                    help="depth of the MoE run (10a; 16 of moonshot's 48 "
+                    "layers fit one 80 GB card in float32 before "
+                    "quantization)")
     ap.add_argument("--capture-sync-probe", action="store_true",
                     help="only print what another thread's stream and "
                     "device synchronization do to a CUDA-graph capture "
@@ -2771,26 +3358,34 @@ def main():
     # (loading the kernels' libraries, cuBLAS and allocator start-up), so the
     # full-depth run's times are the path's own. Both run before phase 2,
     # which times kernel A at the bucket shapes the full-depth tree produced.
+    memory = []
     drive(dev, args.seed, args.layers4, 4, lengths, max_batch, max_new,
           "4 main path, granite-3-8b w4")
+    phase_memory("4", memory)
     a_n, b_n, buckets, s_n = drive(dev, args.seed, args.layers, 8, lengths,
                                   max_batch, max_new,
                                   "3 main path, granite-3-8b w8")
+    phase_memory("3", memory)
 
-    _, b6_n, c_n, path_lengths = drive_continuous(
+    _, b6_n, c_n, path_lengths, _ = drive_continuous(
         dev, args.seed, args.layers,
         "6 main path, continuous + paged + chunked, granite-3-8b w8")
-    _, _, d_n, _ = drive_continuous(
+    phase_memory("6", memory)
+    _, _, d_n, _, _ = drive_continuous(
         dev, args.seed, args.layers7,
         "7 int8 KV, continuous + paged + chunked, granite-3-8b w8",
         quantize_kv=True)
+    phase_memory("7", memory)
     b8_n, c8_n, draft_rows = drive_speculative(dev, args.seed, args.layers8,
                                                profile=args.profile)
+    phase_memory("8", memory)
     a9_n, b9_n, c9_n = drive_native_checkpoint(
         dev, args.seed, args.layers9,
         b6_n if args.layers9 == args.layers else None)
+    phase_memory("9a", memory)
     t9 = time.perf_counter()
     drive_live_reload(dev, args.seed)
+    phase_memory("9 live reload", memory)
     probe = run_capture_sync_probe()
     emit({"phase": "9b a synchronization in another thread during a "
                    "capture (thread_local), in a process of its own",
@@ -2799,16 +3394,34 @@ def main():
         raise AssertionError(f"a stream synchronization in another thread "
                              f"broke a capture: {probe}")
     drive_clis(dev)
+    a10_n, b10_n, c10_n, moe_lengths, moe_entry = drive_moe(
+        dev, args.seed, args.layers10, profile=args.profile)
+    phase_memory("10", memory)
+
+    from repro_torch.configs import get_config
+    moe_cfg = get_config(MOE_ARCH)
+    e, layers10 = moe_cfg.moe.n_experts, args.layers10
+    banks = moe_expert_shapes(moe_cfg)
+    # phase 10's buckets: wi and wg, wdown (expert slices), attention
+    moe_buckets = [(2 * layers10 * e, e, moe_cfg.d_model, moe_cfg.d_ff),
+                   (layers10 * e, e, moe_cfg.d_ff, moe_cfg.d_model),
+                   (4 * layers10, 1, moe_cfg.d_model, moe_cfg.d_model)]
+    # the capacity of a monolithic admission of phase 10's longest prompt
+    longest = max(moe_entry["prompt_lengths"])
+    mono = math.ceil(longest * moe_cfg.moe.top_k
+                     * moe_cfg.moe.capacity_factor / e)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    ka, ks = check_kernel_a(dev, gen, buckets)
+    ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets)
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
     kb = check_kernel_b(dev, gen, (paged_config().max_slots, max_batch),
-                        prefill_rows, (min(draft_rows), max(draft_rows)))
-    kc, kd = check_kernels_cd(dev, gen, path_lengths)
+                        prefill_rows, (min(draft_rows), max(draft_rows)),
+                        experts={"n_experts": e, "banks": banks,
+                                 "rows": [paged_config().max_slots, mono]})
+    kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths)
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance")},
         "dequant_matmul": {k: kb[k] for k in ("comparisons", "max_rel_err",
@@ -2817,7 +3430,12 @@ def main():
             "max_abs_err", "max_abs_err_float32", "tolerance")},
         "paged_attention_quant": {k: kd[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance")}})
+    phase_memory("2", memory)
     slice_vs_plain(dev, args.seed)
+    phase_memory("5", memory)
+    emit({"phase": "device memory allocated after each phase (GB; after "
+                   "the phase returned, and after a garbage collection)",
+          "phases": memory})
     if args.profile:
         profile_decode(dev, args.seed, args.layers)
         profile_quantize(dev, args.seed, args.layers)
@@ -2828,6 +3446,12 @@ def main():
     kc["launches_phase8"] = c8_n
     ka["launches_phase9"] = a9_n
     kb["launches_phase9"], kc["launches_phase9"] = b9_n, c9_n
+    ka["launches_phase10"], kb["launches_phase10"] = a10_n, b10_n
+    kc["launches_phase10"] = c10_n
+    ks["launches_phase10"] = moe_entry["quantize"]["launches"][
+        "squant_scale"]
+    kb["launches_phase10_by_part"] = moe_entry["launches"][
+        "dequant_matmul_by_part"]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

@@ -2,9 +2,10 @@
 
 Every architecture is an ``ArchConfig`` instance (exact published
 dimensions); ``reduced()`` derives the small same-family variant used by CPU
-tests. ``MLAConfig`` / ``MoEConfig`` / ``MambaConfig`` are kept as plain data
-so ``ArchConfig`` has the same fields as its counterpart in the reference
-package; the layers they configure are not part of this package yet.
+tests. ``MLAConfig`` / ``MoEConfig`` / ``MambaConfig`` are plain data, so
+``ArchConfig`` has the same fields as its counterpart in the reference
+package. Of the layers they configure, MoE is ported; MLA and mamba raise
+``NotImplementedError`` at init.
 """
 from __future__ import annotations
 

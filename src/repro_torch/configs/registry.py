@@ -1,11 +1,16 @@
-"""Architecture registry: name → ArchConfig (the ported architectures)."""
+"""Architecture registry: name → ArchConfig (the reference's ten
+architectures; a model whose mixer is not ported yet raises at init)."""
 from __future__ import annotations
 
 from typing import Dict, List
 
 from repro_torch.configs.base import ArchConfig
 
-_MODULES = ("minitron_4b", "gemma_7b", "granite_3_8b")
+_MODULES = (
+    "minitron_4b", "minicpm3_4b", "gemma_7b", "granite_3_8b",
+    "jamba_1_5_large_398b", "seamless_m4t_medium", "chameleon_34b",
+    "moonshot_v1_16b_a3b", "mixtral_8x7b", "rwkv6_1_6b",
+)
 
 
 def _load() -> Dict[str, ArchConfig]:

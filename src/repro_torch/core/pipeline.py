@@ -10,13 +10,15 @@ Execution modes:
 * ``batched=True`` (default) — leaves are grouped into same-(2-D view shape,
   dtype, group) buckets (``plan_buckets``); each bucket is quantized with ONE
   asynchronous dispatch, and the whole tree synchronizes with the device
-  ONCE at the end. On a CUDA device a bucket of 2-D float32 leaves takes the
-  *native* route: the kernels read the ``(in, out)`` leaves where they are
-  stored, one scale pass and one flip launch per bucket, nothing stacked.
-  Every other bucket (conv and expert leaves, other dtypes, the whole-row
-  and E&C-without-K configurations, RTN, and every bucket on the CPU) takes
-  the *stacked* route: the ``(out, in)`` views are stacked, in chunks of at
-  most ``_MAX_STACK_BYTES``, and quantized as rows (see ``core.dispatch``).
+  ONCE at the end. On a CUDA device a bucket of 2-D float32 leaves, or of
+  3-D float32 ``(experts, in, out)`` expert banks, takes the *native* route:
+  the kernels read the ``(in, out)`` leaves (each expert's slice of a bank
+  is one) where they are stored, one scale pass and one flip launch per
+  bucket (per ``MAX_LEAVES`` slices), nothing stacked. Every other bucket
+  (conv leaves, other dtypes, the whole-row and E&C-without-K
+  configurations, RTN, and every bucket on the CPU) takes the *stacked*
+  route: the ``(out, in)`` views are stacked, in chunks of at most
+  ``_MAX_STACK_BYTES``, and quantized as rows (see ``core.dispatch``).
   ``QuantReport`` carries the per-bucket wall times and routes plus a
   dispatch/sync breakdown.
 * ``batched=False`` — the per-layer reference path: one quantization call and
@@ -191,20 +193,24 @@ def plan_buckets(leaves: Sequence[Tuple[Tuple[int, ...], str, int, bool]],
     contiguous)`` into buckets, in first-seen order, and route each.
 
     A bucket is native when ``native`` (a CUDA device under the kernel
-    backend) and every leaf in it is a contiguous 2-D float32 ``(in, out)``
-    leaf of a grouped, kernel-implemented method; it is then one dispatch.
-    Any other bucket is stacked, in chunks of at most ``_MAX_STACK_BYTES``
-    of stacked weights.
+    backend) and its leaves are contiguous float32 leaves of one shape,
+    2-D ``(in, out)`` or 3-D ``(experts, in, out)`` (whose expert slices
+    are ``(in, out)`` leaves as stored), of a grouped, kernel-implemented
+    method; it is then one dispatch. Any other bucket is stacked, in chunks
+    of at most ``_MAX_STACK_BYTES`` of stacked weights.
     """
     groups: Dict[Tuple, List[int]] = {}
     ok: Dict[Tuple, bool] = {}
     sizes: Dict[Tuple, int] = {}
+    first: Dict[Tuple, Tuple[int, ...]] = {}
     for pos, (shape, dtype, itemsize, contiguous) in enumerate(leaves):
         mn, _, eff = _view_shape(tuple(shape), method, group_size)
         key = (mn, dtype, eff)
         groups.setdefault(key, []).append(pos)
         sizes[key] = mn[0] * mn[1] * itemsize
-        ok[key] = ok.get(key, True) and native and len(shape) == 2 \
+        first.setdefault(key, tuple(shape))
+        ok[key] = ok.get(key, True) and native \
+            and len(shape) in (2, 3) and tuple(shape) == first[key] \
             and dtype == "float32" and contiguous and eff is not None \
             and method in _NATIVE_METHODS
     plans = []
@@ -217,6 +223,12 @@ def plan_buckets(leaves: Sequence[Tuple[Tuple[int, ...], str, int, bool]],
                                 [pos[c:c + chunk]
                                  for c in range(0, len(pos), chunk)]))
     return plans
+
+
+def _native_leaves(leaf: torch.Tensor) -> List[torch.Tensor]:
+    """The ``(in, out)`` leaves the native route reads: a 2-D leaf itself,
+    each expert's slice of a 3-D bank (views, no copy)."""
+    return [leaf] if leaf.ndim == 2 else list(leaf.unbind(0))
 
 
 def _restore_dense(wq: torch.Tensor, leaf_shape: Tuple[int, ...]
@@ -296,10 +308,15 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
                   f"{plan.key[1]} g{eff}"
             tb0 = time.perf_counter()
             if plan.route == "native":
+                # a bank's expert slices are (in, out) leaves as stored;
+                # its codes and scales are E consecutive entries of the
+                # bucket's, i.e. (E*out, in) and (E*out, 1) as stacked
                 codes, scales = quantize_codes_native(
-                    [e[2] for e in entries], method=method, bits=bits,
-                    group_size=eff, scale_method=scale_method,
-                    backend=backend)
+                    [sl for e in entries for sl in _native_leaves(e[2])],
+                    method=method, bits=bits, group_size=eff,
+                    scale_method=scale_method, backend=backend)
+                codes = codes.reshape(len(entries), -1, codes.shape[-1])
+                scales = scales.reshape(len(entries), -1, 1)
             else:
                 views = [_plan_leaf(e[2], method, group_size)[0]
                          for e in entries]

@@ -47,6 +47,12 @@ PF_CTAS_PER_SM = 2       # mma's plan fills this many CTAs per SM (at most
 
 launches = 0             # number of kernel launches (plain integer)
 launches_by_variant = {v: 0 for v in VARIANTS}   # the same, by variant
+launches_by_shape = {}   # the same, by "<variant> <M>x<N>" (weight shape)
+
+
+def shape_key(v: str, m: int, n: int) -> str:
+    """``launches_by_shape``'s key of a ``v`` launch on an (M, N) weight."""
+    return f"{v} {m}x{n}"
 
 
 def dequant_matmul_plain(x: torch.Tensor, codes: torch.Tensor,
@@ -400,4 +406,6 @@ def dequant_matmul(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                            f"cuda error {err})")
     launches += 1
     launches_by_variant[v] += 1
+    key = shape_key(v, m, n)
+    launches_by_shape[key] = launches_by_shape.get(key, 0) + 1
     return out

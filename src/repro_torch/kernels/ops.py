@@ -53,6 +53,9 @@ def force_backend(backend: str):
 
 
 def _use_kernel(t: torch.Tensor, backend: str) -> bool:
+    """The dispatch rule above for a call on ``t``: True where the kernel
+    runs, False where the plain version does (ValueError for a CPU tensor
+    under ``backend="cuda"``)."""
     if backend not in ("auto", "ref", "cuda"):
         raise ValueError(f"unknown backend {backend!r}")
     if _forced is not None:
@@ -163,6 +166,28 @@ def dequant_matmul(x: torch.Tensor, qt: QuantizedTensor, *,
                                     group_size=gs)
 
 
+def expert_matmul(x: torch.Tensor, bank: dict, *, backend: str = "auto"
+                  ) -> torch.Tensor:
+    """x: (E, C, din) through a quantized expert bank → (E, C, dout).
+
+    ``bank`` is an MoE bank as stored: ``{"w": QuantizedTensor}`` with
+    ``(E*out, in)`` codes (``core.pipeline``) or the ``w_q``/``w_q4`` dict
+    with ``(E, out, in)`` codes (``quant.apply``). The kernel: one
+    dequant-matmul launch per expert on its ``(C, din)`` rows (contiguous,
+    so 16-byte aligned for the tensor-core variants) and a zero-copy view
+    of its codes. The plain version is the reference's form: the bank
+    dequantized to the activation dtype and one batched ``torch.matmul``.
+    """
+    from repro_torch.quant.apply import dequant_bank, expert_view  # cycle
+    e = x.shape[0]
+    if _use_kernel(x, backend):
+        x = x.contiguous()
+        return torch.stack([dequant_matmul(x[i], expert_view(bank, i, e),
+                                           backend="cuda")
+                            for i in range(e)])
+    return torch.matmul(x, dequant_bank(bank, e, x.dtype).transpose(1, 2))
+
+
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                     v_pool: torch.Tensor, block_tables: torch.Tensor,
                     lengths: torch.Tensor, *, scale: float,
@@ -197,9 +222,15 @@ def paged_attention_quant(q: torch.Tensor, k_pool: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 _COUNTERS = ((_dm, "launches"), (_dm, "launches_by_variant"),
+             (_dm, "launches_by_shape"),
              (_pa, "launches"), (_paq, "launches"),
              (_sf, "launches"), (_sf, "launches_by_route"),
              (_sf, "scale_launches"))
+
+
+# counters keyed by what was launched, with no fixed set of keys: a key
+# that counts nothing is absent, never 0, so two counts compare equal
+_OPEN = {"dequant_matmul.launches_by_shape"}
 
 
 def _counter_key(mod, name: str) -> str:
@@ -208,7 +239,8 @@ def _counter_key(mod, name: str) -> str:
 
 def launch_counts() -> Dict[str, Any]:
     """A snapshot of every wrapper's launch counters, keyed
-    ``"<module>.<counter>"`` (the by-variant and by-route dicts copied)."""
+    ``"<module>.<counter>"`` (the by-variant, by-shape and by-route dicts
+    copied)."""
     out = {}
     for mod, name in _COUNTERS:
         v = getattr(mod, name)
@@ -235,9 +267,15 @@ def combine_launches(base: Dict[str, Any], tally: Dict[str, Any],
                      times: int = 1) -> Dict[str, Any]:
     """``base`` plus ``times`` x ``tally`` (both :func:`launch_counts`
     form), as a new dict."""
-    return {k: ({j: n + times * tally[k].get(j, 0) for j, n in v.items()}
-                if isinstance(v, dict) else v + times * tally[k])
-            for k, v in base.items()}
+    out = {}
+    for k, v in base.items():
+        if not isinstance(v, dict):
+            out[k] = v + times * tally[k]
+            continue
+        by = {j: v.get(j, 0) + times * tally[k].get(j, 0)
+              for j in {**v, **tally[k]}}
+        out[k] = {j: n for j, n in by.items() if n} if k in _OPEN else by
+    return out
 
 
 # the device symbol each wrapper launches once per call (a merge pass that
@@ -247,17 +285,25 @@ _SYMBOL = re.compile(r"::(tcgemv_kernel|pf_kernel|gemv_kernel|tiled_kernel|"
                      r"squant_scale_kernel)(?:<([^()]*)>)?\(")
 _VARIANT = {"tcgemv_kernel": "tcgemv", "pf_kernel": "mma",
             "gemv_kernel": "gemv", "tiled_kernel": "tiled"}
+# the position of M among each kernel-B symbol's arguments (N follows it)
+_M_ARG = {"tcgemv_kernel": 6, "pf_kernel": 6, "gemv_kernel": 5,
+          "tiled_kernel": 5}
 
 
-def count_kernels(names: Iterable[str]) -> Dict[str, Any]:
-    """The :func:`launch_counts` that device kernels of these (demangled)
-    names make, one count per wrapper call: kernel B's variant by its
-    symbol, kernel C or D by ``paged_decode_split``'s QUANT argument,
-    kernel A's route by ``squant_flip_kernel``'s V16 argument. Other
-    kernels (PyTorch's, the merge passes) are not counted."""
-    out = {k: ({j: 0 for j in v} if isinstance(v, dict) else 0)
+def count_kernels(kernels: Iterable) -> Dict[str, Any]:
+    """The :func:`launch_counts` that device kernels make, one count per
+    wrapper call. Each item is a demangled name, or a pair of a name and
+    the kernel's (M, N) arguments (None where it has none), as
+    :func:`graph_kernels` reads them: kernel B's variant by its symbol
+    (and by its (M, N) where given), kernel C or D by
+    ``paged_decode_split``'s QUANT argument, kernel A's route by
+    ``squant_flip_kernel``'s V16 argument. Other kernels (PyTorch's, the
+    merge passes) are not counted."""
+    out = {k: ({} if k in _OPEN else {j: 0 for j in v})
+           if isinstance(v, dict) else 0
            for k, v in launch_counts().items()}
-    for nm in names:
+    for item in kernels:
+        nm, mn = (item, None) if isinstance(item, str) else item
         m = _SYMBOL.search(nm)
         if m is None:
             continue
@@ -266,6 +312,10 @@ def count_kernels(names: Iterable[str]) -> Dict[str, Any]:
         if sym in _VARIANT:
             out["dequant_matmul.launches"] += 1
             out["dequant_matmul.launches_by_variant"][_VARIANT[sym]] += 1
+            if mn is not None:
+                by = out["dequant_matmul.launches_by_shape"]
+                key = _dm.shape_key(_VARIANT[sym], *mn)
+                by[key] = by.get(key, 0) + 1
         elif sym == "paged_decode_split":
             quant = args[2] == "true"
             out["paged_attention_quant.launches" if quant
@@ -312,11 +362,12 @@ def _driver():
     return ctypes.CDLL("libcuda.so.1")
 
 
-def graph_kernel_names(raw_graph: int) -> list:
-    """The demangled names of the kernel nodes of a ``cudaGraph_t`` (an
-    address, as ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it), read
-    through the driver API: the kernels that every launch of the graph
-    runs."""
+def graph_kernels(raw_graph: int) -> list:
+    """The kernel nodes of a ``cudaGraph_t`` (an address, as
+    ``torch.cuda.CUDAGraph.raw_cuda_graph()`` gives it), read through the
+    driver API: the kernels that every launch of the graph runs, as
+    (demangled name, (M, N)) pairs; (M, N) are a kernel-B node's arguments
+    read from the node, None for any other kernel."""
     cu = _driver()
 
     def check(r, what):
@@ -327,7 +378,7 @@ def graph_kernel_names(raw_graph: int) -> list:
     check(cu.cuGraphGetNodes(g, None, ctypes.byref(n)), "cuGraphGetNodes")
     nodes = (ctypes.c_void_p * n.value)()
     check(cu.cuGraphGetNodes(g, nodes, ctypes.byref(n)), "cuGraphGetNodes")
-    names = []
+    out = []
     for node in nodes:
         kind = ctypes.c_int()
         check(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)),
@@ -347,13 +398,24 @@ def graph_kernel_names(raw_graph: int) -> list:
             check(cu.cuKernelGetName(ctypes.byref(name),
                                      ctypes.c_void_p(prm.kern)),
                   "cuKernelGetName")
-        names.append(_demangle(name.value))
-    return names
+        nm = _demangle(name.value)
+        sym = _SYMBOL.search(nm)
+        mn = None
+        if sym is not None and sym.group(1) in _M_ARG:
+            if not prm.params:
+                raise RuntimeError(f"the graph's {nm} node holds no "
+                                   "argument pointers")
+            args = ctypes.cast(prm.params, ctypes.POINTER(ctypes.c_void_p))
+            i = _M_ARG[sym.group(1)]
+            mn = (ctypes.c_int.from_address(args[i]).value,
+                  ctypes.c_int.from_address(args[i + 1]).value)
+        out.append((nm, mn))
+    return out
 
 
 def graph_launches(graph: "torch.cuda.CUDAGraph") -> Dict[str, Any]:
     """What one replay of ``graph`` launches, read from the graph the driver
-    holds (:func:`graph_kernel_names`) and counted by name
-    (:func:`count_kernels`). ``graph`` must be captured with
+    holds (:func:`graph_kernels`) and counted by name and kernel B's
+    (M, N) (:func:`count_kernels`). ``graph`` must be captured with
     ``keep_graph=True``; nothing is launched."""
-    return count_kernels(graph_kernel_names(graph.raw_cuda_graph()))
+    return count_kernels(graph_kernels(graph.raw_cuda_graph()))

@@ -21,7 +21,8 @@ from repro_torch.models.transformer import (_rope_dim, apply_stack,
 def arch_features(cfg) -> Tuple[str, ...]:
     """Sequence-mixer features beyond a plain-attention dense stack (the keys
     of the reference package's agreement budgets). An empty tuple means a
-    plain-attention dense stack — the only kind this package serves so far."""
+    plain-attention dense stack. Of these, this package serves "moe"; the
+    others raise ``NotImplementedError`` at init or at the cache."""
     plan = layer_plan(cfg)
     feats = []
     if cfg.mla is not None:

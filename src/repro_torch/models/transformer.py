@@ -5,8 +5,10 @@ The stack is always the unrolled form ``{"list": [period, ...]}`` with
 ``{"periods": ...}`` tree (the reference package's scan layout, leading axis
 = layer) into it.
 
-Block kind "a": x += attn(ln1(x)); x += ffn(ln2(x)). MoE, mamba and rwkv
-blocks are not ported yet.
+Block kind "a": x += attn(ln1(x)); x += ffn_or_moe(ln2(x)). The FFN is a
+dense one or, where ``layer_plan`` says so, a mixture of experts
+(``models.moe``). Mamba and rwkv blocks are not ported yet (each raises
+``NotImplementedError`` naming itself).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (by_position, init_norm, linear,
                                        linear_by_position, rms_norm, rope)
 
@@ -37,23 +40,30 @@ def _rope_dim(cfg) -> int:
 
 def init_block(generator, cfg, kind: str, use_moe: bool, device=None
                ) -> Dict[str, Any]:
-    if kind != "a" or use_moe:
+    if kind != "a":
         raise NotImplementedError(
             f"not ported yet: block kind {kind!r} (moe={use_moe})")
     d = cfg.d_model
     po = cfg.norm_plus_one
-    return {"ln1": init_norm(d, plus_one=po, device=device),
-            "ln2": init_norm(d, plus_one=po, device=device),
-            "attn": attn_lib.init_attention(generator, cfg, device=device),
-            "ffn": ffn_lib.init_ffn(generator, d, cfg.d_ff, cfg.ffn_kind,
-                                    device=device)}
+    p = {"ln1": init_norm(d, plus_one=po, device=device),
+         "ln2": init_norm(d, plus_one=po, device=device),
+         "attn": attn_lib.init_attention(generator, cfg, device=device)}
+    if use_moe:
+        p["moe"] = moe_lib.init_moe(generator, d, cfg.d_ff,
+                                    cfg.moe.n_experts, cfg.ffn_kind,
+                                    device=device)
+    else:
+        p["ffn"] = ffn_lib.init_ffn(generator, d, cfg.d_ff, cfg.ffn_kind,
+                                    device=device)
+    return p
 
 
 def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
                 cache: Optional[dict], pos, block_tables=None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache)."""
-    if kind != "a" or use_moe:
+    """Returns (x, new_cache). The MoE auxiliary loss is computed and
+    dropped (it matters to training only)."""
+    if kind != "a":
         raise NotImplementedError(
             f"not ported yet: block kind {kind!r} (moe={use_moe})")
     po = cfg.norm_plus_one
@@ -72,7 +82,21 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
         p["attn"], norm(p["ln1"], x), cfg=cfg, rope=rope, mode=mode,
         cache=cache, pos=pos, block_tables=block_tables)
     x = x + h
-    x = x + ffn_lib.ffn(p["ffn"], norm(p["ln2"], x), cfg.ffn_kind, lin=lin)
+    h2 = norm(p["ln2"], x)
+    if use_moe:
+        # dropless at decode and verify: with no capacity competition each
+        # token's expert mix does not depend on its batch; prefill and chunk
+        # route with capacity, per chunk (the "moe" agreement budget)
+        def moe(t):
+            return moe_lib.moe_ffn(
+                p["moe"], t, n_experts=cfg.moe.n_experts,
+                top_k=cfg.moe.top_k, kind=cfg.ffn_kind,
+                capacity_factor=cfg.moe.capacity_factor,
+                dropless=mode in ("decode", "verify"))[0]
+        # verify: each position's rows are a decode step's exact call
+        x = x + (by_position(moe, h2) if mode == "verify" else moe(h2))
+    else:
+        x = x + ffn_lib.ffn(p["ffn"], h2, cfg.ffn_kind, lin=lin)
     return x, new_cache
 
 

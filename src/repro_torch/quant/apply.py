@@ -198,3 +198,36 @@ def dequant_kernel(params: dict, dtype) -> torch.Tensor:
     codes = unpack_int4(params["w_q4"]) if "w_q4" in params \
         else params["w_q"]
     return codes.to(dtype) * params["w_scale"].to(dtype)
+
+
+def _bank_form(bank: dict):
+    """An MoE bank's quantized form: its ``(E*out, in)`` QuantizedTensor,
+    or the ``w_q``/``w_q4`` dict itself."""
+    return bank if "w_q" in bank or "w_q4" in bank else bank["w"]
+
+
+def expert_view(bank: dict, e: int, n_experts: int) -> QuantizedTensor:
+    """Expert ``e`` of a quantized MoE bank (``{"w": QuantizedTensor}``
+    with ``(E*out, in)`` codes, or the ``w_q``/``w_q4`` dict with
+    ``(E, out, in)`` codes) as an ``(out, in)`` QuantizedTensor over the
+    bank's own tensors (no copy)."""
+    q = _bank_form(bank)
+    if isinstance(q, QuantizedTensor):
+        rows = q.shape[0] // n_experts
+        sl = slice(e * rows, (e + 1) * rows)
+        return QuantizedTensor(data=q.data[sl],
+                               scale=q.scale.reshape(q.shape[0], -1)[sl],
+                               bits=q.bits, group_size=q.group_size,
+                               shape=(rows,) + tuple(q.shape[1:]))
+    return qdict_view({k: v[e] for k, v in q.items()
+                       if k in ("w_q", "w_q4", "w_scale")})
+
+
+def dequant_bank(bank: dict, n_experts: int, dtype) -> torch.Tensor:
+    """(E, out, in) dequantized MoE bank in ``dtype``, the reference's
+    form for each storage (``QuantizedTensor.dequantize``, or
+    :func:`dequant_kernel`)."""
+    q = _bank_form(bank)
+    if isinstance(q, QuantizedTensor):
+        return q.dequantize(dtype).reshape(n_experts, -1, q.shape[-1])
+    return dequant_kernel(q, dtype)

@@ -562,9 +562,19 @@ class ServeEngine:
                 "weights": self.store.stats()}
 
     def close(self):
-        # the graphs and their pool go now, not at some later collection
+        """Stop the store's threads and let go of the device memory the
+        engine holds, now (idempotent; the engine serves no more, its
+        ``store`` stays readable): the graphs and their pool, and the
+        scheduler with its KV cache and speculative decoder. Those refer to
+        each other and back to the engine, and so do its captured entry
+        points: they are dropped and collected here, so the pools go at
+        once and the tree with the last reference to the engine, not when
+        the cycle collector next runs."""
         self._drop_graphs()
         self.store.close()
+        self.scheduler = self._decode = self._prefill_chunk = None
+        self.on_step = None
+        gc.collect()
 
     # ------------------------------------------------------------------ api
     def generate(self, requests: Sequence[Request]) -> List[Completion]:

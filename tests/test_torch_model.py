@@ -94,7 +94,10 @@ def test_full_forward_all_positions(rng):
 
 
 def test_configs_are_equal_copies():
-    assert list_archs() == sorted(ARCHS)
+    """The dense GQA configs: equal to the reference's, plain-attention
+    dense plans (all ten configs are held field by field in
+    ``tests/test_torch_configs.py``)."""
+    assert set(ARCHS) <= set(list_archs())
     for arch in ARCHS:
         for red in (False, True):
             a = dataclasses.asdict(jax_get_config(arch, reduced=red))

@@ -53,7 +53,8 @@ ROW_BYTES, BLK, STAGE_BYTES = CUC["ROW_BYTES"], CUC["BLK"], CUC["STAGE_BYTES"]
 def _dense_tree(rng, exact):
     """(in, out) leaves: two sharing a bucket, a ragged ``in`` (300, not a
     multiple of 128), odd ``out`` (33, 7), a whole-row leaf (in < 128), an
-    expert bank and a conv kernel (stacked route)."""
+    expert bank (native route: each expert's slice read as a leaf) and a
+    conv kernel (stacked route)."""
     def w(*shape):
         if exact:
             return grid_weights(rng, int(np.prod(shape[:-1])),
@@ -113,7 +114,8 @@ def test_native_route_equals_reference_on_exact_inputs(rng, monkeypatch,
     native = {b.key for b in rt.buckets if b.route == "native"}
     if method in ("squant", "squant_e", "squant_ek"):
         assert native == {"(32,256)x2 float32 g128", "(33,300)x1 float32 g128",
-                          "(7,200)x1 float32 g128"}
+                          "(7,200)x1 float32 g128",
+                          "(16,256)x1 float32 g128"}
     else:
         assert native == set()
 
@@ -199,7 +201,7 @@ def test_planner_routes_by_leaf_and_method(method):
               ((256, 32), "float32", 4, True),      # 1 same bucket
               ((300, 33), "float32", 4, True),      # 2 native, odd out
               ((48, 16), "float32", 4, True),       # 3 whole row: no kernel
-              ((2, 256, 8), "float32", 4, True),    # 4 expert bank
+              ((2, 256, 8), "float32", 4, True),    # 4 expert bank, native
               ((3, 3, 4, 8), "float32", 4, True),   # 5 conv
               ((256, 64), "bfloat16", 2, True),     # 6 not float32
               ((256, 40), "float32", 4, False)]     # 7 not contiguous
@@ -208,7 +210,8 @@ def test_planner_routes_by_leaf_and_method(method):
     kernel = method in ("squant", "squant_e", "squant_ek")
     want = {(0, 1): "native" if kernel else "stacked",
             (2,): "native" if kernel else "stacked",
-            (3,): "stacked", (4,): "stacked", (5,): "stacked",
+            (3,): "stacked", (4,): "native" if kernel else "stacked",
+            (5,): "stacked",
             (6,): "stacked", (7,): "stacked"}
     assert routes == want
     assert all(len(p.chunks) == 1 for p in plans)

@@ -695,3 +695,57 @@ def test_card_weight_swap_recaptures(dev):
     assert cap.stats()["weights"]["swaps"] == 1
     assert cap.trace_counts["decode"] == 2
     assert cap.trace_counts["prefill_chunk"] >= 2
+
+
+# kernel B's symbols with the (M, N) a graph node's arguments give, and the
+# by-shape key each counts under
+SHAPED = [
+    ("void (anonymous namespace)::tcgemv_kernel<1, false>(__nv_bfloat16 "
+     "const*, signed char const*, float const*, float*, int, int, int)",
+     (1408, 2048), "tcgemv 1408x2048"),
+    ("void (anonymous namespace)::pf_kernel<1, false, false>(CUtensorMap_st, "
+     "CUtensorMap_st, float const*, __nv_bfloat16*, float*, int, int)",
+     (2048, 1408), "mma 2048x1408"),
+    ("void (anonymous namespace)::gemv_kernel<4, 512, false, true>(void "
+     "const*, signed char const*, float const*, void*, int, int, int)",
+     (128, 256), "gemv 128x256"),
+    ("void (anonymous namespace)::tiled_kernel<true, false>(void const*, "
+     "signed char const*, float const*, void*, int, int, int)",
+     (256, 128), "tiled 256x128"),
+]
+
+
+@pytest.mark.parametrize("name,mn,key", SHAPED,
+                         ids=[k.split()[0] for _, _, k in SHAPED])
+def test_count_kernels_by_shape(name, mn, key):
+    """A kernel-B node read with its (M, N) counts under its variant and
+    its weight shape, as the wrapper counts the call; a bare name counts
+    its variant only; no other key of the by-shape counter appears."""
+    got = ops.count_kernels([(name, mn), (name, mn), name])
+    assert got["dequant_matmul.launches"] == 3
+    assert got["dequant_matmul.launches_by_variant"][key.split()[0]] == 3
+    assert got["dequant_matmul.launches_by_shape"] == {key: 2}
+    assert ops.count_kernels([])["dequant_matmul.launches_by_shape"] == {}
+
+
+def test_by_shape_counts_combine_without_zero_keys():
+    """The by-shape counter has no fixed keys: combining and differencing
+    counts add keys as they are counted and drop the ones that come to 0,
+    so a run's launches compare equal however the counters were reset in
+    between; the by-variant counter keeps all its keys."""
+    zero = ops.count_kernels([])
+    a = ops.combine_launches(zero, dict(zero, **{
+        "dequant_matmul.launches": 3,
+        "dequant_matmul.launches_by_variant": {"tcgemv": 3},
+        "dequant_matmul.launches_by_shape": {"tcgemv 8x16": 2,
+                                             "tcgemv 16x8": 1}}))
+    assert a["dequant_matmul.launches_by_shape"] == {"tcgemv 8x16": 2,
+                                                     "tcgemv 16x8": 1}
+    b = ops.combine_launches(a, a, 2)
+    assert b["dequant_matmul.launches_by_shape"] == {"tcgemv 8x16": 6,
+                                                     "tcgemv 16x8": 3}
+    back = ops.launches_between(a, a)
+    assert back["dequant_matmul.launches_by_shape"] == {}
+    assert back["dequant_matmul.launches_by_variant"] == \
+        dict.fromkeys(dm.VARIANTS, 0)
+    assert back == zero
