@@ -21,7 +21,11 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    2048) at 8 rows (``tcgemv``) and at a monolithic admission's capacity
    (``mma``), summed over one layer's 192 expert launches beside the
    reference's form (each bank dequantized, one batched matmul), kernel C
-   at 16/16 heads (rep 1);
+   at 16/16 heads (rep 1); and at phase 11's shapes, compared only: kernel
+   A on the trained trees' buckets at 8 and 4 bits, kernel B at every
+   launch shape phase 11's serving made (read from its plan cache: rows,
+   weight shape, bits, dtype, pointer alignment), kernel C at 12/4 heads
+   of 64 (rep 3) with the lengths of one of 11b's decode steps;
 3. drives the round-scheduler path at the full width of granite-3-8b: random
    weights from a seed, SQuant w8 quantization of the whole tree (one
    kernel-A launch and one scale pass per bucket, every bucket read where it
@@ -92,18 +96,40 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    budget (0.85), and, printed beside it, against the monolithic one; (d)
    the Hessian analysis
    (approximation precision) and the AdaRound and RTN baselines on one
-   layer on the card.
-The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 2, 5: the short w4
-run pays the one-time start-up costs, and phase 2 times the kernels at the
-shapes phases 3, 6, 8 and 10 produced. The last three lines are the card line, the ``kernels``
-line and the ``ok`` line.
+   layer on the card;
+11. training on the card (``training/``, ``LM.train_loss``, the synthetic
+   data): (a) granite-3-8b as published (bf16 embedding, float32 dense
+   kernels, remat) at full width and 8 of its 40 layers, ten steps of
+   ``make_train_step`` on ``markov_batches(4, 512, 49155, seed)``: a
+   finite loss that falls, ``microbatches=2`` equal to one pass within the
+   bfloat16 tolerance, step ms, tokens/s, the forward+backward and
+   optimizer split by CUDA events, peak memory and the model FLOP
+   utilization; (b) the reference example's ``--size 100m`` model trained
+   by the ``Trainer`` (preempted at mid-run, resumed from its checkpoint)
+   on Markov batches made on a thread, held-out xent below 0.8 ln(vocab),
+   then SQuant w8 of the trained tree (kernel A) served on phase 6's path
+   (kernels B and C), agreement against the one-slot oracle in float32
+   (gated at 0.98) and bfloat16 (printed, with the float32 top-2 margins),
+   self-speculation (w4 drafts) with tokens equal to verifier-only, and
+   the training CLI as a process, then 11b's step with remat on and off
+   (step ms, the split, peak memory, device busy and kernels a step by
+   ``torch.profiler``); (c) moonshot-v1-16b-a3b at full width
+   and 2 layers, ten steps with its MoE aux loss, then moonshot's routing
+   at (b)'s width trained on (b)'s batches: 10c's agreement gates and
+   speculation on the MoE stack, tokens equal to verifier-only.
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 2, 5: the short
+w4 run pays the one-time start-up costs, and phase 2 times the kernels at
+the shapes phases 3, 6, 8 and 10 produced and compares them at phase 11's. The last three lines are the
+card line, the ``kernels`` line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
 ``--layers7`` (phase 7), ``--layers8`` (phase 8), ``--layers9`` (phase
-9a) and ``--layers10`` (phase 10a); widths are never cut.
+9a), ``--layers10`` (phase 10a) and ``--layers11`` (phase 11a), and the
+trained models' steps with ``--train-steps``; widths are never cut.
 """
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -198,14 +224,16 @@ def host_ms(fns, iters):
 # phase 2a: kernel A against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernel_a(dev, gen, buckets, moe_buckets=()):
+def check_kernel_a(dev, gen, buckets, moe_buckets=(), trained=None):
     """Kernel A against its plain version (exact and random inputs, heavy
     clipping), then the native-layout launches at each bucket of the main
     path's tree (``buckets``: (leaves, in, out)) and of phase 10's
     (``moe_buckets``: (leaves, experts, in, out), an expert bucket's
     leaves the expert slices of its banks, read where they are stored):
     every leaf against the plain versions, the scale pass and the flip
-    timed against their bytes bound."""
+    timed against their bytes bound. ``trained`` ({part: buckets in
+    ``moe_buckets``' form}): phase 11's trees, each bucket at 8 and 4 bits
+    (the w8 tree and the drafter's w4), compared and not timed."""
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
     from repro_torch.quant.scales import compute_scale
@@ -358,6 +386,19 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=()):
                 tot[k] += row[k]
         del leaves, s, got
         torch.cuda.empty_cache()
+    trained_rows = {}
+    for part, bks in (trained or {}).items():
+        trained_rows[part] = []
+        for nb, experts, kin, nch in bks:
+            for bits in (8, 4):
+                w = _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits,
+                                       ties)
+                worst = max(worst, w)
+                trained_rows[part].append(
+                    {"leaves": nb, "experts": experts, "in": kin,
+                     "out": nch, "bits": bits, "route": sf.route(nch, True),
+                     "max_abs_code_diff": w})
+                torch.cuda.empty_cache()
     routes = {k: sf.launches_by_route[k] - a0[k] for k in a0}
     if routes["cp16"] == 0:
         raise AssertionError(f"no native launch took the 16-byte route: "
@@ -378,6 +419,8 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=()):
             "phase 10's tree: the expert buckets read in place (the flip "
             "takes up to MAX_LEAVES slices a launch) and the attention "
             "bucket")
+    if trained_rows:
+        entry["phase11_trees_compared"] = trained_rows
     scale = dict(KERNEL_SCALE, max_abs_err=0.0, tolerance="bit-identical to "
                  "core.dispatch._scales on every leaf", bound_by="bytes",
                  numbers_are="sums over the launches of one quantize_tree of "
@@ -387,6 +430,59 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=()):
                  "dim=0), one call a leaf", bound_share=stot["bound_ms"] /
                  stot["ms"], shapes=scale_rows, **stot)
     return entry, scale
+
+
+def _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits, ties):
+    """Kernel A's native launch at one bucket (``nb`` random (in, out)
+    leaves, ``experts`` slices of a bank each) against its plain versions:
+    codes equal on exact inputs, the scale pass bit-identical to
+    ``_scales``, every leaf's codes equal up to the tie rule (``ties``
+    accumulates). Returns the largest code difference."""
+    from repro_torch.core.dispatch import _scales
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.kernels.ref import explain_code_differences
+    kw = dict(bits=bits, group_size=128)
+    gw = torch.randint(-400, 401, (kin, nch), generator=gen,
+                       device=dev).float() / 64.0
+    gs = torch.full((1, nch), 2.0 ** (-1 if bits == 8 else 0), device=dev)
+    if not torch.equal(sf.squant_flip_leaves([gw], gs, **kw),
+                       sf.squant_flip_leaves_plain([gw], gs, **kw)):
+        raise AssertionError(f"kernel A (native) != plain on exact inputs "
+                             f"at {(kin, nch, bits)}")
+    del gw
+    leaves = [sl for _ in range(nb // experts)
+              for sl in torch.randn((experts, kin, nch), generator=gen,
+                                    device=dev).unbind(0)]
+    s = sf.squant_scales(leaves, bits)
+    got = sf.squant_flip_leaves(leaves, s, **kw)
+    worst = 0
+    for b, leaf in enumerate(leaves):
+        if not torch.equal(s[b], _scales(leaf.T[None], bits, "max")[0, :, 0]):
+            raise AssertionError(f"scale pass != _scales at "
+                                 f"{(kin, nch, bits)}")
+        want = sf.squant_flip_leaves_plain([leaf], s[b:b + 1], **kw)[0]
+        res = explain_code_differences(leaf.T, s[b][:, None], got[b], want,
+                                       **kw)
+        worst = max(worst, int((got[b].int() - want.int()).abs().max()))
+        for k in ties:
+            ties[k] += res[k]
+        if res["unexplained"]:
+            raise AssertionError(f"kernel A (native) differs from plain "
+                                 f"beyond the tie rule at "
+                                 f"{(nb, kin, nch, bits)}: {res}")
+    return worst
+
+
+def _a_buckets(qrep):
+    """(leaves, experts, in, out) of each bucket of a ``quantize_tree``
+    report (``check_kernel_a``'s ``moe_buckets`` form): a 2-D (in, out)
+    leaf is one leaf, an (E, in, out) bank E expert slices."""
+    by = {}
+    for lr in qrep.layers:
+        e, kin, nch = (1,) * (3 - len(lr.shape)) + tuple(lr.shape)
+        n = by.get(lr.bucket, (0,))[0]
+        by[lr.bucket] = (n + e, e, kin, nch)
+    return list(by.values())
 
 
 # ---------------------------------------------------------------------------
@@ -409,7 +505,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
-                   experts=None):
+                   experts=None, trained=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
@@ -426,7 +522,10 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     at each expert bank's shape and each capacity in ``rows``, against the
     plain version, summed over one layer's launches (one per expert and
     bank) beside their bound, and beside the reference's form of the same
-    products: each bank dequantized and one batched ``torch.matmul``."""
+    products: each bank dequantized and one batched ``torch.matmul``.
+    ``trained`` ({part: ``dm.cached_plans()`` of its run}): every launch
+    shape phase 11's paths made, compared (not timed) by
+    :func:`_b_plan_vs_plain`."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -478,6 +577,23 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                                 f"kernel B: two launches differ at "
                                 f"{(b, m, n, bits, name, per_group)}")
                         n_cmp += 1
+
+    phase11 = {}
+    for part, plans in (trained or {}).items():
+        errs = [_b_plan_vs_plain(dev, gen, p) for p in plans]
+        for p, (err, rel) in zip(plans, errs):
+            worst[p["dtype"]] = max(worst[p["dtype"]], err)
+            worst_rel[p["dtype"]] = max(worst_rel[p["dtype"]], rel)
+        n_cmp += len(plans)
+        phase11[part] = {
+            "launch_shapes": len(plans),
+            "by_variant_bits_dtype": dict(collections.Counter(
+                f"{p['variant']} int{p['bits']} {p['dtype']}"
+                for p in plans)),
+            "weight_shapes": sorted({f"{p['m']}x{p['n']}" for p in plans}),
+            "rows": sorted({p["b"] for p in plans}),
+            "max_rel_err": max((r for _, r in errs), default=0.0)}
+        torch.cuda.empty_cache()
 
     def timed(m, n, b, bits, dt):
         wbytes = m * n // (2 if bits <= 4 else 1)
@@ -616,8 +732,61 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  bound_share=tot["bound_ms"] / tot["ms"],
                  bound_by="bytes", prefill_layers=prefill_layers,
                  draft_prefill_int4=draft_prefill,
+                 phase11_launch_shapes_compared=phase11,
                  shapes=shapes, **tot)
     return entry
+
+
+def _at_offset(t, offset):
+    """A copy of ``t`` whose data pointer lies ``offset`` bytes past a
+    16-byte boundary."""
+    esz = t.element_size()
+    buf = torch.empty(t.numel() + 16 // esz, dtype=t.dtype, device=t.device)
+    if buf.data_ptr() % 16 or offset % esz:
+        raise AssertionError(f"cannot place {t.dtype} at offset {offset}")
+    out = buf[offset // esz:offset // esz + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _b_plan_vs_plain(dev, gen, p):
+    """Kernel B against its plain version at one launch shape a path made
+    (a ``dm.cached_plans()`` entry): the same rows, weight shape, bits,
+    scale columns, group, activation dtype and pointer offsets, so the
+    launch takes the path's variant and split (checked); random codes and
+    scales of SQuant's size; the shape sweep's tolerances; two launches
+    bit-identical. Returns (max abs error, that over max |ref|)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.quant.qtypes import pack_int4
+    b, m, n, bits, gsz = p["b"], p["m"], p["n"], p["bits"], p["group_size"]
+    dt = torch.bfloat16 if p["dtype"] == "bfloat16" else torch.float32
+    qmax = 2 ** (bits - 1) - 1
+    codes = torch.randint(-qmax, qmax + 1, (m, n), generator=gen, device=dev,
+                          dtype=torch.int8)
+    codes = _at_offset(pack_int4(codes) if bits <= 4 else codes,
+                       p["codes_align"])
+    sc = (torch.rand((m, p["scols"]), generator=gen, device=dev) + 0.5) \
+        * (3.0 / math.sqrt(n) / qmax)
+    x = _at_offset(torch.randn((b, n), generator=gen, device=dev).to(dt),
+                   p["x_align"])
+    plan = dm.launch_plan(x, codes, m, p["scols"], gsz, bits)
+    if plan != (p["variant"], p["splits"], p["per_split"]):
+        raise AssertionError(f"kernel B at the path's shape {p} planned "
+                             f"{plan}")
+    y = dm.dequant_matmul(x, codes, sc, bits=bits, group_size=gsz).float()
+    r = dm.dequant_matmul_plain(x, codes, sc, bits=bits,
+                                group_size=gsz).float()
+    torch.cuda.synchronize()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    scale_ = max(float(r.abs().max()), 1.0)
+    err = float((y - r).abs().max())
+    if not torch.allclose(y, r, rtol=tol, atol=tol * scale_):
+        raise AssertionError(f"kernel B != plain at the path's shape {p}: "
+                             f"max abs err {err}, max |ref| {scale_}")
+    if not torch.equal(y, dm.dequant_matmul(x, codes, sc, bits=bits,
+                                            group_size=gsz).float()):
+        raise AssertionError(f"kernel B: two launches differ at {p}")
+    return err, err / scale_
 
 
 def _bank_matmul_ms(dev, gen, e, m, n, c):
@@ -1041,7 +1210,7 @@ def _sdpa_inputs(args, c, quant, dt):
             vc.transpose(1, 2).contiguous(), mask)
 
 
-def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None):
+def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None, trained=None):
     """Kernels C and D against their plain versions at the main path's
     shape (B=8, H=32, KV=8, D=128, bs=16, nb=32, the per-slot lengths of a
     step of phase 6), at a ragged shape (rep=1, D=64, lengths {0, bs-1, bs,
@@ -1050,7 +1219,9 @@ def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None):
     from 1500-4095), and at phase 10's shape when ``moe_lengths`` is given
     (``moe``: B=8, H=KV=16, rep=1, D=128, the per-slot lengths of a step of
     phase 10), in bfloat16 and float32, with tails at the trash block
-    and masked positions poisoned. Times by CUDA-graph replay with a cold
+    and masked positions poisoned; ``trained`` (a case dict: phase 11b's
+    shape, H=12, KV=4, rep=3, D=64, and the lengths of one of its decode
+    steps) adds case ``trained``. Times by CUDA-graph replay with a cold
     L2: the timed calls cycle through enough independent input sets that
     the bytes they read exceed twice the 50 MB L2 (at most 128 sets, so the
     tiny ragged case stays warm), for the kernel and for the library
@@ -1075,6 +1246,8 @@ def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None):
     if moe_lengths is not None:
         cases.append(("moe", dict(b=8, kv=16, rep=1, d=128, bs=16, nb=32,
                                   lengths=list(moe_lengths))))
+    if trained is not None:
+        cases.append(("trained", trained))
     entries = {}
     for quant in (False, True):
         mod = paq if quant else pa
@@ -1178,11 +1351,12 @@ def check_kernels_cd(dev, gen, path_lengths, moe_lengths=None):
             library_ms=head["library_ms"], bound_ms=head["bound_ms"],
             bound_share=head["bound_share"],
             bound_by=head["bound_by"], shapes=shapes,
-            moe=next(({k: r[k] for k in ("ms", "plain_ms", "library_ms",
-                                          "bound_ms", "bound_share",
-                                          "split_plan", "ctas_per_sm")}
-                      for r in shapes if r["case"] == "moe"
-                      and r["dtype"] == "bfloat16"), None))
+            **{case: next(({k: r[k] for k in (
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_share",
+                "split_plan", "ctas_per_sm", "max_abs_err")}
+                for r in shapes if r["case"] == case
+                and r["dtype"] == "bfloat16"), None)
+               for case in ("moe", "trained")})
     return entries[False], entries[True]
 
 
@@ -2261,7 +2435,9 @@ def _serve_paged(dev, model, tree, reqs):
 
     eng = ServeEngine(model, None, paged_config(), device=dev,
                       store=WeightStore(serving_params=tree, device=dev))
-    dec = eng._decode = _Counted(eng._decode)
+    kv = eng.scheduler.kv
+    dec = eng._decode = _Counted(eng._decode,
+                                 lambda a, o: kv._lengths.copy().tolist())
     chk = eng._prefill_chunk = _Counted(
         eng._prefill_chunk, lambda a, o: int(a[1]["tokens"].numel()))
     _reset_launches(dm, pa, paq, sf)
@@ -2286,7 +2462,9 @@ def _serve_paged(dev, model, tree, reqs):
                launches["dequant_matmul.launches_by_variant"],
            "path_implies_by_variant": want,
            "paged_attention": launches["paged_attention.launches"],
-           "path_implies_paged_attention": layers * dec.calls}
+           "path_implies_paged_attention": layers * dec.calls,
+           # the step with the most context
+           "decode_lengths": max(dec.log, key=sum)}
     if res["dequant_matmul_by_variant"] != want or not want["tcgemv"] \
             or res["paged_attention"] != layers * dec.calls:
         raise AssertionError(f"launches {res}: the path implies B {want} "
@@ -3007,6 +3185,782 @@ def drive_moe(dev, seed, layers, profile=False):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: training on the card (the trainer, AdamW, the synthetic data,
+# LM.train_loss), then trained models quantized and served
+# ---------------------------------------------------------------------------
+
+TRAIN_SIZE_100M = dict(n_layers=12, d_model=768, n_heads=12, n_kv_heads=4,
+                       head_dim=64, d_ff=2048, vocab=32_000, dtype="float32")
+# 11c (ii): moonshot's routing at 11b's width; the experts' d_ff keeps
+# moonshot's d_ff / d_model (1408 / 2048) rounded to a multiple of 128
+MOE_AT_100M_WIDTH = dict(n_layers=2, d_model=768, n_heads=12, n_kv_heads=4,
+                         head_dim=64, d_ff=512, vocab=32_000, dtype="float32")
+
+
+class _StepSplit:
+    """CUDA events around the optimizer update inside ``make_train_step``'s
+    step (``train_loop.adamw_update`` wrapped while the context is open):
+    with an event recorded before each step, forward + backward is step
+    start → update start and the optimizer is the update."""
+
+    def __init__(self):
+        from repro_torch.training import train_loop
+        self.mod, self.real = train_loop, train_loop.adamw_update
+        self.starts, self.marks = [], []
+
+    def start(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.starts.append(e)
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.real(*a, **kw)
+            e1.record()
+            self.marks.append((e0, e1))
+            return out
+        self.mod.adamw_update = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.adamw_update = self.real
+
+    def split_ms(self):
+        torch.cuda.synchronize()
+        return ([s.elapsed_time(e0) for s, (e0, _) in
+                 zip(self.starts, self.marks)],
+                [e0.elapsed_time(e1) for e0, e1 in self.marks])
+
+
+def _numel(tree):
+    from repro_torch.training.optimizer import tree_leaves
+    return sum(t.numel() for t in tree_leaves(tree))
+
+
+def _flop_params(cfg, params):
+    """6·N's N for a causal LM step: the non-embedding parameters plus the
+    tied logits product (d_model x vocab)."""
+    emb = params["embedding"]["embedding"].numel()
+    return _numel(params) - emb + (emb if cfg.tie_embeddings else 0)
+
+
+def _grads_rel_diff(a, b):
+    """||a - b|| / ||a|| over every leaf of two gradient trees (float32)."""
+    from repro_torch.training.optimizer import tree_leaves
+    num = den = 0.0
+    for x, y in zip(tree_leaves(a), tree_leaves(b)):
+        x, y = x.float(), y.float()
+        num += float(torch.sum((x - y) ** 2))
+        den += float(torch.sum(x * x))
+    return math.sqrt(num / den)
+
+
+def _train_steps(step, params, opt, batches):
+    """Drive ``step`` over ``batches`` (tensors on the card): losses, MoE
+    aux values, step ms (host clock, the loss read back each step), and
+    the forward+backward / optimizer split by CUDA events."""
+    losses, aux, step_ms = [], [], []
+    with _StepSplit() as sp:
+        for b in batches:
+            torch.cuda.synchronize()
+            sp.start()
+            t0 = time.perf_counter()
+            params, opt, met = step(params, opt, b)
+            losses.append(float(met["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            aux.append(float(met["moe_aux"]))
+    fb, op = sp.split_ms()
+    return params, opt, {"losses": losses, "moe_aux": aux,
+                         "step_ms": step_ms, "forward_backward_ms": fb,
+                         "optimizer_ms": op}
+
+
+def train_full_width(dev, seed, layers, card, *, lr, arch="granite-3-8b",
+                     seq=512, micro_check=True):
+    """11a / 11c (i): ``arch`` as published (embedding in the config's
+    dtype, dense kernels float32, so activations take the embedding's
+    dtype; remat on) at ``layers`` of its layers, ten steps of
+    ``make_train_step`` on ``markov_batches(4, seq, vocab, seed)``, no
+    checkpoint. Gates: a finite loss that falls from step 1 to step 10
+    (and, for an MoE stack, a finite aux loss > 0); with ``micro_check``,
+    ``microbatches=2`` equal to ``microbatches=1`` on one batch within the
+    bfloat16 tolerance 2e-2."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import markov_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    t_phase = time.perf_counter()
+    batch, steps = 4, 10
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    if not cfg.remat:
+        raise AssertionError(f"{arch}: remat is off")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    params = model.init(gen, device=dev)
+    n_params, n_flop = _numel(params), _flop_params(cfg, params)
+    per_layer = _numel(params["stack"]) / layers
+    n_full = n_params + per_layer * (full.n_layers - layers)
+    t0 = time.perf_counter()
+    host = [b for b, _ in zip(markov_batches(batch, seq, cfg.vocab, seed),
+                              range(steps + 1))]
+    data_s = time.perf_counter() - t0
+    batches = [tl.to_device(b, dev) for b in host]
+    # the training CLI's optimizer for ``steps`` steps
+    ocfg = AdamWConfig(lr=lr, warmup_steps=min(20, steps // 5),
+                       decay_steps=steps)
+    step = tl.make_train_step(model, ocfg)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    state_gb = (torch.cuda.memory_allocated() - allocated0) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, run = _train_steps(step, params, opt, batches[:steps])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = run["losses"]
+    p50 = _percentiles(run["step_ms"][2:])["p50"]       # steps 3 on
+    tokens = batch * seq
+    fb, op = run["forward_backward_ms"][2:], run["optimizer_ms"][2:]
+    fb_p50, op_p50 = _percentiles(fb)["p50"], _percentiles(op)["p50"]
+    del opt
+    torch.cuda.empty_cache()
+
+    micro = None
+    if micro_check:
+        # on a batch not trained on, from the trained params: the grads of
+        # microbatches=2 (two sequential halves, float32 sums) against one
+        # pass, then one make_train_step step each from a fresh state
+        b = batches[steps]
+        l1, _, g1 = tl._accumulate_grads(model.train_loss, params, b, 1)
+        l2, _, g2 = tl._accumulate_grads(model.train_loss, params, b, 2)
+        rel = _grads_rel_diff(g1, g2)
+        del g1, g2
+        torch.cuda.empty_cache()
+        mets = {}
+        for mb in (1, 2):
+            _, _, m = tl.make_train_step(model, ocfg, microbatches=mb)(
+                params, adamw_init(params), b)
+            mets[mb] = {k: float(v) for k, v in m.items()}
+            torch.cuda.empty_cache()
+        micro = {"grads_rel_l2_diff": rel,
+                 "loss_microbatches_1": float(l1),
+                 "loss_microbatches_2": float(l2),
+                 "train_step_metrics": mets, "tolerance": 2e-2}
+    del params, batches
+    torch.cuda.empty_cache()
+
+    line = {"phase": f"11{'a' if cfg.moe is None else 'c (i)'} training at "
+                     f"full width, {arch}",
+            "card": card, "model": cfg.name, "layers": layers,
+            "reduced": {"n_layers": f"{full.n_layers} -> {layers}"},
+            "reduced_because": (
+                "float32 weights, grads and AdamW moments cost 16 B a "
+                f"parameter: {n_full / 1e9:.2f} G parameters at "
+                f"{full.n_layers} layers are {16 * n_full / 1e9:.0f} GB, at "
+                f"{layers} {16 * n_params / 1e9:.1f} GB"),
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "moe": dataclasses.asdict(cfg.moe) if cfg.moe else None,
+            "dtype": {"embedding": cfg.dtype, "dense_kernels": "float32",
+                      "activations": cfg.dtype},
+            "remat": cfg.remat,
+            "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "params": n_params, "state_gb": state_gb,
+            "data": f"markov_batches({batch}, {seq}, {cfg.vocab}, {seed})",
+            "data_host_s": data_s, "optimizer": dataclasses.asdict(ocfg),
+            "steps": steps, "losses": losses, "moe_aux": run["moe_aux"],
+            "step_ms": run["step_ms"], "step_ms_p50_steps_3_on": p50,
+            "tokens_per_step": tokens, "tokens_per_s": tokens / (p50 / 1e3),
+            "forward_backward_ms": run["forward_backward_ms"],
+            "optimizer_ms": run["optimizer_ms"],
+            "forward_backward_ms_p50": fb_p50, "optimizer_ms_p50": op_p50,
+            "optimizer_share": op_p50 / (fb_p50 + op_p50),
+            "peak_memory_gb": peak_gb,
+            "mfu": 6 * n_flop * tokens / (p50 / 1e3)
+            / PEAK_FLOPS["bfloat16"],
+            "mfu_formula": "6 * (non-embedding params + d_model * vocab, the "
+                           "tied logits product) * tokens / step s / 989 "
+                           "TFLOP/s (H100 SXM dense bf16 peak, "
+                           "hopper-kernels guide)",
+            "flop_params": n_flop, "microbatches": micro,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    bad = [x for x in losses + run["moe_aux"] if not math.isfinite(x)]
+    if bad or not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: losses {losses} (aux "
+                             f"{run['moe_aux']}) not finite or not falling")
+    if cfg.moe is not None and not min(run["moe_aux"]) > 0:
+        raise AssertionError(f"{arch}: MoE aux loss {run['moe_aux']}")
+    if micro is not None and (
+            micro["grads_rel_l2_diff"] > 2e-2
+            or abs(micro["loss_microbatches_2"] - micro["loss_microbatches_1"])
+            > 2e-2 * abs(micro["loss_microbatches_1"])
+            or abs(mets[2]["loss"] - mets[1]["loss"])
+            > 2e-2 * abs(mets[1]["loss"])
+            or abs(mets[2]["grad_norm"] - mets[1]["grad_norm"])
+            > 2e-2 * mets[1]["grad_norm"]):
+        raise AssertionError(f"{arch}: microbatches=2 differs from "
+                             f"microbatches=1: {micro}")
+    return line
+
+
+class _BatchFeed:
+    """Numpy batches made on a thread into a queue, so the card does not
+    wait for the host: the trainer's ``data_iter``. Keeps every batch it
+    made (``made``) and each one's host ms; ``wait_ms`` is what the
+    consumer waited in ``next``."""
+
+    def __init__(self, gen, n):
+        import queue
+        import threading
+        self.q, self.made, self.host_ms, self.wait_ms = \
+            queue.Queue(maxsize=64), [], [], []
+        self.error = None
+
+        def work():
+            try:
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    b = next(gen)
+                    self.host_ms.append((time.perf_counter() - t0) * 1e3)
+                    self.made.append(b)
+                    self.q.put(b)
+            except Exception as e:              # raised by the consumer
+                self.error = e
+                self.q.put(None)
+        self.thread = threading.Thread(target=work, daemon=True)
+        self.thread.start()
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        b = self.q.get()
+        self.wait_ms.append((time.perf_counter() - t0) * 1e3)
+        if b is None:
+            raise RuntimeError(f"batch thread failed: {self.error!r}")
+        return b
+
+    def close(self):
+        self.thread.join()
+
+
+class _LoggedMonitor:
+    """A ``StepMonitor`` that also keeps every step's seconds."""
+
+    def __init__(self, factor):
+        from repro_torch.runtime.monitor import StepMonitor
+        self.inner, self.log = StepMonitor(factor), []
+
+    def record(self, dt):
+        self.log.append(dt)
+        return self.inner.record(dt)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def train_with_trainer(dev, model, params, feed, steps, seed_dir):
+    """The port's ``Trainer`` on ``feed`` for ``steps`` steps with the
+    reference example's optimizer (``AdamWConfig(lr=3e-3, warmup_steps=20,
+    decay_steps=steps)``): preempted at mid-run (its checkpoint committed
+    into a temporary directory), then a second ``Trainer`` on that
+    directory resumes and finishes. The trainers' lines are captured, not
+    printed. Returns the trained params and the run's record."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.train_loop import Trainer, TrainerConfig
+
+    d = tempfile.mkdtemp(prefix=seed_dir)
+    ocfg = AdamWConfig(lr=3e-3, warmup_steps=20, decay_steps=steps)
+    tcfg = TrainerConfig(total_steps=steps, checkpoint_every=steps,
+                         checkpoint_dir=d, log_every=max(1, steps // 6))
+    mid = steps // 2
+    out = io.StringIO()
+    mons = [_LoggedMonitor(tcfg.straggler_factor) for _ in range(2)]
+    try:
+        with contextlib.redirect_stdout(out):
+            first = Trainer(model, ocfg, tcfg, monitor=mons[0], device=dev)
+
+            def hook(step, p, m):
+                if step + 1 == mid:
+                    first._preempted = True       # as a SIGTERM would
+            t0 = time.perf_counter()
+            _, _, info1 = first.run(params, feed, step_hook=hook)
+            first_s = time.perf_counter() - t0
+            from repro_torch.checkpoint import Checkpointer
+            committed = Checkpointer(d).list_steps()
+            second = Trainer(model, ocfg, tcfg, monitor=mons[1], device=dev)
+            t0 = time.perf_counter()
+            params, _, info2 = second.run(params, feed)
+            second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    lines = out.getvalue().splitlines()
+    resumed = [ln for ln in lines if "resumed from step" in ln]
+    hist = info1["history"] + info2["history"]
+    step_s = mons[0].log + mons[1].log
+    rec = {"optimizer": dataclasses.asdict(ocfg), "steps": steps,
+           "preempted_at": mid, "committed_after_preemption": committed,
+           "resumed": resumed, "losses_first_last_5": [hist[:5], hist[-5:]],
+           "loss_mean_first_5": sum(hist[:5]) / 5,
+           "loss_mean_last_5": sum(hist[-5:]) / 5,
+           "step_ms": _percentiles([s * 1e3 for s in step_s]),
+           "run_s": [first_s, second_s], "stragglers": [
+               info1["stragglers"], info2["stragglers"]],
+           "trainer_lines": lines[:3] + lines[-3:]}
+    if committed != [mid] or resumed != [f"[trainer] resumed from step "
+                                         f"{mid}"] \
+            or len(hist) != steps:
+        raise AssertionError(f"preemption / resume: {rec}")
+    if not all(math.isfinite(x) for x in hist):
+        raise AssertionError(f"a non-finite loss: {rec}")
+    return params, rec
+
+
+def heldout_xent(model, params, vocab, dev):
+    """The reference example's held-out split: 4 ``markov_batches(16, 64,
+    vocab, seed=7, start=100_000)``, mean xent."""
+    from repro_torch.data.synthetic import markov_batches
+    from repro_torch.training.train_loop import to_device
+    xs = []
+    with torch.no_grad():
+        for b, _ in zip(markov_batches(16, 64, vocab, seed=7, start=100_000),
+                        range(4)):
+            xs.append(float(model.train_loss(params, to_device(b, dev))[1]
+                            ["xent"]))
+    return sum(xs) / len(xs)
+
+
+def speculate_vs_verifier(dev, model16, fp16, reqs):
+    """Self-speculation on phase 6's configuration with the w4 tree of the
+    fp tree ``fp16`` drafting (``draft_k`` 4) and its w8 tree verifying,
+    captured, against the verifier-only engine on the same w8 tree: a first
+    run each (counted), a repeat each timed in this call. Tokens must be
+    bit-identical. Returns the record, with the speculative first run's
+    kernel B launches by variant and the split by bits the path implies."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.serving import ServeEngine, WeightStore
+
+    _reset_launches(dm, pa, paq, sf)
+    t0 = time.perf_counter()
+    eng = ServeEngine(model16, fp16, paged_config(
+        speculative=True, draft_bits=4, draft_k=4), device=dev)
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    a_n, s_n = sf.launches, sf.scale_launches
+    rec = _instrument_spec(eng)
+    _reset_launches(dm, pa, paq, sf)
+    outs, first = _run_counted(eng, reqs, rec)
+    launches = ops.combine_launches(ops.launch_counts(),
+                                    eng.replay_launches())
+    st = eng.scheduler.stats()
+    want = _spec_path_launches(model16.cfg.n_layers, rec["chunk"].log,
+                               rec["verify"].log, rec["chain"].log,
+                               rec["draft_admit"].log)
+    _, repeat = _run_counted(eng, reqs, rec)
+    plain = ServeEngine(model16, None, paged_config(), device=dev,
+                        store=WeightStore(serving_params=eng.params,
+                                          device=dev))
+    plain_outs, plain_first = _run_counted(plain, reqs)
+    _, plain_repeat = _run_counted(plain, reqs)
+    plain.close()
+    differing = [r.request_id for o, p, r in zip(outs, plain_outs, reqs)
+                 if o.tokens != p.tokens]
+    spec = {k: st[k] for k in ("spec_cycles", "draft_tokens_proposed",
+                               "draft_tokens_accepted", "acceptance_rate",
+                               "accepted_len")}
+    res = {"stage_ms_w8_and_w4": stage_ms, "squant_flip_launches_stage": a_n,
+           "squant_scale_launches_stage": s_n,
+           "speculative": spec, "first_run": first, "repeat_run": repeat,
+           "verifier_only": {"first_run": plain_first,
+                             "repeat_run": plain_repeat},
+           "tokens_per_s_repeat": {
+               "speculative": repeat["tokens_per_s"],
+               "verifier_only": plain_repeat["tokens_per_s"],
+               "ratio": repeat["tokens_per_s"]
+               / plain_repeat["tokens_per_s"]},
+           "launches": {
+               "dequant_matmul_by_variant":
+                   launches["dequant_matmul.launches_by_variant"],
+               "paged_attention": launches["paged_attention.launches"]},
+           "tokens_equal_verifier_only": not differing}
+    if model16.cfg.moe is None:      # (an MoE layer's launches: per expert)
+        res["launches"]["dequant_matmul_by_variant_and_bits"] = \
+            want["split"]
+        if launches["dequant_matmul.launches_by_variant"] \
+                != want["by_variant"] \
+                or launches["paged_attention.launches"] \
+                != want["paged_attention"]:
+            raise AssertionError(f"speculative launches {launches}; the "
+                                 f"path implies {want}")
+    eng.close()
+    del eng, plain
+    torch.cuda.empty_cache()
+    if differing:
+        raise AssertionError(f"speculative tokens differ from verifier-only "
+                             f"decode for requests {differing}: {res}")
+    return res
+
+
+class _CliRun:
+    """``python <args> --ckpt-dir <a temporary directory>`` started on
+    entering, collected by :meth:`collect`; killed, and its directory
+    removed, on leaving (also when the caller fails first)."""
+
+    def __init__(self, args, prefix):
+        import tempfile
+        self.dir = tempfile.mkdtemp(prefix=prefix)
+        self.ckpt = os.path.join(self.dir, "ckpt")
+        self.args = [sys.executable] + args + ["--ckpt-dir", self.ckpt]
+
+    def __enter__(self):
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + (
+            os.pathsep + os.environ["PYTHONPATH"]
+            if os.environ.get("PYTHONPATH") else ""))
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(self.args, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True,
+                                     cwd=ROOT, env=env)
+        return self
+
+    def collect(self, timeout):
+        from repro_torch.checkpoint import Checkpointer
+        out, err = self.proc.communicate(timeout=timeout)
+        ok = self.proc.returncode == 0
+        return {"returncode": self.proc.returncode,
+                "seconds_beside_this_process":
+                    time.perf_counter() - self.t0,
+                "stdout_tail": out.strip().splitlines()[-3:],
+                "stderr_tail": err.strip().splitlines()[-3:],
+                "checkpoints": Checkpointer(self.ckpt).list_steps()
+                if ok else None}
+
+    def __exit__(self, *exc):
+        import shutil
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def train_and_serve(dev, seed, steps, card):
+    """11b: the reference example's ``--size 100m`` model (granite family,
+    12 layers, d_model 768, 12/4 heads of 64, d_ff 2048, vocab 32 000,
+    float32) trained by the port's ``Trainer`` (preempted at mid-run and
+    resumed) on ``markov_batches(16, 64, 32000, seed=7)`` made on a thread;
+    held-out xent gated below 0.8 ln(vocab); then SQuant w8 of the trained
+    tree (kernel A) served on phase 6's configuration and chat traffic,
+    captured (bfloat16 activations, kernels B and C counted), agreement
+    against the one-slot contiguous oracle in float32 (gated at 0.98) and
+    bfloat16 (printed, with the float32 oracle's top-2 margins), and
+    self-speculation (w4 drafts of the same fp tree, w8 verifier) against
+    verifier-only decode (tokens gated equal); the training CLI once as a
+    process, beside this one's training. Returns the line, the batches
+    made (for 11c), the launch counts and the shapes phase 2 compares:
+    kernel A's buckets and kernel C's case (a decode step's lengths)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.data.synthetic import markov_batches
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    # the training CLI once, as a process on the card, while this one trains
+    with _CliRun(["-m", "repro_torch.launch.train", "--arch", "granite-3-8b",
+                  "--reduced", "--steps", "6"], "chip_smoke_train_cli_") \
+            as cli_run:
+        cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True),
+                                  **TRAIN_SIZE_100M)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen, device=dev)
+        n_params = _numel(params)
+        feed = _BatchFeed(markov_batches(16, 64, cfg.vocab, seed=7), steps)
+        params, train = train_with_trainer(dev, model, params, feed, steps,
+                                           "chip_smoke_train_")
+        feed.close()
+        train["data"] = "markov_batches(16, 64, 32000, seed=7), on a thread"
+        train["host_ms_per_batch"] = _percentiles(feed.host_ms)
+        train["trainer_wait_ms_per_batch"] = _percentiles(feed.wait_ms)
+        xent = heldout_xent(model, params, cfg.vocab, dev)
+        limit = 0.8 * math.log(cfg.vocab)
+
+        # SQuant w8 of the trained tree, served (bfloat16 activations)
+        reqs = chat_requests(seed, cfg.vocab)
+        _reset_launches(*_kernel_modules())
+        t0 = time.perf_counter()
+        tree, qrep = quantize_tree(params, method="squant", bits=8,
+                                   device=dev)
+        torch.cuda.synchronize()
+        quantize = {"total_ms": (time.perf_counter() - t0) * 1e3,
+                    "report": qrep.summary(), "squant_flip": sf.launches,
+                    "squant_scale": sf.scale_launches}
+        m16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+        served = _serve_paged(dev, m16, _retyped(tree, torch.bfloat16),
+                              reqs)
+        rep32, _, _ = measure_agreement(dev, model, tree, reqs, False,
+                                        torch.float32)
+        rep16, _, oracle16 = measure_agreement(dev, model, tree, reqs, False,
+                                               torch.bfloat16)
+        margin = oracle_margins(dev, model, tree, reqs, oracle16)
+        missed = [margin[p] for p in rep16.mismatches if p in margin]
+        del tree
+        torch.cuda.empty_cache()
+        spec = speculate_vs_verifier(dev, m16,
+                                     _retyped(params, torch.bfloat16), reqs)
+        cli = cli_run.collect(timeout=300)
+
+    del params
+    torch.cuda.empty_cache()
+    line = {"phase": "11b a trained dense model (the reference example's "
+                     "--size 100m), quantized and served", "card": card,
+            "model": cfg.name, "shape": {k: getattr(cfg, k) for k in (
+                "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                "d_ff", "vocab", "dtype")}, "params": n_params,
+            "train": train,
+            "heldout_xent": xent, "heldout_limit": limit,
+            "heldout": "4 x markov_batches(16, 64, 32000, seed=7, "
+                       "start=100_000)",
+            "quantize": quantize, "serve_bfloat16": served,
+            "agreement": {"against": "paged vs contiguous (one slot)",
+                          "budget": 0.98, "gated": "float32 activations",
+                          "rate": rep32.rate, "matched": rep32.matched,
+                          "compared": rep32.compared,
+                          "rate_bfloat16": rep16.rate,
+                          "matched_bfloat16": rep16.matched,
+                          "bfloat16_disagreements_float32_margin": {
+                              "disagreements": len(rep16.mismatches),
+                              "margin_at_disagreements": _quantiles(missed),
+                              "margins_sorted": sorted(missed),
+                              "margin_at_all_positions": _quantiles(
+                                  list(margin.values())),
+                              "positions": len(margin)}},
+            "speculative": spec, "train_cli": cli,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if not xent < limit:
+        raise AssertionError(f"held-out xent {xent:.4f} >= {limit:.4f}")
+    if rep32.rate < 0.98:
+        raise AssertionError(f"trained model: float32 agreement "
+                             f"{rep32.rate:.4f} < 0.98")
+    if cli["returncode"] != 0 or not any(
+            "[train] done: loss" in ln for ln in cli["stdout_tail"]) \
+            or cli["checkpoints"] != [6]:
+        raise AssertionError(f"the training CLI: {cli}")
+    pc = paged_config()
+    shapes = {"a": _a_buckets(qrep), "c": dict(
+        b=pc.max_slots, kv=cfg.n_kv_heads, rep=cfg.n_heads // cfg.n_kv_heads,
+        d=cfg.head_dim, bs=pc.block_size, nb=pc.max_len // pc.block_size,
+        lengths=served["decode_lengths"])}
+    return line, feed.made, _phase11_launches(
+        quantize["squant_flip"], quantize["squant_scale"], spec,
+        serve_b=served["dequant_matmul_by_variant"],
+        serve_c=served["paged_attention"]), shapes
+
+
+def _kernel_modules():
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    return dm, pa, paq, sf
+
+
+def train_moe_and_serve(dev, seed, batches, card):
+    """11c (ii): moonshot's routing (64 experts, top-6, capacity 1.25) at
+    11b's width, trained by the ``Trainer`` on 11b's batches and steps;
+    then SQuant w8, 10c's agreement against the one-slot contiguous oracle
+    admitting in the same 64-token chunks (float32, 10c's gates), and
+    self-speculation on the MoE stack (bfloat16, w4 drafts, w8 verifier):
+    tokens equal to verifier-only (gated), acceptance. Returns the line,
+    the launch counts and kernel A's buckets (for phase 2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.equivalence import agreement_budget
+
+    t_phase = time.perf_counter()
+    base = get_config(MOE_ARCH)
+    cfg = dataclasses.replace(base, name=f"{base.name}-at-100m-width",
+                              **MOE_AT_100M_WIDTH)
+    if (cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor) \
+            != (64, 6, 1.25):
+        raise AssertionError(f"{MOE_ARCH}'s routing is {cfg.moe}")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    n_params = _numel(params)
+    params, train = train_with_trainer(dev, model, params, iter(batches),
+                                       len(batches), "chip_smoke_moe_")
+    train["data"] = "11b's batches"
+    xent = heldout_xent(model, params, cfg.vocab, dev)
+
+    reqs = chat_requests(seed, cfg.vocab)
+    _reset_launches(*_kernel_modules())
+    tree, qrep = quantize_tree(params, method="squant", bits=8, device=dev)
+    torch.cuda.synchronize()
+    a_n, s_n = sf.launches, sf.scale_launches
+    budget = agreement_budget(paged_config(), cfg)
+    agree, oracle_s, _ = measure_agreement(
+        dev, model, tree, reqs, False, torch.float32,
+        prefill_chunk=paged_config().prefill_chunk)
+    turns = agreement_by_turn(agree, reqs)
+    del tree
+    torch.cuda.empty_cache()
+    m16 = build_model(dataclasses.replace(cfg, dtype="bfloat16"))
+    spec = speculate_vs_verifier(dev, m16, _retyped(params, torch.bfloat16),
+                                 reqs)
+    del params
+    torch.cuda.empty_cache()
+    line = {"phase": "11c (ii) a trained MoE (moonshot's routing at 11b's "
+                     "width), quantized and served", "card": card,
+            "model": cfg.name, "shape": {k: getattr(cfg, k) for k in (
+                "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
+                "d_ff", "vocab", "dtype")},
+            "moe": dataclasses.asdict(cfg.moe), "params": n_params,
+            "train": train, "heldout_xent": xent,
+            "quantize": {"report": qrep.summary(), "squant_flip": a_n},
+            "agreement": {"against": "contiguous, one slot, admission in "
+                          "the same 64-token chunks", "budget": budget,
+                          "gated": "float32 activations; all "
+                                   f">= {budget}, first turns equal "
+                                   "tokens, second turns "
+                                   f">= {SHIFTED_CHUNK_FLOOR}",
+                          "rate": agree.rate, "matched": agree.matched,
+                          "compared": agree.compared,
+                          "oracle_run_s": oracle_s, "by_turn": turns},
+            "speculative": spec,
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if budget != 0.85 or agree.rate < budget \
+            or turns["first"]["mismatches"] \
+            or turns["second"]["rate"] < SHIFTED_CHUNK_FLOOR:
+        raise AssertionError(f"trained MoE agreement {agree.rate:.4f} "
+                             f"(budget {budget}), by turn {turns}")
+    if not spec["speculative"]["draft_tokens_accepted"] > 0:
+        raise AssertionError(f"MoE speculation accepted nothing: {spec}")
+    return line, _phase11_launches(a_n, s_n, spec), _a_buckets(qrep)
+
+
+def _phase11_launches(a_n, s_n, spec, serve_b=None, serve_c=0):
+    """A part's launches for the ``kernels`` line: kernel A and the scale
+    pass (a ``quantize_tree`` and the speculative engine's w8 + w4 stage),
+    kernel B by variant (the served run's, the speculative run's, and,
+    where the path gives it, the latter by bits), kernel C."""
+    b = {"speculative": {k: v for k, v in spec["launches"].items()
+                         if k.startswith("dequant_matmul")}}
+    if serve_b is not None:
+        b["serve"] = serve_b
+    return {"squant_flip": a_n + spec["squant_flip_launches_stage"],
+            "squant_scale": s_n + spec["squant_scale_launches_stage"],
+            "dequant_matmul": b,
+            "paged_attention": serve_c + spec["launches"]["paged_attention"]}
+
+
+def drive_training(dev, seed, layers11, train_steps, card, memory):
+    """Phase 11: 11a, 11b (and its step with remat on and off), 11c; each
+    part's memory gated like a phase's. Returns each kernel's launches by
+    part ({kernel: {part: ...}}) and the shapes phase 2 compares at:
+    kernel A's buckets and kernel B's launch shapes by part, kernel C's
+    case."""
+    from repro_torch.kernels import dequant_matmul as dm
+    t0 = time.perf_counter()
+    # the learning rates at which ten steps lower the loss on the card
+    # (PERF.md §6: granite also falls at 1e-3, with a bump; moonshot stays
+    # flat at 3e-4)
+    train_full_width(dev, seed, layers11, card, lr=3e-4)
+    phase_memory("11a", memory)
+    # kernel B's plan cache doubles as the record of the launch shapes a
+    # part made: emptied before it, read after it
+    dm._plans.clear()
+    _, batches, l11b, s11b = train_and_serve(dev, seed, train_steps, card)
+    b11b = dm.cached_plans()
+    phase_memory("11b", memory)
+    remat_on_off(dev, seed, card)
+    phase_memory("11b remat", memory)
+    train_full_width(dev, seed, 2, card, arch=MOE_ARCH, seq=256,
+                     micro_check=False, lr=1e-3)
+    phase_memory("11c (i)", memory)
+    dm._plans.clear()
+    _, l11c, a11c = train_moe_and_serve(dev, seed, batches, card)
+    b11c = dm.cached_plans()
+    del batches
+    phase_memory("11c (ii)", memory)
+    emit({"phase": "11 seconds", "card": card,
+          "seconds": time.perf_counter() - t0})
+    shapes = {"a": {"11b": s11b["a"], "11c (ii)": a11c},
+              "b": {"11b": b11b, "11c (ii)": b11c}, "c": s11b["c"]}
+    return {k: {"11b": l11b[k], "11c (ii)": l11c[k]} for k in l11b}, shapes
+
+
+def remat_on_off(dev, seed, card, steps=12):
+    """11b's training step (the ``--size 100m`` model, ``make_train_step``
+    with the example's optimizer, ``markov_batches(16, 64, 32000,
+    seed=7)``) with remat on (the config's default) and off: step ms (host
+    clock, the loss read back each step; steps 4 on), forward+backward and
+    optimizer ms by CUDA events, peak memory (``_train_steps``), then where
+    the device time goes over three more steps (``_profile_steps``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import markov_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    for remat in (True, False):
+        cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True),
+                                  remat=remat, **TRAIN_SIZE_100M)
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen, device=dev)
+        opt = adamw_init(params)
+        batches = [tl.to_device(b, dev) for b, _ in zip(
+            markov_batches(16, 64, cfg.vocab, seed=7), range(steps))]
+        step = tl.make_train_step(model, AdamWConfig(
+            lr=3e-3, warmup_steps=20, decay_steps=600))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        params, opt, run = _train_steps(step, params, opt, batches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        state = [params, opt]
+
+        def one():
+            state[0], state[1], met = step(state[0], state[1], batches[0])
+            float(met["loss"])
+        del params, opt
+        _profile_steps(one, 3, f"11b train step, remat "
+                               f"{'on' if remat else 'off'}", {
+            "card": card, "model": "examples/train_then_quantize.py "
+                                   "--size 100m", "remat": remat,
+            "tokens_per_step": 16 * 64,
+            "step_ms_p50_steps_4_on": _percentiles(run["step_ms"][3:])["p50"],
+            "forward_backward_ms_p50":
+                _percentiles(run["forward_backward_ms"][3:])["p50"],
+            "optimizer_ms_p50": _percentiles(run["optimizer_ms"][3:])["p50"],
+            "peak_memory_gb": peak_gb})
+        del state, batches, one
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # optional: where a decode step's time goes (--profile)
 # ---------------------------------------------------------------------------
 
@@ -3308,6 +4262,13 @@ def main():
                     help="depth of the MoE run (10a; 16 of moonshot's 48 "
                     "layers fit one 80 GB card in float32 before "
                     "quantization)")
+    ap.add_argument("--layers11", type=int, default=8,
+                    help="depth of the full-width training run (11a; 8 of "
+                    "granite's 40 layers: float32 weights, grads and AdamW "
+                    "moments of 40 layers do not fit one card)")
+    ap.add_argument("--train-steps", type=int, default=600,
+                    help="training steps of the trained models of 11b and "
+                    "11c (ii)")
     ap.add_argument("--capture-sync-probe", action="store_true",
                     help="only print what another thread's stream and "
                     "device synchronization do to a CUDA-graph capture "
@@ -3397,6 +4358,8 @@ def main():
     a10_n, b10_n, c10_n, moe_lengths, moe_entry = drive_moe(
         dev, args.seed, args.layers10, profile=args.profile)
     phase_memory("10", memory)
+    l11, s11 = drive_training(dev, args.seed, args.layers11,
+                              args.train_steps, card, memory)
 
     from repro_torch.configs import get_config
     moe_cfg = get_config(MOE_ARCH)
@@ -3413,21 +4376,24 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets)
+    ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets, s11["a"])
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
     kb = check_kernel_b(dev, gen, (paged_config().max_slots, max_batch),
                         prefill_rows, (min(draft_rows), max(draft_rows)),
                         experts={"n_experts": e, "banks": banks,
-                                 "rows": [paged_config().max_slots, mono]})
-    kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths)
+                                 "rows": [paged_config().max_slots, mono]},
+                        trained=s11["b"])
+    kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
-        k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance")},
-        "dequant_matmul": {k: kb[k] for k in ("comparisons", "max_rel_err",
-                                              "tolerance")},
+        k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
+                           "phase11_trees_compared")},
+        "dequant_matmul": {k: kb[k] for k in (
+            "comparisons", "max_rel_err", "tolerance",
+            "phase11_launch_shapes_compared")},
         "paged_attention": {k: kc[k] for k in (
-            "max_abs_err", "max_abs_err_float32", "tolerance")},
+            "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance")}})
     phase_memory("2", memory)
@@ -3452,6 +4418,8 @@ def main():
         "squant_scale"]
     kb["launches_phase10_by_part"] = moe_entry["launches"][
         "dequant_matmul_by_part"]
+    for k in (ka, kb, kc, ks):
+        k["launches_phase11"] = l11[k["name"]]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

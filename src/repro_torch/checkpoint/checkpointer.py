@@ -124,12 +124,13 @@ def _write_npz(path: str, payload: Dict[str, Tuple[np.ndarray, bool]]):
     with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for key, (a, bf16) in payload.items():
+            shape = np.shape(a)         # ascontiguousarray makes 0-d 1-d
             a = np.ascontiguousarray(a)
             descr = "<V2" if bf16 else np.lib.format.dtype_to_descr(a.dtype)
             with zf.open(key + ".npy", "w", force_zip64=True) as fid:
                 np.lib.format.write_array_header_1_0(
                     fid, {"descr": descr, "fortran_order": False,
-                          "shape": a.shape})
+                          "shape": shape})
                 if a.nbytes:
                     fid.write(memoryview(a.reshape(-1).view(np.uint8)))
 

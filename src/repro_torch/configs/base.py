@@ -72,8 +72,10 @@ class ArchConfig:
     tie_embeddings: bool = True
     dtype: str = "bfloat16"
     sub_quadratic: bool = False
-    # memory knobs of the reference package (kept as data; the port always
-    # runs the unrolled layer list and never rematerializes)
+    # memory knobs: ``remat`` recomputes each period's activations in the
+    # backward pass of a training step (torch.utils.checkpoint);
+    # ``scan_layers`` is kept as data (the port always runs the unrolled
+    # layer list)
     remat: bool = True
     scan_layers: bool = True
     # chunk sizes bounding working sets (seq must divide cleanly)

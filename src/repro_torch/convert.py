@@ -12,7 +12,11 @@ numpy and torch only. It
 * turns a quantized leaf — any object with ``data``, ``scale``, ``bits``,
   ``group_size`` and ``shape`` attributes, such as the reference package's
   ``QuantizedTensor`` holding numpy arrays — into this package's
-  ``QuantizedTensor``.
+  ``QuantizedTensor``;
+* carries an AdamW state ``{"m", "v", "step"}`` across: ``m`` and ``v``
+  (parameter-shaped trees, stacked or not) are unrolled like the params, and
+  ``step`` stays a 0-d int32, so a run begun in either package continues in
+  the other.
 """
 from __future__ import annotations
 
@@ -86,11 +90,16 @@ def _unstack_periods(stack: dict) -> dict:
 
 
 def from_jax_params(tree: Any, device=None) -> Any:
-    """Host-side (numpy-leaved) reference tree → this package's params, on
-    ``device``: by default the current CUDA device, as every entry point of
-    the package; pass ``device="cpu"`` for host tensors."""
+    """Host-side (numpy-leaved) reference tree (params, or an AdamW state)
+    → this package's, on ``device``: by default the current CUDA device, as
+    every entry point of the package; pass ``device="cpu"`` for host
+    tensors."""
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    if isinstance(tree, dict) and set(tree) == {"m", "v", "step"}:
+        return {"m": from_jax_params(tree["m"], device),
+                "v": from_jax_params(tree["v"], device),
+                "step": _to_tensor(tree["step"], device).to(torch.int32)}
     if isinstance(tree, dict) and isinstance(tree.get("stack"), dict) \
             and "periods" in tree["stack"]:
         tree = dict(tree)

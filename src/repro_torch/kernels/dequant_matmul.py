@@ -341,8 +341,14 @@ def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
 
 def cached_plans(variant_: Optional[str] = None) -> list:
     """The plans :func:`launch_plan` has made so far (of ``variant_`` only,
-    if given), one dict per shape: for reports."""
-    return [{"b": k[0], "m": k[1], "n": k[2], "scols": k[3], "bits": k[5],
+    if given), one dict per launch shape with its key's fields (rows,
+    weight shape, scale columns, group, bits, activation dtype, the
+    pointers' offsets from 16-byte alignment): for reports, and to launch
+    the kernel again at the shapes a path made."""
+    return [{"b": k[0], "m": k[1], "n": k[2], "scols": k[3],
+             "group_size": k[4], "bits": k[5],
+             "dtype": "bfloat16" if k[6] else "float32",
+             "x_align": k[7], "codes_align": k[8],
              "variant": v, "splits": sp, "per_split": p}
             for k, (v, sp, p) in sorted(_plans.items())
             if variant_ in (None, v)]

@@ -1,7 +1,9 @@
-"""Model builder: ArchConfig → init / forward / prefill / decode_step.
+"""Model builder: ArchConfig → init / train_loss / prefill / decode_step.
 
-The returned ``LM`` object is the single interface used by the serving
-engine and the quantization pipeline. Inference only (``torch.no_grad``).
+The returned ``LM`` object is the single interface used by the trainer, the
+serving engine and the quantization pipeline. ``forward(mode="train")`` and
+``train_loss`` record autograd; every serving mode runs under
+``torch.no_grad``.
 """
 from __future__ import annotations
 
@@ -36,6 +38,19 @@ def arch_features(cfg) -> Tuple[str, ...]:
     if any(kind == "rwkv" for kind, _ in plan):
         feats.append("rwkv")
     return tuple(feats)
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy in float32 over the positions whose label is
+    ``>= 0``: logsumexp minus the label's logit (a gather, equal to the
+    reference's one-hot dot: every other term of that dot is an exact
+    zero)."""
+    lg = logits.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels.clamp_min(0).to(torch.int64)[..., None]
+                      )[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    return torch.sum((lse - ll) * mask) / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _dtype(cfg) -> torch.dtype:
@@ -84,10 +99,20 @@ class LM:
             return x @ w.T.to(x.dtype)
         return linear(params["lm_head"], x)
 
-    @torch.no_grad()
     def forward(self, params, batch, mode: str = "prefill",
                 caches: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
+        """(logits, new_caches). ``mode="train"`` (no cache) records
+        autograd; the serving modes run under ``torch.no_grad``."""
+        if mode == "train":
+            return self._forward(params, batch, mode)[:2]
+        with torch.no_grad():
+            return self._forward(params, batch, mode, caches)[:2]
+
+    def _forward(self, params, batch, mode: str,
+                 caches: Optional[dict] = None):
+        """(logits, new_caches, moe_aux); ``moe_aux`` is None outside train
+        mode."""
         tokens = batch["tokens"]
         b, s = tokens.shape
         block_tables = caches.get("block_tables") \
@@ -133,9 +158,9 @@ class LM:
             rope = rope_values(positions, _rope_dim(self.cfg),
                                self.cfg.rope_theta)
         x = self._embed(params, tokens)
-        x, new_caches = apply_stack(params["stack"], x, cfg=self.cfg,
-                                    rope=rope, mode=mode, caches=caches,
-                                    pos=pos, block_tables=block_tables)
+        x, new_caches, aux = apply_stack(params["stack"], x, cfg=self.cfg,
+                                         rope=rope, mode=mode, caches=caches,
+                                         pos=pos, block_tables=block_tables)
         if new_caches is not None:
             new_caches["pos"] = pos + s
             if block_tables is not None:
@@ -144,8 +169,16 @@ class LM:
             # the final norm and the logits product (cuBLAS under a tied
             # embedding) position by position, as decode runs them
             return by_position(lambda t: self._logits(params, t), x), \
-                new_caches
-        return self._logits(params, x), new_caches
+                new_caches, aux
+        return self._logits(params, x), new_caches, aux
+
+    # --------------------------------------------------------------- train
+    def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """``(xent + 0.01 * moe_aux, {"xent", "moe_aux"})`` of ``batch``
+        (``tokens`` and ``labels``, labels ``< 0`` masked), with autograd."""
+        logits, _, aux = self._forward(params, batch, "train")
+        loss = _xent(logits, batch["labels"])
+        return loss + 0.01 * aux, {"xent": loss, "moe_aux": aux}
 
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, quantize_kv: bool = False,

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
@@ -60,9 +61,12 @@ def init_block(generator, cfg, kind: str, use_moe: bool, device=None
 
 def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
                 cache: Optional[dict], pos, block_tables=None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache). The MoE auxiliary loss is computed and
-    dropped (it matters to training only)."""
+                ) -> Tuple[torch.Tensor, Optional[dict],
+                           Optional[torch.Tensor]]:
+    """Returns (x, new_cache, moe_aux): the MoE load-balancing loss of this
+    block (a float32 0-d tensor), None for a dense FFN and in verify
+    mode."""
+    aux = None
     if kind != "a":
         raise NotImplementedError(
             f"not ported yet: block kind {kind!r} (moe={use_moe})")
@@ -92,12 +96,17 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
                 p["moe"], t, n_experts=cfg.moe.n_experts,
                 top_k=cfg.moe.top_k, kind=cfg.ffn_kind,
                 capacity_factor=cfg.moe.capacity_factor,
-                dropless=mode in ("decode", "verify"))[0]
-        # verify: each position's rows are a decode step's exact call
-        x = x + (by_position(moe, h2) if mode == "verify" else moe(h2))
+                dropless=mode in ("decode", "verify"))
+        if mode == "verify":
+            # each position's rows are a decode step's exact call (the aux
+            # loss of a serving forward is not used)
+            x = x + by_position(lambda t: moe(t)[0], h2)
+        else:
+            y, aux = moe(h2)
+            x = x + y
     else:
         x = x + ffn_lib.ffn(p["ffn"], h2, cfg.ffn_kind, lin=lin)
-    return x, new_cache
+    return x, new_cache, aux
 
 
 # ---------------------------------------------------------------------------
@@ -182,26 +191,59 @@ def init_cache(cfg, batch: int, max_len: int, quantize_kv: bool = False,
 
 
 def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
-                block_tables=None) -> Tuple[torch.Tensor, Any]:
-    """Run all layers. Returns (x, new_caches). ``pos`` is the integer clock
-    of a contiguous cache or the per-slot position vector of a paged one;
-    ``block_tables`` (paged decode) reaches every layer's pool."""
+                block_tables=None
+                ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
+    """Run all layers. Returns (x, new_caches, moe_aux): in train mode the
+    mean over periods of each period's summed MoE aux loss (a float32 0-d
+    tensor, zero for a dense stack), else None. ``pos`` is the integer
+    clock of a contiguous cache or the per-slot position vector of a paged
+    one; ``block_tables`` (paged decode) reaches every layer's pool.
+
+    In train mode with ``cfg.remat`` and autograd recording, each period
+    runs under ``torch.utils.checkpoint`` (the reference's
+    ``jax.checkpoint``): its activations are recomputed in the backward
+    pass instead of kept, which changes memory, not numbers."""
     if "list" not in stack:
         raise ValueError("apply_stack takes the unrolled {'list': [...]} "
                          "stack; convert a stacked tree with unstack_stack")
     pattern = layer_plan(cfg)
     needs_cache = mode in ("prefill", "decode", "chunk", "verify")
-    new_list = []
-    for li, pp in enumerate(stack["list"]):
-        pc = caches["list"][li] if needs_cache else None
+
+    # the aux loss is summed in train mode only: a serving forward does not
+    # use it, and the sums would add kernels to every captured step
+    train = mode == "train"
+
+    def run_period(pp, xin, pc):
+        aux_sum = torch.zeros((), dtype=torch.float32, device=xin.device) \
+            if train else None
         new_c = {}
         for i, (kind, moe) in enumerate(pattern):
             c_in = None if pc is None else pc.get(f"b{i}")
-            x, c_out = apply_block(pp[f"b{i}"], x, cfg=cfg, kind=kind,
-                                   use_moe=moe, rope=rope, mode=mode,
-                                   cache=c_in, pos=pos,
-                                   block_tables=block_tables)
+            xin, c_out, aux = apply_block(pp[f"b{i}"], xin, cfg=cfg,
+                                          kind=kind, use_moe=moe, rope=rope,
+                                          mode=mode, cache=c_in, pos=pos,
+                                          block_tables=block_tables)
+            if train and aux is not None:
+                aux_sum = aux_sum + aux
             if c_out is not None:
                 new_c[f"b{i}"] = c_out
+        return xin, new_c, aux_sum
+
+    remat = train and cfg.remat and torch.is_grad_enabled()
+    new_list = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+        if train else None
+    for li, pp in enumerate(stack["list"]):
+        pc = caches["list"][li] if needs_cache else None
+        if remat:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                lambda p_, x_: run_period(p_, x_, None)[::2], pp, x,
+                use_reentrant=False)
+            new_c = None
+        else:
+            x, new_c, aux = run_period(pp, x, pc)
+        if train:
+            aux_total = aux_total + aux
         new_list.append(new_c if new_c else pc)
-    return x, ({"list": new_list} if needs_cache else None)
+    aux = aux_total / max(len(stack["list"]), 1) if train else None
+    return x, ({"list": new_list} if needs_cache else None), aux

@@ -34,19 +34,48 @@ def max_scale(w2d: torch.Tensor, bits: int) -> torch.Tensor:
     return _div(torch.clamp_min(_absmax(w2d), _EPS), qmax_for_bits(bits))
 
 
+# The default clip-ratio grid, ``jnp.linspace(0.4, 1.0, 40)`` of the
+# reference as float32 bit patterns, read once from JAX 0.9.0 on the CPU.
+# JAX computes ``start * (1 - i/div) + stop * (i/div)`` in float32, but XLA's
+# compile of that expression differs from the same float32 arithmetic done
+# op by op at 5 of the 40 values, and no float32 formula in torch reproduces
+# all 40 (``torch.linspace`` differs at 6), so the grid is a table.
+_MSE_GRID_0_4_40 = (
+    0x3ecccccd, 0x3ed4ad4b, 0x3edc8dc9, 0x3ee46e47, 0x3eec4ec5, 0x3ef42f43,
+    0x3efc0fc1, 0x3f01f820, 0x3f05e85f, 0x3f09d89e, 0x3f0dc8dd, 0x3f11b91b,
+    0x3f15a95b, 0x3f199999, 0x3f1d89d9, 0x3f217a17, 0x3f256a57, 0x3f295a96,
+    0x3f2d4ad5, 0x3f313b14, 0x3f352b53, 0x3f391b92, 0x3f3d0bd1, 0x3f40fc10,
+    0x3f44ec4f, 0x3f48dc8e, 0x3f4ccccd, 0x3f50bd0c, 0x3f54ad4b, 0x3f589d8a,
+    0x3f5c8dc9, 0x3f607e08, 0x3f646e47, 0x3f685e86, 0x3f6c4ec5, 0x3f703f04,
+    0x3f742f43, 0x3f781f82, 0x3f7c0fc1, 0x3f800000)
+
+
+def mse_grid(lo: float = 0.4, num_candidates: int = 40) -> torch.Tensor:
+    """The clip ratios ``mse_scale`` tries, float32 on the CPU: the
+    reference's exact grid for the default ``(0.4, 40)``; any other grid is
+    ``torch.linspace``, which may differ from the reference's
+    ``jnp.linspace`` in the last bit."""
+    if (lo, num_candidates) == (0.4, 40):
+        return torch.tensor(_MSE_GRID_0_4_40,
+                            dtype=torch.int32).view(torch.float32)
+    return torch.linspace(lo, 1.0, num_candidates, dtype=torch.float32)
+
+
 def mse_scale(w2d: torch.Tensor, bits: int, num_candidates: int = 40,
               lo: float = 0.4) -> torch.Tensor:
     """Per-row scale minimizing rounding MSE over a clip-ratio grid.
 
     Data-free: the search objective is the weight-space MSE of
     clip(round(w/s)) * s, evaluated per row over ``num_candidates`` clip
-    ratios in [lo, 1.0]. Candidates are visited one at a time (first minimum
-    wins, as an argmin over the stacked candidates would pick), so peak
-    memory is one extra copy of the weights, not ``num_candidates`` copies.
+    ratios in [lo, 1.0] (:func:`mse_grid`: the reference's grid bit for bit
+    at the defaults; elsewhere it may differ in the last bit). Candidates
+    are visited one at a time (first minimum wins, as an argmin over the
+    stacked candidates would pick), so peak memory is one extra copy of the
+    weights, not ``num_candidates`` copies.
     """
     qmax = qmax_for_bits(bits)
     base = torch.clamp_min(_absmax(w2d), _EPS)
-    ratios = torch.linspace(lo, 1.0, num_candidates, dtype=torch.float32)
+    ratios = mse_grid(lo, num_candidates)
     best_err = None
     best = None
     for r in ratios.tolist():

@@ -128,20 +128,15 @@ def test_rtn_bit_identical_to_reference(rng, bits):
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
-def test_rtn_mse_scale_close_to_reference(rng, bits):
-    """The MSE scale's clip-ratio grid comes from ``torch.linspace`` and the
-    reference's from ``jnp.linspace``, which differ in the last bit at 6 of
-    the 40 ratios (ROADMAP §3): scales within ``quant.scales``' tested
-    1e-6, and the codes equal wherever the scales are."""
+def test_rtn_mse_scale_bit_identical_to_reference(rng, bits):
+    """The MSE scale (its default clip-ratio grid is the reference's
+    ``jnp.linspace`` bit for bit): codes and scales bit-identical."""
     w = rng.normal(size=(24, 96)).astype(np.float32)
     w[:, 3] *= 12.0
     a = jb.rtn(jnp.asarray(w), bits, scale_method="mse")
     b = tb.rtn(_t(w), bits, scale_method="mse")
-    sa, sb = np.asarray(a.scale), b.scale.numpy()
-    np.testing.assert_allclose(sb, sa, rtol=1e-6, atol=0)
-    same = (sa == sb)[:, 0]
-    np.testing.assert_array_equal(b.codes().numpy()[same],
-                                  np.asarray(a.codes())[same])
+    np.testing.assert_array_equal(b.scale.numpy(), np.asarray(a.scale))
+    np.testing.assert_array_equal(b.codes().numpy(), np.asarray(a.codes()))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

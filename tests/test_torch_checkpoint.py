@@ -398,3 +398,21 @@ def test_bf16_leaf_restores_in_the_port_not_in_the_reference(tmp_path):
         _assert_trees_equal(ttree, restored)
         with pytest.raises(TypeError, match="V2"):
             JCheckpointer(d, async_save=False).restore_serving()
+
+
+def test_zero_d_leaf_keeps_its_shape_both_ways(tmp_path):
+    """An AdamW step counter (a 0-d int32 tensor) is written as a 0-d
+    member, as ``np.savez`` writes the reference's, and comes back 0-d in
+    both packages (``np.ascontiguousarray`` alone would make it 1-d)."""
+    p = {"w": torch.ones(2, 2)}
+    opt = {"m": {"w": torch.zeros(2, 2)}, "v": {"w": torch.zeros(2, 2)},
+           "step": torch.tensor(3, dtype=torch.int32)}
+    Checkpointer(str(tmp_path), async_save=False).save(1, p, opt)
+    _, o, _ = Checkpointer(str(tmp_path)).restore(1, template=(p, opt),
+                                                  device="cpu")
+    assert o["step"].shape == () and o["step"].dtype == torch.int32
+    jopt = {"m": {"w": jnp.zeros((2, 2))}, "v": {"w": jnp.zeros((2, 2))},
+            "step": jnp.zeros((), jnp.int32)}
+    _, jo, _ = JCheckpointer(str(tmp_path)).restore(
+        1, template=({"w": jnp.zeros((2, 2))}, jopt))
+    assert jo["step"].shape == () and int(jo["step"]) == 3

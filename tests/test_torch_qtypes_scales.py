@@ -104,6 +104,18 @@ def test_mse_scale(rng, bits):
     np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=0)
 
 
+def test_default_mse_grid_is_the_reference_grid_bit_for_bit():
+    """The default clip-ratio grid equals ``jnp.linspace(0.4, 1.0, 40)``
+    bit for bit (``torch.linspace`` does not); another grid is
+    ``torch.linspace``'s."""
+    want = np.asarray(jnp.linspace(0.4, 1.0, 40)).view(np.uint32)
+    got = ts.mse_grid().numpy().view(np.uint32)
+    np.testing.assert_array_equal(got, want)
+    assert ts.mse_grid().dtype == torch.float32
+    torch.testing.assert_close(ts.mse_grid(0.5, 11),
+                               torch.linspace(0.5, 1.0, 11), rtol=0, atol=0)
+
+
 def test_compute_scale_rejects_ragged_groups():
     with pytest.raises(ValueError):
         ts.compute_scale(torch.zeros(2, 10), 4, "max", 4)
