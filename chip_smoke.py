@@ -116,17 +116,40 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    ``torch.profiler``); (c) moonshot-v1-16b-a3b at full width
    and 2 layers, ten steps with its MoE aux loss, then moonshot's routing
    at (b)'s width trained on (b)'s batches: 10c's agreement gates and
-   speculation on the MoE stack, tokens equal to verifier-only.
-The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 2, 5: the short
-w4 run pays the one-time start-up costs, and phase 2 times the kernels at
-the shapes phases 3, 6, 8 and 10 produced and compares them at phase 11's. The last three lines are the
-card line, the ``kernels`` line and the ``ok`` line.
+   speculation on the MoE stack, tokens equal to verifier-only;
+12. MLA and the sliding-window ring on the contiguous continuous path (the
+   reference gates the paged backend off both) and the round scheduler:
+   (a) ``minicpm3-4b`` at full width and depth (62 layers), SQuant w8 by
+   kernel A, served in bfloat16 with phase 6's chat requests twice (8
+   slots, 64-token chunks; tokens equal run to run) and on the round
+   scheduler with phase 3's requests, kernel B's launches by variant and
+   weight shape held to what the forwards imply (the ``kv_up``
+   re-expansion of every slot's cache at each decode step), one decode
+   step traced (the re-expansion against the rest), the weight-absorbed
+   decode timed beside it; (b) ``mixtral-8x7b`` at full width and 6 of its
+   32 layers (listed in the line), expert banks quantized in place, 12
+   requests of 4160-4480 prompt tokens that wrap the 4096-slot ring, four
+   admitted mid-flight, served twice, launches held to the path's; (c)
+   both at 2 layers in float32: codes and a prefill plus 8 decode steps
+   through the kernels against the plain versions, and teacher-forced
+   agreement of the 8-slot chunked engine (MLA against the one-slot
+   monolithic oracle, >= 0.98; mixtral against the one-slot oracle
+   admitting in the same chunks, >= the reference's sliding_window x moe
+   budget). Phase 2 then also holds kernel A at 12a's and 12b's buckets
+   and kernel B at every launch shape they made, and times ``kv_down``,
+   the ``kv_up`` re-expansion and a mixtral layer's experts at decode.
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 2, 5: the
+short w4 run pays the one-time start-up costs, and phase 2 times the
+kernels at the shapes phases 3, 6, 8 and 10 produced and compares them at
+phase 11's and 12's. The last three lines are the card line, the
+``kernels`` line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
 ``--layers7`` (phase 7), ``--layers8`` (phase 8), ``--layers9`` (phase
-9a), ``--layers10`` (phase 10a) and ``--layers11`` (phase 11a), and the
-trained models' steps with ``--train-steps``; widths are never cut.
+9a), ``--layers10`` (phase 10a), ``--layers11`` (phase 11a) and
+``--layers12`` (phase 12b), and the trained models' steps with
+``--train-steps``; widths are never cut.
 """
 import argparse
 import collections
@@ -224,16 +247,19 @@ def host_ms(fns, iters):
 # phase 2a: kernel A against its plain version
 # ---------------------------------------------------------------------------
 
-def check_kernel_a(dev, gen, buckets, moe_buckets=(), trained=None):
+def check_kernel_a(dev, gen, buckets, moe_buckets=(), trees=None):
     """Kernel A against its plain version (exact and random inputs, heavy
     clipping), then the native-layout launches at each bucket of the main
     path's tree (``buckets``: (leaves, in, out)) and of phase 10's
     (``moe_buckets``: (leaves, experts, in, out), an expert bucket's
     leaves the expert slices of its banks, read where they are stored):
     every leaf against the plain versions, the scale pass and the flip
-    timed against their bytes bound. ``trained`` ({part: buckets in
-    ``moe_buckets``' form}): phase 11's trees, each bucket at 8 and 4 bits
-    (the w8 tree and the drafter's w4), compared and not timed."""
+    timed against their bytes bound. ``trees`` ({phase: {"bits": (...),
+    "timed": bool, "parts": {part: buckets in ``moe_buckets``' form}}}):
+    the trees later phases quantized, each bucket at each of ``bits``
+    against the plain versions (:func:`_a_bucket_vs_plain`), and where
+    ``timed`` the flip and the scale pass timed beside their bytes bound;
+    reported under ``trees_compared`` by phase and part."""
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
     from repro_torch.quant.scales import compute_scale
@@ -386,19 +412,42 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=(), trained=None):
                 tot[k] += row[k]
         del leaves, s, got
         torch.cuda.empty_cache()
-    trained_rows = {}
-    for part, bks in (trained or {}).items():
-        trained_rows[part] = []
-        for nb, experts, kin, nch in bks:
-            for bits in (8, 4):
-                w = _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits,
-                                       ties)
-                worst = max(worst, w)
-                trained_rows[part].append(
-                    {"leaves": nb, "experts": experts, "in": kin,
-                     "out": nch, "bits": bits, "route": sf.route(nch, True),
-                     "max_abs_code_diff": w})
-                torch.cuda.empty_cache()
+    trees_compared = {}
+    for phase, spec in (trees or {}).items():
+        trees_compared[phase] = {}
+        for part, bks in spec["parts"].items():
+            rows = []
+            for nb, experts, kin, nch in bks:
+                for bits in spec["bits"]:
+                    t = {} if spec["timed"] else None
+                    w = _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch,
+                                           bits, ties, t)
+                    worst = max(worst, w)
+                    row = {"leaves": nb, "experts": experts, "in": kin,
+                           "out": nch, "bits": bits,
+                           "route": sf.route(nch, True),
+                           "max_abs_code_diff": w}
+                    if t is not None:
+                        t_bytes = nb * (kin * nch * 5 + nch * 4) \
+                            / HBM_BYTES_PER_S * 1e3
+                        t_ops = A_OPS_PER_ELEMENT * nb * kin * nch \
+                            / PEAK_FLOPS["float32"] * 1e3
+                        bound = max(t_bytes, t_ops)
+                        row.update(t, launches=-(-nb // sf.MAX_LEAVES),
+                                   bound_ms=bound, bound_share=bound / t["ms"],
+                                   bound_by="bytes" if t_bytes >= t_ops
+                                   else "operations",
+                                   scale_bound_ms=nb * (kin * nch + nch) * 4
+                                   / HBM_BYTES_PER_S * 1e3)
+                    rows.append(row)
+                    torch.cuda.empty_cache()
+            out = {"buckets": rows}
+            if spec["timed"]:
+                out.update({k: sum(r[k] for r in rows) for k in (
+                    "ms", "plain_ms", "bound_ms", "scale_ms",
+                    "scale_bound_ms")})
+                out["bound_share"] = out["bound_ms"] / out["ms"]
+            trees_compared[phase][part] = out
     routes = {k: sf.launches_by_route[k] - a0[k] for k in a0}
     if routes["cp16"] == 0:
         raise AssertionError(f"no native launch took the 16-byte route: "
@@ -419,8 +468,7 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=(), trained=None):
             "phase 10's tree: the expert buckets read in place (the flip "
             "takes up to MAX_LEAVES slices a launch) and the attention "
             "bucket")
-    if trained_rows:
-        entry["phase11_trees_compared"] = trained_rows
+    entry["trees_compared"] = trees_compared
     scale = dict(KERNEL_SCALE, max_abs_err=0.0, tolerance="bit-identical to "
                  "core.dispatch._scales on every leaf", bound_by="bytes",
                  numbers_are="sums over the launches of one quantize_tree of "
@@ -432,12 +480,15 @@ def check_kernel_a(dev, gen, buckets, moe_buckets=(), trained=None):
     return entry, scale
 
 
-def _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits, ties):
+def _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits, ties,
+                       times=None):
     """Kernel A's native launch at one bucket (``nb`` random (in, out)
     leaves, ``experts`` slices of a bank each) against its plain versions:
     codes equal on exact inputs, the scale pass bit-identical to
     ``_scales``, every leaf's codes equal up to the tie rule (``ties``
-    accumulates). Returns the largest code difference."""
+    accumulates). ``times`` (a dict) receives the flip's and the scale
+    pass's device ms (CUDA graph replay) and the plain version's, leaf by
+    leaf. Returns the largest code difference."""
     from repro_torch.core.dispatch import _scales
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
@@ -455,12 +506,18 @@ def _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits, ties):
                                     device=dev).unbind(0)]
     s = sf.squant_scales(leaves, bits)
     got = sf.squant_flip_leaves(leaves, s, **kw)
-    worst = 0
+    worst, plain_ms = 0, 0.0
     for b, leaf in enumerate(leaves):
         if not torch.equal(s[b], _scales(leaf.T[None], bits, "max")[0, :, 0]):
             raise AssertionError(f"scale pass != _scales at "
                                  f"{(kin, nch, bits)}")
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
         want = sf.squant_flip_leaves_plain([leaf], s[b:b + 1], **kw)[0]
+        e1.record()
+        torch.cuda.synchronize()
+        plain_ms += e0.elapsed_time(e1)
         res = explain_code_differences(leaf.T, s[b][:, None], got[b], want,
                                        **kw)
         worst = max(worst, int((got[b].int() - want.int()).abs().max()))
@@ -470,6 +527,12 @@ def _a_bucket_vs_plain(dev, gen, nb, experts, kin, nch, bits, ties):
             raise AssertionError(f"kernel A (native) differs from plain "
                                  f"beyond the tie rule at "
                                  f"{(nb, kin, nch, bits)}: {res}")
+        del want
+    if times is not None:
+        times.update(
+            ms=time_ms([lambda: sf.squant_flip_leaves(leaves, s, **kw)], 3),
+            scale_ms=time_ms([lambda: sf.squant_scales(leaves, bits)], 3),
+            plain_ms=plain_ms)
     return worst
 
 
@@ -505,7 +568,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
-                   experts=None, trained=None):
+                   experts=None, plans=None, phase12=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
@@ -523,9 +586,12 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     plain version, summed over one layer's launches (one per expert and
     bank) beside their bound, and beside the reference's form of the same
     products: each bank dequantized and one batched ``torch.matmul``.
-    ``trained`` ({part: ``dm.cached_plans()`` of its run}): every launch
-    shape phase 11's paths made, compared (not timed) by
-    :func:`_b_plan_vs_plain`."""
+    ``plans`` ({phase: {part: ``dm.cached_plans()`` of its run}}): every
+    launch shape the later phases' paths made, compared (not timed) by
+    :func:`_b_plan_vs_plain` and reported under
+    ``launch_shapes_compared`` by phase and part. ``phase12``: ``timed``
+    ((label, M, N, rows) cells timed like the main path's) and ``experts``
+    (mixtral's layer at decode, in ``experts``' form)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -578,72 +644,27 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                                 f"{(b, m, n, bits, name, per_group)}")
                         n_cmp += 1
 
-    phase11 = {}
-    for part, plans in (trained or {}).items():
-        errs = [_b_plan_vs_plain(dev, gen, p) for p in plans]
-        for p, (err, rel) in zip(plans, errs):
-            worst[p["dtype"]] = max(worst[p["dtype"]], err)
-            worst_rel[p["dtype"]] = max(worst_rel[p["dtype"]], rel)
-        n_cmp += len(plans)
-        phase11[part] = {
-            "launch_shapes": len(plans),
-            "by_variant_bits_dtype": dict(collections.Counter(
-                f"{p['variant']} int{p['bits']} {p['dtype']}"
-                for p in plans)),
-            "weight_shapes": sorted({f"{p['m']}x{p['n']}" for p in plans}),
-            "rows": sorted({p["b"] for p in plans}),
-            "max_rel_err": max((r for _, r in errs), default=0.0)}
-        torch.cuda.empty_cache()
+    compared = {}
+    for phase, parts in (plans or {}).items():
+        compared[phase] = {}
+        for part, pl in parts.items():
+            errs = [_b_plan_vs_plain(dev, gen, p) for p in pl]
+            for p, (err, rel) in zip(pl, errs):
+                worst[p["dtype"]] = max(worst[p["dtype"]], err)
+                worst_rel[p["dtype"]] = max(worst_rel[p["dtype"]], rel)
+            n_cmp += len(pl)
+            compared[phase][part] = {
+                "launch_shapes": len(pl),
+                "by_variant_bits_dtype": dict(collections.Counter(
+                    f"{p['variant']} int{p['bits']} {p['dtype']}"
+                    for p in pl)),
+                "weight_shapes": sorted({f"{p['m']}x{p['n']}" for p in pl}),
+                "rows": sorted({p["b"] for p in pl}),
+                "max_rel_err": max((r for _, r in errs), default=0.0)}
+            torch.cuda.empty_cache()
 
     def timed(m, n, b, bits, dt):
-        wbytes = m * n // (2 if bits <= 4 else 1)
-        n_sets = max(2, min(64, math.ceil(L2_COLD_BYTES / wbytes)))
-        cases = _b_case(dev, gen, m, n, bits, False, n_sets)
-        x = torch.randn((b, n), generator=gen, device=dev).to(dt)
-        y = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=128).float()
-        r = dm.dequant_matmul_plain(x, *cases[0], bits=bits,
-                                    group_size=128).float()
-        tol = 1e-4 if dt == torch.float32 else 2e-2
-        if not torch.allclose(y, r, rtol=tol,
-                              atol=tol * max(float(r.abs().max()), 1.0)):
-            raise AssertionError(f"kernel B != plain at the main path's "
-                                 f"{(b, m, n, bits)}")
-        var, splits, ups = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
-        iters = max(40 if b <= 16 else 6, 2 * n_sets)
-        calls = [(lambda d=d, s=s: dm.dequant_matmul(
-            x, d, s, bits=bits, group_size=128)) for d, s in cases]
-        ms = time_ms(calls, iters)
-        wrapper_ms = time_ms(calls, iters, graph=False)
-        call_host_ms = host_ms(calls, iters)
-        plain_ms = time_ms([(lambda d=d, s=s: dm.dequant_matmul_plain(
-            x, d, s, bits=bits, group_size=128)) for d, s in cases[:2]], 4,
-            graph=False)
-        # the library's call for the same function: one matmul on weights
-        # dequantized beforehand (timed only; the port never calls it), on
-        # enough copies that its reads too exceed twice the L2
-        esz = 2 if dt == torch.bfloat16 else 4
-        n_lib = max(2, math.ceil(L2_COLD_BYTES / (m * n * esz)))
-        deq = [(dm.unpack_int4(d) if bits <= 4 else d).to(dt) * s.to(dt)
-               for d, s in (cases[i % n_sets] for i in range(n_lib))]
-        lib_calls = [(lambda w=w: torch.matmul(x, w.T)) for w in deq]
-        lib_ms = time_ms(lib_calls, max(iters, 2 * n_lib))
-        lib_host_ms = host_ms(lib_calls, max(iters, 2 * n_lib))
-        del deq, cases
-        name = str(dt).replace("torch.", "")
-        nbytes = wbytes + m * 4 + b * n * esz + b * m * esz
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 2.0 * b * m * n / PEAK_FLOPS[name] * 1e3
-        bound = max(t_bytes, t_ops)
-        return {"m": m, "n": n, "batch": b, "bits": bits, "dtype": name,
-                "variant": var, "splits": splits, "units_per_split": ups,
-                "input_sets": n_sets,
-                "library_input_sets": n_lib,
-                "ms": ms, "eager_call_ms": wrapper_ms,
-                "host_ms": call_host_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "library_host_ms": lib_host_ms,
-                "bound_ms": bound,
-                "bound_share": bound / ms,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        return _b_timed(dev, gen, m, n, b, bits, dt)
 
     shapes = []
     tot = {"ms": 0.0, "eager_call_ms": 0.0, "host_ms": 0.0, "plain_ms": 0.0,
@@ -687,29 +708,10 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                                          for r in rows),
             variant=sorted({r["variant"] for r in rows}),
             splits={f"({r['m']},{r['n']})": r["splits"] for r in rows})
-    expert_layer = None
-    if experts is not None:
-        expert_layer = {}
-        e = experts["n_experts"]
-        for c in experts["rows"]:
-            per = {}
-            for _, m, n in experts["banks"]:
-                if (m, n) not in per:
-                    per[(m, n)] = timed(m, n, c, 8, torch.bfloat16)
-                    torch.cuda.empty_cache()
-            lt = {k: e * sum(per[(m, n)][k] for _, m, n in experts["banks"])
-                  for k in ("ms", "library_ms", "bound_ms", "plain_ms")}
-            yard = sum(_bank_matmul_ms(dev, gen, e, m, n, c)
-                       for _, m, n in experts["banks"])
-            expert_layer[str(c)] = dict(
-                lt, launches=e * len(experts["banks"]),
-                bound_share=lt["bound_ms"] / lt["ms"],
-                dequant_bank_matmul_ms=yard,
-                variant=sorted({r["variant"] for r in per.values()}),
-                per_launch=list(per.values()))
-            if expert_layer[str(c)]["variant"] != [_variant(c)]:
-                raise AssertionError(f"expert launches at {c} rows took "
-                                     f"{expert_layer[str(c)]['variant']}")
+    expert_layer = None if experts is None else \
+        _expert_layer_times(dev, gen, experts)
+    phase12_timed = None if phase12 is None else \
+        kernel_b_phase12_times(dev, gen, phase12)
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, experts=expert_layer, max_abs_err=worst["bfloat16"],
@@ -732,9 +734,109 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  bound_share=tot["bound_ms"] / tot["ms"],
                  bound_by="bytes", prefill_layers=prefill_layers,
                  draft_prefill_int4=draft_prefill,
-                 phase11_launch_shapes_compared=phase11,
-                 shapes=shapes, **tot)
+                 launch_shapes_compared=compared,
+                 phase12=phase12_timed, shapes=shapes, **tot)
     return entry
+
+
+def _b_timed(dev, gen, m, n, b, bits, dt):
+    """Kernel B at one cell (``b`` rows of ``dt`` on an (M, N) weight,
+    ``bits``, per-channel scales) against its plain version, and timed:
+    device ms by CUDA-graph replay with a cold L2 (the calls cycle through
+    input sets whose reads exceed twice the L2), the wrapper's eager call,
+    the host's cost of issuing it, the plain version, the library's
+    ``torch.matmul`` on pre-dequantized weights and the bound."""
+    from repro_torch.kernels import dequant_matmul as dm
+    wbytes = m * n // (2 if bits <= 4 else 1)
+    n_sets = max(2, min(64, math.ceil(L2_COLD_BYTES / wbytes)))
+    cases = _b_case(dev, gen, m, n, bits, False, n_sets)
+    x = torch.randn((b, n), generator=gen, device=dev).to(dt)
+    y = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=128).float()
+    r = dm.dequant_matmul_plain(x, *cases[0], bits=bits,
+                                group_size=128).float()
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    if not torch.allclose(y, r, rtol=tol,
+                          atol=tol * max(float(r.abs().max()), 1.0)):
+        raise AssertionError(f"kernel B != plain at the main path's "
+                             f"{(b, m, n, bits)}")
+    var, splits, ups = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
+    iters = max(40 if b <= 16 else 6, 2 * n_sets)
+    calls = [(lambda d=d, s=s: dm.dequant_matmul(
+        x, d, s, bits=bits, group_size=128)) for d, s in cases]
+    ms = time_ms(calls, iters)
+    wrapper_ms = time_ms(calls, iters, graph=False)
+    call_host_ms = host_ms(calls, iters)
+    plain_ms = time_ms([(lambda d=d, s=s: dm.dequant_matmul_plain(
+        x, d, s, bits=bits, group_size=128)) for d, s in cases[:2]], 4,
+        graph=False)
+    # the library's call for the same function: one matmul on weights
+    # dequantized beforehand (timed only; the port never calls it), on
+    # enough copies that its reads too exceed twice the L2
+    esz = 2 if dt == torch.bfloat16 else 4
+    n_lib = max(2, math.ceil(L2_COLD_BYTES / (m * n * esz)))
+    deq = [(dm.unpack_int4(d) if bits <= 4 else d).to(dt) * s.to(dt)
+           for d, s in (cases[i % n_sets] for i in range(n_lib))]
+    lib_calls = [(lambda w=w: torch.matmul(x, w.T)) for w in deq]
+    lib_ms = time_ms(lib_calls, max(iters, 2 * n_lib))
+    lib_host_ms = host_ms(lib_calls, max(iters, 2 * n_lib))
+    del deq, cases
+    name = str(dt).replace("torch.", "")
+    nbytes = wbytes + m * 4 + b * n * esz + b * m * esz
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * b * m * n / PEAK_FLOPS[name] * 1e3
+    bound = max(t_bytes, t_ops)
+    return {"m": m, "n": n, "batch": b, "bits": bits, "dtype": name,
+            "variant": var, "splits": splits, "units_per_split": ups,
+            "input_sets": n_sets,
+            "library_input_sets": n_lib,
+            "ms": ms, "eager_call_ms": wrapper_ms,
+            "host_ms": call_host_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "library_host_ms": lib_host_ms,
+            "bound_ms": bound,
+            "bound_share": bound / ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _expert_layer_times(dev, gen, experts):
+    """One MoE layer's expert launches (``experts``: ``n_experts``,
+    ``banks`` as (name, out, in), ``rows``: capacities) timed by
+    :func:`_b_timed`, summed over the layer's launches (one per expert and
+    bank), beside their bound and the reference's form (each bank
+    dequantized, one batched ``torch.matmul``)."""
+    out = {}
+    e = experts["n_experts"]
+    for c in experts["rows"]:
+        per = {}
+        for _, m, n in experts["banks"]:
+            if (m, n) not in per:
+                per[(m, n)] = _b_timed(dev, gen, m, n, c, 8, torch.bfloat16)
+                torch.cuda.empty_cache()
+        lt = {k: e * sum(per[(m, n)][k] for _, m, n in experts["banks"])
+              for k in ("ms", "library_ms", "bound_ms", "plain_ms")}
+        yard = sum(_bank_matmul_ms(dev, gen, e, m, n, c)
+                   for _, m, n in experts["banks"])
+        out[str(c)] = dict(
+            lt, launches=e * len(experts["banks"]),
+            bound_share=lt["bound_ms"] / lt["ms"],
+            dequant_bank_matmul_ms=yard,
+            variant=sorted({r["variant"] for r in per.values()}),
+            per_launch=list(per.values()))
+        if out[str(c)]["variant"] != [_variant(c)]:
+            raise AssertionError(f"expert launches at {c} rows took "
+                                 f"{out[str(c)]['variant']}")
+    return out
+
+
+def kernel_b_phase12_times(dev, gen, phase12):
+    """Phase 12's kernel-B cells (``timed``: (label, M, N, rows)) and
+    mixtral's layer of expert launches at decode (``experts``), timed as
+    the main path's cells are."""
+    out = {"cells": [dict(_b_timed(dev, gen, m, n, b, 8, torch.bfloat16),
+                          label=label)
+                     for label, m, n, b in phase12["timed"]],
+           "experts": _expert_layer_times(dev, gen, phase12["experts"])}
+    torch.cuda.empty_cache()
+    return out
 
 
 def _at_offset(t, offset):
@@ -812,6 +914,11 @@ def _bank_matmul_ms(dev, gen, e, m, n, c):
 # ---------------------------------------------------------------------------
 # phases 3 and 4: the main path
 # ---------------------------------------------------------------------------
+
+# phases 3/4's round-scheduler traffic, also 12a's: (prompt lengths,
+# max_batch, max_new, max_len)
+ROUND_TRAFFIC = ([17, 96, 40, 64, 33, 128], 4, 16, 256)
+
 
 def make_requests(seed, vocab, lengths, max_new):
     import numpy as np
@@ -2984,7 +3091,7 @@ def profile_moe_decode(dev, seed, eng, steps=4):
                        "layers": cfg.n_layers, "slots": len(slots),
                        "expert_grids": sorted([list(g), p]
                                               for g, p in grids.items())},
-                   b_part=lambda grid: grids.get(grid, "unmatched"))
+                   b_part=lambda grid, name: grids.get(grid, "unmatched"))
     peng.close()
 
 
@@ -3989,9 +4096,10 @@ def _profile_steps(step, steps, phase, extra, b_part=None):
     kernels), the device's busy time (the union of the kernels' intervals)
     and its share of the untraced wall time, the number of device kernels
     per step, and the device time split into kernel C, kernel B,
-    host-to-device copies and everything else. ``b_part(grid)`` names the
-    part a kernel-B launch of that grid serves: kernel B's time is then
-    split by part (a merge pass goes with the launch before it)."""
+    host-to-device copies and everything else. ``b_part(grid, name)``
+    names the part a kernel-B launch of that grid and kernel name serves:
+    kernel B's time is then split by part (a merge pass goes with the
+    launch before it)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):                                   # warm
@@ -4029,7 +4137,7 @@ def _profile_steps(step, steps, phase, extra, b_part=None):
             key = "paged_attention"
         elif any(k in name for k in _B_KERNELS):
             owner = "dequant_matmul" if b_part is None else \
-                f"dequant_matmul_{b_part(grid)}"
+                f"dequant_matmul_{b_part(grid, name)}"
             key = owner
         elif "tcgemv_merge" in name:
             key = owner
@@ -4243,6 +4351,727 @@ def agreement_variants(dev, seed, layers, layers7):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: MLA (minicpm3-4b) and the sliding-window ring (mixtral-8x7b) on
+# the contiguous continuous path and the round scheduler
+# ---------------------------------------------------------------------------
+
+MLA_ARCH = "minicpm3-4b"
+SWA_ARCH = "mixtral-8x7b"
+# 12b's traffic: prompts past mixtral's 4096-token window, so every
+# admission and every decode step wraps the ring. The ring holds
+# min(max_len, window) slots whatever max_len is; max_len leaves room for a
+# mid-flight admission's committed clock (a 64-token chunk a step catching
+# up with a clock past 4400 commits ~70 positions ahead of it)
+SWA_PROMPTS = (4160, 4480)
+SWA_MAX_LEN = 4736
+SWA_NEW, SWA_SHORT_NEW = 48, 16
+# 12c's published-capacity traffic at the reduced width, where
+# tests/test_torch_mla_window_models.py reads the reference engine on the
+# same weights: mixtral's routing as published (8 experts, top 2, capacity
+# factor 1.25) at the reduced width, 2 layers, float32, a 64-token window;
+# four prompts of 64 + 337 tokens (12c's excess over the window at seed 0)
+# and SWA_NEW new tokens each; the 8-slot engine against the one-slot
+# oracle, both admitting in 64-token chunks. SWA_REFERENCE_MATCHED is the
+# reference engine's teacher-forced matches there, of 4 x SWA_NEW.
+SWA_REFERENCE_WINDOW, SWA_REFERENCE_PROMPT = 64, 64 + 337
+SWA_REFERENCE_MATCHED = 112
+
+
+def contiguous_config(**over):
+    """Phase 6's serve configuration on the contiguous KV cache (the
+    reference gates the paged backend off MLA and sliding-window caches)."""
+    return paged_config(**dict(dict(kv_backend="contiguous"), **over))
+
+
+def swa_requests(seed, vocab, n=12, short=4):
+    """12b's traffic: ``n`` requests of 4160-4480 random prompt tokens from
+    ``seed``, 48 new tokens each except the first ``short`` (16). Those
+    retire while the rest of the first wave decodes, so the last four are
+    admitted into their slots mid-flight: the contiguous pool shares one
+    clock, and a wave whose requests all ask for the same number of tokens
+    retires on one step, after which the next admission is a fresh wave."""
+    import numpy as np
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        plen = int(rng.integers(SWA_PROMPTS[0], SWA_PROMPTS[1] + 1))
+        out.append(Request(rng.integers(0, vocab, size=plen).tolist(),
+                           SWA_SHORT_NEW if i < short else SWA_NEW,
+                           request_id=i))
+    return out
+
+
+def _b_forward_shapes(cfg, layers, rows, exp_rows, dropless):
+    """Kernel B's launches, by ``dequant_matmul.shape_key`` (variant and
+    weight (M, N)), of one forward of ``rows`` tokens through ``layers``
+    layers in bfloat16: MLA's five projections (its ``kv_up`` on
+    ``exp_rows``, the re-expanded cache) or GQA's four, then the SwiGLU
+    FFN's three, or, in an MoE layer, its three banks once per expert on
+    the capacity's rows (``rows`` when ``dropless``)."""
+    from repro_torch.kernels.dequant_matmul import shape_key
+    d = cfg.d_model
+    if cfg.mla is not None:
+        m, h = cfg.mla, cfg.n_heads
+        per = [(rows, m.q_lora, d),
+               (rows, h * (m.nope_dim + m.rope_dim), m.q_lora),
+               (rows, m.kv_lora + m.rope_dim, d),
+               (exp_rows, h * (m.nope_dim + m.v_dim), m.kv_lora),
+               (rows, d, h * m.v_dim)]
+    else:
+        q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        per = [(rows, q, d), (rows, kv, d), (rows, kv, d), (rows, d, q)]
+    ffn = [(cfg.d_ff, d), (cfg.d_ff, d), (d, cfg.d_ff)]
+    if cfg.moe is not None:
+        e, k = cfg.moe.n_experts, cfg.moe.top_k
+        cap = rows if dropless else min(rows, max(1, math.ceil(
+            rows * k * cfg.moe.capacity_factor / e)))
+        per += [(cap, mm, nn) for mm, nn in ffn for _ in range(e)]
+    else:
+        per += [(rows, mm, nn) for mm, nn in ffn]
+    out = collections.Counter()
+    for r, mm, nn in per:
+        out[shape_key(_variant(r), mm, nn)] += layers
+    return out
+
+
+def _log_forwards(eng, chunk_ms):
+    """Wrap the engine's decode, chunk and monolithic prefill entry points:
+    each call appends (kind, batch rows, tokens a row) to the returned
+    list, and each chunk forward its host ms to ``chunk_ms`` (synchronized
+    at its end, as the scheduler synchronizes after every chunk)."""
+    log = []
+
+    def wrap(fn, kind):
+        def call(params, batch, caches, *a, **kw):
+            toks = batch["tokens"] if isinstance(batch, dict) else batch
+            log.append((kind,) + tuple(toks.shape))
+            if kind != "chunk":
+                return fn(params, batch, caches, *a, **kw)
+            t0 = time.perf_counter()
+            out = fn(params, batch, caches, *a, **kw)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    eng._decode = wrap(eng._decode, "decode")
+    eng._prefill_chunk = wrap(eng._prefill_chunk, "chunk")
+    eng._prefill = wrap(eng._prefill, "prefill")
+    return log
+
+
+def _b_expected(model, log, max_len, layers):
+    """What the logged forwards imply for kernel B (``launches_by_shape``
+    form): a decode step's rows are its slots and MLA re-expands every
+    slot's ``max_len`` cache rows; a chunk writes ``chunk_rows`` a row
+    (a singleton padded to two where the stack allows) and re-expands its
+    side cache; a monolithic prefill expands its own tokens."""
+    want = collections.Counter()
+    for kind, b, n in log:
+        if kind == "decode":
+            rows, exp = b, b * max_len
+        elif kind == "chunk":
+            rows, exp = b * model.chunk_rows(n), b * max_len
+        else:
+            rows = exp = b * n
+        want += _b_forward_shapes(model.cfg, layers, rows, exp,
+                                  kind == "decode")
+    return dict(want)
+
+
+def _launch_deltas(before, after):
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in set(before) | set(after)
+            if after.get(k, 0) - before.get(k, 0)}
+
+
+def _served(dev, model, tree, cfg, reqs, label, check_b=True, repeat=False):
+    """Serve ``reqs`` eagerly on ``cfg`` over the quantized ``tree`` (a
+    store of its own, sharing the tree): tokens, step ms, the forwards
+    made and kernel B's launches by shape, held to what the forwards imply
+    (``check_b``); ``repeat`` serves the same requests again on the same
+    engine and holds the tokens equal run to run."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.serving import ServeEngine, WeightStore
+    eng = ServeEngine(model, None, cfg, store=WeightStore(
+        serving_params=tree, device=dev), device=dev)
+    chunk_ms = []
+    log = _log_forwards(eng, chunk_ms)
+    layers = model.cfg.n_layers
+    runs = []
+    for _ in range(2 if repeat else 1):
+        del log[:], chunk_ms[:]
+        b0 = dict(dm.launches_by_shape)
+        steps0 = len(getattr(eng.scheduler, "step_ms_log", ()))
+        t0 = time.perf_counter()
+        outs = eng.generate(reqs)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        got = _launch_deltas(b0, dm.launches_by_shape)
+        want = _b_expected(model, log, cfg.max_len, layers)
+        if check_b and got != want:
+            raise AssertionError(f"{label}: kernel B launches by shape {got},"
+                                 f" the path implies {want}")
+        kinds = collections.Counter(k for k, _, _ in log)
+        run = {"run_s": run_s, "forwards": dict(kinds),
+               "chunk_rows": sorted({b * n for k, b, n in log
+                                     if k == "chunk"}),
+               "chunk_forward_ms": _percentiles(chunk_ms),
+               "tokens": [o.tokens for o in outs],
+               "dequant_matmul_by_shape": got,
+               "dequant_matmul_by_variant": dict(collections.Counter(
+                   k.split()[0] for k in got for _ in range(got[k])))}
+        st = eng.stats()["scheduler"]
+        if st.kind == "continuous":
+            steps = list(eng.scheduler.step_ms_log)[steps0:]
+            run.update(step_ms=_percentiles(steps), sampling_steps=len(steps),
+                       admissions=[e for e in eng.scheduler.admission_log
+                                   if e["request_id"] in {r.request_id
+                                                          for r in reqs}
+                                   ][-len(reqs):],
+                       waves=st.waves, pendings_started=st.pendings_started)
+        else:
+            run.update(rounds=[dict(r) for r in eng.stats()["round_log"]])
+        runs.append(run)
+        for o, r in zip(outs, reqs):
+            if len(o.tokens) != r.max_new_tokens or \
+                    not all(0 <= t < model.cfg.vocab for t in o.tokens):
+                raise AssertionError(f"{label}: request {r.request_id}: bad "
+                                     f"tokens {o.tokens}")
+    if repeat and runs[0]["tokens"] != runs[1]["tokens"]:
+        raise AssertionError(f"{label}: tokens differ run to run")
+    return eng, runs
+
+
+def _quantized_engine(dev, model, params, cfg):
+    """An engine that quantizes ``params`` (SQuant w8) on the card: the
+    quantize breakdown, kernel A's launches (one flip and one scale pass a
+    bucket, ``MAX_LEAVES`` leaves a launch, every bucket native and
+    grouped) and the peak above the weights."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.serving import ServeEngine
+    _reset_launches(dm, pa, paq, sf)
+    weights = _tree_bytes(params)
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServeEngine(model, params, cfg, device=dev)
+    peak = (torch.cuda.max_memory_allocated() - allocated) / 1e9
+    qrep = eng.quant_report
+    buckets = _a_buckets(qrep)
+    want = sum(-(-nb // sf.MAX_LEAVES) for nb, _, _, _ in buckets)
+    quantize = {"report": qrep.summary(), "total_ms": qrep.total_millis,
+                "dispatch_ms": qrep.dispatch_millis,
+                "sync_ms": qrep.sync_millis,
+                "staged_ms": eng.store.current.staged_ms,
+                "buckets": [{"key": b.key, "route": b.route,
+                             "dispatch_ms": b.dispatch_millis}
+                            for b in qrep.buckets],
+                "launches": {"squant_flip": sf.launches,
+                             "squant_flip_by_route": dict(
+                                 sf.launches_by_route),
+                             "squant_scale": sf.scale_launches},
+                "peak_gb_above_weights": peak, "weights_gb": weights / 1e9}
+    if any(b.route != "native" or "g128" not in b.key for b in qrep.buckets):
+        raise AssertionError(f"a bucket took the stacked route or is not "
+                             f"grouped: {quantize['buckets']}")
+    if sf.launches != want or sf.scale_launches != want:
+        raise AssertionError(f"kernel A launches {sf.launches} (scale pass "
+                             f"{sf.scale_launches}), the buckets imply {want}")
+    return eng, quantize, buckets
+
+
+def profile_mla_decode(dev, seed, tree, model, steps=4):
+    """One contiguous decode step of 12a's model and tree, eight slots of
+    its chat traffic admitted, traced (:func:`_profile_steps`): kernel B's
+    device time split into the ``kv_up`` re-expansion (the step's only
+    ``mma`` launches, on the slots' whole caches) and the other
+    projections (``tcgemv``)."""
+    from repro_torch.serving import ServeEngine, WeightStore
+    eng = ServeEngine(model, None, contiguous_config(),
+                      store=WeightStore(serving_params=tree, device=dev),
+                      device=dev)
+    kv = eng.scheduler.kv
+    reqs = chat_requests(seed, model.cfg.vocab)[:eng.cfg.max_slots]
+    slots = list(range(len(reqs)))
+    kv.admit([(i, r) for i, r in enumerate(reqs)], slots,
+             max(len(r.prompt) for r in reqs), eng.params)
+
+    def step():
+        nxt = kv.logits.argmax(-1)
+        nxt.cpu()                                        # the step's host sync
+        kv.decode(eng.params, nxt, slots)
+
+    line = _profile_steps(
+        step, steps, f"12a profile of a contiguous MLA decode step, "
+        f"{model.cfg.name}", {"layers": model.cfg.n_layers,
+                              "slots": len(slots),
+                              "expanded_rows": len(slots) * eng.cfg.max_len},
+        b_part=lambda grid, name: "kv_up_reexpansion" if "pf_kernel" in name
+        else "other_projections")
+    eng.close()
+    return line
+
+
+def drive_mla(dev, seed):
+    """12a: ``minicpm3-4b`` at full width and depth (62 layers): random
+    float32 weights from ``seed`` (bf16 embedding), SQuant w8 by kernel A,
+    served real-quantized in bfloat16 on the contiguous continuous
+    scheduler (8 slots, 64-token chunks) with phase 6's twelve chat
+    requests twice (tokens equal run to run), on the round scheduler with
+    phase 3's six requests, kernel B's launches by shape held to what the
+    forwards imply each time; one decode step traced; the same engine with
+    the weight-absorbed decode (``MLAConfig(absorb=True)``), timed, tokens
+    not gated. Returns kernel A's and B's launches, kernel A's buckets and
+    the line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeConfig
+
+    t_phase = time.perf_counter()
+    cfg = get_config(MLA_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    eng, quantize, buckets = _quantized_engine(dev, model, params,
+                                               contiguous_config())
+    quantize["init_ms"] = init_ms
+    del params
+    torch.cuda.empty_cache()
+    tree = eng.params
+    eng.close()
+    a_n = quantize["launches"]["squant_flip"]
+    s_n = quantize["launches"]["squant_scale"]
+    b0 = dm.launches
+    reqs = chat_requests(seed, cfg.vocab)
+    ceng, cont = _served(dev, model, tree, contiguous_config(), reqs,
+                         "12a contiguous", repeat=True)
+    ceng.close()
+    lengths, max_batch, max_new, max_len = ROUND_TRAFFIC
+    rreqs = make_requests(seed, cfg.vocab, lengths, max_new)
+    reng, rnd = _served(dev, model, tree, ServeConfig(
+        max_batch=max_batch, max_len=max_len, quantize_weights="squant",
+        weight_bits=8, dequantize_for_compute=False), rreqs, "12a round")
+    reng.close()
+    b_n = dm.launches - b0
+    prof = profile_mla_decode(dev, seed, tree, model)
+    amodel = build_model(dataclasses.replace(cfg, mla=dataclasses.replace(
+        cfg.mla, absorb=True)))
+    aeng, absorbed = _served(dev, amodel, tree, contiguous_config(), reqs,
+                             "12a absorbed", check_b=False)
+    aeng.close()
+    same = sum(a == b for x, y in zip(cont[0]["tokens"],
+                                      absorbed[0]["tokens"])
+               for a, b in zip(x, y))
+    line = {"phase": "12a MLA, contiguous continuous + round, "
+                     f"{MLA_ARCH} w8", "model": cfg.name,
+            "layers": cfg.n_layers, "full_depth": True,
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "mla": dataclasses.asdict(cfg.mla), "weight_bits": 8,
+            "activation_dtype": cfg.dtype, "quantize": quantize,
+            "serve_config": {k: getattr(contiguous_config(), k) for k in (
+                "scheduler", "kv_backend", "max_slots", "max_len",
+                "prefill_chunk")},
+            "prompt_lengths": [len(r.prompt) for r in reqs],
+            "continuous_runs": cont, "tokens_equal_run_to_run": True,
+            "round": rnd[0], "decode_step_profile": prof,
+            "absorbed": {k: absorbed[0][k] for k in (
+                "run_s", "step_ms", "forwards", "dequant_matmul_by_variant")},
+            "absorbed_tokens_equal_expanded_not_gated":
+                f"{same}/{sum(len(t) for t in cont[0]['tokens'])}",
+            "launches": {"squant_flip": a_n, "squant_scale": s_n,
+                         "dequant_matmul": b_n},
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    del tree
+    torch.cuda.empty_cache()
+    return a_n, s_n, b_n, buckets, line
+
+
+def drive_swa(dev, seed, layers):
+    """12b: ``mixtral-8x7b`` at full width and ``layers`` of its 32 layers
+    (8 experts top-2, window 4096): SQuant w8 with the expert banks
+    quantized where they are stored, served in bfloat16 on the contiguous
+    continuous scheduler (8 slots, 64-token chunks, max_len 4736) with 12
+    requests of 4160-4480 prompt tokens (every prefill and decode wraps
+    the ring; four admitted mid-flight) twice: tokens equal run to run,
+    kernel B's launches by shape held to what the forwards imply (experts
+    and attention). Returns kernel A's and B's launches, kernel A's
+    buckets and the line."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(SWA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    scfg = contiguous_config(max_len=SWA_MAX_LEN)
+    eng, quantize, buckets = _quantized_engine(dev, model, params, scfg)
+    quantize["init_ms"] = init_ms
+    del params
+    torch.cuda.empty_cache()
+    tree = eng.params
+    eng.close()
+    a_n = quantize["launches"]["squant_flip"]
+    s_n = quantize["launches"]["squant_scale"]
+    b0 = dm.launches
+    reqs = swa_requests(seed, cfg.vocab)
+    seng, runs = _served(dev, model, tree, scfg, reqs, "12b", repeat=True)
+    ring = seng.scheduler.kv._cache["list"][0]["b0"]["k"].shape[1]
+    seng.close()
+    b_n = dm.launches - b0
+    adm = runs[0]["admissions"]
+    midflight = [e for e in adm if e["request_id"] >= 8]
+    first = [e for e in adm if e["request_id"] < 8]
+    parts = kernel_b_parts(cfg, runs[0]["dequant_matmul_by_shape"])
+    line = {"phase": f"12b sliding window + MoE, contiguous continuous, "
+                     f"{SWA_ARCH} w8", "model": cfg.name, "layers": layers,
+            "full_depth": layers == full.n_layers,
+            "reduced": None if layers == full.n_layers else
+            {"n_layers": f"{full.n_layers} -> {layers}"},
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "window": cfg.window, "ring_slots": ring,
+            "moe": dataclasses.asdict(cfg.moe), "weight_bits": 8,
+            "activation_dtype": cfg.dtype, "quantize": quantize,
+            "serve_config": {k: getattr(scfg, k) for k in (
+                "scheduler", "kv_backend", "max_slots", "max_len",
+                "prefill_chunk")},
+            "prompt_lengths": [len(r.prompt) for r in reqs],
+            "max_new_tokens": [r.max_new_tokens for r in reqs],
+            "first_wave_clock": max(e["clock"] for e in first),
+            "midflight_admissions": midflight,
+            "last_position": max(e["clock"] + reqs[e["request_id"]]
+                                 .max_new_tokens for e in adm) - 1,
+            "runs": [{k: v for k, v in r.items() if k != "tokens"}
+                     for r in runs],
+            "tokens_equal_run_to_run": True,
+            "dequant_matmul_by_part": parts,
+            "tokens": runs[0]["tokens"],
+            "launches": {"squant_flip": a_n, "squant_scale": s_n,
+                         "dequant_matmul": b_n},
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    if ring != cfg.window or len(midflight) != 4 or any(
+            e["chunks"] < 2 for e in midflight) or runs[0]["waves"] != 1 \
+            or min(len(r.prompt) for r in reqs) <= cfg.window:
+        raise AssertionError(f"12b: ring {ring} slots, mid-flight "
+                             f"admissions {midflight}, waves "
+                             f"{runs[0]['waves']}: expected the window's "
+                             f"slots, one fresh wave and four chunked "
+                             f"mid-flight admissions past the window")
+    del tree
+    torch.cuda.empty_cache()
+    return a_n, s_n, b_n, buckets, line
+
+
+def _codes_vs_plain(params, tree):
+    """Every quantized leaf of the kernels' tree against the plain
+    versions, leaf by leaf (an expert bank slice by slice, its codes rows
+    ``i*out .. (i+1)*out``): scales bit-identical to the plain scale pass,
+    codes equal up to the tie rule."""
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.kernels.ref import explain_code_differences
+    from repro_torch.quant.qtypes import QuantizedTensor
+    fp = _leaves(params)
+    ties = {"rows": 0, "rows_differing": 0, "unexplained": 0, "leaves": 0}
+    kw = dict(bits=8, group_size=128)
+    for path, a in _leaves(tree).items():
+        if not isinstance(a, QuantizedTensor):
+            continue
+        w = fp[path]
+        slices = [w] if w.ndim == 2 else list(w.unbind(0))
+        out = a.shape[0] // len(slices)
+        s = a.scale.reshape(len(slices), out)
+        if not torch.equal(s, sf.squant_scales_plain(slices, 8)):
+            raise AssertionError(f"scales differ from the plain scale pass "
+                                 f"at {path}")
+        for i, sl in enumerate(slices):
+            want = sf.squant_flip_leaves_plain([sl], s[i:i + 1], **kw)[0]
+            res = explain_code_differences(
+                sl.T, s[i][:, None], a.data[i * out:(i + 1) * out], want,
+                **kw)
+            for k in res:
+                ties[k] += res[k]
+            ties["leaves"] += 1
+    if ties["unexplained"]:
+        raise AssertionError(f"codes differ beyond the tie rule: {ties}")
+    return ties
+
+
+def _decode_vs_plain(dev, model, tree, prompt, steps=8):
+    """Prefill and ``steps`` greedy decode steps through the kernels, then
+    the same on the same tree under ``force_backend("ref")`` teacher-forced
+    on the kernels' tokens: the plain path's greedy token equal at every
+    step, logits within phase 5's 1e-3 of the largest."""
+    from repro_torch.kernels import ops
+
+    def run(tree, forced=None):
+        cache = model.init_cache(prompt.shape[0], prompt.shape[1] + steps + 1,
+                                 device=dev)
+        lg, cache = model.prefill(tree, {"tokens": prompt}, cache)
+        logits, toks = [lg], []
+        for i in range(steps):
+            nxt = lg.argmax(-1) if forced is None else forced[i]
+            toks.append(nxt)
+            lg, cache = model.decode_step(tree, nxt[:, None], cache)
+            logits.append(lg)
+        return torch.stack(logits), toks
+
+    lk, tk = run(tree)
+    with ops.force_backend("ref"):
+        lp, _ = run(tree, forced=tk)
+    torch.cuda.synchronize()
+    err, mag = float((lk - lp).abs().max()), float(lp.abs().max())
+    equal = bool(torch.equal(lk.argmax(-1), lp.argmax(-1)))
+    out = {"prompt": list(prompt.shape), "decode_steps": steps,
+           "logits_max_abs_err": err, "logits_max_abs": mag,
+           "teacher_forced_tokens_equal": equal}
+    if not equal or err > 1e-3 * mag:
+        raise AssertionError(f"kernels vs plain at 2 layers: {out}")
+    return out
+
+
+def _kv_up_rows_probe(dev, gen, qt):
+    """Whether kernel B's rows depend on how many rows share the launch, at
+    the ``kv_up`` weight (the re-expansion's): the first rows of launches
+    of 4096 down to 8 rows against the 4096-row launch's, bit for bit, in
+    float32 and bfloat16, with the variant each took."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    x = torch.randn((4096, qt.shape[1]), generator=gen, device=dev)
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        full = ops.dequant_matmul(xd, qt)
+        by = {}
+        for r in (2048, 512, 64, 16, 8):
+            part = ops.dequant_matmul(xd[:r].contiguous(), qt)
+            var = dm.launch_plan(xd[:r], qt.data, qt.shape[0], 1, 128, 8)[0]
+            by[str(r)] = {"variant": var,
+                          "rows_equal_4096_row_launch": bool(
+                              torch.equal(part, full[:r]))}
+        out[str(dt).replace("torch.", "")] = {
+            "variant_4096": dm.launch_plan(xd, qt.data, qt.shape[0], 1, 128,
+                                           8)[0], "by_rows": by}
+    return out
+
+
+def _agreement(dev, model, tree, reqs, cfg, oracle_cfg):
+    """Teacher-forced greedy agreement of ``cfg``'s engine against
+    ``oracle_cfg``'s on the same quantized tree (a store each)."""
+    from repro_torch.serving import ServeEngine, WeightStore
+    from repro_torch.serving.equivalence import (greedy_token_agreement,
+                                                 oracle_tokens)
+    eng = ServeEngine(model, None, oracle_cfg, store=WeightStore(
+        serving_params=tree, device=dev), device=dev)
+    oracle = oracle_tokens(eng.generate(reqs))
+    eng.close()
+    eng = ServeEngine(model, None, cfg, store=WeightStore(
+        serving_params=tree, device=dev), device=dev)
+    rep = greedy_token_agreement(eng, reqs, oracle)
+    eng.close()
+    return rep, oracle
+
+
+def swa_reference_case():
+    """12c's published-capacity traffic at the reduced width (the
+    ``SWA_REFERENCE_*`` constants): (model, float32 params on the CPU from a
+    CPU generator seeded 0, so the card and the CPU test serve the same
+    numbers, requests, the 8-slot and the one-slot oracle's ServeConfig
+    keywords)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(
+        get_config(SWA_ARCH, reduced=True), n_layers=2, dtype="float32",
+        window=SWA_REFERENCE_WINDOW, moe=get_config(SWA_ARCH).moe)
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    reqs = make_requests(0, cfg.vocab, [SWA_REFERENCE_PROMPT] * 4, SWA_NEW)
+    kw = dict(scheduler="continuous", max_len=512, prefill_chunk=64)
+    return model, params, reqs, dict(kw, max_batch=8), dict(kw, max_batch=1)
+
+
+def swa_reference_agreement(dev):
+    """The port on ``dev`` at :func:`swa_reference_case`: the 8-slot
+    chunked engine's teacher-forced agreement with the one-slot chunked
+    oracle (an AgreementReport)."""
+    from repro_torch.serving import ServeConfig
+    from repro_torch.training.optimizer import tree_map
+    model, params, reqs, kw, one = swa_reference_case()
+    rep, _ = _agreement(dev, model, tree_map(lambda t: t.to(dev), params),
+                        reqs, ServeConfig(**kw), ServeConfig(**one))
+    return rep
+
+
+def mla_swa_vs_plain(dev, seed):
+    """12c: each architecture at full width and 2 layers in float32: (i)
+    SQuant w8 codes of kernel A against the plain versions' leaf by leaf,
+    and a prefill plus 8 decode steps through the kernels against the
+    plain versions on the same tree (mixtral's 4160-token prompt wraps the
+    ring); (ii) teacher-forced
+    agreement of the 8-slot chunked contiguous engine, on prompts of one
+    length (so that no slot is padded): MLA against the one-slot
+    monolithic oracle, gated at 0.98 with the reference's ``mla`` floor
+    printed beside it, with the ``kv_up`` re-expansion's row-count
+    probe; mixtral against the one-slot oracle admitting in the same
+    64-token chunks, gated at the reference's budget (sliding_window x
+    moe) with routing that drops no token; the published capacity's rate
+    gated at the reference engine's reading on this traffic
+    (``SWA_REFERENCE_MATCHED``), and the port at that traffic and on those
+    weights (:func:`swa_reference_agreement`) gated to make the same
+    matches; the one-slot monolithic oracle's rate printed."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.equivalence import (AGREEMENT_BUDGETS,
+                                                 agreement_budget)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    line = {"phase": "12c MLA and the sliding-window ring at 2 layers "
+                     "(float32): kernels vs plain versions, agreement"}
+    for arch in (MLA_ARCH, SWA_ARCH):
+        fails = []
+        cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                                  dtype="float32")
+        model = build_model(cfg)
+        params = model.init(gen, device=dev)
+        tree, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+        codes = _codes_vs_plain(params, tree)
+        del params
+        torch.cuda.empty_cache()
+        plen = 64 if cfg.mla is not None else SWA_PROMPTS[0]
+        prompt = torch.randint(0, cfg.vocab, (2, plen), generator=gen,
+                               device=dev)
+        plain = _decode_vs_plain(dev, model, tree, prompt)
+        rng = np.random.default_rng(seed)
+        if cfg.mla is not None:
+            ccfg = contiguous_config()
+            reqs = make_requests(seed, cfg.vocab, [256] * 8, 32)
+            rep, oracle = _agreement(dev, model, tree, reqs, ccfg,
+                                     contiguous_config(max_slots=1,
+                                                       prefill_chunk=0))
+            gate = 0.98
+            agree = {"against": "contiguous, one slot, monolithic",
+                     "gated": gate, "reference_floor_mla":
+                         AGREEMENT_BUDGETS["mla"],
+                     "kv_up_rows_probe": _kv_up_rows_probe(
+                         dev, gen, tree["stack"]["list"][0]["b0"]["attn"]
+                         ["kv_up"]["w"])}
+            if rep.rate < 1.0:
+                margin = oracle_margins(dev, model, tree, reqs, oracle)
+                agree["float32_top2_margin_at_misses"] = sorted(
+                    margin[p] for p in rep.mismatches if p in margin)
+                agree["float32_top2_margin_all"] = _quantiles(
+                    list(margin.values()))
+        else:
+            ccfg = contiguous_config(max_len=SWA_MAX_LEN)
+            length = int(rng.integers(SWA_PROMPTS[0], SWA_PROMPTS[1] + 1))
+            reqs = make_requests(seed, cfg.vocab, [length] * 4, SWA_NEW)
+            one = dataclasses.replace(ccfg, max_slots=1)
+            # a contiguous pending chunks its requests together, so an
+            # 8-slot chunk routes 4 x 64 tokens under one capacity where the
+            # one-slot oracle routes 64: the tokens each drops differ, and
+            # over 4 000-token prompts the drops compound. Gated: routing
+            # with a capacity that drops nothing (capacity_factor E / k),
+            # where a token's experts do not depend on its chunk's company
+            dropless = build_model(dataclasses.replace(
+                cfg, moe=dataclasses.replace(
+                    cfg.moe, capacity_factor=cfg.moe.n_experts
+                    / cfg.moe.top_k)))
+            rep, _ = _agreement(dev, dropless, tree, reqs, ccfg, one)
+            pub, _ = _agreement(dev, model, tree, reqs, ccfg, one)
+            mono, _ = _agreement(dev, model, tree, reqs, ccfg,
+                                 dataclasses.replace(one, prefill_chunk=0))
+            gate = agreement_budget(ccfg, cfg)
+            # the published capacity, gated at the reference engine's own
+            # reading on this traffic (pinned by the CPU test on the
+            # reduced width's weights), and the port on the card at that
+            # traffic and those weights, gated to make the same matches
+            ref = swa_reference_agreement(dev)
+            ref_rate = SWA_REFERENCE_MATCHED / (4 * SWA_NEW)
+            if pub.rate < ref_rate or (ref.matched, ref.compared) != (
+                    SWA_REFERENCE_MATCHED, 4 * SWA_NEW):
+                fails.append(f"published capacity {pub.rate:.4f} (the "
+                             f"reference's reading {ref_rate:.4f}); at the "
+                             f"reduced width {ref.matched}/{ref.compared} "
+                             f"(the reference's {SWA_REFERENCE_MATCHED})")
+            agree = {"against": "contiguous, one slot, admission in the "
+                                "same 64-token chunks", "gated": gate,
+                     "gated_routing": "capacity_factor "
+                     f"{cfg.moe.n_experts / cfg.moe.top_k} (no token "
+                     "dropped)",
+                     "published_capacity_rate": pub.rate,
+                     "published_capacity_matched": pub.matched,
+                     "published_capacity_gated_at_reference_reading":
+                         ref_rate,
+                     "reference_traffic_at_reduced_width": {
+                         "matched": ref.matched, "compared": ref.compared,
+                         "per_request": ref.per_request,
+                         "gated_equal_to_reference_matched":
+                             SWA_REFERENCE_MATCHED},
+                     "rate_against_monolithic_oracle_not_gated": mono.rate,
+                     "matched_against_monolithic_oracle": mono.matched}
+        agree.update(rate=rep.rate, matched=rep.matched,
+                     compared=rep.compared, requests=len(reqs),
+                     prompt_length=len(reqs[0].prompt),
+                     mismatches=[list(p) for p in rep.mismatches])
+        line[arch] = {"codes_tie_rule": codes, "kernels_vs_plain": plain,
+                      "agreement": agree}
+        del tree
+        torch.cuda.empty_cache()
+        if rep.rate < gate:
+            fails.append(f"agreement {rep.rate:.4f} < {gate}")
+        if fails:
+            emit(line)
+            raise AssertionError(f"12c {arch}: {'; '.join(fails)}")
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+def drive_phase12(dev, seed, layers12, memory):
+    """Phase 12 (12a, 12b, 12c), each part's memory gated like a phase's.
+    Returns the kernels' launches by part and the shapes phase 2 holds
+    kernels A and B to: kernel A's buckets and kernel B's launch shapes
+    (its plan cache, emptied before a part and read after it) by part."""
+    from repro_torch.kernels import dequant_matmul as dm
+    t0 = time.perf_counter()
+    dm._plans.clear()
+    a_a, s_a, b_a, buckets_a, _ = drive_mla(dev, seed)
+    plans_a = dm.cached_plans()
+    phase_memory("12a", memory)
+    dm._plans.clear()
+    a_b, s_b, b_b, buckets_b, _ = drive_swa(dev, seed, layers12)
+    plans_b = dm.cached_plans()
+    phase_memory("12b", memory)
+    mla_swa_vs_plain(dev, seed)
+    phase_memory("12c", memory)
+    emit({"phase": "12 seconds", "seconds": time.perf_counter() - t0})
+    launches = {"squant_flip": {"12a": a_a, "12b": a_b},
+                "squant_scale": {"12a": s_a, "12b": s_b},
+                "dequant_matmul": {"12a": b_a, "12b": b_b}}
+    return launches, {"a": {"12a": buckets_a, "12b": buckets_b},
+                      "b": {"12a": plans_a, "12b": plans_b}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4266,6 +5095,10 @@ def main():
                     help="depth of the full-width training run (11a; 8 of "
                     "granite's 40 layers: float32 weights, grads and AdamW "
                     "moments of 40 layers do not fit one card)")
+    ap.add_argument("--layers12", type=int, default=6,
+                    help="depth of the sliding-window + MoE run (12b; 6 of "
+                    "mixtral's 32 layers: 32 layers of float32 weights "
+                    "are ~180 GB)")
     ap.add_argument("--train-steps", type=int, default=600,
                     help="training steps of the trained models of 11b and "
                     "11c (ii)")
@@ -4313,8 +5146,7 @@ def main():
             profile_decode(dev, args.seed, args.layers)
         return 1
 
-    lengths = [17, 96, 40, 64, 33, 128]       # two rounds of max_batch 4
-    max_batch, max_new = 4, 16
+    lengths, max_batch, max_new, _ = ROUND_TRAFFIC   # two rounds of 4
     # The reduced-depth w4 run goes first: it also pays the one-time costs
     # (loading the kernels' libraries, cuBLAS and allocator start-up), so the
     # full-depth run's times are the path's own. Both run before phase 2,
@@ -4360,6 +5192,7 @@ def main():
     phase_memory("10", memory)
     l11, s11 = drive_training(dev, args.seed, args.layers11,
                               args.train_steps, card, memory)
+    l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory)
 
     from repro_torch.configs import get_config
     moe_cfg = get_config(MOE_ARCH)
@@ -4376,7 +5209,22 @@ def main():
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
-    ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets, s11["a"])
+    # phase 11's trees at 8 and 4 bits (the w8 tree and the drafter's w4),
+    # compared; phase 12's at 8 bits, compared and timed
+    ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets, {
+        "11": {"bits": (8, 4), "timed": False, "parts": s11["a"]},
+        "12": {"bits": (8,), "timed": True, "parts": s12["a"]}})
+    mla, swa = get_config(MLA_ARCH), get_config(SWA_ARCH)
+    kv_down = (mla.mla.kv_lora + mla.mla.rope_dim, mla.d_model)
+    kv_up = (mla.n_heads * (mla.mla.nope_dim + mla.mla.v_dim),
+             mla.mla.kv_lora)
+    slots, max_len = contiguous_config().max_slots, contiguous_config().max_len
+    phase12 = {"timed": [("kv_down decode", *kv_down, slots),
+                         ("kv_down 64-row chunk", *kv_down, 64),
+                         ("kv_up re-expansion at decode", *kv_up,
+                          slots * max_len)],
+               "experts": {"n_experts": swa.moe.n_experts,
+                           "banks": moe_expert_shapes(swa), "rows": [slots]}}
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
@@ -4384,14 +5232,15 @@ def main():
                         prefill_rows, (min(draft_rows), max(draft_rows)),
                         experts={"n_experts": e, "banks": banks,
                                  "rows": [paged_config().max_slots, mono]},
-                        trained=s11["b"])
+                        plans={"11": s11["b"], "12": s12["b"]},
+                        phase12=phase12)
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
-                           "phase11_trees_compared")},
+                           "trees_compared")},
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
-            "phase11_launch_shapes_compared")},
+            "launch_shapes_compared", "phase12")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (
@@ -4420,6 +5269,8 @@ def main():
         "dequant_matmul_by_part"]
     for k in (ka, kb, kc, ks):
         k["launches_phase11"] = l11[k["name"]]
+    for k in (ka, kb, ks):
+        k["launches_phase12"] = l12[k["name"]]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

@@ -1,5 +1,6 @@
-"""Attention: dense grouped-query attention with contiguous and paged KV
-caches, optionally int8.
+"""Attention: grouped-query attention (dense, sliding-window) and
+multi-head latent attention (MLA), with contiguous and paged KV caches,
+optionally int8.
 
 Grouped-query attention uses the grouped einsum form at decode (no
 materialized KV repeat) and the repeated-KV, query-chunked form at prefill —
@@ -18,8 +19,17 @@ forward. KV caches hold the model dtype, or int8 codes with one float32
 scale per (position, kv-head) (``quantize_kv``, written by
 :func:`_quant_tok`). Caches are updated in place: the caller owns them.
 
-Not ported yet (each raises ``NotImplementedError`` naming itself): MLA and
-sliding-window ring caches.
+Sliding-window attention (``cfg.window``) keeps a ring of
+``min(max_len, window)`` slots: token ``p`` lives in slot ``p % slots``
+(:func:`_cache_write`, :func:`_ring_scatter`); a chunk continuation attends
+over the ring as of chunk entry concatenated with the chunk's own keys,
+each ring slot's absolute position reconstructed from the clock. MLA
+(``cfg.mla``) caches the compressed ``c_kv`` and the shared rotary key
+``k_rope`` (:func:`init_mla_cache`) and re-expands the whole cache through
+``kv_up`` every chunk and decode step, or, with ``MLAConfig.absorb``,
+attends in the compressed space (:func:`_mla_absorbed_decode`). Both serve
+on contiguous caches only (the paged backend and ``verify`` are gated off
+them, as in the reference).
 """
 from __future__ import annotations
 
@@ -30,6 +40,7 @@ import torch
 from repro_torch.models.layers import (_init_dense, apply_rotary,
                                        by_position, init_norm, linear,
                                        linear_by_position, rms_norm)
+from repro_torch.quant.qtypes import QuantizedTensor
 
 NEG_INF = -2.0 ** 30
 
@@ -39,10 +50,25 @@ NEG_INF = -2.0 ** 30
 # ---------------------------------------------------------------------------
 
 def init_attention(generator, cfg, device=None) -> Dict[str, Any]:
-    if cfg.mla is not None:
-        raise NotImplementedError("not ported yet: MLA attention")
     d = cfg.d_model
     hd = cfg.head_dim
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_dim = m.nope_dim + m.rope_dim
+        return {
+            "q_down": _init_dense(generator, d, m.q_lora, device=device),
+            "q_norm": init_norm(m.q_lora, device=device),
+            "q_up": _init_dense(generator, m.q_lora, cfg.n_heads * qk_dim,
+                                device=device),
+            "kv_down": _init_dense(generator, d, m.kv_lora + m.rope_dim,
+                                   device=device),
+            "kv_norm": init_norm(m.kv_lora, device=device),
+            "kv_up": _init_dense(generator, m.kv_lora,
+                                 cfg.n_heads * (m.nope_dim + m.v_dim),
+                                 device=device),
+            "wo": _init_dense(generator, cfg.n_heads * m.v_dim, d,
+                              device=device),
+        }
     p = {
         "wq": _init_dense(generator, d, cfg.n_heads * hd, device=device),
         "wk": _init_dense(generator, d, cfg.n_kv_heads * hd, device=device),
@@ -62,9 +88,10 @@ def init_attention(generator, cfg, device=None) -> Dict[str, Any]:
 def init_kv_cache(batch: int, max_len: int, n_kv: int, head_dim: int,
                   dtype=torch.bfloat16, quantize: bool = False,
                   window: Optional[int] = None, device=None) -> Dict[str, Any]:
-    if window:
-        raise NotImplementedError("not ported yet: sliding-window ring cache")
-    shape = (batch, max_len, n_kv, head_dim)
+    """Zeroed K/V of ``max_len`` positions, or, with a ``window``, a ring of
+    ``min(max_len, window)`` slots."""
+    slots = min(max_len, window) if window else max_len
+    shape = (batch, slots, n_kv, head_dim)
     if quantize:
         return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
@@ -91,25 +118,64 @@ def _quant_tok(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes.to(torch.int8), scale.to(torch.float32)
 
 
-def _cache_write(cache, k, v, pos: int):
+def _cache_write(cache, k, v, pos: int, window: Optional[int] = None):
     """Write new k/v (B, S, KV, D) at absolute position ``pos`` (quantized
     per (token, head) on an int8 cache). Updates the cache tensors in place
     (the reference returns fresh arrays; here the caller owns the cache) and
-    returns the same dict."""
+    returns the same dict.
+
+    With a ``window`` the cache is a ring: a write of at least ``slots``
+    tokens keeps the last ``slots``, rolled so token ``p`` sits at slot
+    ``p % slots``; a shorter one lands at ``pos % slots``. A write that
+    would run past the cache's end raises (the reference's
+    ``dynamic_update_slice`` would clamp it; its callers never do that)."""
+    slots = cache["k"].shape[1]
     s = k.shape[1]
-    if pos + s > cache["k"].shape[1]:
-        raise ValueError(f"cache write [{pos}, {pos + s}) exceeds the cache "
-                         f"length {cache['k'].shape[1]}")
+    if window and s >= slots:
+        shift = (pos + s) % slots
+        k = torch.roll(k[:, -slots:], shift, dims=1)
+        v = torch.roll(v[:, -slots:], shift, dims=1)
+        idx, s = 0, slots
+    else:
+        idx = pos % slots if window else pos
+    if idx + s > slots:
+        raise ValueError(f"cache write [{idx}, {idx + s}) exceeds the cache "
+                         f"length {slots}")
     if "k_scale" in cache:
         kq, ks = _quant_tok(k)
         vq, vs = _quant_tok(v)
-        cache["k"][:, pos:pos + s] = kq
-        cache["v"][:, pos:pos + s] = vq
-        cache["k_scale"][:, pos:pos + s] = ks
-        cache["v_scale"][:, pos:pos + s] = vs
+        cache["k"][:, idx:idx + s] = kq
+        cache["v"][:, idx:idx + s] = vq
+        cache["k_scale"][:, idx:idx + s] = ks
+        cache["v_scale"][:, idx:idx + s] = vs
         return cache
-    cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
-    cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
+    cache["k"][:, idx:idx + s] = k.to(cache["k"].dtype)
+    cache["v"][:, idx:idx + s] = v.to(cache["v"].dtype)
+    return cache
+
+
+def _ring_scatter(cache, k, v, pos):
+    """Scatter a chunk of ``s`` tokens into a ring cache at slots ``(pos +
+    i) % slots`` (in place); unlike :func:`_cache_write` it handles a chunk
+    that straddles the ring's end. ``pos`` is a host integer or a 0-d int64
+    device tensor. A chunk wider than the ring keeps its newest ``slots``
+    tokens only, so the index holds no duplicate (``index_copy_`` under
+    duplicate indices is not deterministic on CUDA)."""
+    slots = cache["k"].shape[1]
+    if k.shape[1] >= slots:
+        off = k.shape[1] - slots
+        k, v, pos = k[:, off:], v[:, off:], pos + off
+    idx = (pos + torch.arange(k.shape[1], device=k.device)) % slots
+    if "k_scale" in cache:
+        kq, ks = _quant_tok(k)
+        vq, vs = _quant_tok(v)
+        cache["k"].index_copy_(1, idx, kq)
+        cache["v"].index_copy_(1, idx, vq)
+        cache["k_scale"].index_copy_(1, idx, ks)
+        cache["v_scale"].index_copy_(1, idx, vs)
+        return cache
+    cache["k"].index_copy_(1, idx, k.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v.to(cache["v"].dtype))
     return cache
 
 
@@ -169,6 +235,7 @@ Q_CHUNK = 1024   # query-block size bounding the (B,H,Cq,T) score tensor
 
 
 def _chunked_attention(q, k, v, *, scale, causal: bool,
+                       window: Optional[int] = None,
                        q_chunk: int = Q_CHUNK, row0=0) -> torch.Tensor:
     """Prefill attention: KV repeated to H heads and queries processed in
     blocks — the (B, H, Cq, T) block, not (B, H, S, T), bounds the working
@@ -176,7 +243,8 @@ def _chunked_attention(q, k, v, *, scale, causal: bool,
 
     q: (B,S,H,D); k/v: (B,T,KV,Dv) — repeated internally when KV < H.
     ``row0``: the absolute position of q's first row (an integer or a 0-d
-    device tensor).
+    device tensor). ``window``: a causal row also masks the keys ``window``
+    or more positions behind it.
     """
     b, s, h, dq = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -192,6 +260,8 @@ def _chunked_attention(q, k, v, *, scale, causal: bool,
         if causal:
             rows = roff + torch.arange(qc.shape[1], device=q.device)
             ok = cols[None, :] <= rows[:, None]
+            if window is not None:
+                ok &= cols[None, :] > rows[:, None] - window
             scores = torch.where(ok[None, None], scores, NEG_INF)
         p = torch.softmax(scores, dim=-1).to(v.dtype)
         return torch.einsum("bhst,bthd->bshd", p, v)
@@ -203,11 +273,15 @@ def _chunked_attention(q, k, v, *, scale, causal: bool,
     return torch.cat(outs, dim=1)
 
 
-def causal_mask(s: int, t: Optional[int] = None, device=None) -> torch.Tensor:
+def causal_mask(s: int, t: Optional[int] = None,
+                window: Optional[int] = None, device=None) -> torch.Tensor:
     t = t or s
     qi = torch.arange(s, device=device)[:, None] + (t - s)
     ki = torch.arange(t, device=device)[None, :]
-    return torch.where(ki <= qi, 0.0, NEG_INF).to(torch.float32)
+    ok = ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -242,9 +316,15 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     position; elementwise work runs on all rows at once.
     """
     if cfg.mla is not None:
-        raise NotImplementedError("not ported yet: MLA attention")
-    if cfg.window:
-        raise NotImplementedError("not ported yet: sliding-window attention")
+        if mode == "verify":
+            raise NotImplementedError(
+                "'verify' mode is not implemented for MLA attention")
+        return _mla_attention(params, x, cfg=cfg, rope=rope, mode=mode,
+                              cache=cache, pos=pos)
+    if mode == "verify" and cfg.window:
+        raise NotImplementedError(
+            "'verify' mode is not implemented for sliding-window "
+            "ring-buffer caches")
     if mode == "verify":
         if block_tables is None:
             raise NotImplementedError(
@@ -274,9 +354,31 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
 
     if mode in ("train", "prefill"):
         out = _chunked_attention(q, k, v, scale=scale, causal=True,
-                                 q_chunk=cfg.attn_q_chunk)
+                                 window=cfg.window, q_chunk=cfg.attn_q_chunk)
         if mode == "prefill":
-            cache = _cache_write(cache, k, v, 0)
+            cache = _cache_write(cache, k, v, 0, cfg.window)
+    elif mode == "chunk" and cfg.window:
+        # ring continuation: the chunk's queries attend over the ring as of
+        # chunk entry concatenated with the chunk's own keys, attention
+        # before the ring write (writing first would evict keys the chunk's
+        # earliest rows still need). Slot j's absolute key position is the
+        # largest p < pos with p % slots == j (floor division: negative
+        # means never written this admission, masked), so a reused side
+        # cache's stale rows contribute exact zeros
+        kc, vc = _cache_read(cache)
+        slots = kc.shape[1]
+        j = torch.arange(slots, device=x.device)
+        kpos_ring = j + torch.div(pos - j - 1, slots,
+                                  rounding_mode="floor") * slots
+        rows = pos + torch.arange(s, device=x.device)
+        kpos = torch.cat([kpos_ring, rows])
+        ok = ((kpos[None, :] >= 0) & (kpos[None, :] <= rows[:, None])
+              & (kpos[None, :] > rows[:, None] - cfg.window))
+        mask = torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+        k_all = torch.cat([kc.to(q.dtype), k.to(q.dtype)], dim=1)
+        v_all = torch.cat([vc.to(q.dtype), v.to(q.dtype)], dim=1)
+        out = _grouped_attention(q, k_all, v_all, mask, scale)
+        cache = _ring_scatter(cache, k, v, pos)
     elif mode == "chunk":
         # partial-prefill continuation: write this chunk at the clock (an
         # integer or a 0-d device tensor), then run the prefill einsum
@@ -333,7 +435,7 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     elif mode == "decode" and not isinstance(pos, int):
         # per-row positions on a contiguous cache (the drafter's): row b
         # writes at pos[b] and masks every column past it
-        if "k_scale" in cache:
+        if cfg.window or "k_scale" in cache:
             raise NotImplementedError(
                 "per-row decode positions are not implemented for "
                 "sliding-window or quantized contiguous caches")
@@ -347,13 +449,151 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
                                  cache["v"].to(q.dtype),
                                  mask[:, None, None, None, :], scale)
     elif mode == "decode":
-        cache = _cache_write(cache, k, v, pos)
+        cache = _cache_write(cache, k, v, pos, cfg.window)
         kc, vc = _cache_read(cache)
-        si = torch.arange(kc.shape[1], device=x.device)
-        mask = torch.where(si <= pos, 0.0, NEG_INF)[None, None, None, None, :]
+        slots = kc.shape[1]
+        si = torch.arange(slots, device=x.device)
+        if cfg.window:
+            valid = (si <= pos % slots) | (pos >= slots)
+        else:
+            valid = si <= pos
+        mask = torch.where(valid, 0.0, NEG_INF)[None, None, None, None, :]
         out = _grouped_attention(q, kc.to(q.dtype), vc.to(q.dtype), mask,
                                  scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(b, s, cfg.n_heads * hd)
     return lin(params["wo"], out), cache
+
+
+# ---------------------------------------------------------------------------
+# multi-head latent attention (MLA)
+# ---------------------------------------------------------------------------
+
+def _latent_write(cache, c_kv, k_rope, pos):
+    """Write compressed rows ``c_kv`` (B, S, kv_lora) and rotary keys
+    ``k_rope`` (B, S, 1, rope_dim) at positions ``pos .. pos + S - 1`` of
+    an MLA cache, in place. ``pos`` is a host integer (bounds-checked here)
+    or a 0-d int64 device tensor (bounds are its caller's)."""
+    s = c_kv.shape[1]
+    if isinstance(pos, int) and pos + s > cache["c_kv"].shape[1]:
+        raise ValueError(f"cache write [{pos}, {pos + s}) exceeds the cache "
+                         f"length {cache['c_kv'].shape[1]}")
+    rows = pos + torch.arange(s, device=c_kv.device)
+    cache["c_kv"].index_copy_(1, rows, c_kv.to(cache["c_kv"].dtype))
+    cache["k_rope"].index_copy_(1, rows, k_rope.to(cache["k_rope"].dtype))
+    return cache
+
+
+def _mla_attention(params, x, *, cfg, rope, mode, cache, pos):
+    """Multi-head latent attention with a compressed KV cache.
+
+    Train and prefill expand the current tokens' latents; chunk and decode
+    write ``c_kv``/``k_rope`` at the clock and re-expand the whole cache
+    through ``kv_up`` (B·max_len rows a step), masking the unwritten
+    suffix by absolute position (its zero rows normalize to zeros and are
+    masked before the softmax, so they contribute exact zeros)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    cos_t, sin_t = rope                      # (s, rope_dim/2)
+    qk_dim = m.nope_dim + m.rope_dim
+
+    q = linear(params["q_up"],
+               rms_norm(params["q_norm"], linear(params["q_down"], x)))
+    q = q.reshape(b, s, h, qk_dim)
+    q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
+
+    ckv_full = linear(params["kv_down"], x)            # (B,S,kv_lora+rope)
+    c_kv, k_rope = ckv_full[..., :m.kv_lora], ckv_full[..., m.kv_lora:]
+    k_rope = k_rope.reshape(b, s, 1, m.rope_dim)
+
+    q_rope = apply_rotary(q_rope, cos_t, sin_t)
+    k_rope = apply_rotary(k_rope, cos_t, sin_t)
+
+    def expand_kv(c_kv_in, k_rope_in):
+        t = c_kv_in.shape[1]
+        kv = linear(params["kv_up"], rms_norm(params["kv_norm"], c_kv_in))
+        kv = kv.reshape(b, t, h, m.nope_dim + m.v_dim)
+        k_nope, v = kv[..., :m.nope_dim], kv[..., m.nope_dim:]
+        k = torch.cat([k_nope, k_rope_in.to(k_nope.dtype).expand(
+            b, t, h, m.rope_dim)], dim=-1)
+        return k, v
+
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    scale = qk_dim ** -0.5
+    if mode in ("train", "prefill"):
+        k, v = expand_kv(c_kv, k_rope)
+        out = _chunked_attention(qfull, k, v, scale=scale, causal=True,
+                                 window=cfg.window, q_chunk=cfg.attn_q_chunk)
+        if mode == "prefill":
+            cache = _latent_write(cache, c_kv, k_rope, 0)
+    elif mode == "chunk":
+        cache = _latent_write(cache, c_kv, k_rope, pos)
+        k, v = expand_kv(cache["c_kv"].to(x.dtype),
+                         cache["k_rope"].to(x.dtype))
+        out = _chunked_attention(qfull, k, v, scale=scale, causal=True,
+                                 q_chunk=cfg.attn_q_chunk, row0=pos)
+    elif mode == "decode":
+        if isinstance(pos, torch.Tensor) and pos.ndim:
+            raise NotImplementedError(
+                "per-row decode positions are not implemented for MLA "
+                "caches")
+        cache = _latent_write(cache, c_kv, k_rope, pos)
+        ckv_all = cache["c_kv"].to(x.dtype)
+        krope_all = cache["k_rope"].to(x.dtype)
+        t = ckv_all.shape[1]
+        mask = torch.where(torch.arange(t, device=x.device) <= pos, 0.0,
+                           NEG_INF)[None, None, None, None, :]
+        if m.absorb:
+            out = _mla_absorbed_decode(params, qfull, ckv_all, krope_all,
+                                       mask, scale, m, h)
+        else:
+            k, v = expand_kv(ckv_all, krope_all)
+            out = _grouped_attention(qfull, k, v, mask, scale)
+    else:
+        raise ValueError(f"unknown attention mode {mode!r}")
+    out = out.reshape(b, s, h * m.v_dim)
+    return linear(params["wo"], out), cache
+
+
+def _mla_absorbed_decode(params, qfull, ckv_all, krope_all, mask, scale,
+                         m, h: int):
+    """Weight-absorbed MLA decode: attention in the compressed kv_lora
+    space (``MLAConfig.absorb``).
+
+    scores[h,s] = (W_uk[h]ᵀ q_nope[h]) · n(c_s)  +  q_rope[h] · k_rope_s
+    out[h]      = W_uv[h] @ Σ_s p[h,s] · n(c_s)
+
+    A quantized ``kv_up`` is dequantized in the activations' dtype and
+    transposed to (kv_lora, out), as the reference does; the products are
+    torch ops (no kernel B launch)."""
+    q_nope = qfull[..., :m.nope_dim]               # (B,1,H,nope)
+    q_rope = qfull[..., m.nope_dim:]               # (B,1,H,rope)
+    w_up = params["kv_up"]["w"]                    # (kv_lora, H*(nope+v))
+    if isinstance(w_up, QuantizedTensor):
+        w_up = w_up.dequantize(qfull.dtype).T
+    w_up = w_up.reshape(m.kv_lora, h, m.nope_dim + m.v_dim)
+    w_uk = w_up[..., :m.nope_dim]                  # (kv_lora, H, nope)
+    w_uv = w_up[..., m.nope_dim:]                  # (kv_lora, H, v)
+    ckv_n = rms_norm(params["kv_norm"], ckv_all)   # normalize once per step
+    q_tilde = torch.einsum("bshn,chn->bshc", q_nope, w_uk.to(qfull.dtype))
+    s_nope = torch.einsum("bshc,btc->bhst", q_tilde, ckv_n.to(qfull.dtype))
+    s_rope = torch.einsum("bshr,btor->bhst", q_rope,
+                          krope_all.to(qfull.dtype))
+    scores = (s_nope + s_rope).to(torch.float32) * scale
+    scores = scores + mask[:, :, 0]               # (B,H,1,T)
+    p = torch.softmax(scores, dim=-1).to(qfull.dtype)
+    attended = torch.einsum("bhst,btc->bshc", p, ckv_n.to(qfull.dtype))
+    return torch.einsum("bshc,chv->bshv", attended, w_uv.to(qfull.dtype))
+
+
+def init_mla_cache(batch: int, max_len: int, cfg, dtype=torch.bfloat16,
+                   device=None) -> Dict[str, Any]:
+    """Zeroed compressed cache: ``c_kv`` (B, max_len, kv_lora) and the
+    shared rotary key ``k_rope`` (B, max_len, 1, rope_dim)."""
+    m = cfg.mla
+    return {"c_kv": torch.zeros((batch, max_len, m.kv_lora), dtype=dtype,
+                                device=device),
+            "k_rope": torch.zeros((batch, max_len, 1, m.rope_dim),
+                                  dtype=dtype, device=device)}

@@ -23,8 +23,9 @@ from repro_torch.models.transformer import (_rope_dim, apply_stack,
 def arch_features(cfg) -> Tuple[str, ...]:
     """Sequence-mixer features beyond a plain-attention dense stack (the keys
     of the reference package's agreement budgets). An empty tuple means a
-    plain-attention dense stack. Of these, this package serves "moe"; the
-    others raise ``NotImplementedError`` at init or at the cache."""
+    plain-attention dense stack. Of these, this package serves "mla",
+    "sliding_window" and "moe"; "mamba" and "rwkv" raise
+    ``NotImplementedError`` at init."""
     plan = layer_plan(cfg)
     feats = []
     if cfg.mla is not None:
@@ -133,9 +134,10 @@ class LM:
             # host integer is bounds-checked here; a 0-d device tensor (a
             # captured forward's clock) by the caller that filled it
             pos = caches["pos"]
-            if isinstance(pos, int):
-                self.check_chunk(pos, s,
-                                 caches["list"][0]["b0"]["k"].shape[1])
+            if isinstance(pos, int) and not self.cfg.window:
+                # a ring takes a chunk at any clock (it wraps)
+                layer = caches["list"][0]["b0"]
+                self.check_chunk(pos, s, next(iter(layer.values())).shape[1])
             positions = pos + torch.arange(s, device=tokens.device)
         elif mode == "verify":
             # speculative multi-position verify on the paged cache: row

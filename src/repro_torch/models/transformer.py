@@ -5,10 +5,11 @@ The stack is always the unrolled form ``{"list": [period, ...]}`` with
 ``{"periods": ...}`` tree (the reference package's scan layout, leading axis
 = layer) into it.
 
-Block kind "a": x += attn(ln1(x)); x += ffn_or_moe(ln2(x)). The FFN is a
-dense one or, where ``layer_plan`` says so, a mixture of experts
-(``models.moe``). Mamba and rwkv blocks are not ported yet (each raises
-``NotImplementedError`` naming itself).
+Block kind "a": x += attn(ln1(x)); x += ffn_or_moe(ln2(x)). The attention
+is grouped-query (dense or sliding-window) or MLA (``models.attention``);
+the FFN is a dense one or, where ``layer_plan`` says so, a mixture of
+experts (``models.moe``). Mamba and rwkv blocks are not ported yet (each
+raises ``NotImplementedError`` naming itself).
 """
 from __future__ import annotations
 
@@ -170,10 +171,15 @@ def init_stack(generator, cfg, device=None) -> Dict[str, Any]:
 def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
                      quantize_kv: bool = False, dtype=torch.bfloat16,
                      device=None):
+    """One layer's cache: an MLA stack's compressed cache (taken before
+    ``quantize_kv`` is read, as in the reference: an MLA cache stays in the
+    model dtype whatever ``quantize_kv`` says), else K/V, a ring of
+    ``min(max_len, window)`` slots under a sliding window."""
     if kind != "a":
         raise NotImplementedError(f"not ported yet: {kind!r} layer state")
     if cfg.mla is not None:
-        raise NotImplementedError("not ported yet: MLA cache")
+        return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
+                                       device=device)
     return attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads,
                                   cfg.head_dim, dtype, quantize_kv,
                                   cfg.window, device=device)

@@ -199,7 +199,8 @@ def test_later_slices_raise_by_name(what):
     """What a later slice ports raises ``NotImplementedError`` naming
     itself; what has been ported since (the ``chunk`` mode, paged decode
     through block tables, int8 KV caches, the speculative ``verify`` mode,
-    per-row decode positions on a contiguous cache) runs instead."""
+    per-row decode positions on a contiguous cache, MLA attention, the
+    sliding-window ring) runs instead."""
     cfg = get_config("granite-3-8b", reduced=True)
     kw = dict(cfg=cfg, rope=None, mode="decode", cache={}, pos=0)
     if what == "verify":
@@ -263,10 +264,34 @@ def test_later_slices_raise_by_name(what):
                 if what == "quant_kv" else cache["k"][:, 3].abs().sum() > 0
         assert out.shape == x.shape and torch.isfinite(out).all()
         return
+    # "mla" / "window": a prefill of 5 tokens and a decode step past the
+    # ring's 4 slots, each with finite outputs of the input's shape
+    from repro_torch.configs.base import MLAConfig
+    cfg = dataclasses.replace(cfg, dtype="float32")
     if what == "mla":
-        from repro_torch.configs.base import MLAConfig
-        kw["cfg"] = dataclasses.replace(cfg, mla=MLAConfig())
-    elif what == "window":
-        kw["cfg"] = dataclasses.replace(cfg, window=8)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        attn.attention({}, torch.zeros(1, 1, cfg.d_model), **kw)
+        cfg = dataclasses.replace(cfg, head_dim=None, mla=MLAConfig(
+            q_lora=16, kv_lora=8, nope_dim=8, rope_dim=4, v_dim=8))
+        rd, cache = 4, attn.init_mla_cache(2, 8, cfg, torch.float32,
+                                           device="cpu")
+    else:
+        cfg = dataclasses.replace(cfg, window=4)
+        rd = cfg.head_dim
+        cache = attn.init_kv_cache(2, 8, cfg.n_kv_heads, cfg.head_dim,
+                                   torch.float32, window=4, device="cpu")
+        assert cache["k"].shape[1] == 4
+    p = attn.init_attention(torch.Generator().manual_seed(0), cfg,
+                            device="cpu")
+    x = torch.randn(2, 6, cfg.d_model,
+                    generator=torch.Generator().manual_seed(1))
+    out, cache = attn.attention(p, x[:, :5], cfg=cfg, mode="prefill",
+                                rope=layers.rope(torch.arange(5), rd,
+                                                 cfg.rope_theta),
+                                cache=cache, pos=0)
+    assert out.shape == (2, 5, cfg.d_model) and torch.isfinite(out).all()
+    out, cache = attn.attention(p, x[:, 5:], cfg=cfg, mode="decode",
+                                rope=layers.rope(torch.tensor([5]), rd,
+                                                 cfg.rope_theta),
+                                cache=cache, pos=5)
+    assert out.shape == (2, 1, cfg.d_model) and torch.isfinite(out).all()
+    leaf = cache["c_kv"] if what == "mla" else cache["k"]
+    assert leaf[:, 5 if what == "mla" else 5 % 4].abs().sum() > 0
