@@ -137,19 +137,45 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    admitting in the same chunks, >= the reference's sliding_window x moe
    budget). Phase 2 then also holds kernel A at 12a's and 12b's buckets
    and kernel B at every launch shape they made, and times ``kv_down``,
-   the ``kv_up`` re-expansion and a mixtral layer's experts at decode.
-The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 2, 5: the
-short w4 run pays the one-time start-up costs, and phase 2 times the
+   the ``kv_up`` re-expansion and a mixtral layer's experts at decode;
+13. the recurrent mixers on the contiguous continuous path and the round
+   scheduler: (a) ``rwkv6-1.6b`` at full width and depth (24 layers),
+   SQuant w8 (kernel A on every grouped bucket; the decay LoRA's
+   64-input up-projection whole-row on the plain version and the bf16
+   head on the stacked route, both named in the line), served in bfloat16
+   with phase 6's chat requests twice (tokens equal run to run) and on the
+   round scheduler with phase 3's, kernel B's launches by weight shape
+   held to what the forwards imply, one decode step traced (the WKV
+   recurrence, the mixer's other ops and kernel B by part); (b)
+   ``jamba-1.5-large-398b`` at full width and one period of its block
+   pattern (8 of 72 layers, listed in the line; 16 experts top-2 on every
+   other layer), its ~180 GB float32 period made on the card one leaf at
+   a time and quantized as it is made (kernel A's launches equal to what
+   the per-leaf calls imply, peak memory printed), served as (a) is, one
+   decode step traced (mamba's mixer ops, experts, other kernel B,
+   other); (c) both at full width and 2 layers in float32 (jamba's mixer
+   isolated beside one attention layer): codes and a prefill plus 8
+   decode steps through the kernels against the plain versions, and
+   teacher-forced agreement of the 8-slot chunked engine against the
+   one-slot monolithic oracle on prompts of one length, gated at the
+   reference's budgets, with the same traffic at the reduced width beside
+   the reference engine's pinned reading. Phase 2 also holds kernel A at
+   13a's and 13b's buckets and kernel B at every launch shape they made
+   (rwkv's ``w_lora_b`` at K = 64 among them), and times the decay LoRA,
+   jamba's ``in_proj`` at 8 and 512 rows and jamba's layer of 48 expert
+   launches at decode.
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 2, 5:
+the short w4 run pays the one-time start-up costs, and phase 2 times the
 kernels at the shapes phases 3, 6, 8 and 10 produced and compares them at
-phase 11's and 12's. The last three lines are the card line, the
+phase 11's, 12's and 13's. The last three lines are the card line, the
 ``kernels`` line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
 ``--layers7`` (phase 7), ``--layers8`` (phase 8), ``--layers9`` (phase
-9a), ``--layers10`` (phase 10a), ``--layers11`` (phase 11a) and
-``--layers12`` (phase 12b), and the trained models' steps with
-``--train-steps``; widths are never cut.
+9a), ``--layers10`` (phase 10a), ``--layers11`` (phase 11a),
+``--layers12`` (phase 12b) and ``--layers13`` (phase 13a), and the
+trained models' steps with ``--train-steps``; widths are never cut.
 """
 import argparse
 import collections
@@ -568,7 +594,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
-                   experts=None, plans=None, phase12=None):
+                   experts=None, plans=None, phase12=None, phase13=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
@@ -591,7 +617,9 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     :func:`_b_plan_vs_plain` and reported under
     ``launch_shapes_compared`` by phase and part. ``phase12``: ``timed``
     ((label, M, N, rows) cells timed like the main path's) and ``experts``
-    (mixtral's layer at decode, in ``experts``' form)."""
+    (mixtral's layer at decode, in ``experts``' form); ``phase13`` the same
+    for phase 13 (rwkv's decay LoRA at K = 64, jamba's ``in_proj`` and
+    jamba's layer of 48 expert launches at decode)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -712,6 +740,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         _expert_layer_times(dev, gen, experts)
     phase12_timed = None if phase12 is None else \
         kernel_b_phase12_times(dev, gen, phase12)
+    phase13_timed = None if phase13 is None else \
+        kernel_b_phase13_times(dev, gen, phase13)
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, experts=expert_layer, max_abs_err=worst["bfloat16"],
@@ -735,7 +765,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  bound_by="bytes", prefill_layers=prefill_layers,
                  draft_prefill_int4=draft_prefill,
                  launch_shapes_compared=compared,
-                 phase12=phase12_timed, shapes=shapes, **tot)
+                 phase12=phase12_timed, phase13=phase13_timed,
+                 shapes=shapes, **tot)
     return entry
 
 
@@ -750,24 +781,25 @@ def _b_timed(dev, gen, m, n, b, bits, dt):
     wbytes = m * n // (2 if bits <= 4 else 1)
     n_sets = max(2, min(64, math.ceil(L2_COLD_BYTES / wbytes)))
     cases = _b_case(dev, gen, m, n, bits, False, n_sets)
+    gs = 128 if n % 128 == 0 else n          # ops.dequant_matmul's group
     x = torch.randn((b, n), generator=gen, device=dev).to(dt)
-    y = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=128).float()
+    y = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=gs).float()
     r = dm.dequant_matmul_plain(x, *cases[0], bits=bits,
-                                group_size=128).float()
+                                group_size=gs).float()
     tol = 1e-4 if dt == torch.float32 else 2e-2
     if not torch.allclose(y, r, rtol=tol,
                           atol=tol * max(float(r.abs().max()), 1.0)):
         raise AssertionError(f"kernel B != plain at the main path's "
                              f"{(b, m, n, bits)}")
-    var, splits, ups = dm.launch_plan(x, cases[0][0], m, 1, 128, bits)
+    var, splits, ups = dm.launch_plan(x, cases[0][0], m, 1, gs, bits)
     iters = max(40 if b <= 16 else 6, 2 * n_sets)
     calls = [(lambda d=d, s=s: dm.dequant_matmul(
-        x, d, s, bits=bits, group_size=128)) for d, s in cases]
+        x, d, s, bits=bits, group_size=gs)) for d, s in cases]
     ms = time_ms(calls, iters)
     wrapper_ms = time_ms(calls, iters, graph=False)
     call_host_ms = host_ms(calls, iters)
     plain_ms = time_ms([(lambda d=d, s=s: dm.dequant_matmul_plain(
-        x, d, s, bits=bits, group_size=128)) for d, s in cases[:2]], 4,
+        x, d, s, bits=bits, group_size=gs)) for d, s in cases[:2]], 4,
         graph=False)
     # the library's call for the same function: one matmul on weights
     # dequantized beforehand (timed only; the port never calls it), on
@@ -1622,9 +1654,13 @@ def _quantiles(xs):
 
 
 def _tree_bytes(tree):
-    """Bytes of the tensors of a parameter tree (nested dicts and lists)."""
+    """Bytes of the tensors of a parameter tree (nested dicts and lists; a
+    quantized leaf's codes and scales)."""
+    from repro_torch.quant.qtypes import QuantizedTensor
     if torch.is_tensor(tree):
         return tree.numel() * tree.element_size()
+    if isinstance(tree, QuantizedTensor):
+        return _tree_bytes(tree.data) + _tree_bytes(tree.scale)
     items = tree.values() if isinstance(tree, dict) else \
         tree if isinstance(tree, (list, tuple)) else ()
     return sum(_tree_bytes(t) for t in items)
@@ -1679,10 +1715,14 @@ def _reset_launches(dm, pa, paq, sf):
     dm.launches_by_shape = {}
 
 
-def _variant(rows):
+def _variant(rows, n=128):
     """Kernel B's variant for bfloat16 activations of ``rows`` rows on the
-    path's aligned shapes (``dequant_matmul.variant``)."""
-    return "tcgemv" if rows <= 16 else "mma"
+    path's aligned shapes, with ``n`` input columns
+    (``dequant_matmul.variant``: above 16 rows an N that is not a multiple
+    of 128 takes ``tiled``)."""
+    if rows <= 16:
+        return "tcgemv"
+    return "mma" if n % 128 == 0 else "tiled"
 
 
 def kernel_b_forward(cfg, layers, rows, dropless):
@@ -4090,7 +4130,7 @@ def _device_events(prof):
 _B_KERNELS = ("tcgemv_kernel", "pf_kernel", "gemv_kernel", "tiled_kernel")
 
 
-def _profile_steps(step, steps, phase, extra, b_part=None):
+def _profile_steps(step, steps, phase, extra, b_part=None, gap_part=None):
     """Trace ``steps`` calls of ``step()`` (after two warm ones) with
     ``torch.profiler`` and print device time by kernel (summed over
     kernels), the device's busy time (the union of the kernels' intervals)
@@ -4099,7 +4139,9 @@ def _profile_steps(step, steps, phase, extra, b_part=None):
     host-to-device copies and everything else. ``b_part(grid, name)``
     names the part a kernel-B launch of that grid and kernel name serves:
     kernel B's time is then split by part (a merge pass goes with the
-    launch before it)."""
+    launch before it). ``gap_part(part)`` names the part the other device
+    kernels serve that run after a kernel-B launch of ``part`` (before the
+    first: ``None``) and before the next one."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):                                   # warm
@@ -4143,6 +4185,9 @@ def _profile_steps(step, steps, phase, extra, b_part=None):
             key = owner
         elif "HtoD" in name:
             key = "host_to_device_copies"
+        elif gap_part is not None:
+            key = gap_part(None if owner == "dequant_matmul"
+                           else owner[len("dequant_matmul_"):])
         else:
             key = "other"
         split[key] = split.get(key, 0.0) + dur
@@ -4403,36 +4448,73 @@ def swa_requests(seed, vocab, n=12, short=4):
     return out
 
 
-def _b_forward_shapes(cfg, layers, rows, exp_rows, dropless):
-    """Kernel B's launches, by ``dequant_matmul.shape_key`` (variant and
-    weight (M, N)), of one forward of ``rows`` tokens through ``layers``
-    layers in bfloat16: MLA's five projections (its ``kv_up`` on
-    ``exp_rows``, the re-expanded cache) or GQA's four, then the SwiGLU
-    FFN's three, or, in an MoE layer, its three banks once per expert on
-    the capacity's rows (``rows`` when ``dropless``)."""
-    from repro_torch.kernels.dequant_matmul import shape_key
+def _block_linears(cfg, kind, moe, rows, exp_rows, dropless):
+    """Kernel B's launches of one block of ``kind`` in call order, as
+    (part, rows, M, N): rwkv's time mix (the decay LoRA, then r, k, v, g,
+    then the output) and channel mix (k, r, v); mamba's four projections;
+    MLA's five projections (its ``kv_up`` on ``exp_rows``, the re-expanded
+    cache) or GQA's four; then the SwiGLU FFN's three, or, in an MoE layer,
+    its three banks once per expert on the capacity's rows (``rows`` when
+    ``dropless``)."""
     d = cfg.d_model
-    if cfg.mla is not None:
+    if kind == "rwkv":
+        lora, f = 64, cfg.d_ff
+        return ([("decay_lora", rows, lora, d), ("decay_lora", rows, d, lora)]
+                + [("time_mix_rkvg", rows, d, d)] * 4
+                + [("time_mix_out", rows, d, d), ("channel_mix", rows, f, d),
+                   ("channel_mix", rows, d, d), ("channel_mix", rows, d, f)])
+    if kind == "m":
+        m = cfg.mamba
+        di, r = m.expand * d, m.dt_rank or max(1, d // 16)
+        per = [("mamba_in_proj", rows, 2 * di, d),
+               ("mamba_x_dt_proj", rows, r + 2 * m.d_state, di),
+               ("mamba_x_dt_proj", rows, di, r),
+               ("mamba_out_proj", rows, d, di)]
+    elif cfg.mla is not None:
         m, h = cfg.mla, cfg.n_heads
-        per = [(rows, m.q_lora, d),
-               (rows, h * (m.nope_dim + m.rope_dim), m.q_lora),
-               (rows, m.kv_lora + m.rope_dim, d),
-               (exp_rows, h * (m.nope_dim + m.v_dim), m.kv_lora),
-               (rows, d, h * m.v_dim)]
+        per = [("attention", rows, m.q_lora, d),
+               ("attention", rows, h * (m.nope_dim + m.rope_dim), m.q_lora),
+               ("attention", rows, m.kv_lora + m.rope_dim, d),
+               ("attention", exp_rows, h * (m.nope_dim + m.v_dim), m.kv_lora),
+               ("attention", rows, d, h * m.v_dim)]
     else:
         q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-        per = [(rows, q, d), (rows, kv, d), (rows, kv, d), (rows, d, q)]
+        per = [("attention", rows, q, d), ("attention", rows, kv, d),
+               ("attention", rows, kv, d), ("attention", rows, d, q)]
     ffn = [(cfg.d_ff, d), (cfg.d_ff, d), (d, cfg.d_ff)]
-    if cfg.moe is not None:
+    if moe:
         e, k = cfg.moe.n_experts, cfg.moe.top_k
         cap = rows if dropless else min(rows, max(1, math.ceil(
             rows * k * cfg.moe.capacity_factor / e)))
-        per += [(cap, mm, nn) for mm, nn in ffn for _ in range(e)]
+        per += [("experts", cap, mm, nn) for mm, nn in ffn for _ in range(e)]
     else:
-        per += [(rows, mm, nn) for mm, nn in ffn]
+        per += [("ffn", rows, mm, nn) for mm, nn in ffn]
+    return per
+
+
+def _forward_linears(cfg, layers, rows, exp_rows, dropless):
+    """Kernel B's launches of one forward of ``rows`` tokens through
+    ``layers`` layers (whole periods of ``layer_plan``) in call order, as
+    :func:`_block_linears` gives them, and the untied ``lm_head``'s."""
+    from repro_torch.models.transformer import layer_plan
+    plan = layer_plan(cfg)
+    out = []
+    for kind, moe in plan * (layers // len(plan)):
+        out += _block_linears(cfg, kind, moe, rows, exp_rows, dropless)
+    if not cfg.tie_embeddings:
+        out.append(("lm_head", rows, cfg.vocab, cfg.d_model))
+    return out
+
+
+def _b_forward_shapes(cfg, layers, rows, exp_rows, dropless):
+    """Kernel B's launches, by ``dequant_matmul.shape_key`` (variant and
+    weight (M, N)), of one forward of ``rows`` tokens through ``layers``
+    layers in bfloat16 (:func:`_forward_linears`)."""
+    from repro_torch.kernels.dequant_matmul import shape_key
     out = collections.Counter()
-    for r, mm, nn in per:
-        out[shape_key(_variant(r), mm, nn)] += layers
+    for _, r, mm, nn in _forward_linears(cfg, layers, rows, exp_rows,
+                                         dropless):
+        out[shape_key(_variant(r, nn), mm, nn)] += 1
     return out
 
 
@@ -4545,11 +4627,14 @@ def _served(dev, model, tree, cfg, reqs, label, check_b=True, repeat=False):
     return eng, runs
 
 
-def _quantized_engine(dev, model, params, cfg):
+def _quantized_engine(dev, model, params, cfg, stacked=()):
     """An engine that quantizes ``params`` (SQuant w8) on the card: the
     quantize breakdown, kernel A's launches (one flip and one scale pass a
-    bucket, ``MAX_LEAVES`` leaves a launch, every bucket native and
-    grouped) and the peak above the weights."""
+    bucket, ``MAX_LEAVES`` leaves a launch, every bucket native and grouped
+    except those whose tags ``stacked`` names, which must take the stacked
+    route: there a grouped bucket takes one row-major flip launch a chunk
+    and no scale pass, a whole-row one (``gNone``) no kernel) and the peak
+    above the weights."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import paged_attention_quant as paq
@@ -4563,7 +4648,13 @@ def _quantized_engine(dev, model, params, cfg):
     peak = (torch.cuda.max_memory_allocated() - allocated) / 1e9
     qrep = eng.quant_report
     buckets = _a_buckets(qrep)
-    want = sum(-(-nb // sf.MAX_LEAVES) for nb, _, _, _ in buckets)
+    slices = collections.Counter()
+    for lr in qrep.layers:
+        slices[lr.bucket] += lr.shape[0] if len(lr.shape) == 3 else 1
+    want_scale = sum(-(-slices[b.key] // sf.MAX_LEAVES)
+                     for b in qrep.buckets if b.route == "native")
+    want = want_scale + sum(1 for b in qrep.buckets if b.route == "stacked"
+                            and not b.key.endswith("gNone"))
     quantize = {"report": qrep.summary(), "total_ms": qrep.total_millis,
                 "dispatch_ms": qrep.dispatch_millis,
                 "sync_ms": qrep.sync_millis,
@@ -4576,12 +4667,20 @@ def _quantized_engine(dev, model, params, cfg):
                                  sf.launches_by_route),
                              "squant_scale": sf.scale_launches},
                 "peak_gb_above_weights": peak, "weights_gb": weights / 1e9}
-    if any(b.route != "native" or "g128" not in b.key for b in qrep.buckets):
-        raise AssertionError(f"a bucket took the stacked route or is not "
-                             f"grouped: {quantize['buckets']}")
-    if sf.launches != want or sf.scale_launches != want:
+    routes = {b.key: b.route for b in qrep.buckets}
+    if not set(stacked) <= set(routes) or any(
+            r != "stacked" if k in stacked
+            else r != "native" or "g128" not in k for k, r in routes.items()):
+        raise AssertionError(f"the buckets' routes are not those expected "
+                             f"(every bucket native and grouped, the stacked "
+                             f"route for {list(stacked)} only): "
+                             f"{quantize['buckets']}")
+    if stacked:
+        quantize["stacked_buckets"] = list(stacked)
+    if sf.launches != want or sf.scale_launches != want_scale:
         raise AssertionError(f"kernel A launches {sf.launches} (scale pass "
-                             f"{sf.scale_launches}), the buckets imply {want}")
+                             f"{sf.scale_launches}), the buckets imply {want} "
+                             f"({want_scale})")
     return eng, quantize, buckets
 
 
@@ -4784,17 +4883,30 @@ def _codes_vs_plain(params, tree):
     """Every quantized leaf of the kernels' tree against the plain
     versions, leaf by leaf (an expert bank slice by slice, its codes rows
     ``i*out .. (i+1)*out``): scales bit-identical to the plain scale pass,
-    codes equal up to the tie rule."""
+    codes equal up to the tie rule. A leaf whose input is no longer than a
+    group quantizes whole-row, on the plain version in the path too:
+    counted under ``whole_row_leaves``, its codes held equal."""
     from repro_torch.kernels import squant_flip as sf
     from repro_torch.kernels.ref import explain_code_differences
     from repro_torch.quant.qtypes import QuantizedTensor
     fp = _leaves(params)
-    ties = {"rows": 0, "rows_differing": 0, "unexplained": 0, "leaves": 0}
+    ties = {"rows": 0, "rows_differing": 0, "unexplained": 0, "leaves": 0,
+            "whole_row_leaves": 0}
     kw = dict(bits=8, group_size=128)
     for path, a in _leaves(tree).items():
         if not isinstance(a, QuantizedTensor):
             continue
         w = fp[path]
+        if w.shape[-2] <= kw["group_size"]:
+            s = sf.squant_scales_plain([w], 8)
+            want = sf.squant_flip_plain(w.T, s.reshape(-1, 1), bits=8,
+                                        group_size=None)
+            if w.ndim != 2 or not torch.equal(a.scale.reshape(s.shape), s) \
+                    or not torch.equal(a.data, want):
+                raise AssertionError(f"whole-row codes differ from the plain "
+                                     f"version at {path}")
+            ties["whole_row_leaves"] += 1
+            continue
         slices = [w] if w.ndim == 2 else list(w.unbind(0))
         out = a.shape[0] // len(slices)
         s = a.scale.reshape(len(slices), out)
@@ -5072,6 +5184,503 @@ def drive_phase12(dev, seed, layers12, memory):
                       "b": {"12a": plans_a, "12b": plans_b}}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the recurrent mixers (rwkv, mamba) on the contiguous path
+# ---------------------------------------------------------------------------
+
+RWKV_ARCH = "rwkv6-1.6b"
+JAMBA_ARCH = "jamba-1.5-large-398b"
+JAMBA_LAYERS = 8        # one period of jamba's block pattern, all 16 experts
+# 13c's configurations: the rows of the reference's chunked-prefill sweep
+# (tests/test_chunked_archs.py): rwkv at 2 layers, jamba's mixer isolated
+# beside one attention layer, no MoE
+RECURRENT_ISOLATED = {
+    JAMBA_ARCH: dict(n_layers=2, block_pattern=("m", "a"), moe=None),
+    RWKV_ARCH: dict(n_layers=2)}
+# 13c's agreement traffic: eight prompts of one length (a contiguous wave
+# left-pads a shorter prompt, and the recurrence absorbs the pads) and
+# RECURRENT_NEW new tokens each, the 8-slot engine (64-token chunks)
+# against the one-slot monolithic oracle. RECURRENT_REFERENCE_MATCHED: the
+# reference engine's teacher-forced matches on that traffic at the reduced
+# width (``recurrent_reference_case``; pinned by
+# tests/test_torch_recurrent_models.py), of 8 x RECURRENT_NEW
+RECURRENT_PROMPT, RECURRENT_NEW = 128, 32
+RECURRENT_REFERENCE_MATCHED = {JAMBA_ARCH: 256, RWKV_ARCH: 256}
+
+
+def recurrent_reference_case(arch):
+    """13c's traffic at the reduced width of ``arch`` (its
+    ``RECURRENT_ISOLATED`` configuration, float32, weights from a CPU
+    generator seeded 0 so that the card and the CPU test serve the same
+    numbers): (model, params on the CPU, requests, the 8-slot chunked and
+    the one-slot monolithic oracle's ServeConfig keywords)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32",
+                              **RECURRENT_ISOLATED[arch])
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    reqs = make_requests(0, cfg.vocab, [RECURRENT_PROMPT] * 8, RECURRENT_NEW)
+    kw = dict(scheduler="continuous", max_len=256, prefill_chunk=64)
+    return model, params, reqs, dict(kw, max_batch=8), \
+        dict(kw, max_batch=1, prefill_chunk=0)
+
+
+def recurrent_reference_agreement(dev, arch):
+    """The port on ``dev`` at :func:`recurrent_reference_case`: the 8-slot
+    chunked engine's teacher-forced agreement with the one-slot monolithic
+    oracle (an AgreementReport)."""
+    from repro_torch.serving import ServeConfig
+    from repro_torch.training.optimizer import tree_map
+    model, params, reqs, kw, one = recurrent_reference_case(arch)
+    rep, _ = _agreement(dev, model, tree_map(lambda t: t.to(dev), params),
+                        reqs, ServeConfig(**kw), ServeConfig(**one))
+    return rep
+
+
+def _recurrent_gap(part):
+    """The part of a decode step's other device kernels by the kernel-B
+    launch before them (:func:`_profile_steps`' ``gap_part``): rwkv's WKV
+    recurrence and ``ln_x`` run between the r/k/v/g projections and the
+    output's; mamba's conv, softplus, discretization, state update and
+    output contraction between ``in_proj`` and ``out_proj``; rwkv's token
+    shifts, lerps, LoRA tanh, norms and residuals elsewhere in a layer."""
+    if part == "time_mix_rkvg":
+        return "wkv_recurrence_and_ln_x"
+    if part in ("mamba_in_proj", "mamba_x_dt_proj"):
+        return "mamba_mixer_ops"
+    if part in ("decay_lora", "time_mix_out", "channel_mix"):
+        return "rwkv_shift_lerp_norm_residual"
+    return "other"
+
+
+def profile_recurrent_decode(dev, seed, tree, model, phase, steps=4):
+    """One contiguous decode step of ``model`` over ``tree`` with eight
+    slots admitted (64-token prompts), traced (:func:`_profile_steps`):
+    kernel B's device time split by the part each launch serves (read from
+    the launch order of :func:`_forward_linears`; the split is dropped if
+    the trace's kernel-B launches are not ``steps`` times that list), the
+    other kernels by :func:`_recurrent_gap`, and a summary: the mixers'
+    ops, the expert launches, other kernel B, the rest."""
+    from repro_torch.serving import ServeEngine, WeightStore
+    eng = ServeEngine(model, None, contiguous_config(),
+                      store=WeightStore(serving_params=tree, device=dev),
+                      device=dev)
+    kv = eng.scheduler.kv
+    reqs = make_requests(seed, model.cfg.vocab, [64] * eng.cfg.max_slots, 8)
+    slots = list(range(len(reqs)))
+    kv.admit([(i, r) for i, r in enumerate(reqs)], slots, 64, eng.params)
+    order = [p for p, *_ in _forward_linears(model.cfg, model.cfg.n_layers,
+                                             len(slots), len(slots), True)]
+    seen = [0]
+
+    def b_part(grid, name):
+        seen[0] += 1
+        return order[(seen[0] - 1) % len(order)]
+
+    def step():
+        nxt = kv.logits.argmax(-1)
+        nxt.cpu()                                        # the step's host sync
+        kv.decode(eng.params, nxt, slots)
+
+    line = _profile_steps(step, steps, f"{phase} profile of a contiguous "
+                          f"decode step, {model.cfg.name}",
+                          {"layers": model.cfg.n_layers, "slots": len(slots),
+                           "kernel_b_launches_per_step": len(order)},
+                          b_part=b_part, gap_part=_recurrent_gap)
+    eng.close()
+    by = line["device_ms_per_step_by_part"]
+    ok = seen[0] == steps * len(order)
+    summary = {"kernel_b_split_by_launch_order_valid": ok,
+               "kernel_b_launches_traced": seen[0]}
+    if ok:
+        b = {k[len("dequant_matmul_"):]: v for k, v in by.items()
+             if k.startswith("dequant_matmul_")}
+        summary.update(
+            mixer_ops_ms=by.get("wkv_recurrence_and_ln_x", 0.0)
+            + by.get("mamba_mixer_ops", 0.0)
+            + by.get("rwkv_shift_lerp_norm_residual", 0.0),
+            experts_ms=b.get("experts", 0.0),
+            other_kernel_b_ms=sum(v for k, v in b.items() if k != "experts"),
+            other_ms=by.get("other", 0.0)
+            + by.get("host_to_device_copies", 0.0))
+    line["summary"] = summary
+    emit({"phase": f"{phase} decode step split", **summary})
+    return line
+
+
+def _serve_recurrent(dev, seed, model, tree, label):
+    """13a's and 13b's traffic on ``tree``: phase 6's chat requests on the
+    contiguous continuous path twice (tokens equal run to run) and phase
+    3's on the round scheduler, kernel B's launches by shape held to what
+    the forwards imply each time. Returns (continuous runs, round run,
+    kernel B launches)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.serving import ServeConfig
+    b0 = dm.launches
+    reqs = chat_requests(seed, model.cfg.vocab)
+    ceng, cont = _served(dev, model, tree, contiguous_config(), reqs,
+                         f"{label} contiguous", repeat=True)
+    ceng.close()
+    lengths, max_batch, max_new, max_len = ROUND_TRAFFIC
+    rreqs = make_requests(seed, model.cfg.vocab, lengths, max_new)
+    reng, rnd = _served(dev, model, tree, ServeConfig(
+        max_batch=max_batch, max_len=max_len, quantize_weights="squant",
+        weight_bits=8, dequantize_for_compute=False), rreqs, f"{label} round")
+    reng.close()
+    return cont, rnd[0], dm.launches - b0, [len(r.prompt) for r in reqs]
+
+
+def _serve_line(phase, cfg, full, quantize, cont, rnd, prompts, prof):
+    return {"phase": phase, "model": cfg.name, "layers": cfg.n_layers,
+            "full_depth": cfg.n_layers == full.n_layers,
+            "reduced": None if cfg.n_layers == full.n_layers else
+            {"n_layers": f"{full.n_layers} -> {cfg.n_layers}"},
+            "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "weight_bits": 8, "activation_dtype": cfg.dtype,
+            "quantize": quantize,
+            "serve_config": {k: getattr(contiguous_config(), k) for k in (
+                "scheduler", "kv_backend", "max_slots", "max_len",
+                "prefill_chunk")},
+            "prompt_lengths": prompts, "continuous_runs": cont,
+            "tokens_equal_run_to_run": True, "round": rnd,
+            "dequant_matmul_by_part_continuous": _b_parts_by_label(
+                cfg, cont[0]["dequant_matmul_by_shape"]),
+            "decode_step_profile": prof}
+
+
+def _b_parts_by_label(cfg, by_shape):
+    """Kernel B's launches by weight shape (``launches_by_shape``) named by
+    the part of :func:`_block_linears` whose weight has that shape (shapes
+    two parts share are named together)."""
+    from repro_torch.models.transformer import layer_plan
+    names = collections.defaultdict(set)
+    for kind, moe in layer_plan(cfg):
+        for part, _, mm, nn in _block_linears(cfg, kind, moe, 1, 1, True):
+            names[(mm, nn)].add(part)
+    if not cfg.tie_embeddings:
+        names[(cfg.vocab, cfg.d_model)].add("lm_head")
+    out = {}
+    for key, n in by_shape.items():
+        var, shape = key.split()
+        mn = tuple(int(v) for v in shape.split("x"))
+        part = "+".join(sorted(names.get(mn, {"unknown"})))
+        by = out.setdefault(part, {})
+        by[var] = by.get(var, 0) + n
+    return out
+
+
+def drive_rwkv(dev, seed, layers):
+    """13a: ``rwkv6-1.6b`` at full width and ``layers`` of its 24 layers:
+    random float32 weights from ``seed`` (bf16 embedding and head), SQuant
+    w8 (kernel A on every grouped bucket; the decay LoRA's up-projection,
+    64 inputs, quantizes whole-row on the plain version, and the bf16 head
+    on the stacked route), served in bfloat16 on the contiguous continuous
+    path and the round scheduler (:func:`_serve_recurrent`), one decode
+    step traced. Returns kernel A's and B's launches, kernel A's buckets
+    (those it ran) and the line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(RWKV_ARCH)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    d = cfg.d_model
+    stacked = (f"({d},64)x{layers} float32 gNone",
+               f"({cfg.vocab},{d})x1 bfloat16 g128")
+    eng, quantize, buckets = _quantized_engine(dev, model, params,
+                                               contiguous_config(), stacked)
+    quantize["init_ms"] = init_ms
+    quantize["whole_row_bucket_plain_route"] = stacked[0]
+    del params
+    torch.cuda.empty_cache()
+    tree = eng.params
+    eng.close()
+    a_n = quantize["launches"]["squant_flip"]
+    s_n = quantize["launches"]["squant_scale"]
+    cont, rnd, b_n, prompts = _serve_recurrent(dev, seed, model, tree, "13a")
+    prof = profile_recurrent_decode(dev, seed, tree, model, "13a")
+    line = _serve_line(f"13a rwkv, contiguous continuous + round, "
+                       f"{RWKV_ARCH} w8", cfg, full, quantize, cont, rnd,
+                       prompts, prof)
+    line.update(launches={"squant_flip": a_n, "squant_scale": s_n,
+                          "dequant_matmul": b_n},
+                seconds=time.perf_counter() - t_phase)
+    emit(line)
+    del tree
+    torch.cuda.empty_cache()
+    return a_n, s_n, b_n, [b for b in buckets if b[2] > 128], line
+
+
+def _leafwise_quantized(dev, model, seed):
+    """``model``'s tree made on the card one quantizable leaf at a time and
+    quantized as it is made (SQuant w8, ``quantize_tree`` on a one-leaf
+    tree), its float32 freed before the next: an (in, out) kernel or an
+    (experts, in, out) bank with ``_init_dense``'s std 1/sqrt(in), the
+    untied head in the model dtype with std 0.02, as ``LM.init`` makes
+    them; the other leaves as ``LM.init`` makes them (norm gains, the
+    embedding, each MoE router as ``init_moe`` does, and each mamba mixer's
+    conv, dt bias, A and D from ``init_mamba`` itself, whose four
+    projections are dropped and remade one at a time). Returns (tree, the
+    quantize summary, kernel A's buckets by call shape)."""
+    from repro_torch.core.pipeline import (_flatten, _rebuild,
+                                           is_quantizable, quantize_tree)
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import paged_attention_quant as paq
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.models import mamba as mamba_lib
+    from repro_torch.models.layers import (_init_dense, init_embedding,
+                                           init_norm)
+    cfg = model.cfg
+    _reset_launches(dm, pa, paq, sf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    meta = model.init(None, device="meta")
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    leaves, mixers, calls = [], {}, collections.Counter()
+    want_flip = want_scale = 0
+    quant_ms = make_ms = 0.0
+    routes = collections.Counter()
+    for path, m in _flatten(meta):
+        shape = tuple(m.shape)
+        if is_quantizable(path, m):
+            tm = time.perf_counter()
+            std = 0.02 if path[0] == "lm_head" else 1.0 / math.sqrt(shape[-2])
+            w = torch.randn(shape, generator=gen, dtype=m.dtype,
+                            device=dev).mul_(std)
+            torch.cuda.synchronize()
+            make_ms += (time.perf_counter() - tm) * 1e3
+            q, rep = quantize_tree({"w": w}, method="squant", bits=8,
+                                   device=dev)
+            del w
+            quant_ms += rep.total_millis
+            leaves.append(q["w"])
+            e = shape[0] if len(shape) == 3 else 1
+            for b in rep.buckets:
+                routes[f"{b.route} {b.key.split()[-1]}"] += 1
+                if b.route == "native":
+                    want_flip += -(-e // sf.MAX_LEAVES)
+                    want_scale += -(-e // sf.MAX_LEAVES)
+                elif not b.key.endswith("gNone"):
+                    want_flip += 1
+                calls[(e, e) + shape[-2:]] += 1
+            continue
+        if path[-1] == "gain":
+            leaf = init_norm(shape[0], plus_one=cfg.norm_plus_one,
+                             device=dev)["gain"]
+        elif path == ("embedding", "embedding"):
+            leaf = init_embedding(gen, shape[0], shape[1], m.dtype,
+                                  device=dev)["embedding"]
+        elif "router" in path:
+            leaf = _init_dense(gen, shape[0], shape[1], scale=0.02,
+                               device=dev)["w"]
+        elif "mixer" in path:
+            key = path[:-1]
+            if key not in mixers:
+                mc = cfg.mamba
+                mix = mamba_lib.init_mamba(gen, cfg.d_model, mc.d_state,
+                                           mc.d_conv, mc.expand, mc.dt_rank,
+                                           device=dev)
+                mixers[key] = {k: v for k, v in mix.items()
+                               if not isinstance(v, dict)}
+                del mix
+            leaf = mixers[key][path[-1]]
+        else:
+            raise ValueError(f"no rule makes the leaf {path} {shape}")
+        if tuple(leaf.shape) != shape or leaf.dtype != m.dtype:
+            raise AssertionError(f"{path}: made {tuple(leaf.shape)} "
+                                 f"{leaf.dtype}, init makes {shape} {m.dtype}")
+        leaves.append(leaf)
+    del mixers
+    tree = _rebuild(meta, iter(leaves))
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    peak = (torch.cuda.max_memory_allocated() - allocated) / 1e9
+    if sf.launches != want_flip or sf.scale_launches != want_scale:
+        raise AssertionError(f"kernel A launches {sf.launches} (scale pass "
+                             f"{sf.scale_launches}), the per-leaf calls imply "
+                             f"{want_flip} ({want_scale})")
+    quantize = {"build_and_quantize_ms": total_ms,
+                "quantize_ms_sum_of_calls": quant_ms,
+                "make_leaves_ms": make_ms,
+                "calls": sum(calls.values()),
+                "buckets_by_route_and_group": dict(routes),
+                "launches": {"squant_flip": sf.launches,
+                             "squant_flip_by_route": dict(
+                                 sf.launches_by_route),
+                             "squant_scale": sf.scale_launches},
+                "launches_implied_by_calls": {"squant_flip": want_flip,
+                                              "squant_scale": want_scale},
+                "parameters": sum(math.prod(t.shape) for _, t in
+                                  _flatten(meta)),
+                "peak_gb_above_start": peak,
+                "served_tree_gb": _tree_bytes(tree) / 1e9}
+    # one call's launch at each call shape (a bank's slices, or one leaf)
+    buckets = [(e, e, kin, nch) for (e, _, kin, nch) in calls if kin > 128]
+    quantize["calls_by_shape"] = {f"{e}x{kin}x{nch}": n for (e, _, kin, nch),
+                                  n in calls.items()}
+    return tree, quantize, buckets
+
+
+def drive_jamba(dev, seed):
+    """13b: ``jamba-1.5-large-398b`` at full width and one period of its
+    block pattern (8 of its 72 layers: seven mamba layers and one attention
+    layer, 16 experts top-2 on every other layer), made and quantized on
+    the card one leaf at a time (:func:`_leafwise_quantized`: the float32
+    period, ~180 GB, never exists whole), served in bfloat16 as 13a is,
+    one decode step traced. Returns kernel A's and B's launches, kernel A's
+    buckets by call and the line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(JAMBA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    model = build_model(cfg)
+    tree, quantize, buckets = _leafwise_quantized(dev, model, seed)
+    emit({"phase": "13b jamba period made and quantized leaf by leaf",
+          **quantize})
+    a_n = quantize["launches"]["squant_flip"]
+    s_n = quantize["launches"]["squant_scale"]
+    cont, rnd, b_n, prompts = _serve_recurrent(dev, seed, model, tree, "13b")
+    prof = profile_recurrent_decode(dev, seed, tree, model, "13b")
+    line = _serve_line(f"13b mamba + MoE, contiguous continuous + round, "
+                       f"{JAMBA_ARCH} w8", cfg, full, quantize, cont, rnd,
+                       prompts, prof)
+    line.update(moe=dataclasses.asdict(cfg.moe),
+                block_pattern=list(cfg.block_pattern),
+                launches={"squant_flip": a_n, "squant_scale": s_n,
+                          "dequant_matmul": b_n},
+                seconds=time.perf_counter() - t_phase)
+    emit(line)
+    del tree
+    torch.cuda.empty_cache()
+    return a_n, s_n, b_n, buckets, line
+
+
+def recurrent_vs_plain(dev, seed):
+    """13c: rwkv and jamba's isolated mixer (``RECURRENT_ISOLATED``) at full
+    width and 2 layers in float32: (i) SQuant w8 codes of kernel A against
+    the plain versions leaf by leaf, and a prefill plus 8 decode steps
+    through the kernels against the plain versions on the same tree; (ii)
+    teacher-forced agreement of the 8-slot chunked contiguous engine
+    against the one-slot monolithic oracle on ``RECURRENT_PROMPT``-token
+    prompts of one length, gated at the reference's budget
+    (``AGREEMENT_BUDGETS``), the float32 top-2 margins at the misses, and
+    the port at the reduced width on the same traffic
+    (:func:`recurrent_reference_agreement`) beside the reference engine's
+    pinned reading, gated at the budget."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.equivalence import (AGREEMENT_BUDGETS,
+                                                 agreement_budget)
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    line = {"phase": "13c rwkv and mamba at 2 layers (float32): kernels vs "
+                     "plain versions, agreement"}
+    for arch in (RWKV_ARCH, JAMBA_ARCH):
+        cfg = dataclasses.replace(get_config(arch), dtype="float32",
+                                  **RECURRENT_ISOLATED[arch])
+        model = build_model(cfg)
+        params = model.init(gen, device=dev)
+        tree, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+        codes = _codes_vs_plain(params, tree)
+        del params
+        torch.cuda.empty_cache()
+        prompt = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                               device=dev)
+        plain = _decode_vs_plain(dev, model, tree, prompt)
+        reqs = make_requests(seed, cfg.vocab, [RECURRENT_PROMPT] * 8,
+                             RECURRENT_NEW)
+        ccfg = contiguous_config()
+        rep, oracle = _agreement(dev, model, tree, reqs, ccfg,
+                                 contiguous_config(max_slots=1,
+                                                   prefill_chunk=0))
+        key = "rwkv" if cfg.rwkv else "mamba"
+        gate = agreement_budget(ccfg, cfg)
+        reduced = recurrent_reference_agreement(dev, arch)
+        agree = {"against": "contiguous, one slot, monolithic",
+                 "gated": gate, "reference_budget": AGREEMENT_BUDGETS[key],
+                 "rate": rep.rate, "matched": rep.matched,
+                 "compared": rep.compared, "requests": len(reqs),
+                 "prompt_length": RECURRENT_PROMPT,
+                 "mismatches": [list(p) for p in rep.mismatches],
+                 "reduced_width": {
+                     "matched": reduced.matched,
+                     "compared": reduced.compared,
+                     "reference_engine_matched_pinned":
+                         RECURRENT_REFERENCE_MATCHED[arch]}}
+        if rep.rate < 1.0:
+            margin = oracle_margins(dev, model, tree, reqs, oracle)
+            agree["float32_top2_margin_at_misses"] = sorted(
+                margin[p] for p in rep.mismatches if p in margin)
+            agree["float32_top2_margin_all"] = _quantiles(
+                list(margin.values()))
+        line[arch] = {"config": RECURRENT_ISOLATED[arch],
+                      "codes_tie_rule": codes, "kernels_vs_plain": plain,
+                      "agreement": agree}
+        del tree
+        torch.cuda.empty_cache()
+        if rep.rate < gate or reduced.rate < gate \
+                or agree["gated"] != AGREEMENT_BUDGETS[key]:
+            emit(line)
+            raise AssertionError(f"13c {arch}: agreement {rep.rate:.4f}, at "
+                                 f"the reduced width {reduced.rate:.4f}, "
+                                 f"below {gate}")
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+def kernel_b_phase13_times(dev, gen, phase13):
+    """Phase 13's kernel-B cells (``timed``: (label, M, N, rows)) and
+    jamba's MoE layer of expert launches at decode (``experts``), timed as
+    the main path's cells are."""
+    out = {"cells": [dict(_b_timed(dev, gen, m, n, b, 8, torch.bfloat16),
+                          label=label)
+                     for label, m, n, b in phase13["timed"]],
+           "experts": _expert_layer_times(dev, gen, phase13["experts"])}
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_phase13(dev, seed, layers13, memory):
+    """Phase 13 (13a, 13b, 13c), each part's memory gated like a phase's.
+    Returns the kernels' launches by part and the shapes phase 2 holds
+    kernels A and B to: kernel A's buckets and kernel B's launch shapes
+    (its plan cache, emptied before a part and read after it) by part."""
+    from repro_torch.kernels import dequant_matmul as dm
+    t0 = time.perf_counter()
+    dm._plans.clear()
+    a_a, s_a, b_a, buckets_a, _ = drive_rwkv(dev, seed, layers13)
+    plans_a = dm.cached_plans()
+    phase_memory("13a", memory)
+    dm._plans.clear()
+    a_b, s_b, b_b, buckets_b, _ = drive_jamba(dev, seed)
+    plans_b = dm.cached_plans()
+    phase_memory("13b", memory)
+    recurrent_vs_plain(dev, seed)
+    phase_memory("13c", memory)
+    emit({"phase": "13 seconds", "seconds": time.perf_counter() - t0})
+    launches = {"squant_flip": {"13a": a_a, "13b": a_b},
+                "squant_scale": {"13a": s_a, "13b": s_b},
+                "dequant_matmul": {"13a": b_a, "13b": b_b}}
+    return launches, {"a": {"13a": buckets_a, "13b": buckets_b},
+                      "b": {"13a": plans_a, "13b": plans_b}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5099,6 +5708,8 @@ def main():
                     help="depth of the sliding-window + MoE run (12b; 6 of "
                     "mixtral's 32 layers: 32 layers of float32 weights "
                     "are ~180 GB)")
+    ap.add_argument("--layers13", type=int, default=24,
+                    help="depth of the rwkv run (13a; 24 = the full model)")
     ap.add_argument("--train-steps", type=int, default=600,
                     help="training steps of the trained models of 11b and "
                     "11c (ii)")
@@ -5193,6 +5804,7 @@ def main():
     l11, s11 = drive_training(dev, args.seed, args.layers11,
                               args.train_steps, card, memory)
     l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory)
+    l13, s13 = drive_phase13(dev, args.seed, args.layers13, memory)
 
     from repro_torch.configs import get_config
     moe_cfg = get_config(MOE_ARCH)
@@ -5210,10 +5822,11 @@ def main():
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     # phase 11's trees at 8 and 4 bits (the w8 tree and the drafter's w4),
-    # compared; phase 12's at 8 bits, compared and timed
+    # compared; phase 12's and 13's at 8 bits, compared and timed
     ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets, {
         "11": {"bits": (8, 4), "timed": False, "parts": s11["a"]},
-        "12": {"bits": (8,), "timed": True, "parts": s12["a"]}})
+        "12": {"bits": (8,), "timed": True, "parts": s12["a"]},
+        "13": {"bits": (8,), "timed": True, "parts": s13["a"]}})
     mla, swa = get_config(MLA_ARCH), get_config(SWA_ARCH)
     kv_down = (mla.mla.kv_lora + mla.mla.rope_dim, mla.d_model)
     kv_up = (mla.n_heads * (mla.mla.nope_dim + mla.mla.v_dim),
@@ -5225,6 +5838,18 @@ def main():
                           slots * max_len)],
                "experts": {"n_experts": swa.moe.n_experts,
                            "banks": moe_expert_shapes(swa), "rows": [slots]}}
+    rwkv, jamba = get_config(RWKV_ARCH), get_config(JAMBA_ARCH)
+    j_in = 2 * jamba.mamba.expand * jamba.d_model
+    phase13 = {"timed": [("w_lora_b decode (K = 64)", rwkv.d_model, 64,
+                          slots),
+                         ("w_lora_b 64-row chunk (K = 64)", rwkv.d_model, 64,
+                          64),
+                         ("w_lora_a decode", 64, rwkv.d_model, slots),
+                         ("jamba in_proj decode", j_in, jamba.d_model, slots),
+                         ("jamba in_proj 512 rows", j_in, jamba.d_model, 512)],
+               "experts": {"n_experts": jamba.moe.n_experts,
+                           "banks": moe_expert_shapes(jamba),
+                           "rows": [slots]}}
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
@@ -5232,15 +5857,16 @@ def main():
                         prefill_rows, (min(draft_rows), max(draft_rows)),
                         experts={"n_experts": e, "banks": banks,
                                  "rows": [paged_config().max_slots, mono]},
-                        plans={"11": s11["b"], "12": s12["b"]},
-                        phase12=phase12)
+                        plans={"11": s11["b"], "12": s12["b"],
+                               "13": s13["b"]},
+                        phase12=phase12, phase13=phase13)
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
                            "trees_compared")},
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
-            "launch_shapes_compared", "phase12")},
+            "launch_shapes_compared", "phase12", "phase13")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (
@@ -5271,6 +5897,7 @@ def main():
         k["launches_phase11"] = l11[k["name"]]
     for k in (ka, kb, ks):
         k["launches_phase12"] = l12[k["name"]]
+        k["launches_phase13"] = l13[k["name"]]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

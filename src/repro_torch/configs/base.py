@@ -4,8 +4,9 @@ Every architecture is an ``ArchConfig`` instance (exact published
 dimensions); ``reduced()`` derives the small same-family variant used by CPU
 tests. ``MLAConfig`` / ``MoEConfig`` / ``MambaConfig`` are plain data, so
 ``ArchConfig`` has the same fields as its counterpart in the reference
-package. Of the layers they configure, MoE, MLA and the sliding-window
-ring are ported; mamba raises ``NotImplementedError`` at init.
+package. Every layer they configure is ported (MoE, MLA, the
+sliding-window ring, mamba, rwkv); an encoder-decoder model
+(``encoder_layers > 0``) raises ``NotImplementedError`` at init.
 """
 from __future__ import annotations
 

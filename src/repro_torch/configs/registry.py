@@ -1,5 +1,5 @@
 """Architecture registry: name → ArchConfig (the reference's ten
-architectures; a model whose mixer is not ported yet raises at init)."""
+architectures; the encoder-decoder one, not ported yet, raises at init)."""
 from __future__ import annotations
 
 from typing import Dict, List

@@ -21,11 +21,12 @@ from repro_torch.models.transformer import (_rope_dim, apply_stack,
 
 
 def arch_features(cfg) -> Tuple[str, ...]:
-    """Sequence-mixer features beyond a plain-attention dense stack (the keys
-    of the reference package's agreement budgets). An empty tuple means a
-    plain-attention dense stack. Of these, this package serves "mla",
-    "sliding_window" and "moe"; "mamba" and "rwkv" raise
-    ``NotImplementedError`` at init."""
+    """Sequence-mixer features that make chunked prefill
+    tolerance-equivalent (rather than bit-identical) to the monolithic path:
+    the keys of ``serving.equivalence.AGREEMENT_BUDGETS`` ("mla",
+    "sliding_window", "moe", "mamba", "rwkv"), composed multiplicatively
+    there when features stack. An empty tuple means a plain-attention dense
+    stack whose chunked prefill is exact."""
     plan = layer_plan(cfg)
     feats = []
     if cfg.mla is not None:
@@ -134,9 +135,12 @@ class LM:
             # host integer is bounds-checked here; a 0-d device tensor (a
             # captured forward's clock) by the caller that filled it
             pos = caches["pos"]
-            if isinstance(pos, int) and not self.cfg.window:
-                # a ring takes a chunk at any clock (it wraps)
-                layer = caches["list"][0]["b0"]
+            attn = [f"b{i}" for i, (kind, _) in
+                    enumerate(layer_plan(self.cfg)) if kind == "a"]
+            if isinstance(pos, int) and not self.cfg.window and attn:
+                # a ring takes a chunk at any clock (it wraps); recurrent
+                # state has no positions to overrun
+                layer = caches["list"][0][attn[0]]
                 self.check_chunk(pos, s, next(iter(layer.values())).shape[1])
             positions = pos + torch.arange(s, device=tokens.device)
         elif mode == "verify":
@@ -259,6 +263,15 @@ class LM:
     def arch_features(self) -> Tuple[str, ...]:
         """See :func:`arch_features`."""
         return arch_features(self.cfg)
+
+    def has_recurrent_state(self) -> bool:
+        """True when the cache carries recurrent (non-positional) state:
+        mamba's conv tail and ssm state, rwkv's token-shift rows and wkv
+        state. The serving side caches must not be reused across admissions
+        for such a stack (stale state is not masked out the way stale KV
+        rows are)."""
+        feats = arch_features(self.cfg)
+        return "mamba" in feats or "rwkv" in feats
 
 
 def build_model(cfg) -> LM:

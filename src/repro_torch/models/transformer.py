@@ -1,15 +1,20 @@
-"""Block assembly for uniform decoder stacks.
+"""Block assembly: uniform decoder stacks, hybrid (Jamba) period stacks
+and RWKV stacks.
 
 The stack is always the unrolled form ``{"list": [period, ...]}`` with
-``period = {"b0": block}``; ``unstack_stack`` converts a stacked
-``{"periods": ...}`` tree (the reference package's scan layout, leading axis
-= layer) into it.
+``period = {"b0": block, "b1": block, ...}`` (one block per entry of
+``layer_plan``); ``unstack_stack`` converts a stacked ``{"periods": ...}``
+tree (the reference package's scan layout, leading axis = period) into it.
 
-Block kind "a": x += attn(ln1(x)); x += ffn_or_moe(ln2(x)). The attention
-is grouped-query (dense or sliding-window) or MLA (``models.attention``);
-the FFN is a dense one or, where ``layer_plan`` says so, a mixture of
-experts (``models.moe``). Mamba and rwkv blocks are not ported yet (each
-raises ``NotImplementedError`` naming itself).
+Block kinds:
+  "a"    attention block : x += attn(ln1(x)); x += ffn_or_moe(ln2(x))
+  "m"    mamba block     : x += mamba(ln1(x)); x += ffn_or_moe(ln2(x))
+  "rwkv" rwkv block      : x += timemix(ln1(x)); x += channelmix(ln2(x))
+
+The attention is grouped-query (dense or sliding-window) or MLA
+(``models.attention``); the FFN is a dense one or, where ``layer_plan``
+says so, a mixture of experts (``models.moe``). A mamba or rwkv layer's
+cache is its recurrent state (``models.mamba``, ``models.rwkv``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ import torch.utils.checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import rwkv as rwkv_lib
 from repro_torch.models.layers import (by_position, init_norm, linear,
                                        linear_by_position, rms_norm, rope)
 
@@ -42,14 +49,25 @@ def _rope_dim(cfg) -> int:
 
 def init_block(generator, cfg, kind: str, use_moe: bool, device=None
                ) -> Dict[str, Any]:
-    if kind != "a":
-        raise NotImplementedError(
-            f"not ported yet: block kind {kind!r} (moe={use_moe})")
     d = cfg.d_model
     po = cfg.norm_plus_one
     p = {"ln1": init_norm(d, plus_one=po, device=device),
-         "ln2": init_norm(d, plus_one=po, device=device),
-         "attn": attn_lib.init_attention(generator, cfg, device=device)}
+         "ln2": init_norm(d, plus_one=po, device=device)}
+    if kind == "a":
+        p["attn"] = attn_lib.init_attention(generator, cfg, device=device)
+    elif kind == "m":
+        m = cfg.mamba
+        p["mixer"] = mamba_lib.init_mamba(
+            generator, d, d_state=m.d_state, d_conv=m.d_conv,
+            expand=m.expand, dt_rank=m.dt_rank, device=device)
+    elif kind == "rwkv":
+        p["tm"] = rwkv_lib.init_rwkv_timemix(generator, d, cfg.rwkv_head_dim,
+                                             device=device)
+        p["cm"] = rwkv_lib.init_rwkv_channelmix(generator, d, cfg.d_ff,
+                                                device=device)
+        return p
+    else:
+        raise ValueError(kind)
     if use_moe:
         p["moe"] = moe_lib.init_moe(generator, d, cfg.d_ff,
                                     cfg.moe.n_experts, cfg.ffn_kind,
@@ -68,10 +86,27 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
     block (a float32 0-d tensor), None for a dense FFN and in verify
     mode."""
     aux = None
-    if kind != "a":
+    if mode == "verify" and kind != "a":
+        # the speculative multi-position verify scores every draft row as
+        # if it were a lockstep decode step; a recurrent mixer would need a
+        # per-row state rewind for that, so verify stays attention-only
         raise NotImplementedError(
-            f"not ported yet: block kind {kind!r} (moe={use_moe})")
+            f"{mode!r} mode is not implemented for {kind!r} blocks")
     po = cfg.norm_plus_one
+    if kind == "rwkv":
+        h, st_tm = rwkv_lib.rwkv_timemix(
+            p["tm"], rms_norm(p["ln1"], x, plus_one=po),
+            head_dim=cfg.rwkv_head_dim, chunk=cfg.rwkv_chunk, state=cache,
+            mode=mode)
+        x = x + h
+        h, st_cm = rwkv_lib.rwkv_channelmix(
+            p["cm"], rms_norm(p["ln2"], x, plus_one=po), state=cache,
+            mode=mode)
+        x = x + h
+        new_cache = None
+        if st_tm is not None:
+            new_cache = {**st_tm, **(st_cm or {})}
+        return x, new_cache, aux
     if mode == "verify":
         # the norms and products position by position (a decode step's
         # calls, see attention's verify mode); residual adds and the
@@ -83,9 +118,15 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
         def norm(g, t):
             return rms_norm(g, t, plus_one=po)
         lin = linear
-    h, new_cache = attn_lib.attention(
-        p["attn"], norm(p["ln1"], x), cfg=cfg, rope=rope, mode=mode,
-        cache=cache, pos=pos, block_tables=block_tables)
+    if kind == "a":
+        h, new_cache = attn_lib.attention(
+            p["attn"], norm(p["ln1"], x), cfg=cfg, rope=rope, mode=mode,
+            cache=cache, pos=pos, block_tables=block_tables)
+    else:  # mamba
+        h, new_cache = mamba_lib.mamba(
+            p["mixer"], norm(p["ln1"], x), d_state=cfg.mamba.d_state,
+            state=cache, mode=mode, chunk=cfg.mamba_chunk,
+            dt_rank=cfg.mamba.dt_rank or max(1, cfg.d_model // 16))
     x = x + h
     h2 = norm(p["ln2"], x)
     if use_moe:
@@ -171,12 +212,22 @@ def init_stack(generator, cfg, device=None) -> Dict[str, Any]:
 def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
                      quantize_kv: bool = False, dtype=torch.bfloat16,
                      device=None):
-    """One layer's cache: an MLA stack's compressed cache (taken before
+    """One layer's cache: an rwkv layer's token-shift rows (in ``dtype``)
+    and wkv state (float32), a mamba layer's state (float32 ``h`` and
+    ``conv`` tail), an MLA stack's compressed cache (taken before
     ``quantize_kv`` is read, as in the reference: an MLA cache stays in the
     model dtype whatever ``quantize_kv`` says), else K/V, a ring of
     ``min(max_len, window)`` slots under a sliding window."""
-    if kind != "a":
-        raise NotImplementedError(f"not ported yet: {kind!r} layer state")
+    if kind == "rwkv":
+        d, hd = cfg.d_model, cfg.rwkv_head_dim
+        return {"x_tm": torch.zeros((batch, d), dtype=dtype, device=device),
+                "x_cm": torch.zeros((batch, d), dtype=dtype, device=device),
+                "wkv": torch.zeros((batch, d // hd, hd, hd),
+                                   dtype=torch.float32, device=device)}
+    if kind == "m":
+        m = cfg.mamba
+        return mamba_lib.init_mamba_state(batch, cfg.d_model, m.d_state,
+                                          m.d_conv, m.expand, device=device)
     if cfg.mla is not None:
         return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
                                        device=device)

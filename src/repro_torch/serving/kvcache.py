@@ -147,8 +147,10 @@ class KVCache:
         self._cache = None            # persistent pool cache (lazy init)
         self._logits = None           # (max_slots, vocab) pending logits
         # admission side caches, keyed by row count and reused across
-        # admissions: stale rows are harmless (every position is rewritten
-        # before any masked-in read); only the clock is rewound
+        # admissions: stale KV rows are harmless (every position is
+        # rewritten before any masked-in read); only the clock is rewound.
+        # Stacks with recurrent state take a fresh one every admission
+        # (:meth:`side_cache`)
         self._side_caches: Dict[int, Any] = {}
 
     @staticmethod
@@ -168,10 +170,17 @@ class KVCache:
                                      device=self.eng.device)
 
     def side_cache(self, k: int) -> dict:
-        """A reusable ``k``-row admission cache with the clock rewound. It is
-        its own allocation (never a view of the pool) and is written in
-        place by the admission prefill. (The reference allocates afresh for
-        stacks with recurrent state, which this package does not build.)"""
+        """A ``k``-row admission cache with the clock rewound. It is its own
+        allocation (never a view of the pool) and is written in place by the
+        admission prefill.
+
+        Reused across admissions, except for stacks with recurrent state
+        (mamba/rwkv), which get a fresh allocation every time: their state
+        leaves are read at the first chunk of a chunked admission, and a
+        retired request's state is not masked out the way stale KV rows
+        are."""
+        if self.model.has_recurrent_state():
+            return self.fresh(k)
         cache = self._side_caches.get(k)
         if cache is None:
             cache = self.fresh(k)

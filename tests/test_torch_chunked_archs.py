@@ -1,8 +1,8 @@
-"""Port vs reference: the ``mla``, ``sliding_window`` and
-``sliding_window+moe`` rows of ``tests/test_chunked_archs.py`` on the
-contiguous continuous scheduler, and the round scheduler on each stack
-(float32, 2 layers, the reference's weights carried across with
-``convert.from_jax_params``).
+"""Port vs reference: the ``mla``, ``sliding_window``,
+``sliding_window+moe``, ``mamba`` and ``rwkv`` rows of
+``tests/test_chunked_archs.py`` on the contiguous continuous scheduler, and
+the round scheduler on each stack (float32, 2 layers, the reference's
+weights carried across with ``convert.from_jax_params``).
 
 For the monolithic oracle and every chunk width of the reference's sweep
 (1, a non-dividing 3, 16 >= every prompt) the port engine's greedy tokens
@@ -33,8 +33,12 @@ torch.set_num_threads(1)
 # label -> (registry arch, overrides): the reference sweep's rows
 ARCHS = {"sliding_window": ("granite-3-8b", dict(n_layers=2, window=8)),
          "mla": ("minicpm3-4b", dict(n_layers=2)),
-         "sliding_window+moe": ("mixtral-8x7b", dict(n_layers=2, window=8))}
-BUDGETS = {"sliding_window": 0.95, "mla": 1.0, "sliding_window+moe": 0.8075}
+         "sliding_window+moe": ("mixtral-8x7b", dict(n_layers=2, window=8)),
+         "mamba": ("jamba-1.5-large-398b",
+                   dict(n_layers=2, block_pattern=("m", "a"), moe=None)),
+         "rwkv": ("rwkv6-1.6b", dict(n_layers=2))}
+BUDGETS = {"sliding_window": 0.95, "mla": 1.0, "sliding_window+moe": 0.8075,
+           "mamba": 0.95, "rwkv": 0.95}
 _PAIRS = {}
 
 
@@ -132,14 +136,20 @@ def test_midflight_chunked_admission_tokens_equal_reference(label):
 @pytest.mark.parametrize("label", sorted(ARCHS))
 def test_round_scheduler_serves_each_stack(label):
     """The round scheduler (a fresh contiguous cache a round, monolithic
-    prefill): tokens equal the reference engine's, fp and SQuant w8."""
+    prefill): tokens equal the reference engine's, fp and SQuant w8. The
+    reference cannot run a real-quantized mamba (it reads ``dt_rank`` off
+    ``dt_proj``'s kernel, which a QuantizedTensor stores (out, in)), so
+    there the port's real-quantized engine is held to the reference's
+    fake-quantized one (the same codes, dequantized to dense weights)."""
     jm, jp, tm, tp = _pair(label)
     reqs = _wave() + [Request([9, 8, 7, 6, 5, 4, 3, 2, 1, 2, 3], 5,
                               request_id=9)]
     for extra in ({}, dict(quantize_weights="squant", weight_bits=8,
                            dequantize_for_compute=False)):
         kw = dict(max_batch=3, max_len=48, scheduler="round", **extra)
-        want = _tokens(jeng.ServeEngine(jm, jp, jeng.ServeConfig(**kw))
+        jkw = dict(kw, dequantize_for_compute=True) \
+            if extra and label == "mamba" else kw
+        want = _tokens(jeng.ServeEngine(jm, jp, jeng.ServeConfig(**jkw))
                        .generate(_jreqs(reqs)))
         eng = ServeEngine(tm, tp, ServeConfig(**kw), device="cpu")
         assert _tokens(eng.generate(reqs)) == want

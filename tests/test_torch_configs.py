@@ -1,10 +1,10 @@
 """Port vs reference: the architecture registry and the assigned shapes.
 
 Every registry entry equals the reference's ``ArchConfig`` field by field
-(full and ``reduced()``), ``SHAPES`` and ``cells()`` are equal, an
-architecture whose sequence mixer is not ported (mamba, rwkv, enc-dec)
-raises its named ``NotImplementedError("not ported yet: …")``, and the
-others build and prefill."""
+(full and ``reduced()``), ``SHAPES`` and ``cells()`` are equal, the
+architecture whose model is not ported (enc-dec) raises its named
+``NotImplementedError("not ported yet: …")``, and the others build and
+prefill."""
 import dataclasses
 
 import pytest
@@ -55,8 +55,6 @@ def test_shapes_and_cells_equal_reference():
 
 # the unported mixer of each architecture, where it raises
 UNPORTED = {
-    "jamba-1.5-large-398b": ("init", "not ported yet: block kind 'm'"),
-    "rwkv6-1.6b": ("init", "not ported yet: block kind 'rwkv'"),
     "seamless-m4t-medium": ("init",
                             "not ported yet: encoder-decoder models"),
 }
@@ -79,11 +77,12 @@ def test_unported_mixer_raises_its_named_error(name):
 
 @pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "chameleon-34b",
                                   "granite-3-8b", "gemma-7b", "minitron-4b",
-                                  "minicpm3-4b", "mixtral-8x7b"])
+                                  "minicpm3-4b", "mixtral-8x7b",
+                                  "jamba-1.5-large-398b", "rwkv6-1.6b"])
 def test_ported_architectures_init_and_run(name):
     """The reduced configs whose mixers are ported build, and a prefill
-    gives finite logits of the expected shape (MLA and mixtral's ring since
-    they were ported; they raised before)."""
+    gives finite logits of the expected shape (MLA and mixtral's ring, then
+    jamba's mamba and rwkv, since they were ported; they raised before)."""
     cfg = dataclasses.replace(tcfg.get_config(name, reduced=True),
                               dtype="float32")
     model = build_model(cfg)
