@@ -163,12 +163,36 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    13a's and 13b's buckets and kernel B at every launch shape they made
    (rwkv's ``w_lora_b`` at K = 64 among them), and times the decay LoRA,
    jamba's ``in_proj`` at 8 and 512 rows and jamba's layer of 48 expert
-   launches at decode.
-The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 2, 5:
-the short w4 run pays the one-time start-up costs, and phase 2 times the
-kernels at the shapes phases 3, 6, 8 and 10 produced and compares them at
-phase 11's, 12's and 13's. The last three lines are the card line, the
-``kernels`` line and the ``ok`` line.
+   launches at decode;
+14. the encoder-decoder on the round scheduler (the reference gates the
+   continuous one off it): (a) ``seamless-m4t-medium`` at full width and
+   depth (12 encoder + 12 decoder layers), SQuant w8 (kernel A on three
+   native buckets, the bf16 head's 256 206 rows on the stacked route),
+   served in bfloat16 with one round of eight 256-token requests over the
+   scheduler's float32 zero frames (the decoder runs float32 from layer
+   0's cross-attention on, so kernel B takes its float32 variants there),
+   kernel B's launches by weight shape held to what the forwards imply
+   (121 a decode step, 5 of them bfloat16; the encoder's 72 a prefill),
+   one decode step traced (kernel B by part and variant, attention, the
+   rest), the continuous scheduler refused with the reference's message;
+   (b) the same tree against the plain versions: every leaf's codes (the
+   head too), and a prefill plus 4 decode steps over random float32 and
+   bfloat16 frames, logits and encoder output within 2e-2 of the largest,
+   in the reference's dtypes; (c) 2 + 2 layers in float32: teacher-forced
+   agreement of the kernel path with the plain path, gated at 0.95; (d)
+   ten training steps at full width and depth on Markov batches with
+   float32 frames (8 x 512 tokens, 128 frames a row): a loss that falls,
+   step ms, the forward+backward / optimizer split, tokens/s, ``mfu`` and
+   peak memory, then the trained tree quantized and served one round.
+   Phase 2 also holds kernel A at 14a's buckets and kernel B at every
+   launch shape 14a-d made, and times kernel B with float32 activations
+   at 14a's shapes (``gemv`` at 8 rows, ``tiled`` at 512 and 2 048) beside
+   ``torch.matmul`` in float32 (TF32 off) on pre-dequantized weights.
+The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 2,
+5: the short w4 run pays the one-time start-up costs, and phase 2 times
+the kernels at the shapes phases 3, 6, 8 and 10 produced and compares
+them at phase 11's, 12's, 13's and 14's. The last three lines are the
+card line, the ``kernels`` line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
 Depth can be cut with ``--layers`` (phases 3 and 6), ``--layers4`` (phase 4),
@@ -594,7 +618,8 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
-                   experts=None, plans=None, phase12=None, phase13=None):
+                   experts=None, plans=None, phase12=None, phase13=None,
+                   phase14=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (bfloat16 also at the
     prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
@@ -619,7 +644,9 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     ((label, M, N, rows) cells timed like the main path's) and ``experts``
     (mixtral's layer at decode, in ``experts``' form); ``phase13`` the same
     for phase 13 (rwkv's decay LoRA at K = 64, jamba's ``in_proj`` and
-    jamba's layer of 48 expert launches at decode)."""
+    jamba's layer of 48 expert launches at decode); ``phase14`` (label, M,
+    N, rows) cells timed with float32 activations
+    (:func:`kernel_b_phase14_times`)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -742,6 +769,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         kernel_b_phase12_times(dev, gen, phase12)
     phase13_timed = None if phase13 is None else \
         kernel_b_phase13_times(dev, gen, phase13)
+    phase14_timed = None if phase14 is None else \
+        kernel_b_phase14_times(dev, gen, phase14)
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, experts=expert_layer, max_abs_err=worst["bfloat16"],
@@ -766,6 +795,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  draft_prefill_int4=draft_prefill,
                  launch_shapes_compared=compared,
                  phase12=phase12_timed, phase13=phase13_timed,
+                 phase14=phase14_timed,
                  shapes=shapes, **tot)
     return entry
 
@@ -5681,6 +5711,654 @@ def drive_phase13(dev, seed, layers13, memory):
                       "b": {"13a": plans_a, "13b": plans_b}}
 
 
+SEAMLESS_ARCH = "seamless-m4t-medium"
+# 14a's traffic: one round of ENCDEC_BATCH requests of one ENCDEC_PROMPT-token
+# prompt length (the round scheduler feeds a request plen // enc_ratio = 64
+# float32 zero frames) and ENCDEC_NEW new tokens each
+ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_BATCH = 256, 32, 8
+ENCDEC_MAX_LEN = 320
+# 14c: the depth of the float32 agreement model (encoder and decoder alike)
+ENCDEC_AGREE_LAYERS, ENCDEC_AGREE_PROMPT = 2, 128
+# 14d: the training batches (rows, tokens a row; frames a row = seq // 4)
+ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS = 8, 512, 10
+
+
+def encdec_round_config(**over):
+    """14a's serve configuration: the round scheduler (the reference gates
+    the continuous one off encoder-decoder models), SQuant w8, served
+    real-quantized."""
+    from repro_torch.serving import ServeConfig
+    kw = dict(max_batch=ENCDEC_BATCH, max_len=ENCDEC_MAX_LEN,
+              quantize_weights="squant", weight_bits=8,
+              dequantize_for_compute=False)
+    kw.update(over)
+    return ServeConfig(**kw)
+
+
+def _encdec_linears(cfg, rows, enc_rows, enc_dtype, encode):
+    """Kernel B's launches of one encoder-decoder forward in call order, as
+    (part, rows, M, N, activation dtype): with ``encode``, each encoder
+    layer's q, k, v, o and FFN projections on ``enc_rows`` frame rows in
+    the frames' dtype ``enc_dtype``; then each decoder layer's
+    self-attention q, k, v, o and cross-attention q on ``rows`` in the
+    residual stream's dtype, the cross K/V on the encoder output's
+    ``enc_rows`` rows in its dtype, the cross o in that dtype (the
+    attention's output takes V's), and the FFN's two in the stream's dtype
+    after the cross output joins it (promoted as ``jnp`` promotes: a
+    bfloat16 stream meets a float32 encoder output in layer 0 and is
+    float32 from there); the untied head last."""
+    d, q, f = cfg.d_model, cfg.n_heads * cfg.head_dim, cfg.d_ff
+    out = []
+    if encode:
+        for _ in range(cfg.encoder_layers):
+            out += [("enc_qkv", enc_rows, q, d, enc_dtype)] * 3 + [
+                ("enc_o", enc_rows, d, q, enc_dtype),
+                ("enc_ffn", enc_rows, f, d, enc_dtype),
+                ("enc_ffn", enc_rows, d, f, enc_dtype)]
+    x = cfg.dtype
+    for _ in range(cfg.n_layers):
+        out += [("self_qkv", rows, q, d, x)] * 3 + [
+            ("self_o", rows, d, q, x), ("cross_q", rows, q, d, x),
+            ("cross_kv", enc_rows, q, d, enc_dtype),
+            ("cross_kv", enc_rows, q, d, enc_dtype),
+            ("cross_o", rows, d, q, enc_dtype)]
+        x = "float32" if "float32" in (x, enc_dtype) else x
+        out += [("ffn", rows, f, d, x), ("ffn", rows, d, f, x)]
+    out.append(("head", rows, cfg.vocab, d, x))
+    return out
+
+
+def _encdec_part(part):
+    """The coarse part of a :func:`_encdec_linears` label: encoder, cross
+    K/V, head, or the decoder's other projections."""
+    if part.startswith("enc_"):
+        return "encoder"
+    return part if part in ("cross_kv", "head") else "decoder"
+
+
+def _encdec_variant(rows, dtype):
+    """Kernel B's variant for ``rows`` rows of ``dtype`` on the path's
+    aligned shapes (N a multiple of 128): bfloat16 as :func:`_variant`;
+    float32 takes ``gemv`` up to 16 rows and ``tiled`` above."""
+    if dtype == "bfloat16":
+        return _variant(rows)
+    return "gemv" if rows <= 16 else "tiled"
+
+
+def _encdec_expected(cfg, log, enc_len, enc_dtype="float32"):
+    """What the logged forwards (:func:`_log_forwards`) imply for kernel B:
+    (launches by ``dequant_matmul.shape_key``, launches by part and
+    variant, launches by dtype). A prefill of ``b`` rows of ``n`` tokens
+    encodes ``b * enc_len`` frame rows; a decode step runs ``b`` rows over
+    the cached encoder output."""
+    from repro_torch.kernels.dequant_matmul import shape_key
+    shapes, parts, dts = (collections.Counter() for _ in range(3))
+    for kind, b, n in log:
+        rows = b * n if kind == "prefill" else b
+        for part, r, m, nn, dt in _encdec_linears(cfg, rows, b * enc_len,
+                                                  enc_dtype,
+                                                  kind == "prefill"):
+            v = _encdec_variant(r, dt)
+            shapes[shape_key(v, m, nn)] += 1
+            parts[f"{_encdec_part(part)} {v}"] += 1
+            dts[dt] += 1
+    return dict(shapes), dict(parts), dict(dts)
+
+
+def _serve_encdec_round(dev, model, tree, reqs, label):
+    """``reqs`` (one round) on the round scheduler over the quantized
+    ``tree`` (a store of its own): tokens checked, prefill ms, the decode
+    step ms (between consecutive sampling steps: one decode forward, its
+    sample and the step's host sync), device memory, and kernel B's
+    launches by weight shape held equal to what the forwards imply
+    (:func:`_encdec_expected`)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.serving import ServeEngine, WeightStore
+    eng = ServeEngine(model, None, encdec_round_config(), store=WeightStore(
+        serving_params=tree, device=dev), device=dev)
+    log = _log_forwards(eng, [])
+    eng.scheduler.step_log = []
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    b0 = dict(dm.launches_by_shape)
+    t0 = time.perf_counter()
+    outs = eng.generate(reqs)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = _launch_deltas(b0, dm.launches_by_shape)
+    plen = max(len(r.prompt) for r in reqs)
+    want, parts, dts = _encdec_expected(
+        model.cfg, log, max(1, plen // model.cfg.enc_ratio))
+    if got != want:
+        raise AssertionError(f"{label}: kernel B launches by shape {got}, "
+                             f"the path implies {want}")
+    for o, r in zip(outs, reqs):
+        if len(o.tokens) != r.max_new_tokens or \
+                not all(0 <= t < model.cfg.vocab for t in o.tokens):
+            raise AssertionError(f"{label}: request {r.request_id}: bad "
+                                 f"tokens {o.tokens}")
+    ts = [e["t"] for e in eng.scheduler.step_log]
+    rounds = [dict(r) for r in eng.stats()["round_log"]]
+    eng.close()
+    return {"run_s": run_s, "rounds": rounds,
+            "forwards": dict(collections.Counter(k for k, _, _ in log)),
+            "prefill_ms": [r["prefill_ms"] for r in rounds],
+            "decode_step_ms": _percentiles(
+                [(b - a) * 1e3 for a, b in zip(ts, ts[1:])]),
+            "memory_gb": {"before_round": before / 1e9,
+                          "peak_during_round": peak / 1e9},
+            "tokens": [o.tokens for o in outs],
+            "dequant_matmul_by_shape": got,
+            "dequant_matmul_by_part_and_variant": parts,
+            "dequant_matmul_by_dtype": dts,
+            "dequant_matmul": sum(got.values())}
+
+
+def profile_encdec_decode(dev, seed, model, tree, steps=4):
+    """One round-path decode step of 14a's model over ``tree`` (eight rows
+    of ENCDEC_PROMPT-token prompts prefilled over the scheduler's float32
+    zero frames), traced (:func:`_profile_steps`): kernel B's device time
+    by part (cross K/V, the decoder's other projections, the head) and
+    variant, read from the launch order of :func:`_encdec_linears` (the
+    split is dropped if the trace's kernel-B launches are not ``steps``
+    times that list); the kernels after the self-attention's q/k/v and the
+    cross K/V launches (rotary, cache write, the attention products and
+    softmax) as attention, the rest (norms, residuals, casts, the
+    activation, the embedding, the sample) as other."""
+    cfg = model.cfg
+    b, enc_len = ENCDEC_BATCH, ENCDEC_PROMPT // cfg.enc_ratio
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    prompt = torch.randint(0, cfg.vocab, (b, ENCDEC_PROMPT), generator=gen,
+                           device=dev)
+    frames = torch.zeros((b, enc_len, cfg.d_model), dtype=torch.float32,
+                         device=dev)
+    lg, cache = model.prefill(tree, {"tokens": prompt, "enc_frames": frames},
+                              model.init_cache(b, ENCDEC_MAX_LEN, device=dev))
+    state = {"lg": lg, "cache": cache}
+    order = [(p, _encdec_variant(r, dt)) for p, r, _, _, dt in
+             _encdec_linears(cfg, b, b * enc_len, "float32", False)]
+    seen = [0]
+
+    def b_part(grid, name):
+        seen[0] += 1
+        part, var = order[(seen[0] - 1) % len(order)]
+        return f"{part}|{var}"
+
+    def gap_part(owner):
+        if owner is not None and owner.split("|")[0] in ("self_qkv",
+                                                          "cross_kv"):
+            return "attention"
+        return "other"
+
+    def step():
+        nxt = state["lg"].argmax(-1)
+        nxt.cpu()                                        # the step's host sync
+        state["lg"], state["cache"] = model.decode_step(
+            tree, nxt[:, None], state["cache"])
+
+    line = _profile_steps(step, steps, f"14a profile of a round-path decode "
+                          f"step, {cfg.name}",
+                          {"layers": cfg.n_layers, "rows": b,
+                           "encoder_frames_a_row": enc_len,
+                           "kernel_b_launches_per_step": len(order)},
+                          b_part=b_part, gap_part=gap_part)
+    by = line["device_ms_per_step_by_part"]
+    ok = seen[0] == steps * len(order)
+    summary = {"kernel_b_split_by_launch_order_valid": ok,
+               "kernel_b_launches_traced": seen[0],
+               "device_kernels_per_step": line["device_kernels_per_step"],
+               "device_busy_ms_per_step": line["device_busy_ms_per_step"],
+               "device_busy_share_of_untraced_wall":
+                   line["device_busy_share_of_untraced_wall"]}
+    if ok:
+        kb = collections.defaultdict(float)
+        for k, v in by.items():
+            if k.startswith("dequant_matmul_"):
+                part, var = k[len("dequant_matmul_"):].split("|")
+                kb[f"{_encdec_part(part)} {var}"] += v
+        summary.update(kernel_b_ms_by_part_and_variant=dict(kb),
+                       kernel_b_ms=sum(kb.values()),
+                       attention_ms=by.get("attention", 0.0),
+                       other_ms=by.get("other", 0.0)
+                       + by.get("host_to_device_copies", 0.0))
+    line["summary"] = summary
+    emit({"phase": "14a decode step split", **summary})
+    return line
+
+
+def _head_codes_vs_plain(w, qt):
+    """The untied bfloat16 head, quantized on the stacked route (its (out,
+    in) view's max scales in bfloat16, then the row-major flip kernel on
+    the float32 values of view and scales), against the plain version on
+    those float32 inputs: scales equal to ``core.dispatch._scales`` of the
+    view, codes equal up to the tie rule (its 256 206 rows end in a ragged
+    tile)."""
+    from repro_torch.core.dispatch import _scales
+    from repro_torch.kernels import squant_flip as sf
+    from repro_torch.kernels.ref import explain_code_differences
+    view = w.T
+    s = _scales(view[None], 8, "max")[0].float()
+    if not torch.equal(qt.scale.reshape(s.shape).float(), s):
+        raise AssertionError("the head's scales differ from _scales")
+    w32 = view.float().contiguous()
+    want = sf.squant_flip_plain(w32, s, bits=8, group_size=128)
+    res = explain_code_differences(w32, s, qt.data, want, bits=8,
+                                   group_size=128)
+    if res["unexplained"]:
+        raise AssertionError(f"the head's codes differ beyond the tie rule: "
+                             f"{res}")
+    return dict(res, shape=list(qt.shape), dtype=str(w.dtype))
+
+
+def _encdec_decode(dev, model, tree, prompt, frames, steps, forced=None):
+    """Prefill over ``frames`` and ``steps`` decode steps, greedy or fed
+    ``forced`` tokens: (the logits of every step stacked, the tokens fed,
+    the encoder output the prefill cached)."""
+    cache = model.init_cache(prompt.shape[0], prompt.shape[1] + steps + 1,
+                             device=dev)
+    lg, cache = model.prefill(tree, {"tokens": prompt, "enc_frames": frames},
+                              cache)
+    enc = cache["enc_out"]
+    logits, toks = [lg], []
+    for i in range(steps):
+        nxt = lg.argmax(-1) if forced is None else forced[i]
+        toks.append(nxt)
+        lg, cache = model.decode_step(tree, nxt[:, None], cache)
+        logits.append(lg)
+    return torch.stack(logits), toks, enc
+
+
+def encdec_vs_plain(dev, seed, model, params, tree):
+    """14b: 14a's full-width, full-depth tree against the plain versions:
+    (i) kernel A's codes of every leaf (:func:`_codes_vs_plain`; the bf16
+    head by :func:`_head_codes_vs_plain`); (ii) for random frames (numpy,
+    from ``seed``) in float32 and in bfloat16: ``LM.prefill`` and 4 greedy
+    decode steps through the kernels, then the same under
+    ``force_backend("ref")`` teacher-forced on the kernels' tokens: the
+    encoder output and the logits within 2e-2 of the largest (phase 5's
+    bfloat16 gate), the logits' dtype the frames' (float32 frames promote
+    the bfloat16 decoder), and kernel B's launches by shape equal to what
+    the forwards imply."""
+    import numpy as np
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    rest = [{k: v for k, v in t.items() if k != "lm_head"}
+            for t in (params, tree)]
+    codes = _codes_vs_plain(*rest)
+    head = _head_codes_vs_plain(params["lm_head"]["w"],
+                                tree["lm_head"]["w"])
+    rng = np.random.default_rng(seed)
+    b, s, steps = 2, 64, 4
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (b, s))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (b, s // cfg.enc_ratio, cfg.d_model)).astype(np.float32)).to(dev)
+    line = {"phase": f"14b kernels vs plain versions, {cfg.name} at full "
+                     f"width and depth (bfloat16 model)",
+            "codes_tie_rule": codes, "head_codes_tie_rule": head,
+            "prompt": [b, s], "frames": list(frames.shape),
+            "decode_steps": steps}
+    for fdt in (torch.float32, torch.bfloat16):
+        name = str(fdt).replace("torch.", "")
+        fr = frames.to(fdt)
+        b0 = dict(dm.launches_by_shape)
+        lk, tk, ek = _encdec_decode(dev, model, tree, prompt, fr, steps)
+        torch.cuda.synchronize()
+        got = _launch_deltas(b0, dm.launches_by_shape)
+        with ops.force_backend("ref"):
+            lp, _, ep = _encdec_decode(dev, model, tree, prompt, fr, steps,
+                                       forced=tk)
+        torch.cuda.synchronize()
+        log = [("prefill", b, s)] + [("decode", b, 1)] * steps
+        want, parts, dts = _encdec_expected(cfg, log, s // cfg.enc_ratio,
+                                            name)
+        err = float((lk.float() - lp.float()).abs().max())
+        mag = float(lp.float().abs().max())
+        e_err = float((ek.float() - ep.float()).abs().max())
+        e_mag = float(ep.float().abs().max())
+        row = {"logits_dtype": str(lk.dtype).replace("torch.", ""),
+               "encoder_output_dtype": str(ek.dtype).replace("torch.", ""),
+               "logits_max_abs_err": err, "logits_max_abs": mag,
+               "encoder_output_max_abs_err": e_err,
+               "encoder_output_max_abs": e_mag,
+               "teacher_forced_tokens_equal": bool(torch.equal(
+                   lk.argmax(-1), lp.argmax(-1))),
+               "dequant_matmul_by_part_and_variant": parts,
+               "dequant_matmul_by_dtype": dts, "gate": 2e-2}
+        line[f"frames_{name}"] = row
+        if got != want or row["logits_dtype"] != name \
+                or err > 2e-2 * mag or e_err > 2e-2 * e_mag:
+            emit(line)
+            raise AssertionError(f"14b over {name} frames: {row}; kernel B "
+                                 f"launches {got}, the path implies {want}")
+        del lk, lp
+    line["seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return line
+
+
+def drive_encdec(dev, seed):
+    """14a and 14b: ``seamless-m4t-medium`` at full width and depth (12
+    encoder + 12 decoder layers), random weights from ``seed`` (float32
+    dense kernels, bf16 embedding and untied head), SQuant w8 by kernel A
+    (three native buckets, the bf16 head on the stacked route), served in
+    bfloat16 on the round scheduler with one round of ENCDEC_BATCH requests
+    of ENCDEC_PROMPT tokens (the scheduler's float32 zero frames: the
+    decoder runs float32 from layer 0's cross-attention on, so kernel B
+    runs its float32 variants on every projection but layer 0's first
+    five), kernel B's launches by shape held to what the forwards imply
+    and a decode step's to 121 (5 bfloat16, 116 float32), one decode step
+    traced, the continuous scheduler refused with the reference's gate;
+    then 14b (:func:`encdec_vs_plain`). Returns kernel A's and B's
+    launches, kernel A's buckets and the line."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config(SEAMLESS_ARCH)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    t0 = time.perf_counter()
+    params = model.init(gen, device=dev)
+    torch.cuda.synchronize()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    head = f"({cfg.vocab},{cfg.d_model})x1 bfloat16 g128"
+    eng, quantize, buckets = _quantized_engine(dev, model, params,
+                                               encdec_round_config(), (head,))
+    quantize["init_ms"] = init_ms
+    tree = eng.params
+    eng.close()
+    a_n = quantize["launches"]["squant_flip"]
+    s_n = quantize["launches"]["squant_scale"]
+    per_step = _encdec_linears(cfg, ENCDEC_BATCH,
+                               ENCDEC_BATCH * ENCDEC_PROMPT // cfg.enc_ratio,
+                               "float32", False)
+    step_dts = collections.Counter(dt for *_, dt in per_step)
+    enc = sum(p.startswith("enc_") for p, *_ in _encdec_linears(
+        cfg, 1, 1, "float32", True))
+    # ten projections a decoder layer and the head (121 at 12 layers), five
+    # of them bfloat16 (layer 0's self-attention q, k, v, o and cross q);
+    # six a layer of the encoder's (72)
+    per = 10 * cfg.n_layers + 1
+    if (len(per_step), step_dts["bfloat16"], step_dts["float32"], enc) != \
+            (per, 5, per - 5, 6 * cfg.encoder_layers):
+        raise AssertionError(f"a decode step implies {len(per_step)} kernel-B "
+                             f"launches ({dict(step_dts)}), a prefill's "
+                             f"encoder {enc}")
+    reqs = make_requests(seed, cfg.vocab, [ENCDEC_PROMPT] * ENCDEC_BATCH,
+                         ENCDEC_NEW)
+    served = _serve_encdec_round(dev, model, tree, reqs, "14a")
+    try:
+        from repro_torch.serving import ServeEngine
+        ServeEngine(model, tree, encdec_round_config(scheduler="continuous"),
+                    device=dev)
+        raise AssertionError("14a: the continuous scheduler served an "
+                             "encoder-decoder model")
+    except NotImplementedError as e:
+        gate = str(e)
+    if "does not support encoder-decoder" not in gate:
+        raise AssertionError(f"14a: the continuous scheduler raised {gate}")
+    prof = profile_encdec_decode(dev, seed, model, tree)
+    line = {"phase": f"14a encoder-decoder, round scheduler, "
+                     f"{SEAMLESS_ARCH} w8", "model": cfg.name,
+            "layers": {"encoder": cfg.encoder_layers,
+                       "decoder": cfg.n_layers},
+            "full_depth": True, "reduced": None, "d_model": cfg.d_model,
+            "n_heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+            "weight_bits": 8, "model_dtype": cfg.dtype,
+            "frames": "float32 zeros, (rows, plen // enc_ratio, d_model), "
+                      "the round scheduler's",
+            "params": _numel(params), "quantize": quantize,
+            "serve_config": {k: getattr(encdec_round_config(), k) for k in (
+                "scheduler", "max_batch", "max_len", "quantize_weights",
+                "weight_bits", "dequantize_for_compute")},
+            "requests": len(reqs), "prompt_length": ENCDEC_PROMPT,
+            "new_tokens": ENCDEC_NEW, "round": served,
+            "kernel_b_per_decode_step": {
+                "launches": len(per_step), "by_dtype": dict(step_dts),
+                "by_part_and_variant": dict(collections.Counter(
+                    f"{_encdec_part(p)} {_encdec_variant(r, dt)}"
+                    for p, r, _, _, dt in per_step))},
+            "kernel_b_encoder_per_prefill": enc,
+            "continuous_refused": gate, "decode_step_profile": prof,
+            "launches": {"squant_flip": a_n, "squant_scale": s_n,
+                         "dequant_matmul": served["dequant_matmul"]}}
+    line["seconds_14a"] = time.perf_counter() - t_phase
+    emit(line)
+    encdec_vs_plain(dev, seed, model, params, tree)
+    del params, tree
+    torch.cuda.empty_cache()
+    return a_n, s_n, served["dequant_matmul"], buckets, line
+
+
+def encdec_agreement(dev, seed):
+    """14c: seamless at full width and ENCDEC_AGREE_LAYERS encoder and
+    decoder layers in float32, SQuant w8: kernel A's codes against the
+    plain versions leaf by leaf; eight prompts of one length
+    (ENCDEC_AGREE_PROMPT tokens) over random frames (numpy, from ``seed``):
+    the plain path (``force_backend("ref")``) decodes ENCDEC_NEW tokens a
+    row greedily, the kernel path teacher-forced on them; its greedy token
+    against the plain path's at every step, gated at 0.95 (13c's gate)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import quantize_tree
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    full = get_config(SEAMLESS_ARCH)
+    cfg = dataclasses.replace(full, dtype="float32",
+                              n_layers=ENCDEC_AGREE_LAYERS,
+                              encoder_layers=ENCDEC_AGREE_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    params = model.init(gen, device=dev)
+    tree, _ = quantize_tree(params, method="squant", bits=8, device=dev)
+    codes = _codes_vs_plain(params, tree)
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed + 1)
+    n, s = 8, ENCDEC_AGREE_PROMPT
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (n, s))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (n, s // cfg.enc_ratio, cfg.d_model)).astype(np.float32)).to(dev)
+    with ops.force_backend("ref"):
+        lp, oracle, _ = _encdec_decode(dev, model, tree, prompt, frames,
+                                       ENCDEC_NEW)
+    lk, _, _ = _encdec_decode(dev, model, tree, prompt, frames, ENCDEC_NEW,
+                              forced=oracle)
+    # step i's proposal: the argmax of the logits before token i is fed
+    got = lk[:ENCDEC_NEW].argmax(-1)
+    want = torch.stack(oracle)
+    hits = got == want
+    rate = float(hits.float().mean())
+    top2 = lp[:ENCDEC_NEW].float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    line = {"phase": "14c agreement of the kernel path with the plain path, "
+                     f"{cfg.name} at {ENCDEC_AGREE_LAYERS} + "
+                     f"{ENCDEC_AGREE_LAYERS} layers (float32)",
+            "reduced": {k: f"{getattr(full, k)} -> {ENCDEC_AGREE_LAYERS}"
+                        for k in ("n_layers", "encoder_layers")},
+            "codes_tie_rule": codes, "requests": n, "prompt_length": s,
+            "frames": list(frames.shape), "new_tokens": ENCDEC_NEW,
+            "matched": int(hits.sum()), "compared": hits.numel(),
+            "rate": rate, "gated": 0.95,
+            "logits_max_abs_err": float((lk - lp).abs().max()),
+            "logits_max_abs": float(lp.abs().max()),
+            "plain_top2_margin_at_misses": sorted(
+                float(v) for v in margin[~hits]),
+            "plain_top2_margin_all": _quantiles(margin.flatten().tolist()),
+            "seconds": time.perf_counter() - t_phase}
+    emit(line)
+    del tree
+    torch.cuda.empty_cache()
+    if rate < 0.95:
+        raise AssertionError(f"14c: agreement {rate:.4f} below 0.95")
+    return line
+
+
+def train_encdec(dev, seed, card):
+    """14d: seamless as published (bf16 embedding and head, float32 dense
+    kernels, remat) at full width and depth, ENCDEC_TRAIN_STEPS steps of
+    ``make_train_step`` on ``markov_batches`` with float32 ``enc_frames``
+    (ENCDEC_TRAIN_BATCH rows of ENCDEC_TRAIN_SEQ tokens, seq / enc_ratio
+    frames a row); gates: a finite loss that falls from step 1 to the last.
+    Then SQuant w8 of the trained tree (kernel A) served one round of 14a's
+    traffic (kernel B's launches held to what the forwards imply)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import markov_batches
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServeEngine
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    t_phase = time.perf_counter()
+    cfg = get_config(SEAMLESS_ARCH)
+    if not cfg.remat:
+        raise AssertionError("seamless: remat is off")
+    model = build_model(cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    allocated0 = torch.cuda.memory_allocated()
+    params = model.init(gen, device=dev)
+    n_params, n_flop = _numel(params), _flop_params(cfg, params)
+    n_enc = _numel(params["encoder"])
+    b, seq, steps = ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_SEQ, ENCDEC_TRAIN_STEPS
+    frames = seq // cfg.enc_ratio
+    t0 = time.perf_counter()
+    host = [x for x, _ in zip(markov_batches(
+        b, seq, cfg.vocab, seed, encdec_dim=cfg.d_model,
+        enc_ratio=cfg.enc_ratio), range(steps))]
+    data_s = time.perf_counter() - t0
+    batches = [tl.to_device(x, dev) for x in host]
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=min(20, steps // 5),
+                       decay_steps=steps)
+    step = tl.make_train_step(model, ocfg)
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    state_gb = (torch.cuda.memory_allocated() - allocated0) / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, run = _train_steps(step, params, opt, batches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = run["losses"]
+    p50 = _percentiles(run["step_ms"][2:])["p50"]       # steps 3 on
+    fb_p50 = _percentiles(run["forward_backward_ms"][2:])["p50"]
+    op_p50 = _percentiles(run["optimizer_ms"][2:])["p50"]
+    tokens = b * seq
+    del opt, batches
+    torch.cuda.empty_cache()
+    line = {"phase": f"14d training at full width and depth, {cfg.name}",
+            "card": card, "model": cfg.name,
+            "layers": {"encoder": cfg.encoder_layers,
+                       "decoder": cfg.n_layers}, "reduced": None,
+            "dtype": {"embedding_and_head": cfg.dtype,
+                      "dense_kernels": "float32",
+                      "activations": "bfloat16 to layer 0's cross-attention, "
+                                     "float32 after (float32 frames)"},
+            "remat": cfg.remat,
+            "tf32": bool(torch.backends.cuda.matmul.allow_tf32),
+            "params": n_params, "encoder_params": n_enc,
+            "state_gb": state_gb,
+            "data": f"markov_batches({b}, {seq}, {cfg.vocab}, {seed}, "
+                    f"encdec_dim={cfg.d_model}, enc_ratio={cfg.enc_ratio})",
+            "frames_a_row": frames, "data_host_s": data_s,
+            "optimizer": dataclasses.asdict(ocfg), "steps": steps,
+            "losses": losses, "step_ms": run["step_ms"],
+            "step_ms_p50_steps_3_on": p50, "tokens_per_step": tokens,
+            "tokens_per_s": tokens / (p50 / 1e3),
+            "forward_backward_ms": run["forward_backward_ms"],
+            "optimizer_ms": run["optimizer_ms"],
+            "forward_backward_ms_p50": fb_p50, "optimizer_ms_p50": op_p50,
+            "optimizer_share": op_p50 / (fb_p50 + op_p50),
+            "peak_memory_gb": peak_gb,
+            "mfu": 6 * n_flop * tokens / (p50 / 1e3)
+            / PEAK_FLOPS["bfloat16"],
+            "mfu_formula": "6 * (params - embedding) * tokens / step s / 989 "
+                           "TFLOP/s (H100 SXM dense bf16 peak); counts the "
+                           "encoder's parameters once a token",
+            "mfu_encoder_at_frames": 6 * ((n_flop - n_enc) * tokens
+                                          + n_enc * b * frames)
+            / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+            "flop_params": n_flop}
+    bad = [x for x in losses if not math.isfinite(x)]
+    if bad or not losses[-1] < losses[0]:
+        emit(line)
+        raise AssertionError(f"14d: losses {losses} not finite or not "
+                             f"falling")
+    eng, quantize, _ = _quantized_engine(
+        dev, model, params, encdec_round_config(),
+        (f"({cfg.vocab},{cfg.d_model})x1 bfloat16 g128",))
+    tree = eng.params
+    eng.close()
+    del params
+    torch.cuda.empty_cache()
+    reqs = make_requests(seed + 1, cfg.vocab, [ENCDEC_PROMPT] * ENCDEC_BATCH,
+                         ENCDEC_NEW)
+    served = _serve_encdec_round(dev, model, tree, reqs, "14d")
+    line.update(quantize_trained=quantize, served_round=served,
+                launches={"squant_flip": quantize["launches"]["squant_flip"],
+                          "squant_scale": quantize["launches"]["squant_scale"],
+                          "dequant_matmul": served["dequant_matmul"]},
+                seconds=time.perf_counter() - t_phase)
+    emit(line)
+    del tree
+    torch.cuda.empty_cache()
+    return line
+
+
+def kernel_b_phase14_times(dev, gen, cells):
+    """Phase 14's kernel-B cells, float32 activations (``cells``: (label, M,
+    N, rows)), timed as the main path's cells are (:func:`_b_timed`: cold
+    L2; ``torch.matmul`` in float32 on pre-dequantized weights, with
+    ``torch.backends.cuda.matmul.allow_tf32`` as main sets it, False, so
+    its arithmetic is float32's), each with its variant checked (``gemv``
+    up to 16 rows, ``tiled`` above) and its bound: max(bytes / 3.35 TB/s,
+    FLOPs / 67 TFLOP/s, the H100 SXM float32 peak without tensor cores)."""
+    out = []
+    for label, m, n, b in cells:
+        row = dict(_b_timed(dev, gen, m, n, b, 8, torch.float32), label=label)
+        if row["variant"] != _encdec_variant(b, "float32"):
+            raise AssertionError(f"kernel B at {label} took {row}")
+        out.append(row)
+        torch.cuda.empty_cache()
+    return {"cells": out,
+            "torch_matmul_allow_tf32": bool(
+                torch.backends.cuda.matmul.allow_tf32),
+            "peak_flops_used": "67e12 float32 (H100 SXM, CUDA cores)"}
+
+
+def drive_phase14(dev, seed, card, memory):
+    """Phase 14 (14a + 14b, 14c, 14d), each part's memory gated like a
+    phase's. Returns the kernels' launches by part and the shapes phase 2
+    holds kernels A and B to (kernel A's buckets and kernel B's launch
+    shapes, its plan cache emptied before a part and read after it)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    t0 = time.perf_counter()
+    dm._plans.clear()
+    a_a, s_a, b_a, buckets, _ = drive_encdec(dev, seed)
+    plans_a = dm.cached_plans()
+    phase_memory("14a-b", memory)
+    encdec_agreement(dev, seed)
+    phase_memory("14c", memory)
+    dm._plans.clear()
+    d = train_encdec(dev, seed, card)
+    plans_d = dm.cached_plans()
+    phase_memory("14d", memory)
+    emit({"phase": "14 seconds", "seconds": time.perf_counter() - t0})
+    launches = {"squant_flip": {"14a": a_a,
+                                "14d": d["launches"]["squant_flip"]},
+                "squant_scale": {"14a": s_a,
+                                 "14d": d["launches"]["squant_scale"]},
+                "dequant_matmul": {"14a": b_a,
+                                   "14d": d["launches"]["dequant_matmul"]}}
+    return launches, {"a": {"14a": buckets},
+                      "b": {"14a-b": plans_a, "14d": plans_d}}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5805,6 +6483,7 @@ def main():
                               args.train_steps, card, memory)
     l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory)
     l13, s13 = drive_phase13(dev, args.seed, args.layers13, memory)
+    l14, s14 = drive_phase14(dev, args.seed, card, memory)
 
     from repro_torch.configs import get_config
     moe_cfg = get_config(MOE_ARCH)
@@ -5826,7 +6505,8 @@ def main():
     ka, ks = check_kernel_a(dev, gen, buckets, moe_buckets, {
         "11": {"bits": (8, 4), "timed": False, "parts": s11["a"]},
         "12": {"bits": (8,), "timed": True, "parts": s12["a"]},
-        "13": {"bits": (8,), "timed": True, "parts": s13["a"]}})
+        "13": {"bits": (8,), "timed": True, "parts": s13["a"]},
+        "14": {"bits": (8,), "timed": True, "parts": s14["a"]}})
     mla, swa = get_config(MLA_ARCH), get_config(SWA_ARCH)
     kv_down = (mla.mla.kv_lora + mla.mla.rope_dim, mla.d_model)
     kv_up = (mla.n_heads * (mla.mla.nope_dim + mla.mla.v_dim),
@@ -5850,6 +6530,17 @@ def main():
                "experts": {"n_experts": jamba.moe.n_experts,
                            "banks": moe_expert_shapes(jamba),
                            "rows": [slots]}}
+    sm = get_config(SEAMLESS_ARCH)
+    d, f, v = sm.d_model, sm.d_ff, sm.vocab
+    sb = ENCDEC_BATCH
+    sp = sb * ENCDEC_PROMPT
+    phase14 = [("q/k/v/o decode", d, d, sb), ("q/k/v/o prefill", d, d, sp),
+               ("ffn in decode", f, d, sb), ("ffn in prefill", f, d, sp),
+               ("ffn down decode", d, f, sb),
+               ("ffn down prefill", d, f, sp),
+               ("cross K/V (8 x 64 frame rows)", d, d,
+                sb * ENCDEC_PROMPT // sm.enc_ratio),
+               ("head decode", v, d, sb), ("head prefill", v, d, sp)]
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
@@ -5858,15 +6549,15 @@ def main():
                         experts={"n_experts": e, "banks": banks,
                                  "rows": [paged_config().max_slots, mono]},
                         plans={"11": s11["b"], "12": s12["b"],
-                               "13": s13["b"]},
-                        phase12=phase12, phase13=phase13)
+                               "13": s13["b"], "14": s14["b"]},
+                        phase12=phase12, phase13=phase13, phase14=phase14)
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
                            "trees_compared")},
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
-            "launch_shapes_compared", "phase12", "phase13")},
+            "launch_shapes_compared", "phase12", "phase13", "phase14")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (
@@ -5898,6 +6589,7 @@ def main():
     for k in (ka, kb, ks):
         k["launches_phase12"] = l12[k["name"]]
         k["launches_phase13"] = l13[k["name"]]
+        k["launches_phase14"] = l14[k["name"]]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

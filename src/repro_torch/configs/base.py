@@ -5,8 +5,8 @@ dimensions); ``reduced()`` derives the small same-family variant used by CPU
 tests. ``MLAConfig`` / ``MoEConfig`` / ``MambaConfig`` are plain data, so
 ``ArchConfig`` has the same fields as its counterpart in the reference
 package. Every layer they configure is ported (MoE, MLA, the
-sliding-window ring, mamba, rwkv); an encoder-decoder model
-(``encoder_layers > 0``) raises ``NotImplementedError`` at init.
+sliding-window ring, mamba, rwkv, and the encoder-decoder's encoder and
+cross-attention, ``encoder_layers > 0``).
 """
 from __future__ import annotations
 

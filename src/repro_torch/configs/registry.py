@@ -1,5 +1,5 @@
 """Architecture registry: name → ArchConfig (the reference's ten
-architectures; the encoder-decoder one, not ported yet, raises at init)."""
+architectures, every one of them ported)."""
 from __future__ import annotations
 
 from typing import Dict, List

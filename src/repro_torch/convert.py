@@ -8,7 +8,12 @@ numpy and torch only. It
   ``ml_dtypes`` numpy array: it is viewed as uint16 and re-viewed as
   ``torch.bfloat16``, bit for bit);
 * unrolls a stacked ``{"periods": ...}`` layer stack (leading axis = layer)
-  into the ``{"list": [...]}`` form this package runs;
+  into the ``{"list": [...]}`` form this package runs, and an
+  encoder-decoder's stacked ``{"encoder": {"layers": ...}}`` (the reference
+  always stacks its encoder) into a list of layers; a quantized leaf of a
+  stacked tree is one ``(L·out, in)`` QuantizedTensor (the reference
+  quantizes a stacked leaf as a bank), whose rows are sliced back layer by
+  layer;
 * turns a quantized leaf — any object with ``data``, ``scale``, ``bits``,
   ``group_size`` and ``shape`` attributes, such as the reference package's
   ``QuantizedTensor`` holding numpy arrays — into this package's
@@ -20,6 +25,7 @@ numpy and torch only. It
 """
 from __future__ import annotations
 
+import types
 from typing import Any
 
 import numpy as np
@@ -61,19 +67,24 @@ def _convert(tree: Any, device) -> Any:
     return tree
 
 
-def _unstack_periods(stack: dict) -> dict:
-    """numpy-level ``{"periods": stacked}`` → ``{"list": [...]}``."""
-    def leaves(t):
+def _unstack(stacked: dict) -> list:
+    """numpy-level stacked layers (leading axis = layer, or period) → a list
+    of them. A quantized leaf is one ``(L·out, in)`` QuantizedTensor (the
+    reference quantizes a stacked ``(L, in, out)`` leaf as a bank): layer
+    ``l`` takes its rows ``[l·out, (l+1)·out)`` of codes and scales (SQuant
+    and the scales are per output row, so each layer's rows are its own
+    quantization). The layer count is read off the first array leaf."""
+    def arrays(t):
         if isinstance(t, dict):
             for v in t.values():
-                yield from leaves(v)
+                yield from arrays(v)
         elif isinstance(t, (list, tuple)):
             for v in t:
-                yield from leaves(v)
-        elif _is_quantized(t):
-            yield t.data
-        else:
+                yield from arrays(v)
+        elif not _is_quantized(t):
             yield t
+
+    n = int(np.asarray(next(arrays(stacked))).shape[0])
 
     def take(t, i):
         if isinstance(t, dict):
@@ -81,12 +92,15 @@ def _unstack_periods(stack: dict) -> dict:
         if isinstance(t, (list, tuple)):
             return type(t)(take(v, i) for v in t)
         if _is_quantized(t):
-            raise ValueError("a stacked layer axis over quantized leaves is "
-                             "not a layout either package produces")
+            out = int(t.shape[0]) // n
+            rows = slice(i * out, (i + 1) * out)
+            return types.SimpleNamespace(
+                data=np.asarray(t.data)[rows],
+                scale=np.asarray(t.scale)[rows], bits=t.bits,
+                group_size=t.group_size, shape=(out,) + tuple(t.shape[1:]))
         return np.asarray(t)[i]
 
-    periods = int(np.asarray(next(leaves(stack["periods"]))).shape[0])
-    return {"list": [take(stack["periods"], i) for i in range(periods)]}
+    return [take(stacked, i) for i in range(n)]
 
 
 def from_jax_params(tree: Any, device=None) -> Any:
@@ -103,5 +117,10 @@ def from_jax_params(tree: Any, device=None) -> Any:
     if isinstance(tree, dict) and isinstance(tree.get("stack"), dict) \
             and "periods" in tree["stack"]:
         tree = dict(tree)
-        tree["stack"] = _unstack_periods(tree["stack"])
+        tree["stack"] = {"list": _unstack(tree["stack"]["periods"])}
+    if isinstance(tree, dict) and isinstance(tree.get("encoder"), dict) \
+            and isinstance(tree["encoder"].get("layers"), dict):
+        tree = dict(tree)
+        tree["encoder"] = dict(tree["encoder"],
+                               layers=_unstack(tree["encoder"]["layers"]))
     return _convert(tree, device)

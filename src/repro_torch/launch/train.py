@@ -71,8 +71,11 @@ def main(argv=None):
                                     checkpoint_dir=args.ckpt_dir),
                       train_step=step, device=device)
     gen_fn = markov_batches if args.data == "markov" else synthetic_batches
+    extra = {}
+    if cfg.is_encdec:
+        extra = {"encdec_dim": cfg.d_model, "enc_ratio": cfg.enc_ratio}
     params, opt, info = trainer.run(
-        params, gen_fn(args.batch, args.seq, cfg.vocab, seed=0))
+        params, gen_fn(args.batch, args.seq, cfg.vocab, seed=0, **extra))
     hist = info["history"]
     if hist:
         print(f"[train] done: loss {hist[0]:.4f} → {hist[-1]:.4f} "

@@ -30,6 +30,12 @@ each ring slot's absolute position reconstructed from the clock. MLA
 attends in the compressed space (:func:`_mla_absorbed_decode`). Both serve
 on contiguous caches only (the paged backend and ``verify`` are gated off
 them, as in the reference).
+
+Cross-attention (:func:`cross_attention`, the encoder-decoder's) attends a
+decoder's rows over the encoder output, full multi-head and unmasked (or
+under an encoder mask), projecting K/V from it at every call. Operands of
+mixed dtypes promote as ``jnp`` promotes them (:func:`_promote`): a
+bfloat16 decoder over a float32 encoder output runs in float32 from there.
 """
 from __future__ import annotations
 
@@ -79,6 +85,18 @@ def init_attention(generator, cfg, device=None) -> Dict[str, Any]:
         p["q_ln"] = init_norm(hd, device=device)
         p["k_ln"] = init_norm(hd, device=device)
     return p
+
+
+def init_cross_attention(generator, cfg, device=None) -> Dict[str, Any]:
+    """Cross-attention (and the encoder's self-attention): full multi-head,
+    K/V at ``n_heads``."""
+    d, hd = cfg.d_model, cfg.head_dim
+    return {
+        "wq": _init_dense(generator, d, cfg.n_heads * hd, device=device),
+        "wk": _init_dense(generator, d, cfg.n_heads * hd, device=device),
+        "wv": _init_dense(generator, d, cfg.n_heads * hd, device=device),
+        "wo": _init_dense(generator, cfg.n_heads * hd, d, device=device),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -213,13 +231,24 @@ def _cache_read(cache) -> Tuple[torch.Tensor, torch.Tensor]:
 # core attention math
 # ---------------------------------------------------------------------------
 
+def _promote(a: torch.Tensor, b: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``a`` and ``b`` in their common dtype (``torch.result_type``), as
+    ``jnp.einsum`` promotes operands of mixed dtypes (a bfloat16 query
+    against float32 keys gives float32 scores); ``torch.einsum`` would
+    raise instead."""
+    dt = torch.result_type(a, b)
+    return a.to(dt), b.to(dt)
+
+
 def _grouped_attention(q, k, v, mask, softmax_scale) -> torch.Tensor:
     """q: (B,S,H,D), k/v: (B,T,KV,Dv); H = KV * rep. mask: (S,T) or
-    (B,1,1,S,T) additive. Used for decode (S small): no KV repeat."""
+    (B,1,1,S,T) additive. Used for decode (S small): no KV repeat. Mixed
+    dtypes promote as in the reference (:func:`_promote`)."""
     b, s, h, dq = q.shape
     kv = k.shape[2]
     rep = h // kv
-    qg = q.reshape(b, s, kv, rep, dq)
+    qg, k = _promote(q.reshape(b, s, kv, rep, dq), k)
     scores = torch.einsum("bskrd,btkd->bkrst", qg, k) * softmax_scale
     scores = scores.to(torch.float32)
     if mask is not None:
@@ -244,7 +273,8 @@ def _chunked_attention(q, k, v, *, scale, causal: bool,
     q: (B,S,H,D); k/v: (B,T,KV,Dv) — repeated internally when KV < H.
     ``row0``: the absolute position of q's first row (an integer or a 0-d
     device tensor). ``window``: a causal row also masks the keys ``window``
-    or more positions behind it.
+    or more positions behind it. Mixed dtypes promote as in the reference
+    (:func:`_promote`).
     """
     b, s, h, dq = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -255,7 +285,7 @@ def _chunked_attention(q, k, v, *, scale, causal: bool,
     cols = torch.arange(t, device=q.device)
 
     def block(qc, roff):
-        scores = torch.einsum("bshd,bthd->bhst", qc, k) * scale
+        scores = torch.einsum("bshd,bthd->bhst", *_promote(qc, k)) * scale
         scores = scores.to(torch.float32)
         if causal:
             rows = roff + torch.arange(qc.shape[1], device=q.device)
@@ -597,3 +627,31 @@ def init_mla_cache(batch: int, max_len: int, cfg, dtype=torch.bfloat16,
                                 device=device),
             "k_rope": torch.zeros((batch, max_len, 1, m.rope_dim),
                                   dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_attention(params, x, enc_out, *, cfg,
+                    enc_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Attention of ``x`` (B, S, d) over the encoder output ``enc_out`` (B,
+    T, d), full multi-head and unmasked, or masked by ``enc_mask`` (B, T;
+    True = attend) through the grouped form. K/V are projected from
+    ``enc_out`` at every call (a decode step recomputes them; there is no
+    cross-KV cache, as in the reference). ``x`` and ``enc_out`` may differ
+    in dtype: the products promote as ``jnp`` does, so a bfloat16 ``x``
+    over a float32 ``enc_out`` gives a float32 result."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    t = enc_out.shape[1]
+    q = linear(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
+    k = linear(params["wk"], enc_out).reshape(b, t, cfg.n_heads, hd)
+    v = linear(params["wv"], enc_out).reshape(b, t, cfg.n_heads, hd)
+    if enc_mask is not None:
+        mask = torch.where(enc_mask, 0.0, NEG_INF)[:, None, None, None, :]
+        out = _grouped_attention(q, k, v, mask, hd ** -0.5)
+    else:
+        out = _chunked_attention(q, k, v, scale=hd ** -0.5, causal=False,
+                                 q_chunk=cfg.attn_q_chunk)
+    return linear(params["wo"], out.reshape(b, s, cfg.n_heads * hd))

@@ -15,8 +15,9 @@ import torch
 
 from repro_torch.models.layers import (by_position, init_embedding,
                                        init_norm, linear, rms_norm)
-from repro_torch.models.transformer import (_rope_dim, apply_stack,
-                                            init_cache, init_stack,
+from repro_torch.models.transformer import (_rope_dim, apply_encoder,
+                                            apply_stack, init_cache,
+                                            init_encoder, init_stack,
                                             layer_plan, rope_values)
 
 
@@ -69,10 +70,10 @@ class LM:
         ``device``; default: the CUDA device). Shapes, dtypes and standard
         deviations follow the reference package's init: dense kernels are
         float32 with std 1/sqrt(d_in), the embedding (and an untied head) is
-        in the config's dtype with std 0.02. The numbers are torch's own."""
+        in the config's dtype with std 0.02. The numbers are torch's own.
+        An encoder-decoder config adds the ``encoder`` subtree
+        (``transformer.init_encoder``)."""
         device = torch.device("cuda" if device is None else device)
-        if self.cfg.is_encdec:
-            raise NotImplementedError("not ported yet: encoder-decoder models")
         dt = _dtype(self.cfg)
         p = {"embedding": init_embedding(generator, self.cfg.vocab,
                                          self.cfg.d_model, dt, device=device),
@@ -84,6 +85,8 @@ class LM:
             w = torch.randn((self.cfg.d_model, self.cfg.vocab),
                             generator=generator, dtype=dt, device=device)
             p["lm_head"] = {"w": w.mul_(0.02)}
+        if self.cfg.is_encdec:
+            p["encoder"] = init_encoder(generator, self.cfg, device=device)
         return p
 
     # ------------------------------------------------------------- forward
@@ -101,11 +104,22 @@ class LM:
             return x @ w.T.to(x.dtype)
         return linear(params["lm_head"], x)
 
+    def _encode(self, params, batch):
+        """The encoder output of ``batch["enc_frames"]`` (None for a
+        decoder-only model)."""
+        if not self.cfg.is_encdec:
+            return None
+        return apply_encoder(params["encoder"], batch["enc_frames"],
+                             cfg=self.cfg)
+
     def forward(self, params, batch, mode: str = "prefill",
                 caches: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
         """(logits, new_caches). ``mode="train"`` (no cache) records
-        autograd; the serving modes run under ``torch.no_grad``."""
+        autograd; the serving modes run under ``torch.no_grad``. An
+        encoder-decoder model attends over ``batch["enc_out"]`` if given,
+        else encodes ``batch["enc_frames"]``; the new caches carry the
+        encoder output (``"enc_out"``) for the decode steps."""
         if mode == "train":
             return self._forward(params, batch, mode)[:2]
         with torch.no_grad():
@@ -164,13 +178,19 @@ class LM:
             rope = rope_values(positions, _rope_dim(self.cfg),
                                self.cfg.rope_theta)
         x = self._embed(params, tokens)
+        enc_out = batch.get("enc_out")
+        if enc_out is None:
+            enc_out = self._encode(params, batch)
         x, new_caches, aux = apply_stack(params["stack"], x, cfg=self.cfg,
                                          rope=rope, mode=mode, caches=caches,
-                                         pos=pos, block_tables=block_tables)
+                                         pos=pos, enc_out=enc_out,
+                                         block_tables=block_tables)
         if new_caches is not None:
             new_caches["pos"] = pos + s
             if block_tables is not None:
                 new_caches["block_tables"] = block_tables
+            if enc_out is not None:
+                new_caches["enc_out"] = enc_out
         if mode == "verify":
             # the final norm and the logits product (cuBLAS under a tied
             # embedding) position by position, as decode runs them
@@ -181,7 +201,8 @@ class LM:
     # --------------------------------------------------------------- train
     def train_loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
         """``(xent + 0.01 * moe_aux, {"xent", "moe_aux"})`` of ``batch``
-        (``tokens`` and ``labels``, labels ``< 0`` masked), with autograd."""
+        (``tokens`` and ``labels``, labels ``< 0`` masked; an
+        encoder-decoder's ``enc_frames`` too), with autograd."""
         logits, _, aux = self._forward(params, batch, "train")
         loss = _xent(logits, batch["labels"])
         return loss + 0.01 * aux, {"xent": loss, "moe_aux": aux}
@@ -189,9 +210,19 @@ class LM:
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, quantize_kv: bool = False,
                    device=None) -> dict:
+        """The stack's caches at the clock 0; an encoder-decoder's also
+        ``"enc_out"``, zeros of ``(batch, max(1, max_len // enc_ratio),
+        d_model)`` in the model dtype (a prefill replaces it with the
+        encoder output it computed, in that output's dtype)."""
         device = torch.device("cuda" if device is None else device)
-        return init_cache(self.cfg, batch, max_len, quantize_kv,
-                          _dtype(self.cfg), device=device)
+        dt = _dtype(self.cfg)
+        c = init_cache(self.cfg, batch, max_len, quantize_kv, dt,
+                       device=device)
+        if self.cfg.is_encdec:
+            enc_len = max(1, max_len // self.cfg.enc_ratio)
+            c["enc_out"] = torch.zeros((batch, enc_len, self.cfg.d_model),
+                                       dtype=dt, device=device)
+        return c
 
     def prefill(self, params, batch, caches) -> Tuple[torch.Tensor, dict]:
         logits, caches = self.forward(params, batch, mode="prefill",
@@ -200,9 +231,12 @@ class LM:
 
     def decode_step(self, params, tokens, caches
                     ) -> Tuple[torch.Tensor, dict]:
-        """tokens: (B, 1) — one new token per sequence."""
-        logits, caches = self.forward(params, {"tokens": tokens},
-                                      mode="decode", caches=caches)
+        """tokens: (B, 1) — one new token per sequence (over the cache's
+        ``enc_out`` for an encoder-decoder: cross K/V are recomputed from it
+        every step, as in the reference)."""
+        logits, caches = self.forward(
+            params, {"tokens": tokens, "enc_out": caches.get("enc_out")},
+            mode="decode", caches=caches)
         return logits[:, -1], caches
 
     def chunk_rows(self, s: int) -> int:
@@ -257,8 +291,9 @@ class LM:
         for bit the logits a decode step at that position gives (every
         row-count-dependent call runs on the B rows of one position, see
         attention's verify mode)."""
-        return self.forward(params, {"tokens": tokens}, mode="verify",
-                            caches=caches)
+        return self.forward(
+            params, {"tokens": tokens, "enc_out": caches.get("enc_out")},
+            mode="verify", caches=caches)
 
     def arch_features(self) -> Tuple[str, ...]:
         """See :func:`arch_features`."""

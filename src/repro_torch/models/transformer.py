@@ -1,5 +1,5 @@
-"""Block assembly: uniform decoder stacks, hybrid (Jamba) period stacks
-and RWKV stacks.
+"""Block assembly: uniform decoder stacks, hybrid (Jamba) period stacks,
+RWKV stacks, and the encoder-decoder's encoder and cross-attention.
 
 The stack is always the unrolled form ``{"list": [period, ...]}`` with
 ``period = {"b0": block, "b1": block, ...}`` (one block per entry of
@@ -15,6 +15,14 @@ The attention is grouped-query (dense or sliding-window) or MLA
 (``models.attention``); the FFN is a dense one or, where ``layer_plan``
 says so, a mixture of experts (``models.moe``). A mamba or rwkv layer's
 cache is its recurrent state (``models.mamba``, ``models.rwkv``).
+
+An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
+cross-attention over the encoder output (``xln``, ``xattn``: x +=
+xattn(xln(x), enc_out), after the self-attention and before the FFN), and
+the model an encoder (:func:`init_encoder`, :func:`apply_encoder`):
+bidirectional attention blocks over precomputed frame embeddings, held as a
+list of layers ``{"layers": [layer, ...], "final_norm": ...}`` (the
+reference stacks them; ``convert.from_jax_params`` unrolls its tree).
 """
 from __future__ import annotations
 
@@ -47,12 +55,16 @@ def _rope_dim(cfg) -> int:
 # single block
 # ---------------------------------------------------------------------------
 
-def init_block(generator, cfg, kind: str, use_moe: bool, device=None
-               ) -> Dict[str, Any]:
+def init_block(generator, cfg, kind: str, use_moe: bool,
+               cross: bool = False, device=None) -> Dict[str, Any]:
     d = cfg.d_model
     po = cfg.norm_plus_one
     p = {"ln1": init_norm(d, plus_one=po, device=device),
          "ln2": init_norm(d, plus_one=po, device=device)}
+    if cross:
+        p["xln"] = init_norm(d, plus_one=po, device=device)
+        p["xattn"] = attn_lib.init_cross_attention(generator, cfg,
+                                                   device=device)
     if kind == "a":
         p["attn"] = attn_lib.init_attention(generator, cfg, device=device)
     elif kind == "m":
@@ -79,12 +91,14 @@ def init_block(generator, cfg, kind: str, use_moe: bool, device=None
 
 
 def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
-                cache: Optional[dict], pos, block_tables=None
+                cache: Optional[dict], pos, enc_out=None, block_tables=None
                 ) -> Tuple[torch.Tensor, Optional[dict],
                            Optional[torch.Tensor]]:
     """Returns (x, new_cache, moe_aux): the MoE load-balancing loss of this
     block (a float32 0-d tensor), None for a dense FFN and in verify
-    mode."""
+    mode. A block with ``xattn`` attends over ``enc_out`` after its
+    self-attention; a float32 ``enc_out`` promotes a bfloat16 residual
+    stream to float32 there, as in the reference."""
     aux = None
     if mode == "verify" and kind != "a":
         # the speculative multi-position verify scores every draft row as
@@ -128,6 +142,9 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
             state=cache, mode=mode, chunk=cfg.mamba_chunk,
             dt_rank=cfg.mamba.dt_rank or max(1, cfg.d_model // 16))
     x = x + h
+    if "xattn" in p:
+        x = x + attn_lib.cross_attention(
+            p["xattn"], rms_norm(p["xln"], x, plus_one=po), enc_out, cfg=cfg)
     h2 = norm(p["ln2"], x)
     if use_moe:
         # dropless at decode and verify: with no capacity competition each
@@ -204,7 +221,7 @@ def unstack_stack(stack: Dict[str, Any], periods: int) -> Dict[str, Any]:
 def init_stack(generator, cfg, device=None) -> Dict[str, Any]:
     pattern = layer_plan(cfg)
     return {"list": [{f"b{i}": init_block(generator, cfg, kind, moe,
-                                          device=device)
+                                          cross=cfg.is_encdec, device=device)
                       for i, (kind, moe) in enumerate(pattern)}
                      for _ in range(n_periods(cfg))]}
 
@@ -248,13 +265,14 @@ def init_cache(cfg, batch: int, max_len: int, quantize_kv: bool = False,
 
 
 def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
-                block_tables=None
+                enc_out=None, block_tables=None
                 ) -> Tuple[torch.Tensor, Any, Optional[torch.Tensor]]:
     """Run all layers. Returns (x, new_caches, moe_aux): in train mode the
     mean over periods of each period's summed MoE aux loss (a float32 0-d
     tensor, zero for a dense stack), else None. ``pos`` is the integer
     clock of a contiguous cache or the per-slot position vector of a paged
-    one; ``block_tables`` (paged decode) reaches every layer's pool.
+    one; ``block_tables`` (paged decode) reaches every layer's pool;
+    ``enc_out`` (an encoder-decoder's encoder output) every cross-attention.
 
     In train mode with ``cfg.remat`` and autograd recording, each period
     runs under ``torch.utils.checkpoint`` (the reference's
@@ -279,6 +297,7 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
             xin, c_out, aux = apply_block(pp[f"b{i}"], xin, cfg=cfg,
                                           kind=kind, use_moe=moe, rope=rope,
                                           mode=mode, cache=c_in, pos=pos,
+                                          enc_out=enc_out,
                                           block_tables=block_tables)
             if train and aux is not None:
                 aux_sum = aux_sum + aux
@@ -304,3 +323,48 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
         new_list.append(new_c if new_c else pc)
     aux = aux_total / max(len(stack["list"]), 1) if train else None
     return x, ({"list": new_list} if needs_cache else None), aux
+
+
+# ---------------------------------------------------------------------------
+# encoder (seamless: bidirectional over stubbed frame embeddings)
+# ---------------------------------------------------------------------------
+
+def init_encoder(generator, cfg, device=None) -> Dict[str, Any]:
+    """``cfg.encoder_layers`` blocks of full multi-head self-attention and
+    an FFN of ``cfg.ffn_kind``, as a list, and the final norm."""
+    d = cfg.d_model
+
+    def one():
+        return {"ln1": init_norm(d, device=device),
+                "attn": attn_lib.init_cross_attention(generator, cfg,
+                                                      device=device),
+                "ln2": init_norm(d, device=device),
+                "ffn": ffn_lib.init_ffn(generator, d, cfg.d_ff, cfg.ffn_kind,
+                                        device=device)}
+
+    return {"layers": [one() for _ in range(cfg.encoder_layers)],
+            "final_norm": init_norm(d, device=device)}
+
+
+def apply_encoder(enc, frames, *, cfg) -> torch.Tensor:
+    """frames: (B, T, d) precomputed frontend embeddings (the audio
+    frontend is a stub) → (B, T, d) in ``frames``' dtype. Unmasked
+    attention, no rotary (the reference computes a rope it never uses) and
+    norms without ``plus_one``, as in the reference. With ``cfg.remat`` and
+    autograd recording, each layer runs under ``torch.utils.checkpoint``
+    (the reference's ``jax.checkpoint`` of its scan body)."""
+    def body(pp, x):
+        h = rms_norm(pp["ln1"], x)
+        x = x + attn_lib.cross_attention(pp["attn"], h, h, cfg=cfg)
+        return x + ffn_lib.ffn(pp["ffn"], rms_norm(pp["ln2"], x),
+                               cfg.ffn_kind)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    x = frames
+    for pp in enc["layers"]:
+        if remat:
+            x = torch.utils.checkpoint.checkpoint(body, pp, x,
+                                                  use_reentrant=False)
+        else:
+            x = body(pp, x)
+    return rms_norm(enc["final_norm"], x)

@@ -196,6 +196,14 @@ class RoundScheduler(_SchedulerBase):
 
         cache = self.kv.fresh(b)
         batch = {"tokens": torch.from_numpy(tokens).to(dev)}
+        mcfg = self.model.cfg
+        if mcfg.is_encdec:
+            # the frontend is a stub: float32 zero frames, one per enc_ratio
+            # prompt positions, as the reference feeds (a bfloat16 model
+            # therefore decodes in float32 after its first cross-attention)
+            batch["enc_frames"] = torch.zeros(
+                (b, max(1, plen // mcfg.enc_ratio), mcfg.d_model),
+                dtype=torch.float32, device=dev)
         t0 = time.perf_counter()
         logits, cache = self.eng._prefill(params, batch, cache)
         self.eng._sync()

@@ -94,12 +94,18 @@ def decay_mask(params: Any, stacked: bool = False) -> Any:
     of two or more dimensions in the reference's layout. With ``stacked``
     (the reference's ``scan_layers`` stack of more than one period) a leaf
     of ``params["stack"]["list"]`` has the layer axis in front there, so a
-    1-D norm gain is a (periods, d) leaf and decays."""
+    1-D norm gain is a (periods, d) leaf and decays. An encoder-decoder's
+    encoder layers (``params["encoder"]["layers"]``) are stacked there
+    whatever the config says, so their norm gains always decay."""
     mask = tree_map(lambda p: p.ndim >= 2, params)
-    if stacked and isinstance(params, dict) \
-            and "list" in params.get("stack", {}):
+    if not isinstance(params, dict):
+        return mask
+    if stacked and "list" in params.get("stack", {}):
         mask["stack"] = dict(mask["stack"], list=tree_map(
             lambda p: p.ndim >= 1, params["stack"]["list"]))
+    if "layers" in params.get("encoder", {}):
+        mask["encoder"] = dict(mask["encoder"], layers=tree_map(
+            lambda p: p.ndim >= 1, params["encoder"]["layers"]))
     return mask
 
 

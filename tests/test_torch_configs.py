@@ -1,10 +1,10 @@
 """Port vs reference: the architecture registry and the assigned shapes.
 
 Every registry entry equals the reference's ``ArchConfig`` field by field
-(full and ``reduced()``), ``SHAPES`` and ``cells()`` are equal, the
-architecture whose model is not ported (enc-dec) raises its named
-``NotImplementedError("not ported yet: …")``, and the others build and
-prefill."""
+(full and ``reduced()``), ``SHAPES`` and ``cells()`` are equal, what the
+port does not serve for an architecture (as the reference does not: the
+continuous scheduler for the encoder-decoder) raises its named
+``NotImplementedError``, and every architecture builds and prefills."""
 import dataclasses
 
 import pytest
@@ -13,6 +13,7 @@ import torch
 from repro import configs as jcfg
 from repro_torch import configs as tcfg
 from repro_torch.models.model import build_model
+from repro_torch.serving.engine import ServeConfig, ServeEngine
 
 ARCHS = jcfg.list_archs()
 
@@ -53,10 +54,13 @@ def test_shapes_and_cells_equal_reference():
     assert tcfg.cells(cfgs_t) == jcfg.cells(cfgs_j)
 
 
-# the unported mixer of each architecture, where it raises
+# what an architecture is not served on, where it raises: the reference's
+# encdec_x_continuous gate (an encoder-decoder model, ported, serves on the
+# round scheduler only)
 UNPORTED = {
-    "seamless-m4t-medium": ("init",
-                            "not ported yet: encoder-decoder models"),
+    "seamless-m4t-medium": ("continuous",
+                            "continuous scheduler does not support "
+                            "encoder-decoder models"),
 }
 
 
@@ -67,22 +71,22 @@ def test_unported_mixer_raises_its_named_error(name):
                               dtype="float32")
     model = build_model(cfg)
     gen = torch.Generator().manual_seed(0)
+    params = model.init(gen, device="cpu")
     with pytest.raises(NotImplementedError, match=msg):
-        if where == "init":
-            model.init(gen, device="cpu")
-        else:
-            model.init(gen, device="cpu")
-            model.init_cache(1, 16, device="cpu")
+        ServeEngine(model, params, ServeConfig(scheduler=where),
+                    device="cpu")
 
 
 @pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "chameleon-34b",
                                   "granite-3-8b", "gemma-7b", "minitron-4b",
                                   "minicpm3-4b", "mixtral-8x7b",
-                                  "jamba-1.5-large-398b", "rwkv6-1.6b"])
+                                  "jamba-1.5-large-398b", "rwkv6-1.6b",
+                                  "seamless-m4t-medium"])
 def test_ported_architectures_init_and_run(name):
-    """The reduced configs whose mixers are ported build, and a prefill
-    gives finite logits of the expected shape (MLA and mixtral's ring, then
-    jamba's mamba and rwkv, since they were ported; they raised before)."""
+    """The reduced configs build, and a prefill gives finite logits of the
+    expected shape (MLA and mixtral's ring, then jamba's mamba and rwkv,
+    then the encoder-decoder over random frames, since they were ported;
+    they raised before)."""
     cfg = dataclasses.replace(tcfg.get_config(name, reduced=True),
                               dtype="float32")
     model = build_model(cfg)
@@ -90,6 +94,10 @@ def test_ported_architectures_init_and_run(name):
     caches = model.init_cache(2, 16, device="cpu")
     tokens = torch.randint(0, cfg.vocab, (2, 5),
                            generator=torch.Generator().manual_seed(1))
-    logits, _ = model.prefill(params, {"tokens": tokens}, caches)
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["enc_frames"] = torch.randn(
+            (2, 5, cfg.d_model), generator=torch.Generator().manual_seed(2))
+    logits, _ = model.prefill(params, batch, caches)
     assert logits.shape == (2, cfg.vocab)
     assert bool(torch.isfinite(logits).all())
