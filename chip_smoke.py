@@ -170,9 +170,11 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    native buckets, the bf16 head's 256 206 rows on the stacked route),
    served in bfloat16 with one round of eight 256-token requests over the
    scheduler's float32 zero frames (the decoder runs float32 from layer
-   0's cross-attention on, so kernel B takes its float32 variants there),
-   kernel B's launches by weight shape held to what the forwards imply
-   (121 a decode step, 5 of them bfloat16; the encoder's 72 a prefill),
+   0's cross-attention on, so kernel B takes its float32 instances
+   ``tcgemv32`` / ``mma32`` there), kernel B's launches by weight shape
+   held to what the forwards imply (121 a decode step: ``tcgemv`` 5,
+   ``tcgemv32`` 92, ``mma32`` 24; a prefill's 193: ``mma`` 5, ``mma32``
+   188, the encoder's 72 among them; never ``gemv`` or ``tiled``),
    one decode step traced (kernel B by part and variant, attention, the
    rest), the continuous scheduler refused with the reference's message;
    (b) the same tree against the plain versions: every leaf's codes (the
@@ -186,8 +188,11 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    peak memory, then the trained tree quantized and served one round.
    Phase 2 also holds kernel A at 14a's buckets and kernel B at every
    launch shape 14a-d made, and times kernel B with float32 activations
-   at 14a's shapes (``gemv`` at 8 rows, ``tiled`` at 512 and 2 048) beside
-   ``torch.matmul`` in float32 (TF32 off) on pre-dequantized weights.
+   at 14a's shapes three ways in one call: the float32 instance
+   (``tcgemv32`` at 8 rows, ``mma32`` at 512 and 2 048), the CUDA-core
+   variant it replaced (``gemv`` / ``tiled`` by an explicit plan) and
+   ``torch.matmul`` in float32 (TF32 off) on pre-dequantized weights,
+   beside the bound of three bf16 passes at 989 TFLOP/s.
 The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 2,
 5: the short w4 run pays the one-time start-up costs, and phase 2 times
 the kernels at the shapes phases 3, 6, 8 and 10 produced and compares
@@ -621,9 +626,10 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                    experts=None, plans=None, phase12=None, phase13=None,
                    phase14=None):
     """Kernel B against its plain version at the main paths' shapes, a
-    ragged N and a ragged M, every variant and dtype (bfloat16 also at the
-    prefill variant's 17, 43 and 64 rows: a chunk tail, a ragged chunk, a
-    whole chunk); two launches bit-identical at every comparison; then times
+    ragged N and a ragged M, every variant and dtype (also at the prefill
+    instances' 17, 43 and 64 rows: a chunk tail, a ragged chunk, a whole
+    chunk; float32 there takes ``mma32``'s one-m-tile plan); two launches
+    bit-identical at every comparison; then times
     at the seven projections' shapes, bfloat16, int8, per-channel scales:
     the decode batches (the first, phase 6's, is the headline sum over one
     layer), the prefill rows (each summed over one layer too), 4-bit
@@ -662,8 +668,6 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         for b in sorted({1, 8, 16, 17, 43, 64, 512} | set(decode_batches)):
             for bits in (8, 4):
                 for dt in (torch.float32, torch.bfloat16):
-                    if dt == torch.float32 and b in (17, 43, 64):
-                        continue
                     for per_group in (False, True):
                         if per_group and n % 128:
                             continue
@@ -773,7 +777,14 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         kernel_b_phase14_times(dev, gen, phase14)
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
-    entry = dict(KERNEL_B, experts=expert_layer, max_abs_err=worst["bfloat16"],
+    entry = dict(KERNEL_B, variants=list(dm.VARIANTS),
+                 float32_instances={
+                     "tcgemv32": "tcgemv_kernel<NT, PACKED, true>: float32 "
+                                 "x at B <= 16, replaces gemv there",
+                     "mma32": "pf_kernel<1, PACKED, GROUPED, true>: "
+                              "float32 x above 16 rows, replaces tiled "
+                              "there"},
+                 experts=expert_layer, max_abs_err=worst["bfloat16"],
                  max_abs_err_float32=worst["float32"],
                  max_rel_err=worst_rel,
                  tolerance="float32: rtol 1e-4, atol 1e-4*max|ref| (sum order "
@@ -800,13 +811,16 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     return entry
 
 
-def _b_timed(dev, gen, m, n, b, bits, dt):
+def _b_timed(dev, gen, m, n, b, bits, dt, also=None):
     """Kernel B at one cell (``b`` rows of ``dt`` on an (M, N) weight,
     ``bits``, per-channel scales) against its plain version, and timed:
     device ms by CUDA-graph replay with a cold L2 (the calls cycle through
     input sets whose reads exceed twice the L2), the wrapper's eager call,
     the host's cost of issuing it, the plain version, the library's
-    ``torch.matmul`` on pre-dequantized weights and the bound."""
+    ``torch.matmul`` on pre-dequantized weights and the bound. ``also``
+    ({name: plan}): other plans (``dequant_matmul(plan=)``) timed the same
+    way on the same inputs, each held to the plain version too, reported
+    as ``<name>_ms``."""
     from repro_torch.kernels import dequant_matmul as dm
     wbytes = m * n // (2 if bits <= 4 else 1)
     n_sets = max(2, min(64, math.ceil(L2_COLD_BYTES / wbytes)))
@@ -826,6 +840,18 @@ def _b_timed(dev, gen, m, n, b, bits, dt):
     calls = [(lambda d=d, s=s: dm.dequant_matmul(
         x, d, s, bits=bits, group_size=gs)) for d, s in cases]
     ms = time_ms(calls, iters)
+    also_ms = {}
+    for name, plan in (also or {}).items():
+        ya = dm.dequant_matmul(x, *cases[0], bits=bits, group_size=gs,
+                               plan=plan).float()
+        if not torch.allclose(ya, r, rtol=tol,
+                              atol=tol * max(float(r.abs().max()), 1.0)):
+            raise AssertionError(f"kernel B's {plan} != plain at "
+                                 f"{(b, m, n, bits)}")
+        also_ms[f"{name}_ms"] = time_ms(
+            [(lambda d=d, s=s, p=plan: dm.dequant_matmul(
+                x, d, s, bits=bits, group_size=gs, plan=p))
+             for d, s in cases], iters)
     wrapper_ms = time_ms(calls, iters, graph=False)
     call_host_ms = host_ms(calls, iters)
     plain_ms = time_ms([(lambda d=d, s=s: dm.dequant_matmul_plain(
@@ -851,7 +877,7 @@ def _b_timed(dev, gen, m, n, b, bits, dt):
             "variant": var, "splits": splits, "units_per_split": ups,
             "input_sets": n_sets,
             "library_input_sets": n_lib,
-            "ms": ms, "eager_call_ms": wrapper_ms,
+            "ms": ms, **also_ms, "eager_call_ms": wrapper_ms,
             "host_ms": call_host_ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "library_host_ms": lib_host_ms,
             "bound_ms": bound,
@@ -1152,7 +1178,9 @@ def slice_vs_plain(dev, seed):
             logits.append(lg)
         return torch.stack(logits), toks
 
+    c0 = ops.launch_counts()
     lk, tk = run(tree_k)
+    by = _b_by_variant(ops.launches_between(c0, ops.launch_counts()))
     with ops.force_backend("ref"):
         lp, tp = run(tree_p)
     torch.cuda.synchronize()
@@ -1168,6 +1196,7 @@ def slice_vs_plain(dev, seed):
     paged = paged_vs_plain(dev, seed)
     emit({"phase": "5 slice vs plain versions", "layers": 2,
           "dtype": "float32", "codes_tie_rule": ties,
+          "dequant_matmul_by_variant": by,
           "logits_max_abs_err": err, "logits_max_abs": mag,
           "tolerance": f"{tol} * max|logit|", "greedy_tokens_equal": True,
           "tokens": tk, "bfloat16": bf16, **paged})
@@ -1207,7 +1236,7 @@ def bf16_slice_vs_plain(dev, model, tree, prompt, steps=8):
     torch.cuda.synchronize()
     by = dict(dm.launches_by_variant)
     linears = 7 * model.cfg.n_layers
-    want = {"gemv": 0, "tcgemv": linears * steps, "mma": linears, "tiled": 0}
+    want = _variants(tcgemv=linears * steps, mma=linears)
     if by != want:
         raise AssertionError(f"bf16 slice: kernel B launches by variant {by}, "
                              f"path implies {want}")
@@ -1283,8 +1312,8 @@ def bf16_paged_vs_plain(dev, seed, model, tree, chunk=32):
     rep, dk, rows_k, ck, n_dec, by = run(oracle)
     linears = 7 * model.cfg.n_layers
     big = sum(1 for r in rows_k if r > 16)
-    want = {"gemv": 0, "tiled": 0, "mma": linears * big,
-            "tcgemv": linears * (n_dec + len(rows_k) - big)}
+    want = _variants(mma=linears * big,
+                     tcgemv=linears * (n_dec + len(rows_k) - big))
     if rows_k != rows_p or dk.shape != dp.shape or big == 0:
         raise AssertionError(f"bf16 paged: the runs differ in shape (chunk "
                              f"rows {rows_k} vs {rows_p}, decode logits "
@@ -1935,7 +1964,7 @@ def drive_continuous(dev, seed, layers, phase, quantize_kv=False,
     for rows in chk.log:
         b_parts = _add_counts(b_parts, kernel_b_forward(cfg, layers, rows,
                                                         False))
-    want_by = {"gemv": 0, "tiled": 0, "mma": 0, "tcgemv": 0}
+    want_by = _variants()
     for by in b_parts.values():
         for var, n in by.items():
             want_by[var] += n
@@ -2200,14 +2229,20 @@ def paged_vs_plain(dev, seed, arch="granite-3-8b"):
         dec = eng._decode = _Counted(eng._decode, keep)
         chk = eng._prefill_chunk = _Counted(eng._prefill_chunk,
                                             lambda a, o: o[0].float().cpu())
+        c0 = ops.launch_counts()
         outs = eng.generate(reqs)
+        # what the wrappers issued plus what the replays launched
+        launched = ops.combine_launches(
+            ops.launches_between(c0, ops.launch_counts()),
+            eng.replay_launches())
         eng.close()
         return ([o.tokens for o in outs], torch.cat(dec.log),
-                torch.cat([x[None] for x in chk.log]))
+                torch.cat([x[None] for x in chk.log]),
+                _b_by_variant(launched))
 
-    tk, dk, ck = run()
+    tk, dk, ck, by = run()
     with ops.force_backend("ref"):
-        tp, dp, cp = run()
+        tp, dp, cp, _ = run()
     err = max(float((dk - dp).abs().max()), float((ck - cp).abs().max()))
     mag = max(float(dp.abs().max()), float(cp.abs().max()))
     tol = 1e-3          # of the largest logit: float32 sum order, two layers
@@ -2218,7 +2253,8 @@ def paged_vs_plain(dev, seed, arch="granite-3-8b"):
                              f"|logit| {mag})")
     return {"paged_logits_max_abs_err": err, "paged_logits_max_abs": mag,
             "paged_greedy_tokens_equal": True,
-            "paged_decode_forwards": int(dk.shape[0])}
+            "paged_decode_forwards": int(dk.shape[0]),
+            "paged_dequant_matmul_by_variant": by}
 
 
 # ---------------------------------------------------------------------------
@@ -2242,8 +2278,7 @@ def _spec_path_launches(layers, chunk_rows, verify_s, chain_s, draft_rows):
     tc8 = 7 * layers * (sum(verify_s) + len(chunk_rows) - big)
     tc4 = 7 * layers * (sum(chain_s) + len(draft_rows) - draft_big)
     mma8, mma4 = 7 * layers * big, 7 * layers * draft_big
-    return {"by_variant": {"gemv": 0, "tiled": 0, "tcgemv": tc8 + tc4,
-                           "mma": mma8 + mma4},
+    return {"by_variant": _variants(tcgemv=tc8 + tc4, mma=mma8 + mma4),
             "split": {"tcgemv_int8": tc8, "tcgemv_int4": tc4,
                       "mma_int8": mma8, "mma_int4": mma4},
             "paged_attention": layers * sum(verify_s)}
@@ -2626,8 +2661,8 @@ def _serve_paged(dev, model, tree, reqs):
                                     eng.replay_launches())
     layers = model.cfg.n_layers
     big = sum(1 for rows in chk.log if rows > 16)
-    want = {"gemv": 0, "tiled": 0, "mma": 7 * layers * big,
-            "tcgemv": 7 * layers * (dec.calls + chk.calls - big)}
+    want = _variants(mma=7 * layers * big,
+                     tcgemv=7 * layers * (dec.calls + chk.calls - big))
     st = eng.stats()
     res = {"tokens": [o.tokens for o in outs], "run_s": run_s,
            "stage_ms": eng.store.current.staged_ms,
@@ -4599,6 +4634,20 @@ def _launch_deltas(before, after):
             if after.get(k, 0) - before.get(k, 0)}
 
 
+def _variants(**counts):
+    """Kernel B's launches by variant as the wrapper counts them: ``counts``
+    and 0 for every other variant id."""
+    from repro_torch.kernels.dequant_matmul import VARIANTS
+    return dict(dict.fromkeys(VARIANTS, 0), **counts)
+
+
+def _b_by_variant(counts):
+    """Kernel B's launches by variant in a :func:`ops.launch_counts`-form
+    count, the variants that launched only."""
+    return {v: n for v, n in
+            counts["dequant_matmul.launches_by_variant"].items() if n}
+
+
 def _served(dev, model, tree, cfg, reqs, label, check_b=True, repeat=False):
     """Serve ``reqs`` eagerly on ``cfg`` over the quantized ``tree`` (a
     store of its own, sharing the tree): tokens, step ms, the forwards
@@ -4975,7 +5024,9 @@ def _decode_vs_plain(dev, model, tree, prompt, steps=8):
             logits.append(lg)
         return torch.stack(logits), toks
 
+    c0 = ops.launch_counts()
     lk, tk = run(tree)
+    by = _b_by_variant(ops.launches_between(c0, ops.launch_counts()))
     with ops.force_backend("ref"):
         lp, _ = run(tree, forced=tk)
     torch.cuda.synchronize()
@@ -4983,7 +5034,8 @@ def _decode_vs_plain(dev, model, tree, prompt, steps=8):
     equal = bool(torch.equal(lk.argmax(-1), lp.argmax(-1)))
     out = {"prompt": list(prompt.shape), "decode_steps": steps,
            "logits_max_abs_err": err, "logits_max_abs": mag,
-           "teacher_forced_tokens_equal": equal}
+           "teacher_forced_tokens_equal": equal,
+           "dequant_matmul_by_variant": by}
     if not equal or err > 1e-3 * mag:
         raise AssertionError(f"kernels vs plain at 2 layers: {out}")
     return out
@@ -5779,10 +5831,11 @@ def _encdec_part(part):
 def _encdec_variant(rows, dtype):
     """Kernel B's variant for ``rows`` rows of ``dtype`` on the path's
     aligned shapes (N a multiple of 128): bfloat16 as :func:`_variant`;
-    float32 takes ``gemv`` up to 16 rows and ``tiled`` above."""
+    float32 takes the float32 instances, ``tcgemv32`` up to 16 rows and
+    ``mma32`` above."""
     if dtype == "bfloat16":
         return _variant(rows)
-    return "gemv" if rows <= 16 else "tiled"
+    return "tcgemv32" if rows <= 16 else "mma32"
 
 
 def _encdec_expected(cfg, log, enc_len, enc_dtype="float32"):
@@ -5851,6 +5904,9 @@ def _serve_encdec_round(dev, model, tree, reqs, label):
                           "peak_during_round": peak / 1e9},
             "tokens": [o.tokens for o in outs],
             "dequant_matmul_by_shape": got,
+            "dequant_matmul_by_variant": dict(sum(
+                (collections.Counter({k.split()[0]: n})
+                 for k, n in got.items()), collections.Counter())),
             "dequant_matmul_by_part_and_variant": parts,
             "dequant_matmul_by_dtype": dts,
             "dequant_matmul": sum(got.values())}
@@ -6049,9 +6105,11 @@ def drive_encdec(dev, seed):
     bfloat16 on the round scheduler with one round of ENCDEC_BATCH requests
     of ENCDEC_PROMPT tokens (the scheduler's float32 zero frames: the
     decoder runs float32 from layer 0's cross-attention on, so kernel B
-    runs its float32 variants on every projection but layer 0's first
+    runs its float32 instances on every projection but layer 0's first
     five), kernel B's launches by shape held to what the forwards imply
-    and a decode step's to 121 (5 bfloat16, 116 float32), one decode step
+    and a decode step's to 121 (5 bfloat16 on ``tcgemv``, 116 float32:
+    ``tcgemv32`` 92, ``mma32`` 24; a prefill's to ``mma`` 5 and ``mma32``
+    188), one decode step
     traced, the continuous scheduler refused with the reference's gate;
     then 14b (:func:`encdec_vs_plain`). Returns kernel A's and B's
     launches, kernel A's buckets and the line."""
@@ -6082,13 +6140,25 @@ def drive_encdec(dev, seed):
         cfg, 1, 1, "float32", True))
     # ten projections a decoder layer and the head (121 at 12 layers), five
     # of them bfloat16 (layer 0's self-attention q, k, v, o and cross q);
-    # six a layer of the encoder's (72)
+    # six a layer of the encoder's (72). By variant: a step's bfloat16 five
+    # on tcgemv, its float32 ones on tcgemv32 but the cross K/V on the 8 x
+    # 64 encoder rows (mma32); a prefill's five bfloat16 on mma and the
+    # rest on mma32; never gemv or tiled
     per = 10 * cfg.n_layers + 1
+    step_by = collections.Counter(_encdec_variant(r, dt)
+                                  for _, r, _, _, dt in per_step)
+    prefill_by = collections.Counter(
+        _encdec_variant(r, dt) for _, r, _, _, dt in _encdec_linears(
+            cfg, ENCDEC_BATCH * ENCDEC_PROMPT,
+            ENCDEC_BATCH * ENCDEC_PROMPT // cfg.enc_ratio, "float32", True))
     if (len(per_step), step_dts["bfloat16"], step_dts["float32"], enc) != \
-            (per, 5, per - 5, 6 * cfg.encoder_layers):
+            (per, 5, per - 5, 6 * cfg.encoder_layers) or step_by != {
+                "tcgemv": 5, "tcgemv32": per - 5 - 2 * cfg.n_layers,
+                "mma32": 2 * cfg.n_layers} or prefill_by != {
+                "mma": 5, "mma32": per - 5 + enc}:
         raise AssertionError(f"a decode step implies {len(per_step)} kernel-B "
-                             f"launches ({dict(step_dts)}), a prefill's "
-                             f"encoder {enc}")
+                             f"launches ({dict(step_dts)}; {dict(step_by)}), "
+                             f"a prefill's encoder {enc} ({dict(prefill_by)})")
     reqs = make_requests(seed, cfg.vocab, [ENCDEC_PROMPT] * ENCDEC_BATCH,
                          ENCDEC_NEW)
     served = _serve_encdec_round(dev, model, tree, reqs, "14a")
@@ -6118,8 +6188,10 @@ def drive_encdec(dev, seed):
                 "weight_bits", "dequantize_for_compute")},
             "requests": len(reqs), "prompt_length": ENCDEC_PROMPT,
             "new_tokens": ENCDEC_NEW, "round": served,
+            "kernel_b_per_prefill_by_variant": dict(prefill_by),
             "kernel_b_per_decode_step": {
                 "launches": len(per_step), "by_dtype": dict(step_dts),
+                "by_variant": dict(step_by),
                 "by_part_and_variant": dict(collections.Counter(
                     f"{_encdec_part(p)} {_encdec_variant(r, dt)}"
                     for p, r, _, _, dt in per_step))},
@@ -6169,8 +6241,10 @@ def encdec_agreement(dev, seed):
     with ops.force_backend("ref"):
         lp, oracle, _ = _encdec_decode(dev, model, tree, prompt, frames,
                                        ENCDEC_NEW)
+    c0 = ops.launch_counts()
     lk, _, _ = _encdec_decode(dev, model, tree, prompt, frames, ENCDEC_NEW,
                               forced=oracle)
+    by = _b_by_variant(ops.launches_between(c0, ops.launch_counts()))
     # step i's proposal: the argmax of the logits before token i is fed
     got = lk[:ENCDEC_NEW].argmax(-1)
     want = torch.stack(oracle)
@@ -6186,7 +6260,7 @@ def encdec_agreement(dev, seed):
             "codes_tie_rule": codes, "requests": n, "prompt_length": s,
             "frames": list(frames.shape), "new_tokens": ENCDEC_NEW,
             "matched": int(hits.sum()), "compared": hits.numel(),
-            "rate": rate, "gated": 0.95,
+            "rate": rate, "gated": 0.95, "dequant_matmul_by_variant": by,
             "logits_max_abs_err": float((lk - lp).abs().max()),
             "logits_max_abs": float(lp.abs().max()),
             "plain_top2_margin_at_misses": sorted(
@@ -6313,22 +6387,43 @@ def train_encdec(dev, seed, card):
 def kernel_b_phase14_times(dev, gen, cells):
     """Phase 14's kernel-B cells, float32 activations (``cells``: (label, M,
     N, rows)), timed as the main path's cells are (:func:`_b_timed`: cold
-    L2; ``torch.matmul`` in float32 on pre-dequantized weights, with
+    L2) three ways in the same call on the same inputs: the float32
+    instance the rule picks (``tcgemv32`` up to 16 rows, ``mma32`` above;
+    checked), the CUDA-core variant it replaced (``gemv`` / ``tiled``, by
+    an explicit plan: ``old_ms``), and ``torch.matmul``
+    in float32 on pre-dequantized weights with
     ``torch.backends.cuda.matmul.allow_tf32`` as main sets it, False, so
-    its arithmetic is float32's), each with its variant checked (``gemv``
-    up to 16 rows, ``tiled`` above) and its bound: max(bytes / 3.35 TB/s,
-    FLOPs / 67 TFLOP/s, the H100 SXM float32 peak without tensor cores)."""
+    its arithmetic is float32's (``library_ms``). ``bound_ms``: max(bytes /
+    3.35 TB/s, 3 x 2BMN / 989 TFLOP/s), three bf16 passes at the dense bf16
+    peak, the least time float32-exact products on the tensor cores take;
+    ``bound_ms_cuda_cores``: the bound at 67 TFLOP/s, the float32 peak
+    without tensor cores, beside it for the older rows."""
     out = []
     for label, m, n, b in cells:
-        row = dict(_b_timed(dev, gen, m, n, b, 8, torch.float32), label=label)
+        old = ("gemv", 1, n // 128) if b <= 16 else ("tiled", 1, n // 128)
+        row = dict(_b_timed(dev, gen, m, n, b, 8, torch.float32,
+                            also={"old": old}), label=label, old_variant=old[0])
         if row["variant"] != _encdec_variant(b, "float32"):
             raise AssertionError(f"kernel B at {label} took {row}")
+        t_bytes = (m * n + m * 4 + 4 * b * n + 4 * b * m) / HBM_BYTES_PER_S * 1e3
+        t_ops = 3 * 2.0 * b * m * n / PEAK_FLOPS["bfloat16"] * 1e3
+        row.update(bound_ms_cuda_cores=row["bound_ms"],
+                   bound_by_cuda_cores=row["bound_by"],
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        row.update(bound_share=row["bound_ms"] / row["ms"],
+                   speedup_over_old=row["old_ms"] / row["ms"],
+                   speedup_over_library=row["library_ms"] / row["ms"])
         out.append(row)
         torch.cuda.empty_cache()
     return {"cells": out,
             "torch_matmul_allow_tf32": bool(
                 torch.backends.cuda.matmul.allow_tf32),
-            "peak_flops_used": "67e12 float32 (H100 SXM, CUDA cores)"}
+            "peak_flops_used": {
+                "bound_ms": "3 x 989e12: three bf16 passes (hi, mid, lo) on "
+                            "the H100 SXM's dense bf16 tensor cores",
+                "bound_ms_cuda_cores": "67e12 float32 (H100 SXM, CUDA "
+                                       "cores), the earlier bound"}}
 
 
 def drive_phase14(dev, seed, card, memory):
@@ -6339,7 +6434,7 @@ def drive_phase14(dev, seed, card, memory):
     from repro_torch.kernels import dequant_matmul as dm
     t0 = time.perf_counter()
     dm._plans.clear()
-    a_a, s_a, b_a, buckets, _ = drive_encdec(dev, seed)
+    a_a, s_a, b_a, buckets, line_a = drive_encdec(dev, seed)
     plans_a = dm.cached_plans()
     phase_memory("14a-b", memory)
     encdec_agreement(dev, seed)
@@ -6354,7 +6449,10 @@ def drive_phase14(dev, seed, card, memory):
                 "squant_scale": {"14a": s_a,
                                  "14d": d["launches"]["squant_scale"]},
                 "dequant_matmul": {"14a": b_a,
-                                   "14d": d["launches"]["dequant_matmul"]}}
+                                   "14d": d["launches"]["dequant_matmul"]},
+                "dequant_matmul_by_variant": {
+                    "14a": line_a["round"]["dequant_matmul_by_variant"],
+                    "14d": d["served_round"]["dequant_matmul_by_variant"]}}
     return launches, {"a": {"14a": buckets},
                       "b": {"14a-b": plans_a, "14d": plans_d}}
 
@@ -6590,6 +6688,7 @@ def main():
         k["launches_phase12"] = l12[k["name"]]
         k["launches_phase13"] = l13[k["name"]]
         k["launches_phase14"] = l14[k["name"]]
+    kb["launches_phase14_by_variant"] = l14["dequant_matmul_by_variant"]
     emit({"seconds": time.perf_counter() - t_start})
     print(card, flush=True)
     emit({"kernels": [ka, kb, kc, kd, ks]})

@@ -12,11 +12,25 @@
 // computed here, in the kernel's own body: codes are widened in registers
 // and no dequantized weight is ever written to device memory.
 //
-// Four variants behind one entry point. Which one takes a launch is decided
+// Six variants behind one entry point. Which one takes a launch is decided
 // by one rule on shapes, types and alignment, stated once in the wrapper
 // (repro_torch/kernels/dequant_matmul.py: variant) and passed in as
 // `variant`; each variant here refuses (cudaErrorInvalidValue) a launch it
 // cannot take, it never picks another.
+//
+// float32 x on the tensor cores (variants "tcgemv32" and "mma32": the
+// float32 instances of tcgemv_kernel and pf_kernel below). A code (|c| <=
+// 127, or <= 7 for nibbles) is exact in bf16, and a float32 x is exactly
+// hi + mid + lo with hi = bf16_rn(x), mid = bf16_rn(x - hi), lo =
+// bf16_rn(x - hi - mid) (each remainder is exact in float32, and bf16 has
+// float32's exponent range; exact for |x| >= 2^-110, the remainders'
+// last bit then lies above bf16's smallest subnormal), so each product c *
+// hi, c * mid, c * lo is exact in float32. Three bf16 passes accumulating
+// in float32 into one accumulator, hi then mid then lo at every k16 step,
+// give float32's dot product in another order of summation: x is never
+// rounded to bf16 or TF32 as one pass. Both instances widen a code once
+// for the three passes. Their bound: max(bytes / 3.35 TB/s, 3 * 2*B*M*N /
+// 989 TFLOP/s), three times the bf16 instance's operations.
 //
 // * tcgemv_kernel (bfloat16 x, B <= SMALL_BATCH_MAX: every decode linear).
 //   Bound by bytes: M*N code bytes (M*N/2 packed) must cross from device
@@ -51,16 +65,24 @@
 //     scratch and a second launch, a programmatic dependent of the first,
 //     adds them in ascending split order. No atomics: the output bits are
 //     the same run to run, and the launches capture in a CUDA graph.
+//   The float32 instance (id "tcgemv32", the same rule on shapes and
+//   alignment) copies x as float32 (16-byte vectors, twice bf16's), splits
+//   it in registers into the three bf16 B fragments, and issues three
+//   mma.sync per k16 step on one A fragment (the widened codes); its ring
+//   has as many stages as fit the bf16 int8 one-n-tile instance's bytes
+//   (TC_F32_RING: two CTAs an SM where they fit), at least three.
 //
-// * gemv_kernel (float32 x, or bfloat16 x that tcgemv does not take;
-//   B <= SMALL_BATCH_MAX). CUDA cores, float32 throughout: a block of 8
-//   warps owns 16 output rows, stages up to 1024 columns of x for all its
-//   batch rows in shared memory, and each lane reads one aligned 32-bit word
-//   of codes (16 bits when packed) per 128-column step. All of a chunk's
+// * gemv_kernel (float32 or bfloat16 x that the tensor-core instances do
+//   not take: misaligned x or codes, groups that are not whole k-ranges;
+//   B <= SMALL_BATCH_MAX; the first port's body). CUDA cores, float32
+//   throughout: a block of 8 warps owns 16 output rows, stages up to 1024
+//   columns of x for all its batch rows in shared memory, and each lane
+//   reads one aligned 32-bit word of codes (16 bits when packed) per
+//   128-column step. All of a chunk's
 //   code words are requested before x is staged. A 128-column step lies
 //   inside one scale group, so the scale multiplies the lane's partial dot
 //   product once per step. Partial sums are reduced over the warp by
-//   shuffles at the end. float32 x is never rounded to bf16 or TF32.
+//   shuffles at the end, float32 FMAs on the CUDA cores.
 //
 // * pf_kernel, variant id "mma" (bfloat16 x, B > SMALL_BATCH_MAX, N a
 //   multiple of 128, per-channel scales or groups of 128: every prefill
@@ -99,8 +121,19 @@
 //   slower; at 256-384 rows 0.3-0.45 of the operations bound: x is read
 //   again for every 128 output rows and one warpgroup both widens and
 //   issues the products.
-// * tiled_kernel (larger B, everything else: float32 x, ragged N or group
-//   sizes). 2*B*M*N multiply-adds on the CUDA cores in float32. A 64 x 64
+//   The float32 instance (id "mma32", the same rule on shapes, scales and
+//   alignment) takes one 64-token m-tile a CTA; TMA brings the x stage as
+//   float32 in two 128-byte-swizzled boxes of 32 columns (16 KB a stage,
+//   three stages, two CTAs an SM); the consumer reads its A fragments of
+//   the stage from those boxes, splits them in registers into hi / mid /
+//   lo and issues three wgmma m64n128k16 with A from registers (the RS
+//   form: no bf16 copy of x in shared memory) on the one widened B buffer.
+//   Its CTAs are ordered token tile first, so the CTAs that share a row
+//   tile's codes run together and the codes cross from device memory once.
+// * tiled_kernel (larger B, what the tensor-core instances do not take:
+//   ragged N, other group sizes, misaligned x or codes; the first port's
+//   body).
+//   2*B*M*N multiply-adds on the CUDA cores in float32. A 64 x 64
 //   output tile per block of 256 threads, a 4 x 4 micro-tile per thread, K
 //   in steps of 32 through shared memory; codes are multiplied by their
 //   scale while they are written to shared memory.
@@ -122,7 +155,11 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int SMALL_BATCH_MAX = 16;
 
 // Variant ids, as the wrapper's VARIANTS lists them.
-enum Variant { GEMV = 0, TCGEMV = 1, MMA = 2, TILED = 3 };
+enum Variant { GEMV = 0, TCGEMV = 1, MMA = 2, TILED = 3, TCGEMV32 = 4, MMA32 = 5 };
+
+// The activation type of the tensor-core instances: bf16, or float32 (F32).
+template <bool F32> struct Act { using T = __nv_bfloat16; };
+template <> struct Act<true> { using T = float; };
 
 template <bool BF16>
 __device__ __forceinline__ float load_x(const void* x, long long i) {
@@ -150,6 +187,26 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
   return v;
+}
+
+// Two floats rounded to a bf16x2 word, the first in the low half.
+__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Two float32 values (a low) split exactly into three bf16x2 words, a =
+// hi.lo + mid.lo + lo.lo and b likewise in the high halves (see the head
+// note: exact for |x| >= 2^-110 and zeros). A bf16 widens to float32 by a
+// shift into the upper half; each remainder is an exact subtraction.
+__device__ __forceinline__ void split_bf16x3(float a, float b, unsigned& hi,
+                                             unsigned& mid, unsigned& lo) {
+  hi = pack_bf16x2(a, b);
+  const float ra = a - __uint_as_float(hi << 16);
+  const float rb = b - __uint_as_float(hi & 0xFFFF0000u);
+  mid = pack_bf16x2(ra, rb);
+  lo = pack_bf16x2(ra - __uint_as_float(mid << 16),
+                   rb - __uint_as_float(mid & 0xFFFF0000u));
 }
 
 // ---------------------------------------------------------------------------
@@ -374,22 +431,45 @@ constexpr int TC_NR = 2 * TC_MT;                 // code rows of one lane
 
 // KR: the columns of one k-range (a lane holds 16 code bytes of each of its
 // rows: 16 int8 codes, or 32 nibbles); XV: 16-byte x vectors a lane copies
-// per n-tile and k-range; MMAS: k16 steps per k-range.
-template <bool PACKED> struct Tc {
+// per n-tile and k-range (twice as many for float32 x); MMAS: k16 steps per
+// k-range.
+template <bool PACKED, bool F32 = false> struct Tc {
   static constexpr int KR = PACKED ? 128 : 64;
-  static constexpr int XV = PACKED ? 4 : 2;
+  static constexpr int XV = (PACKED ? 4 : 2) * (F32 ? 2 : 1);
   static constexpr int MMAS = PACKED ? 8 : 4;
 };
 
 // 16-byte vectors a lane copies per stage: its code rows, then x.
-template <int NT, bool PACKED>
-__host__ __device__ constexpr int tc_vecs() { return TC_NR + Tc<PACKED>::XV * NT; }
+template <int NT, bool PACKED, bool F32>
+__host__ __device__ constexpr int tc_vecs() {
+  return TC_NR + Tc<PACKED, F32>::XV * NT;
+}
+
+// Bytes of one ring stage of a CTA: every warp's vectors and its scales
+// (TC_NR floats a lane).
+template <int NT, bool PACKED, bool F32>
+__host__ __device__ constexpr int tc_stage_bytes() {
+  return TC_WARPS * 32 * (16 * tc_vecs<NT, PACKED, F32>() + 4 * TC_NR);
+}
+
+// The float32 instances' ring: TC_NSTAGE stages of the int8 one-n-tile
+// instance (110 592 bytes, two CTAs an SM); the others take as many stages
+// as fit it, at least 3.
+constexpr int TC_F32_RING = TC_NSTAGE * tc_stage_bytes<1, false, true>();
+
+template <int NT, bool PACKED, bool F32>
+__host__ __device__ constexpr int tc_nstage() {
+  return !F32 ? TC_NSTAGE
+         : TC_F32_RING / tc_stage_bytes<NT, PACKED, F32>() < 3
+             ? 3
+             : TC_F32_RING / tc_stage_bytes<NT, PACKED, F32>();
+}
 
 // Dynamic shared memory of a CTA: every warp's ring of vectors, then every
-// warp's ring of scales (TC_NR floats a lane and stage).
-template <int NT, bool PACKED>
+// warp's ring of scales.
+template <int NT, bool PACKED, bool F32>
 __host__ __device__ constexpr int tc_smem_bytes() {
-  return TC_WARPS * TC_NSTAGE * 32 * (16 * tc_vecs<NT, PACKED>() + 4 * TC_NR);
+  return tc_nstage<NT, PACKED, F32>() * tc_stage_bytes<NT, PACKED, F32>();
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -471,26 +551,33 @@ __device__ __forceinline__ unsigned widen_i4_pair(unsigned u, int s) {
 // needs no reordering; int4: step j takes columns (8i + s, 8i + s + 4) and
 // (8i + s + 1, 8i + s + 5) with i = j / 2, s = 2 (j % 2), the pairs one
 // mask of a nibble word gives, and x's pairs are formed to match by byte
-// permutes.
-template <int NT, bool PACKED>
+// permutes (bf16) or picked from its float32 vectors 2i and 2i + 1 (F32).
+// F32: x is float32 (and so is y); each B fragment is split into three
+// (split_bf16x3) and the step issues three mma.sync, hi then mid then lo,
+// on the same A fragment into the same accumulators.
+template <int NT, bool PACKED, bool F32>
 __global__ void __launch_bounds__(TC_THREADS)
-tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
+tcgemv_kernel(const typename Act<F32>::T* __restrict__ x,
               const int8_t* __restrict__ codes,
-              const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+              const float* __restrict__ scale,
+              typename Act<F32>::T* __restrict__ y,
               float* __restrict__ part, int b, int m, int n, int scols,
               int gs, int gps) {
-  using T = Tc<PACKED>;
-  constexpr int V = tc_vecs<NT, PACKED>();
+  using T = Tc<PACKED, F32>;
+  using XT = typename Act<F32>::T;
+  constexpr int V = tc_vecs<NT, PACKED, F32>();
+  constexpr int NS = tc_nstage<NT, PACKED, F32>();
+  constexpr int XPV = 16 / sizeof(XT);           // x elements a vector
+  constexpr int PASSES = F32 ? 3 : 1;
   extern __shared__ __align__(16) unsigned char smem[];
   // let the merge pass's CTAs launch early; they wait for this grid's end
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
-  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * TC_NSTAGE * V * 32 +
-                lane;
+  uint4* ring = reinterpret_cast<uint4*>(smem) + warp * NS * V * 32 + lane;
   float* sring = reinterpret_cast<float*>(reinterpret_cast<uint4*>(smem) +
-                                          TC_WARPS * TC_NSTAGE * V * 32) +
-                 (warp * TC_NSTAGE * 32 + lane) * TC_NR;
+                                          TC_WARPS * NS * V * 32) +
+                 (warp * NS * 32 + lane) * TC_NR;
 
   const int kpg = gs / T::KR;                    // k-ranges per group
   const int g0 = blockIdx.y * gps;
@@ -512,7 +599,7 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
     srow[i] = scale + (long long)(rok[i] ? r : 0) * scols;
   }
   // lane's x rows: batch row gid of each n-tile (zeros past B)
-  const __nv_bfloat16* xrow[NT];
+  const XT* xrow[NT];
   bool xok[NT];
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
@@ -521,11 +608,11 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
     xrow[t] = x + (long long)(xok[t] ? bi : 0) * n + tig * (T::KR / 4);
   }
 
-  // copy k-range k of the split into stage k % TC_NSTAGE (one commit group
-  // per call, empty past the end, so the wait count stays fixed)
+  // copy k-range k of the split into stage k % NS (one commit group per
+  // call, empty past the end, so the wait count stays fixed)
   auto issue = [&](int k) {
     if (k < nk) {
-      uint4* slot = ring + (k % TC_NSTAGE) * V * 32;
+      uint4* slot = ring + (k % NS) * V * 32;
       const int col = col0 + k * T::KR;
       const long long cb = PACKED ? (col >> 1) : col;
 #pragma unroll
@@ -536,10 +623,10 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int v = 0; v < T::XV; ++v)
           cp_cached<16>(slot + (TC_NR + t * T::XV + v) * 32,
-                        xrow[t] + col + v * 8, xok[t]);
+                        xrow[t] + col + v * XPV, xok[t]);
       if (k % kpg == 0) {                        // a group starts: its scales
         const int g = scols == 1 ? 0 : col / gs;
-        float* ss = sring + (k % TC_NSTAGE) * 32 * TC_NR;
+        float* ss = sring + (k % NS) * 32 * TC_NR;
 #pragma unroll
         for (int i = 0; i < TC_NR; ++i) cp_cached<4>(ss + i, srow[i] + g, rok[i]);
       }
@@ -559,11 +646,11 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
   for (int i = 0; i < TC_NR; ++i) sreg[i] = 0.f;
 
 #pragma unroll
-  for (int k = 0; k < TC_NSTAGE - 1; ++k) issue(k);
+  for (int k = 0; k < NS - 1; ++k) issue(k);
   for (int k = 0; k < nk; ++k) {
-    issue(k + TC_NSTAGE - 1);          // the next loads before these products
-    cp_async_wait<TC_NSTAGE - 1>();    // k-range k has landed
-    const int st = k % TC_NSTAGE;
+    issue(k + NS - 1);                 // the next loads before these products
+    cp_async_wait<NS - 1>();           // k-range k has landed
+    const int st = k % NS;
     const uint4* slot = ring + st * V * 32;
     const int kin = k % kpg;
     if (kin == 0) {
@@ -582,18 +669,40 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
 
 #pragma unroll
     for (int j = 0; j < T::MMAS; ++j) {
-      unsigned bf[NT][2];
+      unsigned bf[NT][PASSES][2];
 #pragma unroll
       for (int t = 0; t < NT; ++t) {
-        const uint4& X = xv[t][j >> 1];
-        if (PACKED) {                  // (x[s], x[s+4]) and (x[s+1], x[s+5])
-          const unsigned lo = (j & 1) ? X.y : X.x;
-          const unsigned hi = (j & 1) ? X.w : X.z;
-          bf[t][0] = __byte_perm(lo, hi, 0x5410);
-          bf[t][1] = __byte_perm(lo, hi, 0x7632);
-        } else {                       // (x[4j], x[4j+1]), (x[4j+2], x[4j+3])
-          bf[t][0] = (j & 1) ? X.z : X.x;
-          bf[t][1] = (j & 1) ? X.w : X.y;
+        if constexpr (F32) {
+          // the float32 values behind b0 and b1, then their three parts
+          float p[4];
+          if (PACKED) {                // (x[s], x[s+4]) and (x[s+1], x[s+5])
+            const uint4& A = xv[t][2 * (j >> 1)];
+            const uint4& B = xv[t][2 * (j >> 1) + 1];
+            const int s = 2 * (j & 1);
+            p[0] = __uint_as_float(word(A, s));
+            p[1] = __uint_as_float(word(B, s));
+            p[2] = __uint_as_float(word(A, s + 1));
+            p[3] = __uint_as_float(word(B, s + 1));
+          } else {                     // (x[4j], x[4j+1]), (x[4j+2], x[4j+3])
+            const uint4& X = xv[t][j];
+            p[0] = __uint_as_float(X.x);
+            p[1] = __uint_as_float(X.y);
+            p[2] = __uint_as_float(X.z);
+            p[3] = __uint_as_float(X.w);
+          }
+          split_bf16x3(p[0], p[1], bf[t][0][0], bf[t][1][0], bf[t][2][0]);
+          split_bf16x3(p[2], p[3], bf[t][0][1], bf[t][1][1], bf[t][2][1]);
+        } else {
+          const uint4& X = xv[t][j >> 1];
+          if (PACKED) {                // (x[s], x[s+4]) and (x[s+1], x[s+5])
+            const unsigned lo = (j & 1) ? X.y : X.x;
+            const unsigned hi = (j & 1) ? X.w : X.z;
+            bf[t][0][0] = __byte_perm(lo, hi, 0x5410);
+            bf[t][0][1] = __byte_perm(lo, hi, 0x7632);
+          } else {                     // (x[4j], x[4j+1]), (x[4j+2], x[4j+3])
+            bf[t][0][0] = (j & 1) ? X.z : X.x;
+            bf[t][0][1] = (j & 1) ? X.w : X.y;
+          }
         }
       }
 #pragma unroll
@@ -612,7 +721,9 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
           widen_i8(word(cv[2 * i + 1], j), a[1], a[3]);
         }
 #pragma unroll
-        for (int t = 0; t < NT; ++t) mma_bf16(grp[i][t], a, bf[t]);
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int p = 0; p < PASSES; ++p) mma_bf16(grp[i][t], a, bf[t][p]);
       }
     }
     if (kin == kpg - 1) {              // the group ends: times its scale
@@ -641,25 +752,27 @@ tcgemv_kernel(const __nv_bfloat16* __restrict__ x,
         const int bi = t * 8 + tig * 2 + (e & 1);
         if (row < m && bi < b) {
           if (gridDim.y == 1)
-            y[(long long)bi * m + row] = __float2bfloat16_rn(tot[i][t][e]);
+            store_y<!F32>(y, (long long)bi * m + row, tot[i][t][e]);
           else
             pp[(long long)bi * m + row] = tot[i][t][e];
         }
       }
 }
 
-// The splits' partials added in ascending split order, one output a thread.
-// Launched as a programmatic dependent of tcgemv_kernel: it waits here for
-// that grid's end.
+// The splits' partials added in ascending split order, one output a thread,
+// into y of x's type (bf16, or float32 for the F32 instances). Launched as
+// a programmatic dependent of the pass before it: it waits here for that
+// grid's end.
+template <bool BF16>
 __global__ void __launch_bounds__(256)
-tcgemv_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
+tcgemv_merge(const float* __restrict__ part, void* __restrict__ y,
              int splits, long long bm) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= bm) return;
   float v = part[i];
   for (int s = 1; s < splits; ++s) v += part[s * bm + i];
-  y[i] = __float2bfloat16_rn(v);
+  store_y<BF16>(y, i, v);
 }
 
 // ---------------------------------------------------------------------------
@@ -687,6 +800,15 @@ tcgemv_merge(const float* __restrict__ part, __nv_bfloat16* __restrict__ y,
 // by the row's scale once, at the end. Per-group (gs == PF_UNIT, MT == 1),
 // each group's two stages accumulate into `acc` from zero, and the group's
 // partial times its scale is added to `tot` in ascending group order.
+//
+// F32 (float32 x and y, MT == 1): the x stage is two float32 boxes of
+// PF_X32_COLS columns; each consumer thread reads its A fragments of the
+// stage's four k16 steps from them (8 bytes a load, the 128-byte swizzle
+// undone in the address), splits them into hi / mid / lo (split_bf16x3)
+// and, after one wgmma.fence, issues 3 x 4 wgmma m64n128k16 with A from
+// registers on the stage's widened B buffer: per k16 step hi, mid, lo, in
+// that order, into the one accumulator. Grid (token tiles, row tiles,
+// splits): CTAs that read one row tile's codes are launched together.
 
 constexpr int PF_BN = 128;        // output rows per CTA (wgmma N)
 constexpr int PF_BM = 64;         // tokens per m-tile (wgmma M)
@@ -701,25 +823,35 @@ constexpr int PF_B_BYTES = PF_BN * PF_BK * 2;      // one widened buffer
 constexpr int PF_ST = PF_BN + 8;    // float row stride of the output tile
                                     // staged in shared memory (2-way banks)
 
-template <int MT> __host__ __device__ constexpr int pf_nstage() {
-  return MT == 1 ? 4 : 3;
+// float32 x (the F32 instances, one m-tile): a stage's x is two TMA boxes
+// of PF_X32_COLS columns (128 bytes, the swizzle's width) by PF_BM tokens,
+// 16 KB, so the ring holds PF_X32_NSTAGE stages (two CTAs an SM)
+constexpr int PF_X32_COLS = 32;
+constexpr int PF_X32_BOX = PF_BM * PF_X32_COLS * 4;  // bytes of one box
+constexpr int PF_X32_NSTAGE = 3;
+
+template <int MT, bool F32 = false>
+__host__ __device__ constexpr int pf_nstage() {
+  return F32 ? PF_X32_NSTAGE : MT == 1 ? 4 : 3;
 }
-template <int MT> __host__ __device__ constexpr int pf_x_bytes() {
-  return MT * PF_BM * PF_BK * 2;
+template <int MT, bool F32 = false>
+__host__ __device__ constexpr int pf_x_bytes() {
+  return MT * PF_BM * PF_BK * (F32 ? 4 : 2);
 }
 template <bool PACKED> __host__ __device__ constexpr int pf_c_bytes() {
   return PF_BN * PF_BK / (PACKED ? 2 : 1);
 }
 // ring stages, two widened buffers, 2 * NSTAGE mbarriers, and 1 KB of slack
 // to align the base to the 128-byte swizzle's 1024-byte period
-template <int MT, bool PACKED>
+template <int MT, bool PACKED, bool F32 = false>
 __host__ __device__ constexpr int pf_ring_bytes() {
-  return pf_nstage<MT>() * (pf_x_bytes<MT>() + pf_c_bytes<PACKED>());
+  return pf_nstage<MT, F32>() *
+         (pf_x_bytes<MT, F32>() + pf_c_bytes<PACKED>());
 }
-template <int MT, bool PACKED>
+template <int MT, bool PACKED, bool F32 = false>
 __host__ __device__ constexpr int pf_smem_bytes() {
-  return 1024 + pf_ring_bytes<MT, PACKED>() + 2 * PF_B_BYTES +
-         16 * pf_nstage<MT>();
+  return 1024 + pf_ring_bytes<MT, PACKED, F32>() + 2 * PF_B_BYTES +
+         16 * pf_nstage<MT, F32>();
 }
 
 __device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
@@ -801,10 +933,63 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64],
       : "l"(da), "l"(db), "r"(acc));
 }
 
-// Two floats rounded to a bf16x2 word, the first in the low half.
-__device__ __forceinline__ unsigned pack_bf16x2(float a, float b) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const unsigned*>(&h);
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128] with A from registers (the
+// warpgroup's fragment, laid out as mma.sync m16n8k16's A in each warp's 16
+// rows), B from shared memory as in wgmma_128; acc == 0 overwrites D.
+__device__ __forceinline__ void wgmma_128_rs(float (&d)[64],
+                                             const unsigned (&a)[4],
+                                             unsigned long long db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// The float32 A fragment of one k16 step for thread (warp, gid, tig) of the
+// consumer warpgroup -- register q holds row 16*warp + gid + 8*(q & 1),
+// columns 2*tig + 8*(q >> 1) and the next -- read from a stage's box of
+// PF_X32_COLS columns (`half` selects the step's 16 of its 32) as TMA wrote
+// it (16-byte chunk c of row r at chunk c ^ (r & 7)), then split into three
+// bf16 fragments. A warp's loads meet no bank conflict beyond the two
+// wavefronts that 256 bytes take.
+__device__ __forceinline__ void pf_split_a(const unsigned char* box, int half,
+                                           int warp, int gid, int tig,
+                                           unsigned (&hi)[4],
+                                           unsigned (&mid)[4],
+                                           unsigned (&lo)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = 16 * warp + gid + 8 * (q & 1);            // r & 7 == gid
+    const int chunk = (4 * half + (tig >> 1) + 2 * (q >> 1)) ^ gid;
+    const float2 v = *reinterpret_cast<const float2*>(
+        box + r * 128 + chunk * 16 + (tig & 1) * 8);
+    split_bf16x3(v.x, v.y, hi[q], mid[q], lo[q]);
+  }
 }
 
 // Keeps the compiler from moving reads or writes of the accumulators
@@ -857,21 +1042,24 @@ __device__ __forceinline__ void pf_widen(const unsigned char* cs,
   }
 }
 
-// Grid (ceil(M / PF_BN), ceil(B / (MT * PF_BM)), splits). Split s takes the
-// PF_UNIT-column units [s*ups, s*ups + ups) and writes its float32 partial
-// to part[s][B][M] (splits > 1) or y itself (splits == 1).
-template <int MT, bool PACKED, bool GROUPED>
+// Grid (ceil(M / PF_BN), ceil(B / (MT * PF_BM)), splits); F32: (ceil(B /
+// PF_BM), ceil(M / PF_BN), splits). Split s takes the PF_UNIT-column units
+// [s*ups, s*ups + ups) and writes its float32 partial to part[s][B][M]
+// (splits > 1) or y itself (splits == 1).
+template <int MT, bool PACKED, bool GROUPED, bool F32>
 __global__ void __launch_bounds__(PF_THREADS, GROUPED ? 1 : 2)
 pf_kernel(const __grid_constant__ CUtensorMap tmx,
           const __grid_constant__ CUtensorMap tmc,
-          const float* __restrict__ scale, __nv_bfloat16* __restrict__ y,
+          const float* __restrict__ scale,
+          typename Act<F32>::T* __restrict__ y,
           float* __restrict__ part, int b, int m, int n, int scols, int ups) {
   static_assert(!GROUPED || MT == 1, "per-group scales take one m-tile");
+  static_assert(!F32 || MT == 1, "float32 x takes one m-tile");
   static_assert(MT * PF_BM * PF_ST * 4 <=
-                    pf_ring_bytes<MT, PACKED>() + 2 * PF_B_BYTES,
+                    pf_ring_bytes<MT, PACKED, F32>() + 2 * PF_B_BYTES,
                 "the output tile is staged in the drained ring and buffers");
-  constexpr int NS = pf_nstage<MT>();
-  constexpr int XB = pf_x_bytes<MT>();
+  constexpr int NS = pf_nstage<MT, F32>();
+  constexpr int XB = pf_x_bytes<MT, F32>();
   constexpr int CB = pf_c_bytes<PACKED>();
   constexpr int KPU = PF_UNIT / PF_BK;           // stages per unit
   extern __shared__ __align__(16) unsigned char smem[];
@@ -886,8 +1074,8 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
   const int u0 = blockIdx.z * ups;
   const int nk = (min(units, u0 + ups) - u0) * KPU;
   const int col0 = u0 * PF_UNIT;
-  const int row0 = blockIdx.x * PF_BN;           // first output row
-  const int tok0 = blockIdx.y * MT * PF_BM;      // first token
+  const int row0 = (F32 ? blockIdx.y : blockIdx.x) * PF_BN;   // first row
+  const int tok0 = (F32 ? blockIdx.x : blockIdx.y) * MT * PF_BM;  // token
 
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -908,6 +1096,9 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
         mbar_expect_tx(bar0 + 8 * s, XB + CB);
         const int col = col0 + k * PF_BK;
         tma_load_2d(xs0 + s * XB, &tmx, col, tok0, bar0 + 8 * s);
+        if constexpr (F32)
+          tma_load_2d(xs0 + s * XB + PF_X32_BOX, &tmx, col + PF_X32_COLS,
+                      tok0, bar0 + 8 * s);
         tma_load_2d(cs0 + s * CB, &tmc, PACKED ? col >> 1 : col, row0,
                     bar0 + 8 * s);
       }
@@ -955,14 +1146,33 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
     if (GROUPED && k % KPU == 0) load_scales((col0 + k * PF_BK) / PF_UNIT);
 #pragma unroll
     for (int i = 0; i < MT; ++i) fence_acc(acc[i]);
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    if constexpr (F32) {
+      // every A fragment of the stage split before the products, so that no
+      // register a wgmma reads is written while the group runs
+      unsigned a3[PF_BK / 16][3][4];
+      const unsigned char* xs = gbase + (xs0 - base) + s * XB;
 #pragma unroll
-    for (int kk = 0; kk < PF_BK / 16; ++kk)
+      for (int kk = 0; kk < PF_BK / 16; ++kk)
+        pf_split_a(xs + (kk >> 1) * PF_X32_BOX, kk & 1, warp, gid, tig,
+                   a3[kk][0], a3[kk][1], a3[kk][2]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int i = 0; i < MT; ++i)
-        wgmma_128(acc[i], pf_desc(xs0 + s * XB + i * PF_BM * 128 + kk * 32),
-                  pf_desc(bb0 + (k & 1) * PF_B_BYTES + kk * 32),
-                  (first && kk == 0) ? 0 : 1);
+      for (int kk = 0; kk < PF_BK / 16; ++kk)
+#pragma unroll
+        for (int p = 0; p < 3; ++p)             // hi, mid, lo
+          wgmma_128_rs(acc[0], a3[kk][p],
+                       pf_desc(bb0 + (k & 1) * PF_B_BYTES + kk * 32),
+                       (first && kk == 0 && p == 0) ? 0 : 1);
+    } else {
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+      for (int kk = 0; kk < PF_BK / 16; ++kk)
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          wgmma_128(acc[i], pf_desc(xs0 + s * XB + i * PF_BM * 128 + kk * 32),
+                    pf_desc(bb0 + (k & 1) * PF_B_BYTES + kk * 32),
+                    (first && kk == 0) ? 0 : 1);
+    }
     asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
     if (k + 1 < nk) widen_stage(k + 1);         // overlaps the products
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
@@ -1001,7 +1211,8 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
     }
   asm volatile("bar.sync 1, 128;\n" ::: "memory");
   float* pp = part + (long long)blockIdx.z * b * m;
-  const bool vec = gridDim.z == 1 ? m % 8 == 0 : m % 4 == 0;
+  // 16-byte stores: 8 bf16 outputs, or 4 float32 (partials; F32's y)
+  const bool vec = gridDim.z == 1 && !F32 ? m % 8 == 0 : m % 4 == 0;
   for (int e = t; e < MT * PF_BM * (PF_BN / 8); e += 128) {
     const int tl = e / (PF_BN / 8), c8 = (e % (PF_BN / 8)) * 8;
     const int tok = tok0 + tl, row = row0 + c8;
@@ -1011,7 +1222,11 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
     const float v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
     const long long o = (long long)tok * m + row;
     if (vec && row + 8 <= m) {
-      if (gridDim.z == 1) {
+      if constexpr (F32) {
+        float* out = gridDim.z == 1 ? y : pp;
+        *reinterpret_cast<float4*>(out + o) = lo;
+        *reinterpret_cast<float4*>(out + o + 4) = hi;
+      } else if (gridDim.z == 1) {
         uint4 w;
         w.x = pack_bf16x2(v[0], v[1]);
         w.y = pack_bf16x2(v[2], v[3]);
@@ -1024,7 +1239,7 @@ pf_kernel(const __grid_constant__ CUtensorMap tmx,
       }
     } else {
       for (int c = 0; c < 8 && row + c < m; ++c) {
-        if (gridDim.z == 1) y[o + c] = __float2bfloat16_rn(v[c]);
+        if (gridDim.z == 1) store_y<!F32>(y, o + c, v[c]);
         else pp[o + c] = v[c];
       }
     }
@@ -1139,12 +1354,13 @@ int launch_dependent(Kernel kern, long long count, cudaStream_t st,
 }
 
 
-// Launch tcgemv's instance for NT n-tiles, or (occ given) only report how
-// many of its CTAs an SM holds at once.
-template <int NT, bool PACKED>
+// Launch tcgemv's instance for NT n-tiles (float32 x: F32), or (occ given)
+// only report how many of its CTAs an SM holds at once.
+template <int NT, bool PACKED, bool F32>
 int launch_tc(const Args& a, int* occ) {
-  auto kern = tcgemv_kernel<NT, PACKED>;
-  constexpr int smem = tc_smem_bytes<NT, PACKED>();
+  using XT = typename Act<F32>::T;
+  auto kern = tcgemv_kernel<NT, PACKED, F32>;
+  constexpr int smem = tc_smem_bytes<NT, PACKED, F32>();
   // the shared-memory limit is an attribute of the function on a device:
   // set once per device, not per launch
   static std::atomic<unsigned long long> ready{0};
@@ -1155,33 +1371,32 @@ int launch_tc(const Args& a, int* occ) {
         occ, kern, TC_THREADS, smem);
   const dim3 grid((unsigned)((a.m + TC_ROWS - 1) / TC_ROWS), (unsigned)a.splits);
   kern<<<grid, TC_THREADS, smem, a.st>>>(
-      static_cast<const __nv_bfloat16*>(a.x),
-      static_cast<const int8_t*>(a.codes), a.scale,
-      static_cast<__nv_bfloat16*>(a.y), a.part, a.b, a.m, a.n, a.scols, a.gs,
+      static_cast<const XT*>(a.x), static_cast<const int8_t*>(a.codes),
+      a.scale, static_cast<XT*>(a.y), a.part, a.b, a.m, a.n, a.scols, a.gs,
       a.gps);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || a.splits == 1) return (int)e;
   const long long bm = (long long)a.b * a.m;
-  return launch_dependent(tcgemv_merge, bm, a.st, (const float*)a.part,
-                          static_cast<__nv_bfloat16*>(a.y), a.splits, bm);
+  return launch_dependent(tcgemv_merge<!F32>, bm, a.st, (const float*)a.part,
+                          a.y, a.splits, bm);
 }
 
-template <bool PACKED>
+template <bool PACKED, bool F32>
 int launch_tc_nt(const Args& a, int* occ) {
-  if (a.b <= 8) return launch_tc<1, PACKED>(a, occ);
-  return launch_tc<2, PACKED>(a, occ);
+  if (a.b <= 8) return launch_tc<1, PACKED, F32>(a, occ);
+  return launch_tc<2, PACKED, F32>(a, occ);
 }
 
-// m-tiles of the prefill CTA: the wrapper's prefill_tile_rows states the
-// same rule
+// m-tiles of the bf16 prefill CTA: the wrapper's prefill_tile_rows states
+// the same rule (the float32 instance always takes one)
 int pf_mt(int b, int scols) { return scols == 1 && b > PF_MT1_MAX_B ? 2 : 1; }
 
-// Launch the prefill instance (MT, PACKED, GROUPED), or (occ given) only
-// report how many of its CTAs an SM holds at once.
-template <int MT, bool PACKED, bool GROUPED>
+// Launch the prefill instance (MT, PACKED, GROUPED, F32), or (occ given)
+// only report how many of its CTAs an SM holds at once.
+template <int MT, bool PACKED, bool GROUPED, bool F32>
 int launch_pf(const Args& a, int* occ) {
-  auto kern = pf_kernel<MT, PACKED, GROUPED>;
-  constexpr int smem = pf_smem_bytes<MT, PACKED>();
+  auto kern = pf_kernel<MT, PACKED, GROUPED, F32>;
+  constexpr int smem = pf_smem_bytes<MT, PACKED, F32>();
   static std::atomic<unsigned long long> ready{0};
   const int e = smem_attr_once(kern, smem, ready);
   if (e != 0) return e;
@@ -1190,31 +1405,36 @@ int launch_pf(const Args& a, int* occ) {
         occ, kern, PF_THREADS, smem);
   CUtensorMap tmx, tmc;
   const long long rowbytes = PACKED ? a.n / 2 : a.n;
-  if (!tensor_map(&tmx, a.x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a.n, a.b,
-                  PF_BK, MT * PF_BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+  const unsigned rtiles = (unsigned)((a.m + PF_BN - 1) / PF_BN);
+  const unsigned ttiles = (unsigned)((a.b + MT * PF_BM - 1) / (MT * PF_BM));
+  if ((F32 ? rtiles : ttiles) > 65535u) return (int)cudaErrorInvalidValue;
+  if (!tensor_map(&tmx, a.x, F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  F32 ? 4 : 2, a.n, a.b, F32 ? PF_X32_COLS : PF_BK, MT * PF_BM,
+                  CU_TENSOR_MAP_SWIZZLE_128B) ||
       !tensor_map(&tmc, a.codes, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rowbytes,
                   a.m, PACKED ? PF_BK / 2 : PF_BK, PF_BN,
                   PACKED ? CU_TENSOR_MAP_SWIZZLE_32B
                          : CU_TENSOR_MAP_SWIZZLE_64B))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((a.m + PF_BN - 1) / PF_BN),
-                  (unsigned)((a.b + MT * PF_BM - 1) / (MT * PF_BM)),
+  const dim3 grid(F32 ? ttiles : rtiles, F32 ? rtiles : ttiles,
                   (unsigned)a.splits);
   kern<<<grid, PF_THREADS, smem, a.st>>>(
-      tmx, tmc, a.scale, static_cast<__nv_bfloat16*>(a.y), a.part, a.b, a.m,
-      a.n, a.scols, a.gps);
+      tmx, tmc, a.scale, static_cast<typename Act<F32>::T*>(a.y), a.part,
+      a.b, a.m, a.n, a.scols, a.gps);
   const cudaError_t le = cudaGetLastError();
   if (le != cudaSuccess || a.splits == 1) return (int)le;
   const long long bm = (long long)a.b * a.m;
-  return launch_dependent(tcgemv_merge, bm, a.st, (const float*)a.part,
-                          static_cast<__nv_bfloat16*>(a.y), a.splits, bm);
+  return launch_dependent(tcgemv_merge<!F32>, bm, a.st, (const float*)a.part,
+                          a.y, a.splits, bm);
 }
 
-template <bool PACKED>
+template <bool PACKED, bool F32>
 int launch_pf_mt(const Args& a, int* occ) {
-  if (a.scols != 1) return launch_pf<1, PACKED, true>(a, occ);
-  if (pf_mt(a.b, a.scols) == 2) return launch_pf<2, PACKED, false>(a, occ);
-  return launch_pf<1, PACKED, false>(a, occ);
+  if (a.scols != 1) return launch_pf<1, PACKED, true, F32>(a, occ);
+  if (!F32 && pf_mt(a.b, a.scols) == 2)
+    return launch_pf<2, PACKED, false, false>(a, occ);
+  return launch_pf<1, PACKED, false, F32>(a, occ);
 }
 
 bool aligned16(const void* p) {
@@ -1232,21 +1452,25 @@ int launch(const Args& a, int variant) {
                                 a.st);
       return (int)cudaGetLastError();
     case TCGEMV:
-      if (!BF16 || a.b > SMALL_BATCH_MAX || a.gs % Tc<PACKED>::KR != 0 ||
+    case TCGEMV32:          // the bf16 instance, or the float32 one
+      if ((variant == TCGEMV) != BF16 || a.b > SMALL_BATCH_MAX ||
+          a.gs % Tc<PACKED>::KR != 0 ||
           a.n % a.gs != 0 || !aligned16(a.x) || !aligned16(a.codes) ||
           a.splits < 1 || a.gps < 1 || (long long)a.splits * a.gps < ng ||
           (long long)(a.splits - 1) * a.gps >= ng ||
           (a.splits > 1 && a.part == nullptr))
         return (int)cudaErrorInvalidValue;
-      return launch_tc_nt<PACKED>(a, nullptr);
+      return launch_tc_nt<PACKED, !BF16>(a, nullptr);
     case MMA:
-      if (!BF16 || a.n % PF_UNIT != 0 || (a.scols != 1 && a.gs != PF_UNIT) ||
+    case MMA32:
+      if ((variant == MMA) != BF16 || a.n % PF_UNIT != 0 ||
+          (a.scols != 1 && a.gs != PF_UNIT) ||
           !aligned16(a.x) || !aligned16(a.codes) || a.splits < 1 ||
           a.gps < 1 || (long long)a.splits * a.gps < a.n / PF_UNIT ||
           (long long)(a.splits - 1) * a.gps >= a.n / PF_UNIT ||
           (a.splits > 1 && a.part == nullptr))
         return (int)cudaErrorInvalidValue;
-      return launch_pf_mt<PACKED>(a, nullptr);
+      return launch_pf_mt<PACKED, !BF16>(a, nullptr);
     case TILED: {
       const dim3 grid((unsigned)((a.m + TM - 1) / TM),
                       (unsigned)((a.b + TB - 1) / TB));
@@ -1264,16 +1488,17 @@ int launch(const Args& a, int variant) {
 extern "C" {
 
 // y[B, M] = x[B, N] @ (codes * scale)^T through the variant the wrapper
-// chose (0 gemv, 1 tcgemv, 2 mma, 3 tiled). `scols` is 1 (per-channel
-// scales) or n / gs (per-group); `packed` says two 4-bit codes per byte;
-// `bf16` says x and y are bfloat16 (else float32). tcgemv: `splits`
-// CTAs per row tile of `gps` scale groups each (splits * gps >= n / gs >
-// (splits - 1) * gps), `part` float32 scratch of splits * B * M (unused,
-// may be null, when splits == 1). Launches on `stream`, allocates nothing,
-// does not synchronise. Returns the CUDA error of the launches (0: ok);
-// cudaErrorInvalidValue when the variant cannot take the shape. mma:
-// `splits` CTAs per output tile of `gps` 128-column units each (the same
-// cover rule over n / 128 units), `part` as for tcgemv.
+// chose (0 gemv, 1 tcgemv, 2 mma, 3 tiled, 4 tcgemv32, 5 mma32). `scols`
+// is 1 (per-channel scales) or n / gs (per-group); `packed` says two 4-bit
+// codes per byte; `bf16` says x and y are bfloat16 (else float32: tcgemv32
+// and mma32 take only float32, tcgemv and mma only bfloat16). tcgemv(32):
+// `splits` CTAs per row tile of `gps` scale groups each (splits * gps >=
+// n / gs > (splits - 1) * gps), `part` float32 scratch of splits * B * M
+// (unused, may be null, when splits == 1). Launches on `stream`, allocates
+// nothing, does not synchronise. Returns the CUDA error of the launches (0:
+// ok); cudaErrorInvalidValue when the variant cannot take the shape.
+// mma(32): `splits` CTAs per output tile of `gps` 128-column units each
+// (the same cover rule over n / 128 units), `part` as for tcgemv.
 int dequant_matmul_launch(const void* x, const void* codes, const void* scale,
                           void* y, void* part, int b, int m, int n, int scols,
                           int gs, int packed, int bf16, int variant,
@@ -1289,20 +1514,30 @@ int dequant_matmul_launch(const void* x, const void* codes, const void* scale,
   return launch<false, false>(a, variant);
 }
 
-// How many CTAs of tcgemv's instance for (packed, batch b) an SM holds at
-// once, into *out; the wrapper's split plan aims at a wave of them.
-int dequant_matmul_tc_ctas_per_sm(int packed, int b, int* out) {
+// How many CTAs of tcgemv's instance for (packed, batch b, float32 x) an SM
+// holds at once, into *out; the wrapper's split plan aims at a wave of them.
+int dequant_matmul_tc_ctas_per_sm(int packed, int b, int f32, int* out) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, 1, 1, 1,
                1, 1, nullptr};
-  return packed ? launch_tc_nt<true>(a, out) : launch_tc_nt<false>(a, out);
+  if (f32)
+    return packed ? launch_tc_nt<true, true>(a, out)
+                  : launch_tc_nt<false, true>(a, out);
+  return packed ? launch_tc_nt<true, false>(a, out)
+                : launch_tc_nt<false, false>(a, out);
 }
 
-// How many CTAs of the prefill instance for (packed, batch b, scols) an SM
-// holds at once, into *out; the wrapper's prefill plan aims at a wave.
-int dequant_matmul_pf_ctas_per_sm(int packed, int b, int scols, int* out) {
+// How many CTAs of the prefill instance for (packed, batch b, scols,
+// float32 x) an SM holds at once, into *out; the wrapper's prefill plan
+// aims at a wave.
+int dequant_matmul_pf_ctas_per_sm(int packed, int b, int scols, int f32,
+                                  int* out) {
   const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, 1, scols,
                1, 1, 1, nullptr};
-  return packed ? launch_pf_mt<true>(a, out) : launch_pf_mt<false>(a, out);
+  if (f32)
+    return packed ? launch_pf_mt<true, true>(a, out)
+                  : launch_pf_mt<false, true>(a, out);
+  return packed ? launch_pf_mt<true, false>(a, out)
+                : launch_pf_mt<false, false>(a, out);
 }
 
 }  // extern "C"

@@ -1,20 +1,25 @@
 """Quantized-weight matmul ``y = x @ dequant(Wq).T``: wrapper, launch counter,
 plain version.
 
-The CUDA source is ``csrc/dequant_matmul.cu``: four hand-written variants,
+The CUDA source is ``csrc/dequant_matmul.cu``: six hand-written variants,
 one of which :func:`variant` picks per launch by one rule on shapes, types
 and alignment; see the note at the source's head. ``Wq`` holds int8 codes
 ``(M, N)``, or (every ``bits <= 4``) nibbles packed two-per-byte
 ``(M, N/2)``, low nibble = even column, with ``(M, 1)`` per-channel or
 ``(M, N/G)`` per-group float32 scales.
 
-The decode variant ``tcgemv`` (bfloat16 x, ``B <= GEMV_MAX_BATCH``) splits K
-over CTAs by :func:`split_plan`, the prefill variant ``mma`` (bfloat16 x,
-more rows) by :func:`prefill_plan`; both depend on shapes, the SM count and
-the kernel's occupancy only, and add the splits' float32 partials in
-ascending split order. :func:`dequant_matmul_tc_order` and
-:func:`dequant_matmul_mma_order` transcribe those orders of summation in
-torch ops for the CPU tests; nothing on a CUDA tensor calls them.
+The decode variant ``tcgemv`` (``B <= GEMV_MAX_BATCH``) splits K over CTAs
+by :func:`split_plan`, the prefill variant ``mma`` (more rows) by
+:func:`prefill_plan`; both depend on shapes, the SM count and the kernel's
+occupancy only, and add the splits' float32 partials in ascending split
+order. Each has a bfloat16 instance and a float32 one (``tcgemv32``,
+``mma32``): float32 x goes to the tensor cores exactly, split into three
+bf16 parts (:func:`split_bf16x3`) whose three passes accumulate in float32.
+``gemv`` and ``tiled`` (CUDA cores) take what those cannot: misaligned x or
+codes, ragged N, other group sizes. :func:`dequant_matmul_tc_order` and
+:func:`dequant_matmul_mma_order` transcribe the orders of summation in
+torch ops for the CPU tests; nothing on a CUDA tensor calls them or
+:func:`split_bf16x3`.
 
 Dispatch rule: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises. There is no fallback from the kernel to the plain
@@ -32,7 +37,8 @@ from repro_torch.quant.qtypes import unpack_int4
 
 GEMV_MAX_BATCH = 16      # up to here the small-batch variants run
                          # (SMALL_BATCH_MAX in the .cu file)
-VARIANTS = ("gemv", "tcgemv", "mma", "tiled")   # ids of the .cu's variants
+VARIANTS = ("gemv", "tcgemv", "mma", "tiled", "tcgemv32", "mma32")
+                         # ids of the .cu's variants, in its enum's order
 TC_ROWS = 128            # output rows per CTA of tcgemv (TC_ROWS in the .cu)
 TC_CTAS_PER_SM = 2       # tcgemv's split plan fills this many CTAs per SM
                          # (at most the instance's occupancy)
@@ -40,7 +46,8 @@ TC_CTAS_PER_SM = 2       # tcgemv's split plan fills this many CTAs per SM
 PF_ROWS = 128            # output rows per CTA of mma (PF_BN in the .cu)
 PF_M_TILE = 64           # tokens per m-tile of mma (PF_BM in the .cu)
 PF_MT1_MAX_B = 64        # up to here one m-tile per mma CTA, above two
-                         # (per-channel scales; PF_MT1_MAX_B in the .cu)
+                         # (per-channel bfloat16; PF_MT1_MAX_B in the .cu;
+                         # mma32 always takes one)
 PF_UNIT = 128            # columns of an mma split unit (PF_UNIT in the .cu)
 PF_CTAS_PER_SM = 2       # mma's plan fills this many CTAs per SM (at most
                          # the instance's occupancy)
@@ -98,23 +105,60 @@ def tc_column_order(bits: int) -> torch.Tensor:
     return torch.tensor(order, dtype=torch.int64)
 
 
+def split_bf16x3(x: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """float32 ``x`` as three bfloat16 tensors, ``hi = bf16(x)``, ``mid =
+    bf16(x - hi)``, ``lo = bf16(x - hi - mid)`` (round to nearest even, as
+    the kernels' ``split_bf16x3``), with ``hi + mid + lo == x`` exactly in
+    float32 for finite ``|x|`` in ``[2**-110, 2**127 * (2 - 2**-8))`` and
+    for zeros: each remainder is exact in float32 and holds at most 16,
+    then 8, significant bits. For the CPU tests; nothing on a CUDA tensor
+    calls it."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"split_bf16x3 takes float32, got {x.dtype}")
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def _dot(xf: torch.Tensor, c: torch.Tensor, cols, bf16x3: bool
+         ) -> torch.Tensor:
+    """``xf[:, cols] @ c[:, cols].T`` in float32 (``cols`` a slice or an
+    index tensor); ``bf16x3``: x split by :func:`split_bf16x3` and, at each
+    k16 step of ``cols`` (16 columns at a time, in their order), the hi,
+    mid and lo passes added in that order into one accumulator, as the
+    float32 instances issue them."""
+    if not bf16x3:
+        return xf[:, cols] @ c[:, cols].T
+    if isinstance(cols, slice):
+        cols = torch.arange(cols.start, cols.stop)
+    parts = [p.float() for p in split_bf16x3(xf)]
+    acc = torch.zeros((xf.shape[0], c.shape[0]), dtype=torch.float32)
+    for k in range(0, cols.numel(), 16):
+        step = cols[k:k + 16]
+        for p in parts:
+            acc = acc + p[:, step] @ c[:, step].T
+    return acc
+
+
 def variant(b: int, n: int, group_size: int, scols: int, bits: int,
             bf16: bool, x_ptr: int, codes_ptr: int) -> str:
     """Which variant of ``csrc/dequant_matmul.cu`` takes a launch: the one
-    rule, on shapes, types and alignment. ``tcgemv`` needs bfloat16 x,
-    ``B <= GEMV_MAX_BATCH``, a group size that is a whole number of its
-    k-ranges and 16-byte aligned x and codes; other small batches take
-    ``gemv`` (float32 x always does: it is never rounded to bf16). Larger
-    batches take ``mma`` for bfloat16 x with N a multiple of 128 and
-    128-column groups, else ``tiled``."""
+    rule, on shapes, types and alignment. Up to ``GEMV_MAX_BATCH`` rows,
+    16-byte aligned x and codes and a group size that is a whole number of
+    k-ranges take ``tcgemv`` (bfloat16 x) or ``tcgemv32`` (float32 x),
+    else ``gemv``. Larger batches with 16-byte aligned x and codes, N a
+    multiple of 128 and per-channel scales or 128-column groups take
+    ``mma`` (bfloat16) or ``mma32`` (float32), else ``tiled``."""
     aligned = x_ptr % 16 == 0 and codes_ptr % 16 == 0
     if b <= GEMV_MAX_BATCH:
-        if bf16 and aligned and group_size % tc_krange(bits) == 0:
-            return "tcgemv"
+        if aligned and group_size % tc_krange(bits) == 0:
+            return "tcgemv" if bf16 else "tcgemv32"
         return "gemv"
-    if bf16 and aligned and n % 128 == 0 and (scols == 1 or
-                                              group_size == 128):
-        return "mma"
+    if aligned and n % 128 == 0 and (scols == 1 or group_size == 128):
+        return "mma" if bf16 else "mma32"
     return "tiled"
 
 
@@ -140,27 +184,32 @@ def split_plan(m: int, n: int, group_size: int, sms: int = 132,
     return -(-ng // p), p
 
 
-def prefill_tile_rows(b: int, per_group: bool) -> int:
+def prefill_tile_rows(b: int, per_group: bool, f32: bool = False) -> int:
     """Tokens per CTA of the ``mma`` variant: one 64-row m-tile up to
-    ``PF_MT1_MAX_B`` rows or with per-group scales (whose group partials
-    need a second set of accumulators), else two."""
-    return PF_M_TILE if per_group or b <= PF_MT1_MAX_B else 2 * PF_M_TILE
+    ``PF_MT1_MAX_B`` rows, with per-group scales (whose group partials
+    need a second set of accumulators) or for float32 x (``mma32``, whose
+    x stage is twice as large), else two."""
+    return PF_M_TILE if per_group or f32 or b <= PF_MT1_MAX_B \
+        else 2 * PF_M_TILE
 
 
 def prefill_plan(b: int, m: int, n: int, group_size: Optional[int],
-                 sms: int = 132, ctas_per_sm: int = PF_CTAS_PER_SM
-                 ) -> Tuple[int, int]:
-    """``(splits, units_per_split)`` of an ``mma`` launch: ``M`` output rows
-    in tiles of ``PF_ROWS``, ``B`` tokens in tiles of
-    :func:`prefill_tile_rows`, ``N / PF_UNIT`` column units (a unit is a
+                 sms: int = 132, ctas_per_sm: int = PF_CTAS_PER_SM,
+                 f32: bool = False) -> Tuple[int, int]:
+    """``(splits, units_per_split)`` of an ``mma`` (``f32``: ``mma32``)
+    launch: ``M`` output rows in tiles of ``PF_ROWS``, ``B`` tokens in
+    tiles of :func:`prefill_tile_rows`, ``N / PF_UNIT`` column units (a unit is a
     scale group when ``group_size`` is given; ``None`` means per-channel
     scales), on a card of ``sms`` SMs at ``ctas_per_sm`` CTAs each. Split
     ``s`` takes units ``[s*P, s*P + P)``; ``splits * P >= units > (splits -
     1) * P``. The plan takes the most splits whose CTAs (output tiles times
     splits) fit one wave, but no more than ``N / (2B)`` (their float32
     partials, ``4 * B * M`` bytes a split, stay under the ``M * N`` code
-    bytes) and none of fewer than two units. It depends on shapes only,
-    never on values."""
+    bytes; ``f32``: ``N / B``, partials as wide as the float32 x the
+    instance reads anyway, which lets seamless's cross K/V at 512 rows
+    split in two: 0.0188 -> 0.0142 ms, ``scripts/dequant_matmul_sweep.py
+    --float32``) and none of fewer than two units. It depends on shapes
+    only, never on values."""
     if min(b, m, n, sms, ctas_per_sm) < 1 or n % PF_UNIT or \
             group_size not in (None, PF_UNIT):
         raise ValueError(f"prefill_plan needs positive shapes, N a multiple "
@@ -170,15 +219,17 @@ def prefill_plan(b: int, m: int, n: int, group_size: Optional[int],
                          f"ctas_per_sm={ctas_per_sm}")
     units = n // PF_UNIT
     tiles = -(-m // PF_ROWS) * -(-b // prefill_tile_rows(
-        b, group_size is not None))
-    most = max(1, min(sms * ctas_per_sm // tiles, n // (2 * b), units // 2))
+        b, group_size is not None, f32))
+    cap = n // b if f32 else n // (2 * b)
+    most = max(1, min(sms * ctas_per_sm // tiles, cap, units // 2))
     p = -(-units // most)
     return -(-units // p), p
 
 
 def dequant_matmul_mma_order(x: torch.Tensor, codes: torch.Tensor,
                              scale: torch.Tensor, *, bits: int,
-                             splits: int, ups: int) -> torch.Tensor:
+                             splits: int, ups: int,
+                             bf16x3: bool = False) -> torch.Tensor:
     """The ``mma`` variant's order of summation in torch ops (for the CPU
     tests). Split ``s`` takes the ``PF_UNIT``-column units ``[s*ups,
     s*ups + ups)``. Per-channel scales (one column): the split's float32
@@ -186,7 +237,8 @@ def dequant_matmul_mma_order(x: torch.Tensor, codes: torch.Tensor,
     scales (groups of ``PF_UNIT``): each group's float32 dot product times
     the group's scale, added to the split's sum in ascending group order.
     Then the splits' sums added in ascending split order, and one rounding
-    to x's dtype."""
+    to x's dtype. ``bf16x3`` (``mma32``, float32 x): each dot product is
+    the three passes of :func:`_dot`, k16 step by step."""
     m = codes.shape[0]
     c = (unpack_int4(codes) if bits <= 4 else codes).to(torch.float32)
     n = c.shape[1]
@@ -198,18 +250,20 @@ def dequant_matmul_mma_order(x: torch.Tensor, codes: torch.Tensor,
     if s.shape[1] not in (1, units):
         raise ValueError(f"scale has {s.shape[1]} columns; the mma variant "
                          f"takes 1 or {units}")
+    if bf16x3 and x.dtype != torch.float32:
+        raise ValueError("the three-pass order takes float32 x")
     xf = x.to(torch.float32)
     total = None
     for sp in range(splits):
         lo, hi = sp * ups, min(units, sp * ups + ups)
         if s.shape[1] == 1:
             cols = slice(lo * PF_UNIT, hi * PF_UNIT)
-            acc = (xf[:, cols] @ c[:, cols].T) * s[:, 0]
+            acc = _dot(xf, c, cols, bf16x3) * s[:, 0]
         else:
             acc = None
             for g in range(lo, hi):
                 cols = slice(g * PF_UNIT, (g + 1) * PF_UNIT)
-                part = (xf[:, cols] @ c[:, cols].T) * s[:, g]
+                part = _dot(xf, c, cols, bf16x3) * s[:, g]
                 acc = part if acc is None else acc + part
         total = acc if total is None else total + acc
     return total.to(x.dtype)
@@ -217,13 +271,15 @@ def dequant_matmul_mma_order(x: torch.Tensor, codes: torch.Tensor,
 
 def dequant_matmul_tc_order(x: torch.Tensor, codes: torch.Tensor,
                             scale: torch.Tensor, *, bits: int,
-                            group_size: int, splits: int, gps: int
-                            ) -> torch.Tensor:
+                            group_size: int, splits: int, gps: int,
+                            bf16x3: bool = False) -> torch.Tensor:
     """tcgemv's order of summation in torch ops (for the CPU tests): within
     a split, each scale group's float32 dot product over its columns in
     :func:`tc_column_order`, times the group's scale, added to the split's
     sum in ascending group order; then the splits' sums added in ascending
-    split order, and one rounding to x's dtype."""
+    split order, and one rounding to x's dtype. ``bf16x3`` (``tcgemv32``,
+    float32 x): each group's dot product is the three passes of
+    :func:`_dot` at each k16 step of that column order."""
     m = codes.shape[0]
     c = (unpack_int4(codes) if bits <= 4 else codes).to(torch.float32)
     n = c.shape[1]
@@ -235,6 +291,8 @@ def dequant_matmul_tc_order(x: torch.Tensor, codes: torch.Tensor,
     if group_size % kr:
         raise ValueError(f"group size {group_size} is not a whole number "
                          f"of {kr}-column k-ranges")
+    if bf16x3 and x.dtype != torch.float32:
+        raise ValueError("the three-pass order takes float32 x")
     s = scale.to(torch.float32).reshape(m, -1).expand(m, ng)
     order = tc_column_order(bits)
     in_group = (torch.arange(group_size // kr)[:, None] * kr
@@ -245,7 +303,7 @@ def dequant_matmul_tc_order(x: torch.Tensor, codes: torch.Tensor,
         acc = torch.zeros((x.shape[0], m), dtype=torch.float32)
         for g in range(sp * gps, min(ng, sp * gps + gps)):
             cols = g * group_size + in_group
-            acc = acc + (xf[:, cols] @ c[:, cols].T) * s[:, g]
+            acc = acc + _dot(xf, c, cols, bf16x3) * s[:, g]
         total = acc if total is None else total + acc
     return total.to(x.dtype)
 
@@ -287,24 +345,26 @@ def _card_occupancy(key: tuple, query: str, args: Tuple[int, ...],
     return _occ[key]
 
 
-def card_ctas_per_sm(bits: int, b: int, device: int) -> Tuple[int, int]:
-    """``(SMs, CTAs per SM)`` of tcgemv's instance for ``bits`` and batch
-    ``b`` on CUDA device ``device``."""
+def card_ctas_per_sm(bits: int, b: int, device: int,
+                     f32: bool = False) -> Tuple[int, int]:
+    """``(SMs, CTAs per SM)`` of tcgemv's instance for ``bits``, batch
+    ``b`` and float32 x (``f32``) on CUDA device ``device``."""
     packed = bits <= 4
-    return _card_occupancy(("tcgemv", packed, 1 if b <= 8 else 2, device),
-                           "dequant_matmul_tc_ctas_per_sm", (int(packed), b),
-                           device)
+    return _card_occupancy(("tcgemv", packed, 1 if b <= 8 else 2, f32,
+                            device), "dequant_matmul_tc_ctas_per_sm",
+                           (int(packed), b, int(f32)), device)
 
 
-def card_pf_ctas_per_sm(bits: int, b: int, scols: int,
-                        device: int) -> Tuple[int, int]:
+def card_pf_ctas_per_sm(bits: int, b: int, scols: int, device: int,
+                        f32: bool = False) -> Tuple[int, int]:
     """``(SMs, CTAs per SM)`` of the ``mma`` instance for ``bits``, ``b``
-    rows and ``scols`` scale columns on CUDA device ``device``."""
+    rows, ``scols`` scale columns and float32 x (``f32``) on CUDA device
+    ``device``."""
     packed = bits <= 4
     return _card_occupancy(
-        ("mma", packed, prefill_tile_rows(b, scols != 1), scols != 1,
-         device), "dequant_matmul_pf_ctas_per_sm", (int(packed), b, scols),
-        device)
+        ("mma", packed, prefill_tile_rows(b, scols != 1, f32), scols != 1,
+         f32, device), "dequant_matmul_pf_ctas_per_sm",
+        (int(packed), b, scols, int(f32)), device)
 
 
 _plans: Dict[tuple, Tuple[str, int, int]] = {}
@@ -314,8 +374,8 @@ def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
                 scols: int, group_size: int, bits: int
                 ) -> Tuple[str, int, int]:
     """``(variant, splits, groups_per_split)`` of a launch on x's card,
-    cached per shape, type and alignment. For ``mma`` the third entry
-    counts ``PF_UNIT``-column units."""
+    cached per shape, type and alignment. For ``mma`` and ``mma32`` the
+    third entry counts ``PF_UNIT``-column units."""
     b, n = x.shape
     bf16 = x.dtype == torch.bfloat16
     xp, cp = x.data_ptr(), codes.data_ptr()
@@ -326,15 +386,15 @@ def launch_plan(x: torch.Tensor, codes: torch.Tensor, m: int,
     if plan is None:
         v = variant(b, n, group_size, scols, bits, bf16, xp, cp)
         splits, gps = 1, n // group_size
-        if v == "tcgemv":
-            sms, occ = card_ctas_per_sm(bits, b, dev)
+        if v in ("tcgemv", "tcgemv32"):
+            sms, occ = card_ctas_per_sm(bits, b, dev, not bf16)
             splits, gps = split_plan(m, n, group_size, sms,
                                      min(occ, TC_CTAS_PER_SM))
-        elif v == "mma":
-            sms, occ = card_pf_ctas_per_sm(bits, b, scols, dev)
+        elif v in ("mma", "mma32"):
+            sms, occ = card_pf_ctas_per_sm(bits, b, scols, dev, not bf16)
             splits, gps = prefill_plan(b, m, n, None if scols == 1
                                        else group_size, sms,
-                                       min(occ, PF_CTAS_PER_SM))
+                                       min(occ, PF_CTAS_PER_SM), not bf16)
         plan = _plans[key] = (v, splits, gps)
     return plan
 

@@ -285,6 +285,9 @@ _SYMBOL = re.compile(r"::(tcgemv_kernel|pf_kernel|gemv_kernel|tiled_kernel|"
                      r"squant_scale_kernel)(?:<([^()]*)>)?\(")
 _VARIANT = {"tcgemv_kernel": "tcgemv", "pf_kernel": "mma",
             "gemv_kernel": "gemv", "tiled_kernel": "tiled"}
+# the position of the F32 template argument of the tensor-core symbols: a
+# "true" there is the float32 instance, variant "<variant>32"
+_F32_ARG = {"tcgemv_kernel": 2, "pf_kernel": 3}
 # the position of M among each kernel-B symbol's arguments (N follows it)
 _M_ARG = {"tcgemv_kernel": 6, "pf_kernel": 6, "gemv_kernel": 5,
           "tiled_kernel": 5}
@@ -294,8 +297,8 @@ def count_kernels(kernels: Iterable) -> Dict[str, Any]:
     """The :func:`launch_counts` that device kernels make, one count per
     wrapper call. Each item is a demangled name, or a pair of a name and
     the kernel's (M, N) arguments (None where it has none), as
-    :func:`graph_kernels` reads them: kernel B's variant by its symbol
-    (and by its (M, N) where given), kernel C or D by
+    :func:`graph_kernels` reads them: kernel B's variant by its symbol and
+    its F32 template argument (and by its (M, N) where given), kernel C or D by
     ``paged_decode_split``'s QUANT argument, kernel A's route by
     ``squant_flip_kernel``'s V16 argument. Other kernels (PyTorch's, the
     merge passes) are not counted."""
@@ -310,11 +313,15 @@ def count_kernels(kernels: Iterable) -> Dict[str, Any]:
         sym, args = m.group(1), [a.strip() for a in
                                  (m.group(2) or "").split(",")]
         if sym in _VARIANT:
+            var = _VARIANT[sym]
+            f = _F32_ARG.get(sym)
+            if f is not None and len(args) > f and args[f] == "true":
+                var += "32"
             out["dequant_matmul.launches"] += 1
-            out["dequant_matmul.launches_by_variant"][_VARIANT[sym]] += 1
+            out["dequant_matmul.launches_by_variant"][var] += 1
             if mn is not None:
                 by = out["dequant_matmul.launches_by_shape"]
-                key = _dm.shape_key(_VARIANT[sym], *mn)
+                key = _dm.shape_key(var, *mn)
                 by[key] = by.get(key, 0) + 1
         elif sym == "paged_decode_split":
             quant = args[2] == "true"

@@ -188,9 +188,149 @@ def test_explicit_plan_refused(dev, plan):
 @pytest.mark.parametrize("m,n", [(4096, 4096), (4096, 12800)])
 @pytest.mark.parametrize("b", [1, 8, 16])
 def test_float32_small_batch_stays_on_cuda_cores(dev, m, n, b):
-    """float32 x keeps gemv (never rounded to bf16 or TF32): 1e-4."""
+    """float32 x at up to 16 rows takes tcgemv32 (three exact bf16 passes
+    on the tensor cores, never one rounded pass): within float32's 1e-4."""
     x, data, sc = _dm_case(dev, m, n, 8, 1, b=b, dtype=torch.float32)
-    _dm_check(x, data, sc, 8, 128, "gemv")
+    _dm_check(x, data, sc, 8, 128, "tcgemv32")
+
+
+# seamless-m4t-medium's projections (q/k/v/o and cross K/V, FFN in, FFN
+# down), the rows its round path gives them (decode 8, the cross K/V's
+# 8 x 64 frames, a prefill's 8 x 256) and the chunk tails 17 / 43 / 64
+F32_MN = [(1024, 1024), (4096, 1024), (1024, 4096)]
+
+
+@pytest.mark.parametrize("m,n", F32_MN)
+@pytest.mark.parametrize("b", [1, 8, 16])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_tcgemv32_seamless_shapes(dev, m, n, b, bits):
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b, dtype=torch.float32)
+    _dm_check(x, data, sc, bits, 128, "tcgemv32")
+
+
+@pytest.mark.parametrize("m,n", F32_MN)
+@pytest.mark.parametrize("b", [17, 43, 64, 512, 2048])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_mma32_seamless_shapes(dev, m, n, b, bits):
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b, dtype=torch.float32)
+    _dm_check(x, data, sc, bits, 128, "mma32")
+
+
+@pytest.mark.parametrize("b", [8, 17, 300])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_float32_group_scales(dev, b, bits):
+    """Per-group scales (groups of 128) on both float32 instances."""
+    x, data, sc = _dm_case(dev, 384, 2048, bits, 2048 // 128, b=b,
+                           dtype=torch.float32)
+    _dm_check(x, data, sc, bits, 128, "tcgemv32" if b <= 16 else "mma32")
+
+
+@pytest.mark.parametrize("m", [100, 1000])
+@pytest.mark.parametrize("b", [5, 43, 200])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_float32_ragged_rows(dev, m, b, bits):
+    """M not a multiple of the row tile, B not a multiple of the m-tile
+    or n-tile: masked, zero-filled."""
+    x, data, sc = _dm_case(dev, m, 1024, bits, 1, b=b, dtype=torch.float32)
+    _dm_check(x, data, sc, bits, 128, "tcgemv32" if b <= 16 else "mma32")
+
+
+def test_float32_head_shape(dev):
+    """seamless's untied head (256 206 rows, a ragged last row tile) at a
+    decode batch and at a prefill's rows."""
+    for b, want in ((8, "tcgemv32"), (256, "mma32")):
+        x, data, sc = _dm_case(dev, 256206, 1024, 8, 1, b=b,
+                               dtype=torch.float32)
+        _dm_check(x, data, sc, 8, 128, want)
+        del x, data, sc
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("m,n,b", [(1024, 1024, 8), (1024, 4096, 16),
+                                   (1024, 1024, 512), (4096, 1024, 64)])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_float32_deterministic(dev, m, n, b, bits):
+    """Two launches give the same bits (split K merged in a fixed
+    order)."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, m, n, bits, 1, b=b, dtype=torch.float32)
+    y1 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    y2 = dm.dequant_matmul(x, data, sc, bits=bits, group_size=128)
+    assert torch.equal(y1, y2)
+
+
+@pytest.mark.parametrize("plan", [("tcgemv32", 1, 32), ("tcgemv32", 4, 8),
+                                  ("tcgemv32", 3, 11), ("gemv", 1, 32)])
+def test_float32_explicit_small_plan_close_to_plain(dev, plan):
+    """Plans given to the wrapper at 8 float32 rows, the old gemv among
+    them (the timing's comparison), within float32's 1e-4."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1, dtype=torch.float32)
+    before = dm.launches_by_variant[plan[0]]
+    y = dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+    assert dm.launches_by_variant[plan[0]] == before + 1
+    r = dm.dequant_matmul_plain(x, data, sc, bits=8, group_size=128)
+    torch.testing.assert_close(y, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("plan", [("mma32", 1, 32), ("mma32", 4, 8),
+                                  ("mma32", 3, 11), ("tiled", 1, 32)])
+def test_float32_explicit_prefill_plan_close_to_plain(dev, plan):
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 1024, 4096, 8, 1, b=200,
+                           dtype=torch.float32)
+    before = dm.launches_by_variant[plan[0]]
+    y = dm.dequant_matmul(x, data, sc, bits=8, group_size=128, plan=plan)
+    assert dm.launches_by_variant[plan[0]] == before + 1
+    r = dm.dequant_matmul_plain(x, data, sc, bits=8, group_size=128)
+    torch.testing.assert_close(y, r, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("plan,b,dtype,n,gs", [
+    (("tcgemv32", 1, 8), 8, torch.bfloat16, 1024, 128),   # bf16 x
+    (("tcgemv", 1, 8), 8, torch.float32, 1024, 128),      # float32 x
+    (("tcgemv32", 1, 8), 17, torch.float32, 1024, 128),   # B > 16
+    (("tcgemv32", 1, 32), 8, torch.float32, 1024, 32),    # group < k-range
+    (("tcgemv32", 2, 2), 8, torch.float32, 1024, 128),    # misses groups
+    (("mma32", 1, 8), 64, torch.bfloat16, 1024, 128),
+    (("mma", 1, 8), 64, torch.float32, 1024, 128),
+    (("mma32", 1, 16), 64, torch.float32, 1024, 64),      # groups of 64
+    (("mma32", 2, 2), 64, torch.float32, 1024, 128),
+])
+def test_float32_explicit_plan_refused(dev, plan, b, dtype, n, gs):
+    """A launch the instance cannot take raises; nothing hands it to gemv,
+    tiled or the plain version."""
+    from repro_torch.kernels import dequant_matmul as dm
+    x, data, sc = _dm_case(dev, 256, n, 8, n // gs if gs < 128 else 1, b=b,
+                           dtype=dtype)
+    before = dict(dm.launches_by_variant)
+    with pytest.raises(RuntimeError):
+        dm.dequant_matmul(x, data, sc, bits=8, group_size=gs, plan=plan)
+    assert dm.launches_by_variant == before
+
+
+@pytest.mark.parametrize("b,want", [(8, "gemv"), (64, "tiled")])
+def test_float32_leftovers_stay_on_cuda_cores(dev, b, want):
+    """What the float32 instances cannot take -- x or codes off 16 bytes,
+    N that is not a whole number of k-ranges (a ragged row) -- takes the
+    CUDA-core variants, and the explicit tensor-core plan is refused."""
+    from repro_torch.kernels import dequant_matmul as dm
+    m, n = 256, 1024
+    x, data, sc = _dm_case(dev, m, n, 8, 1, b=b, dtype=torch.float32)
+    buf = torch.empty(b * n + 8, dtype=torch.float32, device=dev)
+    xv = buf[1:1 + b * n].view(b, n)
+    xv.copy_(x)
+    _dm_check(xv, data, sc, 8, 128, want)
+    with pytest.raises(RuntimeError):
+        dm.dequant_matmul(xv, data, sc, bits=8, group_size=128,
+                          plan=("tcgemv32" if b <= 16 else "mma32", 1,
+                                n // 128))
+    cbuf = torch.empty(m * n + 16, dtype=torch.int8, device=dev)
+    cv = cbuf[8:8 + m * n].view(m, n)
+    cv.copy_(data)
+    _dm_check(x, cv, sc, 8, 128, want)
+    xr, dr, sr = _dm_case(dev, m, 1000, 8, 1, b=b, dtype=torch.float32)
+    _dm_check(xr, dr, sr, 8, 1000, want)
 
 
 def test_wrappers_raise_instead_of_falling_back(dev):

@@ -186,21 +186,30 @@ ALIGNED = 1 << 20
     (8, 1000, 1000, 1, 8, True, ALIGNED, ALIGNED, "gemv"),    # ragged N
     (8, 4096, 128, 1, 8, True, ALIGNED, ALIGNED + 1, "gemv"),  # codes
     (8, 4096, 128, 1, 8, True, ALIGNED + 8, ALIGNED, "gemv"),  # x
-    (8, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "gemv"),    # float32
-    (16, 4096, 128, 1, 4, False, ALIGNED, ALIGNED, "gemv"),
+    (8, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "tcgemv32"),  # float32
+    (16, 4096, 128, 1, 4, False, ALIGNED, ALIGNED, "tcgemv32"),
+    (8, 1024, 64, 16, 8, False, ALIGNED, ALIGNED, "tcgemv32"),
+    (8, 1024, 64, 16, 4, False, ALIGNED, ALIGNED, "gemv"),    # < 128
+    (8, 1000, 1000, 1, 8, False, ALIGNED, ALIGNED, "gemv"),   # ragged N
+    (8, 4096, 128, 1, 8, False, ALIGNED, ALIGNED + 1, "gemv"),  # codes
+    (8, 4096, 128, 1, 8, False, ALIGNED + 4, ALIGNED, "gemv"),  # x
+    (1, 4096, 128, 1, 8, False, ALIGNED + 8, ALIGNED, "gemv"),
     (17, 4096, 128, 1, 8, True, ALIGNED, ALIGNED, "mma"),
     (64, 4096, 128, 32, 4, True, ALIGNED, ALIGNED, "mma"),
     (64, 4096, 64, 64, 8, True, ALIGNED, ALIGNED, "tiled"),
-    (64, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "tiled"),
+    (64, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "mma32"),
     (64, 1000, 1000, 1, 8, True, ALIGNED, ALIGNED, "tiled"),
+    (64, 1000, 1000, 1, 8, False, ALIGNED, ALIGNED, "tiled"),  # ragged N
+    (64, 4096, 128, 1, 8, False, ALIGNED + 4, ALIGNED, "tiled"),  # x
 ])
 def test_variant_rule(b, n, gs, scols, bits, bf16, xp, cp, want):
     assert dm.variant(b, n, gs, scols, bits, bf16, xp, cp) == want
 
 
 def test_constants_shared_with_the_kernel_source():
-    """The wrapper's small-batch limit, row tile and variant ids are the
-    ones ``csrc/dequant_matmul.cu`` is compiled with."""
+    """The wrapper's small-batch limit, row tile and variant ids (the
+    float32 instances' too) are the ones ``csrc/dequant_matmul.cu`` is
+    compiled with."""
     src = open(CU).read()
     assert int(re.search(r"constexpr int SMALL_BATCH_MAX = (\d+);",
                          src).group(1)) == dm.GEMV_MAX_BATCH
@@ -208,6 +217,7 @@ def test_constants_shared_with_the_kernel_source():
     mt = int(re.search(r"constexpr int TC_MT = (\d+);", src).group(1))
     assert warps * mt * 16 == dm.TC_ROWS
     ids = re.search(r"enum Variant \{ GEMV = 0, TCGEMV = 1, MMA = 2, "
-                    r"TILED = 3 \};", src)
+                    r"TILED = 3, TCGEMV32 = 4, MMA32 = 5 \};", src)
     assert ids is not None
-    assert dm.VARIANTS == ("gemv", "tcgemv", "mma", "tiled")
+    assert dm.VARIANTS == ("gemv", "tcgemv", "mma", "tiled", "tcgemv32",
+                           "mma32")

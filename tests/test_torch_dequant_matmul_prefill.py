@@ -162,8 +162,16 @@ ALIGNED = 1 << 20
     (64, 4096, 128, 1, 8, True, ALIGNED, ALIGNED + 8, "tiled"),  # codes
     (64, 4096, 256, 16, 8, True, ALIGNED, ALIGNED, "tiled"),     # groups
     (64, 4032, 4032, 1, 8, True, ALIGNED, ALIGNED, "tiled"),     # ragged N
-    (64, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "tiled"),     # float32
+    (64, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "mma32"),     # float32
     (16, 4096, 128, 1, 8, True, ALIGNED, ALIGNED, "tcgemv"),
+    (17, 1024, 128, 1, 8, False, ALIGNED, ALIGNED, "mma32"),
+    (512, 1024, 128, 8, 4, False, ALIGNED, ALIGNED, "mma32"),
+    (2048, 1024, 1024, 1, 8, False, ALIGNED, ALIGNED, "mma32"),  # per-channel
+    (64, 4096, 128, 1, 8, False, ALIGNED + 4, ALIGNED, "tiled"),  # x
+    (64, 4096, 128, 1, 8, False, ALIGNED, ALIGNED + 8, "tiled"),  # codes
+    (64, 4096, 256, 16, 8, False, ALIGNED, ALIGNED, "tiled"),     # groups
+    (64, 4032, 4032, 1, 8, False, ALIGNED, ALIGNED, "tiled"),     # ragged N
+    (16, 4096, 128, 1, 8, False, ALIGNED, ALIGNED, "tcgemv32"),
 ])
 def test_variant_rule_prefill_rows(b, n, gs, scols, bits, bf16, xp, cp, want):
     assert dm.variant(b, n, gs, scols, bits, bf16, xp, cp) == want

@@ -123,11 +123,12 @@ def test_expert_kernel_b_close_to_plain(dev, form, bits, din, dout, c,
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("din,dout", [(256, 384), (2048, 1408),
                                       (1408, 2048)])
-@pytest.mark.parametrize("c,variant", [(5, "gemv"), (47, "tiled")])
+@pytest.mark.parametrize("c,variant", [(5, "tcgemv32"), (47, "mma32")])
 def test_expert_kernel_b_float32_close_to_plain(dev, bits, din, dout, c,
                                                 variant):
-    """float32 activations (phase 10b's): the CUDA-core variants, one
-    launch per expert, within float32's 1e-4 of the plain version."""
+    """float32 activations (phase 10b's): the float32 tensor-core
+    instances (three exact bf16 passes), one launch per expert, within
+    float32's 1e-4 of the plain version."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
     from repro_torch.models import moe

@@ -299,6 +299,20 @@ KERNEL_NAMES = [
     ("void (anonymous namespace)::tiled_kernel<true, false>(void const*, "
      "signed char const*, float const*, void*, int, int, int)",
      ("dequant_matmul.launches_by_variant", "tiled")),
+    ("void (anonymous namespace)::tcgemv_kernel<2, true, false>(__nv_bfloat16"
+     " const*, signed char const*, float const*, __nv_bfloat16*, float*, "
+     "int, int, int)", ("dequant_matmul.launches_by_variant", "tcgemv")),
+    ("void (anonymous namespace)::tcgemv_kernel<1, false, true>(float "
+     "const*, signed char const*, float const*, float*, float*, int, int, "
+     "int)", ("dequant_matmul.launches_by_variant", "tcgemv32")),
+    ("void (anonymous namespace)::pf_kernel<2, false, false, false>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, __nv_bfloat16*, float*, "
+     "int, int)", ("dequant_matmul.launches_by_variant", "mma")),
+    ("void (anonymous namespace)::pf_kernel<1, true, true, true>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, float*, float*, int, "
+     "int)", ("dequant_matmul.launches_by_variant", "mma32")),
+    ("void (anonymous namespace)::tcgemv_merge<false>(float const*, void*, "
+     "int, long long)", None),
     ("void (anonymous namespace)::paged_decode_split<__nv_bfloat16, "
      "__nv_bfloat16, false, 8, 64, 2, true>(__nv_bfloat16 const*, "
      "__nv_bfloat16 const*, __nv_bfloat16 const*, float const*)",
@@ -360,6 +374,13 @@ MANGLED = [
     ("_ZN12_GLOBAL__N_118paged_decode_splitI13__nv_bfloat16aLb1ELi8ELi64ELi2"
      "ELb1EEEvPKT_PKT0_S7_PKf", ("paged_attention_quant.launches", None)),
     ("_ZN12_GLOBAL__N_112tcgemv_mergeEPKfP13__nv_bfloat16i", None),
+    ("_ZN12_GLOBAL__N_113tcgemv_kernelILi1ELb0ELb1EEEvPKfPKaS2_PfS5_iiiiii",
+     ("dequant_matmul.launches_by_variant", "tcgemv32")),
+    ("_ZN12_GLOBAL__N_19pf_kernelILi1ELb0ELb0ELb1EEEv14CUtensorMap_stS1_PKfP"
+     "fS4_iiiii", ("dequant_matmul.launches_by_variant", "mma32")),
+    ("_ZN12_GLOBAL__N_113tcgemv_kernelILi1ELb0ELb0EEEvPK13__nv_bfloat16PKaPK"
+     "fPS1_Pfiiiiii", ("dequant_matmul.launches_by_variant", "tcgemv")),
+    ("_ZN12_GLOBAL__N_112tcgemv_mergeILb0EEEvPKfPvix", None),
 ]
 
 
@@ -433,7 +454,8 @@ def test_replay_launches_measured_per_graph(monkeypatch):
     got = eng.replay_launches()
     assert got["dequant_matmul.launches"] == 14 * 7
     assert got["dequant_matmul.launches_by_variant"] == \
-        {"gemv": 0, "tiled": 0, "tcgemv": 70, "mma": 28}
+        {"gemv": 0, "tiled": 0, "tcgemv": 70, "mma": 28, "tcgemv32": 0,
+         "mma32": 0}
     assert got["paged_attention.launches"] == 10
     assert ga.replays == 5 and gb.replays == 2       # nothing was replayed
     measured[id(gb.graph)] = ta
@@ -712,6 +734,12 @@ SHAPED = [
     ("void (anonymous namespace)::tiled_kernel<true, false>(void const*, "
      "signed char const*, float const*, void*, int, int, int)",
      (256, 128), "tiled 256x128"),
+    ("void (anonymous namespace)::tcgemv_kernel<1, false, true>(float "
+     "const*, signed char const*, float const*, float*, float*, int, int, "
+     "int)", (1024, 1024), "tcgemv32 1024x1024"),
+    ("void (anonymous namespace)::pf_kernel<1, false, false, true>("
+     "CUtensorMap_st, CUtensorMap_st, float const*, float*, float*, int, "
+     "int)", (256206, 1024), "mma32 256206x1024"),
 ]
 
 
