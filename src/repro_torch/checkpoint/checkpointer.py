@@ -29,7 +29,18 @@ natively — int4 nibbles stay packed two-per-byte on disk — and record
 restore can refuse a tree that does not match the serve config instead of
 silently serving garbage.
 
-Not ported yet: reshard-on-restore (``shardings=``, ``mesh=``; M7).
+Sharded trees: a save of a tree with DTensor leaves is collective: every
+rank of their mesh calls ``save``, each leaf is gathered to its whole
+tensor, the mesh's first rank writes (before it returns, even with
+``async_save``), and every rank returns only after a barrier over the mesh
+that follows the commit, so any rank can restore the step at once. A tree
+of plain tensors is written by the process that saves it, unless the
+``Checkpointer`` was made with ``writer=False`` (the other ranks of a
+group that saves one replicated tree). Checkpoints always hold full
+logical arrays, so a restore re-splits them onto whatever mesh is current
+(``restore(shardings=)``, ``restore_serving(mesh=)``): every rank reads the
+full arrays from the file and keeps its own shard — nothing is sent from
+rank 0 — bit-exact for any rank count.
 """
 from __future__ import annotations
 
@@ -45,8 +56,6 @@ import numpy as np
 import torch
 
 from repro_torch.quant.qtypes import QuantizedTensor
-
-_NOT_PORTED_RESHARD = "not ported yet: reshard-on-restore (M7)"
 
 
 class CheckpointMetaError(ValueError):
@@ -102,10 +111,14 @@ def _unflatten(template: Any, leaves) -> Any:
 
 def _to_host(leaf, copy: bool) -> Tuple[np.ndarray, bool]:
     """``(array, is_bfloat16)``: a tensor's bytes on the host (a bfloat16
-    tensor's 16 bits as int16), a copy where ``copy`` and the tensor
-    already lies on the host."""
+    tensor's 16 bits as int16; a DTensor's whole tensor, gathered), a copy
+    where ``copy`` and the tensor already lies on the host."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if _is_dtensor(t):
+            from repro_torch.distributed.group import full_tensor
+            t = full_tensor(t)
+            copy = False
         bf16 = t.dtype == torch.bfloat16
         if bf16:
             t = t.view(torch.int16)
@@ -152,6 +165,34 @@ def _default_device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _leaf_mesh(trees):
+    """The mesh of the trees' DTensor leaves (None: no DTensor leaf);
+    raises where leaves lie on different meshes."""
+    mesh = None
+    for _, tree in trees:
+        for v in _flatten(tree).values():
+            if isinstance(v, torch.Tensor) and _is_dtensor(v):
+                if mesh is None:
+                    mesh = v.device_mesh
+                elif v.device_mesh != mesh:
+                    raise ValueError("a collective save takes the DTensor "
+                                     "leaves of one mesh")
+    return mesh
+
+
+def _mesh_barrier(mesh) -> None:
+    """Every rank of ``mesh`` has arrived (a barrier over each mesh dim's
+    group in turn, which together span the mesh)."""
+    import torch.distributed as dist
+    for d in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(d))
+
+
 def listify(node):
     """Convert dicts with integer-contiguous keys back to lists."""
     if not isinstance(node, dict):
@@ -172,10 +213,11 @@ class Checkpointer:
     restore's ``read_ms`` and ``h2d_ms``."""
 
     def __init__(self, directory: str, async_save: bool = True,
-                 keep: int = 3):
+                 keep: int = 3, writer: bool = True):
         self.dir = directory
         self.async_save = async_save
         self.keep = keep
+        self.writer = writer     # whether a save of plain tensors writes
         self.timings: Dict[str, float] = {}
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
@@ -197,9 +239,10 @@ class Checkpointer:
         """Snapshot ``params`` and ``opt_state`` to host memory now; write
         them (on a thread when ``async_save``)."""
         self.wait()
-        payload, keys = self._snapshot((("params", params),
-                                        ("opt", opt_state)))
-        self._dispatch(step, payload, {"step": step, "trees": keys})
+        trees = (("params", params), ("opt", opt_state))
+        mesh = _leaf_mesh(trees)
+        payload, keys = self._snapshot(trees)
+        self._dispatch(step, payload, {"step": step, "trees": keys}, mesh)
 
     def save_serving(self, step: int, params: Any,
                      quant_meta: Optional[Dict[str, Any]] = None):
@@ -217,11 +260,29 @@ class Checkpointer:
                 raise ValueError(f"quant_meta missing {sorted(missing)}")
             fmt, quant = "quantized", dict(quant_meta)
         self.wait()
-        payload, keys = self._snapshot((("params", params),))
+        trees = (("params", params),)
+        mesh = _leaf_mesh(trees)
+        payload, keys = self._snapshot(trees)
         self._dispatch(step, payload, {"step": step, "trees": keys,
-                                       "format": fmt, "quant": quant})
+                                       "format": fmt, "quant": quant}, mesh)
 
-    def _dispatch(self, step: int, payload, meta):
+    def _dispatch(self, step: int, payload, meta, mesh=None):
+        """Write the step: with ``mesh`` (a collective save) on its first
+        rank, then a barrier over it; else where ``self.writer``."""
+        if mesh is not None:
+            import torch.distributed as dist
+            err = None
+            if dist.get_rank() == int(mesh.mesh.flatten()[0]):
+                try:
+                    self._write(step, payload, meta)
+                except BaseException as e:   # the others must not hang
+                    err = e
+            _mesh_barrier(mesh)
+            if err is not None:
+                raise err
+            return
+        if not self.writer:
+            return
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write_logged, args=(step, payload, meta),
@@ -330,10 +391,21 @@ class Checkpointer:
         return out
 
     def _place(self, arrays: Dict[str, np.ndarray], dtypes: Dict[str, str],
-               device) -> Dict[str, torch.Tensor]:
+               device, shardings: Optional[Dict[str, Any]] = None
+               ) -> Dict[str, torch.Tensor]:
+        """The arrays as tensors on ``device``; an array with a
+        ``MeshSharding`` in ``shardings`` becomes a DTensor whose local
+        shard, sliced on the host, is all that goes to the device."""
         t0 = time.perf_counter()
-        out = {k: _to_tensor(a, dtypes.get(k, str(a.dtype)), device)
-               for k, a in arrays.items()}
+        out = {}
+        for k, a in arrays.items():
+            sh = (shardings or {}).get(k)
+            if sh is None:
+                out[k] = _to_tensor(a, dtypes.get(k, str(a.dtype)), device)
+            else:
+                from repro_torch.distributed.sharding import place
+                out[k] = place(_to_tensor(a, dtypes.get(k, str(a.dtype)),
+                                          "cpu"), sh, device=device)
         self.timings["h2d_ms"] = (time.perf_counter() - t0) * 1e3
         return out
 
@@ -341,9 +413,10 @@ class Checkpointer:
                 template: Optional[Tuple[Any, Any]] = None, device=None):
         """Returns (params, opt_state, step). ``template`` provides the tree
         structures; leaves go to ``device`` (default: the current CUDA
-        device)."""
-        if shardings is not None:
-            raise NotImplementedError(_NOT_PORTED_RESHARD)
+        device). ``shardings`` (a (params, opt) pair of ``MeshSharding``
+        trees shaped like the template, either may be None) reshards onto
+        the current mesh (elastic restore): those leaves come back as
+        DTensors, each rank holding its own shard."""
         meta = self.read_meta(step)
         if meta.get("format") == "quantized":
             raise CheckpointMetaError(
@@ -355,8 +428,13 @@ class Checkpointer:
         device = _default_device() if device is None else device
         keys = [[f"{name}::{k}" for k in _flatten(tmpl)]
                 for name, tmpl in zip(("params", "opt"), template)]
+        by_key = {}
+        for name, sh in zip(("params", "opt"), shardings or (None, None)):
+            if sh is not None:
+                by_key.update({f"{name}::{k}": v
+                               for k, v in _flatten(sh).items()})
         leaves = self._place(self._read(step, keys[0] + keys[1]),
-                             meta.get("dtypes", {}), device)
+                             meta.get("dtypes", {}), device, by_key)
         params, opt = (_unflatten(tmpl, (leaves[k] for k in ks))
                        for tmpl, ks in zip(template, keys))
         return params, opt, step
@@ -381,6 +459,11 @@ class Checkpointer:
             dtypes = self.read_meta(step).get("dtypes", {})
             arrays = self._place(arrays, dtypes, _default_device()
                                  if device is None else device)
+        return self._tree(arrays, step)
+
+    @staticmethod
+    def _tree(arrays: Dict[str, Any], step: Optional[int] = None):
+        """``(params, opt, step)`` trees rebuilt from flat keys."""
         trees = {"params": {}, "opt": {}}
         for full_key, value in arrays.items():
             name, key = full_key.split("::", 1)
@@ -410,9 +493,14 @@ class Checkpointer:
         Leaves are read to host memory, then each goes to ``device``
         (default: the current CUDA device) in one copy, on the calling
         thread's current stream.
+
+        ``mesh``: reshard-on-restore — every leaf is placed onto the
+        mesh's parameter shardings (``distributed.sharding`` rules, which
+        cover ``w_q``/``w_q4``/``w_scale`` leaves; bit-exact for any rank
+        count because the full logical arrays live on disk): each rank
+        slices its own shard on the host and copies only that to
+        ``device`` (default: the rank's device).
         """
-        if mesh is not None:
-            raise NotImplementedError(_NOT_PORTED_RESHARD)
         if step is None:
             steps = self.list_steps()
             if not steps:
@@ -434,6 +522,19 @@ class Checkpointer:
                     f"step {step} quant metadata mismatch: checkpoint is "
                     f"{quant.get('method')} w{quant.get('bits')}, serve "
                     f"config requests {want_m} w{want_b}")
-        params, _, _ = self._restore_raw(step, device=device,
-                                         prefix="params::")
+        if mesh is None:
+            params, _, _ = self._restore_raw(step, device=device,
+                                             prefix="params::")
+            return params, meta, step
+        from repro_torch.distributed import group
+        from repro_torch.distributed.sharding import make_param_shardings
+        host, _, _ = self._restore_raw(step, to_torch=False,
+                                       prefix="params::")
+        shardings = _flatten(make_param_shardings(mesh, host))
+        arrays = {f"params::{k}": a for k, a in _flatten(host).items()}
+        placed = self._place(arrays, meta.get("dtypes", {}),
+                             group.device() if device is None else device,
+                             {f"params::{k}": v
+                              for k, v in shardings.items()})
+        params, _, _ = self._tree(placed)
         return params, meta, step

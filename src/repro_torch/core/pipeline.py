@@ -28,6 +28,13 @@ Execution modes:
 ``backend`` selects the implementation for the batched path
 (``"auto" | "ref" | "cuda"``, see ``core.dispatch.BACKENDS``).
 
+``mesh=`` (a ``DeviceMesh`` with a ``mesh_axis`` axis, every rank holding
+the whole tree) splits every bucket's rows over that axis
+(``core.dispatch.quantize_codes_sharded``); codes and scales come back as
+DTensors placed by ``distributed.sharding.quantized_tensor_shardings``,
+bit-identical to ``mesh=None``, and ``QuantReport.shards`` holds each
+rank's rows and pad rows. Still one device synchronization a tree.
+
 Conventions (shared with ``repro_torch.models``):
 * dense kernels are dict leaves named ``w`` with shape (in, out);
 * expert kernels are named ``w`` with shape (experts, in, out);
@@ -51,9 +58,11 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.dispatch import (quantize_codes_batched,
-                                       quantize_codes_native, resolve_backend)
+                                       quantize_codes_native,
+                                       quantize_codes_sharded,
+                                       resolve_backend, shard_rows)
 from repro_torch.quant.qtypes import (BucketReport, LayerReport, QuantReport,
-                                      from_codes)
+                                      ShardReport, from_codes)
 
 METHODS = ("rtn", "squant", "squant_e", "squant_ek", "squant_ec")
 
@@ -284,7 +293,14 @@ def _quantize_tree_serial(flat, pred, method, bits, group_size,
 # ---------------------------------------------------------------------------
 
 def _quantize_tree_batched(flat, pred, method, bits, group_size,
-                           scale_method, dequantize, backend, device):
+                           scale_method, dequantize, backend, device,
+                           mesh=None, mesh_axis="data"):
+    ndev = 1
+    if mesh is not None:
+        from repro_torch.distributed.sharding import (
+            mesh_axis_sizes, quantized_tensor_shardings)
+        ndev = int(mesh_axis_sizes(mesh)[mesh_axis])
+    shard_acc = [[0, 0] for _ in range(ndev)]   # per-device [rows, pad_rows]
     t_begin = time.perf_counter()
     out_leaves: List[Any] = [None] * len(flat)
     todo = []                                  # (leaf index, path, leaf)
@@ -307,24 +323,33 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
             tag = f"({plan.key[0][0]},{plan.key[0][1]})x{len(entries)} " \
                   f"{plan.key[1]} g{eff}"
             tb0 = time.perf_counter()
+            kw = dict(method=method, bits=bits, group_size=eff,
+                      scale_method=scale_method, backend=backend)
             if plan.route == "native":
                 # a bank's expert slices are (in, out) leaves as stored;
                 # its codes and scales are E consecutive entries of the
                 # bucket's, i.e. (E*out, in) and (E*out, 1) as stacked
-                codes, scales = quantize_codes_native(
-                    [sl for e in entries for sl in _native_leaves(e[2])],
-                    method=method, bits=bits, group_size=eff,
-                    scale_method=scale_method, backend=backend)
-                codes = codes.reshape(len(entries), -1, codes.shape[-1])
-                scales = scales.reshape(len(entries), -1, 1)
+                src = [sl for e in entries for sl in _native_leaves(e[2])]
             else:
                 views = [_plan_leaf(e[2], method, group_size)[0]
                          for e in entries]
                 # a singleton needs no stack
-                ws = views[0][None] if len(views) == 1 else torch.stack(views)
-                codes, scales = quantize_codes_batched(
-                    ws, method=method, bits=bits, group_size=eff,
-                    scale_method=scale_method, backend=backend)
+                src = views[0][None] if len(views) == 1 \
+                    else torch.stack(views)
+            if mesh is not None:
+                codes, scales = quantize_codes_sharded(
+                    src, mesh=mesh, mesh_axis=mesh_axis, **kw)
+                for d, (r, p) in enumerate(shard_rows(
+                        len(entries) * plan.key[0][0], ndev)):
+                    shard_acc[d][0] += r
+                    shard_acc[d][1] += p
+            elif plan.route == "native":
+                codes, scales = quantize_codes_native(src, **kw)
+            else:
+                codes, scales = quantize_codes_batched(src, **kw)
+            if plan.route == "native":
+                codes = codes.reshape(len(entries), -1, codes.shape[-1])
+                scales = scales.reshape(len(entries), -1, 1)
             for bi, (idx, path, leaf) in enumerate(entries):
                 qt_shape = _view_shape(tuple(leaf.shape), method,
                                        group_size)[1]
@@ -332,6 +357,10 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
                 if dequantize:
                     out = _restore_dense(qt.dequantize(leaf.dtype),
                                          tuple(leaf.shape))
+                elif mesh is not None:
+                    # codes/scales inherit the source param's sharding rules
+                    out = qt.with_placement(
+                        *quantized_tensor_shardings(mesh, path, qt))
                 else:
                     out = qt
                 out_leaves[idx] = out
@@ -353,17 +382,21 @@ def _quantize_tree_batched(flat, pred, method, bits, group_size,
         lr.millis += sync_ms / max(len(todo), 1)
 
     total_ms = (time.perf_counter() - t_begin) * 1e3
+    shards = [ShardReport(d, r, p) for d, (r, p) in enumerate(shard_acc)] \
+        if mesh is not None else []
     return out_leaves, QuantReport(layer_reports, total_ms, method, bits,
                                    backend=backend, dispatch_millis=dispatch_ms,
-                                   sync_millis=sync_ms, buckets=bucket_reports)
+                                   sync_millis=sync_ms, buckets=bucket_reports,
+                                   mesh_axis=mesh_axis if mesh is not None
+                                   else "", mesh_size=ndev, shards=shards)
 
 
 def quantize_tree(params: Any, method: str = "squant", bits: int = 4,
                   group_size: Optional[int] = 128, scale_method: str = "max",
                   predicate: Optional[Callable] = None,
                   dequantize: bool = False, backend: str = "auto",
-                  batched: bool = True, device=None
-                  ) -> Tuple[Any, QuantReport]:
+                  batched: bool = True, device=None, mesh=None,
+                  mesh_axis: str = "data") -> Tuple[Any, QuantReport]:
     """Quantize all matmul weights in a param tree.
 
     dequantize=True returns float weights (fake-quant — for accuracy evals on
@@ -379,9 +412,25 @@ def quantize_tree(params: Any, method: str = "squant", bits: int = 4,
     on a CUDA device, the torch core on the CPU). batched=False is the
     per-layer loop (one dispatch and one device sync per leaf); it ignores
     ``backend`` and always runs the torch core.
+
+    mesh: a ``DeviceMesh`` with a ``mesh_axis`` axis (see
+    ``launch.mesh.make_quantize_mesh``) shards every bucket's rows across
+    that axis — exact (row-independent objective), results bitwise
+    identical to ``mesh=None``. Every rank of the mesh calls this with the
+    whole tree; ``device`` defaults to the rank's device. Sharded runs
+    require ``batched=True`` and report a per-device breakdown in
+    ``QuantReport.shards``.
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; options {METHODS}")
+    if mesh is not None:
+        from repro_torch.distributed import group as dgroup
+        from repro_torch.distributed.sharding import mesh_axis_sizes
+        if mesh_axis not in mesh_axis_sizes(mesh):
+            raise ValueError(f"mesh has no {mesh_axis!r} axis; axes: "
+                             f"{tuple(mesh_axis_sizes(mesh))}")
+        if device is None:
+            device = dgroup.device()
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -389,11 +438,14 @@ def quantize_tree(params: Any, method: str = "squant", bits: int = 4,
     pred = predicate or is_quantizable
     flat = _flatten(params)
     if not batched:
+        if mesh is not None:
+            raise ValueError("mesh= requires batched=True (the serial "
+                             "baseline is single-device by definition)")
         leaves, report = _quantize_tree_serial(
             flat, pred, method, bits, group_size, scale_method, dequantize,
             device)
     else:
         leaves, report = _quantize_tree_batched(
             flat, pred, method, bits, group_size, scale_method, dequantize,
-            backend, device)
+            backend, device, mesh, mesh_axis)
     return _rebuild(params, iter(leaves)), report

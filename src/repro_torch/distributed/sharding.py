@@ -1,0 +1,421 @@
+"""Logical-axis sharding: the single place where model dimensions meet mesh
+axes.
+
+Parameters get specs from name/shape rules (``make_param_shardings``); the
+mapping logical→mesh lives in an ``AxisRules`` table so the same tree lays
+out on one rank, a 256-rank pod, or the 512-rank 2-pod production mesh.
+
+A spec is a tuple with one entry per tensor dim: ``None`` (replicated), a
+mesh axis name, or a tuple of names (the dim split over several axes,
+major to minor) — the entries of a JAX ``PartitionSpec``. ``to_placements``
+turns one into DTensor placements on a ``DeviceMesh``; ``MeshSharding``
+pairs a spec with its mesh (the reference's ``NamedSharding``).
+
+Defaults implement the MaxText-standard regime for this scale:
+* DP over ('pod', 'data')   — batch dim
+* TP over 'model'           — heads / ff / vocab / experts
+* FSDP (ZeRO-3) over 'data' — every parameter's non-TP dim
+* SP over 'data'            — long-context KV/state sequence dim
+
+Divisibility-aware: a dim is only assigned a mesh axis when the axis size
+divides it (e.g. mixtral's 8 experts on a 16-way 'model' axis fall back to
+FSDP-only and the expert ffn dim takes TP instead).
+
+The rules take any mesh with axis names and sizes: a ``DeviceMesh``, or an
+:class:`AbstractMesh` (names and sizes only, no ranks) to resolve specs
+for a mesh larger than the group at hand. The reference drops the axes an
+enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
+every axis of the mesh is usable. The reference's activation constraints
+(``shard_act`` / ``shard_logits``) annotate a GSPMD forward; the port's
+forward runs whole on each rank, so they come with tensor-parallel
+execution, not here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import os
+import threading
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+Spec = Tuple[Any, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisRules:
+    """logical axis name → tuple of candidate mesh axes (first that fits)."""
+    rules: Tuple[Tuple[str, Tuple[Optional[str], ...]], ...] = (
+        ("batch",        (("pod", "data"), ("data",), None)),
+        ("seq",          (None,)),
+        ("seq_shard",    (("data",), None)),           # SP for long context
+        ("embed",        (None,)),
+        ("heads",        (("model",), None)),
+        ("kv_heads",     (("model",), None)),
+        ("seq_model",    (("model",), None)),
+        ("head_dim",     (None,)),
+        ("ff",           (("model",), None)),
+        ("vocab",        (("model",), None)),
+        ("experts",      (("model",), None)),
+        ("expert_ff",    (("model",), None)),
+        ("fsdp",         (("data",), None)),
+        ("conv",         (None,)),
+        ("state",        (None,)),
+    )
+
+    def lookup(self, name: str) -> Tuple:
+        for k, v in self.rules:
+            if k == name:
+                return v
+        return (None,)
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """Axis names and sizes without ranks (``jax.sharding.AbstractMesh``):
+    enough for the rules."""
+    shape_tuple: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+
+
+_STATE = threading.local()
+
+
+def set_axis_rules(rules: Optional[AxisRules]):
+    _STATE.rules = rules
+
+
+def _get_rules() -> AxisRules:
+    return getattr(_STATE, "rules", None) or AxisRules()
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`AbstractMesh`."""
+    if isinstance(mesh, AbstractMesh):
+        return dict(zip(mesh.axis_names, mesh.shape_tuple))
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def logical_to_mesh(logical: Sequence[Optional[str]], shape: Sequence[int],
+                    mesh, rules: Optional[AxisRules] = None) -> Spec:
+    """Resolve logical axes to a spec, honouring divisibility and never
+    assigning one mesh axis twice."""
+    rules = rules or _get_rules()
+    sizes = mesh_axis_sizes(mesh)
+    used: set = set()
+    out = []
+    for dim, name in zip(shape, logical):
+        assigned = None
+        if name is not None:
+            for cand in rules.lookup(name):
+                if cand is None:
+                    break
+                cand_t = cand if isinstance(cand, tuple) else (cand,)
+                if any(c not in sizes for c in cand_t):
+                    continue
+                if any(c in used for c in cand_t):
+                    continue
+                total = math.prod(sizes[c] for c in cand_t)
+                if dim % total == 0:
+                    assigned = cand_t if len(cand_t) > 1 else cand_t[0]
+                    used.update(cand_t)
+                    break
+        out.append(assigned)
+    return tuple(out)
+
+
+def to_placements(spec: Spec, mesh) -> Tuple:
+    """DTensor placements on ``mesh`` for ``spec``: ``Shard(d)`` on every
+    mesh dim that splits tensor dim ``d``, ``Replicate()`` on the others.
+    DTensor splits in mesh-dim order, which is the spec's major-to-minor
+    order only while a tuple entry lists its axes in mesh order: asserted."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        pos = [names.index(a) for a in axes]
+        if pos != sorted(pos):
+            raise ValueError(f"spec entry {entry} lists mesh axes out of "
+                             f"mesh order {tuple(names)}")
+        for p in pos:
+            out[p] = Shard(d)
+    return tuple(out)
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSharding:
+    """A spec on a mesh (the reference's ``NamedSharding``)."""
+    mesh: Any
+    spec: Spec
+
+    @property
+    def placements(self) -> Tuple:
+        return to_placements(self.spec, self.mesh)
+
+
+def shard_index(shape, placements, mesh_sizes, coord) -> Tuple[slice, ...]:
+    """The slices of a tensor of ``shape`` that the rank at mesh coordinate
+    ``coord`` holds under DTensor ``placements`` (even shards: the rules
+    shard a dim only where the mesh axes divide it). Mesh dims sharding one
+    tensor dim split it in mesh-dim order, major to minor."""
+    from torch.distributed.tensor import Shard
+    idx = []
+    for d in range(len(shape)):
+        k, n = 0, 1
+        for md, p in enumerate(placements):
+            if isinstance(p, Shard) and p.dim == d:
+                k, n = k * mesh_sizes[md] + coord[md], n * mesh_sizes[md]
+        step = shape[d] // n
+        idx.append(slice(k * step, (k + 1) * step))
+    return tuple(idx)
+
+
+def place(t: torch.Tensor, sharding: MeshSharding, device=None):
+    """A DTensor of ``t`` (the whole tensor, present on every rank) on
+    ``sharding``: each rank keeps its own shard, sliced locally — nothing is
+    sent (``distribute_tensor(..., src_data_rank=None)``'s contract, by
+    ``DTensor.from_local``) — and moves it to ``device`` (default: where
+    ``t`` lies). A rank outside the mesh keeps an empty shard."""
+    from torch.distributed.tensor import DTensor
+    mesh = sharding.mesh
+    placements = sharding.placements
+    coord = mesh.get_coordinate()
+    if coord is not None:
+        local = t[shard_index(t.shape, placements, tuple(mesh.shape), coord)]
+    else:
+        local = t.new_empty((0,) * t.ndim)
+    stride = torch.empty(t.shape, device="meta").stride()
+    local = local.contiguous() if device is None else \
+        local.to(device, memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements,
+                              run_check=False, shape=t.shape, stride=stride)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules (path/shape based)
+# ---------------------------------------------------------------------------
+# Conventions (repro_torch.models):
+#   dense kernels    {"<proj>": {"w": (in, out)}}         — leaf name "w"
+#   expert banks     {"moe": {"wi": {"w": (E, in, out)}}} — "moe" in path
+#   embeddings       {"embedding": (V, d)}; lm head {"lm_head": {"w": (d, V)}}
+#   stacked trees prepend one period dim ("periods" in path)
+#
+# Megatron-style placement: column-parallel projections put TP on the out
+# dim, row-parallel on the in dim; everything else gets FSDP on its largest
+# eligible dim. Divisibility fallbacks in logical_to_mesh handle the rest
+# (e.g. mixtral's 8 experts on model=16 fall back to expert-ff TP).
+
+_ROW_PARALLEL = {"wo", "wdown", "out_proj", "w_lora_b", "wv_cm"}
+_TP = "heads_flat"   # resolves to 'model'
+
+_PARAM_RULES = AxisRules(rules=AxisRules().rules + (
+    ("heads_flat", (("model",), None)),
+))
+
+
+def param_sharding_rules(path: Tuple[str, ...], leaf: Any) -> Tuple:
+    """Logical axes for a parameter leaf."""
+    shape = getattr(leaf, "shape", ())
+    rank = len(shape)
+    name = path[-1] if path else ""
+    parent = path[-2] if len(path) >= 2 else ""
+
+    def pad(spec: Tuple) -> Tuple:
+        """Prepend Nones for the stack dim(s) so spec matches rank."""
+        if len(spec) < rank:
+            return (None,) * (rank - len(spec)) + spec
+        return spec
+
+    if name == "embedding":
+        return pad(("vocab", "fsdp"))
+    if name == "conv_w":
+        return pad((None, "ff"))
+    if name in ("w", "w_q", "w_q4", "w_scale"):
+        if parent == "w" or parent == "":
+            return (None,) * rank
+        if parent in ("w_lora_a", "w_lora_b") and \
+                not os.environ.get("REPRO_LORA_TP"):
+            # rwkv decay LoRA: ~0.26 M params/layer — replicated, so the
+            # tiny matmul is duplicated instead of resharded per layer.
+            # REPRO_LORA_TP=1 restores the naive TP sharding.
+            return pad(("fsdp", None))
+        if "lm_head" in path:
+            spec = ("fsdp", "vocab")
+        elif "moe" in path:                    # expert bank (E, in, out)
+            spec = ("experts", "fsdp", "expert_ff")
+        else:
+            key = parent
+            if key == "wv" and "cm" in path:
+                key = "wv_cm"                  # rwkv channel-mix down-proj
+            spec = (_TP, "fsdp") if key in _ROW_PARALLEL else ("fsdp", _TP)
+        if name in ("w_q", "w_q4"):            # quantized codes: (out, in)
+            spec = spec[:-2] + (spec[-1], spec[-2])
+        elif name == "w_scale":                # (out, 1)
+            spec = spec[:-2] + (spec[-1], None)
+        return pad(spec)
+    # vectors / norm gains / lerp factors / u bonus: replicate
+    return (None,) * rank
+
+
+def _paths(tree: Any, path: Tuple[str, ...] = ()):
+    """``(path, leaf)`` of every leaf (dict keys, list indices as str);
+    ``None`` leaves skipped."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _paths(v, path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, path + (str(i),))
+    elif tree is not None:
+        yield path, tree
+
+
+def _map_with_path(fn, tree: Any, path: Tuple[str, ...] = ()) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_with_path(fn, v, path + (str(i),))
+                          for i, v in enumerate(tree))
+    if tree is None or not hasattr(tree, "shape"):
+        return tree
+    return fn(path, tree)
+
+
+def make_param_shardings(mesh, params_shape: Any,
+                         rules: Optional[AxisRules] = None) -> Any:
+    """``MeshSharding`` tree for a params tree (of tensors or anything with
+    a ``shape``; other leaves, such as a clock integer, stay as they are)."""
+    rules = rules or _PARAM_RULES
+
+    def one(path, leaf):
+        logical = param_sharding_rules(path, leaf)
+        return MeshSharding(mesh, logical_to_mesh(logical, leaf.shape, mesh,
+                                                  rules))
+
+    return _map_with_path(one, params_shape)
+
+
+def quantized_tensor_shardings(mesh, path: Tuple[str, ...], qt
+                               ) -> Tuple[MeshSharding, MeshSharding]:
+    """(codes, scale) ``MeshSharding`` for a pipeline ``QuantizedTensor``.
+
+    ``path`` is the source kernel's tree path (…, parent, "w"); the codes and
+    scales inherit the *serving-format* rules the same kernel would get as
+    plain ``w_q``/``w_q4``/``w_scale`` arrays (transposed Megatron placement,
+    divisibility fallbacks included). The pipeline's 2-D carriers collapse
+    any stacked dims (experts, scan periods, conv taps) into the row dim, so
+    rules written for the full stacked rank keep their trailing (row, col)
+    entries — non-divisible collapsed dims fall back to replication inside
+    ``logical_to_mesh``.
+    """
+    qname = "w_q4" if qt.packed else "w_q"
+    logical_q = param_sharding_rules(path[:-1] + (qname,), qt.data)
+    logical_s = param_sharding_rules(path[:-1] + ("w_scale",), qt.scale)
+    logical_q = tuple(logical_q)[-qt.data.ndim:]
+    logical_s = tuple(logical_s)[-qt.scale.ndim:]
+    spec_q = logical_to_mesh(logical_q, qt.data.shape, mesh, _PARAM_RULES)
+    spec_s = logical_to_mesh(logical_s, qt.scale.shape, mesh, _PARAM_RULES)
+    return MeshSharding(mesh, spec_q), MeshSharding(mesh, spec_s)
+
+
+def reshard_serving_tree(tree: Any, mesh) -> Any:
+    """Place every leaf of a serving weight tree (fp params or the quantized
+    ``w_q``/``w_q4``/``w_scale`` format) onto ``mesh``'s parameter
+    shardings — the reshard-on-restore path: a tree checkpointed from a
+    4-rank mesh lands bit-exactly on a 1- or 2-rank mesh because the
+    checkpoint holds full logical arrays and :func:`place` only re-splits
+    them. Nothing is sent between ranks."""
+    shardings = make_param_shardings(mesh, tree)
+    return _zip_map(lambda t, sh: place(t, sh) if isinstance(sh, MeshSharding)
+                    else t, tree, shardings)
+
+
+def gather_tree(tree: Any) -> Any:
+    """Every DTensor leaf of ``tree`` (and of its ``QuantizedTensor``s)
+    gathered to its whole tensor on this rank (``group.full_tensor``, a
+    collective: every rank of the mesh calls it); other leaves as they
+    are."""
+    from repro_torch.distributed.group import full_tensor
+    from repro_torch.quant.qtypes import QuantizedTensor
+
+    def one(_, t):
+        if isinstance(t, QuantizedTensor):
+            return dataclasses.replace(t, data=full_tensor(t.data),
+                                       scale=full_tensor(t.scale))
+        return full_tensor(t)
+    return _map_with_path(one, tree)
+
+
+def _zip_map(fn, a: Any, b: Any) -> Any:
+    if isinstance(a, dict):
+        return {k: _zip_map(fn, a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return type(a)(_zip_map(fn, x, y) for x, y in zip(a, b))
+    return fn(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Cache sharding rules (serving)
+# ---------------------------------------------------------------------------
+
+_CACHE_LOGICAL: Dict[str, Tuple] = {
+    "k":       ("batch", "seq_cache", "kv_heads", "head_dim"),
+    "v":       ("batch", "seq_cache", "kv_heads", "head_dim"),
+    "k_scale": ("batch", "seq_cache", "kv_heads"),
+    "v_scale": ("batch", "seq_cache", "kv_heads"),
+    "c_kv":    ("batch", "seq_cache", "mla_rank"),
+    "k_rope":  ("batch", "seq_cache", None, None),
+    "h":       ("batch", "d_inner", None),
+    "conv":    ("batch", None, "d_inner"),
+    "wkv":     ("batch", "heads", None, None),
+    "x_tm":    ("batch", None),
+    "x_cm":    ("batch", None),
+    "enc_out": ("batch", None, None),
+}
+
+# Paged pools put K/V in (num_blocks, block_size, kv_heads, head_dim):
+# the pool dim takes the DP axes (each rank holds a slice of the block
+# pool — the paged analogue of sequence parallelism), while the tiny
+# block_size dim is never split.
+_PAGED_CACHE_LOGICAL: Dict[str, Tuple] = {
+    "k":       ("kv_blocks", None, "kv_heads", "head_dim"),
+    "v":       ("kv_blocks", None, "kv_heads", "head_dim"),
+    "k_scale": ("kv_blocks", None, "kv_heads"),
+    "v_scale": ("kv_blocks", None, "kv_heads"),
+}
+
+_CACHE_RULES = AxisRules(rules=(
+    # long-context SP: the cache sequence dim takes whatever DP axes the
+    # (possibly tiny) batch left unused — 500k decode shards its KV over them
+    ("seq_cache", (("pod", "data"), ("data",), None)),
+    ("kv_blocks", (("pod", "data"), ("data",), None)),
+    ("mla_rank",  (("model",), None)),
+    ("d_inner",   (("model",), None)),
+    ("head_dim",  (("model",), None)),
+) + AxisRules().rules)
+
+
+def make_cache_shardings(mesh, cache_shape: Any, paged: bool = False) -> Any:
+    """``MeshSharding`` tree for a cache tree (tensors or anything with a
+    ``shape``; a host-integer clock stays as it is)."""
+    table = _PAGED_CACHE_LOGICAL if paged else _CACHE_LOGICAL
+
+    def one(path, leaf):
+        name = path[-1] if path else ""
+        logical = table.get(name)
+        if logical is None and paged:
+            logical = _CACHE_LOGICAL.get(name)
+        if logical is None:
+            logical = (None,) * len(leaf.shape)
+        if len(logical) != len(leaf.shape):
+            stack = len(leaf.shape) - len(logical)
+            logical = (None,) * stack + tuple(logical)
+        return MeshSharding(mesh, logical_to_mesh(logical, leaf.shape, mesh,
+                                                  _CACHE_RULES))
+
+    return _map_with_path(one, cache_shape)

@@ -497,6 +497,7 @@ constexpr int SC_UNROLL = 4;
 struct ScaleArgs {
   const float* w[MAX_LEAVES];
   float* scale;                          // (leaves, nch)
+  long long ld;                          // a leaf's row stride (>= nch)
   int nch, kin, tiles;
   float inv_qmax, eps;
 };
@@ -505,7 +506,8 @@ struct ScaleArgs {
 // the max is taken on the bits of |w| (ordered like the values, NaN above
 // every number, so a NaN propagates as torch's amax propagates it), and the
 // product is one float32 multiply, as `clamp_min(absmax, eps) * (1 / qmax)`
-// is in torch. VEC: nch % 4 == 0 and 16-byte aligned leaves.
+// is in torch. VEC: nch % 4 == 0, ld % 4 == 0 and 16-byte aligned
+// leaves.
 template <bool VEC>
 __global__ void __launch_bounds__(SC_THREADS)
 squant_scale_kernel(const __grid_constant__ ScaleArgs a) {
@@ -515,7 +517,7 @@ squant_scale_kernel(const __grid_constant__ ScaleArgs a) {
   const float* w = a.w[leaf];
   const int t = threadIdx.x;
   const int slot = t >> 4;
-  const long long ld = a.nch;
+  const long long ld = a.ld;
   unsigned mx[4] = {0u, 0u, 0u, 0u};
   int col[4];
 #pragma unroll
@@ -606,8 +608,11 @@ long long squant_flip_scratch_bytes(int nleaf, int nch, int kin, int g) {
 // SQuant codes of `nleaf` matrices of nch output channels x kin inputs,
 // element (c, k) of leaf b at leaves[b][c*sc + k*sk]: scale (nleaf, nch)
 // float32, out (nleaf, nch, kin) int8, scratch as squant_flip_scratch_bytes
-// says. v16 = 1 asks for the 16-byte instance (sc == 1, nch % 4 == 0,
-// 16-byte aligned leaves; refused with cudaErrorInvalidValue otherwise).
+// says. A column range of stored (in, out) leaves is the same call with the
+// pointers moved to the first column, nch the range's width and sk the
+// leaves' unchanged row stride. v16 = 1 asks for the 16-byte instance
+// (sc == 1, nch % 4 == 0, sk % 4 == 0, 16-byte aligned pointers; refused
+// with cudaErrorInvalidValue otherwise).
 // Returns the
 // CUDA error of the launch (0 on success). Launches on `stream`, allocates
 // nothing, does not synchronise.
@@ -624,7 +629,7 @@ int squant_flip_launch(const void* const* leaves, int nleaf, const void* scale,
     if (v16 && reinterpret_cast<uintptr_t>(leaves[b]) % 16 != 0)
       return (int)cudaErrorInvalidValue;
   }
-  if (v16 && (sc != 1 || nch % 4 != 0 || sk != nch))
+  if (v16 && (sc != 1 || nch % 4 != 0 || sk % 4 != 0))
     return (int)cudaErrorInvalidValue;
   a.scale = static_cast<const float*>(scale);
   a.out = static_cast<int8_t*>(out);
@@ -660,20 +665,22 @@ int squant_flip_launch(const void* const* leaves, int nleaf, const void* scale,
   return (int)cudaGetLastError();
 }
 
-// scale (nleaf, nch) float32 of `nleaf` (kin, nch) row-major leaves:
-// max(max_k |w[k, c]|, eps) * inv_qmax. Same contract as above.
+// scale (nleaf, nch) float32 of `nleaf` (kin, nch) leaves of row stride
+// ld (ld > nch: a column range of wider leaves, pointers at its first
+// column): max(max_k |w[k, c]|, eps) * inv_qmax. Same contract as above.
 int squant_scale_launch(const void* const* leaves, int nleaf, void* scale,
-                        int nch, int kin, float inv_qmax, float eps,
-                        void* stream) {
-  if (nleaf < 1 || nleaf > MAX_LEAVES || nch < 1 || kin < 1)
+                        int nch, int kin, long long ld, float inv_qmax,
+                        float eps, void* stream) {
+  if (nleaf < 1 || nleaf > MAX_LEAVES || nch < 1 || kin < 1 || ld < nch)
     return (int)cudaErrorInvalidValue;
   ScaleArgs a;
-  bool vec = nch % 4 == 0;
+  bool vec = nch % 4 == 0 && ld % 4 == 0;
   for (int b = 0; b < nleaf; ++b) {
     a.w[b] = static_cast<const float*>(leaves[b]);
     vec = vec && reinterpret_cast<uintptr_t>(leaves[b]) % 16 == 0;
   }
   a.scale = static_cast<float*>(scale);
+  a.ld = ld;
   a.nch = nch;
   a.kin = kin;
   a.tiles = (nch + SC_COLS - 1) / SC_COLS;

@@ -90,30 +90,33 @@ def squant_flip(w2d: torch.Tensor, scale: torch.Tensor, *, bits: int,
 
 def squant_flip_leaves(leaves: Sequence[torch.Tensor], scale: torch.Tensor, *,
                        bits: int, group_size: int, enable_k: bool = True,
-                       enable_c: bool = True, backend: str = "auto"
-                       ) -> torch.Tensor:
+                       enable_c: bool = True, backend: str = "auto",
+                       cols=None) -> torch.Tensor:
     """SQuant codes (B, out, in) for B same-shape ``(in, out)`` leaves read
     as they are stored, with per-channel scales (B, out[, 1]): the
     model-level entry point of ``quantize_tree``'s native route, one launch
-    per bucket. The E&C-without-K ablation has no kernel and runs on torch
-    ops on either device."""
+    per bucket. ``cols=(c0, n)``: output channels ``c0 .. c0 + n - 1`` of
+    every leaf only. The E&C-without-K ablation has no kernel and runs on
+    torch ops on either device."""
     if _use_kernel(leaves[0], backend) and (enable_k or not enable_c):
         return _sf.squant_flip_leaves(leaves, scale, bits=bits,
                                       group_size=group_size,
-                                      enable_k=enable_k, enable_c=enable_c)
+                                      enable_k=enable_k, enable_c=enable_c,
+                                      cols=cols)
     return _sf.squant_flip_leaves_plain(leaves, scale, bits=bits,
                                         group_size=group_size,
-                                        enable_k=enable_k, enable_c=enable_c)
+                                        enable_k=enable_k, enable_c=enable_c,
+                                        cols=cols)
 
 
 def squant_scales(leaves: Sequence[torch.Tensor], bits: int, *,
-                  backend: str = "auto") -> torch.Tensor:
+                  backend: str = "auto", cols=None) -> torch.Tensor:
     """Per-channel max scales (B, out) of B same-shape ``(in, out)``
     leaves, bit-identical to ``core.dispatch._scales`` on their transposed
-    stack."""
+    stack; ``cols=(c0, n)``: channels ``c0 .. c0 + n - 1`` only."""
     if _use_kernel(leaves[0], backend):
-        return _sf.squant_scales(leaves, bits)
-    return _sf.squant_scales_plain(leaves, bits)
+        return _sf.squant_scales(leaves, bits, cols)
+    return _sf.squant_scales_plain(leaves, bits, cols)
 
 
 def squant_flip_batched(w3: torch.Tensor, scale3: torch.Tensor, *, bits: int,

@@ -15,6 +15,11 @@ Two entry points share the one kernel body:
   to the kernel in a table (up to ``MAX_LEAVES`` a launch). The route
   (:func:`route`) is ``"cp16"`` — rows copied 16 bytes at a time — where
   every leaf's rows are 16-byte aligned (``out % 4 == 0``), else ``"cp4"``.
+  ``cols=(c0, n)`` reads only output channels ``c0 .. c0 + n - 1`` of every
+  leaf (codes ``(B, n, in)``): the pointers move to column ``c0``, the
+  leaves' row stride stays ``out``, and the kernel's arithmetic is
+  unchanged — how a rank's row slab of a sharded bucket, which may start
+  and end inside a leaf, is read where it is stored.
 * :func:`squant_flip` — one row-major ``(M, N)`` matrix (any strides),
   codes ``(M, N)``; always the ``"cp4"`` route.
 
@@ -30,7 +35,7 @@ refused.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -68,13 +73,22 @@ def squant_flip_plain(w2d: torch.Tensor, scale: torch.Tensor, *, bits: int,
     return codes
 
 
+def _col_range(leaves, cols):
+    """``leaves`` cut to the output channels ``cols = (c0, n)`` (views)."""
+    if cols is None:
+        return list(leaves)
+    c0, n = cols
+    return [leaf[:, c0:c0 + n] for leaf in leaves]
+
+
 def squant_flip_leaves_plain(leaves: Sequence[torch.Tensor],
                              scale: torch.Tensor, *, bits: int,
                              group_size: int, enable_k: bool = True,
-                             enable_c: bool = True) -> torch.Tensor:
+                             enable_c: bool = True, cols=None
+                             ) -> torch.Tensor:
     """Plain version of :func:`squant_flip_leaves`: the transposed stack
     through the vectorized core. Returns int8 codes (B, out, in)."""
-    w = torch.stack([leaf.T for leaf in leaves])
+    w = torch.stack([leaf.T for leaf in _col_range(leaves, cols)])
     b, m, n = w.shape
     codes = squant_flip_plain(w.reshape(b * m, n), scale.reshape(b * m, 1),
                               bits=bits, group_size=group_size,
@@ -82,10 +96,11 @@ def squant_flip_leaves_plain(leaves: Sequence[torch.Tensor],
     return codes.reshape(b, m, n)
 
 
-def squant_scales_plain(leaves: Sequence[torch.Tensor], bits: int
-                        ) -> torch.Tensor:
+def squant_scales_plain(leaves: Sequence[torch.Tensor], bits: int,
+                        cols=None) -> torch.Tensor:
     """Plain version of :func:`squant_scales`: (B, out) float32."""
-    absmax = torch.stack([leaf.abs().amax(dim=0) for leaf in leaves])
+    absmax = torch.stack([leaf.abs().amax(dim=0)
+                          for leaf in _col_range(leaves, cols)])
     return torch.clamp_min(absmax, _EPS) * (1.0 / qmax_for_bits(bits))
 
 
@@ -109,8 +124,8 @@ def _lib():
         s = lib.squant_scale_launch
         s.restype = ctypes.c_int
         s.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_void_p]
+                      ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
         b = lib.squant_flip_scratch_bytes
         b.restype = ctypes.c_longlong
         b.argtypes = [ctypes.c_int] * 4
@@ -147,6 +162,16 @@ def _check_leaves(leaves) -> List[torch.Tensor]:
     return leaves
 
 
+def _cols(leaves, cols) -> Tuple[int, int, int]:
+    """``(c0, n, ld)``: the first channel, the channel count and the
+    leaves' row stride of a launch over ``cols`` (default: every channel)."""
+    ld = leaves[0].shape[1]
+    c0, n = (0, ld) if cols is None else (int(cols[0]), int(cols[1]))
+    if not (0 <= c0 and 0 <= n and c0 + n <= ld):
+        raise ValueError(f"columns {c0}..{c0 + n} outside the leaves' {ld}")
+    return c0, n, ld
+
+
 def _stream():
     return torch.cuda.current_stream().cuda_stream
 
@@ -181,18 +206,22 @@ def _flip(ptrs, scale, out, sc, sk, nch, kin, group_size, bits, enable_k,
 
 def squant_flip_leaves(leaves: Sequence[torch.Tensor], scale: torch.Tensor,
                        *, bits: int, group_size: int, enable_k: bool = True,
-                       enable_c: bool = True) -> torch.Tensor:
+                       enable_c: bool = True, cols=None) -> torch.Tensor:
     """SQuant codes (int8, (B, out, in)) of B same-shape float32 ``(in,
     out)`` leaves, read where they are stored, with scales (B, out[, 1]).
-    Supports E, E&K and E&K&C with ``group_size <= 128``."""
+    Supports E, E&K and E&K&C with ``group_size <= 128``. ``cols=(c0, n)``
+    quantizes output channels ``c0 .. c0 + n - 1`` only (codes (B, n, in),
+    scales (B, n[, 1]))."""
     leaves = list(leaves)
     if not leaves or not leaves[0].is_cuda:
         return squant_flip_leaves_plain(leaves, scale, bits=bits,
                                         group_size=group_size,
-                                        enable_k=enable_k, enable_c=enable_c)
+                                        enable_k=enable_k, enable_c=enable_c,
+                                        cols=cols)
     _check_flags(bits, group_size, enable_k, enable_c)
     leaves = _check_leaves(leaves)
-    kin, nch = leaves[0].shape
+    kin = leaves[0].shape[0]
+    c0, nch, ld = _cols(leaves, cols)
     b, dev = len(leaves), leaves[0].device
     if scale.device != dev or scale.dtype != torch.float32 \
             or scale.numel() != b * nch or not scale.is_contiguous():
@@ -201,9 +230,10 @@ def squant_flip_leaves(leaves: Sequence[torch.Tensor], scale: torch.Tensor,
     out = torch.empty((b, nch, kin), dtype=torch.int8, device=dev)
     if kin == 0 or nch == 0:
         return out
-    ptrs = [leaf.data_ptr() for leaf in leaves]
-    v16 = route(nch, all(p % 16 == 0 for p in ptrs)) == "cp16"
-    _flip(ptrs, scale, out, 1, nch, nch, kin, group_size, bits, enable_k,
+    ptrs = [leaf.data_ptr() + 4 * c0 for leaf in leaves]
+    v16 = route(nch, ld % 4 == 0 and all(p % 16 == 0 for p in ptrs)) \
+        == "cp16"
+    _flip(ptrs, scale, out, 1, ld, nch, kin, group_size, bits, enable_k,
           enable_c, v16, dev)
     return out
 
@@ -236,26 +266,29 @@ def squant_flip(w2d: torch.Tensor, scale: torch.Tensor, *, bits: int,
     return out
 
 
-def squant_scales(leaves: Sequence[torch.Tensor], bits: int) -> torch.Tensor:
+def squant_scales(leaves: Sequence[torch.Tensor], bits: int, cols=None
+                  ) -> torch.Tensor:
     """Per-channel max scales (B, out) float32 of B same-shape float32
-    ``(in, out)`` leaves, one pass over them."""
+    ``(in, out)`` leaves, one pass over them; ``cols=(c0, n)``: channels
+    ``c0 .. c0 + n - 1`` only, (B, n)."""
     global scale_launches
     leaves = list(leaves)
     if not leaves or not leaves[0].is_cuda:
-        return squant_scales_plain(leaves, bits)
+        return squant_scales_plain(leaves, bits, cols)
     leaves = _check_leaves(leaves)
-    kin, nch = leaves[0].shape
+    kin = leaves[0].shape[0]
+    c0, nch, ld = _cols(leaves, cols)
     dev = leaves[0].device
     out = torch.empty((len(leaves), nch), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
     fn = _lib()["scale"]
-    ptrs = [leaf.data_ptr() for leaf in leaves]
+    ptrs = [leaf.data_ptr() + 4 * c0 for leaf in leaves]
     with _build.on_device(dev):
         for b0 in range(0, len(ptrs), MAX_LEAVES):
             part = ptrs[b0:b0 + MAX_LEAVES]
             err = fn((ctypes.c_void_p * len(part))(*part), len(part),
-                     out.data_ptr() + b0 * nch * 4, nch, kin,
+                     out.data_ptr() + b0 * nch * 4, nch, kin, ld,
                      1.0 / qmax_for_bits(bits), _EPS, _stream())
             if err != 0:
                 raise RuntimeError(f"squant_scale kernel launch failed (cuda "

@@ -1,2 +1,2 @@
-"""Launchers: the quantize and serve CLIs (the mesh, dry-run and train
-launchers are not ported yet)."""
+"""Launchers: the quantize, serve and train CLIs and the mesh factories
+(the dry-run launcher is not ported yet)."""

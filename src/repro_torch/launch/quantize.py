@@ -12,6 +12,12 @@ Example (on the card; ``--device cpu`` runs the plain versions on the host):
 (``w_q``/``w_q4`` + ``w_scale`` tree, int4 kept packed on disk, quant
 metadata in ``index.json``) that ``repro_torch.launch.serve --reload-from
 DIR`` hot-loads without re-quantizing, and that the reference package reads.
+
+``--mesh N`` (or ``auto``: one rank a card, or one rank on the host)
+shards every bucket's rows over a 1-axis 'data' mesh of N ranks: the CLI
+starts N rank processes on this host (``distributed.group.run_local``;
+NCCL on the card, gloo on the host), each quantizes its slab, and rank 0
+writes the artifacts — bitwise identical to ``--mesh off``.
 """
 from __future__ import annotations
 
@@ -49,7 +55,11 @@ def main(argv=None):
                     help="per-layer loop with one device sync per layer "
                          "(baseline for the batched pipeline)")
     ap.add_argument("--mesh", default="off",
-                    help="sharded quantization; only 'off' is ported")
+                    help="sharded quantization: 'off' (default), 'auto' "
+                         "(one rank a card, or one rank on the host), or "
+                         "a rank count. Row-partitions each bucket over a "
+                         "1-axis 'data' mesh; bit-identical to the "
+                         "unsharded path")
     ap.add_argument("--device", default="cuda",
                     help="where the weights live and quantization runs "
                          "('cuda' = the current CUDA device, or 'cpu')")
@@ -65,10 +75,24 @@ def main(argv=None):
                     help="step number for --serving-ckpt (watchers reload "
                          "steps in increasing order)")
     args = ap.parse_args(argv)
-    if args.mesh != "off":
-        raise NotImplementedError("not ported yet: sharded quantization "
-                                  "(--mesh, M7)")
+    if args.mesh == "off":
+        return _quantize(args, None)
+    device = torch.device(args.device)
+    n = (torch.cuda.device_count() if device.type == "cuda" else 1) \
+        if args.mesh == "auto" else int(args.mesh)
+    if n == 1:
+        from repro_torch.distributed import group
+        try:
+            return _quantize(args, n)
+        finally:
+            group.shutdown(own_only=True)
+    from repro_torch.distributed.group import default_backend, run_local
+    run_local(_quantize, n, backend=default_backend(device), device=device,
+              args=(args, n))
 
+
+def _quantize(args, n_ranks):
+    """The CLI's work, on one rank of ``n_ranks`` (None: no mesh)."""
     device = torch.device(args.device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -88,11 +112,23 @@ def main(argv=None):
         gen.manual_seed(0)
         params = model.init(gen, device=device)
 
+    mesh, rank0 = None, True
+    if n_ranks is not None:
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_quantize_mesh
+        mesh = make_quantize_mesh(n_ranks, device=device)
+        rank0 = dist.get_rank() == 0
+        if rank0:
+            print(f"[quantize] sharding rows over mesh "
+                  f"{dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))}")
     qtree, report = quantize_tree(params, method=args.method, bits=args.bits,
                                   group_size=args.group_size,
                                   dequantize=True, backend=args.backend,
-                                  batched=not args.serial, device=device)
-    print(f"[quantize] {report.summary()}")
+                                  batched=not args.serial, device=device,
+                                  mesh=mesh)
+    if not rank0:
+        return
+    print(f"[quantize] {report.summary()}", flush=True)
     os.makedirs(args.out, exist_ok=True)
     Checkpointer(args.out, async_save=False).save(0, qtree, {"step": 0})
     with open(os.path.join(args.out, "quant_report.json"), "w") as f:

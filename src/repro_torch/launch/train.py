@@ -8,9 +8,10 @@ Examples:
         --steps 200 --ckpt-dir ckpt
     python -m repro_torch.launch.train --steps 6 --device cpu --ckpt-dir ckpt
 
-Not ported yet: ``--pod-compress`` (the int8 cross-pod gradient all-reduce,
-M8b) and ``--production`` (the production mesh, M7); each exits with
-``not ported yet``.
+``--production`` builds the production mesh (16×16, or 2×16×16 with
+``--pod-compress``) over the ranks of the process group, so it raises below
+256 (512) ranks, as the reference's does; ``--pod-compress`` without it
+trains plainly (the step has no 'pod' axis to compress over).
 """
 from __future__ import annotations
 
@@ -42,19 +43,17 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--pod-compress", action="store_true")
     ap.add_argument("--production", action="store_true",
-                    help="build the production mesh (not ported yet)")
+                    help="build the production mesh (needs >= 256 ranks)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the current CUDA device)")
     args = ap.parse_args(argv)
 
-    if args.production:
-        raise SystemExit("not ported yet: --production (the production "
-                         "mesh, M7)")
-    if args.pod_compress:
-        raise SystemExit("not ported yet: --pod-compress (the int8 "
-                         "cross-pod gradient all-reduce, M8b)")
-
     device = torch.device(args.device)
+    mesh = None
+    if args.production:
+        from repro_torch.launch.mesh import make_production_mesh
+        mesh = make_production_mesh(multi_pod=args.pod_compress,
+                                    device=device)
     cfg = get_config(args.arch, reduced=args.reduced)
     if args.reduced:
         cfg = dataclasses.replace(cfg, dtype="float32")
@@ -64,7 +63,8 @@ def main(argv=None):
 
     ocfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                        decay_steps=args.steps)
-    step = make_train_step(model, ocfg, microbatches=args.microbatches)
+    step = make_train_step(model, ocfg, microbatches=args.microbatches,
+                           pod_compress=args.pod_compress, mesh=mesh)
     trainer = Trainer(model, ocfg,
                       TrainerConfig(total_steps=args.steps,
                                     checkpoint_every=args.ckpt_every,

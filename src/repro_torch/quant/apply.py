@@ -116,8 +116,10 @@ def quantized_param_shapes(params_shape: Any, bits: int) -> Any:
 def quantize_params_sharded(params: Any, bits: int, method: str = "squant",
                             group_size: Optional[int] = 128) -> Any:
     """Real weights → quantized serving tree (data-free, on the fly), on
-    the device the weights lie on. (The name is the reference's; this
-    package has no mesh, so nothing is sharded.)"""
+    the device the weights lie on. (The name is the reference's, whose
+    GSPMD shards the result through its inputs' placements; here the tree
+    stays whole on the device: place it with
+    ``distributed.sharding.reshard_serving_tree``.)"""
     return _walk(params, (), bits, method, group_size, False)
 
 

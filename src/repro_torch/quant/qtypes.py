@@ -93,6 +93,18 @@ class QuantizedTensor:
         """True serving footprint in bytes (codes + scales)."""
         return self.data.numel() + 4 * self.scale.numel()
 
+    def with_placement(self, data_sharding, scale_sharding
+                       ) -> "QuantizedTensor":
+        """The same tensor with codes/scales as DTensors on the given
+        ``distributed.sharding.MeshSharding``s: each rank keeps its own
+        shard of the whole codes and scales it holds, nothing is sent and
+        the host is not synchronized."""
+        from repro_torch.distributed.sharding import place
+        return QuantizedTensor(
+            data=place(self.data, data_sharding),
+            scale=place(self.scale, scale_sharding),
+            bits=self.bits, group_size=self.group_size, shape=self.shape)
+
 
 # ---------------------------------------------------------------------------
 # Quantization-run reports (filled by core.pipeline.quantize_tree)
@@ -118,8 +130,9 @@ class BucketReport:
 
 @dataclasses.dataclass
 class ShardReport:
-    """Per-device row accounting for a sharded pipeline (fields kept for the
-    report format; the single-device pipeline leaves ``shards`` empty)."""
+    """Per-device row accounting for a sharded pipeline (``device`` is the
+    rank's index on the mesh axis; an unsharded run leaves ``shards``
+    empty)."""
     device: int
     rows: int
     pad_rows: int

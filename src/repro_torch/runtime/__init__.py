@@ -1,2 +1,1 @@
-"""Runtime: the trainer's straggler monitor (elastic membership is not
-ported yet)."""
+"""Runtime: the trainer's straggler monitor and elastic mesh shapes."""

@@ -541,7 +541,10 @@ class ServeEngine:
         them (quantizing fp trees on the fly, loading quantized trees
         natively); swaps land at the scheduler's next swap point (round
         boundary, or continuous drain/deadline), where the captured steps
-        are dropped and captured again on the new tree."""
+        are dropped and captured again on the new tree. ``mesh``: each
+        step is restored whole onto this rank's device of the mesh, with no
+        collective on the watcher's thread
+        (``WeightStore.poll_checkpoints``)."""
         self.store.watch(ckpt_dir, poll_s=poll_s, mesh=mesh,
                          expect={"quantize_weights": self.cfg.quantize_weights,
                                  "weight_bits": self.cfg.weight_bits})

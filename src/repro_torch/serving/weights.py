@@ -36,7 +36,20 @@ issued on the calling thread's stream (the inputs a stage may read), and
 is the only stream the stage synchronizes: the scheduler, which
 synchronizes its own stream, never waits for a stage, and no stage makes a
 device-wide synchronization while the scheduler's thread may be capturing
-a CUDA graph. Reshard-on-restore (``mesh=``) is not ported yet (M7).
+a CUDA graph.
+
+Placed trees: the engine runs one device a rank and its kernels take
+plain tensors, so staging a tree with DTensor leaves (say, one that
+``Checkpointer.restore_serving(mesh=)`` resharded) first gathers each leaf
+to its whole tensor on the rank's device — the all-gather GSPMD inserts in
+the reference. The gather is a collective, so it runs on the thread that
+calls :meth:`WeightStore.stage` (or builds the store), never on the
+staging worker, and ``staged_ms`` counts it. The checkpoint watcher runs no
+collective: with ``watch(mesh=)`` each rank restores every step whole onto
+its own device of the mesh — the layout the engine serves from, which a
+resharded restore would only gather back — so ranks that see different
+newest steps at one poll, or retry a step alone, never pair collectives
+wrongly; each stages the newest committed step it sees.
 """
 from __future__ import annotations
 
@@ -131,6 +144,14 @@ def make_draft_quantize_fn(model, cfg, device=None):
     return draft_fn
 
 
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device on ``mesh`` (``ValueError`` off the mesh)."""
+    from repro_torch.distributed import group
+    if mesh.get_coordinate() is None:
+        raise ValueError("this rank is not on the mesh it watches for")
+    return group.device()
+
+
 class WeightStore:
     """Double-buffered, versioned owner of serving weights.
 
@@ -182,8 +203,9 @@ class WeightStore:
         # bounded: a persistently failing watcher (e.g. deleted ckpt dir)
         # appends per poll and must not grow a long-lived server's memory
         self.errors: collections.deque = collections.deque(maxlen=256)
-        self._build_and_publish(fp_params, serving_params, report, source,
-                                None)
+        self._build_and_publish(
+            *self._gathered(fp_params, serving_params)[:2], report, source,
+            None)
         with self._lock:
             self._live, self._staged = self._staged, None
 
@@ -272,8 +294,21 @@ class WeightStore:
         self._stream.wait_stream(torch.cuda.current_stream(self._device))
         return torch.cuda.stream(self._stream)
 
+    def _gathered(self, fp_params, serving_params):
+        """``(fp_params, serving_params, ms)``: a placed (DTensor) tree
+        gathered whole onto this rank, on the calling thread (a collective:
+        every rank of the mesh stages it)."""
+        from repro_torch.distributed.sharding import gather_tree
+        t0 = time.perf_counter()
+        with self._staging():
+            if serving_params is not None:
+                serving_params = gather_tree(serving_params)
+            if fp_params is not None:
+                fp_params = gather_tree(fp_params)
+        return fp_params, serving_params, (time.perf_counter() - t0) * 1e3
+
     def _build_and_publish(self, fp_params, serving_params, report, source,
-                           step):
+                           step, gather_ms: float = 0.0):
         t0 = time.perf_counter()
         with self._staging():
             if serving_params is not None:
@@ -295,7 +330,7 @@ class WeightStore:
             # materialize now so the round-boundary swap is a pointer flip
             if self._stream is not None:
                 self._stream.synchronize()
-        staged_ms = (time.perf_counter() - t0) * 1e3
+        staged_ms = gather_ms + (time.perf_counter() - t0) * 1e3
         with self._lock:
             self._counter += 1
             self._staged = WeightVersion(self._counter, tree, rep, source,
@@ -309,16 +344,20 @@ class WeightStore:
 
         ``block=False`` hands the work to the background worker (latest
         request wins if several arrive while one is building);
-        ``block=True`` builds synchronously in the caller's thread.
+        ``block=True`` builds synchronously in the caller's thread. A placed
+        tree is gathered on the caller's thread either way.
         """
         if (fp_params is None) == (serving_params is None):
             raise ValueError("provide exactly one of fp_params or "
                              "serving_params")
+        fp_params, serving_params, gather_ms = self._gathered(
+            fp_params, serving_params)
         if block:
             self._build_and_publish(fp_params, serving_params, report,
-                                    source, step)
+                                    source, step, gather_ms)
             return
-        self._queue.put((fp_params, serving_params, report, source, step))
+        self._queue.put((fp_params, serving_params, report, source, step,
+                         gather_ms))
         with self._lock:
             if self._worker is None or not self._worker.is_alive():
                 self._worker = threading.Thread(target=self._stage_loop,
@@ -368,13 +407,12 @@ class WeightStore:
         restore/stage failures are retried on the next few polls before the
         step is given up on. Returns the staged step, or None. The restore
         runs on the store's stream, onto the store's device (default: the
-        current CUDA device).
+        current CUDA device); with ``mesh``, whole onto this rank's device
+        of the mesh, with no collective (see the module docstring).
         """
         from repro_torch.checkpoint.checkpointer import CheckpointMetaError
+        device = self._device if mesh is None else _mesh_device(mesh)
 
-        if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: reshard-on-restore (M7)")
         steps = checkpointer.list_steps()
         if not steps or steps[-1] < self._last_ckpt_step or (
                 steps[-1] == self._last_ckpt_step and
@@ -386,7 +424,7 @@ class WeightStore:
         try:
             with self._staging():
                 tree, meta, _ = checkpointer.restore_serving(
-                    step, expect=expect, device=self._device)
+                    step, expect=expect, device=device)
             src = f"ckpt:{step}"
             if meta.get("format") == "quantized":
                 self.stage(serving_params=tree, source=src, step=step,
@@ -412,11 +450,11 @@ class WeightStore:
     def watch(self, ckpt_dir, poll_s: float = 1.0,
               expect: Optional[dict] = None, mesh=None):
         """Poll ``ckpt_dir`` (a path or a ``Checkpointer``) in a daemon
-        thread and stage new steps."""
+        thread and stage new steps (with ``mesh``, each whole on this
+        rank's device of the mesh; :meth:`poll_checkpoints`)."""
         from repro_torch.checkpoint.checkpointer import Checkpointer
         if mesh is not None:
-            raise NotImplementedError(
-                "not ported yet: reshard-on-restore (M7)")
+            _mesh_device(mesh)              # raises off the mesh
         ck = Checkpointer(ckpt_dir, async_save=False) \
             if isinstance(ckpt_dir, str) else ckpt_dir
         if self._watch_thread is not None:
@@ -426,7 +464,7 @@ class WeightStore:
         def loop():
             while not self._watch_stop.wait(poll_s):
                 try:
-                    self.poll_checkpoints(ck, expect=expect)
+                    self.poll_checkpoints(ck, expect=expect, mesh=mesh)
                 except Exception as e:
                     with self._lock:
                         self.errors.append(f"watcher: {e!r}")

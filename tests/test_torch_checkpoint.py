@@ -265,14 +265,98 @@ def test_corrupt_payload_fails_its_crc(tmp_path):
         np.load(path)["params::final_norm/gain"]
 
 
-def test_reshard_arguments_not_ported(tmp_path):
+@pytest.fixture
+def one_rank_mesh():
+    """A one-rank gloo (data, model) mesh in this process, torn down
+    after the test."""
+    from repro_torch.distributed import group
+    from repro_torch.runtime.elastic import make_elastic_mesh
+    mesh = make_elastic_mesh(1, device="cpu")
+    yield mesh
+    group.shutdown()
+
+
+def test_restore_shardings_round_trip(tmp_path, one_rank_mesh):
+    """``restore(shardings=)`` and ``restore_serving(mesh=)`` give DTensor
+    leaves on the mesh whose whole tensors equal what was saved, bit for
+    bit; a save of the placed tree writes the same arrays again."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed.sharding import (gather_tree,
+                                                  make_param_shardings)
+    from repro_torch.training.optimizer import adamw_init
     model, params, _ = _tiny()
+    opt = adamw_init(params)
     ck = Checkpointer(str(tmp_path), async_save=False)
-    ck.save_serving(1, params)
-    with pytest.raises(NotImplementedError, match="M7"):
-        ck.restore_serving(mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="M7"):
-        ck.restore(1, shardings=(None, None), template=(params, {}))
+    ck.save(1, params, opt)
+    mesh = one_rank_mesh
+    sh = (make_param_shardings(mesh, params), make_param_shardings(mesh, opt))
+    p2, o2, step = ck.restore(1, shardings=sh, template=(params, opt),
+                              device="cpu")
+    assert step == 1
+    wq = p2["stack"]["list"][0]["b0"]["attn"]["wq"]["w"]
+    assert isinstance(wq, DTensor) and wq.device_mesh is mesh
+    for a, b in zip(_flat(params).items(), _flat(gather_tree(p2)).items()):
+        assert torch.equal(a[1], b[1]) and a[0] == b[0]
+    for a, b in zip(_flat(opt).items(), _flat(gather_tree(o2)).items()):
+        assert torch.equal(a[1], b[1]) and a[0] == b[0]
+    _, _, step = ck.restore_latest(shardings=sh, template=(params, opt),
+                                   device="cpu")
+    assert step == 1
+    q, meta = quantize_params_serving(params, 4, "squant")
+    ck.save_serving(2, q, quant_meta=meta)
+    t2, meta2, _ = ck.restore_serving(mesh=mesh, device="cpu")
+    assert meta2["quant"]["bits"] == 4
+    for a, b in zip(_flat(q).items(), _flat(gather_tree(t2)).items()):
+        assert a[0] == b[0] and a[1].dtype == b[1].dtype
+        assert torch.equal(a[1], b[1])
+    ck.save_serving(3, t2, quant_meta=meta)          # placed leaves, gathered
+    t3, _, _ = ck.restore_serving(3, device="cpu")
+    for a, b in zip(_flat(q).items(), _flat(t3).items()):
+        assert torch.equal(a[1], b[1])
+
+
+_SAVE_TWO_RANKS = '''
+import numpy as np, torch
+import torch.distributed as dist
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.distributed.sharding import MeshSharding, place
+from repro_torch.launch.mesh import make_quantize_mesh
+
+def main(d):
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    mesh = make_quantize_mesh(2, device="cpu")
+    w = torch.arange(64 * 8, dtype=torch.float32).reshape(64, 8)
+    tree = {"w": place(w, MeshSharding(mesh, ("data", None))),
+            "b": place(w[0], MeshSharding(mesh, (None,)))}
+    # a collective save, async: every rank returns after the commit
+    ck = Checkpointer(d + "/placed", async_save=True)
+    ck.save(7, tree, {})
+    steps = ck.list_steps()
+    p, _, step = ck.restore(7, template=({"b": 0, "w": 0}, {}),
+                            device="cpu")
+    # a plain tree: the process that saves writes, unless writer=False
+    Checkpointer(d + "/plain", async_save=False,
+                 writer=rank == 1).save(3, {"w": w}, {})
+    dist.barrier()
+    return (steps, step, bool(torch.equal(p["w"], w)),
+            bool(torch.equal(p["b"], w[0])),
+            Checkpointer(d + "/plain").list_steps())
+'''
+
+
+def test_collective_save_is_restorable_on_every_rank_at_once(tmp_path):
+    """Two gloo ranks save a placed tree with ``async_save``: the mesh's
+    first rank writes, and ``save`` returns on both only after the
+    commit, so rank 1 lists and restores the step with no barrier of its
+    own. A tree of plain tensors is written where ``writer`` is true."""
+    from repro_torch.distributed.group import run_local
+    res = run_local(_SAVE_TWO_RANKS, 2, backend="gloo", device="cpu",
+                    args=(str(tmp_path / "ck"),), timeout=120,
+                    store_dir=str(tmp_path))
+    for steps, step, w_equal, b_equal, plain_steps in res:
+        assert steps == [7] and step == 7 and w_equal and b_equal
+        assert plain_steps == [3]
 
 
 # ---------------------------------------------------------------------------

@@ -42,7 +42,11 @@ def test_every_module_imports_without_cuda():
     import repro_torch
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert len(names) >= 25
+    assert len(names) >= 30
+    # the distributed layer is in the walk (and in _sources' files)
+    assert {"repro_torch.distributed.group", "repro_torch.distributed.sharding",
+            "repro_torch.launch.mesh", "repro_torch.runtime.elastic",
+            "repro_torch.training.grad_compression"} <= set(names)
     for name in names:
         importlib.import_module(name)
 

@@ -90,10 +90,38 @@ def test_serve_round_and_speculative(capsys):
     assert "[serve] speculative:" in capsys.readouterr().out
 
 
-def test_mesh_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="M7"):
-        qcli.main(["--mesh", "2", "--device", "cpu", "--out",
-                   str(tmp_path)])
+def test_quantize_cli_mesh_on_two_ranks(tmp_path):
+    """``--mesh 2`` on two CPU ranks writes the reference's report keys,
+    the mesh fields and per-rank shards, and an fp checkpoint equal to
+    ``--mesh off``'s, bit for bit."""
+    off, two = str(tmp_path / "off"), str(tmp_path / "two")
+    base = ["--bits", "4", "--device", "cpu"]
+    qcli.main(base + ["--out", off])
+    qcli.main(base + ["--mesh", "2", "--out", two])
+    reps = []
+    for d in (off, two):
+        with open(os.path.join(d, "quant_report.json")) as f:
+            reps.append(json.load(f))
+    assert set(reps[0]) == set(reps[1])
+    assert (reps[0]["mesh_axis"], reps[0]["mesh_size"]) == ("", 1)
+    assert (reps[1]["mesh_axis"], reps[1]["mesh_size"]) == ("data", 2)
+    rows = sum(s["rows"] for s in reps[1]["shards"])
+    assert [s["device"] for s in reps[1]["shards"]] == [0, 1] and rows > 0
+    a, _, _ = Checkpointer(off).restore_latest(device="cpu")
+    b, _, _ = Checkpointer(two).restore_latest(device="cpu")
+    fa, fb = _leaves(a), _leaves(b)
+    assert [k for k, _ in fa] == [k for k, _ in fb]
+    for (_, x), (_, y) in zip(fa, fb):
+        assert torch.equal(x, y)
+
+
+def _leaves(tree, path=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k], path + (k,))]
+    if isinstance(tree, list):
+        return [x for i, v in enumerate(tree)
+                for x in _leaves(v, path + (str(i),))]
+    return [(path, tree)]
 
 
 def test_byte_tokenizer_equals_reference():

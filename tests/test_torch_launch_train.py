@@ -1,6 +1,7 @@
 """``python -m repro_torch.launch.train`` as a process on the CPU: it
-trains, prints its loss lines and commits a checkpoint; the options that
-are not ported exit non-zero with ``not ported yet``."""
+trains, prints its loss lines and commits a checkpoint; ``--pod-compress``
+alone trains plainly and ``--production`` needs the production mesh's
+256 ranks."""
 import os
 import subprocess
 import sys
@@ -31,11 +32,18 @@ def test_train_cli_trains_and_checkpoints(tmp_path):
     assert Checkpointer(ckpt).list_steps() == [6]
 
 
-@pytest.mark.parametrize("flag,milestone", [("--pod-compress", "M8b"),
-                                            ("--production", "M7")])
-def test_train_cli_refuses_what_is_not_ported(tmp_path, flag, milestone):
-    out = _run(["--steps", "2", "--device", "cpu", "--ckpt-dir",
-                str(tmp_path), flag])
-    assert out.returncode != 0
-    assert "not ported yet" in out.stderr and milestone in out.stderr
-    assert not os.listdir(tmp_path)
+@pytest.mark.parametrize("flag", ["--pod-compress", "--production"])
+def test_train_cli_mesh_options(tmp_path, flag):
+    """``--pod-compress`` alone trains plainly (no 'pod' axis to compress
+    over); ``--production`` builds the 16x16 production mesh over the
+    group's ranks and so fails on one, as the reference's does."""
+    ckpt = str(tmp_path / "ckpt")
+    out = _run(["--steps", "2", "--device", "cpu", "--ckpt-dir", ckpt, flag])
+    if flag == "--pod-compress":
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert "[train] done: loss" in out.stdout and "(2 steps" in out.stdout
+        assert Checkpointer(ckpt).list_steps() == [2]
+    else:
+        assert out.returncode != 0
+        assert "needs 256 ranks, the group has 1" in out.stderr
+        assert not os.path.exists(ckpt) or not os.listdir(ckpt)

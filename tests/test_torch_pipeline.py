@@ -173,8 +173,12 @@ def test_backend_and_method_validation(rng):
         resolve_backend("pallas")
     with pytest.raises(ValueError):
         quantize_tree({}, method="nope", device="cpu")
-    with pytest.raises(TypeError):
-        quantize_tree({}, mesh=object(), device="cpu")   # not accepted yet
+    from repro_torch.distributed.sharding import AbstractMesh
+    with pytest.raises(ValueError, match="no 'data' axis"):
+        quantize_tree({}, mesh=AbstractMesh((2,), ("model",)), device="cpu")
+    with pytest.raises(ValueError, match="batched=True"):
+        quantize_tree({}, mesh=AbstractMesh((2,), ("data",)), device="cpu",
+                      batched=False)
     with pytest.raises(ValueError):          # the kernel needs a CUDA tensor
         quantize_tree(_torch_tree({"a": {"w": grid_weights(rng, 64, 32)}}),
                       bits=4, group_size=16, backend="cuda", device="cpu")

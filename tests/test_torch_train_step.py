@@ -29,6 +29,7 @@ from repro.configs import get_config as jax_get_config
 from repro.data.synthetic import markov_batches, synthetic_batches
 from repro.models.model import build_model as jax_build_model
 from repro.training import optimizer as jopt
+from repro.training.train_loop import init_pod_error as jax_init_pod_error
 from repro.training.train_loop import make_train_step as jax_make_train_step
 from repro_torch import convert
 from repro_torch.configs import get_config
@@ -255,11 +256,36 @@ def test_moe_aux_matches_reference():
     _close_trees(jg, tg, **GRAD_TOL)
 
 
-def test_not_ported_options_raise():
-    _, _, tm, tp = _pair()
-    with pytest.raises(NotImplementedError, match="not ported yet.*M8b"):
-        tloop.make_train_step(tm, topt.AdamWConfig(), pod_compress=True)
-    with pytest.raises(NotImplementedError, match="not ported yet.*M7"):
-        tloop.make_train_step(tm, topt.AdamWConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet.*M8b"):
-        tloop.init_pod_error(tp, 2)
+def test_mesh_options():
+    """Only a 'model' axis above 1 raises (tensor-parallel execution,
+    M7b); ``pod_compress`` without a mesh, or on a mesh without a 'pod'
+    axis of 2, is the plain step, as in the reference; ``init_pod_error``
+    has the reference's shapes."""
+    from repro_torch.distributed.sharding import AbstractMesh
+    _, jp, tm, tp = _pair()
+    ocfg = topt.AdamWConfig()
+    with pytest.raises(NotImplementedError, match="not ported yet.*M7b"):
+        tloop.make_train_step(tm, ocfg, mesh=AbstractMesh((1, 2),
+                                                          ("data", "model")))
+    with pytest.raises(NotImplementedError, match="not ported yet.*M7b"):
+        tloop.make_train_step(tm, ocfg, pod_compress=True,
+                              mesh=AbstractMesh((2, 1, 2),
+                                                ("pod", "data", "model")))
+    for mesh in (None, AbstractMesh((1, 1), ("data", "model")),
+                 AbstractMesh((1, 1, 1), ("pod", "data", "model"))):
+        step = tloop.make_train_step(tm, ocfg, pod_compress=True, mesh=mesh)
+        batch = _tb(_batches(tm.cfg.vocab, 1)[0])
+        p1, _, m1 = step(tp, topt.adamw_init(tp), batch)
+        p2, _, m2 = tloop.make_train_step(tm, ocfg)(tp, topt.adamw_init(tp),
+                                                    batch)
+        assert torch.equal(m1["loss"], m2["loss"])
+        for a, b in zip(topt.tree_leaves(p1), topt.tree_leaves(p2)):
+            assert torch.equal(a, b)
+    # the reference's layout: a leading pod dim on every leaf, float32 zeros
+    err = tloop.init_pod_error(tp, 2)
+    for e, p in zip(topt.tree_leaves(err), topt.tree_leaves(tp)):
+        assert e.shape == (2,) + p.shape and e.dtype == torch.float32
+        assert not e.any()
+    for e, p in zip(jax.tree_util.tree_leaves(jax_init_pod_error(jp, 2)),
+                    jax.tree_util.tree_leaves(jp)):
+        assert e.shape == (2,) + p.shape and e.dtype == jnp.float32

@@ -236,15 +236,140 @@ def test_speculative_store_keeps_its_pair_on_a_quantized_checkpoint(
     assert all(len(o.tokens) == 4 for o in eng.generate(_reqs(2)))
 
 
-def test_mesh_is_not_ported(tmp_path):
+def test_watch_with_a_mesh_stages_a_placed_tree(tmp_path):
+    """On a one-rank gloo mesh: a tree that ``restore_serving(mesh=)``
+    placed (DTensor leaves) is staged gathered whole on the caller's
+    thread, inside ``staged_ms``; ``poll_checkpoints(mesh=)`` restores the
+    step whole onto the rank's device (plain tensors, no collective); the
+    served tokens equal an engine's on the unplaced tree either way;
+    ``watch_checkpoints(mesh=)`` watches."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import group
+    from repro_torch.launch.mesh import make_quantize_mesh
     model, params, _ = _tiny(0)
-    eng = _engine(model, params)
-    with pytest.raises(NotImplementedError, match="M7"):
-        eng.watch_checkpoints(str(tmp_path), mesh=object())
-    with pytest.raises(NotImplementedError, match="M7"):
-        eng.store.poll_checkpoints(Checkpointer(str(tmp_path)),
-                                   mesh=object())
-    assert not eng.stats()["weights"]["watching"]
+    _, params2, _ = _tiny(1)
+    qtree, meta = quantize_params_serving(params2, 8, "squant")
+    ck = Checkpointer(str(tmp_path), async_save=False)
+    ck.save_serving(5, qtree, quant_meta=meta)
+    mesh = make_quantize_mesh(device="cpu")
+    try:
+        want = [o.tokens for o in WeightStore_engine(model, qtree)
+                .generate(_reqs(2))]
+        placed, _, _ = ck.restore_serving(5, expect=EXPECT, mesh=mesh)
+        wq = placed["stack"]["list"][0]["b0"]["attn"]["wq"]["w_q"]
+        assert isinstance(wq, DTensor)
+        eng = _engine(model, params)
+        eng.store.stage(serving_params=placed, source="placed", step=5)
+        assert eng.store.wait_staged(1, timeout=30)
+        out = eng.generate(_reqs(2))
+        assert all(o.weights_version == 2 for o in out)
+        cur = eng.store.current
+        wq = cur.params["stack"]["list"][0]["b0"]["attn"]["wq"]["w_q"]
+        assert type(wq) is torch.Tensor and torch.equal(
+            wq, qtree["stack"]["list"][0]["b0"]["attn"]["wq"]["w_q"])
+        assert cur.staged_ms > 0
+        assert [o.tokens for o in out] == want
+
+        eng = _engine(model, params)
+        assert eng.store.poll_checkpoints(ck, expect=EXPECT, mesh=mesh) == 5
+        assert not eng.store.errors
+        out = eng.generate(_reqs(2))
+        assert all(o.weights_version == 2 for o in out)
+        wq = eng.store.current.params["stack"]["list"][0]["b0"]["attn"][
+            "wq"]["w_q"]
+        assert type(wq) is torch.Tensor
+        assert [o.tokens for o in out] == want
+        eng2 = _engine(model, params)
+        eng2.watch_checkpoints(str(tmp_path), poll_s=0.01, mesh=mesh)
+        assert eng2.stats()["weights"]["watching"]
+        assert eng2.store.wait_staged(1, timeout=30)
+        eng2.store.close()
+        assert not eng2.store.errors
+    finally:
+        group.shutdown()
+
+
+_TWO_RANKS = '''
+import dataclasses, time
+import torch
+import torch.distributed as dist
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_quantize_mesh
+from repro_torch.models.model import build_model
+from repro_torch.quant.apply import quantize_params_serving
+from repro_torch.serving.engine import Request, ServeConfig, ServeEngine
+from repro_torch.serving.weights import WeightStore
+
+TINY = dict(dtype="float32", n_layers=2, d_model=32, n_heads=2,
+            n_kv_heads=1, head_dim=16, d_ff=64, vocab=64)
+W8 = dict(max_batch=2, max_len=32, quantize_weights="squant", weight_bits=8)
+EXPECT = {"quantize_weights": "squant", "weight_bits": 8}
+
+def reqs():
+    return [Request(prompt=[1 + i, 2, 3], max_new_tokens=4, request_id=i)
+            for i in range(2)]
+
+def main(d):
+    torch.set_num_threads(1)
+    rank = dist.get_rank()
+    cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True),
+                              **TINY)
+    model = build_model(cfg)
+    trees = [quantize_params_serving(model.init(
+        torch.Generator().manual_seed(s), device="cpu"), 8, "squant")
+        for s in (0, 1, 2)]
+    mesh = make_quantize_mesh(2, device="cpu")
+    # a plain tree, the same on both ranks: rank 0 writes it
+    ck = Checkpointer(d, async_save=False, writer=rank == 0)
+    eng = ServeEngine(model, None, ServeConfig(**W8), device="cpu",
+                      store=WeightStore(serving_params=trees[0][0],
+                                        device="cpu"))
+    polled = []
+    if rank == 0:
+        ck.save_serving(1, trees[1][0], quant_meta=trees[1][1])
+        polled.append(eng.store.poll_checkpoints(ck, EXPECT, mesh=mesh))
+    dist.barrier()
+    if rank == 0:                   # committed between the ranks' polls
+        ck.save_serving(2, trees[2][0], quant_meta=trees[2][1])
+    dist.barrier()
+    if rank == 1:
+        polled.append(eng.store.poll_checkpoints(ck, EXPECT, mesh=mesh))
+    # both watch; rank 0 has step 1 staged, rank 1 step 2
+    eng.watch_checkpoints(d, poll_s=0.01, mesh=mesh)
+    deadline = time.monotonic() + 30
+    while eng.store.acquire()[0].step != 2 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    eng.store.close()
+    out = eng.generate(reqs())
+    want = ServeEngine(model, None, ServeConfig(**W8), device="cpu",
+                       store=WeightStore(serving_params=trees[2][0],
+                                         device="cpu")).generate(reqs())
+    return (polled, eng.store.current.step, list(eng.store.errors),
+            [o.tokens for o in out], [o.tokens for o in want])
+'''
+
+
+def test_watch_with_a_mesh_on_two_ranks_that_see_different_steps(tmp_path):
+    """Two gloo ranks watch one directory with ``mesh=``: rank 0 polls step
+    1, step 2 is committed, rank 1 polls and sees only step 2. The watcher
+    runs no collective, so neither rank waits on the other: rank 0's
+    watcher then stages step 2 too, and both serve its tokens."""
+    from repro_torch.distributed.group import run_local
+    d = str(tmp_path / "ck")
+    res = run_local(_TWO_RANKS, 2, backend="gloo", device="cpu", args=(d,),
+                    timeout=120, store_dir=str(tmp_path))
+    assert res[0][0] == [1] and res[1][0] == [2]
+    for polled, step, errors, got, want in res:
+        assert step == 2 and not errors
+        assert got == want
+
+
+def WeightStore_engine(model, serving_tree):
+    """An engine serving ``serving_tree`` (unplaced) from its store."""
+    store = WeightStore(serving_params=serving_tree, device="cpu")
+    return ServeEngine(model, None, ServeConfig(**W8), device="cpu",
+                       store=store)
 
 
 # ---------------------------------------------------------------------------
