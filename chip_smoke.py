@@ -88,10 +88,10 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    thread's capture, in a process of its own; (c) the quantize and serve
    CLIs as processes (serve swaps in the quantize CLI's checkpoint);
 10. a fine-grained mixture of experts, ``moonshot-v1-16b-a3b`` (64
-   experts top-6) at full width and 8 of its 48 layers (the cut is listed
-   in the phase's line: 48 layers of float32 weights do not fit one card,
-   and 16 did until phase 15 came, cut to keep the script inside its time
-   limit):
+   experts top-6) at full width and 4 of its 48 layers (the cut is listed
+   in the phase's line: 48 layers of float32 weights do not fit one card;
+   16 did until phase 15 came and 8 until phases 15e-f came, cut to keep
+   the script inside its time limit):
    (a) SQuant w8 of the whole tree, every expert bank quantized where it is
    stored (native route, nothing stacked), phase 6's serve configuration
    and traffic, captured, repeated and eager (tokens bit-identical,
@@ -222,11 +222,28 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    batches over its first 512 token ids (the width kept) beside the plain
    one-rank step on the same global batches, held
    to the reference's learning contract, the step split into grads,
-   in-pod all-reduce, compress, ring and update.
+   in-pod all-reduce, compress, ring and update; (e) tensor-parallel
+   serving over 'model' on the four ranks (mesh (data 1, model 4)):
+   granite at full width and 4 layers in float32, SQuant w8 quantized on
+   the ranks' row slabs (kernel A), gathered and cut into each rank's
+   shards (``sharding.tp_local``), a prefill of 8 x 256 tokens and 16
+   greedy decode steps under ``activate_mesh``: kernel B's launches by
+   local weight shape 7 x L x forwards on every rank, the logits within
+   1e-4 of the one-rank forward's largest |logit|, at 2 layers
+   free-running tokens equal to it (w8, and int4 with one scale a
+   128-group: the row-parallel leaves' per-group scales cut at the
+   shard's groups, 2e-2), bfloat16 reported; (f) tensor-parallel training
+   on (data 2, model 2), granite at full width and 2 layers in float32, 5
+   steps beside the plain one-rank step trained in the script's process:
+   losses and grad norms within 1e-4 relative, every rank's parameter
+   shards within the port's train-step tolerance of the one-rank
+   parameters' slices, the step split into grads, the collectives over
+   'model', the data all-reduce, the norm and the update.
 The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
 2, 5: the short w4 run pays the one-time start-up costs, and phase 2 times
 the kernels at the shapes phases 3, 6, 8 and 10 produced and compares
-them at phase 11's, 12's, 13's and 14's. The last three lines are the
+them at phase 11's, 12's, 13's, 14's and 15e's (whose local weight shapes
+it also times at 8 rows). The last three lines are the
 card line, the ``kernels`` line and the ``ok`` line.
 Every line it prints is one JSON object, apart from the card line. Any failed
 phase raises: the script then exits non-zero and prints no final ``ok`` line.
@@ -655,7 +672,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                    experts=None, plans=None, phase12=None, phase13=None,
-                   phase14=None):
+                   phase14=None, phase15=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (also at the prefill
     instances' 17, 43 and 64 rows: a chunk tail, a ragged chunk, a whole
@@ -683,7 +700,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     for phase 13 (rwkv's decay LoRA at K = 64, jamba's ``in_proj`` and
     jamba's layer of 48 expert launches at decode); ``phase14`` (label, M,
     N, rows) cells timed with float32 activations
-    (:func:`kernel_b_phase14_times`)."""
+    (:func:`kernel_b_phase14_times`); ``phase15`` (label, M, N, rows): 15e's
+    local weight shapes, timed so in float32 and in bfloat16."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -806,6 +824,10 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         kernel_b_phase13_times(dev, gen, phase13)
     phase14_timed = None if phase14 is None else \
         kernel_b_phase14_times(dev, gen, phase14)
+    phase15_timed = None if phase15 is None else {
+        "float32": kernel_b_phase14_times(dev, gen, phase15)["cells"],
+        "bfloat16": [dict(_b_timed(dev, gen, m, n, b, 8, torch.bfloat16),
+                          label=label) for label, m, n, b in phase15]}
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, variants=list(dm.VARIANTS),
@@ -837,7 +859,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  draft_prefill_int4=draft_prefill,
                  launch_shapes_compared=compared,
                  phase12=phase12_timed, phase13=phase13_timed,
-                 phase14=phase14_timed,
+                 phase14=phase14_timed, phase15=phase15_timed,
                  shapes=shapes, **tot)
     return entry
 
@@ -6740,8 +6762,8 @@ def phase15a(dev, seed, layers):
             "dequant_matmul": b_counts[0]}
 
 
-def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps):
-    """15b-15d on one rank of four sharing the card over gloo (run by
+def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path):
+    """15b-15f on one rank of four sharing the card over gloo (run by
     ``run_local``): returns host numbers only."""
     import numpy as np
     import torch.distributed as dist
@@ -6829,6 +6851,9 @@ def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps):
 
     # ---- 15d: pod-compressed training, 2 pods x 2 data
     out["train"] = _p15_train(dev, seed, train_steps)
+    _free(dev)
+    # ---- 15e-f: tensor-parallel serving and training
+    out["tp"] = _p15ef_ranks(seed, ref_path)
     return out
 
 
@@ -6944,48 +6969,68 @@ def _p15_plain(dev, seed):
     return plain
 
 
-def phase15bcd(dev, seed):
-    """15b-15d: four ranks sharing the card over gloo (sharded quantization
-    of granite at full width, save from the 4-rank mesh; the int8 ring over
-    100 M floats a rank; pod-compressed training of the 100m model, 2 pods
-    x 2 data; between 15b and 15c ranks 0 and 1 restore the checkpoint
-    onto a 2-rank elastic mesh); 15d's plain one-rank step on the same
-    global batches runs here, in this process, while the four ranks run
-    (most of its time is theirs starting up)."""
-    import tempfile
+def _four_ranks_beside(dev, fn, args, here):
+    """``fn(*args)`` on four gloo rank processes sharing the card
+    (``run_local``, on a thread) while ``here()`` runs in this process:
+    (the ranks' results, their seconds, ``here()``'s result)."""
     import threading
-    import shutil
     from repro_torch.distributed.group import run_local
-
-    ckpt = tempfile.mkdtemp(prefix="chip_smoke_p15b_")
-    t_phase = time.perf_counter()
     four = {}
 
     def run_four():
         t0 = time.perf_counter()
         try:
-            four["ranks"] = run_local(
-                _p15_ranks, 4, backend="gloo", device=dev.type,
-                args=(seed, 2, ckpt, P15_RING_FLOATS, P15_TRAIN_STEPS),
-                timeout=600)
+            four["ranks"] = run_local(fn, 4, backend="gloo",
+                                      device=dev.type, args=args,
+                                      timeout=900)
         except BaseException as e:          # raised on this thread below
             four["error"] = e
         four["s"] = time.perf_counter() - t0
 
+    th = threading.Thread(target=run_four, daemon=True)
+    th.start()
     try:
-        th = threading.Thread(target=run_four, daemon=True)
-        th.start()
-        try:
-            plain = _p15_plain(dev, seed)
-        finally:
-            th.join()
-        if "error" in four:
-            raise four["error"]
-        ranks, four_s = four["ranks"], four["s"]
+        mine = here()
+    finally:
+        th.join()
+    if "error" in four:
+        raise four["error"]
+    return four["ranks"], four["s"], mine
+
+
+def phase15bcd(dev, seed, card):
+    """15b-15f: four ranks sharing the card over gloo (sharded quantization
+    of granite at full width, save from the 4-rank mesh; the int8 ring over
+    100 M floats a rank; pod-compressed training of the 100m model, 2 pods
+    x 2 data; between 15b and 15c ranks 0 and 1 restore the checkpoint
+    onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, in the
+    same processes); 15d's and 15f's plain one-rank steps on the same
+    global batches run here, in this process, while the four ranks run
+    (most of 15d's time is theirs starting up). Returns kernel A's
+    launches by rank and 15e-f's summary."""
+    import tempfile
+    import shutil
+
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_p15b_")
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15f_")
+    ref_path = os.path.join(work, "one_rank.pt")
+    t_phase = time.perf_counter()
+
+    def here():
+        plain = _p15_plain(dev, seed)
+        t0 = time.perf_counter()
+        return plain, _p15f_one_rank(dev, seed, ref_path), \
+            time.perf_counter() - t0
+
+    try:
+        ranks, four_s, (plain, plain_f, plain_f_s) = _four_ranks_beside(
+            dev, _p15_ranks, (seed, 2, ckpt, P15_RING_FLOATS,
+                              P15_TRAIN_STEPS, ref_path), here)
         saved = _digests_of_checkpoint(ckpt, dev)
         restored = [r["restore"] for r in ranks if r["restore"] is not None]
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
     from repro_torch.core.dispatch import shard_rows
     r0 = ranks[0]
     # 15b gates
@@ -7031,7 +7076,7 @@ def phase15bcd(dev, seed):
                       "restore_ms_by_rank": [r["restore_ms"]
                                              for r in restored],
                       "leaves_equal": len(saved)},
-          "run_local_seconds_15b_c_d": four_s})
+          "run_local_seconds_15b_f": four_s})
     # 15c gates
     rings = [r["ring"] for r in ranks]
     if not all(x["identical_on_ranks"] for x in rings) or \
@@ -7080,24 +7125,508 @@ def phase15bcd(dev, seed):
           "seconds": time.perf_counter() - t_phase})
     if not all(gates.values()):
         raise AssertionError(f"15d: the learning contract failed: {gates}")
+    ef = _p15ef_report([r["tp"] for r in ranks], plain_f, plain_f_s, card,
+                       four_s, t_phase)
     return {"squant_flip": [r["launches"]["squant_flip"] for r in ranks],
-            "squant_scale": [r["launches"]["squant_scale"] for r in ranks]}
+            "squant_scale": [r["launches"]["squant_scale"] for r in ranks],
+            "tp": ef}
 
 
-def drive_phase15(dev, seed, layers, memory):
-    """Phase 15 (15a, then 15b-d), memory gated like a phase's; returns the
-    kernels' launches by part."""
+# ---------------------------------------------------------------------------
+# phase 15e-f: tensor-parallel execution over 'model' (four gloo ranks
+# sharing the card, as 15b-d)
+# ---------------------------------------------------------------------------
+
+P15E_LAYERS = 4          # 15e's granite at full width (of 40)
+P15E_SMALL = 2           # 15e's free-running token gates and int4 per-group
+P15E_PROMPT = (8, 256)   # 15e's prefill: 8 rows of 256 tokens
+P15E_STEPS = 16          # 15e's greedy decode steps
+P15F_LAYERS = 2          # 15f's granite at full width (of 40)
+P15F_STEPS = 5
+P15F_BATCH = (4, 256)
+# AdamW's update moves by up to lr * dg / eps when a gradient element
+# moves by dg (most where |g| is near zero); the partial sums over 'model'
+# round the gradients differently from one rank's products, so the
+# parameter gate at STEP_TOL runs eps 1e-3 (tests/torch_tp_workers.py)
+P15F_OPT = dict(lr=1e-4, warmup_steps=0, decay_steps=10, eps=1e-3)
+STEP_TOL = dict(rtol=1e-4, atol_rms=1e-5)   # tests/test_torch_train_step.py
+
+
+def _tp_granite(layers, dtype="float32"):
+    """granite-3-8b at full width and ``layers`` layers in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(get_config("granite-3-8b"),
+                                           n_layers=layers, dtype=dtype))
+
+
+def _tp_params(model, dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return model.init(gen, device=dev)
+
+
+def _first_layers(tree, n):
+    """``tree`` with the first ``n`` layers of its stack."""
+    return dict(tree, stack={"list": tree["stack"]["list"][:n]})
+
+
+def _group_scale_tree(params, bits, group_size):
+    """Every dense kernel ``{"w": (in, out)}`` of ``params`` as a
+    ``QuantizedTensor`` of round-to-nearest codes under one max scale per
+    ``group_size`` input columns of each output row, ``(out, in /
+    group_size)``: the serving format's per-group option kernel B takes
+    (SQuant's trees keep one scale a row)."""
+    from repro_torch.quant.qtypes import from_codes, qmax_for_bits
+    from repro_torch.quant.scales import compute_scale
+
+    def one(node):
+        if isinstance(node, dict):
+            w = node.get("w")
+            if isinstance(w, torch.Tensor) and w.ndim == 2:
+                w = w.T.contiguous()
+                sc = compute_scale(w, bits, group_size=group_size)
+                q = qmax_for_bits(bits)
+                codes = torch.clamp(torch.round(
+                    w / sc.repeat_interleave(group_size, dim=1)), -q, q)
+                return dict(node, w=from_codes(codes.to(torch.int8), sc,
+                                               bits, group_size))
+            return {k: one(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [one(v) for v in node]
+        return node
+    return one(params)
+
+
+def _slab_launches(buckets, ndev, d):
+    """Kernel-A launches (and scale passes) rank ``d`` of ``ndev`` makes
+    for ``buckets`` ((key, leaves, route)): one a piece of its row slab
+    (``core.dispatch.quantize_codes_sharded``)."""
+    from repro_torch.core.dispatch import shard_rows, slab_pieces
+    n = 0
+    for key, nl, route in buckets:
+        m = int(key[1:].split(",")[0])
+        rows = m * nl
+        slabs = shard_rows(rows, ndev)
+        per = sum(slabs[0])
+        r0 = min(d * per, rows)
+        r1 = r0 + slabs[d][0]
+        if r1 > r0:
+            n += len(slab_pieces(r0, r1, m)) if route == "native" else 1
+    return n
+
+
+def _tp_local_shapes(cfg, tp):
+    """{(M, N): launches a forward} of kernel B on a rank's local shards
+    (``tp`` ranks): the seven projections of each layer."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    out = collections.Counter()
+    for m, n in ((q // tp, d), (kv // tp, d), (kv // tp, d), (d, q // tp),
+                 (f // tp, d), (f // tp, d), (d, f // tp)):
+        out[(m, n)] += cfg.n_layers
+    return dict(out)
+
+
+def _by_weight_shape(by_shape):
+    """``dm.launches_by_shape`` summed over variants, by (M, N)."""
+    out = collections.Counter()
+    for key, n in by_shape.items():
+        m, k = key.split(" ")[-1].split("x")
+        out[(int(m), int(k))] += n
+    return dict(out)
+
+
+def _tp_serve(dev, model, tree, prompt, steps, forced=None, mesh=None):
+    """A greedy prefill of ``prompt`` and ``steps`` decode steps on the
+    contiguous cache, under ``mesh`` (None: one rank), feeding ``forced``
+    tokens where given: the last-row logits of each forward (float32, on
+    the device), the tokens picked, the prefill ms and each step's ms and
+    its tensor-parallel collectives' ms."""
+    from repro_torch.distributed import group
+    from repro_torch.distributed.sharding import activate_mesh
+    b, s = prompt.shape
+    logits, toks, step_ms, coll_ms = [], [], [], []
+    with activate_mesh(mesh):
+        cache = model.init_cache(b, s + steps + 1, device=dev)
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(tree, {"tokens": prompt}, cache)
+        _sync_dev(dev)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        for i in range(steps + 1):
+            logits.append(lg.float())
+            toks.append(lg.argmax(-1))
+            if i == steps:
+                break
+            feed = toks[-1] if forced is None else forced[i]
+            c0 = group.MODEL_COLLECTIVES["ms"]
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(tree, feed[:, None], cache)
+            _sync_dev(dev)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append(group.MODEL_COLLECTIVES["ms"] - c0)
+    return {"logits": logits, "tokens": toks, "prefill_ms": prefill_ms,
+            "step_ms": step_ms, "collective_ms": coll_ms}
+
+
+def _p15e_rank(dev, seed):
+    """15e on this rank of four (see :func:`phase15ef`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import pipeline
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import gather_tree, tp_local
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    dmod, pa, paq, sf = _kernel_modules()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank}
+    model = _tp_granite(P15E_LAYERS)
+    small = _tp_granite(P15E_SMALL)
+    params = _tp_params(model, dev, seed)
+    g4 = _group_scale_tree(_first_layers(params, P15E_SMALL), 4, 128)
+    qmesh = make_quantize_mesh(world)
+    _reset_launches(dmod, pa, paq, sf)
+    dist.barrier()
+    _sync_dev(dev)
+    t0 = time.perf_counter()
+    sharded, rep = pipeline.quantize_tree(params, method="squant", bits=8,
+                                          mesh=qmesh)
+    _sync_dev(dev)
+    out["quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    out["buckets"] = [(b.key, b.num_layers, b.route) for b in rep.buckets]
+    out["kernel_a"] = {"squant_flip": sf.launches,
+                       "squant_scale": sf.scale_launches}
+    whole = gather_tree(sharded)
+    del sharded, params
+    _free(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, size=P15E_PROMPT)).to(dev)
+    cases = (("w8 float32", model, whole, True),
+             ("w8 bfloat16", _tp_granite(P15E_LAYERS, "bfloat16"),
+              _retyped(whole, torch.bfloat16), True),
+             (f"w8 float32 {P15E_SMALL} layers", small,
+              _first_layers(whole, P15E_SMALL), False),
+             (f"w4 per-group scales float32 {P15E_SMALL} layers", small, g4,
+              False))
+    out["cases"] = {}
+    dm._plans.clear()
+    for name, m, tree, forced in cases:
+        ref = None
+        if rank == 0:                       # the one-rank forward
+            ref = _tp_serve(dev, m, tree, prompt, P15E_STEPS)
+        feed = [[t.cpu() for t in ref["tokens"][:-1]]
+                if forced and ref is not None else None]
+        dist.broadcast_object_list(feed, src=0)
+        feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
+        local = tp_local(tree, mesh)
+        _reset_launches(dmod, pa, paq, sf)
+        dist.barrier()
+        got = _tp_serve(dev, m, local, prompt, P15E_STEPS, forced=feed,
+                        mesh=mesh)
+        row = {"launches_by_weight_shape": {
+                   f"{k[0]}x{k[1]}": v for k, v in
+                   _by_weight_shape(dmod.launches_by_shape).items()},
+               "launches_by_variant": {k: v for k, v in
+                                       dmod.launches_by_variant.items() if v},
+               "kernel_b": dmod.launches,
+               "want_by_weight_shape": {
+                   f"{k[0]}x{k[1]}": v * (P15E_STEPS + 1) for k, v in
+                   _tp_local_shapes(m.cfg, world).items()},
+               "prefill_ms": got["prefill_ms"],
+               "step_ms": got["step_ms"],
+               "collective_ms": got["collective_ms"],
+               "last_logits_digest": float(got["logits"][-1].double().sum())}
+        if ref is not None:
+            big = max(float(x.abs().max()) for x in ref["logits"])
+            row["max_abs_err_over_max_logit"] = max(
+                float((x - y).abs().max()) for x, y in
+                zip(got["logits"], ref["logits"])) / big
+            row["tokens_equal"] = all(torch.equal(x, y) for x, y in
+                                      zip(got["tokens"], ref["tokens"]))
+            row["tokens_agree"] = float(np.mean([
+                float((x == y).float().mean()) for x, y in
+                zip(got["tokens"], ref["tokens"])]))
+            row["one_rank_step_ms"] = ref["step_ms"]
+            row["one_rank_prefill_ms"] = ref["prefill_ms"]
+        out["cases"][name] = row
+        del local, got, ref
+        _free(dev)
+    out["plans"] = dm.cached_plans()
+    del whole, g4
+    _free(dev)
+    return out
+
+
+def _p15f_batches():
+    from repro_torch.data.synthetic import markov_batches
+    return [b for b, _ in zip(markov_batches(*P15F_BATCH, P15_DATA_VOCAB,
+                                             seed=11), range(P15F_STEPS))]
+
+
+def _p15f_rank(dev, seed, ref_path):
+    """15f on this rank of four: the tensor-parallel step on (data 2,
+    model 2), its metrics and split, and its final shards against the
+    one-rank parameters the script's process saved at ``ref_path``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import shard_index, tp_place
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _tp_granite(P15F_LAYERS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    _free(dev)
+    opt = adamw_init(placed)
+    step = tl.make_train_step(model, AdamWConfig(**P15F_OPT), mesh=mesh)
+    step.timed = True
+    losses, norms, step_ms, splits = [], [], [], []
+    dist.barrier()
+    for b in _p15f_batches():
+        b = tl.to_device(b, dev)
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        placed, opt, met = step(placed, opt, b)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(met["grad_norm"]))
+        splits.append(dict(step.split_ms))
+    del opt
+    _free(dev)
+    _wait_until(lambda: os.path.exists(ref_path + ".done"), 600,
+                "15f's one-rank parameters")
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    worst = 0.0
+    sizes = tuple(mesh.shape)
+    for k, t in _leaves(placed).items():
+        idx = shard_index(t.shape, t.placements, sizes,
+                          mesh.get_coordinate())
+        want = ref[k][idx].to(dev)
+        rms = float(ref[k].double().square().mean().sqrt())
+        excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
+                  - STEP_TOL["atol_rms"] * rms).max()
+        worst = max(worst, float(excess))
+    return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "split_ms": splits, "shards_excess_over_step_tol": worst,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _p15ef_ranks(seed, ref_path):
+    """15e, then 15f, on one rank of four sharing the card over gloo (run
+    by ``run_local``)."""
+    from repro_torch.distributed import group
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
+    dev = group.device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    e = _p15e_rank(dev, seed)
+    e["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    e["seconds"] = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    f = _p15f_rank(dev, seed, ref_path)
+    f["seconds"] = time.perf_counter() - t0
+    return {"e": e, "f": f}
+
+
+def _p15f_one_rank(dev, seed, ref_path):
+    """15f's plain one-rank step on the same global batches: its losses and
+    grad norms; its final parameters saved to ``ref_path`` (then
+    ``ref_path + ".done"``) for the ranks."""
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _tp_granite(P15F_LAYERS)
+    params = _tp_params(model, dev, seed)
+    opt = adamw_init(params)
+    step = tl.make_train_step(model, AdamWConfig(**P15F_OPT))
+    losses, norms = [], []
+    for b in _p15f_batches():
+        params, opt, met = step(params, opt, tl.to_device(b, dev))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    del opt
+    torch.save({k: v.cpu() for k, v in _leaves(params).items()}, ref_path)
+    del params
+    _free(dev)
+    open(ref_path + ".done", "w").close()
+    return losses, norms
+
+
+def phase15ef(dev, seed, card):
+    """15e-f: tensor-parallel execution over 'model' on four gloo ranks
+    sharing the card (one ``run_local``), every number beside the card's
+    name and power limit.
+
+    15e, serving: granite-3-8b at full width and :data:`P15E_LAYERS`
+    layers in float32, quantized SQuant w8 over the four ranks' row slabs
+    (kernel A), gathered, each rank's tensor-parallel tree cut by
+    ``tp_local`` on (data 1, model 4); a prefill of 8 x 256 tokens and 16
+    greedy decode steps on the contiguous cache under ``activate_mesh``,
+    the one-rank forward's tokens fed to both (rank 0 runs the one-rank
+    forward on the whole tree first). Gates: each rank's kernel-B launches
+    by local weight shape 7 x L x forwards as the shards imply, kernel A's
+    those of 15b's rule, the logits within 1e-4 of the one-rank's largest
+    |logit|, every rank's last logits the same; at :data:`P15E_SMALL`
+    layers, free-running greedy tokens equal to the one-rank forward's, w8
+    and int4 with one scale per 128-group (``_group_scale_tree``, the case
+    that cuts a row-parallel leaf's per-group scales), the latter's logits
+    within 2e-2. The bfloat16 forward's agreement is reported, not gated.
+
+    15f, training: granite at full width and :data:`P15F_LAYERS` layers in
+    float32 on (data 2, model 2), :data:`P15F_STEPS` steps of 4 x 256
+    tokens; the plain one-rank step trains here, in this process, while
+    the ranks run 15e. Gates: losses and grad norms within 1e-4 relative
+    of the one-rank step's, every rank's parameter shards within
+    ``STEP_TOL`` of the one-rank parameters' slices."""
+    import tempfile
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15f_")
+    ref_path = os.path.join(work, "one_rank.pt")
+
+    def here():
+        t0 = time.perf_counter()
+        return _p15f_one_rank(dev, seed, ref_path), time.perf_counter() - t0
+
+    try:
+        ranks, four_s, (plain, plain_s) = _four_ranks_beside(
+            dev, _p15ef_ranks, (seed, ref_path), here)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase)
+
+
+def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
+    """15e-f's gates and lines from the four ranks' results and the
+    one-rank step's ``plain`` (losses, grad norms) run here in
+    ``plain_s``; returns the launches and shapes :func:`drive_phase15`
+    reports."""
+    plain_losses, plain_norms = plain
+    es, fs = [r["e"] for r in ranks], [r["f"] for r in ranks]
+
+    # 15e gates
+    buckets = es[0]["buckets"]
+    for r in es:
+        want_a = _slab_launches(buckets, 4, r["rank"])
+        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+            raise AssertionError(f"15e: rank {r['rank']} kernel A "
+                                 f"{r['kernel_a']}, the slabs imply {want_a}")
+        for name, row in r["cases"].items():
+            if row["launches_by_weight_shape"] != row["want_by_weight_shape"]:
+                raise AssertionError(
+                    f"15e {name}: rank {r['rank']} kernel B by shape "
+                    f"{row['launches_by_weight_shape']}, the shards imply "
+                    f"{row['want_by_weight_shape']}")
+            if row["last_logits_digest"] != \
+                    es[0]["cases"][name]["last_logits_digest"]:
+                raise AssertionError(f"15e {name}: the ranks' logits differ")
+    c0 = es[0]["cases"]
+    names = list(c0)
+    gates = {names[0]: c0[names[0]]["max_abs_err_over_max_logit"] <= 1e-4,
+             names[2]: c0[names[2]]["max_abs_err_over_max_logit"] <= 1e-4
+             and c0[names[2]]["tokens_equal"],
+             names[3]: c0[names[3]]["max_abs_err_over_max_logit"] <= 2e-2
+             and c0[names[3]]["tokens_equal"]}
+
+    def cell(row):
+        steps = row["step_ms"][1:]          # the first step pays start-up
+        coll = row["collective_ms"][1:]
+        return {"max_abs_err_over_max_logit":
+                row.get("max_abs_err_over_max_logit"),
+                "tokens_equal": row.get("tokens_equal"),
+                "tokens_agree": row.get("tokens_agree"),
+                "prefill_ms": row["prefill_ms"],
+                "decode_step_ms_p50": _percentiles(steps)["p50"],
+                "all_reduce_ms_p50": _percentiles(coll)["p50"],
+                "compute_ms_p50": _percentiles(
+                    [s - c for s, c in zip(steps, coll)])["p50"],
+                "one_rank_prefill_ms": row.get("one_rank_prefill_ms"),
+                "one_rank_decode_step_ms_p50": _percentiles(
+                    row["one_rank_step_ms"][1:])["p50"]
+                if "one_rank_step_ms" in row else None,
+                "kernel_b_by_variant": row["launches_by_variant"],
+                "kernel_b_by_local_weight_shape":
+                row["launches_by_weight_shape"]}
+    emit({"phase": "15e tensor-parallel serving, 4 ranks sharing the card "
+                   "(gloo), mesh (data 1, model 4), granite-3-8b SQuant w8 "
+                   f"at full width, {P15E_LAYERS} layers (w4: "
+                   f"{P15E_SMALL})", "card": card, "backend": "gloo",
+          "ranks": 4, "prompt": list(P15E_PROMPT), "decode_steps": P15E_STEPS,
+          "quantize_ms_by_rank": [r["quantize_ms"] for r in es],
+          "kernel_a_by_rank": [r["kernel_a"] for r in es],
+          "cases": {n: cell(c0[n]) for n in names},
+          "gates": gates, "gate": "float32 logits within 1e-4 of the "
+          "one-rank forward's largest |logit| (int4: 2e-2), free-running "
+          f"tokens equal at {P15E_SMALL} layers; bfloat16 reported",
+          "peak_gb_by_rank": [r["peak_gb"] for r in es],
+          "seconds_by_rank": [r["seconds"] for r in es],
+          "note": "four CUDA contexts share one card and every all-reduce "
+                  "is staged through host memory over gloo: not a speed-up "
+                  "over one rank, not an interconnect number"})
+    if not all(gates.values()):
+        raise AssertionError(f"15e: agreement gates failed: {gates}")
+
+    # 15f gates
+    worst_loss = max(abs(a - b) / abs(b) for r in fs
+                     for a, b in zip(r["losses"], plain_losses))
+    worst_norm = max(abs(a - b) / abs(b) for r in fs
+                     for a, b in zip(r["grad_norms"], plain_norms))
+    excess = max(r["shards_excess_over_step_tol"] for r in fs)
+    split = {k: _percentiles([s[k] for s in fs[0]["split_ms"][1:]])["p50"]
+             for k in fs[0]["split_ms"][-1]}
+    emit({"phase": "15f tensor-parallel training, 4 ranks sharing the card "
+                   "(gloo), mesh (data 2, model 2), granite-3-8b at full "
+                   f"width, {P15F_LAYERS} layers, float32", "card": card,
+          "backend": "gloo", "ranks": 4, "steps": P15F_STEPS,
+          "global_batch": list(P15F_BATCH), "optimizer": P15F_OPT,
+          "losses": fs[0]["losses"], "one_rank_losses": plain_losses,
+          "grad_norms": fs[0]["grad_norms"], "one_rank_grad_norms":
+          plain_norms, "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm,
+          "shards_max_excess_over_step_tol": excess,
+          "step_ms_p50_steps_2_on": _percentiles(fs[0]["step_ms"][1:])["p50"],
+          "split_ms_p50_rank0": split,
+          "peak_gb_by_rank": [r["peak_gb"] for r in fs],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in fs],
+          "run_local_seconds": four_s,
+          "seconds_since_the_ranks_started": time.perf_counter() - t_phase})
+    if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0):
+        raise AssertionError(f"15f: losses {worst_loss}, grad norms "
+                             f"{worst_norm}, shards over STEP_TOL by {excess}")
+    local = _tp_local_shapes(_tp_granite(P15E_LAYERS).cfg, 4)
+    return {"squant_flip": [r["kernel_a"]["squant_flip"] for r in es],
+            "squant_scale": [r["kernel_a"]["squant_scale"] for r in es],
+            "dequant_matmul": [sum(c["kernel_b"] for c in r["cases"].values())
+                               for r in es],
+            "plans": es[0]["plans"],
+            "local_shapes": sorted(local)}
+
+
+def drive_phase15(dev, seed, layers, card, memory):
+    """Phase 15 (15a, 15b-d, 15e-f), memory gated like a phase's; returns
+    the kernels' launches by part, and 15e's kernel-B launch shapes
+    (``plans``) and local weight shapes for phase 2."""
     t0 = time.perf_counter()
     a = phase15a(dev, seed, layers)
     phase_memory("15a", memory)
-    bcd = phase15bcd(dev, seed)
-    phase_memory("15b-d", memory)
+    bcd = phase15bcd(dev, seed, card)
+    ef = bcd["tp"]
+    phase_memory("15b-f", memory)
     emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0})
     return {"squant_flip": {"15a": a["squant_flip"],
-                            "15b_by_rank": bcd["squant_flip"]},
+                            "15b_by_rank": bcd["squant_flip"],
+                            "15e_by_rank": ef["squant_flip"]},
             "squant_scale": {"15a": a["squant_scale"],
-                             "15b_by_rank": bcd["squant_scale"]},
-            "dequant_matmul": {"15a": a["dequant_matmul"]}}
+                             "15b_by_rank": bcd["squant_scale"],
+                             "15e_by_rank": ef["squant_scale"]},
+            "dequant_matmul": {"15a": a["dequant_matmul"],
+                               "15e_by_rank": ef["dequant_matmul"]},
+            "plans": ef["plans"], "local_shapes": ef["local_shapes"]}
 
 
 def main():
@@ -7119,11 +7648,11 @@ def main():
                     "40 since phase 15 came, to keep the script within "
                     "900 s; its kernel-B count is then held to phase 6's "
                     "tree served at the same depth)")
-    ap.add_argument("--layers10", type=int, default=8,
-                    help="depth of the MoE run (10a; 8 of moonshot's 48 "
-                    "layers since phase 15 came, to keep the script inside "
-                    "its time limit; 16 fit one 80 GB card in float32 "
-                    "before quantization)")
+    ap.add_argument("--layers10", type=int, default=4,
+                    help="depth of the MoE run (10a; 4 of moonshot's 48 "
+                    "layers since phases 15e-f came, 8 since phase 15 "
+                    "came, to keep the script inside its time limit; 16 "
+                    "fit one 80 GB card in float32 before quantization)")
     ap.add_argument("--layers11", type=int, default=8,
                     help="depth of the full-width training run (11a; 8 of "
                     "granite's 40 layers: float32 weights, grads and AdamW "
@@ -7150,6 +7679,10 @@ def main():
                     "agreement with one kernel at a time swapped for its "
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
+    ap.add_argument("--tensor-parallel", action="store_true",
+                    help="only build, then run phases 15e and 15f "
+                    "(tensor-parallel serving and training on four gloo "
+                    "ranks sharing the card); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -7179,6 +7712,9 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "build_seconds": built, "nvcc_flags": " ".join(_build.NVCC_FLAGS)})
 
+    if args.tensor_parallel:
+        phase15ef(dev, args.seed, card)
+        return 1
     if args.agreement_variants:
         agreement_variants(dev, args.seed, args.layers, args.layers7)
         if args.profile:
@@ -7234,7 +7770,7 @@ def main():
     l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory)
     l13, s13 = drive_phase13(dev, args.seed, args.layers13, memory)
     l14, s14 = drive_phase14(dev, args.seed, card, memory)
-    l15 = drive_phase15(dev, args.seed, args.layers15, memory)
+    l15 = drive_phase15(dev, args.seed, args.layers15, card, memory)
 
     from repro_torch.configs import get_config
     moe_cfg = get_config(MOE_ARCH)
@@ -7300,15 +7836,20 @@ def main():
                         experts={"n_experts": e, "banks": banks,
                                  "rows": [paged_config().max_slots, mono]},
                         plans={"11": s11["b"], "12": s12["b"],
-                               "13": s13["b"], "14": s14["b"]},
-                        phase12=phase12, phase13=phase13, phase14=phase14)
+                               "13": s13["b"], "14": s14["b"],
+                               "15": {"15e": l15.pop("plans")}},
+                        phase12=phase12, phase13=phase13, phase14=phase14,
+                        phase15=[(f"15e local {m}x{n} decode", m, n,
+                                  P15E_PROMPT[0])
+                                 for m, n in l15.pop("local_shapes")])
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
                            "trees_compared")},
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
-            "launch_shapes_compared", "phase12", "phase13", "phase14")},
+            "launch_shapes_compared", "phase12", "phase13", "phase14",
+            "phase15")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (

@@ -35,6 +35,11 @@ on that path a collective is a host synchronization; on NCCL it is not.
 DTensor's own collectives do not stage, which is why :func:`full_tensor`
 gathers a DTensor's shards itself instead of calling
 ``DTensor.full_tensor`` on a gloo group.
+
+Tensor-parallel execution uses three autograd collectives over the 'model'
+sub-group of a mesh (Megatron's f and g, and the logits' gather):
+:func:`copy_to_model`, :func:`reduce_from_model` and
+:func:`gather_from_model`; ``MODEL_COLLECTIVES`` counts them.
 """
 from __future__ import annotations
 
@@ -232,6 +237,93 @@ def ring_hop(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor],
     if staged:
         for t, h in zip(recv, rcv):
             t.copy_(h, non_blocking=True)
+
+
+def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The group's ``t`` concatenated along ``dim`` in group-rank order."""
+    n = dist.get_world_size(group)
+    dim = dim % t.ndim
+    parts = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
+                        device=t.device)
+    all_gather_into(parts.view(-1), t.contiguous().view(-1), group)
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+# the tensor-parallel collectives over 'model' (see distributed.sharding):
+# calls and host milliseconds, forward and backward together. A collective
+# staged on gloo first synchronizes the device, outside the timed span, so
+# its time is the copies and the collective, not the kernels queued before
+# it; on NCCL it is the launch's
+MODEL_COLLECTIVES = {"calls": 0, "ms": 0.0}
+
+
+def _counted(fn, t: torch.Tensor, *args):
+    """``fn(t, *args)``, a collective over the group ``args[-1]``, counted
+    and timed in ``MODEL_COLLECTIVES``."""
+    if _staged(t, args[-1]):
+        torch.cuda.current_stream(t.device).synchronize()
+    t0 = time.perf_counter()
+    out = fn(t, *args)
+    MODEL_COLLECTIVES["calls"] += 1
+    MODEL_COLLECTIVES["ms"] += (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _sum(t: torch.Tensor, group) -> torch.Tensor:
+    """A new tensor: ``t`` summed over the group, a bfloat16 ``t`` in
+    float32 (each rank's partial sum rounded once, the total once)."""
+    acc = t.to(torch.float32, memory_format=torch.contiguous_format,
+               copy=True)
+    return all_reduce(acc, group).to(t.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _counted(_sum, g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _counted(_sum, x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group, ctx.n = group, x.shape[-1]
+        return _counted(gather_dim, x, -1, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        k = dist.get_rank(ctx.group)
+        return g[..., k * ctx.n:(k + 1) * ctx.n].contiguous(), None
+
+
+def copy_to_model(x: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the gradient summed over ``group`` backward."""
+    return _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` forward; identity backward."""
+    return _ReduceFromModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` gathered along its last dim over ``group`` forward; this
+    rank's slice of the gradient backward."""
+    return _GatherFromModel.apply(x, group)
 
 
 def full_tensor(x):

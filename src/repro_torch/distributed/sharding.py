@@ -25,10 +25,21 @@ The rules take any mesh with axis names and sizes: a ``DeviceMesh``, or an
 :class:`AbstractMesh` (names and sizes only, no ranks) to resolve specs
 for a mesh larger than the group at hand. The reference drops the axes an
 enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
-every axis of the mesh is usable. The reference's activation constraints
-(``shard_act`` / ``shard_logits``) annotate a GSPMD forward; the port's
-forward runs whole on each rank, so they come with tensor-parallel
-execution, not here.
+every axis of the mesh is usable.
+
+Tensor-parallel execution over 'model' (Megatron-style, the dense GQA
+transformer only): :func:`activate_mesh` installs the mesh the forward runs
+on, and the reference's activation constraints become the collectives
+GSPMD inserts at the same points (:func:`shard_act`, :func:`to_model`,
+:func:`shard_logits`: identities without an active mesh or with 'model'
+1). Each rank computes on plain local tensors: :func:`tp_local` turns a
+whole fp or quantized tree into this rank's shards, :func:`tp_place` a
+whole fp tree into DTensors (what the train step and the checkpointer
+take). Only the 'model' entries of the rules apply; a tree sharded over
+'data' (FSDP), MoE, MLA, the sliding-window ring, mamba, rwkv, the
+encoder-decoder, speculative verify, the paged KV layout and a 'model'
+axis that does not divide the KV heads or the FFN width raise
+``NotImplementedError`` (:func:`check_tensor_parallel`).
 """
 from __future__ import annotations
 
@@ -419,3 +430,240 @@ def make_cache_shardings(mesh, cache_shape: Any, paged: bool = False) -> Any:
                                                   _CACHE_RULES))
 
     return _map_with_path(one, cache_shape)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel execution over 'model'
+# ---------------------------------------------------------------------------
+
+class _Active:
+    """What :func:`activate_mesh` returns: leaving it as a context manager
+    puts the previously active mesh back."""
+
+    def __init__(self, prev):
+        self.prev = prev
+
+    def __enter__(self):
+        return current_mesh()
+
+    def __exit__(self, *exc):
+        _STATE.mesh = self.prev
+
+
+def activate_mesh(mesh):
+    """Install ``mesh`` (a ``DeviceMesh``, or None) as this thread's active
+    mesh, as the reference's ``compat.activate_mesh`` does; used as a
+    context manager, the previous one comes back on exit. The forward's
+    collectives run over its 'model' axis."""
+    prev = current_mesh()
+    _STATE.mesh = mesh
+    return _Active(prev)
+
+
+def current_mesh():
+    """This thread's active mesh, or None."""
+    return getattr(_STATE, "mesh", None)
+
+
+def model_axis() -> Tuple[int, int, Any]:
+    """``(size, coordinate, group)`` of the active mesh's 'model' axis;
+    ``(1, 0, None)`` with no active mesh or a 'model' axis of 1."""
+    mesh = current_mesh()
+    if mesh is None or mesh_axis_sizes(mesh).get("model", 1) == 1:
+        return 1, 0, None
+    return (mesh_axis_sizes(mesh)["model"], mesh.get_local_rank("model"),
+            mesh.get_group("model"))
+
+
+def shard_act(x: torch.Tensor) -> torch.Tensor:
+    """The reference's constraint of an activation to its replicated-over-
+    'model' layout, at a point where the port's ``x`` holds this rank's
+    partial sums (a row-parallel product, a vocab-parallel lookup): under a
+    'model' axis above 1 the all-reduce GSPMD inserts there
+    (reduce-from-model: identity backward); otherwise ``x`` as it is."""
+    tp, _, g = model_axis()
+    if tp == 1:
+        return x
+    from repro_torch.distributed.group import reduce_from_model
+    return reduce_from_model(x, g)
+
+
+def to_model(x: torch.Tensor) -> torch.Tensor:
+    """``x``, replicated over 'model', entering model-sharded products (the
+    normed input of q/k/v or wi/wg, a vocab-parallel head's input, a
+    qk-norm gain applied to the local heads): copy-to-model, identity
+    forward and the gradient all-reduced over 'model' backward. Identity
+    without a 'model' axis above 1."""
+    tp, _, g = model_axis()
+    if tp == 1:
+        return x
+    from repro_torch.distributed.group import copy_to_model
+    return copy_to_model(x, g)
+
+
+def shard_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """LM-head logits, whole on every rank: a vocab-parallel head's local
+    ``(..., vocab / tp)`` logits are all-gathered over 'model'
+    (gather-from-model: this rank's slice of the gradient backward), so the
+    loss is the reference's arithmetic on the whole row; a replicated
+    head's (the vocab 'model' does not divide) come back as they are."""
+    tp, _, g = model_axis()
+    if tp == 1 or logits.shape[-1] == vocab:
+        return logits
+    from repro_torch.distributed.group import gather_from_model
+    return gather_from_model(logits, g)
+
+
+def vocab_parallel(vocab: int) -> bool:
+    """True where the active 'model' axis shards the vocabulary (the rules
+    put 'vocab' on 'model' where it divides)."""
+    tp = model_axis()[0]
+    return tp > 1 and vocab % tp == 0
+
+
+def tp_not_ported(what: str) -> str:
+    """The message of a case tensor-parallel execution does not take."""
+    return f"not ported yet: {what} under tensor-parallel execution (M7c)"
+
+
+def check_tensor_parallel(cfg, mesh) -> None:
+    """Raise ``NotImplementedError("not ported yet: …")`` where the port
+    cannot run ``cfg`` tensor-parallel on ``mesh`` (a ``DeviceMesh`` or an
+    :class:`AbstractMesh`): MoE, MLA, mamba or rwkv blocks, the
+    encoder-decoder, the sliding-window ring, or a 'model' axis that does
+    not divide the KV heads (the reference's rule splits inside a head
+    there) or the FFN width."""
+    tp = mesh_axis_sizes(mesh).get("model", 1)
+    if tp == 1:
+        return
+    plan = cfg.block_pattern or ()
+    cases = (
+        (cfg.moe is not None, "MoE (expert parallel over 'experts' / "
+                              "'expert_ff')"),
+        (cfg.mla is not None, "MLA ('mla_rank')"),
+        ("m" in plan, "mamba ('d_inner')"),
+        (cfg.rwkv, "rwkv"),
+        (cfg.is_encdec, "the encoder-decoder"),
+        (bool(cfg.window), "the sliding-window ring"),
+        (cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp != 0,
+         f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads on a 'model' axis of "
+         f"{tp} (the reference's rule splits inside a head there)"),
+        (cfg.d_ff % tp != 0, f"d_ff {cfg.d_ff} on a 'model' axis of {tp}"),
+    )
+    for hit, what in cases:
+        if hit:
+            raise NotImplementedError(tp_not_ported(what))
+
+
+def _tp_spec(spec: Spec) -> Spec:
+    """The 'model' entries of a spec (every other axis replicated)."""
+    def one(e):
+        axes = e if isinstance(e, tuple) else (e,)
+        return "model" if "model" in axes else None
+    return tuple(one(e) for e in spec)
+
+
+def make_tp_shardings(mesh, tree: Any) -> Any:
+    """``MeshSharding`` tree of a params tree's tensor-parallel layout:
+    the 'model' entries of :func:`make_param_shardings` (the 'data' FSDP
+    entries replicated). A ``QuantizedTensor`` leaf gets a ``(codes,
+    scale)`` pair (:func:`quantized_tensor_shardings`)."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+
+    def one(path, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return tuple(MeshSharding(mesh, _tp_spec(s.spec)) for s in
+                         quantized_tensor_shardings(mesh, path, leaf))
+        spec = logical_to_mesh(param_sharding_rules(path, leaf), leaf.shape,
+                               mesh, _PARAM_RULES)
+        return MeshSharding(mesh, _tp_spec(spec))
+    return _map_with_path(one, tree)
+
+
+def _local(t: torch.Tensor, sharding: MeshSharding) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``t`` (contiguous)."""
+    mesh = sharding.mesh
+    return t[shard_index(t.shape, sharding.placements, tuple(mesh.shape),
+                         mesh.get_coordinate())].contiguous()
+
+
+def _local_quantized(qt, shardings, path):
+    """This rank's ``QuantizedTensor`` of a whole one: codes and scale rows
+    of a column-parallel leaf, the codes' columns of a row-parallel one
+    with the per-group scale's columns of the same groups (a per-channel
+    scale stays whole: it scales each partial product exactly). A shard
+    never splits a group or a packed int4 byte."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+    sh_q, sh_s = shardings
+    codes = _local(qt.data, sh_q)
+    scale = _local(qt.scale, sh_s)
+    out, cols = qt.shape[0], math.prod(qt.shape[1:])
+    if sh_q.spec[-1] == "model":                 # row-parallel: in sharded
+        tp = mesh_axis_sizes(sh_q.mesh)["model"]
+        cols //= tp
+        unit = qt.group_size or (2 if qt.packed else 1)
+        if cols % unit:
+            what = f"group of {qt.group_size}" if qt.group_size \
+                else "packed byte"
+            raise ValueError(f"{'/'.join(path)}: a 'model' axis of {tp} "
+                             f"splits a {what} of its "
+                             f"{math.prod(qt.shape[1:])} input columns")
+        if qt.scale.shape[-1] > 1:           # per-group: this rank's groups
+            g = qt.scale.shape[-1] // tp
+            k = sh_q.mesh.get_local_rank("model")
+            scale = scale[:, k * g:(k + 1) * g].contiguous()
+    elif sh_q.spec[0] == "model":                # column-parallel: out sharded
+        out //= mesh_axis_sizes(sh_q.mesh)["model"]
+    return QuantizedTensor(data=codes, scale=scale, bits=qt.bits,
+                           group_size=qt.group_size, shape=(out, cols))
+
+
+def tp_local(tree: Any, mesh) -> Any:
+    """This rank's tensor-parallel tree of a whole fp or quantized tree
+    (plain tensors, pipeline ``QuantizedTensor``s or the ``w_q``/``w_q4``/
+    ``w_scale`` serving format), every rank holding the whole tree: each
+    leaf sliced to this rank's shard of :func:`make_tp_shardings`, nothing
+    sent. What the forward runs on under :func:`activate_mesh`."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+    shardings = make_tp_shardings(mesh, tree)
+
+    def one(path, leaf):
+        sh = _get_path(shardings, path)
+        if isinstance(leaf, QuantizedTensor):
+            return _local_quantized(leaf, sh, path)
+        return _local(leaf, sh)
+    return _map_with_path(one, tree)
+
+
+def tp_place(tree: Any, mesh) -> Any:
+    """A whole fp tree as DTensors on its tensor-parallel layout
+    (:func:`make_tp_shardings`): each rank keeps its shard, nothing is
+    sent. What the tensor-parallel train step and the checkpointer take."""
+    return _zip_map(lambda t, sh: place(t, sh) if isinstance(sh, MeshSharding)
+                    else t, tree, make_tp_shardings(mesh, tree))
+
+
+def _get_path(tree: Any, path: Tuple[str, ...]) -> Any:
+    for k in path:
+        tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
+    return tree
+
+
+def placement_spec(t) -> Spec:
+    """The spec of a DTensor's placements (mesh axes in mesh order)."""
+    from torch.distributed.tensor import Shard
+    spec = [[] for _ in range(t.ndim)]
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if isinstance(p, Shard):
+            spec[p.dim].append(name)
+    return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
+                 for a in spec)
+
+
+def shardings_of(tree: Any) -> Any:
+    """``MeshSharding`` of every DTensor leaf of ``tree`` (None for other
+    leaves): what restores a checkpoint onto the same layout."""
+    from torch.distributed.tensor import DTensor
+    return _map_with_path(
+        lambda _, t: MeshSharding(t.device_mesh, placement_spec(t))
+        if isinstance(t, DTensor) else None, tree)

@@ -10,8 +10,12 @@ Examples:
 
 ``--production`` builds the production mesh (16×16, or 2×16×16 with
 ``--pod-compress``) over the ranks of the process group, so it raises below
-256 (512) ranks, as the reference's does; ``--pod-compress`` without it
-trains plainly (the step has no 'pod' axis to compress over).
+256 (512) ranks, as the reference's does; on it the step is
+tensor-parallel over the 16-way 'model' axis (the parameters placed by
+``distributed.sharding.tp_place``), which takes a dense config whose KV
+heads and FFN width 16 divides and raises ``NotImplementedError`` for any
+other. ``--pod-compress`` without it trains plainly (the step has no 'pod'
+axis to compress over).
 """
 from __future__ import annotations
 
@@ -65,6 +69,9 @@ def main(argv=None):
                        decay_steps=args.steps)
     step = make_train_step(model, ocfg, microbatches=args.microbatches,
                            pod_compress=args.pod_compress, mesh=mesh)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import tp_place
+        params = tp_place(params, mesh)
     trainer = Trainer(model, ocfg,
                       TrainerConfig(total_steps=args.steps,
                                     checkpoint_every=args.ckpt_every,

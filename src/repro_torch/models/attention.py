@@ -31,6 +31,12 @@ attends in the compressed space (:func:`_mla_absorbed_decode`). Both serve
 on contiguous caches only (the paged backend and ``verify`` are gated off
 them, as in the reference).
 
+Grouped-query attention reads its q and KV head counts from the local
+weights' widths, so under tensor-parallel execution (``distributed.
+sharding``) it runs this rank's heads on a cache of this rank's KV heads;
+its row-parallel ``wo`` product comes back as partial sums, which the
+block sums over 'model' (``models.transformer``).
+
 Cross-attention (:func:`cross_attention`, the encoder-decoder's) attends a
 decoder's rows over the encoder output, full multi-head and unmasked (or
 under an encoder mask), projecting K/V from it at every call. Operands of
@@ -43,6 +49,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import to_model
 from repro_torch.models.layers import (_init_dense, apply_rotary,
                                        by_position, init_norm, linear,
                                        linear_by_position, rms_norm)
@@ -371,13 +378,20 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     b, s, d = x.shape
     hd = cfg.head_dim
     cos_t, sin_t = rope                      # (s, hd/2) for current tokens
-    q = lin(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = lin(params["wk"], x).reshape(b, s, cfg.n_kv_heads, hd)
-    v = lin(params["wv"], x).reshape(b, s, cfg.n_kv_heads, hd)
+    # the head counts are the local weights' widths: under tensor-parallel
+    # execution this rank's q and KV heads (contiguous column shards keep
+    # GQA's grouping, q heads j*rep .. (j+1)*rep-1 over KV head j)
+    q = lin(params["wq"], x).reshape(b, s, -1, hd)
+    k = lin(params["wk"], x).reshape(b, s, -1, hd)
+    v = lin(params["wv"], x).reshape(b, s, -1, hd)
     if cfg.qk_norm:
         rows = by_position if mode == "verify" else (lambda fn, t: fn(t))
-        q = rows(lambda t: rms_norm(params["q_ln"], t), q)
-        k = rows(lambda t: rms_norm(params["k_ln"], t), k)
+        # a replicated gain on the local heads: its gradient sums over
+        # 'model' (to_model)
+        q_ln = {"gain": to_model(params["q_ln"]["gain"])}
+        k_ln = {"gain": to_model(params["k_ln"]["gain"])}
+        q = rows(lambda t: rms_norm(q_ln, t), q)
+        k = rows(lambda t: rms_norm(k_ln, t), k)
     q = apply_rotary(q, cos_t, sin_t)
     k = apply_rotary(k, cos_t, sin_t)
     scale = hd ** -0.5
@@ -492,7 +506,7 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
                                  scale)
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
-    out = out.reshape(b, s, cfg.n_heads * hd)
+    out = out.reshape(b, s, -1)
     return lin(params["wo"], out), cache
 
 

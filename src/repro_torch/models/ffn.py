@@ -1,4 +1,9 @@
-"""Feed-forward variants: SwiGLU (llama-family), GeGLU (gemma), ReLU/GELU."""
+"""Feed-forward variants: SwiGLU (llama-family), GeGLU (gemma), ReLU/GELU.
+
+Under tensor-parallel execution the hidden ``h`` is this rank's ``d_ff /
+tp`` columns (column-parallel ``wi``/``wg``), and the row-parallel
+``wdown`` product comes back as partial sums, which the block sums over
+'model' (``models.transformer``)."""
 from __future__ import annotations
 
 from typing import Dict

@@ -5,6 +5,8 @@ Params are plain nested dicts of tensors. Kernels are named ``w`` with shape
 transparently consumes a QuantizedTensor (SQuant serving format, (out,
 in)-major) or the ``w_q``/``w_q4`` dict of ``quant.apply``: on a CUDA device
 through the dequant-matmul kernel, on the CPU through its plain version.
+Under tensor-parallel execution every layer here takes this rank's local
+tensors (``distributed.sharding.tp_local``), never a DTensor.
 """
 from __future__ import annotations
 
@@ -25,6 +27,10 @@ def _init_dense(generator: torch.Generator, d_in: int, d_out: int,
     return {"w": w.mul_(s)}
 
 
+def _is_dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def linear(params, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
     """x @ W. Accepts three kernel formats:
     * ``{"w": (in, out) float}`` — dense (``torch.matmul``);
@@ -37,6 +43,10 @@ def linear(params, x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
         w = qdict_view(params)
     else:
         w = params["w"]
+    if _is_dtensor(w.data if isinstance(w, QuantizedTensor) else w):
+        raise TypeError("linear takes this rank's local tensors, not a "
+                        "DTensor: run on distributed.sharding.tp_local's "
+                        "tree")
     if isinstance(w, QuantizedTensor):
         from repro_torch.kernels import ops                  # lazy import
         lead = x.shape[:-1]
@@ -86,8 +96,22 @@ def init_norm(d: int, plus_one: bool = False, device=None):
     return {"gain": init((d,), dtype=torch.float32, device=device)}
 
 
-def embed(params, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embedding"][tokens]
+def embed(params, tokens: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The rows of ``tokens``. Where the active 'model' axis shards the
+    vocabulary, the local table holds this rank's range of ``vocab`` rows:
+    the other tokens look up zeros and the sum over 'model'
+    (``shard_act``) puts every row together, bit for bit."""
+    from repro_torch.distributed.sharding import (model_axis, shard_act,
+                                                  vocab_parallel)
+    e = params["embedding"]
+    if not vocab_parallel(vocab):
+        return e[tokens]
+    rows = e.shape[0]
+    ids = tokens - model_axis()[1] * rows
+    mine = (ids >= 0) & (ids < rows)
+    x = torch.where(mine[..., None], e[ids.clamp(0, rows - 1)],
+                    torch.zeros((), dtype=e.dtype, device=e.device))
+    return shard_act(x)
 
 
 def init_embedding(generator: torch.Generator, vocab: int, d: int,

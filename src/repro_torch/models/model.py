@@ -4,6 +4,12 @@ The returned ``LM`` object is the single interface used by the trainer, the
 serving engine and the quantization pipeline. ``forward(mode="train")`` and
 ``train_loss`` record autograd; every serving mode runs under
 ``torch.no_grad``.
+
+Under ``distributed.sharding.activate_mesh`` with a 'model' axis above 1
+the forward runs tensor-parallel on this rank's local tree
+(``sharding.tp_local``): a vocab-parallel embedding and head where 'model'
+divides the vocabulary, the logits gathered whole before the loss, and a
+cache of this rank's KV heads (:meth:`LM.init_cache`).
 """
 from __future__ import annotations
 
@@ -13,7 +19,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import (by_position, init_embedding,
+from repro_torch.distributed import sharding
+from repro_torch.models.layers import (by_position, embed, init_embedding,
                                        init_norm, linear, rms_norm)
 from repro_torch.models.transformer import (_rope_dim, apply_encoder,
                                             apply_stack, init_cache,
@@ -91,7 +98,7 @@ class LM:
 
     # ------------------------------------------------------------- forward
     def _embed(self, params, tokens):
-        x = params["embedding"]["embedding"][tokens]
+        x = embed(params["embedding"], tokens, self.cfg.vocab)
         if self.cfg.emb_scale:
             x = x * torch.tensor(math.sqrt(float(self.cfg.d_model)),
                                  dtype=torch.float32).to(x.dtype)
@@ -99,10 +106,14 @@ class LM:
 
     def _logits(self, params, x):
         x = rms_norm(params["final_norm"], x, plus_one=self.cfg.norm_plus_one)
+        if sharding.vocab_parallel(self.cfg.vocab):
+            x = sharding.to_model(x)
         if self.cfg.tie_embeddings:
             w = params["embedding"]["embedding"]
-            return x @ w.T.to(x.dtype)
-        return linear(params["lm_head"], x)
+            logits = x @ w.T.to(x.dtype)
+        else:
+            logits = linear(params["lm_head"], x)
+        return sharding.shard_logits(logits, self.cfg.vocab)
 
     def _encode(self, params, batch):
         """The encoder output of ``batch["enc_frames"]`` (None for a
@@ -131,6 +142,12 @@ class LM:
         mode."""
         tokens = batch["tokens"]
         b, s = tokens.shape
+        if sharding.model_axis()[0] > 1:
+            sharding.check_tensor_parallel(self.cfg, sharding.current_mesh())
+            if mode == "verify" or caches is not None and \
+                    "block_tables" in caches:
+                raise NotImplementedError(sharding.tp_not_ported(
+                    "speculative verify and the paged KV layout"))
         block_tables = caches.get("block_tables") \
             if caches is not None else None
         if mode == "decode":
@@ -210,7 +227,8 @@ class LM:
     # --------------------------------------------------------------- serve
     def init_cache(self, batch: int, max_len: int, quantize_kv: bool = False,
                    device=None) -> dict:
-        """The stack's caches at the clock 0; an encoder-decoder's also
+        """The stack's caches at the clock 0 (under an active 'model' axis
+        above 1, of this rank's KV heads); an encoder-decoder's also
         ``"enc_out"``, zeros of ``(batch, max(1, max_len // enc_ratio),
         d_model)`` in the model dtype (a prefill replaces it with the
         encoder output it computed, in that output's dtype)."""

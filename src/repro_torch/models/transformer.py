@@ -16,6 +16,13 @@ The attention is grouped-query (dense or sliding-window) or MLA
 says so, a mixture of experts (``models.moe``). A mamba or rwkv layer's
 cache is its recurrent state (``models.mamba``, ``models.rwkv``).
 
+Tensor-parallel (under ``distributed.sharding.activate_mesh`` with a
+'model' axis above 1, dense attention blocks only): the normed input of
+the attention and of the FFN enters the column-parallel products through
+``to_model``, and each block's row-parallel partial sum ``h`` is summed over
+'model' before the residual add (``shard_act``; summing after the add would
+count ``x`` once per rank).
+
 An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
 cross-attention over the encoder output (``xln``, ``xattn``: x +=
 xattn(xln(x), enc_out), after the self-attention and before the FFN), and
@@ -31,6 +38,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
+from repro_torch.distributed.sharding import (activate_mesh, current_mesh,
+                                              model_axis, shard_act, to_model)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -134,8 +143,9 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
         lin = linear
     if kind == "a":
         h, new_cache = attn_lib.attention(
-            p["attn"], norm(p["ln1"], x), cfg=cfg, rope=rope, mode=mode,
-            cache=cache, pos=pos, block_tables=block_tables)
+            p["attn"], to_model(norm(p["ln1"], x)), cfg=cfg, rope=rope,
+            mode=mode, cache=cache, pos=pos, block_tables=block_tables)
+        h = shard_act(h)
     else:  # mamba
         h, new_cache = mamba_lib.mamba(
             p["mixer"], norm(p["ln1"], x), d_state=cfg.mamba.d_state,
@@ -164,7 +174,8 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
             y, aux = moe(h2)
             x = x + y
     else:
-        x = x + ffn_lib.ffn(p["ffn"], h2, cfg.ffn_kind, lin=lin)
+        h = ffn_lib.ffn(p["ffn"], to_model(h2), cfg.ffn_kind, lin=lin)
+        x = x + shard_act(h)
     return x, new_cache, aux
 
 
@@ -248,7 +259,8 @@ def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
     if cfg.mla is not None:
         return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
                                        device=device)
-    return attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads,
+    return attn_lib.init_kv_cache(batch, max_len,
+                                  cfg.n_kv_heads // model_axis()[0],
                                   cfg.head_dim, dtype, quantize_kv,
                                   cfg.window, device=device)
 
@@ -306,6 +318,13 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
         return xin, new_c, aux_sum
 
     remat = train and cfg.remat and torch.is_grad_enabled()
+    # the backward pass may recompute a period on another thread (CUDA's
+    # autograd worker): it runs under the mesh active here
+    mesh = current_mesh()
+
+    def recompute(p_, x_):
+        with activate_mesh(mesh):
+            return run_period(p_, x_, None)[::2]
     new_list = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
         if train else None
@@ -313,8 +332,7 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
         pc = caches["list"][li] if needs_cache else None
         if remat:
             x, aux = torch.utils.checkpoint.checkpoint(
-                lambda p_, x_: run_period(p_, x_, None)[::2], pp, x,
-                use_reentrant=False)
+                recompute, pp, x, use_reentrant=False)
             new_c = None
         else:
             x, new_c, aux = run_period(pp, x, pc)

@@ -51,10 +51,12 @@ def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
 
 
 def adamw_init(params: Any) -> Dict[str, Any]:
-    """Zero float32 moments shaped like ``params`` on their devices, and the
-    step counter, a 0-d int32 tensor."""
+    """Zero float32 moments shaped like ``params`` on their devices (a
+    DTensor parameter's are DTensors of its placements), and the step
+    counter, a 0-d int32 tensor."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
@@ -110,18 +112,21 @@ def decay_mask(params: Any, stacked: bool = False) -> Any:
 
 
 def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
-                 cfg: AdamWConfig, decay: Any = None
+                 cfg: AdamWConfig, decay: Any = None,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Any, Dict[str, Any], Dict]:
     """One AdamW step: gradients clipped to ``clip_norm`` by their global
-    norm, bias-corrected moments, decoupled weight decay on the leaves that
-    ``decay`` (a tree of bools, :func:`decay_mask`) marks; by default on
-    leaves of two or more dimensions only. Returns (new params, new state,
-    {"lr", "grad_norm"}); the inputs are not modified."""
+    norm (``grad_norm`` where the caller has it, as the tensor-parallel
+    step does for a tree of shards; else :func:`global_norm` of
+    ``grads``), bias-corrected moments, decoupled weight decay on the
+    leaves that ``decay`` (a tree of bools, :func:`decay_mask`) marks; by
+    default on leaves of two or more dimensions only. Returns (new params,
+    new state, {"lr", "grad_norm"}); the inputs are not modified."""
     if decay is None:
         decay = decay_mask(params)
     step = state["step"]
     lr = _schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     if cfg.clip_norm is not None:
         scale = torch.clamp_max(_f32(cfg.clip_norm, gnorm)
                                 / (gnorm + 1e-9), 1.0)

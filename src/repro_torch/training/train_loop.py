@@ -10,10 +10,16 @@
 * the int8 cross-pod gradient all-reduce with error feedback
   (``pod_compress=True`` on a mesh with a 'pod' axis of 2 or more): float32
   in-pod reduction over 'data', then ``grad_compression``'s int8 ring over
-  'pod'.
-
-Tensor-parallel execution over 'model' is not ported yet (M7b): a mesh
-whose 'model' axis is larger than 1 raises ``NotImplementedError``.
+  'pod';
+* tensor parallelism over 'model' (a mesh whose 'model' axis is larger
+  than 1), Megatron-style, for the dense GQA transformer: the parameters
+  and AdamW moments are DTensors of ``distributed.sharding.tp_place``'s
+  layout, each rank computes on its shards, and the collectives run where
+  the reference annotates its activations; it composes with the data
+  parallelism and the pod compression above. MoE, MLA, mamba, rwkv, the
+  encoder-decoder, the sliding-window ring, a 'model' axis that does not
+  divide the KV heads or the FFN width, and a tree sharded over 'data'
+  (FSDP) raise ``NotImplementedError``.
 
 ``Trainer`` owns the loop: checkpoint every N steps, restart from the newest
 checkpoint, preemption handling (SIGTERM → checkpoint + clean exit) and a
@@ -36,11 +42,8 @@ from repro_torch.training.grad_compression import (compress_local,
                                                    ring_pad, unflatten_grads)
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update, decay_mask,
-                                            tree_leaves, tree_map)
-
-_NOT_PORTED_TP = ("not ported yet: tensor-parallel execution over 'model' "
-                  "(M7b)")
-
+                                            global_norm, tree_leaves,
+                                            tree_map)
 
 def _value_and_grad(loss_fn, params, batch):
     """``(loss, metrics, grads)`` of ``loss_fn(params, batch)``: gradients
@@ -109,17 +112,20 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     ``err`` (:func:`init_pod_error`), the int8 ring over 'pod', ``/
     n_pods``, then AdamW; the metrics are averaged over the ranks. Without
     a 'pod' axis of 2 or more ``pod_compress`` is ignored, as in the
-    reference. Set ``step.timed = True`` on the pod-compressed step to
-    have each call leave its split (``step.split_ms``: grads, in-pod
-    all-reduce, compress, ring, update) measured between synchronizations
-    of the device.
+    reference. A 'model' axis above 1 makes the step tensor-parallel
+    (:func:`_parallel_step`): ``params`` and ``opt_state``'s moments are
+    then DTensor trees of ``distributed.sharding.tp_place``'s layout on
+    ``mesh``, and come back so. Set ``step.timed = True`` on a mesh's step
+    to have each call leave its split in ``step.split_ms`` (grads, the
+    all-reduces, compress and ring where it compresses, update), measured
+    between synchronizations of the device.
     """
     sizes = {}
     if mesh is not None:
-        from repro_torch.distributed.sharding import mesh_axis_sizes
+        from repro_torch.distributed.sharding import (check_tensor_parallel,
+                                                      mesh_axis_sizes)
         sizes = mesh_axis_sizes(mesh)
-        if sizes.get("model", 1) > 1:
-            raise NotImplementedError(_NOT_PORTED_TP)
+        check_tensor_parallel(model.cfg, mesh)
 
     def loss_fn(p, b):
         return model.train_loss(p, b)
@@ -127,30 +133,88 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     stacked = model.cfg.scan_layers and n_periods(model.cfg) > 1
 
     def train_step(params, opt_state, batch):
-        loss, metrics, grads = _accumulate_grads(loss_fn, params, batch,
-                                                 microbatches)
-        if grad_reduce_dtype is not None:
-            grads = tree_map(lambda g: g.to(grad_reduce_dtype), grads)
-        params, opt_state, info = adamw_update(
-            params, grads, opt_state, opt_cfg, decay_mask(params, stacked))
-        metrics = dict(metrics)
-        metrics.update(info)
-        metrics["loss"] = loss
-        return params, opt_state, metrics
+        loss, metrics, grads = _grads(loss_fn, params, batch, microbatches,
+                                      grad_reduce_dtype)
+        return _update(params, opt_state, grads, loss, metrics, opt_cfg,
+                       stacked)
 
-    if sizes.get("pod", 1) * sizes.get("data", 1) == 1:
+    compress = pod_compress and sizes.get("pod", 1) >= 2
+    if all(sizes.get(a, 1) == 1 for a in ("pod", "data", "model")):
         return train_step
     return _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
-                          microbatches, grad_reduce_dtype,
-                          pod_compress and sizes.get("pod", 1) >= 2)
+                          microbatches, grad_reduce_dtype, compress)
+
+
+def _local_batch(batch, part: int, world: int):
+    """Data-parallel rank ``part``'s slice of the global batch."""
+    n = next(iter(batch.values())).shape[0]
+    if n % world:
+        raise ValueError(f"global batch {n} is not divisible over {world} "
+                         f"data-parallel ranks")
+    per = n // world
+    return {k: v[part * per:(part + 1) * per] for k, v in batch.items()}
+
+
+def _grads(loss_fn, params, batch, microbatches, grad_reduce_dtype):
+    loss, metrics, grads = _accumulate_grads(loss_fn, params, batch,
+                                             microbatches)
+    if grad_reduce_dtype is not None:
+        grads = tree_map(lambda g: g.to(grad_reduce_dtype), grads)
+    return loss, metrics, grads
+
+
+def _reduce_mean(grads, groups, n: int):
+    """The tree's mean over ``n`` ranks, in float32: one all-reduce of the
+    flattened tree over each of ``groups`` in turn (together the ranks)."""
+    from repro_torch.distributed import group as dgroup
+    leaves = tree_leaves(grads)
+    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
+    for g in groups:
+        dgroup.all_reduce(flat, g)
+    flat = flat / n
+    by_leaf, off = {}, 0
+    for x in leaves:
+        by_leaf[id(x)] = flat[off:off + x.numel()].reshape(x.shape) \
+            .to(x.dtype)
+        off += x.numel()
+    return tree_map(lambda x: by_leaf[id(x)], grads)
+
+
+def _mean_metrics(loss, metrics, groups, n: int):
+    """Loss and metrics averaged over ``n`` ranks (summed over each of
+    ``groups`` in turn)."""
+    from repro_torch.distributed import group as dgroup
+    vals = [loss] + [metrics[k] for k in sorted(metrics)]
+    flat = torch.stack([v.to(torch.float32).reshape(()) for v in vals])
+    for g in groups:
+        dgroup.all_reduce(flat, g)
+    flat = flat / n
+    return flat[0], {k: flat[i + 1] for i, k in enumerate(sorted(metrics))}
+
+
+def _update(params, opt_state, grads, loss, metrics, opt_cfg, stacked,
+            grad_norm=None):
+    params, opt_state, info = adamw_update(
+        params, grads, opt_state, opt_cfg, decay_mask(params, stacked),
+        grad_norm=grad_norm)
+    metrics = dict(metrics)
+    metrics.update(info)
+    metrics["loss"] = loss
+    return params, opt_state, metrics
 
 
 class _Timer:
     """Host-clock split of a step between device synchronizations (only
-    while ``on``)."""
+    while ``on``). The tensor-parallel collectives of the forward and
+    backward (``group.MODEL_COLLECTIVES``) are taken out of "grads" into
+    "model_all_reduce" where 'model' is above 1."""
 
-    def __init__(self, on: bool, device):
-        self.on, self.device, self.ms = on, device, {}
+    def __init__(self, on: bool, tp: int):
+        from repro_torch.distributed import group as dgroup
+        self.on, self.tp, self.ms = on, tp, {}
+        self.device = dgroup.device() if on else None
+        self._coll = dgroup.MODEL_COLLECTIVES
+        self._c0 = self._coll["ms"]
         self._t = time.perf_counter() if on else 0.0
 
     def mark(self, name: str) -> None:
@@ -162,83 +226,163 @@ class _Timer:
         self.ms[name] = self.ms.get(name, 0.0) + (t - self._t) * 1e3
         self._t = t
 
+    def split(self) -> Dict[str, float]:
+        if self.on and self.tp > 1:
+            model_ms = self._coll["ms"] - self._c0
+            self.ms["model_all_reduce"] = model_ms
+            self.ms["grads"] -= model_ms
+        return self.ms
+
 
 def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
                    microbatches, grad_reduce_dtype, compress):
-    """The data-parallel (``compress=False``) or pod-compressed step over
-    ``mesh`` (see :func:`make_train_step`)."""
+    """The step over ``mesh`` (see :func:`make_train_step`): every rank
+    takes its slice of the global batch over the 'pod' and 'data' axes and
+    runs the forward and backward under the mesh
+    (``sharding.activate_mesh``). Where 'model' is above 1 it computes on
+    its shards, Megatron-style, and the collectives run where the
+    reference annotates its activations. The gradients, each rank's
+    shard's, are averaged over the 'data' (and 'pod') ranks that share its
+    'model' coordinate. A replicated leaf's gradient is already whole and
+    equal on every 'model' rank (copy-to-model's backward sums it), so the
+    global norm counts it once and the shards' squares summed over
+    'model'.
+
+    With ``compress`` the cross-pod leg is the int8 ring on the logical
+    gradients, as the reference's ``compress_local`` flattens them: the
+    in-pod float32 reduction over 'data', each leaf's gradient gathered
+    over 'model', compressed with the pod's logical error-feedback row
+    (:func:`init_pod_error`'s shapes), the ring over 'pod', ``/ n_pods``,
+    then this rank's slice taken back. ``step.timed = True`` leaves each
+    call's split in ``step.split_ms``."""
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor, Shard
     from repro_torch.distributed import group as dgroup
-    n_pods = sizes.get("pod", 1)
-    n_data = sizes.get("data", 1)
+    from repro_torch.distributed.sharding import (activate_mesh, shard_index,
+                                                  tp_not_ported)
+    n_pods, n_data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
+    if tp > 1 and not isinstance(mesh, DeviceMesh):
+        raise ValueError("a tensor-parallel step runs on a DeviceMesh of "
+                         "the group's ranks")
     world = n_pods * n_data
     pod = mesh.get_local_rank("pod") if "pod" in sizes else 0
     dat = mesh.get_local_rank("data") if "data" in sizes else 0
     part = pod * n_data + dat           # this rank's slice of the batch
     data_group = mesh.get_group("data") if n_data > 1 else None
     pod_group = mesh.get_group("pod") if n_pods > 1 else None
-    dp_group = dgroup.mesh_group(mesh)  # 'model' is 1: the (pod, data) ranks
+    model_group = mesh.get_group("model") if tp > 1 else None
+    # the data-parallel ranks: the whole mesh where 'model' is 1, else the
+    # 'data', then the 'pod' ranks of this rank's 'model' coordinate
+    dp_groups = [dgroup.mesh_group(mesh)] if tp == 1 else \
+        [g for g in (data_group, pod_group) if g is not None]
 
-    def local_batch(batch):
-        n = next(iter(batch.values())).shape[0]
-        if n % world:
-            raise ValueError(f"global batch {n} is not divisible over "
-                             f"{world} data-parallel ranks")
-        per = n // world
-        return {k: v[part * per:(part + 1) * per] for k, v in batch.items()}
+    def unplace(tree):
+        """This rank's plain tensors: a DTensor's local shard, a plain
+        tensor (a data-parallel replica) as it is."""
+        def one(t):
+            if not isinstance(t, DTensor):
+                if tp > 1:
+                    raise ValueError("the tensor-parallel step takes trees "
+                                     "placed on its mesh by "
+                                     "sharding.tp_place")
+                return t
+            if t.device_mesh != mesh:
+                raise ValueError("a DTensor placed on another mesh")
+            if any(isinstance(p, Shard) for name, p in
+                   zip(mesh.mesh_dim_names, t.placements) if name != "model"):
+                raise NotImplementedError(tp_not_ported(
+                    "FSDP (ZeRO-3) over 'data'"))
+            return t.to_local()
+        return tree_map(one, tree)
 
-    def mean_metrics(loss, metrics, g):
-        vals = [loss] + [metrics[k] for k in sorted(metrics)]
-        flat = torch.stack([v.to(torch.float32).reshape(()) for v in vals])
-        dgroup.all_reduce(flat, g)
-        flat = flat / world
-        out = {k: flat[i + 1] for i, k in enumerate(sorted(metrics))}
-        return flat[0], out
+    def replace(local, like):
+        """``local`` placed as ``like``'s DTensor leaves are."""
+        return tree_map(lambda x, t: DTensor.from_local(
+            x, mesh, t.placements, run_check=False, shape=t.shape,
+            stride=t.stride()) if isinstance(t, DTensor) else x, local, like)
 
-    def grads_of(params, batch):
-        loss, metrics, grads = _accumulate_grads(
-            loss_fn, params, local_batch(batch), microbatches)
-        if grad_reduce_dtype is not None:
-            grads = tree_map(lambda g: g.to(grad_reduce_dtype), grads)
-        return loss, metrics, grads
+    def shard_dim(t) -> Optional[int]:
+        """The dim a DTensor's 'model' shard splits (None: whole)."""
+        for p in getattr(t, "placements", ()):
+            if isinstance(p, Shard):
+                return p.dim
+        return None
 
-    def reduce_mean(grads, g, n):
-        """The tree's mean over group ``g`` of ``n`` ranks, in float32, in
-        one all-reduce of the flattened tree."""
-        leaves = tree_leaves(grads)
-        flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
-        dgroup.all_reduce(flat, g)
-        flat = flat / n
-        by_leaf, off = {}, 0
-        for x in leaves:
-            by_leaf[id(x)] = flat[off:off + x.numel()].reshape(x.shape) \
-                .to(x.dtype)
-            off += x.numel()
-        return tree_map(lambda x: by_leaf[id(x)], grads)
+    def grads_of(local, batch, timer):
+        with activate_mesh(mesh):
+            out = _grads(loss_fn, local, _local_batch(batch, part, world),
+                         microbatches, grad_reduce_dtype)
+        timer.mark("grads")
+        return out
 
-    def update(params, opt_state, grads, loss, metrics):
-        params, opt_state, info = adamw_update(
-            params, grads, opt_state, opt_cfg, decay_mask(params, stacked))
-        metrics = dict(metrics)
-        metrics.update(info)
-        metrics["loss"] = loss
-        return params, opt_state, metrics
+    def tp_norm(grads, like):
+        """The logical tree's global norm from this rank's shards (None
+        where 'model' is 1: ``adamw_update`` takes the tree's own)."""
+        if tp == 1:
+            return None
+        sq = torch.zeros(2, dtype=torch.float32,
+                         device=tree_leaves(grads)[0].device)
+        for g, t in zip(tree_leaves(grads), tree_leaves(like)):
+            sq[1 if shard_dim(t) is None else 0] += torch.sum(
+                torch.square(g.to(torch.float32)))
+        part_sq = sq[:1].clone()
+        dgroup.all_reduce(part_sq, model_group)
+        return torch.sqrt(part_sq[0] + sq[1])
+
+    def update(params, opt_state, local, grads, loss, metrics, gnorm):
+        """AdamW on the local trees, placed back as ``params`` and
+        ``opt_state`` are."""
+        state = {"m": unplace(opt_state["m"]), "v": unplace(opt_state["v"]),
+                 "step": opt_state["step"]}
+        new, opt, metrics = _update(local, state, grads, loss, metrics,
+                                    opt_cfg, stacked, grad_norm=gnorm)
+        opt = {"m": replace(opt["m"], opt_state["m"]),
+               "v": replace(opt["v"], opt_state["v"]), "step": opt["step"]}
+        return replace(new, params), opt, metrics
 
     if not compress:
-        def dp_step(params, opt_state, batch):
-            loss, metrics, grads = grads_of(params, batch)
-            grads = reduce_mean(grads, dp_group, world)
-            loss, metrics = mean_metrics(loss, metrics, dp_group)
-            return update(params, opt_state, grads, loss, metrics)
-        return dp_step
+        def step(params, opt_state, batch):
+            timer = _Timer(step.timed, tp)
+            local = unplace(params)
+            loss, metrics, grads = grads_of(local, batch, timer)
+            if world > 1:
+                grads = _reduce_mean(grads, dp_groups, world)
+                loss, metrics = _mean_metrics(loss, metrics, dp_groups,
+                                              world)
+            timer.mark("data_all_reduce")
+            gnorm = tp_norm(grads, params)
+            timer.mark("grad_norm")
+            out = update(params, opt_state, local, grads, loss, metrics,
+                         gnorm)
+            timer.mark("update")
+            step.split_ms = timer.split()
+            return out
+
+        step.timed, step.split_ms = False, {}
+        return step
+
+    mesh_sizes = tuple(mesh.shape)
+    coord = mesh.get_coordinate()
+
+    def logical(grads, like):
+        """Each leaf's gradient whole: gathered over 'model' along the dim
+        its shard splits."""
+        def one(g, t):
+            d = shard_dim(t)
+            return g if d is None else dgroup.gather_dim(g, d, model_group)
+        return tree_map(one, grads, like)
 
     def pod_step(params, opt_state, err, batch):
-        timer = _Timer(pod_step.timed, dgroup.device())
-        loss, metrics, grads = grads_of(params, batch)
-        timer.mark("grads")
+        timer = _Timer(pod_step.timed, tp)
+        local = unplace(params)
+        loss, metrics, grads = grads_of(local, batch, timer)
         if n_data > 1:                  # the in-pod float32 reduction
-            grads = reduce_mean(grads, data_group, n_data)
-        loss, metrics = mean_metrics(loss, metrics, dp_group)
+            grads = _reduce_mean(grads, [data_group], n_data)
+        loss, metrics = _mean_metrics(loss, metrics, dp_groups, world)
         timer.mark("in_pod_all_reduce")
+        if tp > 1:
+            grads = logical(grads, params)
+            timer.mark("model_gather")
         mine = tree_map(lambda e: e[pod:pod + 1], err)
         flat, new_mine = compress_local(grads, mine)
         flat = ring_pad(flat, n_pods)
@@ -248,11 +392,14 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         new_err = tree_map(lambda e: e.clone(), err)
         for e, m in zip(tree_leaves(new_err), tree_leaves(new_mine)):
             e[pod:pod + 1] = m
-        grads = unflatten_grads(reduced / n_pods, params)
-        params, opt_state, metrics = update(params, opt_state, grads, loss,
-                                            metrics)
+        full = unflatten_grads(reduced / n_pods, params)
+        shards = full if tp == 1 else tree_map(
+            lambda f, t: f[shard_index(f.shape, t.placements, mesh_sizes,
+                                       coord)], full, params)
+        params, opt_state, metrics = update(params, opt_state, local, shards,
+                                            loss, metrics, global_norm(full))
         timer.mark("update")
-        pod_step.split_ms = timer.ms
+        pod_step.split_ms = timer.split()
         return params, opt_state, new_err, metrics
 
     pod_step.timed, pod_step.split_ms = False, {}
@@ -348,7 +495,11 @@ class Trainer:
         opt_state = opt_state if opt_state is not None else adamw_init(params)
         start_step = 0
         if ckpt.list_steps():
+            # DTensor leaves (a tensor-parallel step's) come back on their
+            # own placements
+            from repro_torch.distributed.sharding import shardings_of
             params, opt_state, start_step = ckpt.restore_latest(
+                shardings=(shardings_of(params), shardings_of(opt_state)),
                 template=(params, opt_state), device=self.device)
             print(f"[trainer] resumed from step {start_step}", flush=True)
         history = []

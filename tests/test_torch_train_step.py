@@ -256,21 +256,27 @@ def test_moe_aux_matches_reference():
     _close_trees(jg, tg, **GRAD_TOL)
 
 
-def test_mesh_options():
-    """Only a 'model' axis above 1 raises (tensor-parallel execution,
-    M7b); ``pod_compress`` without a mesh, or on a mesh without a 'pod'
-    axis of 2, is the plain step, as in the reference; ``init_pod_error``
-    has the reference's shapes."""
+def test_mesh_options(tmp_path):
+    """A 'model' axis of 2 runs the tensor-parallel step, through both
+    mesh options, to the plain step's losses and grad norms (within 1e-4
+    relative; its out-of-scope cases raise in
+    ``tests/test_torch_tensor_parallel.py``); ``pod_compress`` without a
+    mesh, or on a mesh without a 'pod' axis of 2, is the plain step, as in
+    the reference; ``init_pod_error`` has the reference's shapes."""
+    import torch_tp_workers as W
+    from repro_torch.distributed.group import run_local
     from repro_torch.distributed.sharding import AbstractMesh
     _, jp, tm, tp = _pair()
     ocfg = topt.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="not ported yet.*M7b"):
-        tloop.make_train_step(tm, ocfg, mesh=AbstractMesh((1, 2),
-                                                          ("data", "model")))
-    with pytest.raises(NotImplementedError, match="not ported yet.*M7b"):
-        tloop.make_train_step(tm, ocfg, pod_compress=True,
-                              mesh=AbstractMesh((2, 1, 2),
-                                                ("pod", "data", "model")))
+    losses, norms, _ = W.one_rank_train(W._STEP, W.TRAIN_STEPS)
+    for rank in run_local(W.mesh_option_ranks, 2, backend="gloo",
+                          device="cpu", timeout=300,
+                          store_dir=str(tmp_path)):
+        for met in rank:
+            np.testing.assert_allclose([m[0] for m in met], losses,
+                                       rtol=1e-4, atol=0)
+            np.testing.assert_allclose([m[1] for m in met], norms,
+                                       rtol=1e-4, atol=0)
     for mesh in (None, AbstractMesh((1, 1), ("data", "model")),
                  AbstractMesh((1, 1, 1), ("pod", "data", "model"))):
         step = tloop.make_train_step(tm, ocfg, pod_compress=True, mesh=mesh)
