@@ -6762,8 +6762,9 @@ def phase15a(dev, seed, layers):
             "dequant_matmul": b_counts[0]}
 
 
-def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path):
-    """15b-15f on one rank of four sharing the card over gloo (run by
+def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path,
+               ref_path_h):
+    """15b-15h on one rank of four sharing the card over gloo (run by
     ``run_local``): returns host numbers only."""
     import numpy as np
     import torch.distributed as dist
@@ -6854,6 +6855,9 @@ def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path):
     _free(dev)
     # ---- 15e-f: tensor-parallel serving and training
     out["tp"] = _p15ef_ranks(seed, ref_path)
+    _free(dev)
+    # ---- 15g-h: expert-parallel MoE serving and training
+    out["ep"] = _p15gh_ranks(seed, ref_path_h)
     return out
 
 
@@ -6999,33 +7003,38 @@ def _four_ranks_beside(dev, fn, args, here):
 
 
 def phase15bcd(dev, seed, card):
-    """15b-15f: four ranks sharing the card over gloo (sharded quantization
+    """15b-15h: four ranks sharing the card over gloo (sharded quantization
     of granite at full width, save from the 4-rank mesh; the int8 ring over
     100 M floats a rank; pod-compressed training of the 100m model, 2 pods
     x 2 data; between 15b and 15c ranks 0 and 1 restore the checkpoint
-    onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, in the
-    same processes); 15d's and 15f's plain one-rank steps on the same
-    global batches run here, in this process, while the four ranks run
-    (most of 15d's time is theirs starting up). Returns kernel A's
-    launches by rank and 15e-f's summary."""
+    onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, and 15g-h,
+    :func:`phase15gh`, in the same processes); 15d's, 15f's and 15h's
+    plain one-rank steps on the same global batches run here, in this
+    process, while the four ranks run (most of 15d's time is theirs
+    starting up). Returns kernel A's launches by rank and 15e-f's and
+    15g-h's summaries."""
     import tempfile
     import shutil
 
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_p15b_")
     work = tempfile.mkdtemp(prefix="chip_smoke_p15f_")
     ref_path = os.path.join(work, "one_rank.pt")
+    ref_path_h = os.path.join(work, "one_rank_h.pt")
     t_phase = time.perf_counter()
 
     def here():
         plain = _p15_plain(dev, seed)
         t0 = time.perf_counter()
-        return plain, _p15f_one_rank(dev, seed, ref_path), \
-            time.perf_counter() - t0
+        plain_f = _p15f_one_rank(dev, seed, ref_path)
+        t1 = time.perf_counter()
+        plain_h = _p15h_one_rank(dev, seed, ref_path_h)
+        return plain, plain_f, t1 - t0, plain_h, time.perf_counter() - t1
 
     try:
-        ranks, four_s, (plain, plain_f, plain_f_s) = _four_ranks_beside(
+        ranks, four_s, (plain, plain_f, plain_f_s, plain_h,
+                        plain_h_s) = _four_ranks_beside(
             dev, _p15_ranks, (seed, 2, ckpt, P15_RING_FLOATS,
-                              P15_TRAIN_STEPS, ref_path), here)
+                              P15_TRAIN_STEPS, ref_path, ref_path_h), here)
         saved = _digests_of_checkpoint(ckpt, dev)
         restored = [r["restore"] for r in ranks if r["restore"] is not None]
     finally:
@@ -7127,9 +7136,11 @@ def phase15bcd(dev, seed, card):
         raise AssertionError(f"15d: the learning contract failed: {gates}")
     ef = _p15ef_report([r["tp"] for r in ranks], plain_f, plain_f_s, card,
                        four_s, t_phase)
+    gh = _p15gh_report([r["ep"] for r in ranks], plain_h, plain_h_s, card,
+                       four_s, t_phase)
     return {"squant_flip": [r["launches"]["squant_flip"] for r in ranks],
             "squant_scale": [r["launches"]["squant_scale"] for r in ranks],
-            "tp": ef}
+            "tp": ef, "ep": gh}
 
 
 # ---------------------------------------------------------------------------
@@ -7137,8 +7148,10 @@ def phase15bcd(dev, seed, card):
 # sharing the card, as 15b-d)
 # ---------------------------------------------------------------------------
 
-P15E_LAYERS = 4          # 15e's granite at full width (of 40)
-P15E_SMALL = 2           # 15e's free-running token gates and int4 per-group
+# 15e's depths: 4 and 2 before 15g-h came, 2 and 1 since (the script's
+# time limit; widths unchanged)
+P15E_LAYERS = 2          # 15e's granite at full width (of 40)
+P15E_SMALL = 1           # 15e's free-running token gates and int4 per-group
 P15E_PROMPT = (8, 256)   # 15e's prefill: 8 rows of 256 tokens
 P15E_STEPS = 16          # 15e's greedy decode steps
 P15F_LAYERS = 2          # 15f's granite at full width (of 40)
@@ -7176,32 +7189,38 @@ def _group_scale_tree(params, bits, group_size):
     ``QuantizedTensor`` of round-to-nearest codes under one max scale per
     ``group_size`` input columns of each output row, ``(out, in /
     group_size)``: the serving format's per-group option kernel B takes
-    (SQuant's trees keep one scale a row)."""
+    (SQuant's trees keep one scale a row). An expert bank ``(E, in, out)``
+    becomes the pipeline's ``(E·out, in)`` carrier the same way; an MoE
+    router stays as it is (the pipeline never quantizes one)."""
     from repro_torch.quant.qtypes import from_codes, qmax_for_bits
     from repro_torch.quant.scales import compute_scale
 
-    def one(node):
+    def one(node, key=""):
         if isinstance(node, dict):
             w = node.get("w")
-            if isinstance(w, torch.Tensor) and w.ndim == 2:
-                w = w.T.contiguous()
+            if key != "router" and isinstance(w, torch.Tensor) and \
+                    w.ndim in (2, 3):
+                w = w.T.contiguous() if w.ndim == 2 else \
+                    w.transpose(1, 2).reshape(-1, w.shape[1])
                 sc = compute_scale(w, bits, group_size=group_size)
                 q = qmax_for_bits(bits)
                 codes = torch.clamp(torch.round(
                     w / sc.repeat_interleave(group_size, dim=1)), -q, q)
                 return dict(node, w=from_codes(codes.to(torch.int8), sc,
                                                bits, group_size))
-            return {k: one(v) for k, v in node.items()}
+            return {k: one(v, k) for k, v in node.items()}
         if isinstance(node, list):
             return [one(v) for v in node]
         return node
     return one(params)
 
 
-def _slab_launches(buckets, ndev, d):
+def _slab_launches(buckets, ndev, d, slice_rows=None):
     """Kernel-A launches (and scale passes) rank ``d`` of ``ndev`` makes
     for ``buckets`` ((key, leaves, route)): one a piece of its row slab
-    (``core.dispatch.quantize_codes_sharded``)."""
+    (``core.dispatch.quantize_codes_sharded``). The native route reads a
+    bank's expert slices as its leaves: ``slice_rows`` maps such a
+    bucket's ``"(E·out,in)"`` to the rows of one slice (``out``)."""
     from repro_torch.core.dispatch import shard_rows, slab_pieces
     n = 0
     for key, nl, route in buckets:
@@ -7211,8 +7230,9 @@ def _slab_launches(buckets, ndev, d):
         per = sum(slabs[0])
         r0 = min(d * per, rows)
         r1 = r0 + slabs[d][0]
+        leaf = (slice_rows or {}).get(key.split(")")[0] + ")", m)
         if r1 > r0:
-            n += len(slab_pieces(r0, r1, m)) if route == "native" else 1
+            n += len(slab_pieces(r0, r1, leaf)) if route == "native" else 1
     return n
 
 
@@ -7554,7 +7574,8 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
     emit({"phase": "15e tensor-parallel serving, 4 ranks sharing the card "
                    "(gloo), mesh (data 1, model 4), granite-3-8b SQuant w8 "
                    f"at full width, {P15E_LAYERS} layers (w4: "
-                   f"{P15E_SMALL})", "card": card, "backend": "gloo",
+                   f"{P15E_SMALL}; 4 and 2 before 15g-h came, cut for the "
+                   "script's time limit)", "card": card, "backend": "gloo",
           "ranks": 4, "prompt": list(P15E_PROMPT), "decode_steps": P15E_STEPS,
           "quantize_ms_by_rank": [r["quantize_ms"] for r in es],
           "kernel_a_by_rank": [r["kernel_a"] for r in es],
@@ -7607,26 +7628,500 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
             "local_shapes": sorted(local)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15g-h: expert-parallel MoE over 'model' (four gloo ranks sharing
+# the card, after 15e-f in the same processes)
+# ---------------------------------------------------------------------------
+
+P15G_LAYERS = 2          # 15g's moonshot at full width (of 48)
+P15G_SMALL = 1           # 15g's int4 per-group case
+P15G_PROMPT = (4, 64)    # 15g's prefill (the vocab-parallel logits of every
+                         # position are gathered whole: 4 x 64 x 163 840)
+P15G_STEPS = 16          # 15g's greedy decode steps
+P15H_LAYERS = 1          # 15h's moonshot at full width (of 48)
+P15H_STEPS = 3
+P15H_BATCH = (4, 128)
+P15H_BINDING_CF = 1.0    # 15h's Part-0 check: capacity = the mean load
+P15H_OPT = P15F_OPT
+
+
+def _ep_moonshot(layers, dtype="float32", cf=None):
+    """moonshot-v1-16b-a3b at full width and ``layers`` layers in
+    ``dtype`` (``capacity_factor`` ``cf`` where given)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(MOE_ARCH)
+    moe = cfg.moe if cf is None else dataclasses.replace(
+        cfg.moe, capacity_factor=cf)
+    return build_model(dataclasses.replace(cfg, n_layers=layers,
+                                           dtype=dtype, moe=moe))
+
+
+def _ep_local_shapes(cfg, tp):
+    """{(M, N): launches a forward} of kernel B on a rank's local shards
+    (``tp`` ranks) of an MoE stack: q, k, v, o, and each local expert's
+    wi, wg and wdown."""
+    d, f = cfg.d_model, cfg.d_ff
+    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    e = cfg.moe.n_experts // tp
+    out = collections.Counter()
+    for (m, n), k in (((q // tp, d), 1), ((kv // tp, d), 2), ((d, q // tp), 1),
+                      ((f, d), 2 * e), ((d, f), e)):
+        out[(m, n)] += k * cfg.n_layers
+    return dict(out)
+
+
+def _ep_serve(dev, model, tree, prompt, steps, forced=None, mesh=None):
+    """:func:`_tp_serve` with every routing's expert indices recorded
+    (``routes``: each MoE layer of each forward, in order, on the
+    device)."""
+    from repro_torch.models.moe import recording_routes
+    with recording_routes() as log:
+        res = _tp_serve(dev, model, tree, prompt, steps, forced=forced,
+                        mesh=mesh)
+    res["routes"] = list(log)
+    return res
+
+
+def _routes_digest(routes):
+    return float(sum((r.double() * (i + 1)).sum()
+                     for i, r in enumerate(routes)))
+
+
+def _p15g_rank(dev, seed):
+    """15g on this rank of four (see :func:`phase15gh`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import pipeline
+    from repro_torch.distributed import group
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import gather_tree, tp_local
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    dmod, pa, paq, sf = _kernel_modules()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank}
+    model = _ep_moonshot(P15G_LAYERS)
+    small = _ep_moonshot(P15G_SMALL)
+    params = _tp_params(model, dev, seed)
+    g4 = _group_scale_tree(_first_layers(params, P15G_SMALL), 4, 128)
+    qmesh = make_quantize_mesh(world)
+    _reset_launches(dmod, pa, paq, sf)
+    dist.barrier()
+    _sync_dev(dev)
+    t0 = time.perf_counter()
+    sharded, rep = pipeline.quantize_tree(params, method="squant", bits=8,
+                                          mesh=qmesh)
+    _sync_dev(dev)
+    out["quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    out["buckets"] = [(b.key, b.num_layers, b.route) for b in rep.buckets]
+    out["kernel_a"] = {"squant_flip": sf.launches,
+                       "squant_scale": sf.scale_launches}
+    whole = gather_tree(sharded)
+    del sharded, params
+    _free(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(
+        0, model.cfg.vocab, size=P15G_PROMPT)).to(dev)
+    # (name, model, tree, fed the one-rank tokens)
+    cases = (("w8 float32", model, whole, False),
+             ("w8 bfloat16", _ep_moonshot(P15G_LAYERS, "bfloat16"),
+              _retyped(whole, torch.bfloat16), True),
+             (f"w4 per-group scales float32 {P15G_SMALL} layer", small, g4,
+              False))
+    out["cases"] = {}
+    dm._plans.clear()
+    for name, m, tree, forced in cases:
+        ref = None
+        if rank == 0:                       # the one-rank forward
+            ref = _ep_serve(dev, m, tree, prompt, P15G_STEPS)
+        feed = [[t.cpu() for t in ref["tokens"][:-1]]
+                if forced and ref is not None else None]
+        dist.broadcast_object_list(feed, src=0)
+        feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
+        local = tp_local(tree, mesh)
+        _reset_launches(dmod, pa, paq, sf)
+        c0 = dict(group.MODEL_COLLECTIVES)
+        dist.barrier()
+        got = _ep_serve(dev, m, local, prompt, P15G_STEPS, forced=feed,
+                        mesh=mesh)
+        row = {"launches_by_weight_shape": {
+                   f"{k[0]}x{k[1]}": v for k, v in
+                   _by_weight_shape(dmod.launches_by_shape).items()},
+               "launches_by_variant": {k: v for k, v in
+                                       dmod.launches_by_variant.items() if v},
+               "kernel_b": dmod.launches,
+               "want_by_weight_shape": {
+                   f"{k[0]}x{k[1]}": v * (P15G_STEPS + 1) for k, v in
+                   _ep_local_shapes(m.cfg, world).items()},
+               "model_collectives": group.MODEL_COLLECTIVES["calls"]
+               - c0["calls"],
+               "prefill_ms": got["prefill_ms"],
+               "step_ms": got["step_ms"],
+               "collective_ms": got["collective_ms"],
+               "routings": len(got["routes"]),
+               "routes_digest": _routes_digest(got["routes"]),
+               "last_logits_digest": float(got["logits"][-1].double().sum()),
+               "tokens_digest": float(sum((t.double() * (i + 1)).sum()
+                                          for i, t in
+                                          enumerate(got["tokens"])))}
+        if ref is not None:
+            big = max(float(x.abs().max()) for x in ref["logits"])
+            row["max_abs_err_over_max_logit"] = max(
+                float((x - y).abs().max()) for x, y in
+                zip(got["logits"], ref["logits"])) / big
+            row["tokens_equal"] = all(torch.equal(x, y) for x, y in
+                                      zip(got["tokens"], ref["tokens"]))
+            row["tokens_agree"] = float(np.mean([
+                float((x == y).float().mean()) for x, y in
+                zip(got["tokens"], ref["tokens"])]))
+            row["routes_equal"] = len(got["routes"]) == len(ref["routes"]) \
+                and all(torch.equal(x, y) for x, y in
+                        zip(got["routes"], ref["routes"]))
+            row["routes_agree"] = float(np.mean([
+                float((x == y).float().mean()) for x, y in
+                zip(got["routes"], ref["routes"])]))
+            row["one_rank_step_ms"] = ref["step_ms"]
+            row["one_rank_prefill_ms"] = ref["prefill_ms"]
+        out["cases"][name] = row
+        del local, got, ref
+        _free(dev)
+    out["plans"] = dm.cached_plans()
+    del whole, g4
+    _free(dev)
+    return out
+
+
+def _p15h_batches():
+    from repro_torch.data.synthetic import markov_batches
+    return [b for b, _ in zip(markov_batches(*P15H_BATCH, P15_DATA_VOCAB,
+                                             seed=13), range(P15H_STEPS))]
+
+
+def _p15h_rank(dev, seed, ref_path):
+    """15h on this rank of four: first the Part-0 check (the step's
+    averaged loss and ``moe_aux`` of the first batch at
+    :data:`P15H_BINDING_CF`, routed over both 'data' ranks), then the
+    expert-parallel step on (data 2, model 2), its metrics and split, and
+    its final shards against the one-rank parameters the script's process
+    saved at ``ref_path``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import shard_index, tp_place
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _ep_moonshot(P15H_LAYERS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    _free(dev)
+    batches = [tl.to_device(b, dev) for b in _p15h_batches()]
+    binding = tl.make_train_step(_ep_moonshot(P15H_LAYERS,
+                                              cf=P15H_BINDING_CF),
+                                 AdamWConfig(**P15H_OPT), mesh=mesh)
+    loss, met, g = binding.averaged_grads(placed, batches[0])
+    part0 = {"loss": float(loss), "moe_aux": float(met["moe_aux"])}
+    del g, binding
+    opt = adamw_init(placed)
+    step = tl.make_train_step(model, AdamWConfig(**P15H_OPT), mesh=mesh)
+    step.timed = True
+    losses, norms, auxes, step_ms, splits = [], [], [], [], []
+    dist.barrier()
+    for b in batches:
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        placed, opt, met = step(placed, opt, b)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(met["grad_norm"]))
+        auxes.append(float(met["moe_aux"]))
+        splits.append(dict(step.split_ms))
+    del opt
+    _free(dev)
+    _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
+                "15h's one-rank parameters")
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    worst = 0.0
+    sizes = tuple(mesh.shape)
+    for k, t in _leaves(placed).items():
+        idx = shard_index(t.shape, t.placements, sizes,
+                          mesh.get_coordinate())
+        want = ref["params"][k][idx].to(dev)
+        rms = float(ref["params"][k].double().square().mean().sqrt())
+        excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
+                  - STEP_TOL["atol_rms"] * rms).max()
+        worst = max(worst, float(excess))
+    local_bank = tuple(placed["stack"]["list"][0]["b0"]["moe"]["wi"]["w"]
+                       .to_local().shape)
+    del placed
+    _free(dev)
+    return {"part0": part0, "losses": losses, "grad_norms": norms,
+            "moe_aux": auxes, "step_ms": step_ms, "split_ms": splits,
+            "shards_excess_over_step_tol": worst, "local_wi": local_bank,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _p15gh_ranks(seed, ref_path):
+    """15g, then 15h, on one rank of four sharing the card over gloo."""
+    from repro_torch.distributed import group
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
+    dev = group.device()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    g = _p15g_rank(dev, seed)
+    g["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    g["seconds"] = time.perf_counter() - t0
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    h = _p15h_rank(dev, seed, ref_path)
+    h["seconds"] = time.perf_counter() - t0
+    return {"g": g, "h": h}
+
+
+def _p15h_one_rank(dev, seed, ref_path):
+    """15h's plain one-rank step on the same global batches, and the
+    Part-0 check's loss and ``moe_aux`` of the first batch at
+    :data:`P15H_BINDING_CF` on one rank; the final parameters saved to
+    ``ref_path`` (then ``ref_path + ".done"``) for the ranks. Returns the
+    losses, grad norms, ``moe_aux`` values and the check's numbers."""
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _ep_moonshot(P15H_LAYERS)
+    params = _tp_params(model, dev, seed)
+    batches = [tl.to_device(b, dev) for b in _p15h_batches()]
+    binding = _ep_moonshot(P15H_LAYERS, cf=P15H_BINDING_CF)
+    loss, met, g = tl._value_and_grad(binding.train_loss, params, batches[0])
+    part0 = {"loss": float(loss), "moe_aux": float(met["moe_aux"])}
+    del g
+    opt = adamw_init(params)
+    step = tl.make_train_step(model, AdamWConfig(**P15H_OPT))
+    losses, norms, auxes = [], [], []
+    for b in batches:
+        params, opt, met = step(params, opt, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        auxes.append(float(met["moe_aux"]))
+    del opt
+    torch.save({"params": {k: v.cpu() for k, v in _leaves(params).items()}},
+               ref_path)
+    del params
+    _free(dev)
+    open(ref_path + ".done", "w").close()
+    return {"losses": losses, "grad_norms": norms, "moe_aux": auxes,
+            "part0": part0}
+
+
+def phase15gh(dev, seed, card):
+    """15g-h alone (``--expert-parallel``): four gloo ranks sharing the
+    card (one ``run_local``) beside 15h's one-rank step here; what
+    :func:`phase15bcd` runs after 15e-f in the same processes.
+
+    15g, serving: moonshot-v1-16b-a3b at full width and
+    :data:`P15G_LAYERS` layers in float32, quantized SQuant w8 over the
+    four ranks' row slabs (kernel A), gathered, each rank's
+    expert-parallel tree cut by ``tp_local`` on (data 1, model 4): 16 of
+    the 64 experts a rank, the router whole, the vocab-parallel tied
+    embedding and head a quarter of the vocabulary; a prefill of 4 x 64
+    tokens and 16 greedy decode steps on the contiguous cache under
+    ``activate_mesh``, against the one-rank forward (rank 0 runs it on the
+    whole tree first). Gates: each rank's kernel-B launches by local
+    weight shape as the shards imply (16 experts x 3 banks and 4
+    attention projections a layer, each forward), kernel A's those of
+    15b's rule, every rank's routes, tokens and last logits the same; in
+    float32 every token's experts equal to the one-rank forward's at every
+    layer of every forward, the logits within 1e-4 of its largest |logit|
+    and the free-running tokens equal (w8, and at :data:`P15G_SMALL` layer
+    int4 with one scale per 128-group, the latter's logits within 2e-2).
+    The bfloat16 forward (fed the one-rank tokens) is reported, not
+    gated.
+
+    15h, training: moonshot at full width and :data:`P15H_LAYERS` layer
+    in float32 on (data 2, model 2), :data:`P15H_STEPS` steps of 4 x 128
+    tokens; the plain one-rank step trains here, in this process. Gates:
+    losses and grad norms within 1e-4 relative of the one-rank step's,
+    every rank's parameter shards within ``STEP_TOL`` of the one-rank
+    parameters' slices; and the routing check: the step's averaged loss
+    and ``moe_aux`` of the first batch at ``capacity_factor``
+    :data:`P15H_BINDING_CF` (capacity binds) within 1e-4 relative of one
+    rank's on the global batch."""
+    import tempfile
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15h_")
+    ref_path = os.path.join(work, "one_rank.pt")
+
+    def here():
+        t0 = time.perf_counter()
+        return _p15h_one_rank(dev, seed, ref_path), time.perf_counter() - t0
+
+    try:
+        ranks, four_s, (plain, plain_s) = _four_ranks_beside(
+            dev, _p15gh_ranks, (seed, ref_path), here)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase)
+
+
+def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
+    """15g-h's gates and lines from the four ranks' results and 15h's
+    one-rank results ``plain`` (run here in ``plain_s``); returns the
+    launches and shapes :func:`drive_phase15` reports."""
+    gs, hs = [r["g"] for r in ranks], [r["h"] for r in ranks]
+
+    # 15g gates
+    buckets = gs[0]["buckets"]
+    cfg = _ep_moonshot(P15G_LAYERS).cfg
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
+    for r in gs:
+        want_a = _slab_launches(buckets, 4, r["rank"], slices)
+        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+            raise AssertionError(f"15g: rank {r['rank']} kernel A "
+                                 f"{r['kernel_a']}, the slabs imply {want_a}")
+        for name, row in r["cases"].items():
+            if row["launches_by_weight_shape"] != row["want_by_weight_shape"]:
+                raise AssertionError(
+                    f"15g {name}: rank {r['rank']} kernel B by shape "
+                    f"{row['launches_by_weight_shape']}, the shards imply "
+                    f"{row['want_by_weight_shape']}")
+            for key in ("last_logits_digest", "routes_digest",
+                        "tokens_digest"):
+                if row[key] != gs[0]["cases"][name][key]:
+                    raise AssertionError(f"15g {name}: the ranks' {key} "
+                                         f"differ")
+    c0 = gs[0]["cases"]
+    names = list(c0)
+
+    def agrees(row, tol):
+        return row["max_abs_err_over_max_logit"] <= tol \
+            and row["tokens_equal"] and row["routes_equal"]
+    gates = {names[0]: agrees(c0[names[0]], 1e-4),
+             names[2]: agrees(c0[names[2]], 2e-2)}
+
+    def cell(row):
+        steps = row["step_ms"][1:]          # the first step pays start-up
+        coll = row["collective_ms"][1:]
+        return {"max_abs_err_over_max_logit":
+                row.get("max_abs_err_over_max_logit"),
+                "tokens_equal": row.get("tokens_equal"),
+                "tokens_agree": row.get("tokens_agree"),
+                "routes_equal": row.get("routes_equal"),
+                "routes_agree": row.get("routes_agree"),
+                "routings": row["routings"],
+                "prefill_ms": row["prefill_ms"],
+                "decode_step_ms_p50": _percentiles(steps)["p50"],
+                "all_reduce_ms_p50": _percentiles(coll)["p50"],
+                "compute_ms_p50": _percentiles(
+                    [s - c for s, c in zip(steps, coll)])["p50"],
+                "one_rank_prefill_ms": row.get("one_rank_prefill_ms"),
+                "one_rank_decode_step_ms_p50": _percentiles(
+                    row["one_rank_step_ms"][1:])["p50"]
+                if "one_rank_step_ms" in row else None,
+                "model_collectives": row["model_collectives"],
+                "kernel_b_by_variant": row["launches_by_variant"],
+                "kernel_b_by_local_weight_shape":
+                row["launches_by_weight_shape"]}
+    emit({"phase": "15g expert-parallel serving, 4 ranks sharing the card "
+                   "(gloo), mesh (data 1, model 4), moonshot-v1-16b-a3b "
+                   f"SQuant w8 at full width, {P15G_LAYERS} of 48 layers "
+                   f"(int4 per-group: {P15G_SMALL}), 16 of 64 experts a "
+                   "rank, vocab-parallel tied embedding and head",
+          "card": card, "backend": "gloo", "ranks": 4,
+          "prompt": list(P15G_PROMPT), "decode_steps": P15G_STEPS,
+          "quantize_ms_by_rank": [r["quantize_ms"] for r in gs],
+          "kernel_a_by_rank": [r["kernel_a"] for r in gs],
+          "cases": {n: cell(c0[n]) for n in names},
+          "gates": gates, "gate": "float32: every token's experts equal to "
+          "the one-rank forward's at every layer, logits within 1e-4 of its "
+          "largest |logit| (int4 per-group: 2e-2), free-running tokens "
+          "equal; bfloat16 (fed the one-rank tokens) reported",
+          "peak_gb_by_rank": [r["peak_gb"] for r in gs],
+          "seconds_by_rank": [r["seconds"] for r in gs],
+          "note": "four CUDA contexts share one card and every collective "
+                  "is staged through host memory over gloo: not an "
+                  "expert-parallel speed, not an interconnect number"})
+    if not all(gates.values()):
+        raise AssertionError(f"15g: agreement gates failed: {gates}")
+
+    # 15h gates
+    worst_loss = max(abs(a - b) / abs(b) for r in hs
+                     for a, b in zip(r["losses"], plain["losses"]))
+    worst_norm = max(abs(a - b) / abs(b) for r in hs
+                     for a, b in zip(r["grad_norms"], plain["grad_norms"]))
+    excess = max(r["shards_excess_over_step_tol"] for r in hs)
+    p0 = plain["part0"]
+    part0 = max(abs(r["part0"][k] - p0[k]) / abs(p0[k]) for r in hs
+                for k in ("loss", "moe_aux"))
+    split = {k: _percentiles([s[k] for s in hs[0]["split_ms"][1:]])["p50"]
+             for k in hs[0]["split_ms"][-1]}
+    emit({"phase": "15h expert-parallel training, 4 ranks sharing the card "
+                   "(gloo), mesh (data 2, model 2), moonshot-v1-16b-a3b at "
+                   f"full width, {P15H_LAYERS} of 48 layers, float32, 32 of "
+                   "64 experts a rank", "card": card,
+          "backend": "gloo", "ranks": 4, "steps": P15H_STEPS,
+          "global_batch": list(P15H_BATCH), "optimizer": P15H_OPT,
+          "losses": hs[0]["losses"], "one_rank_losses": plain["losses"],
+          "grad_norms": hs[0]["grad_norms"],
+          "one_rank_grad_norms": plain["grad_norms"],
+          "moe_aux": hs[0]["moe_aux"], "one_rank_moe_aux": plain["moe_aux"],
+          "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm,
+          "shards_max_excess_over_step_tol": excess,
+          "routing_check": {"capacity_factor": P15H_BINDING_CF,
+                            "one_rank": p0, "rank0": hs[0]["part0"],
+                            "max_rel_diff": part0, "gate": 1e-4},
+          "local_wi_shard": hs[0]["local_wi"],
+          "step_ms_p50_steps_2_on": _percentiles(hs[0]["step_ms"][1:])["p50"],
+          "split_ms_p50_rank0": split,
+          "peak_gb_by_rank": [r["peak_gb"] for r in hs],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in hs],
+          "run_local_seconds": four_s,
+          "seconds_since_the_ranks_started": time.perf_counter() - t_phase})
+    if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0
+            and part0 <= 1e-4):
+        raise AssertionError(f"15h: losses {worst_loss}, grad norms "
+                             f"{worst_norm}, shards over STEP_TOL by "
+                             f"{excess}, routing check {part0}")
+    return {"squant_flip": [r["kernel_a"]["squant_flip"] for r in gs],
+            "squant_scale": [r["kernel_a"]["squant_scale"] for r in gs],
+            "dequant_matmul": [sum(c["kernel_b"] for c in r["cases"].values())
+                               for r in gs],
+            "plans": gs[0]["plans"],
+            "local_shapes": sorted(_ep_local_shapes(cfg, 4)),
+            "capacity_rows": math.ceil(
+                P15G_PROMPT[0] * P15G_PROMPT[1] * cfg.moe.top_k
+                * cfg.moe.capacity_factor / cfg.moe.n_experts)}
+
+
 def drive_phase15(dev, seed, layers, card, memory):
-    """Phase 15 (15a, 15b-d, 15e-f), memory gated like a phase's; returns
-    the kernels' launches by part, and 15e's kernel-B launch shapes
-    (``plans``) and local weight shapes for phase 2."""
+    """Phase 15 (15a, 15b-d, 15e-f, 15g-h), memory gated like a phase's;
+    returns the kernels' launches by part, and 15e's and 15g's kernel-B
+    launch shapes (``plans``) and local weight shapes for phase 2."""
     t0 = time.perf_counter()
     a = phase15a(dev, seed, layers)
     phase_memory("15a", memory)
     bcd = phase15bcd(dev, seed, card)
-    ef = bcd["tp"]
-    phase_memory("15b-f", memory)
+    ef, gh = bcd["tp"], bcd["ep"]
+    phase_memory("15b-h", memory)
     emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0})
     return {"squant_flip": {"15a": a["squant_flip"],
                             "15b_by_rank": bcd["squant_flip"],
-                            "15e_by_rank": ef["squant_flip"]},
+                            "15e_by_rank": ef["squant_flip"],
+                            "15g_by_rank": gh["squant_flip"]},
             "squant_scale": {"15a": a["squant_scale"],
                              "15b_by_rank": bcd["squant_scale"],
-                             "15e_by_rank": ef["squant_scale"]},
+                             "15e_by_rank": ef["squant_scale"],
+                             "15g_by_rank": gh["squant_scale"]},
             "dequant_matmul": {"15a": a["dequant_matmul"],
-                               "15e_by_rank": ef["dequant_matmul"]},
-            "plans": ef["plans"], "local_shapes": ef["local_shapes"]}
+                               "15e_by_rank": ef["dequant_matmul"],
+                               "15g_by_rank": gh["dequant_matmul"]},
+            "plans": {"15e": ef["plans"], "15g": gh["plans"]},
+            "local_shapes": ef["local_shapes"],
+            "ep_local_shapes": gh["local_shapes"],
+            "ep_capacity_rows": gh["capacity_rows"]}
 
 
 def main():
@@ -7683,6 +8178,10 @@ def main():
                     help="only build, then run phases 15e and 15f "
                     "(tensor-parallel serving and training on four gloo "
                     "ranks sharing the card); prints no ok line")
+    ap.add_argument("--expert-parallel", action="store_true",
+                    help="only build, then run phases 15g and 15h "
+                    "(expert-parallel MoE serving and training on four "
+                    "gloo ranks sharing the card); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -7714,6 +8213,9 @@ def main():
 
     if args.tensor_parallel:
         phase15ef(dev, args.seed, card)
+        return 1
+    if args.expert_parallel:
+        phase15gh(dev, args.seed, card)
         return 1
     if args.agreement_variants:
         agreement_variants(dev, args.seed, args.layers, args.layers7)
@@ -7828,6 +8330,7 @@ def main():
                ("cross K/V (8 x 64 frame rows)", d, d,
                 sb * ENCDEC_PROMPT // sm.enc_ratio),
                ("head decode", v, d, sb), ("head prefill", v, d, sp)]
+    moe_local_banks = {(m, n) for _, m, n in banks}
     # phase 6's decode batch (its slots) first, then the round path's; the
     # prefill rows: phase 6's admission chunk and the round path's prefills
     prefill_rows = [paged_config().prefill_chunk, 2 * 128, 4 * 96]
@@ -7837,11 +8340,18 @@ def main():
                                  "rows": [paged_config().max_slots, mono]},
                         plans={"11": s11["b"], "12": s12["b"],
                                "13": s13["b"], "14": s14["b"],
-                               "15": {"15e": l15.pop("plans")}},
+                               "15": l15.pop("plans")},
                         phase12=phase12, phase13=phase13, phase14=phase14,
                         phase15=[(f"15e local {m}x{n} decode", m, n,
                                   P15E_PROMPT[0])
-                                 for m, n in l15.pop("local_shapes")])
+                                 for m, n in l15.pop("local_shapes")]
+                        + [(f"15g local {m}x{n} decode", m, n,
+                            P15G_PROMPT[0])
+                           for m, n in l15["ep_local_shapes"]]
+                        + [(f"15g local expert {m}x{n} prefill capacity",
+                            m, n, l15["ep_capacity_rows"])
+                           for m, n in l15.pop("ep_local_shapes")
+                           if (m, n) in moe_local_banks])
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",

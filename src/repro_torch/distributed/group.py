@@ -39,7 +39,10 @@ gathers a DTensor's shards itself instead of calling
 Tensor-parallel execution uses three autograd collectives over the 'model'
 sub-group of a mesh (Megatron's f and g, and the logits' gather):
 :func:`copy_to_model`, :func:`reduce_from_model` and
-:func:`gather_from_model`; ``MODEL_COLLECTIVES`` counts them.
+:func:`gather_from_model`; ``MODEL_COLLECTIVES`` counts them. MoE routing
+under data parallelism (``sharding.RoutingGroup``) uses two over the
+routing ranks, ``(E,)``-sized: :func:`routing_sum` (summed forward and
+backward) and :func:`routing_gather`; ``ROUTING_COLLECTIVES`` counts them.
 """
 from __future__ import annotations
 
@@ -255,17 +258,20 @@ def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 # its time is the copies and the collective, not the kernels queued before
 # it; on NCCL it is the launch's
 MODEL_COLLECTIVES = {"calls": 0, "ms": 0.0}
+# the MoE routing collectives over a data-parallel routing group, the same
+ROUTING_COLLECTIVES = {"calls": 0, "ms": 0.0}
 
 
-def _counted(fn, t: torch.Tensor, *args):
-    """``fn(t, *args)``, a collective over the group ``args[-1]``, counted
-    and timed in ``MODEL_COLLECTIVES``."""
-    if _staged(t, args[-1]):
+def _counted(fn, t: torch.Tensor, *args, counter=MODEL_COLLECTIVES):
+    """``fn(t, *args)``, a collective over the group ``args[-1]`` (or the
+    groups of a tuple there), counted and timed in ``counter``."""
+    groups = args[-1] if isinstance(args[-1], tuple) else (args[-1],)
+    if any(_staged(t, g) for g in groups):
         torch.cuda.current_stream(t.device).synchronize()
     t0 = time.perf_counter()
     out = fn(t, *args)
-    MODEL_COLLECTIVES["calls"] += 1
-    MODEL_COLLECTIVES["ms"] += (time.perf_counter() - t0) * 1e3
+    counter["calls"] += 1
+    counter["ms"] += (time.perf_counter() - t0) * 1e3
     return out
 
 
@@ -324,6 +330,52 @@ def gather_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` gathered along its last dim over ``group`` forward; this
     rank's slice of the gradient backward."""
     return _GatherFromModel.apply(x, group)
+
+
+def _sum_over(t: torch.Tensor, groups: Tuple) -> torch.Tensor:
+    """A new float32 tensor: ``t`` summed over each of ``groups`` in turn
+    (together the routing ranks)."""
+    acc = t.to(torch.float32, memory_format=torch.contiguous_format,
+               copy=True)
+    for g in groups:
+        all_reduce(acc, g)
+    return acc
+
+
+class _RoutingSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return _counted(_sum_over, x, groups, counter=ROUTING_COLLECTIVES)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _counted(_sum_over, g, ctx.groups,
+                        counter=ROUTING_COLLECTIVES), None
+
+
+def routing_sum(x: torch.Tensor, routing) -> torch.Tensor:
+    """``x`` summed over the ranks of ``routing`` (a
+    ``sharding.RoutingGroup``) in float32, forward and backward: each
+    rank's loss carries the sum, so the gradient of each rank's own terms
+    is the sum of every rank's (the step then averages over the ranks). An
+    all-reduce with an identity backward would leave each rank's terms
+    1/R of their gradient."""
+    return _RoutingSum.apply(x, tuple(routing.groups))
+
+
+def _gather_over(t: torch.Tensor, groups: Tuple) -> torch.Tensor:
+    out = t
+    for g in reversed(groups):                   # minor axis first
+        out = gather_dim(out.unsqueeze(0), 0, g)
+    return out.reshape((-1,) + tuple(t.shape))
+
+
+def routing_gather(t: torch.Tensor, routing) -> torch.Tensor:
+    """Every routing rank's ``t`` stacked in ``routing.index`` order (no
+    gradient)."""
+    return _counted(_gather_over, t.detach(), tuple(routing.groups),
+                    counter=ROUTING_COLLECTIVES)
 
 
 def full_tensor(x):

@@ -27,19 +27,27 @@ for a mesh larger than the group at hand. The reference drops the axes an
 enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
 every axis of the mesh is usable.
 
-Tensor-parallel execution over 'model' (Megatron-style, the dense GQA
-transformer only): :func:`activate_mesh` installs the mesh the forward runs
-on, and the reference's activation constraints become the collectives
-GSPMD inserts at the same points (:func:`shard_act`, :func:`to_model`,
-:func:`shard_logits`: identities without an active mesh or with 'model'
-1). Each rank computes on plain local tensors: :func:`tp_local` turns a
-whole fp or quantized tree into this rank's shards, :func:`tp_place` a
-whole fp tree into DTensors (what the train step and the checkpointer
-take). Only the 'model' entries of the rules apply; a tree sharded over
-'data' (FSDP), MoE, MLA, the sliding-window ring, mamba, rwkv, the
+Tensor-parallel execution over 'model' (Megatron-style for the dense GQA
+transformer, expert-parallel for MoE): :func:`activate_mesh` installs the
+mesh the forward runs on, and the reference's activation constraints
+become the collectives GSPMD inserts at the same points
+(:func:`shard_act`, :func:`to_model`, :func:`shard_logits`: identities
+without an active mesh or with 'model' 1). Each rank computes on plain
+local tensors: :func:`tp_local` turns a whole fp or quantized tree into
+this rank's shards (an MoE bank cut at expert boundaries, the router
+whole), :func:`tp_place` a whole fp tree into DTensors (what the train
+step and the checkpointer take). Only the 'model' entries of the rules
+apply; a tree sharded over 'data' (FSDP), an expert count 'model' does
+not divide, MLA, the sliding-window ring, mamba, rwkv, the
 encoder-decoder, speculative verify, the paged KV layout and a 'model'
 axis that does not divide the KV heads or the FFN width raise
 ``NotImplementedError`` (:func:`check_tensor_parallel`).
+
+MoE routing under data parallelism: the reference routes the global batch
+(GSPMD), so a data-parallel step installs a :class:`RoutingGroup` of the
+ranks whose tokens route together (:func:`activate_routing`); the MoE
+layer offsets each rank's capacity positions by the ranks before it and
+takes the capacity and the load-balancing statistics over the group.
 """
 from __future__ import annotations
 
@@ -437,17 +445,18 @@ def make_cache_shardings(mesh, cache_shape: Any, paged: bool = False) -> Any:
 # ---------------------------------------------------------------------------
 
 class _Active:
-    """What :func:`activate_mesh` returns: leaving it as a context manager
-    puts the previously active mesh back."""
+    """What :func:`activate_mesh` and :func:`activate_routing` return:
+    leaving it as a context manager puts the previous ``name`` (the mesh,
+    the routing group) back."""
 
-    def __init__(self, prev):
-        self.prev = prev
+    def __init__(self, name, prev):
+        self.name, self.prev = name, prev
 
     def __enter__(self):
-        return current_mesh()
+        return getattr(_STATE, self.name, None)
 
     def __exit__(self, *exc):
-        _STATE.mesh = self.prev
+        setattr(_STATE, self.name, self.prev)
 
 
 def activate_mesh(mesh):
@@ -457,7 +466,7 @@ def activate_mesh(mesh):
     collectives run over its 'model' axis."""
     prev = current_mesh()
     _STATE.mesh = mesh
-    return _Active(prev)
+    return _Active("mesh", prev)
 
 
 def current_mesh():
@@ -521,6 +530,47 @@ def vocab_parallel(vocab: int) -> bool:
     return tp > 1 and vocab % tp == 0
 
 
+@dataclasses.dataclass(frozen=True)
+class RoutingGroup:
+    """The data-parallel ranks whose tokens the reference routes together,
+    as process groups major to minor (each ``None`` for the default group):
+    the 'pod' and 'data' groups of the plain step (the global batch), the
+    'data' group of the pod-compressed one (the pod's batch). Every rank
+    holds an equal, contiguous slice of the routed tokens, in ``index``
+    order."""
+    groups: Tuple[Any, ...]
+    sizes: Tuple[int, ...]
+    index: int
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+
+def activate_routing(group: Optional[RoutingGroup]):
+    """Install ``group`` as this thread's MoE routing group (None: each
+    rank routes its own tokens); used as a context manager, the previous
+    one comes back on exit."""
+    prev = getattr(_STATE, "routing", None)
+    _STATE.routing = group
+    return _Active("routing", prev)
+
+
+def current_routing() -> Optional[RoutingGroup]:
+    """This thread's routing group of more than one rank, or None."""
+    g = getattr(_STATE, "routing", None)
+    return g if g is not None and g.size > 1 else None
+
+
+def local_experts(n_experts: int) -> Tuple[int, int]:
+    """``(first, count)`` of the experts this rank holds under the active
+    'model' axis: the rank at 'model' coordinate ``k`` of ``tp`` holds
+    experts ``[k·E/tp, (k+1)·E/tp)`` (``(0, E)`` without one)."""
+    tp, k, _ = model_axis()
+    per = n_experts // tp
+    return k * per, per
+
+
 def tp_not_ported(what: str) -> str:
     """The message of a case tensor-parallel execution does not take."""
     return f"not ported yet: {what} under tensor-parallel execution (M7c)"
@@ -529,17 +579,21 @@ def tp_not_ported(what: str) -> str:
 def check_tensor_parallel(cfg, mesh) -> None:
     """Raise ``NotImplementedError("not ported yet: …")`` where the port
     cannot run ``cfg`` tensor-parallel on ``mesh`` (a ``DeviceMesh`` or an
-    :class:`AbstractMesh`): MoE, MLA, mamba or rwkv blocks, the
-    encoder-decoder, the sliding-window ring, or a 'model' axis that does
-    not divide the KV heads (the reference's rule splits inside a head
-    there) or the FFN width."""
+    :class:`AbstractMesh`): an MoE whose expert count the 'model' axis does
+    not divide (the reference falls back to 'expert_ff' there, which cuts
+    the pipeline's collapsed ``(E·out, in)`` bank inside an expert), MLA,
+    mamba or rwkv blocks, the encoder-decoder, the sliding-window ring, or
+    a 'model' axis that does not divide the KV heads (the reference's rule
+    splits inside a head there) or the FFN width."""
     tp = mesh_axis_sizes(mesh).get("model", 1)
     if tp == 1:
         return
     plan = cfg.block_pattern or ()
+    n_experts = cfg.moe.n_experts if cfg.moe is not None else 0
     cases = (
-        (cfg.moe is not None, "MoE (expert parallel over 'experts' / "
-                              "'expert_ff')"),
+        (n_experts % tp != 0, f"{n_experts} experts on a 'model' axis of "
+                              f"{tp} (the reference's 'expert_ff' "
+                              f"fallback, M7c.1b)"),
         (cfg.mla is not None, "MLA ('mla_rank')"),
         ("m" in plan, "mamba ('d_inner')"),
         (cfg.rwkv, "rwkv"),
@@ -567,10 +621,16 @@ def make_tp_shardings(mesh, tree: Any) -> Any:
     """``MeshSharding`` tree of a params tree's tensor-parallel layout:
     the 'model' entries of :func:`make_param_shardings` (the 'data' FSDP
     entries replicated). A ``QuantizedTensor`` leaf gets a ``(codes,
-    scale)`` pair (:func:`quantized_tensor_shardings`)."""
+    scale)`` pair (:func:`quantized_tensor_shardings`). An MoE router
+    stays whole (every rank routes every token; the rules would put its
+    input dim on 'model'); an expert bank is cut on its expert dim, which
+    the pipeline's ``(E·out, in)`` codes and their scale rows carry
+    major, so a 'model' axis dividing E cuts them at expert boundaries."""
     from repro_torch.quant.qtypes import QuantizedTensor
 
     def one(path, leaf):
+        if "router" in path:
+            return MeshSharding(mesh, (None,) * len(leaf.shape))
         if isinstance(leaf, QuantizedTensor):
             return tuple(MeshSharding(mesh, _tp_spec(s.spec)) for s in
                          quantized_tensor_shardings(mesh, path, leaf))

@@ -8,8 +8,9 @@ serving engine and the quantization pipeline. ``forward(mode="train")`` and
 Under ``distributed.sharding.activate_mesh`` with a 'model' axis above 1
 the forward runs tensor-parallel on this rank's local tree
 (``sharding.tp_local``): a vocab-parallel embedding and head where 'model'
-divides the vocabulary, the logits gathered whole before the loss, and a
-cache of this rank's KV heads (:meth:`LM.init_cache`).
+divides the vocabulary, the logits gathered whole before the loss, a
+cache of this rank's KV heads (:meth:`LM.init_cache`), and an MoE layer
+on this rank's experts (``models.moe``).
 """
 from __future__ import annotations
 

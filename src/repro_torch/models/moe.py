@@ -23,16 +23,54 @@ dequant-matmul kernel on a zero-copy view of its rows (codes are read once;
 no dequantized bank is made); the plain version, which the CPU runs, is the
 reference's form: the bank dequantized to the activation dtype and one
 batched ``torch.matmul``.
+
+Under a data-parallel routing group (``sharding.activate_routing``) each
+rank routes its contiguous slice of the tokens the reference routes
+together: top-k and the gates are per token; the capacity comes from the
+group's token count, each rank's capacity positions are offset by the
+per-expert counts of the ranks before it (one ``(R, E)`` all-gather), and
+the aux loss's density and mean probability are sums over the group (one
+``(2, E)`` all-reduce, summed backward too). A rank's capacity buffer
+holds only its own tokens' slots: its kept tokens per expert are at most
+its token count.
+
+Expert-parallel under an active 'model' axis above 1 (``tp_local``'s
+banks hold this rank's ``E/tp`` experts): tokens are replicated over
+'model', so every rank routes every token with the whole router, keeps
+its experts' columns of dispatch and combine, runs its experts, and
+returns its partial output for ``shard_act`` to sum (what GSPMD computes
+from the reference's constraints on ``ein`` and ``h``). The experts'
+input and the gates enter through ``to_model``, so their gradients (and
+the router's, through the gates) come out whole on every rank; the
+router's own input and the aux loss do not, as every rank computes them
+whole.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.models.layers import _init_dense, linear
+
+_ROUTES = threading.local()
+
+
+@contextlib.contextmanager
+def recording_routes():
+    """Collect every routing's ``(T, K)`` expert indices on this thread,
+    in call order, into the list it yields."""
+    prev = getattr(_ROUTES, "log", None)
+    _ROUTES.log = []
+    try:
+        yield _ROUTES.log
+    finally:
+        _ROUTES.log = prev
 
 
 def init_moe(generator, d_model: int, d_ff: int, n_experts: int,
@@ -96,14 +134,20 @@ def moe_ffn(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     ``dropless=True`` sets capacity = tokens (no token is ever dropped):
     decode and verify, where capacity competition would make a row's result
     depend on its batch. Prefill and chunk use the GShard capacity, rounded
-    up. Above ``2 * TOKEN_CHUNK`` tokens the sequence is routed in
+    up. Above ``2 * TOKEN_CHUNK`` routed tokens the sequence is routed in
     ``TOKEN_CHUNK`` blocks (capacity competition per block), as in the
-    reference. ``aux_loss`` is the Switch load-balancing loss."""
+    reference. ``aux_loss`` is the Switch load-balancing loss. Under a
+    routing group the tokens counted are the group's, and under a 'model'
+    axis above 1 the output is this rank's partial sum (see the module
+    docstring)."""
     b, s, d = x.shape
     t = b * s
-    if t > 2 * TOKEN_CHUNK and t % TOKEN_CHUNK == 0 and s % (
-            t // TOKEN_CHUNK) == 0:
-        nblk = t // TOKEN_CHUNK
+    routing = sharding.current_routing()
+    nr = routing.size if routing is not None else 1
+    tg = t * nr                          # the tokens routed together
+    if tg > 2 * TOKEN_CHUNK and tg % TOKEN_CHUNK == 0 and s % (
+            tg // TOKEN_CHUNK) == 0:
+        nblk = tg // TOKEN_CHUNK
         xs = x.reshape(b, nblk, s // nblk, d).transpose(0, 1)
         outs = [moe_ffn(params, xs[i], n_experts=n_experts, top_k=top_k,
                         kind=kind, capacity_factor=capacity_factor,
@@ -113,37 +157,56 @@ def moe_ffn(params, x: torch.Tensor, *, n_experts: int, top_k: int,
         return ys.reshape(b, s, d), torch.stack([a for _, a in outs]).mean()
     xt = x.reshape(t, d)
     probs, gate_vals, gate_idx = route(params["router"], xt, top_k)
+    log = getattr(_ROUTES, "log", None)
+    if log is not None:
+        log.append(gate_idx.detach())
 
     if dropless:
-        capacity = t
+        capacity = tg
     else:
         # GShard capacity rounds up (see the reference)
-        capacity = max(1, math.ceil(t * top_k * capacity_factor / n_experts))
-        capacity = min(capacity, t)
+        capacity = max(1, math.ceil(tg * top_k * capacity_factor / n_experts))
+        capacity = min(capacity, tg)
 
     # position of each (token, k) within its expert's capacity buffer
     onehot = _one_hot(gate_idx, n_experts, torch.int32)        # (T, K, E)
     flatoh = onehot.reshape(t * top_k, n_experts)
-    pos = torch.cumsum(flatoh, dim=0) * flatoh - 1             # (T*K, E)
+    pos = torch.cumsum(flatoh, dim=0)
+    slots = capacity
+    if routing is not None:
+        # the ranks before this one fill each expert's buffer first; this
+        # rank's buffer holds its own slots (at most t an expert)
+        from repro_torch.distributed.group import routing_gather
+        counts = routing_gather(flatoh.sum(0), routing)          # (R, E)
+        first = counts[:routing.index].sum(0)
+        pos = pos + first
+        slots = min(capacity, t)
+    pos = pos * flatoh - 1                                     # (T*K, E)
     pos = pos.reshape(t, top_k, n_experts)
     within = (pos * onehot).sum(-1)                            # (T, K)
     keep = (within < capacity) & (within >= 0)
+    if routing is not None:
+        within = within - first[gate_idx]                # this rank's slot
 
     # dispatch (T, E, C) / combine (T, E, C), accumulated over the K
-    # routing slots
+    # routing slots, for this rank's experts (all of them without a
+    # 'model' axis)
+    e0, ne = sharding.local_experts(n_experts)
+    gates = sharding.to_model(gate_vals)
     dt = x.dtype
-    disp = torch.zeros((t, n_experts, capacity), dtype=dt, device=x.device)
-    comb = torch.zeros((t, n_experts, capacity), dtype=dt, device=x.device)
+    disp = torch.zeros((t, ne, slots), dtype=dt, device=x.device)
+    comb = torch.zeros((t, ne, slots), dtype=dt, device=x.device)
     for kk in range(top_k):
-        oh_e = _one_hot(gate_idx[:, kk], n_experts, dt)
-        oh_c = _one_hot(torch.where(keep[:, kk], within[:, kk], capacity),
-                        capacity + 1, dt)[..., :-1]
+        oh_e = _one_hot(gate_idx[:, kk] - e0, ne, dt)
+        oh_c = _one_hot(torch.where(keep[:, kk], within[:, kk], slots),
+                        slots + 1, dt)[..., :-1]
         d_k = oh_e[:, :, None] * oh_c[:, None, :] \
             * keep[:, kk, None, None].to(dt)
         disp = disp + d_k
-        comb = comb + d_k * gate_vals[:, kk, None, None].to(dt)
+        comb = comb + d_k * gates[:, kk, None, None].to(dt)
 
-    ein = torch.einsum("tec,td->ecd", disp, xt).contiguous()   # (E, C, D)
+    ein = torch.einsum("tec,td->ecd", disp,
+                       sharding.to_model(xt)).contiguous()     # (E, C, D)
     if kind in ("swiglu", "geglu"):
         gate = expert_matmul(params["wg"], ein)
         gate = F.silu(gate) if kind == "swiglu" else \
@@ -154,7 +217,15 @@ def moe_ffn(params, x: torch.Tensor, *, n_experts: int, top_k: int,
     out = expert_matmul(params["wdown"], h)           # (E, C, D)
     y = torch.einsum("tec,ecd->td", comb, out).reshape(b, s, d)
 
-    # load-balancing aux loss (Switch): E · Σ_e f_e · p_e
-    density = (disp.sum(-1) > 0).to(torch.float32).mean(0)     # (E,)
-    aux = n_experts * torch.sum(density * probs.mean(0))
+    # load-balancing aux loss (Switch): E · Σ_e f_e · p_e, whole on every
+    # 'model' rank, over the routing group's tokens
+    kept = ((onehot * keep[..., None]).sum(1) > 0).to(torch.float32)
+    if routing is None:
+        density, mean_prob = kept.mean(0), probs.mean(0)        # (E,)
+    else:
+        from repro_torch.distributed.group import routing_sum
+        sums = routing_sum(torch.stack([kept.sum(0), probs.sum(0)]),
+                           routing) / tg
+        density, mean_prob = sums[0], sums[1]
+    aux = n_experts * torch.sum(density * mean_prob)
     return y, aux

@@ -21,7 +21,8 @@ Tensor-parallel (under ``distributed.sharding.activate_mesh`` with a
 the attention and of the FFN enters the column-parallel products through
 ``to_model``, and each block's row-parallel partial sum ``h`` is summed over
 'model' before the residual add (``shard_act``; summing after the add would
-count ``x`` once per rank).
+count ``x`` once per rank). An MoE FFN is expert-parallel there: its
+partial output (this rank's experts) is summed the same way.
 
 An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
 cross-attention over the encoder output (``xln``, ``xattn``: x +=
@@ -38,8 +39,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.distributed.sharding import (activate_mesh, current_mesh,
-                                              model_axis, shard_act, to_model)
+from repro_torch.distributed.sharding import (activate_mesh,
+                                              activate_routing, current_mesh,
+                                              current_routing, model_axis,
+                                              shard_act, to_model)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -166,13 +169,16 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
                 top_k=cfg.moe.top_k, kind=cfg.ffn_kind,
                 capacity_factor=cfg.moe.capacity_factor,
                 dropless=mode in ("decode", "verify"))
+        # under 'model' the experts' output is this rank's partial sum
+        # (moe_ffn puts the experts' input through to_model itself: the
+        # router's input must not be, see models.moe)
         if mode == "verify":
             # each position's rows are a decode step's exact call (the aux
             # loss of a serving forward is not used)
-            x = x + by_position(lambda t: moe(t)[0], h2)
+            x = x + shard_act(by_position(lambda t: moe(t)[0], h2))
         else:
             y, aux = moe(h2)
-            x = x + y
+            x = x + shard_act(y)
     else:
         h = ffn_lib.ffn(p["ffn"], to_model(h2), cfg.ffn_kind, lin=lin)
         x = x + shard_act(h)
@@ -319,11 +325,11 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
 
     remat = train and cfg.remat and torch.is_grad_enabled()
     # the backward pass may recompute a period on another thread (CUDA's
-    # autograd worker): it runs under the mesh active here
-    mesh = current_mesh()
+    # autograd worker): it runs under the mesh and routing group active here
+    mesh, routing = current_mesh(), current_routing()
 
     def recompute(p_, x_):
-        with activate_mesh(mesh):
+        with activate_mesh(mesh), activate_routing(routing):
             return run_period(p_, x_, None)[::2]
     new_list = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \

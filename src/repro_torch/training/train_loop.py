@@ -6,20 +6,25 @@
 * data parallelism over a mesh (``mesh=``): every rank is handed the
   global batch, takes its slice over the ('pod', 'data') axes, and the
   gradients are averaged over those ranks in float32 (the numbers of the
-  reference's FSDP over 'data', up to the order of the gradient sum);
+  reference's FSDP over 'data', up to the order of the gradient sum). A
+  rank's microbatch i is its slice of the reference's microbatch i (global
+  rows ``[i·n/M, (i+1)·n/M)``), and an MoE layer routes the tokens the
+  reference routes together (``sharding.RoutingGroup``: the global batch,
+  a pod's batch under ``pod_compress``), not each rank's alone;
 * the int8 cross-pod gradient all-reduce with error feedback
   (``pod_compress=True`` on a mesh with a 'pod' axis of 2 or more): float32
   in-pod reduction over 'data', then ``grad_compression``'s int8 ring over
   'pod';
 * tensor parallelism over 'model' (a mesh whose 'model' axis is larger
-  than 1), Megatron-style, for the dense GQA transformer: the parameters
-  and AdamW moments are DTensors of ``distributed.sharding.tp_place``'s
-  layout, each rank computes on its shards, and the collectives run where
-  the reference annotates its activations; it composes with the data
-  parallelism and the pod compression above. MoE, MLA, mamba, rwkv, the
-  encoder-decoder, the sliding-window ring, a 'model' axis that does not
-  divide the KV heads or the FFN width, and a tree sharded over 'data'
-  (FSDP) raise ``NotImplementedError``.
+  than 1), Megatron-style for the dense GQA transformer and
+  expert-parallel for MoE: the parameters and AdamW moments are DTensors
+  of ``distributed.sharding.tp_place``'s layout, each rank computes on its
+  shards (an MoE rank on its experts), and the collectives run where the
+  reference annotates its activations; it composes with the data
+  parallelism and the pod compression above. An expert count 'model' does
+  not divide, MLA, mamba, rwkv, the encoder-decoder, the sliding-window
+  ring, a 'model' axis that does not divide the KV heads or the FFN width,
+  and a tree sharded over 'data' (FSDP) raise ``NotImplementedError``.
 
 ``Trainer`` owns the loop: checkpoint every N steps, restart from the newest
 checkpoint, preemption handling (SIGTERM → checkpoint + clean exit) and a
@@ -118,7 +123,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     ``mesh``, and come back so. Set ``step.timed = True`` on a mesh's step
     to have each call leave its split in ``step.split_ms`` (grads, the
     all-reduces, compress and ring where it compresses, update), measured
-    between synchronizations of the device.
+    between synchronizations of the device. A mesh's step without
+    compression also has ``step.averaged_grads(params, batch)``: the loss,
+    metrics and gradients it would update with.
     """
     sizes = {}
     if mesh is not None:
@@ -145,14 +152,26 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
                           microbatches, grad_reduce_dtype, compress)
 
 
-def _local_batch(batch, part: int, world: int):
-    """Data-parallel rank ``part``'s slice of the global batch."""
+def _local_batch(batch, outer: int, inner: int, o: int, i: int,
+                 microbatches: int):
+    """A data-parallel rank's rows of the global batch: the batch is
+    ``outer`` contiguous parts routed apart (pods under ``pod_compress``,
+    else one), each of ``microbatches`` contiguous microbatches, each
+    split over the ``inner`` ranks that route it together; the rank at
+    ``(o, i)`` gets its slice of each of part ``o``'s microbatches, in
+    order, so ``_accumulate_grads``'s sequential microbatches are those
+    slices."""
     n = next(iter(batch.values())).shape[0]
-    if n % world:
-        raise ValueError(f"global batch {n} is not divisible over {world} "
-                         f"data-parallel ranks")
-    per = n // world
-    return {k: v[part * per:(part + 1) * per] for k, v in batch.items()}
+    if n % (outer * inner * microbatches):
+        raise ValueError(f"global batch {n} is not divisible over "
+                         f"{outer * inner} data-parallel ranks and "
+                         f"{microbatches} microbatches")
+    per = n // (outer * inner * microbatches)
+
+    def mine(v):
+        v = v.reshape((outer, microbatches, inner, per) + tuple(v.shape[1:]))
+        return v[o, :, i].reshape((microbatches * per,) + tuple(v.shape[4:]))
+    return {k: mine(v) for k, v in batch.items()}
 
 
 def _grads(loss_fn, params, batch, microbatches, grad_reduce_dtype):
@@ -258,8 +277,10 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch.distributed import group as dgroup
-    from repro_torch.distributed.sharding import (activate_mesh, shard_index,
-                                                  tp_not_ported)
+    from repro_torch.distributed.sharding import (RoutingGroup,
+                                                  activate_mesh,
+                                                  activate_routing,
+                                                  shard_index, tp_not_ported)
     n_pods, n_data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
     if tp > 1 and not isinstance(mesh, DeviceMesh):
         raise ValueError("a tensor-parallel step runs on a DeviceMesh of "
@@ -275,6 +296,17 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     # 'data', then the 'pod' ranks of this rank's 'model' coordinate
     dp_groups = [dgroup.mesh_group(mesh)] if tp == 1 else \
         [g for g in (data_group, pod_group) if g is not None]
+    # the ranks whose tokens route together (an MoE layer's), and the batch
+    # as parts routed apart x microbatches x those ranks: under
+    # pod_compress each pod routes its own batch (the reference's
+    # shard_map over 'pod'), else the whole batch routes together (GSPMD)
+    axes = ((data_group, n_data),) if compress else \
+        ((pod_group, n_pods), (data_group, n_data))
+    axes = tuple((g, n) for g, n in axes if n > 1)
+    routing = RoutingGroup(tuple(g for g, _ in axes),
+                           tuple(n for _, n in axes),
+                           dat if compress else part)
+    rows = (n_pods, n_data, pod, dat) if compress else (1, world, 0, part)
 
     def unplace(tree):
         """This rank's plain tensors: a DTensor's local shard, a plain
@@ -309,8 +341,9 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         return None
 
     def grads_of(local, batch, timer):
-        with activate_mesh(mesh):
-            out = _grads(loss_fn, local, _local_batch(batch, part, world),
+        with activate_mesh(mesh), activate_routing(routing):
+            out = _grads(loss_fn, local,
+                         _local_batch(batch, *rows, microbatches),
                          microbatches, grad_reduce_dtype)
         timer.mark("grads")
         return out
@@ -341,8 +374,7 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         return replace(new, params), opt, metrics
 
     if not compress:
-        def step(params, opt_state, batch):
-            timer = _Timer(step.timed, tp)
+        def averaged(params, batch, timer):
             local = unplace(params)
             loss, metrics, grads = grads_of(local, batch, timer)
             if world > 1:
@@ -350,6 +382,11 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
                 loss, metrics = _mean_metrics(loss, metrics, dp_groups,
                                               world)
             timer.mark("data_all_reduce")
+            return local, loss, metrics, grads
+
+        def step(params, opt_state, batch):
+            timer = _Timer(step.timed, tp)
+            local, loss, metrics, grads = averaged(params, batch, timer)
             gnorm = tp_norm(grads, params)
             timer.mark("grad_norm")
             out = update(params, opt_state, local, grads, loss, metrics,
@@ -358,7 +395,15 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
             step.split_ms = timer.split()
             return out
 
+        def averaged_grads(params, batch):
+            """``(loss, metrics, grads)`` the step updates ``params``
+            with on ``batch``: averaged over the data-parallel ranks, the
+            gradients this rank's plain tensors (its shards where 'model'
+            is above 1)."""
+            return averaged(params, batch, _Timer(False, tp))[1:]
+
         step.timed, step.split_ms = False, {}
+        step.averaged_grads = averaged_grads
         return step
 
     mesh_sizes = tuple(mesh.shape)

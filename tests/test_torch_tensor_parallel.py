@@ -20,6 +20,7 @@ import torch
 
 import torch_tp_workers as W
 from repro_torch.configs import get_config
+from repro_torch.configs.base import MoEConfig
 from repro_torch.distributed.group import run_local
 from repro_torch.distributed.sharding import (AbstractMesh,
                                               check_tensor_parallel)
@@ -137,7 +138,10 @@ def test_cache_and_out_of_scope_modes(ranks, tp):
 
 
 _OUT_OF_SCOPE = {
-    "moe": ("moonshot-v1-16b-a3b", {}, (1, 2), "MoE"),
+    # the experts 'model' does not divide (the reference's 'expert_ff'
+    # fallback, M7c.1b); a dividing axis is expert-parallel
+    "moe": ("moonshot-v1-16b-a3b", dict(moe=MoEConfig(6, 2)), (1, 4),
+            "6 experts on a 'model' axis of 4"),
     "mla": ("minicpm3-4b", {}, (1, 2), "MLA"),
     "mamba": ("jamba-1.5-large-398b", dict(moe=None), (1, 2), "mamba"),
     "rwkv": ("rwkv6-1.6b", {}, (1, 2), "rwkv"),
