@@ -672,7 +672,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                    experts=None, plans=None, phase12=None, phase13=None,
-                   phase14=None, phase15=None):
+                   phase14=None, phase15=None, phase15ij=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (also at the prefill
     instances' 17, 43 and 64 rows: a chunk tail, a ragged chunk, a whole
@@ -701,7 +701,9 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     jamba's layer of 48 expert launches at decode); ``phase14`` (label, M,
     N, rows) cells timed with float32 activations
     (:func:`kernel_b_phase14_times`); ``phase15`` (label, M, N, rows): 15e's
-    local weight shapes, timed so in float32 and in bfloat16."""
+    local weight shapes, timed so in float32 and in bfloat16;
+    ``phase15ij`` (label, M, N, rows): 15i's and 15j's local shapes, timed
+    so in float32 (their paths' dtype)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -828,6 +830,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
         "float32": kernel_b_phase14_times(dev, gen, phase15)["cells"],
         "bfloat16": [dict(_b_timed(dev, gen, m, n, b, 8, torch.bfloat16),
                           label=label) for label, m, n, b in phase15]}
+    phase15ij_timed = None if phase15ij is None else \
+        kernel_b_phase14_times(dev, gen, phase15ij)["cells"]
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, variants=list(dm.VARIANTS),
@@ -860,6 +864,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  launch_shapes_compared=compared,
                  phase12=phase12_timed, phase13=phase13_timed,
                  phase14=phase14_timed, phase15=phase15_timed,
+                 phase15ij=phase15ij_timed,
                  shapes=shapes, **tot)
     return entry
 
@@ -4873,8 +4878,9 @@ def profile_mla_decode(dev, seed, tree, model, steps=4):
     return line
 
 
-def drive_mla(dev, seed):
-    """12a: ``minicpm3-4b`` at full width and depth (62 layers): random
+def drive_mla(dev, seed, layers):
+    """12a: ``minicpm3-4b`` at full width and ``layers`` of its 62 layers
+    (15i serves the same width tensor-parallel): random
     float32 weights from ``seed`` (bf16 embedding), SQuant w8 by kernel A,
     served real-quantized in bfloat16 on the contiguous continuous
     scheduler (8 slots, 64-token chunks) with phase 6's twelve chat
@@ -4890,7 +4896,8 @@ def drive_mla(dev, seed):
     from repro_torch.serving import ServeConfig
 
     t_phase = time.perf_counter()
-    cfg = get_config(MLA_ARCH)
+    full = get_config(MLA_ARCH)
+    cfg = dataclasses.replace(full, n_layers=layers)
     model = build_model(cfg)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -4929,8 +4936,10 @@ def drive_mla(dev, seed):
                                       absorbed[0]["tokens"])
                for a, b in zip(x, y))
     line = {"phase": "12a MLA, contiguous continuous + round, "
-                     f"{MLA_ARCH} w8", "model": cfg.name,
-            "layers": cfg.n_layers, "full_depth": True,
+                     f"{MLA_ARCH} w8, {layers} of {full.n_layers} layers "
+                     "(62 before 15i came; cut for the script's time limit)",
+            "model": cfg.name,
+            "layers": cfg.n_layers, "full_depth": layers == full.n_layers,
             "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "mla": dataclasses.asdict(cfg.mla), "weight_bits": 8,
             "activation_dtype": cfg.dtype, "quantize": quantize,
@@ -5319,7 +5328,7 @@ def mla_swa_vs_plain(dev, seed):
     return line
 
 
-def drive_phase12(dev, seed, layers12, memory):
+def drive_phase12(dev, seed, layers12, memory, layers12a):
     """Phase 12 (12a, 12b, 12c), each part's memory gated like a phase's.
     Returns the kernels' launches by part and the shapes phase 2 holds
     kernels A and B to: kernel A's buckets and kernel B's launch shapes
@@ -5327,7 +5336,7 @@ def drive_phase12(dev, seed, layers12, memory):
     from repro_torch.kernels import dequant_matmul as dm
     t0 = time.perf_counter()
     dm._plans.clear()
-    a_a, s_a, b_a, buckets_a, _ = drive_mla(dev, seed)
+    a_a, s_a, b_a, buckets_a, _ = drive_mla(dev, seed, layers12a)
     plans_a = dm.cached_plans()
     phase_memory("12a", memory)
     dm._plans.clear()
@@ -6476,12 +6485,19 @@ def kernel_b_phase14_times(dev, gen, cells):
     peak, the least time float32-exact products on the tensor cores take;
     ``bound_ms_cuda_cores``: the bound at 67 TFLOP/s, the float32 peak
     without tensor cores, beside it for the older rows."""
+    from repro_torch.kernels import dequant_matmul as dm
     out = []
     for label, m, n, b in cells:
-        old = ("gemv", 1, n // 128) if b <= 16 else ("tiled", 1, n // 128)
+        # the rule's variant (aligned pointers; N not a multiple of 128
+        # takes tiled above 16 rows, which has no older variant beside it)
+        want = dm.variant(b, n, 128 if n % 128 == 0 else n, 1, 8, False, 0,
+                          0)
+        old = {"tcgemv32": ("gemv", 1, n // 128),
+               "mma32": ("tiled", 1, n // 128)}.get(want)
         row = dict(_b_timed(dev, gen, m, n, b, 8, torch.float32,
-                            also={"old": old}), label=label, old_variant=old[0])
-        if row["variant"] != _encdec_variant(b, "float32"):
+                            also={"old": old} if old else None),
+                   label=label, old_variant=old and old[0])
+        if row["variant"] != want:
             raise AssertionError(f"kernel B at {label} took {row}")
         t_bytes = (m * n + m * 4 + 4 * b * n + 4 * b * m) / HBM_BYTES_PER_S * 1e3
         t_ops = 3 * 2.0 * b * m * n / PEAK_FLOPS["bfloat16"] * 1e3
@@ -6490,7 +6506,7 @@ def kernel_b_phase14_times(dev, gen, cells):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         row.update(bound_share=row["bound_ms"] / row["ms"],
-                   speedup_over_old=row["old_ms"] / row["ms"],
+                   speedup_over_old=row["old_ms"] / row["ms"] if old else None,
                    speedup_over_library=row["library_ms"] / row["ms"])
         out.append(row)
         torch.cuda.empty_cache()
@@ -6763,8 +6779,8 @@ def phase15a(dev, seed, layers):
 
 
 def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path,
-               ref_path_h):
-    """15b-15h on one rank of four sharing the card over gloo (run by
+               ref_path_h, ref_path_k):
+    """15b-15k on one rank of four sharing the card over gloo (run by
     ``run_local``): returns host numbers only."""
     import numpy as np
     import torch.distributed as dist
@@ -6858,6 +6874,9 @@ def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path,
     _free(dev)
     # ---- 15g-h: expert-parallel MoE serving and training
     out["ep"] = _p15gh_ranks(seed, ref_path_h)
+    _free(dev)
+    # ---- 15i-k: MLA and the ring under 'model', MLA training
+    out["mr"] = _p15ijk_ranks(seed, ref_path_k)
     return out
 
 
@@ -7003,16 +7022,16 @@ def _four_ranks_beside(dev, fn, args, here):
 
 
 def phase15bcd(dev, seed, card):
-    """15b-15h: four ranks sharing the card over gloo (sharded quantization
+    """15b-15k: four ranks sharing the card over gloo (sharded quantization
     of granite at full width, save from the 4-rank mesh; the int8 ring over
     100 M floats a rank; pod-compressed training of the 100m model, 2 pods
     x 2 data; between 15b and 15c ranks 0 and 1 restore the checkpoint
-    onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, and 15g-h,
-    :func:`phase15gh`, in the same processes); 15d's, 15f's and 15h's
-    plain one-rank steps on the same global batches run here, in this
-    process, while the four ranks run (most of 15d's time is theirs
-    starting up). Returns kernel A's launches by rank and 15e-f's and
-    15g-h's summaries."""
+    onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, 15g-h,
+    :func:`phase15gh`, and 15i-k, :func:`phase15ijk`, in the same
+    processes); 15d's, 15f's, 15h's and 15k's plain one-rank steps on the
+    same global batches run here, in this process, while the four ranks
+    run (most of 15d's time is theirs starting up). Returns kernel A's
+    launches by rank and 15e-f's, 15g-h's and 15i-k's summaries."""
     import tempfile
     import shutil
 
@@ -7020,6 +7039,7 @@ def phase15bcd(dev, seed, card):
     work = tempfile.mkdtemp(prefix="chip_smoke_p15f_")
     ref_path = os.path.join(work, "one_rank.pt")
     ref_path_h = os.path.join(work, "one_rank_h.pt")
+    ref_path_k = os.path.join(work, "one_rank_k.pt")
     t_phase = time.perf_counter()
 
     def here():
@@ -7028,13 +7048,17 @@ def phase15bcd(dev, seed, card):
         plain_f = _p15f_one_rank(dev, seed, ref_path)
         t1 = time.perf_counter()
         plain_h = _p15h_one_rank(dev, seed, ref_path_h)
-        return plain, plain_f, t1 - t0, plain_h, time.perf_counter() - t1
+        t2 = time.perf_counter()
+        plain_k = _p15k_one_rank(dev, seed, ref_path_k)
+        return (plain, plain_f, t1 - t0, plain_h, t2 - t1, plain_k,
+                time.perf_counter() - t2)
 
     try:
-        ranks, four_s, (plain, plain_f, plain_f_s, plain_h,
-                        plain_h_s) = _four_ranks_beside(
+        ranks, four_s, (plain, plain_f, plain_f_s, plain_h, plain_h_s,
+                        plain_k, plain_k_s) = _four_ranks_beside(
             dev, _p15_ranks, (seed, 2, ckpt, P15_RING_FLOATS,
-                              P15_TRAIN_STEPS, ref_path, ref_path_h), here)
+                              P15_TRAIN_STEPS, ref_path, ref_path_h,
+                              ref_path_k), here)
         saved = _digests_of_checkpoint(ckpt, dev)
         restored = [r["restore"] for r in ranks if r["restore"] is not None]
     finally:
@@ -7138,9 +7162,11 @@ def phase15bcd(dev, seed, card):
                        four_s, t_phase)
     gh = _p15gh_report([r["ep"] for r in ranks], plain_h, plain_h_s, card,
                        four_s, t_phase)
+    mr = _p15ijk_report([r["mr"] for r in ranks], plain_k, plain_k_s, card,
+                        four_s, t_phase)
     return {"squant_flip": [r["launches"]["squant_flip"] for r in ranks],
             "squant_scale": [r["launches"]["squant_scale"] for r in ranks],
-            "tp": ef, "ep": gh}
+            "tp": ef, "ep": gh, "mr": mr}
 
 
 # ---------------------------------------------------------------------------
@@ -7257,23 +7283,35 @@ def _by_weight_shape(by_shape):
     return dict(out)
 
 
-def _tp_serve(dev, model, tree, prompt, steps, forced=None, mesh=None):
-    """A greedy prefill of ``prompt`` and ``steps`` decode steps on the
-    contiguous cache, under ``mesh`` (None: one rank), feeding ``forced``
-    tokens where given: the last-row logits of each forward (float32, on
-    the device), the tokens picked, the prefill ms and each step's ms and
-    its tensor-parallel collectives' ms."""
+def _tp_serve(dev, model, tree, prompt, steps, forced=None, mesh=None,
+              chunks=()):
+    """A prefill of ``prompt`` on the contiguous cache, the token blocks
+    of ``chunks`` continued at the clock after it (``prefill_chunk``),
+    then ``steps`` greedy decode steps (fed ``forced`` where given), under
+    ``mesh`` (None: one rank): the last-row logits of every forward
+    (float32, on the device), the tokens picked, every routing's expert
+    indices (an MoE stack's), the prefill's, each chunk's and each step's
+    ms and a step's tensor-parallel collectives' ms."""
     from repro_torch.distributed import group
     from repro_torch.distributed.sharding import activate_mesh
+    from repro_torch.models.moe import recording_routes
     b, s = prompt.shape
-    logits, toks, step_ms, coll_ms = [], [], [], []
-    with activate_mesh(mesh):
-        cache = model.init_cache(b, s + steps + 1, device=dev)
+    rows = s + sum(c.shape[1] for c in chunks) + steps + 1
+    logits, toks, chunk_ms, step_ms, coll_ms = [], [], [], [], []
+    with activate_mesh(mesh), recording_routes() as routes:
+        cache = model.init_cache(b, rows, device=dev)
         _sync_dev(dev)
         t0 = time.perf_counter()
         lg, cache = model.prefill(tree, {"tokens": prompt}, cache)
         _sync_dev(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
+        for c in chunks:
+            logits.append(lg.float())
+            toks.append(lg.argmax(-1))
+            t0 = time.perf_counter()
+            lg, cache = model.prefill_chunk(tree, {"tokens": c}, cache)
+            _sync_dev(dev)
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
         for i in range(steps + 1):
             logits.append(lg.float())
             toks.append(lg.argmax(-1))
@@ -7286,8 +7324,83 @@ def _tp_serve(dev, model, tree, prompt, steps, forced=None, mesh=None):
             _sync_dev(dev)
             step_ms.append((time.perf_counter() - t0) * 1e3)
             coll_ms.append(group.MODEL_COLLECTIVES["ms"] - c0)
-    return {"logits": logits, "tokens": toks, "prefill_ms": prefill_ms,
+    return {"logits": logits, "tokens": toks, "routes": list(routes),
+            "prefill_ms": prefill_ms, "chunk_ms": chunk_ms,
             "step_ms": step_ms, "collective_ms": coll_ms}
+
+
+def _routes_digest(routes):
+    return float(sum((r.double() * (i + 1)).sum()
+                     for i, r in enumerate(routes)))
+
+
+def _serve_case_vs_one_rank(dev, model, tree, mesh, prompt, chunks, steps,
+                            forced, want_shapes, local=None):
+    """One serving case of 15e, 15g, 15i or 15j on this rank: the one-rank forward on the
+    whole ``tree`` (rank 0), its decode tokens fed to every rank where
+    ``forced``, then the tensor-parallel forward on this rank's shards
+    under ``mesh`` (``local``, or ``tp_local`` of ``tree``). Returns the
+    case's row: kernel B's
+    launches by local weight shape and variant against ``want_shapes``,
+    the times, digests, and (rank 0) the agreement with the one-rank
+    forward."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed import group
+    from repro_torch.distributed.sharding import tp_local
+    dmod, pa, paq, sf = _kernel_modules()
+    ref = None
+    if dist.get_rank() == 0:
+        ref = _tp_serve(dev, model, tree, prompt, steps, chunks=chunks)
+    feed = [[t.cpu() for t in ref["tokens"][len(chunks):-1]]
+            if forced and ref is not None else None]
+    dist.broadcast_object_list(feed, src=0)
+    feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
+    local = tp_local(tree, mesh) if local is None else local
+    _reset_launches(dmod, pa, paq, sf)
+    c0 = dict(group.MODEL_COLLECTIVES)
+    dist.barrier()
+    got = _tp_serve(dev, model, local, prompt, steps, forced=feed,
+                    mesh=mesh, chunks=chunks)
+    row = {"launches_by_weight_shape": {
+               f"{k[0]}x{k[1]}": v for k, v in
+               _by_weight_shape(dmod.launches_by_shape).items()},
+           "launches_by_variant": {k: v for k, v in
+                                   dmod.launches_by_variant.items() if v},
+           "kernel_b": dmod.launches,
+           "want_by_weight_shape": {f"{k[0]}x{k[1]}": v
+                                    for k, v in want_shapes.items() if v},
+           "model_collectives": group.MODEL_COLLECTIVES["calls"]
+           - c0["calls"],
+           "prefill_ms": got["prefill_ms"], "chunk_ms": got["chunk_ms"],
+           "step_ms": got["step_ms"], "collective_ms": got["collective_ms"],
+           "routings": len(got["routes"]),
+           "routes_digest": _routes_digest(got["routes"]),
+           "last_logits_digest": float(got["logits"][-1].double().sum()),
+           "tokens_digest": float(sum((t.double() * (i + 1)).sum()
+                                      for i, t in enumerate(got["tokens"])))}
+    if ref is not None:
+        big = max(float(x.abs().max()) for x in ref["logits"])
+        row["max_abs_err_over_max_logit"] = max(
+            float((x - y).abs().max()) for x, y in
+            zip(got["logits"], ref["logits"])) / big
+        row["tokens_equal"] = all(torch.equal(x, y) for x, y in
+                                  zip(got["tokens"], ref["tokens"]))
+        row["tokens_agree"] = float(np.mean([
+            float((x == y).float().mean()) for x, y in
+            zip(got["tokens"], ref["tokens"])]))
+        row["routes_equal"] = len(got["routes"]) == len(ref["routes"]) \
+            and all(torch.equal(x, y) for x, y in
+                    zip(got["routes"], ref["routes"]))
+        row["routes_agree"] = float(np.mean([
+            float((x == y).float().mean()) for x, y in
+            zip(got["routes"], ref["routes"])])) if ref["routes"] else None
+        row["one_rank_prefill_ms"] = ref["prefill_ms"]
+        row["one_rank_chunk_ms"] = ref["chunk_ms"]
+        row["one_rank_step_ms"] = ref["step_ms"]
+    del local, got, ref
+    _free(dev)
+    return row
 
 
 def _p15e_rank(dev, seed):
@@ -7296,7 +7409,7 @@ def _p15e_rank(dev, seed):
     import torch.distributed as dist
     from repro_torch.core import pipeline
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import gather_tree, tp_local
+    from repro_torch.distributed.sharding import gather_tree
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.launch.mesh import make_quantize_mesh
     dmod, pa, paq, sf = _kernel_modules()
@@ -7335,46 +7448,10 @@ def _p15e_rank(dev, seed):
     out["cases"] = {}
     dm._plans.clear()
     for name, m, tree, forced in cases:
-        ref = None
-        if rank == 0:                       # the one-rank forward
-            ref = _tp_serve(dev, m, tree, prompt, P15E_STEPS)
-        feed = [[t.cpu() for t in ref["tokens"][:-1]]
-                if forced and ref is not None else None]
-        dist.broadcast_object_list(feed, src=0)
-        feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
-        local = tp_local(tree, mesh)
-        _reset_launches(dmod, pa, paq, sf)
-        dist.barrier()
-        got = _tp_serve(dev, m, local, prompt, P15E_STEPS, forced=feed,
-                        mesh=mesh)
-        row = {"launches_by_weight_shape": {
-                   f"{k[0]}x{k[1]}": v for k, v in
-                   _by_weight_shape(dmod.launches_by_shape).items()},
-               "launches_by_variant": {k: v for k, v in
-                                       dmod.launches_by_variant.items() if v},
-               "kernel_b": dmod.launches,
-               "want_by_weight_shape": {
-                   f"{k[0]}x{k[1]}": v * (P15E_STEPS + 1) for k, v in
-                   _tp_local_shapes(m.cfg, world).items()},
-               "prefill_ms": got["prefill_ms"],
-               "step_ms": got["step_ms"],
-               "collective_ms": got["collective_ms"],
-               "last_logits_digest": float(got["logits"][-1].double().sum())}
-        if ref is not None:
-            big = max(float(x.abs().max()) for x in ref["logits"])
-            row["max_abs_err_over_max_logit"] = max(
-                float((x - y).abs().max()) for x, y in
-                zip(got["logits"], ref["logits"])) / big
-            row["tokens_equal"] = all(torch.equal(x, y) for x, y in
-                                      zip(got["tokens"], ref["tokens"]))
-            row["tokens_agree"] = float(np.mean([
-                float((x == y).float().mean()) for x, y in
-                zip(got["tokens"], ref["tokens"])]))
-            row["one_rank_step_ms"] = ref["step_ms"]
-            row["one_rank_prefill_ms"] = ref["prefill_ms"]
-        out["cases"][name] = row
-        del local, got, ref
-        _free(dev)
+        out["cases"][name] = _serve_case_vs_one_rank(
+            dev, m, tree, mesh, prompt, (), P15E_STEPS, forced,
+            {k: v * (P15E_STEPS + 1) for k, v in
+             _tp_local_shapes(m.cfg, world).items()})
     out["plans"] = dm.cached_plans()
     del whole, g4
     _free(dev)
@@ -7535,15 +7612,7 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
         if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
             raise AssertionError(f"15e: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
-        for name, row in r["cases"].items():
-            if row["launches_by_weight_shape"] != row["want_by_weight_shape"]:
-                raise AssertionError(
-                    f"15e {name}: rank {r['rank']} kernel B by shape "
-                    f"{row['launches_by_weight_shape']}, the shards imply "
-                    f"{row['want_by_weight_shape']}")
-            if row["last_logits_digest"] != \
-                    es[0]["cases"][name]["last_logits_digest"]:
-                raise AssertionError(f"15e {name}: the ranks' logits differ")
+    _serve_rows_agree(es, "15e")
     c0 = es[0]["cases"]
     names = list(c0)
     gates = {names[0]: c0[names[0]]["max_abs_err_over_max_logit"] <= 1e-4,
@@ -7552,25 +7621,6 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
              names[3]: c0[names[3]]["max_abs_err_over_max_logit"] <= 2e-2
              and c0[names[3]]["tokens_equal"]}
 
-    def cell(row):
-        steps = row["step_ms"][1:]          # the first step pays start-up
-        coll = row["collective_ms"][1:]
-        return {"max_abs_err_over_max_logit":
-                row.get("max_abs_err_over_max_logit"),
-                "tokens_equal": row.get("tokens_equal"),
-                "tokens_agree": row.get("tokens_agree"),
-                "prefill_ms": row["prefill_ms"],
-                "decode_step_ms_p50": _percentiles(steps)["p50"],
-                "all_reduce_ms_p50": _percentiles(coll)["p50"],
-                "compute_ms_p50": _percentiles(
-                    [s - c for s, c in zip(steps, coll)])["p50"],
-                "one_rank_prefill_ms": row.get("one_rank_prefill_ms"),
-                "one_rank_decode_step_ms_p50": _percentiles(
-                    row["one_rank_step_ms"][1:])["p50"]
-                if "one_rank_step_ms" in row else None,
-                "kernel_b_by_variant": row["launches_by_variant"],
-                "kernel_b_by_local_weight_shape":
-                row["launches_by_weight_shape"]}
     emit({"phase": "15e tensor-parallel serving, 4 ranks sharing the card "
                    "(gloo), mesh (data 1, model 4), granite-3-8b SQuant w8 "
                    f"at full width, {P15E_LAYERS} layers (w4: "
@@ -7579,7 +7629,7 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
           "ranks": 4, "prompt": list(P15E_PROMPT), "decode_steps": P15E_STEPS,
           "quantize_ms_by_rank": [r["quantize_ms"] for r in es],
           "kernel_a_by_rank": [r["kernel_a"] for r in es],
-          "cases": {n: cell(c0[n]) for n in names},
+          "cases": {n: _serve_cell(c0[n]) for n in names},
           "gates": gates, "gate": "float32 logits within 1e-4 of the "
           "one-rank forward's largest |logit| (int4: 2e-2), free-running "
           f"tokens equal at {P15E_SMALL} layers; bfloat16 reported",
@@ -7671,31 +7721,13 @@ def _ep_local_shapes(cfg, tp):
     return dict(out)
 
 
-def _ep_serve(dev, model, tree, prompt, steps, forced=None, mesh=None):
-    """:func:`_tp_serve` with every routing's expert indices recorded
-    (``routes``: each MoE layer of each forward, in order, on the
-    device)."""
-    from repro_torch.models.moe import recording_routes
-    with recording_routes() as log:
-        res = _tp_serve(dev, model, tree, prompt, steps, forced=forced,
-                        mesh=mesh)
-    res["routes"] = list(log)
-    return res
-
-
-def _routes_digest(routes):
-    return float(sum((r.double() * (i + 1)).sum()
-                     for i, r in enumerate(routes)))
-
-
 def _p15g_rank(dev, seed):
     """15g on this rank of four (see :func:`phase15gh`): host numbers."""
     import numpy as np
     import torch.distributed as dist
     from repro_torch.core import pipeline
-    from repro_torch.distributed import group
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import gather_tree, tp_local
+    from repro_torch.distributed.sharding import gather_tree
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.launch.mesh import make_quantize_mesh
     dmod, pa, paq, sf = _kernel_modules()
@@ -7733,60 +7765,10 @@ def _p15g_rank(dev, seed):
     out["cases"] = {}
     dm._plans.clear()
     for name, m, tree, forced in cases:
-        ref = None
-        if rank == 0:                       # the one-rank forward
-            ref = _ep_serve(dev, m, tree, prompt, P15G_STEPS)
-        feed = [[t.cpu() for t in ref["tokens"][:-1]]
-                if forced and ref is not None else None]
-        dist.broadcast_object_list(feed, src=0)
-        feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
-        local = tp_local(tree, mesh)
-        _reset_launches(dmod, pa, paq, sf)
-        c0 = dict(group.MODEL_COLLECTIVES)
-        dist.barrier()
-        got = _ep_serve(dev, m, local, prompt, P15G_STEPS, forced=feed,
-                        mesh=mesh)
-        row = {"launches_by_weight_shape": {
-                   f"{k[0]}x{k[1]}": v for k, v in
-                   _by_weight_shape(dmod.launches_by_shape).items()},
-               "launches_by_variant": {k: v for k, v in
-                                       dmod.launches_by_variant.items() if v},
-               "kernel_b": dmod.launches,
-               "want_by_weight_shape": {
-                   f"{k[0]}x{k[1]}": v * (P15G_STEPS + 1) for k, v in
-                   _ep_local_shapes(m.cfg, world).items()},
-               "model_collectives": group.MODEL_COLLECTIVES["calls"]
-               - c0["calls"],
-               "prefill_ms": got["prefill_ms"],
-               "step_ms": got["step_ms"],
-               "collective_ms": got["collective_ms"],
-               "routings": len(got["routes"]),
-               "routes_digest": _routes_digest(got["routes"]),
-               "last_logits_digest": float(got["logits"][-1].double().sum()),
-               "tokens_digest": float(sum((t.double() * (i + 1)).sum()
-                                          for i, t in
-                                          enumerate(got["tokens"])))}
-        if ref is not None:
-            big = max(float(x.abs().max()) for x in ref["logits"])
-            row["max_abs_err_over_max_logit"] = max(
-                float((x - y).abs().max()) for x, y in
-                zip(got["logits"], ref["logits"])) / big
-            row["tokens_equal"] = all(torch.equal(x, y) for x, y in
-                                      zip(got["tokens"], ref["tokens"]))
-            row["tokens_agree"] = float(np.mean([
-                float((x == y).float().mean()) for x, y in
-                zip(got["tokens"], ref["tokens"])]))
-            row["routes_equal"] = len(got["routes"]) == len(ref["routes"]) \
-                and all(torch.equal(x, y) for x, y in
-                        zip(got["routes"], ref["routes"]))
-            row["routes_agree"] = float(np.mean([
-                float((x == y).float().mean()) for x, y in
-                zip(got["routes"], ref["routes"])]))
-            row["one_rank_step_ms"] = ref["step_ms"]
-            row["one_rank_prefill_ms"] = ref["prefill_ms"]
-        out["cases"][name] = row
-        del local, got, ref
-        _free(dev)
+        out["cases"][name] = _serve_case_vs_one_rank(
+            dev, m, tree, mesh, prompt, (), P15G_STEPS, forced,
+            {k: v * (P15G_STEPS + 1) for k, v in
+             _ep_local_shapes(m.cfg, world).items()})
     out["plans"] = dm.cached_plans()
     del whole, g4
     _free(dev)
@@ -7980,17 +7962,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
         if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
             raise AssertionError(f"15g: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
-        for name, row in r["cases"].items():
-            if row["launches_by_weight_shape"] != row["want_by_weight_shape"]:
-                raise AssertionError(
-                    f"15g {name}: rank {r['rank']} kernel B by shape "
-                    f"{row['launches_by_weight_shape']}, the shards imply "
-                    f"{row['want_by_weight_shape']}")
-            for key in ("last_logits_digest", "routes_digest",
-                        "tokens_digest"):
-                if row[key] != gs[0]["cases"][name][key]:
-                    raise AssertionError(f"15g {name}: the ranks' {key} "
-                                         f"differ")
+    _serve_rows_agree(gs, "15g")
     c0 = gs[0]["cases"]
     names = list(c0)
 
@@ -8000,29 +7972,6 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
     gates = {names[0]: agrees(c0[names[0]], 1e-4),
              names[2]: agrees(c0[names[2]], 2e-2)}
 
-    def cell(row):
-        steps = row["step_ms"][1:]          # the first step pays start-up
-        coll = row["collective_ms"][1:]
-        return {"max_abs_err_over_max_logit":
-                row.get("max_abs_err_over_max_logit"),
-                "tokens_equal": row.get("tokens_equal"),
-                "tokens_agree": row.get("tokens_agree"),
-                "routes_equal": row.get("routes_equal"),
-                "routes_agree": row.get("routes_agree"),
-                "routings": row["routings"],
-                "prefill_ms": row["prefill_ms"],
-                "decode_step_ms_p50": _percentiles(steps)["p50"],
-                "all_reduce_ms_p50": _percentiles(coll)["p50"],
-                "compute_ms_p50": _percentiles(
-                    [s - c for s, c in zip(steps, coll)])["p50"],
-                "one_rank_prefill_ms": row.get("one_rank_prefill_ms"),
-                "one_rank_decode_step_ms_p50": _percentiles(
-                    row["one_rank_step_ms"][1:])["p50"]
-                if "one_rank_step_ms" in row else None,
-                "model_collectives": row["model_collectives"],
-                "kernel_b_by_variant": row["launches_by_variant"],
-                "kernel_b_by_local_weight_shape":
-                row["launches_by_weight_shape"]}
     emit({"phase": "15g expert-parallel serving, 4 ranks sharing the card "
                    "(gloo), mesh (data 1, model 4), moonshot-v1-16b-a3b "
                    f"SQuant w8 at full width, {P15G_LAYERS} of 48 layers "
@@ -8032,7 +7981,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
           "prompt": list(P15G_PROMPT), "decode_steps": P15G_STEPS,
           "quantize_ms_by_rank": [r["quantize_ms"] for r in gs],
           "kernel_a_by_rank": [r["kernel_a"] for r in gs],
-          "cases": {n: cell(c0[n]) for n in names},
+          "cases": {n: _serve_cell(c0[n]) for n in names},
           "gates": gates, "gate": "float32: every token's experts equal to "
           "the one-rank forward's at every layer, logits within 1e-4 of its "
           "largest |logit| (int4 per-group: 2e-2), free-running tokens "
@@ -8096,32 +8045,652 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
                 * cfg.moe.capacity_factor / cfg.moe.n_experts)}
 
 
+# ---------------------------------------------------------------------------
+# phase 15i-k: MLA and the sliding-window ring under tensor-parallel
+# execution over 'model' (four gloo ranks sharing the card, after 15g-h in
+# the same processes)
+# ---------------------------------------------------------------------------
+
+P15I_LAYERS = 4          # 15i's minicpm3 at full width (of 62)
+P15I_SMALL = 1           # 15i's int4 case and its free-running tokens
+P15I_PROMPT = (8, 256)   # 15i's prefill
+P15I_CHUNKS = 1          # 15i's 64-token chunks after the prefill
+P15I_STEPS = 16          # 15i's greedy decode steps
+P15J_LAYERS = 1          # 15j's mixtral at full width (of 32)
+P15J_PROMPT = (1, 4096)  # 15j's prefill: fills the 4096-slot ring
+P15J_CHUNKS = 2          # 15j's 64-token chunks: the ring's continuation
+P15J_STEPS = 16          # 15j's greedy decode steps
+P15K_LAYERS = 2          # 15k's minicpm3 at full width (of 62)
+P15K_STEPS = 5
+P15K_BATCH = (4, 256)
+P15K_OPT = P15F_OPT
+P15_CHUNK = 64
+
+
+def _tp_minicpm3(layers, dtype="float32", absorb=False):
+    """minicpm3-4b at full width and ``layers`` layers in ``dtype``, the
+    absorbed decode where ``absorb``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    cfg = get_config(MLA_ARCH)
+    return build_model(dataclasses.replace(
+        cfg, n_layers=layers, dtype=dtype,
+        mla=dataclasses.replace(cfg.mla, absorb=absorb)))
+
+
+def _tp_mixtral(layers):
+    """mixtral-8x7b at full width and ``layers`` layers in float32."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(get_config(SWA_ARCH),
+                                           n_layers=layers, dtype="float32"))
+
+
+def _mla_local_shapes(cfg, tp, forwards, decodes):
+    """{(M, N): launches} of kernel B on a rank's local MLA shards (``tp``
+    ranks) over ``forwards`` forwards of which ``decodes`` are decode
+    steps: q_down, q_up, kv_down, kv_up, wo, wi, wg and wdown each layer
+    of each forward, but no ``kv_up`` at an absorbed decode step (its
+    products there are torch ops)."""
+    m, d, f, h = cfg.mla, cfg.d_model, cfg.d_ff, cfg.n_heads
+    out = collections.Counter()
+    kv_up = (h * (m.nope_dim + m.v_dim) // tp, m.kv_lora)
+    for mn in ((m.q_lora // tp, d), (h * (m.nope_dim + m.rope_dim) // tp,
+                                    m.q_lora),
+               ((m.kv_lora + m.rope_dim) // tp, d), kv_up,
+               (d, h * m.v_dim // tp), (f // tp, d), (f // tp, d),
+               (d, f // tp)):
+        out[mn] += cfg.n_layers * forwards
+    if m.absorb:
+        out[kv_up] -= cfg.n_layers * decodes
+    return dict(out)
+
+
+def _swa_local_shapes(cfg, tp, forwards):
+    """{(M, N): launches} of kernel B on a rank's local mixtral shards
+    over ``forwards`` forwards: q, k, v, o and each local expert's wi, wg
+    and wdown (:func:`_ep_local_shapes`); the tied head is the local
+    embedding's ``torch.matmul``."""
+    return {k: v * forwards for k, v in _ep_local_shapes(cfg, tp).items()}
+
+
+def _serve_cell(row):
+    """A serving case's line: agreement, times and kernel B's launches."""
+    steps = row["step_ms"][1:]              # the first step pays start-up
+    coll = row["collective_ms"][1:]
+    return {"max_abs_err_over_max_logit":
+            row.get("max_abs_err_over_max_logit"),
+            "tokens_equal": row.get("tokens_equal"),
+            "tokens_agree": row.get("tokens_agree"),
+            "routes_equal": row.get("routes_equal"),
+            "routes_agree": row.get("routes_agree"),
+            "routings": row["routings"],
+            "prefill_ms": row["prefill_ms"], "chunk_ms": row["chunk_ms"],
+            "decode_step_ms_p50": _percentiles(steps)["p50"],
+            "collectives_ms_p50": _percentiles(coll)["p50"],
+            "compute_ms_p50": _percentiles(
+                [s - c for s, c in zip(steps, coll)])["p50"],
+            "one_rank_prefill_ms": row.get("one_rank_prefill_ms"),
+            "one_rank_chunk_ms": row.get("one_rank_chunk_ms"),
+            "one_rank_decode_step_ms_p50": _percentiles(
+                row["one_rank_step_ms"][1:])["p50"]
+            if "one_rank_step_ms" in row else None,
+            "model_collectives": row["model_collectives"],
+            "kernel_b_by_variant": row["launches_by_variant"],
+            "kernel_b_by_local_weight_shape": row["launches_by_weight_shape"]}
+
+
+def _serve_rows_agree(rows, label):
+    """Every rank's kernel-B launches as the shards imply, and every rank
+    the same logits, routes and tokens as rank 0 (``rows``: by rank)."""
+    for r in rows:
+        for name, row in r["cases"].items():
+            if row["launches_by_weight_shape"] != row["want_by_weight_shape"]:
+                raise AssertionError(
+                    f"{label} {name}: rank {r['rank']} kernel B by shape "
+                    f"{row['launches_by_weight_shape']}, the shards imply "
+                    f"{row['want_by_weight_shape']}")
+            for key in ("last_logits_digest", "routes_digest",
+                        "tokens_digest"):
+                if row[key] != rows[0]["cases"][name][key]:
+                    raise AssertionError(f"{label} {name}: the ranks' {key} "
+                                         f"differ")
+
+
+def _quantized_on_slabs(params, bits, qmesh, dev):
+    """``params`` quantized SQuant ``bits`` over ``qmesh``'s ranks' row
+    slabs (kernel A on this rank's), gathered whole: (tree, buckets,
+    kernel A's and the scale pass's launches)."""
+    from repro_torch.core import pipeline
+    from repro_torch.distributed.sharding import gather_tree
+    dmod, pa, paq, sf = _kernel_modules()
+    _reset_launches(dmod, pa, paq, sf)
+    sharded, rep = pipeline.quantize_tree(params, method="squant", bits=bits,
+                                          mesh=qmesh)
+    _sync_dev(dev)
+    launches = {"squant_flip": sf.launches, "squant_scale": sf.scale_launches}
+    return (gather_tree(sharded),
+            [(b.key, b.num_layers, b.route) for b in rep.buckets], launches)
+
+
+def _p15i_rank(dev, seed):
+    """15i on this rank of four (see :func:`phase15ijk`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank}
+    model = _tp_minicpm3(P15I_LAYERS)
+    params = _tp_params(model, dev, seed)
+    qmesh = make_quantize_mesh(world)
+    dist.barrier()
+    t0 = time.perf_counter()
+    whole, out["buckets"], out["kernel_a"] = _quantized_on_slabs(
+        params, 8, qmesh, dev)
+    out["quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    w4, out["buckets_w4"], out["kernel_a_w4"] = _quantized_on_slabs(
+        _first_layers(params, P15I_SMALL), 4, qmesh, dev)
+    del params
+    _free(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab
+    prompt = torch.from_numpy(rng.integers(0, vocab, size=P15I_PROMPT)
+                              ).to(dev)
+    chunks = [torch.from_numpy(rng.integers(
+        0, vocab, size=(P15I_PROMPT[0], P15_CHUNK))).to(dev)
+        for _ in range(P15I_CHUNKS)]
+    forwards = 1 + P15I_CHUNKS + P15I_STEPS
+    # (name, model, tree, fed the one-rank tokens)
+    cases = (("w8 float32", model, whole, True),
+             ("w8 float32 absorbed", _tp_minicpm3(P15I_LAYERS, absorb=True),
+              whole, True),
+             ("w8 bfloat16", _tp_minicpm3(P15I_LAYERS, "bfloat16"),
+              _retyped(whole, torch.bfloat16), True),
+             (f"w4 float32 {P15I_SMALL} layer",
+              _tp_minicpm3(P15I_SMALL), w4, False))
+    out["cases"] = {}
+    dm._plans.clear()
+    for name, m, tree, forced in cases:
+        out["cases"][name] = _serve_case_vs_one_rank(
+            dev, m, tree, mesh, prompt, chunks, P15I_STEPS, forced,
+            _mla_local_shapes(m.cfg, world, forwards, P15I_STEPS))
+    out["plans"] = dm.cached_plans()
+    del whole, w4
+    _free(dev)
+    return out
+
+
+def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole):
+    """``model``'s tree made on the card one leaf at a time (every rank
+    the same values: one generator from ``seed``, leaves in tree order),
+    each quantizable leaf quantized SQuant w8 over ``qmesh``'s ranks' row
+    slabs as it is made (kernel A on this rank's slab), gathered whole and
+    cut to this rank's ``tp_local`` shard, its float32 freed before the
+    next: an (in, out) kernel or an (experts, in, out) bank at
+    ``_init_dense``'s std, the embedding and norms as ``LM.init`` makes
+    them, each router as ``init_moe`` does. The float32 tree never exists
+    whole on a rank. Returns (this rank's local tree, the whole quantized
+    tree where ``keep_whole`` else None, kernel A's buckets, its launches
+    and the scale pass's)."""
+    from repro_torch.core.pipeline import _flatten, _rebuild, is_quantizable
+    from repro_torch.distributed.sharding import tp_local
+    from repro_torch.models.layers import (_init_dense, init_embedding,
+                                           init_norm)
+    cfg = model.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    meta = model.init(None, device="meta")
+    local, whole, buckets = [], [], []
+    launches = {"squant_flip": 0, "squant_scale": 0}
+    for path, m in _flatten(meta):
+        shape = tuple(m.shape)
+        if is_quantizable(path, m):
+            w = torch.randn(shape, generator=gen, dtype=m.dtype,
+                            device=dev).mul_(1.0 / math.sqrt(shape[-2]))
+            q, bk, n = _quantized_on_slabs({"w": w}, 8, qmesh, dev)
+            del w
+            leaf = q["w"]
+            buckets += bk
+            for k in launches:
+                launches[k] += n[k]
+        elif path[-1] == "gain":
+            leaf = init_norm(shape[0], plus_one=cfg.norm_plus_one,
+                             device=dev)["gain"]
+        elif path == ("embedding", "embedding"):
+            leaf = init_embedding(gen, shape[0], shape[1], m.dtype,
+                                  device=dev)["embedding"]
+        elif "router" in path:
+            leaf = _init_dense(gen, shape[0], shape[1], scale=0.02,
+                               device=dev)["w"]
+        else:
+            raise ValueError(f"no rule makes the leaf {path} {shape}")
+        nest = leaf
+        for k in reversed(path):
+            nest = {k: nest}
+        cut = tp_local(nest, mesh)
+        for k in path:
+            cut = cut[k]
+        local.append(cut)
+        if keep_whole:
+            whole.append(leaf)
+        del leaf, nest
+        _free(dev)
+    return (_rebuild(meta, iter(local)),
+            _rebuild(meta, iter(whole)) if keep_whole else None,
+            buckets, launches)
+
+
+def _p15j_rank(dev, seed):
+    """15j on this rank of four (see :func:`phase15ijk`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank}
+    model = _tp_mixtral(P15J_LAYERS)
+    mesh = make_mesh((1, world), ("data", "model"))
+    qmesh = make_quantize_mesh(world)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    local, whole, out["buckets"], out["kernel_a"] = _leafwise_tp(
+        dev, model, seed, qmesh, mesh, keep_whole=rank == 0)
+    _sync_dev(dev)
+    out["build_and_quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    out["build_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["local_gb"] = _tree_bytes(local) / 1e9
+    rng = np.random.default_rng(seed)
+    vocab = model.cfg.vocab
+    prompt = torch.from_numpy(rng.integers(0, vocab, size=P15J_PROMPT)
+                              ).to(dev)
+    chunks = [torch.from_numpy(rng.integers(
+        0, vocab, size=(P15J_PROMPT[0], P15_CHUNK))).to(dev)
+        for _ in range(P15J_CHUNKS)]
+    forwards = 1 + P15J_CHUNKS + P15J_STEPS
+    dm._plans.clear()
+    # the one-rank forward on rank 0's whole tree; every rank's on the
+    # shards cut as the leaves were made
+    out["cases"] = {"w8 float32": _serve_case_vs_one_rank(
+        dev, model, whole, mesh, prompt, chunks, P15J_STEPS, True,
+        _swa_local_shapes(model.cfg, world, forwards), local=local)}
+    out["plans"] = dm.cached_plans()
+    out["ring_slots"] = min(P15J_PROMPT[1] + P15_CHUNK * P15J_CHUNKS
+                            + P15J_STEPS + 1, model.cfg.window)
+    del local, whole
+    _free(dev)
+    return out
+
+
+def _p15k_batches():
+    from repro_torch.data.synthetic import markov_batches
+    return [b for b, _ in zip(markov_batches(*P15K_BATCH, P15_DATA_VOCAB,
+                                             seed=17), range(P15K_STEPS))]
+
+
+def _p15k_rank(dev, seed, ref_path):
+    """15k on this rank of four: the tensor-parallel MLA step on (data 2,
+    model 2), its metrics and split, and its final shards against the
+    one-rank parameters the script's process saved at ``ref_path``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import shard_index, tp_place
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _tp_minicpm3(P15K_LAYERS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    _free(dev)
+    opt = adamw_init(placed)
+    step = tl.make_train_step(model, AdamWConfig(**P15K_OPT), mesh=mesh)
+    step.timed = True
+    losses, norms, step_ms, splits = [], [], [], []
+    dist.barrier()
+    for b in _p15k_batches():
+        b = tl.to_device(b, dev)
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        placed, opt, met = step(placed, opt, b)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(met["grad_norm"]))
+        splits.append(dict(step.split_ms))
+    del opt
+    _free(dev)
+    _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
+                "15k's one-rank parameters")
+    ref = torch.load(ref_path, mmap=True, map_location="cpu")
+    worst = 0.0
+    sizes = tuple(mesh.shape)
+    for k, t in _leaves(placed).items():
+        idx = shard_index(t.shape, t.placements, sizes,
+                          mesh.get_coordinate())
+        want = ref[k][idx].to(dev)
+        rms = float(ref[k].double().square().mean().sqrt())
+        excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
+                  - STEP_TOL["atol_rms"] * rms).max()
+        worst = max(worst, float(excess))
+    attn = placed["stack"]["list"][0]["b0"]["attn"]
+    local = {k: tuple(attn[k]["w"].to_local().shape)
+             for k in ("q_down", "q_up", "kv_down", "kv_up", "wo")}
+    del placed
+    _free(dev)
+    return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "split_ms": splits, "shards_excess_over_step_tol": worst,
+            "local_attention_shards": local,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _p15k_one_rank(dev, seed, ref_path):
+    """15k's plain one-rank step on the same global batches: its losses and
+    grad norms; its final parameters saved to ``ref_path`` (then
+    ``ref_path + ".done"``) for the ranks."""
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _tp_minicpm3(P15K_LAYERS)
+    params = _tp_params(model, dev, seed)
+    opt = adamw_init(params)
+    step = tl.make_train_step(model, AdamWConfig(**P15K_OPT))
+    losses, norms = [], []
+    for b in _p15k_batches():
+        params, opt, met = step(params, opt, tl.to_device(b, dev))
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+    del opt
+    torch.save({k: v.cpu() for k, v in _leaves(params).items()}, ref_path)
+    del params
+    _free(dev)
+    open(ref_path + ".done", "w").close()
+    return losses, norms
+
+
+def _p15ijk_ranks(seed, ref_path):
+    """15i, 15j, then 15k, on one rank of four sharing the card over gloo
+    (run by ``run_local``)."""
+    from repro_torch.distributed import group
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
+    dev = group.device()
+    out = {}
+    for key, fn, args in (("i", _p15i_rank, (dev, seed)),
+                          ("j", _p15j_rank, (dev, seed)),
+                          ("k", _p15k_rank, (dev, seed, ref_path))):
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        out[key].setdefault("peak_gb",
+                            torch.cuda.max_memory_allocated(dev) / 1e9)
+        out[key]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase15ijk(dev, seed, card):
+    """15i-k alone (``--mla-ring-parallel``): four gloo ranks sharing the
+    card (one ``run_local``) beside 15k's one-rank step here; what
+    :func:`phase15bcd` runs after 15g-h in the same processes.
+
+    15i, MLA serving: minicpm3-4b at full width and :data:`P15I_LAYERS`
+    layers in float32, quantized SQuant w8 over the four ranks' row slabs
+    (kernel A), gathered, each rank's tree cut by ``tp_local`` on (data 1,
+    model 4): 10 of the 40 heads a rank (``q_up`` / ``kv_up`` columns,
+    ``wo`` rows), the latent down-projections cut on their outputs and
+    gathered whole in the forward, the compressed cache whole, the
+    vocab-parallel tied embedding and head a quarter of the vocabulary; a
+    prefill of 8 x 256 tokens, one 64-token chunk and 16 greedy decode
+    steps under ``activate_mesh`` against the one-rank forward (rank 0 on
+    the whole tree first, its decode tokens fed to both): w8, the absorbed
+    decode, bfloat16, and at :data:`P15I_SMALL` layer SQuant int4
+    (per-channel scales: a 128-group cut of ``wdown``'s 1 600 local input
+    columns would split a group) free-running. Gates: each rank's kernel-B
+    launches by local weight shape as the shards imply, kernel A's those
+    of 15b's rule, every rank's logits and tokens the same; float32
+    logits within 1e-4 of the one-rank forward's largest |logit| (w8,
+    absorbed, int4) and int4's free-running tokens equal. bfloat16 is
+    reported.
+
+    15j, the ring with experts over 'model': mixtral-8x7b at full width
+    and :data:`P15J_LAYERS` layer in float32, made and quantized one leaf
+    at a time on the ranks' slabs (:func:`_leafwise_tp`: no rank holds
+    the float32 tree), each rank keeping its shards (2 of 8 experts, 8 of
+    32 q heads, 2 of 8 KV heads, 8 000 of the 32 000 vocabulary rows),
+    rank 0 the whole tree for the one-rank forward; a prefill of 1 x 4 096
+    that fills the 4 096-slot ring, two 64-token chunks past the window
+    (the ring's continuation, wrapped) and 16 decode steps, fed the
+    one-rank tokens. Gates: kernel B by local weight shape, kernel A by
+    the slabs' pieces at expert slices, every rank the same; logits within
+    1e-4 of the largest |logit| and every routing's expert picks equal.
+
+    15k, MLA training: minicpm3 at :data:`P15K_LAYERS` layers in float32
+    on (data 2, model 2), :data:`P15K_STEPS` steps of 4 x 256 tokens
+    beside the plain one-rank step here. Gates: losses and grad norms
+    within 1e-4 relative, every rank's shards within ``STEP_TOL``.
+    mixtral's step is held on the CPU only (its float32 layer with AdamW
+    state is ~27 GB, four of it beside a one-rank reference do not fit the
+    card)."""
+    import tempfile
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15k_")
+    ref_path = os.path.join(work, "one_rank.pt")
+
+    def here():
+        t0 = time.perf_counter()
+        return _p15k_one_rank(dev, seed, ref_path), time.perf_counter() - t0
+
+    try:
+        ranks, four_s, (plain, plain_s) = _four_ranks_beside(
+            dev, _p15ijk_ranks, (seed, ref_path), here)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase)
+
+
+def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
+    """15i-k's gates and lines from the four ranks' results and 15k's
+    one-rank ``plain`` (losses, grad norms) run here in ``plain_s``;
+    returns the launches and shapes :func:`drive_phase15` reports."""
+    plain_losses, plain_norms = plain
+    i_s, j_s, k_s = ([r[key] for r in ranks] for key in "ijk")
+
+    # 15i gates
+    for r in i_s:
+        for buckets, got in ((r["buckets"], r["kernel_a"]),
+                             (r["buckets_w4"], r["kernel_a_w4"])):
+            want_a = _slab_launches(buckets, 4, r["rank"])
+            if got != {"squant_flip": want_a, "squant_scale": want_a}:
+                raise AssertionError(f"15i: rank {r['rank']} kernel A {got}, "
+                                     f"the slabs imply {want_a}")
+    _serve_rows_agree(i_s, "15i")
+    c0 = i_s[0]["cases"]
+    names = list(c0)
+    gates = {names[0]: c0[names[0]]["max_abs_err_over_max_logit"] <= 1e-4,
+             names[1]: c0[names[1]]["max_abs_err_over_max_logit"] <= 1e-4,
+             names[3]: c0[names[3]]["max_abs_err_over_max_logit"] <= 1e-4
+             and c0[names[3]]["tokens_equal"]}
+    mla = _tp_minicpm3(P15I_LAYERS).cfg
+    emit({"phase": "15i MLA tensor-parallel serving, 4 ranks sharing the "
+                   "card (gloo), mesh (data 1, model 4), minicpm3-4b SQuant "
+                   f"w8 at full width, {P15I_LAYERS} of 62 layers (int4: "
+                   f"{P15I_SMALL}), 10 of 40 heads a rank, the compressed "
+                   "cache whole, vocab-parallel tied embedding and head",
+          "card": card, "backend": "gloo", "ranks": 4,
+          "prompt": list(P15I_PROMPT), "chunks": [P15_CHUNK] * P15I_CHUNKS,
+          "decode_steps": P15I_STEPS,
+          "local_shapes": sorted(f"{m}x{n}" for m, n in _mla_local_shapes(
+              mla, 4, 1, 0)),
+          "quantize_ms_by_rank": [r["quantize_ms"] for r in i_s],
+          "kernel_a_by_rank": [r["kernel_a"] for r in i_s],
+          "kernel_a_w4_by_rank": [r["kernel_a_w4"] for r in i_s],
+          "cases": {n: _serve_cell(c0[n]) for n in names},
+          "gates": gates, "gate": "float32 logits within 1e-4 of the "
+          "one-rank forward's largest |logit| (w8, absorbed, int4), int4's "
+          f"free-running tokens equal at {P15I_SMALL} layer; the others fed "
+          "the one-rank tokens; bfloat16 reported",
+          "peak_gb_by_rank": [r["peak_gb"] for r in i_s],
+          "seconds_by_rank": [r["seconds"] for r in i_s],
+          "note": "four CUDA contexts share one card and every collective "
+                  "is staged through host memory over gloo: not a speed-up "
+                  "over one rank, not an interconnect number"})
+    if not all(gates.values()):
+        raise AssertionError(f"15i: agreement gates failed: {gates}")
+
+    # 15j gates
+    swa = _tp_mixtral(P15J_LAYERS).cfg
+    e, d, f = swa.moe.n_experts, swa.d_model, swa.d_ff
+    slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
+    for r in j_s:
+        want_a = _slab_launches(r["buckets"], 4, r["rank"], slices)
+        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+            raise AssertionError(f"15j: rank {r['rank']} kernel A "
+                                 f"{r['kernel_a']}, the slabs imply {want_a}")
+    _serve_rows_agree(j_s, "15j")
+    j0 = j_s[0]["cases"]["w8 float32"]
+    gate_j = j0["max_abs_err_over_max_logit"] <= 1e-4 and j0["routes_equal"]
+    emit({"phase": "15j the sliding-window ring with experts over 'model', "
+                   "4 ranks sharing the card (gloo), mesh (data 1, model 4), "
+                   f"mixtral-8x7b SQuant w8 at full width, {P15J_LAYERS} of "
+                   "32 layers, float32, made and quantized leaf by leaf on "
+                   "the ranks' slabs; 2 of 8 experts, 8 of 32 q and 2 of 8 "
+                   "KV heads, 8 000 of 32 000 vocabulary rows a rank",
+          "card": card, "backend": "gloo", "ranks": 4,
+          "prompt": list(P15J_PROMPT), "ring_slots": j_s[0]["ring_slots"],
+          "chunks": [P15_CHUNK] * P15J_CHUNKS, "decode_steps": P15J_STEPS,
+          "local_shapes": sorted(f"{m}x{n}" for m, n in
+                                 _ep_local_shapes(swa, 4)),
+          "build_and_quantize_ms_by_rank": [r["build_and_quantize_ms"]
+                                            for r in j_s],
+          "build_peak_gb_by_rank": [r["build_peak_gb"] for r in j_s],
+          "local_tree_gb_by_rank": [r["local_gb"] for r in j_s],
+          "kernel_a_by_rank": [r["kernel_a"] for r in j_s],
+          "case": _serve_cell(j0), "gate_passed": gate_j,
+          "gate": "logits within 1e-4 of the one-rank forward's largest "
+                  "|logit| and every routing's expert picks equal, fed the "
+                  "one-rank tokens",
+          "peak_gb_by_rank": [r["peak_gb"] for r in j_s],
+          "seconds_by_rank": [r["seconds"] for r in j_s]})
+    if not gate_j:
+        raise AssertionError(f"15j: agreement gate failed: "
+                             f"{_serve_cell(j0)}")
+
+    # 15k gates
+    worst_loss = max(abs(a - b) / abs(b) for r in k_s
+                     for a, b in zip(r["losses"], plain_losses))
+    worst_norm = max(abs(a - b) / abs(b) for r in k_s
+                     for a, b in zip(r["grad_norms"], plain_norms))
+    excess = max(r["shards_excess_over_step_tol"] for r in k_s)
+    split = {k: _percentiles([s[k] for s in k_s[0]["split_ms"][1:]])["p50"]
+             for k in k_s[0]["split_ms"][-1]}
+    emit({"phase": "15k MLA tensor-parallel training, 4 ranks sharing the "
+                   "card (gloo), mesh (data 2, model 2), minicpm3-4b at full "
+                   f"width, {P15K_LAYERS} of 62 layers, float32 (mixtral's "
+                   "step: CPU tests only)", "card": card,
+          "backend": "gloo", "ranks": 4, "steps": P15K_STEPS,
+          "global_batch": list(P15K_BATCH), "optimizer": P15K_OPT,
+          "losses": k_s[0]["losses"], "one_rank_losses": plain_losses,
+          "grad_norms": k_s[0]["grad_norms"],
+          "one_rank_grad_norms": plain_norms,
+          "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm,
+          "shards_max_excess_over_step_tol": excess,
+          "local_attention_shards": k_s[0]["local_attention_shards"],
+          "step_ms_p50_steps_2_on": _percentiles(k_s[0]["step_ms"][1:])["p50"],
+          "split_ms_p50_rank0": split,
+          "peak_gb_by_rank": [r["peak_gb"] for r in k_s],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in k_s],
+          "run_local_seconds": four_s,
+          "seconds_since_the_ranks_started": time.perf_counter() - t_phase})
+    if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0):
+        raise AssertionError(f"15k: losses {worst_loss}, grad norms "
+                             f"{worst_norm}, shards over STEP_TOL by {excess}")
+    mla_shapes = sorted(_mla_local_shapes(mla, 4, 1, 0))
+    swa_shapes = sorted(_ep_local_shapes(swa, 4))
+    return {"squant_flip": [r["kernel_a"]["squant_flip"]
+                            + r["kernel_a_w4"]["squant_flip"] for r in i_s],
+            "squant_scale": [r["kernel_a"]["squant_scale"]
+                             + r["kernel_a_w4"]["squant_scale"] for r in i_s],
+            "squant_flip_15j": [r["kernel_a"]["squant_flip"] for r in j_s],
+            "squant_scale_15j": [r["kernel_a"]["squant_scale"] for r in j_s],
+            "dequant_matmul": [sum(c["kernel_b"] for c in r["cases"].values())
+                               for r in i_s],
+            "dequant_matmul_15j": [sum(c["kernel_b"] for c in
+                                       r["cases"].values()) for r in j_s],
+            "plans": {"15i": i_s[0]["plans"], "15j": j_s[0]["plans"]},
+            "mla_local_shapes": mla_shapes, "swa_local_shapes": swa_shapes,
+            "mla_kv_up": (mla.n_heads * (mla.mla.nope_dim + mla.mla.v_dim)
+                          // 4, mla.mla.kv_lora),
+            "swa_capacity_rows": math.ceil(
+                P15J_PROMPT[0] * P15J_PROMPT[1] * swa.moe.top_k
+                * swa.moe.capacity_factor / e),
+            "mla_expand_rows": P15I_PROMPT[0] * (
+                P15I_PROMPT[1] + P15_CHUNK * P15I_CHUNKS + P15I_STEPS + 1)}
+
+
+def _phase15ij_cells(mr):
+    """Phase 2's kernel-B cells of 15i-j (label, M, N, rows), timed with
+    float32 activations (their paths' dtype; 15i's bf16 launch shapes are
+    compared, not timed): minicpm3's seven local shapes at 15i's decode
+    batch and prefill rows, ``kv_up`` at the rows of a whole-cache
+    re-expansion; mixtral's local attention shapes at 15j's decode row and
+    prefill rows, its local experts at the decode row and the prefill's
+    capacity."""
+    b, rows = P15I_PROMPT[0], P15I_PROMPT[0] * P15I_PROMPT[1]
+    mla = mr["mla_local_shapes"]
+    kv_up = mr["mla_kv_up"]
+    swa = _tp_mixtral(P15J_LAYERS).cfg
+    experts = {(swa.d_ff, swa.d_model), (swa.d_model, swa.d_ff)}
+    f32 = [(f"15i local {m}x{n} decode", m, n, b) for m, n in mla]
+    f32 += [(f"15i local {m}x{n} prefill", m, n, rows) for m, n in mla]
+    f32.append((f"15i local kv_up {kv_up[0]}x{kv_up[1]} whole-cache "
+                f"re-expansion", *kv_up, mr["mla_expand_rows"]))
+    for m, n in mr["swa_local_shapes"]:
+        big = mr["swa_capacity_rows"] if (m, n) in experts \
+            else P15J_PROMPT[0] * P15J_PROMPT[1]
+        f32 += [(f"15j local {m}x{n} decode", m, n, P15J_PROMPT[0]),
+                (f"15j local {m}x{n} prefill", m, n, big)]
+    return f32
+
+
 def drive_phase15(dev, seed, layers, card, memory):
-    """Phase 15 (15a, 15b-d, 15e-f, 15g-h), memory gated like a phase's;
-    returns the kernels' launches by part, and 15e's and 15g's kernel-B
-    launch shapes (``plans``) and local weight shapes for phase 2."""
+    """Phase 15 (15a, 15b-d, 15e-f, 15g-h, 15i-k), memory gated like a
+    phase's; returns the kernels' launches by part, and 15e's, 15g's, 15i's
+    and 15j's kernel-B launch shapes (``plans``) and local weight shapes
+    for phase 2."""
     t0 = time.perf_counter()
     a = phase15a(dev, seed, layers)
     phase_memory("15a", memory)
     bcd = phase15bcd(dev, seed, card)
-    ef, gh = bcd["tp"], bcd["ep"]
-    phase_memory("15b-h", memory)
+    ef, gh, mr = bcd["tp"], bcd["ep"], bcd["mr"]
+    phase_memory("15b-k", memory)
     emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0})
     return {"squant_flip": {"15a": a["squant_flip"],
                             "15b_by_rank": bcd["squant_flip"],
                             "15e_by_rank": ef["squant_flip"],
-                            "15g_by_rank": gh["squant_flip"]},
+                            "15g_by_rank": gh["squant_flip"],
+                            "15i_by_rank": mr["squant_flip"],
+                            "15j_by_rank": mr["squant_flip_15j"]},
             "squant_scale": {"15a": a["squant_scale"],
                              "15b_by_rank": bcd["squant_scale"],
                              "15e_by_rank": ef["squant_scale"],
-                             "15g_by_rank": gh["squant_scale"]},
+                             "15g_by_rank": gh["squant_scale"],
+                             "15i_by_rank": mr["squant_scale"],
+                             "15j_by_rank": mr["squant_scale_15j"]},
             "dequant_matmul": {"15a": a["dequant_matmul"],
                                "15e_by_rank": ef["dequant_matmul"],
-                               "15g_by_rank": gh["dequant_matmul"]},
-            "plans": {"15e": ef["plans"], "15g": gh["plans"]},
+                               "15g_by_rank": gh["dequant_matmul"],
+                               "15i_by_rank": mr["dequant_matmul"],
+                               "15j_by_rank": mr["dequant_matmul_15j"]},
+            "plans": {"15e": ef["plans"], "15g": gh["plans"],
+                      **mr["plans"]},
             "local_shapes": ef["local_shapes"],
             "ep_local_shapes": gh["local_shapes"],
-            "ep_capacity_rows": gh["capacity_rows"]}
+            "ep_capacity_rows": gh["capacity_rows"],
+            "mla_ring": mr}
 
 
 def main():
@@ -8157,6 +8726,11 @@ def main():
                     "mixtral's 32 layers since phase 15 came, to keep the "
                     "script inside its time limit; 32 layers of float32 "
                     "weights are ~180 GB)")
+    ap.add_argument("--layers12a", type=int, default=8,
+                    help="depth of the MLA run (12a; 8 of minicpm3's 62 "
+                    "layers since phase 15i came, to keep the script inside "
+                    "its time limit; 15i serves the same width "
+                    "tensor-parallel)")
     ap.add_argument("--layers13", type=int, default=24,
                     help="depth of the rwkv run (13a; 24 = the full model)")
     ap.add_argument("--layers15", type=int, default=4,
@@ -8182,6 +8756,11 @@ def main():
                     help="only build, then run phases 15g and 15h "
                     "(expert-parallel MoE serving and training on four "
                     "gloo ranks sharing the card); prints no ok line")
+    ap.add_argument("--mla-ring-parallel", action="store_true",
+                    help="only build, then run phases 15i, 15j and 15k (MLA "
+                    "and the sliding-window ring under tensor-parallel "
+                    "serving, MLA training, on four gloo ranks sharing the "
+                    "card); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -8216,6 +8795,9 @@ def main():
         return 1
     if args.expert_parallel:
         phase15gh(dev, args.seed, card)
+        return 1
+    if args.mla_ring_parallel:
+        phase15ijk(dev, args.seed, card)
         return 1
     if args.agreement_variants:
         agreement_variants(dev, args.seed, args.layers, args.layers7)
@@ -8269,7 +8851,8 @@ def main():
     phase_memory("10", memory)
     l11, s11 = drive_training(dev, args.seed, args.layers11,
                               args.train_steps, card, memory)
-    l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory)
+    l12, s12 = drive_phase12(dev, args.seed, args.layers12, memory,
+                             args.layers12a)
     l13, s13 = drive_phase13(dev, args.seed, args.layers13, memory)
     l14, s14 = drive_phase14(dev, args.seed, card, memory)
     l15 = drive_phase15(dev, args.seed, args.layers15, card, memory)
@@ -8351,7 +8934,8 @@ def main():
                         + [(f"15g local expert {m}x{n} prefill capacity",
                             m, n, l15["ep_capacity_rows"])
                            for m, n in l15.pop("ep_local_shapes")
-                           if (m, n) in moe_local_banks])
+                           if (m, n) in moe_local_banks],
+                        phase15ij=_phase15ij_cells(l15.pop("mla_ring")))
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
@@ -8359,7 +8943,7 @@ def main():
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
             "launch_shapes_compared", "phase12", "phase13", "phase14",
-            "phase15")},
+            "phase15", "phase15ij")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (

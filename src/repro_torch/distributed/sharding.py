@@ -27,8 +27,8 @@ for a mesh larger than the group at hand. The reference drops the axes an
 enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
 every axis of the mesh is usable.
 
-Tensor-parallel execution over 'model' (Megatron-style for the dense GQA
-transformer, expert-parallel for MoE): :func:`activate_mesh` installs the
+Tensor-parallel execution over 'model' (Megatron-style for the GQA and
+MLA transformer, expert-parallel for MoE): :func:`activate_mesh` installs the
 mesh the forward runs on, and the reference's activation constraints
 become the collectives GSPMD inserts at the same points
 (:func:`shard_act`, :func:`to_model`, :func:`shard_logits`: identities
@@ -38,10 +38,11 @@ this rank's shards (an MoE bank cut at expert boundaries, the router
 whole), :func:`tp_place` a whole fp tree into DTensors (what the train
 step and the checkpointer take). Only the 'model' entries of the rules
 apply; a tree sharded over 'data' (FSDP), an expert count 'model' does
-not divide, MLA, the sliding-window ring, mamba, rwkv, the
+not divide, MLA latent ranks it does not divide, mamba, rwkv, the
 encoder-decoder, speculative verify, the paged KV layout and a 'model'
 axis that does not divide the KV heads or the FFN width raise
-``NotImplementedError`` (:func:`check_tensor_parallel`).
+``NotImplementedError`` (:func:`check_tensor_parallel`). MLA and the
+sliding-window ring run there (``models.attention``).
 
 MoE routing under data parallelism: the reference routes the global batch
 (GSPMD), so a data-parallel step installs a :class:`RoutingGroup` of the
@@ -510,17 +511,26 @@ def to_model(x: torch.Tensor) -> torch.Tensor:
     return copy_to_model(x, g)
 
 
-def shard_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
-    """LM-head logits, whole on every rank: a vocab-parallel head's local
-    ``(..., vocab / tp)`` logits are all-gathered over 'model'
-    (gather-from-model: this rank's slice of the gradient backward), so the
-    loss is the reference's arithmetic on the whole row; a replicated
-    head's (the vocab 'model' does not divide) come back as they are."""
+def gather_cols(x: torch.Tensor, width: int) -> torch.Tensor:
+    """A column-parallel product's output, whole on every rank: this
+    rank's ``(..., width / tp)`` columns all-gathered over 'model'
+    (gather-from-model: this rank's slice of the gradient backward); an
+    output that already holds ``width`` columns (a product the rules left
+    replicated) comes back as it is."""
     tp, _, g = model_axis()
-    if tp == 1 or logits.shape[-1] == vocab:
-        return logits
+    if tp == 1 or x.shape[-1] == width:
+        return x
     from repro_torch.distributed.group import gather_from_model
-    return gather_from_model(logits, g)
+    return gather_from_model(x, g)
+
+
+def shard_logits(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """LM-head logits, whole on every rank (:func:`gather_cols`): a
+    vocab-parallel head's local ``(..., vocab / tp)`` logits are gathered
+    over 'model', so the loss is the reference's arithmetic on the whole
+    row; a replicated head's (the vocab 'model' does not divide) come back
+    as they are."""
+    return gather_cols(logits, vocab)
 
 
 def vocab_parallel(vocab: int) -> bool:
@@ -581,24 +591,30 @@ def check_tensor_parallel(cfg, mesh) -> None:
     cannot run ``cfg`` tensor-parallel on ``mesh`` (a ``DeviceMesh`` or an
     :class:`AbstractMesh`): an MoE whose expert count the 'model' axis does
     not divide (the reference falls back to 'expert_ff' there, which cuts
-    the pipeline's collapsed ``(E·out, in)`` bank inside an expert), MLA,
-    mamba or rwkv blocks, the encoder-decoder, the sliding-window ring, or
-    a 'model' axis that does not divide the KV heads (the reference's rule
-    splits inside a head there) or the FFN width."""
+    the pipeline's collapsed ``(E·out, in)`` bank inside an expert), MLA
+    latent ranks (``q_lora``, ``kv_lora + rope_dim``) it does not divide
+    (the rules leave ``q_down`` / ``kv_down`` whole there, and a whole
+    product's gradient would be summed over 'model' once per rank), mamba
+    or rwkv blocks, the encoder-decoder, or a 'model' axis that does not
+    divide the KV heads (the reference's rule splits inside a head there)
+    or the FFN width."""
     tp = mesh_axis_sizes(mesh).get("model", 1)
     if tp == 1:
         return
     plan = cfg.block_pattern or ()
     n_experts = cfg.moe.n_experts if cfg.moe is not None else 0
+    m = cfg.mla
     cases = (
         (n_experts % tp != 0, f"{n_experts} experts on a 'model' axis of "
                               f"{tp} (the reference's 'expert_ff' "
                               f"fallback, M7c.1b)"),
-        (cfg.mla is not None, "MLA ('mla_rank')"),
+        (m is not None and (m.q_lora % tp or (m.kv_lora + m.rope_dim) % tp),
+         f"MLA latent ranks on a 'model' axis of {tp} (q_lora "
+         f"{m and m.q_lora}, kv_lora + rope_dim "
+         f"{m and m.kv_lora + m.rope_dim})"),
         ("m" in plan, "mamba ('d_inner')"),
         (cfg.rwkv, "rwkv"),
         (cfg.is_encdec, "the encoder-decoder"),
-        (bool(cfg.window), "the sliding-window ring"),
         (cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp != 0,
          f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads on a 'model' axis of "
          f"{tp} (the reference's rule splits inside a head there)"),

@@ -33,9 +33,21 @@ them, as in the reference).
 
 Grouped-query attention reads its q and KV head counts from the local
 weights' widths, so under tensor-parallel execution (``distributed.
-sharding``) it runs this rank's heads on a cache of this rank's KV heads;
-its row-parallel ``wo`` product comes back as partial sums, which the
-block sums over 'model' (``models.transformer``).
+sharding``) it runs this rank's heads on a cache (or ring) of this rank's
+KV heads; its row-parallel ``wo`` product comes back as partial sums,
+which the block sums over 'model' (``models.transformer``). The ring's
+slot arithmetic is per position and its masks per head, so it runs on the
+local heads unchanged. MLA reads its head count from ``q_up``'s local
+width: ``q_down`` and ``kv_down`` are column-parallel over the latent
+ranks as the reference's rules cut them, their outputs gathered whole
+over 'model' (the norms and the ``c_kv`` / ``k_rope`` split need whole
+rows), and ``q_up`` / ``kv_up`` column-parallel by heads. Its compressed
+cache stays whole on every rank: chunk and decode re-expand every cached
+position through this rank's ``kv_up`` columns, which needs whole
+normalized ``c_kv`` rows. The reference's cache rule cuts ``c_kv`` on
+``'mla_rank'`` instead (``make_cache_shardings``), which would cost an
+all-gather of the whole cache every layer and step here: a memory layout
+that differs, not different numbers.
 
 Cross-attention (:func:`cross_attention`, the encoder-decoder's) attends a
 decoder's rows over the encoder output, full multi-head and unmasked (or
@@ -49,7 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import to_model
+from repro_torch.distributed.sharding import gather_cols, to_model
 from repro_torch.models.layers import (_init_dense, apply_rotary,
                                        by_position, init_norm, linear,
                                        linear_by_position, rms_norm)
@@ -539,16 +551,21 @@ def _mla_attention(params, x, *, cfg, rope, mode, cache, pos):
     masked before the softmax, so they contribute exact zeros)."""
     m = cfg.mla
     b, s, _ = x.shape
-    h = cfg.n_heads
     cos_t, sin_t = rope                      # (s, rope_dim/2)
     qk_dim = m.nope_dim + m.rope_dim
 
-    q = linear(params["q_up"],
-               rms_norm(params["q_norm"], linear(params["q_down"], x)))
+    # under 'model' the down-projections are column-parallel over the
+    # latent ranks: their outputs are gathered whole (q_norm and kv_norm
+    # normalize whole rows, and the c_kv / k_rope split needs them), then
+    # enter the up-projections, column-parallel by heads, through to_model
+    q_lat = gather_cols(linear(params["q_down"], x), m.q_lora)
+    q = linear(params["q_up"], to_model(rms_norm(params["q_norm"], q_lat)))
+    h = q.shape[-1] // qk_dim                # this rank's heads
     q = q.reshape(b, s, h, qk_dim)
     q_nope, q_rope = q[..., :m.nope_dim], q[..., m.nope_dim:]
 
-    ckv_full = linear(params["kv_down"], x)            # (B,S,kv_lora+rope)
+    ckv_full = gather_cols(linear(params["kv_down"], x),
+                           m.kv_lora + m.rope_dim)     # (B,S,kv_lora+rope)
     c_kv, k_rope = ckv_full[..., :m.kv_lora], ckv_full[..., m.kv_lora:]
     k_rope = k_rope.reshape(b, s, 1, m.rope_dim)
 
@@ -557,10 +574,12 @@ def _mla_attention(params, x, *, cfg, rope, mode, cache, pos):
 
     def expand_kv(c_kv_in, k_rope_in):
         t = c_kv_in.shape[1]
-        kv = linear(params["kv_up"], rms_norm(params["kv_norm"], c_kv_in))
+        kv = linear(params["kv_up"],
+                    to_model(rms_norm(params["kv_norm"], c_kv_in)))
         kv = kv.reshape(b, t, h, m.nope_dim + m.v_dim)
         k_nope, v = kv[..., :m.nope_dim], kv[..., m.nope_dim:]
-        k = torch.cat([k_nope, k_rope_in.to(k_nope.dtype).expand(
+        # the shared rotary key, whole, used by this rank's heads
+        k = torch.cat([k_nope, to_model(k_rope_in).to(k_nope.dtype).expand(
             b, t, h, m.rope_dim)], dim=-1)
         return k, v
 

@@ -9,8 +9,9 @@ Under ``distributed.sharding.activate_mesh`` with a 'model' axis above 1
 the forward runs tensor-parallel on this rank's local tree
 (``sharding.tp_local``): a vocab-parallel embedding and head where 'model'
 divides the vocabulary, the logits gathered whole before the loss, a
-cache of this rank's KV heads (:meth:`LM.init_cache`), and an MoE layer
-on this rank's experts (``models.moe``).
+cache (or sliding-window ring) of this rank's KV heads, or an MLA stack's
+whole compressed cache (:meth:`LM.init_cache`), and an MoE layer on this
+rank's experts (``models.moe``).
 """
 from __future__ import annotations
 

@@ -17,12 +17,13 @@ says so, a mixture of experts (``models.moe``). A mamba or rwkv layer's
 cache is its recurrent state (``models.mamba``, ``models.rwkv``).
 
 Tensor-parallel (under ``distributed.sharding.activate_mesh`` with a
-'model' axis above 1, dense attention blocks only): the normed input of
-the attention and of the FFN enters the column-parallel products through
-``to_model``, and each block's row-parallel partial sum ``h`` is summed over
-'model' before the residual add (``shard_act``; summing after the add would
-count ``x`` once per rank). An MoE FFN is expert-parallel there: its
-partial output (this rank's experts) is summed the same way.
+'model' axis above 1, attention blocks: GQA, sliding-window and MLA): the
+normed input of the attention and of the FFN enters the column-parallel
+products through ``to_model``, and each block's row-parallel partial sum
+``h`` is summed over 'model' before the residual add (``shard_act``;
+summing after the add would count ``x`` once per rank). An MoE FFN is
+expert-parallel there: its partial output (this rank's experts) is summed
+the same way.
 
 An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
 cross-attention over the encoder output (``xln``, ``xattn``: x +=
@@ -263,6 +264,7 @@ def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
         return mamba_lib.init_mamba_state(batch, cfg.d_model, m.d_state,
                                           m.d_conv, m.expand, device=device)
     if cfg.mla is not None:
+        # whole on every rank under 'model' (see models.attention)
         return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
                                        device=device)
     return attn_lib.init_kv_cache(batch, max_len,

@@ -142,12 +142,9 @@ _OUT_OF_SCOPE = {
     # fallback, M7c.1b); a dividing axis is expert-parallel
     "moe": ("moonshot-v1-16b-a3b", dict(moe=MoEConfig(6, 2)), (1, 4),
             "6 experts on a 'model' axis of 4"),
-    "mla": ("minicpm3-4b", {}, (1, 2), "MLA"),
     "mamba": ("jamba-1.5-large-398b", dict(moe=None), (1, 2), "mamba"),
     "rwkv": ("rwkv6-1.6b", {}, (1, 2), "rwkv"),
     "encdec": ("seamless-m4t-medium", {}, (1, 2), "the encoder-decoder"),
-    "window": ("granite-3-8b", dict(window=32), (1, 2),
-               "the sliding-window ring"),
     "kv_heads": ("granite-3-8b", None, (16, 16), "32 q / 8 KV heads on a "
                  "'model' axis of 16"),
     "d_ff": ("granite-3-8b", dict(d_ff=130, n_kv_heads=4), (1, 4),

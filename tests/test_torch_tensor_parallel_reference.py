@@ -11,8 +11,12 @@ model 2) mesh of four gloo ranks, on the same parameters
 1e-5 and 1e-4 relative. The same subprocess runs reduced moonshot (4
 experts, top-2, ``capacity_factor`` 1.0 so capacity binds), which the
 port runs expert-parallel over 'model' and routed over both 'data' ranks
-together (``torch_ep_workers.reference_moe_ranks``), held to the same
-tolerances."""
+together (``torch_ep_workers.reference_moe_ranks``), reduced minicpm3
+(MLA: its latent down-projections column-parallel and gathered, its heads
+over 'model'), and reduced mixtral with 8 q / 4 KV heads on sequences of
+48 tokens past its 32-token window (expert-parallel, routed over both
+'data' ranks, ``capacity_factor`` 1.0), all held to the same tolerances
+(``torch_mla_ring_workers.reference_ranks``)."""
 import dataclasses
 import textwrap
 
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 import torch_ep_workers as EP
+import torch_mla_ring_workers as MR
 import torch_tp_workers as W
 from repro.configs import get_config as jax_get_config
 from repro.models.model import build_model as jax_build_model
@@ -31,6 +36,7 @@ from repro_torch.distributed.group import run_local
 GRAD_TOL = dict(rtol=2e-4, atol=2e-5)
 _OVER = dict(W.TP_TINY, **W.TRAIN_OVER)
 _MOE_OVER = dict(EP.TRAIN_OVER)
+_RING_OVER = dict(MR.RING_TINY, vocab=MR.TRAIN_VOCAB)
 
 _REFERENCE = textwrap.dedent(f"""
     import warnings; warnings.filterwarnings("ignore")
@@ -46,12 +52,12 @@ _REFERENCE = textwrap.dedent(f"""
     mesh = make_mesh((2, 2), ("data", "model"))
     activate_mesh(mesh)
 
-    def run(cfg, pre):
+    def run(cfg, pre, s=16):
         model = build_model(cfg)
         params = model.init(jax.random.PRNGKey(0))
         params = jax.device_put(params, make_param_shardings(mesh, params))
         batch = {{k: jnp.asarray(v) for k, v in
-                 next(markov_batches(8, 16, cfg.vocab, seed=1)).items()}}
+                 next(markov_batches(8, s, cfg.vocab, seed=1)).items()}}
         toks = batch["tokens"]
         logits = jax.jit(lambda p, t, c: model.forward(
             p, {{"tokens": t}}, mode="prefill", caches=c)[0])(
@@ -73,7 +79,14 @@ _REFERENCE = textwrap.dedent(f"""
     moe = get_config("moonshot-v1-16b-a3b", reduced=True)
     moe = dataclasses.replace(moe, moe=dataclasses.replace(
         moe.moe, capacity_factor={EP.BINDING_CF!r}), **{_MOE_OVER!r})
-    np.savez(OUT, **run(cfg, ""), **run(moe, "moe_"))
+    mla = dataclasses.replace(get_config("minicpm3-4b", reduced=True),
+                              **{MR.REF_OVER!r})
+    ring = get_config("mixtral-8x7b", reduced=True)
+    ring = dataclasses.replace(ring, moe=dataclasses.replace(
+        ring.moe, capacity_factor={MR.BINDING_CF!r}), **{_RING_OVER!r})
+    np.savez(OUT, **run(cfg, ""), **run(moe, "moe_"),
+             **run(mla, "mla_", {MR.REF_SEQ["mla"]!r}),
+             **run(ring, "ring_", {MR.REF_SEQ["ring"]!r}))
 """)
 
 
@@ -128,6 +141,25 @@ def moe_both(reference):
     return ref, _want_grads(jax.device_get(jparams), ref), port
 
 
+@pytest.fixture(scope="module")
+def mla_ring_both(reference):
+    """Reduced minicpm3's and the ring's reference results, wanted
+    gradients and the port's (one ``run_local`` for both), by kind."""
+    ref, d = reference
+    cases, refs, want = {}, {}, {}
+    for kind in ("mla", "ring"):
+        r = {k[len(kind) + 1:]: v for k, v in ref.items()
+             if k.startswith(kind + "_")}
+        path = str(d / f"{kind}_params.pt")
+        jparams = MR.reference_params(kind, path)
+        cases[kind] = (path, r["tokens"], {"tokens": r["tokens"],
+                                           "labels": r["labels"]})
+        refs[kind], want[kind] = r, _want_grads(jax.device_get(jparams), r)
+    port = run_local(MR.reference_ranks, 4, backend="gloo", device="cpu",
+                     args=(cases,), timeout=600, store_dir=str(d))[0]
+    return {k: (refs[k], want[k], port[k]) for k in cases}
+
+
 def test_prefill_logits_match_reference(both):
     ref, _, port = both
     np.testing.assert_allclose(port["logits"], ref["logits"], rtol=1e-5,
@@ -171,6 +203,34 @@ def test_moe_loss_and_grads_match_reference(moe_both):
 
 def test_moe_train_step_metrics_match_reference(moe_both):
     ref, _, port = moe_both
+    np.testing.assert_allclose(port["step"]["loss"], float(ref["step_loss"]),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(port["step"]["grad_norm"],
+                               float(ref["step_grad_norm"]), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("kind", ["mla", "ring"])
+def test_mla_ring_prefill_logits_match_reference(mla_ring_both, kind):
+    ref, _, port = mla_ring_both[kind]
+    np.testing.assert_allclose(port["logits"], ref["logits"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["mla", "ring"])
+def test_mla_ring_loss_and_grads_match_reference(mla_ring_both, kind):
+    ref, want, port = mla_ring_both[kind]
+    np.testing.assert_allclose(port["loss"], float(ref["loss"]), rtol=1e-5,
+                               atol=0)
+    assert sorted(port["grads"]) == sorted(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(port["grads"][k], g, **GRAD_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("kind", ["mla", "ring"])
+def test_mla_ring_train_step_metrics_match_reference(mla_ring_both, kind):
+    ref, _, port = mla_ring_both[kind]
     np.testing.assert_allclose(port["step"]["loss"], float(ref["step_loss"]),
                                rtol=1e-5, atol=0)
     np.testing.assert_allclose(port["step"]["grad_norm"],
