@@ -672,7 +672,8 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                    experts=None, plans=None, phase12=None, phase13=None,
-                   phase14=None, phase15=None, phase15ij=None):
+                   phase14=None, phase15=None, phase15ij=None,
+                   phase15lm=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (also at the prefill
     instances' 17, 43 and 64 rows: a chunk tail, a ragged chunk, a whole
@@ -702,8 +703,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     N, rows) cells timed with float32 activations
     (:func:`kernel_b_phase14_times`); ``phase15`` (label, M, N, rows): 15e's
     local weight shapes, timed so in float32 and in bfloat16;
-    ``phase15ij`` (label, M, N, rows): 15i's and 15j's local shapes, timed
-    so in float32 (their paths' dtype)."""
+    ``phase15ij`` and ``phase15lm`` (label, M, N, rows): 15i-j's and
+    15l-m's local shapes, timed so in float32 (their paths' dtype)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -832,6 +833,9 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                           label=label) for label, m, n, b in phase15]}
     phase15ij_timed = None if phase15ij is None else \
         kernel_b_phase14_times(dev, gen, phase15ij)["cells"]
+    # 15l-m's cells without the older variant beside them (time)
+    phase15lm_timed = None if phase15lm is None else \
+        kernel_b_phase14_times(dev, gen, phase15lm, old=False)["cells"]
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, variants=list(dm.VARIANTS),
@@ -864,7 +868,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  launch_shapes_compared=compared,
                  phase12=phase12_timed, phase13=phase13_timed,
                  phase14=phase14_timed, phase15=phase15_timed,
-                 phase15ij=phase15ij_timed,
+                 phase15ij=phase15ij_timed, phase15lm=phase15lm_timed,
                  shapes=shapes, **tot)
     return entry
 
@@ -1783,14 +1787,28 @@ def _tree_bytes(tree):
     return sum(_tree_bytes(t) for t in items)
 
 
+TRAIN_STEPS_BEFORE = 600   # 11b's and 11c (ii)'s steps before 15l-n came
+
+
+def _steps_cut(steps):
+    """The ``reduced`` entry of 11b's and 11c (ii)'s lines: None at the
+    steps they ran before the cut, else the cut and why it was made."""
+    if steps == TRAIN_STEPS_BEFORE:
+        return None
+    return {"train_steps": f"{TRAIN_STEPS_BEFORE} -> {steps} (cut when "
+                           f"phases 15l-n came, to keep the script inside "
+                           f"its time limit)"}
+
+
 def _depth_cut(layers, full=40):
     """The ``reduced`` entry of a granite phase's line: None at full depth,
     else the cut and why it was made."""
     if layers == full:
         return None
     return {"n_layers": f"{full} -> {layers} (phases 8 and 9a were cut "
-                        f"when phase 15 came, to keep the script within "
-                        f"900 s)"}
+                        f"to 12 when phase 15 came and to 6 when phases "
+                        f"15l-n came, to keep the script within its time "
+                        f"limit)"}
 
 
 _PHASE_CLOCK = [time.perf_counter()]   # when the last phase_memory ran
@@ -4028,7 +4046,7 @@ def train_and_serve(dev, seed, steps, card):
             "model": cfg.name, "shape": {k: getattr(cfg, k) for k in (
                 "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim",
                 "d_ff", "vocab", "dtype")}, "params": n_params,
-            "train": train,
+            "train": train, "reduced": _steps_cut(steps),
             "heldout_xent": xent, "heldout_limit": limit,
             "heldout": "4 x markov_batches(16, 64, 32000, seed=7, "
                        "start=100_000)",
@@ -4106,6 +4124,7 @@ def train_moe_and_serve(dev, seed, batches, card):
     params, train = train_with_trainer(dev, model, params, iter(batches),
                                        len(batches), "chip_smoke_moe_")
     train["data"] = "11b's batches"
+    train["reduced"] = _steps_cut(len(batches))
     xent = heldout_xent(model, params, cfg.vocab, dev)
 
     reqs = chat_requests(seed, cfg.vocab)
@@ -6471,13 +6490,14 @@ def train_encdec(dev, seed, card):
     return line
 
 
-def kernel_b_phase14_times(dev, gen, cells):
+def kernel_b_phase14_times(dev, gen, cells, old=True):
     """Phase 14's kernel-B cells, float32 activations (``cells``: (label, M,
     N, rows)), timed as the main path's cells are (:func:`_b_timed`: cold
     L2) three ways in the same call on the same inputs: the float32
     instance the rule picks (``tcgemv32`` up to 16 rows, ``mma32`` above;
     checked), the CUDA-core variant it replaced (``gemv`` / ``tiled``, by
-    an explicit plan: ``old_ms``), and ``torch.matmul``
+    an explicit plan: ``old_ms``; not timed where ``old`` is False), and
+    ``torch.matmul``
     in float32 on pre-dequantized weights with
     ``torch.backends.cuda.matmul.allow_tf32`` as main sets it, False, so
     its arithmetic is float32's (``library_ms``). ``bound_ms``: max(bytes /
@@ -6492,11 +6512,12 @@ def kernel_b_phase14_times(dev, gen, cells):
         # takes tiled above 16 rows, which has no older variant beside it)
         want = dm.variant(b, n, 128 if n % 128 == 0 else n, 1, 8, False, 0,
                           0)
-        old = {"tcgemv32": ("gemv", 1, n // 128),
-               "mma32": ("tiled", 1, n // 128)}.get(want)
+        old_plan = {"tcgemv32": ("gemv", 1, n // 128),
+                    "mma32": ("tiled", 1, n // 128)}.get(want) if old \
+            else None
         row = dict(_b_timed(dev, gen, m, n, b, 8, torch.float32,
-                            also={"old": old} if old else None),
-                   label=label, old_variant=old and old[0])
+                            also={"old": old_plan} if old_plan else None),
+                   label=label, old_variant=old_plan and old_plan[0])
         if row["variant"] != want:
             raise AssertionError(f"kernel B at {label} took {row}")
         t_bytes = (m * n + m * 4 + 4 * b * n + 4 * b * m) / HBM_BYTES_PER_S * 1e3
@@ -6506,7 +6527,8 @@ def kernel_b_phase14_times(dev, gen, cells):
                    bound_ms=max(t_bytes, t_ops),
                    bound_by="bytes" if t_bytes >= t_ops else "operations")
         row.update(bound_share=row["bound_ms"] / row["ms"],
-                   speedup_over_old=row["old_ms"] / row["ms"] if old else None,
+                   speedup_over_old=row["old_ms"] / row["ms"]
+                   if old_plan else None,
                    speedup_over_library=row["library_ms"] / row["ms"])
         out.append(row)
         torch.cuda.empty_cache()
@@ -6779,8 +6801,8 @@ def phase15a(dev, seed, layers):
 
 
 def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path,
-               ref_path_h, ref_path_k):
-    """15b-15k on one rank of four sharing the card over gloo (run by
+               ref_path_h, ref_path_k, ref_path_n):
+    """15b-15n on one rank of four sharing the card over gloo (run by
     ``run_local``): returns host numbers only."""
     import numpy as np
     import torch.distributed as dist
@@ -6877,6 +6899,9 @@ def _p15_ranks(seed, layers, ckpt, ring_floats, train_steps, ref_path,
     _free(dev)
     # ---- 15i-k: MLA and the ring under 'model', MLA training
     out["mr"] = _p15ijk_ranks(seed, ref_path_k)
+    _free(dev)
+    # ---- 15l-n: mamba and rwkv under 'model', rwkv training
+    out["rec"] = _p15lmn_ranks(seed, ref_path_n)
     return out
 
 
@@ -7022,16 +7047,17 @@ def _four_ranks_beside(dev, fn, args, here):
 
 
 def phase15bcd(dev, seed, card):
-    """15b-15k: four ranks sharing the card over gloo (sharded quantization
+    """15b-15n: four ranks sharing the card over gloo (sharded quantization
     of granite at full width, save from the 4-rank mesh; the int8 ring over
     100 M floats a rank; pod-compressed training of the 100m model, 2 pods
     x 2 data; between 15b and 15c ranks 0 and 1 restore the checkpoint
     onto a 2-rank elastic mesh; then 15e-f, :func:`phase15ef`, 15g-h,
-    :func:`phase15gh`, and 15i-k, :func:`phase15ijk`, in the same
-    processes); 15d's, 15f's, 15h's and 15k's plain one-rank steps on the
-    same global batches run here, in this process, while the four ranks
-    run (most of 15d's time is theirs starting up). Returns kernel A's
-    launches by rank and 15e-f's, 15g-h's and 15i-k's summaries."""
+    :func:`phase15gh`, 15i-k, :func:`phase15ijk`, and 15l-n,
+    :func:`phase15lmn`, in the same processes); 15d's, 15f's, 15h's, 15k's
+    and 15n's plain one-rank steps on the same global batches run here, in
+    this process, while the four ranks run (most of 15d's time is theirs
+    starting up). Returns kernel A's launches by rank and 15e-f's, 15g-h's,
+    15i-k's and 15l-n's summaries."""
     import tempfile
     import shutil
 
@@ -7040,6 +7066,7 @@ def phase15bcd(dev, seed, card):
     ref_path = os.path.join(work, "one_rank.pt")
     ref_path_h = os.path.join(work, "one_rank_h.pt")
     ref_path_k = os.path.join(work, "one_rank_k.pt")
+    ref_path_n = os.path.join(work, "one_rank_n.pt")
     t_phase = time.perf_counter()
 
     def here():
@@ -7050,15 +7077,17 @@ def phase15bcd(dev, seed, card):
         plain_h = _p15h_one_rank(dev, seed, ref_path_h)
         t2 = time.perf_counter()
         plain_k = _p15k_one_rank(dev, seed, ref_path_k)
-        return (plain, plain_f, t1 - t0, plain_h, t2 - t1, plain_k,
-                time.perf_counter() - t2)
+        t3 = time.perf_counter()
+        plain_n = _p15n_one_rank(dev, seed, ref_path_n)
+        return (plain, plain_f, t1 - t0, plain_h, t2 - t1, plain_k, t3 - t2,
+                plain_n, time.perf_counter() - t3)
 
     try:
         ranks, four_s, (plain, plain_f, plain_f_s, plain_h, plain_h_s,
-                        plain_k, plain_k_s) = _four_ranks_beside(
-            dev, _p15_ranks, (seed, 2, ckpt, P15_RING_FLOATS,
-                              P15_TRAIN_STEPS, ref_path, ref_path_h,
-                              ref_path_k), here)
+                        plain_k, plain_k_s, plain_n, plain_n_s) = \
+            _four_ranks_beside(dev, _p15_ranks, (
+                seed, 2, ckpt, P15_RING_FLOATS, P15_TRAIN_STEPS, ref_path,
+                ref_path_h, ref_path_k, ref_path_n), here)
         saved = _digests_of_checkpoint(ckpt, dev)
         restored = [r["restore"] for r in ranks if r["restore"] is not None]
     finally:
@@ -7164,9 +7193,11 @@ def phase15bcd(dev, seed, card):
                        four_s, t_phase)
     mr = _p15ijk_report([r["mr"] for r in ranks], plain_k, plain_k_s, card,
                         four_s, t_phase)
+    rec = _p15lmn_report([r["rec"] for r in ranks], plain_n, plain_n_s,
+                         card, four_s, t_phase)
     return {"squant_flip": [r["launches"]["squant_flip"] for r in ranks],
             "squant_scale": [r["launches"]["squant_scale"] for r in ranks],
-            "tp": ef, "ep": gh, "mr": mr}
+            "tp": ef, "ep": gh, "mr": mr, "rec": rec}
 
 
 # ---------------------------------------------------------------------------
@@ -7242,13 +7273,16 @@ def _group_scale_tree(params, bits, group_size):
 
 
 def _slab_launches(buckets, ndev, d, slice_rows=None):
-    """Kernel-A launches (and scale passes) rank ``d`` of ``ndev`` makes
-    for ``buckets`` ((key, leaves, route)): one a piece of its row slab
-    (``core.dispatch.quantize_codes_sharded``). The native route reads a
-    bank's expert slices as its leaves: ``slice_rows`` maps such a
-    bucket's ``"(E·out,in)"`` to the rows of one slice (``out``)."""
+    """Kernel-A launches and scale passes rank ``d`` of ``ndev`` makes for
+    ``buckets`` ((key, leaves, route)), one a piece of its row slab
+    (``core.dispatch.quantize_codes_sharded``): on the native route a flip
+    and a scale pass a piece, on the stacked route one flip (its scales
+    are torch ops), and none for a whole-row (``gNone``) bucket, which the
+    flip kernel does not take. The native route reads a bank's expert
+    slices as its leaves: ``slice_rows`` maps such a bucket's
+    ``"(E·out,in)"`` to the rows of one slice (``out``)."""
     from repro_torch.core.dispatch import shard_rows, slab_pieces
-    n = 0
+    n = {"squant_flip": 0, "squant_scale": 0}
     for key, nl, route in buckets:
         m = int(key[1:].split(",")[0])
         rows = m * nl
@@ -7257,8 +7291,14 @@ def _slab_launches(buckets, ndev, d, slice_rows=None):
         r0 = min(d * per, rows)
         r1 = r0 + slabs[d][0]
         leaf = (slice_rows or {}).get(key.split(")")[0] + ")", m)
-        if r1 > r0:
-            n += len(slab_pieces(r0, r1, leaf)) if route == "native" else 1
+        if r1 <= r0 or key.endswith("gNone"):
+            continue
+        if route == "native":
+            pieces = len(slab_pieces(r0, r1, leaf))
+            n["squant_flip"] += pieces
+            n["squant_scale"] += pieces
+        else:
+            n["squant_flip"] += 1
     return n
 
 
@@ -7609,7 +7649,7 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
     buckets = es[0]["buckets"]
     for r in es:
         want_a = _slab_launches(buckets, 4, r["rank"])
-        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+        if r["kernel_a"] != want_a:
             raise AssertionError(f"15e: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
     _serve_rows_agree(es, "15e")
@@ -7959,7 +7999,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
     slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
     for r in gs:
         want_a = _slab_launches(buckets, 4, r["rank"], slices)
-        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+        if r["kernel_a"] != want_a:
             raise AssertionError(f"15g: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
     _serve_rows_agree(gs, "15g")
@@ -8223,34 +8263,37 @@ def _p15i_rank(dev, seed):
     return out
 
 
-def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole):
+def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole, bits=8):
     """``model``'s tree made on the card one leaf at a time (every rank
     the same values: one generator from ``seed``, leaves in tree order),
-    each quantizable leaf quantized SQuant w8 over ``qmesh``'s ranks' row
-    slabs as it is made (kernel A on this rank's slab), gathered whole and
-    cut to this rank's ``tp_local`` shard, its float32 freed before the
-    next: an (in, out) kernel or an (experts, in, out) bank at
-    ``_init_dense``'s std, the embedding and norms as ``LM.init`` makes
-    them, each router as ``init_moe`` does. The float32 tree never exists
-    whole on a rank. Returns (this rank's local tree, the whole quantized
-    tree where ``keep_whole`` else None, kernel A's buckets, its launches
-    and the scale pass's)."""
+    each quantizable leaf quantized SQuant ``bits`` over ``qmesh``'s
+    ranks' row slabs as it is made (kernel A on this rank's slab),
+    gathered whole and cut to this rank's ``tp_local`` shard, its float32
+    freed before the next: an (in, out) kernel or an (experts, in, out)
+    bank at ``_init_dense``'s std, the embedding and norms as ``LM.init``
+    makes them, each router as ``init_moe`` does, each mamba mixer's conv,
+    dt bias, A and D from ``init_mamba`` itself (its four projections
+    dropped). The float32 tree never exists whole on a rank. Returns
+    (this rank's local tree, the whole quantized tree where
+    ``keep_whole`` else None, kernel A's buckets, its launches and the
+    scale pass's)."""
     from repro_torch.core.pipeline import _flatten, _rebuild, is_quantizable
     from repro_torch.distributed.sharding import tp_local
+    from repro_torch.models import mamba as mamba_lib
     from repro_torch.models.layers import (_init_dense, init_embedding,
                                            init_norm)
     cfg = model.cfg
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     meta = model.init(None, device="meta")
-    local, whole, buckets = [], [], []
+    local, whole, buckets, mixers = [], [], [], {}
     launches = {"squant_flip": 0, "squant_scale": 0}
     for path, m in _flatten(meta):
         shape = tuple(m.shape)
         if is_quantizable(path, m):
             w = torch.randn(shape, generator=gen, dtype=m.dtype,
                             device=dev).mul_(1.0 / math.sqrt(shape[-2]))
-            q, bk, n = _quantized_on_slabs({"w": w}, 8, qmesh, dev)
+            q, bk, n = _quantized_on_slabs({"w": w}, bits, qmesh, dev)
             del w
             leaf = q["w"]
             buckets += bk
@@ -8265,6 +8308,14 @@ def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole):
         elif "router" in path:
             leaf = _init_dense(gen, shape[0], shape[1], scale=0.02,
                                device=dev)["w"]
+        elif "mixer" in path:
+            if path[:-1] not in mixers:
+                mc = cfg.mamba
+                mixers = {path[:-1]: {k: v for k, v in mamba_lib.init_mamba(
+                    gen, cfg.d_model, mc.d_state, mc.d_conv, mc.expand,
+                    mc.dt_rank, device=dev).items()
+                    if not isinstance(v, dict)}}
+            leaf = mixers[path[:-1]][path[-1]]
         else:
             raise ValueError(f"no rule makes the leaf {path} {shape}")
         nest = leaf
@@ -8278,6 +8329,7 @@ def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole):
             whole.append(leaf)
         del leaf, nest
         _free(dev)
+    del mixers
     return (_rebuild(meta, iter(local)),
             _rebuild(meta, iter(whole)) if keep_whole else None,
             buckets, launches)
@@ -8326,31 +8378,37 @@ def _p15j_rank(dev, seed):
     return out
 
 
-def _p15k_batches():
+def _markov(batch, steps, seed):
     from repro_torch.data.synthetic import markov_batches
-    return [b for b, _ in zip(markov_batches(*P15K_BATCH, P15_DATA_VOCAB,
-                                             seed=17), range(P15K_STEPS))]
+    return [b for b, _ in zip(markov_batches(*batch, P15_DATA_VOCAB,
+                                             seed=seed), range(steps))]
 
 
-def _p15k_rank(dev, seed, ref_path):
-    """15k on this rank of four: the tensor-parallel MLA step on (data 2,
-    model 2), its metrics and split, and its final shards against the
-    one-rank parameters the script's process saved at ``ref_path``."""
+def _p15k_batches():
+    return _markov(P15K_BATCH, P15K_STEPS, 17)
+
+
+def _tp_train_vs_saved(dev, seed, model, batches, opt_cfg, ref_path, what,
+                       node):
+    """A tensor-parallel train step on (data 2, model 2) on this rank of
+    four (15k, 15n): its metrics and split over ``batches``, and its final
+    shards against the one-rank parameters the script's process saved at
+    ``ref_path`` (:func:`_one_rank_train_saved`); the local shapes of the
+    leaves under ``node`` (a path into the tree)."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
     from repro_torch.distributed.sharding import shard_index, tp_place
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    model = _tp_minicpm3(P15K_LAYERS)
     mesh = make_mesh((2, 2), ("data", "model"))
     placed = tp_place(_tp_params(model, dev, seed), mesh)
     _free(dev)
     opt = adamw_init(placed)
-    step = tl.make_train_step(model, AdamWConfig(**P15K_OPT), mesh=mesh)
+    step = tl.make_train_step(model, AdamWConfig(**opt_cfg), mesh=mesh)
     step.timed = True
     losses, norms, step_ms, splits = [], [], [], []
     dist.barrier()
-    for b in _p15k_batches():
+    for b in batches:
         b = tl.to_device(b, dev)
         _sync_dev(dev)
         t0 = time.perf_counter()
@@ -8362,7 +8420,7 @@ def _p15k_rank(dev, seed, ref_path):
     del opt
     _free(dev)
     _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
-                "15k's one-rank parameters")
+                f"{what}'s one-rank parameters")
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
     worst = 0.0
     sizes = tuple(mesh.shape)
@@ -8374,29 +8432,37 @@ def _p15k_rank(dev, seed, ref_path):
         excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
                   - STEP_TOL["atol_rms"] * rms).max()
         worst = max(worst, float(excess))
-    attn = placed["stack"]["list"][0]["b0"]["attn"]
-    local = {k: tuple(attn[k]["w"].to_local().shape)
-             for k in ("q_down", "q_up", "kv_down", "kv_up", "wo")}
-    del placed
+    sub = placed
+    for k in node:
+        sub = sub[int(k)] if isinstance(sub, list) else sub[k]
+    local = {k: tuple(t.to_local().shape) for k, t in _leaves(sub).items()}
+    del placed, sub
     _free(dev)
     return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
             "split_ms": splits, "shards_excess_over_step_tol": worst,
-            "local_attention_shards": local,
+            "local_shards": local,
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def _p15k_one_rank(dev, seed, ref_path):
-    """15k's plain one-rank step on the same global batches: its losses and
-    grad norms; its final parameters saved to ``ref_path`` (then
-    ``ref_path + ".done"``) for the ranks."""
+def _p15k_rank(dev, seed, ref_path):
+    """15k on this rank of four: the tensor-parallel MLA step."""
+    return _tp_train_vs_saved(dev, seed, _tp_minicpm3(P15K_LAYERS),
+                              _p15k_batches(), P15K_OPT, ref_path, "15k",
+                              ("stack", "list", "0", "b0", "attn"))
+
+
+def _one_rank_train_saved(dev, seed, model, batches, opt_cfg, ref_path):
+    """The plain one-rank step on the same global batches as
+    :func:`_tp_train_vs_saved`'s: its losses and grad norms; its final
+    parameters saved to ``ref_path`` (then ``ref_path + ".done"``) for the
+    ranks."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    model = _tp_minicpm3(P15K_LAYERS)
     params = _tp_params(model, dev, seed)
     opt = adamw_init(params)
-    step = tl.make_train_step(model, AdamWConfig(**P15K_OPT))
+    step = tl.make_train_step(model, AdamWConfig(**opt_cfg))
     losses, norms = [], []
-    for b in _p15k_batches():
+    for b in batches:
         params, opt, met = step(params, opt, tl.to_device(b, dev))
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
@@ -8406,6 +8472,12 @@ def _p15k_one_rank(dev, seed, ref_path):
     _free(dev)
     open(ref_path + ".done", "w").close()
     return losses, norms
+
+
+def _p15k_one_rank(dev, seed, ref_path):
+    """15k's plain one-rank step (:func:`_one_rank_train_saved`)."""
+    return _one_rank_train_saved(dev, seed, _tp_minicpm3(P15K_LAYERS),
+                                 _p15k_batches(), P15K_OPT, ref_path)
 
 
 def _p15ijk_ranks(seed, ref_path):
@@ -8502,7 +8574,7 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
         for buckets, got in ((r["buckets"], r["kernel_a"]),
                              (r["buckets_w4"], r["kernel_a_w4"])):
             want_a = _slab_launches(buckets, 4, r["rank"])
-            if got != {"squant_flip": want_a, "squant_scale": want_a}:
+            if got != want_a:
                 raise AssertionError(f"15i: rank {r['rank']} kernel A {got}, "
                                      f"the slabs imply {want_a}")
     _serve_rows_agree(i_s, "15i")
@@ -8545,7 +8617,7 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
     slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
     for r in j_s:
         want_a = _slab_launches(r["buckets"], 4, r["rank"], slices)
-        if r["kernel_a"] != {"squant_flip": want_a, "squant_scale": want_a}:
+        if r["kernel_a"] != want_a:
             raise AssertionError(f"15j: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
     _serve_rows_agree(j_s, "15j")
@@ -8597,7 +8669,7 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
           "max_rel_diff_loss": worst_loss,
           "max_rel_diff_grad_norm": worst_norm,
           "shards_max_excess_over_step_tol": excess,
-          "local_attention_shards": k_s[0]["local_attention_shards"],
+          "local_attention_shards": k_s[0]["local_shards"],
           "step_ms_p50_steps_2_on": _percentiles(k_s[0]["step_ms"][1:])["p50"],
           "split_ms_p50_rank0": split,
           "peak_gb_by_rank": [r["peak_gb"] for r in k_s],
@@ -8656,41 +8728,501 @@ def _phase15ij_cells(mr):
     return f32
 
 
+# ---------------------------------------------------------------------------
+# phase 15l-n: mamba and rwkv under tensor-parallel execution over 'model'
+# (four gloo ranks sharing the card, after 15i-k in the same processes)
+# ---------------------------------------------------------------------------
+
+P15L_LAYERS = 2          # 15l's jamba: RECURRENT_ISOLATED's ("m", "a") cut
+P15L_SMALL = 1           # 15l's int4 case: one mamba layer
+P15M_LAYERS = 4          # 15m's rwkv6-1.6b at full width (of 24)
+P15M_SMALL = 1           # 15m's int4 case
+P15LM_PROMPT = (8, 256)  # 15l-m's prefill
+P15LM_CHUNKS = 1         # 15l-m's 64-token chunks after the prefill
+P15LM_STEPS = 16         # 15l-m's greedy decode steps
+P15N_LAYERS = 2          # 15n's rwkv6-1.6b at full width (of 24)
+P15N_STEPS = 5
+P15N_BATCH = (4, 256)
+P15N_OPT = P15F_OPT
+RWKV_DECAY_LORA = 64     # models.rwkv.init_rwkv_timemix's decay LoRA rank
+
+
+def _tp_jamba(layers, dtype="float32"):
+    """jamba-1.5-large at full width, mamba then attention (the first
+    ``layers`` of ("m", "a")), no MoE, in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(
+        get_config(JAMBA_ARCH), n_layers=layers,
+        block_pattern=("m", "a")[:layers], moe=None, dtype=dtype))
+
+
+def _tp_rwkv(layers, dtype="float32"):
+    """rwkv6-1.6b at full width and ``layers`` layers in ``dtype``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(get_config(RWKV_ARCH),
+                                           n_layers=layers, dtype=dtype))
+
+
+def _recurrent_local_shapes(cfg, tp):
+    """{(M, N): launches a forward} of kernel B on a rank's local shards
+    (``tp`` ranks) of a jamba stack without experts or an rwkv stack:
+    mamba's ``in_proj`` (x and z of its channels), ``x_proj``
+    (row-parallel), ``dt_proj`` and ``out_proj``; attention's q, k, v, o;
+    the dense FFN's three; rwkv's time-mix r, k, v, g, o and the whole
+    decay LoRA, its channel mix's k, v, r; and the vocab-parallel untied
+    head."""
+    from repro_torch.models.transformer import layer_plan, n_periods
+    d, f = cfg.d_model, cfg.d_ff
+    out = collections.Counter()
+    for kind, _ in layer_plan(cfg) * n_periods(cfg):
+        if kind == "rwkv":
+            parts = (((d // tp, d), 5), ((RWKV_DECAY_LORA, d), 1),
+                     ((d, RWKV_DECAY_LORA), 1), ((d, d // tp), 1),
+                     ((f // tp, d), 1), ((d, f // tp), 1))
+        elif kind == "m":
+            mc = cfg.mamba
+            di = mc.expand * d
+            r = mc.dt_rank or max(1, d // 16)
+            parts = (((2 * di // tp, d), 1), ((r + 2 * mc.d_state, di // tp),
+                                             1),
+                     ((di // tp, r), 1), ((d, di // tp), 1))
+        else:
+            q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+            parts = (((q // tp, d), 1), ((kv // tp, d), 2),
+                     ((d, q // tp), 1))
+        if kind != "rwkv":
+            parts += (((f // tp, d), 2), ((d, f // tp), 1))
+        for mn, k in parts:
+            out[mn] += k
+    out[(cfg.vocab // tp, d)] += 1
+    return dict(out)
+
+
+def _strided_probe(dev, mesh):
+    """The paired cut of mamba's ``in_proj`` on this torch and card: a
+    (16, 32) tensor placed as ``tp_local`` / ``tp_place`` place
+    ``in_proj`` (a strided shard of split 2 on 'model'), its AdamW moment
+    (``zeros_like``) on the same placements, and gathered back whole
+    (``group.full_tensor``, through the host on gloo)."""
+    from repro_torch.distributed.group import full_tensor
+    from repro_torch.distributed.sharding import make_tp_shardings, place
+    from repro_torch.training.optimizer import adamw_init
+    t = torch.arange(16 * 32, dtype=torch.float32, device=dev).view(16, 32)
+    sh = make_tp_shardings(mesh, {"in_proj": {"w": t}})["in_proj"]["w"]
+    dt = place(t, sh)
+    k, n = mesh.get_local_rank("model"), mesh.shape[1]
+    per = 16 // n
+    cols = list(range(k * per, (k + 1) * per)) + \
+        list(range(16 + k * per, 16 + (k + 1) * per))
+    moment = adamw_init({"w": dt})["m"]["w"]
+    return {"placements": repr(dt.placements),
+            "local_is_the_paired_cut": bool(torch.equal(dt.to_local(),
+                                                        t[:, cols])),
+            "moment_placements_kept": moment.placements == dt.placements,
+            "gathered_bit_equal": bool(torch.equal(full_tensor(dt), t))}
+
+
+def _serve_cases(dev, mesh, prompt, chunks, cases):
+    """Each case ``(name, model, whole tree, local tree, fed the one-rank
+    tokens)`` through :func:`_serve_case_vs_one_rank`, kernel B's launches
+    held to :func:`_recurrent_local_shapes`; and every launch plan."""
+    from repro_torch.kernels import dequant_matmul as dm
+    forwards = 1 + len(chunks) + P15LM_STEPS
+    out = {}
+    dm._plans.clear()
+    for name, m, tree, loc, forced in cases:
+        want = {k: v * forwards for k, v in
+                _recurrent_local_shapes(m.cfg, mesh.shape[1]).items()}
+        out[name] = _serve_case_vs_one_rank(
+            dev, m, tree, mesh, prompt, chunks, P15LM_STEPS, forced, want,
+            local=loc)
+    return out, dm.cached_plans()
+
+
+def _prompt_and_chunks(dev, seed, vocab):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prompt = torch.from_numpy(rng.integers(0, vocab, size=P15LM_PROMPT)
+                              ).to(dev)
+    chunks = [torch.from_numpy(rng.integers(
+        0, vocab, size=(P15LM_PROMPT[0], P15_CHUNK))).to(dev)
+        for _ in range(P15LM_CHUNKS)]
+    return prompt, chunks
+
+
+def _p15l_rank(dev, seed):
+    """15l on this rank of four (see :func:`phase15lmn`): host numbers."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    model, small = _tp_jamba(P15L_LAYERS), _tp_jamba(P15L_SMALL)
+    mesh = make_mesh((1, world), ("data", "model"))
+    qmesh = make_quantize_mesh(world)
+    out = {"rank": rank, "strided_probe": _strided_probe(dev, mesh)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    dist.barrier()
+    t0 = time.perf_counter()
+    local, whole, out["buckets"], out["kernel_a"] = _leafwise_tp(
+        dev, model, seed, qmesh, mesh, keep_whole=rank == 0)
+    _sync_dev(dev)
+    out["build_and_quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    out["build_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    out["local_gb"] = _tree_bytes(local) / 1e9
+    local4, whole4, out["buckets_w4"], out["kernel_a_w4"] = _leafwise_tp(
+        dev, small, seed, qmesh, mesh, keep_whole=rank == 0, bits=4)
+    prompt, chunks = _prompt_and_chunks(dev, seed, model.cfg.vocab)
+    bf = torch.bfloat16
+    # (name, model, whole tree (rank 0), local tree, fed the one-rank tokens)
+    cases = (("w8 float32", model, whole, local, True),
+             ("w8 bfloat16", _tp_jamba(P15L_LAYERS, "bfloat16"),
+              whole and _retyped(whole, bf), _retyped(local, bf), True),
+             (f"w4 float32 {P15L_SMALL} layer", small, whole4, local4,
+              False))
+    out["cases"], out["plans"] = _serve_cases(dev, mesh, prompt, chunks,
+                                              cases)
+    mixer = local["stack"]["list"][0]["b0"]["mixer"]
+    out["local_mixer"] = {k: list(v.shape) for k, v in _leaves(mixer).items()}
+    del local, whole, local4, whole4, cases
+    _free(dev)
+    return out
+
+
+def _p15m_rank(dev, seed):
+    """15m on this rank of four (see :func:`phase15lmn`): host numbers."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import tp_local
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    out = {"rank": rank}
+    model, small = _tp_rwkv(P15M_LAYERS), _tp_rwkv(P15M_SMALL)
+    params = _tp_params(model, dev, seed)
+    qmesh = make_quantize_mesh(world)
+    dist.barrier()
+    t0 = time.perf_counter()
+    whole, out["buckets"], out["kernel_a"] = _quantized_on_slabs(
+        params, 8, qmesh, dev)
+    out["quantize_ms"] = (time.perf_counter() - t0) * 1e3
+    w4, out["buckets_w4"], out["kernel_a_w4"] = _quantized_on_slabs(
+        _first_layers(params, P15M_SMALL), 4, qmesh, dev)
+    del params
+    _free(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    prompt, chunks = _prompt_and_chunks(dev, seed, model.cfg.vocab)
+    bf = torch.bfloat16
+    local = tp_local(whole, mesh)
+    cases = (("w8 float32", model, whole, local, True),
+             ("w8 bfloat16", _tp_rwkv(P15M_LAYERS, "bfloat16"),
+              _retyped(whole, bf), _retyped(local, bf), True),
+             (f"w4 float32 {P15M_SMALL} layer", small, w4,
+              tp_local(w4, mesh), False))
+    out["cases"], out["plans"] = _serve_cases(dev, mesh, prompt, chunks,
+                                              cases)
+    del whole, w4, local, cases
+    _free(dev)
+    return out
+
+
+def _p15n_batches():
+    return _markov(P15N_BATCH, P15N_STEPS, 19)
+
+
+def _p15n_rank(dev, seed, ref_path):
+    """15n on this rank of four: the tensor-parallel rwkv step."""
+    return _tp_train_vs_saved(dev, seed, _tp_rwkv(P15N_LAYERS),
+                              _p15n_batches(), P15N_OPT, ref_path, "15n",
+                              ("stack", "list", "0", "b0"))
+
+
+def _p15n_one_rank(dev, seed, ref_path):
+    """15n's plain one-rank step (:func:`_one_rank_train_saved`)."""
+    return _one_rank_train_saved(dev, seed, _tp_rwkv(P15N_LAYERS),
+                                 _p15n_batches(), P15N_OPT, ref_path)
+
+
+def _p15lmn_ranks(seed, ref_path):
+    """15l, 15m, then 15n, on one rank of four sharing the card over gloo
+    (run by ``run_local``)."""
+    from repro_torch.distributed import group
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
+    dev = group.device()
+    out = {}
+    for key, fn, args in (("l", _p15l_rank, (dev, seed)),
+                          ("m", _p15m_rank, (dev, seed)),
+                          ("n", _p15n_rank, (dev, seed, ref_path))):
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[key] = fn(*args)
+        out[key].setdefault("peak_gb",
+                            torch.cuda.max_memory_allocated(dev) / 1e9)
+        out[key]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase15lmn(dev, seed, card):
+    """15l-n alone (``--recurrent-parallel``): four gloo ranks sharing the
+    card (one ``run_local``) beside 15n's one-rank step here; what
+    :func:`phase15bcd` runs after 15i-k in the same processes.
+
+    15l, mamba serving: jamba-1.5-large at full width, mamba then
+    attention (:data:`P15L_LAYERS` of 72 layers, no MoE: 13c's isolated
+    cut), float32, made and quantized SQuant w8 leaf by leaf on the four
+    ranks' row slabs (:func:`_leafwise_tp`: no rank holds the 11.4 GB
+    float32 tree), each rank keeping its shards on (data 1, model 4):
+    4 096 of the 16 384 ``d_inner`` channels (``in_proj``'s x and z
+    columns of them, ``x_proj`` row-parallel), 16 of 64 q and 2 of 8 KV
+    heads, a quarter of the FFN and 16 384 of the 65 536 vocabulary rows;
+    rank 0 keeps the whole tree for the one-rank forward. A prefill of 8
+    x 256, one 64-token chunk and 16 greedy decode steps under
+    ``activate_mesh`` against the one-rank forward (its tokens fed to
+    both): w8 float32, bfloat16, and SQuant int4 at :data:`P15L_SMALL`
+    mamba layer free-running. The paired cut's strided shard is probed
+    first on this torch (:func:`_strided_probe`).
+
+    15m, rwkv serving: rwkv6-1.6b at full width and :data:`P15M_LAYERS`
+    layers, quantized on the slabs, gathered and cut by ``tp_local``: 8
+    of 32 heads a rank (the wkv state of them), the decay LoRA whole, a
+    quarter of the channel mix and of the vocabulary; the same traffic and
+    cases (the prefill's 256 tokens through ``wkv_chunked``, decode through
+    ``wkv_scan``).
+
+    Gates of both: each rank's kernel-B launches by local weight shape as
+    the shards imply, kernel A's as the slabs imply, every rank the same
+    logits and tokens; float32 logits within 1e-4 of the one-rank
+    forward's largest |logit| (w8, int4) and int4's free-running tokens
+    equal. bfloat16 is reported.
+
+    15n, rwkv training: rwkv6-1.6b at :data:`P15N_LAYERS` layers in
+    float32 on (data 2, model 2), :data:`P15N_STEPS` steps of 4 x 256
+    tokens beside the plain one-rank step here. Gates: losses and grad
+    norms within 1e-4 relative, every rank's shards within ``STEP_TOL``,
+    and the loss falling. jamba's step under 'model' is held on the CPU
+    only: at full width its embedding and head alone are 1.07 B
+    parameters (~17 GB with AdamW), and four ranks beside a one-rank
+    reference do not fit one card."""
+    import tempfile
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15n_")
+    ref_path = os.path.join(work, "one_rank.pt")
+
+    def here():
+        t0 = time.perf_counter()
+        return _p15n_one_rank(dev, seed, ref_path), time.perf_counter() - t0
+
+    try:
+        ranks, four_s, (plain, plain_s) = _four_ranks_beside(
+            dev, _p15lmn_ranks, (seed, ref_path), here)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _p15lmn_report(ranks, plain, plain_s, card, four_s, t_phase)
+
+
+def _recurrent_serve_gates(rows, label):
+    """15l's or 15m's kernel-A and agreement gates on the four ranks'
+    ``rows``; returns rank 0's cases and their gates."""
+    for r in rows:
+        for buckets, got in ((r["buckets"], r["kernel_a"]),
+                             (r["buckets_w4"], r["kernel_a_w4"])):
+            want_a = _slab_launches(buckets, 4, r["rank"])
+            if got != want_a:
+                raise AssertionError(f"{label}: rank {r['rank']} kernel A "
+                                     f"{got}, the slabs imply {want_a}")
+    _serve_rows_agree(rows, label)
+    c0 = rows[0]["cases"]
+    names = list(c0)
+    gates = {names[0]: c0[names[0]]["max_abs_err_over_max_logit"] <= 1e-4,
+             names[2]: c0[names[2]]["max_abs_err_over_max_logit"] <= 1e-4
+             and c0[names[2]]["tokens_equal"]}
+    if not all(gates.values()):
+        raise AssertionError(f"{label}: agreement gates failed: {gates}, "
+                             f"{ {n: _serve_cell(c0[n]) for n in names} }")
+    return c0, gates
+
+
+def _p15lmn_report(ranks, plain, plain_s, card, four_s, t_phase):
+    """15l-n's gates and lines from the four ranks' results and 15n's
+    one-rank ``plain`` (losses, grad norms) run here in ``plain_s``;
+    returns the launches and shapes :func:`drive_phase15` reports."""
+    plain_losses, plain_norms = plain
+    l_s, m_s, n_s = ([r[key] for r in ranks] for key in "lmn")
+    gate = "float32 logits within 1e-4 of the one-rank forward's largest " \
+           "|logit| (w8, int4), int4's free-running tokens equal; w8 fed " \
+           "the one-rank tokens; bfloat16 reported"
+    note = "four CUDA contexts share one card and every collective is " \
+           "staged through host memory over gloo: not a speed-up over one " \
+           "rank, not an interconnect number"
+
+    # 15l
+    probe = [r["strided_probe"] for r in l_s]
+    if not all(p["local_is_the_paired_cut"] and p["moment_placements_kept"]
+               and p["gathered_bit_equal"] for p in probe):
+        raise AssertionError(f"15l: the paired cut's strided shard: {probe}")
+    c0, gates = _recurrent_serve_gates(l_s, "15l")
+    jamba = _tp_jamba(P15L_LAYERS).cfg
+    emit({"phase": "15l mamba tensor-parallel serving, 4 ranks sharing the "
+                   "card (gloo), mesh (data 1, model 4), jamba-1.5-large "
+                   "SQuant w8 at full width, mamba then attention "
+                   f"({P15L_LAYERS} of 72 layers, no MoE; int4: "
+                   f"{P15L_SMALL} mamba layer), float32, made and quantized "
+                   "leaf by leaf on the ranks' slabs; 4 096 of 16 384 "
+                   "d_inner channels (in_proj's x and z of them), 16 of 64 "
+                   "q and 2 of 8 KV heads, 16 384 of 65 536 vocabulary rows "
+                   "a rank",
+          "card": card, "backend": "gloo", "ranks": 4,
+          "torch": torch.__version__, "strided_probe": probe[0],
+          "prompt": list(P15LM_PROMPT), "chunks": [P15_CHUNK] * P15LM_CHUNKS,
+          "decode_steps": P15LM_STEPS,
+          "local_shapes": sorted(f"{m}x{n}" for m, n in
+                                 _recurrent_local_shapes(jamba, 4)),
+          "local_mixer": l_s[0]["local_mixer"],
+          "build_and_quantize_ms_by_rank": [r["build_and_quantize_ms"]
+                                            for r in l_s],
+          "build_peak_gb_by_rank": [r["build_peak_gb"] for r in l_s],
+          "local_tree_gb_by_rank": [r["local_gb"] for r in l_s],
+          "kernel_a_by_rank": [r["kernel_a"] for r in l_s],
+          "kernel_a_w4_by_rank": [r["kernel_a_w4"] for r in l_s],
+          "cases": {n: _serve_cell(c0[n]) for n in c0},
+          "gates": gates, "gate": gate,
+          "peak_gb_by_rank": [r["peak_gb"] for r in l_s],
+          "seconds_by_rank": [r["seconds"] for r in l_s], "note": note})
+
+    # 15m
+    c0, gates = _recurrent_serve_gates(m_s, "15m")
+    rwkv = _tp_rwkv(P15M_LAYERS).cfg
+    emit({"phase": "15m rwkv tensor-parallel serving, 4 ranks sharing the "
+                   "card (gloo), mesh (data 1, model 4), rwkv6-1.6b SQuant "
+                   f"w8 at full width, {P15M_LAYERS} of 24 layers (int4: "
+                   f"{P15M_SMALL}), float32; 8 of 32 heads a rank, the "
+                   "decay LoRA whole, 16 384 of 65 536 vocabulary rows",
+          "card": card, "backend": "gloo", "ranks": 4,
+          "prompt": list(P15LM_PROMPT), "chunks": [P15_CHUNK] * P15LM_CHUNKS,
+          "decode_steps": P15LM_STEPS,
+          "local_shapes": sorted(f"{m}x{n}" for m, n in
+                                 _recurrent_local_shapes(rwkv, 4)),
+          "quantize_ms_by_rank": [r["quantize_ms"] for r in m_s],
+          "kernel_a_by_rank": [r["kernel_a"] for r in m_s],
+          "kernel_a_w4_by_rank": [r["kernel_a_w4"] for r in m_s],
+          "cases": {n: _serve_cell(c0[n]) for n in c0},
+          "gates": gates, "gate": gate,
+          "peak_gb_by_rank": [r["peak_gb"] for r in m_s],
+          "seconds_by_rank": [r["seconds"] for r in m_s], "note": note})
+
+    # 15n
+    worst_loss = max(abs(a - b) / abs(b) for r in n_s
+                     for a, b in zip(r["losses"], plain_losses))
+    worst_norm = max(abs(a - b) / abs(b) for r in n_s
+                     for a, b in zip(r["grad_norms"], plain_norms))
+    excess = max(r["shards_excess_over_step_tol"] for r in n_s)
+    falls = plain_losses[-1] < plain_losses[0]
+    split = {k: _percentiles([s[k] for s in n_s[0]["split_ms"][1:]])["p50"]
+             for k in n_s[0]["split_ms"][-1]}
+    emit({"phase": "15n rwkv tensor-parallel training, 4 ranks sharing the "
+                   "card (gloo), mesh (data 2, model 2), rwkv6-1.6b at full "
+                   f"width, {P15N_LAYERS} of 24 layers, float32 (jamba's "
+                   "step: CPU tests only)", "card": card,
+          "backend": "gloo", "ranks": 4, "steps": P15N_STEPS,
+          "global_batch": list(P15N_BATCH), "optimizer": P15N_OPT,
+          "losses": n_s[0]["losses"], "one_rank_losses": plain_losses,
+          "grad_norms": n_s[0]["grad_norms"],
+          "one_rank_grad_norms": plain_norms,
+          "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm,
+          "shards_max_excess_over_step_tol": excess, "loss_falls": falls,
+          "local_block_shards": n_s[0]["local_shards"],
+          "step_ms_p50_steps_2_on": _percentiles(n_s[0]["step_ms"][1:])["p50"],
+          "split_ms_p50_rank0": split,
+          "peak_gb_by_rank": [r["peak_gb"] for r in n_s],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in n_s],
+          "run_local_seconds": four_s,
+          "seconds_since_the_ranks_started": time.perf_counter() - t_phase})
+    if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0
+            and falls):
+        raise AssertionError(f"15n: losses {worst_loss}, grad norms "
+                             f"{worst_norm}, shards over STEP_TOL by "
+                             f"{excess}, loss falls {falls}")
+    return {"squant_flip_15l": [r["kernel_a"]["squant_flip"]
+                                + r["kernel_a_w4"]["squant_flip"]
+                                for r in l_s],
+            "squant_scale_15l": [r["kernel_a"]["squant_scale"]
+                                 + r["kernel_a_w4"]["squant_scale"]
+                                 for r in l_s],
+            "squant_flip_15m": [r["kernel_a"]["squant_flip"]
+                                + r["kernel_a_w4"]["squant_flip"]
+                                for r in m_s],
+            "squant_scale_15m": [r["kernel_a"]["squant_scale"]
+                                 + r["kernel_a_w4"]["squant_scale"]
+                                 for r in m_s],
+            "dequant_matmul_15l": [sum(c["kernel_b"] for c in
+                                       r["cases"].values()) for r in l_s],
+            "dequant_matmul_15m": [sum(c["kernel_b"] for c in
+                                       r["cases"].values()) for r in m_s],
+            "plans": {"15l": l_s[0]["plans"], "15m": m_s[0]["plans"]},
+            "jamba_local_shapes": sorted(_recurrent_local_shapes(jamba, 4)),
+            "rwkv_local_shapes": sorted(_recurrent_local_shapes(rwkv, 4))}
+
+
+def _phase15lm_cells(rec):
+    """Phase 2's kernel-B cells of 15l-m (label, M, N, rows), timed with
+    float32 activations (their paths' dtype): each local weight shape of
+    jamba's and rwkv's shards at the decode batch and the prefill's rows."""
+    b, rows = P15LM_PROMPT[0], P15LM_PROMPT[0] * P15LM_PROMPT[1]
+    out = []
+    for label, shapes in (("15l", rec["jamba_local_shapes"]),
+                          ("15m", rec["rwkv_local_shapes"])):
+        for m, n in shapes:
+            out += [(f"{label} local {m}x{n} decode", m, n, b),
+                    (f"{label} local {m}x{n} prefill", m, n, rows)]
+    return out
+
+
 def drive_phase15(dev, seed, layers, card, memory):
-    """Phase 15 (15a, 15b-d, 15e-f, 15g-h, 15i-k), memory gated like a
-    phase's; returns the kernels' launches by part, and 15e's, 15g's, 15i's
-    and 15j's kernel-B launch shapes (``plans``) and local weight shapes
-    for phase 2."""
+    """Phase 15 (15a, 15b-d, 15e-f, 15g-h, 15i-k, 15l-n), memory gated
+    like a phase's; returns the kernels' launches by part, and 15e's,
+    15g's, 15i's, 15j's, 15l's and 15m's kernel-B launch shapes (``plans``)
+    and local weight shapes for phase 2."""
     t0 = time.perf_counter()
     a = phase15a(dev, seed, layers)
     phase_memory("15a", memory)
     bcd = phase15bcd(dev, seed, card)
-    ef, gh, mr = bcd["tp"], bcd["ep"], bcd["mr"]
-    phase_memory("15b-k", memory)
+    ef, gh, mr, rec = bcd["tp"], bcd["ep"], bcd["mr"], bcd["rec"]
+    phase_memory("15b-n", memory)
     emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0})
     return {"squant_flip": {"15a": a["squant_flip"],
                             "15b_by_rank": bcd["squant_flip"],
                             "15e_by_rank": ef["squant_flip"],
                             "15g_by_rank": gh["squant_flip"],
                             "15i_by_rank": mr["squant_flip"],
-                            "15j_by_rank": mr["squant_flip_15j"]},
+                            "15j_by_rank": mr["squant_flip_15j"],
+                            "15l_by_rank": rec["squant_flip_15l"],
+                            "15m_by_rank": rec["squant_flip_15m"]},
             "squant_scale": {"15a": a["squant_scale"],
                              "15b_by_rank": bcd["squant_scale"],
                              "15e_by_rank": ef["squant_scale"],
                              "15g_by_rank": gh["squant_scale"],
                              "15i_by_rank": mr["squant_scale"],
-                             "15j_by_rank": mr["squant_scale_15j"]},
+                             "15j_by_rank": mr["squant_scale_15j"],
+                             "15l_by_rank": rec["squant_scale_15l"],
+                             "15m_by_rank": rec["squant_scale_15m"]},
             "dequant_matmul": {"15a": a["dequant_matmul"],
                                "15e_by_rank": ef["dequant_matmul"],
                                "15g_by_rank": gh["dequant_matmul"],
                                "15i_by_rank": mr["dequant_matmul"],
-                               "15j_by_rank": mr["dequant_matmul_15j"]},
+                               "15j_by_rank": mr["dequant_matmul_15j"],
+                               "15l_by_rank": rec["dequant_matmul_15l"],
+                               "15m_by_rank": rec["dequant_matmul_15m"]},
             "plans": {"15e": ef["plans"], "15g": gh["plans"],
-                      **mr["plans"]},
+                      **mr["plans"], **rec["plans"]},
             "local_shapes": ef["local_shapes"],
             "ep_local_shapes": gh["local_shapes"],
             "ep_capacity_rows": gh["capacity_rows"],
-            "mla_ring": mr}
+            "mla_ring": mr, "recurrent": rec}
 
 
 def main():
@@ -8703,42 +9235,49 @@ def main():
                     help="depth of the w4 main-path run")
     ap.add_argument("--layers7", type=int, default=4,
                     help="depth of the int8-KV continuous run")
-    ap.add_argument("--layers8", type=int, default=12,
+    ap.add_argument("--layers8", type=int, default=6,
                     help="depth of the speculative run (w8 verifier, w4 "
-                    "drafter; 12 of 40 since phase 15 came, to keep the "
-                    "script inside its time limit)")
-    ap.add_argument("--layers9", type=int, default=12,
-                    help="depth of the native checkpoint run (9a; 12 of "
-                    "40 since phase 15 came, to keep the script within "
-                    "900 s; its kernel-B count is then held to phase 6's "
-                    "tree served at the same depth)")
-    ap.add_argument("--layers10", type=int, default=4,
-                    help="depth of the MoE run (10a; 4 of moonshot's 48 "
-                    "layers since phases 15e-f came, 8 since phase 15 "
-                    "came, to keep the script inside its time limit; 16 "
-                    "fit one 80 GB card in float32 before quantization)")
+                    "drafter; 6 of 40 since phases 15l-n came, 12 since "
+                    "phase 15 came, to keep the script inside its time "
+                    "limit)")
+    ap.add_argument("--layers9", type=int, default=6,
+                    help="depth of the native checkpoint run (9a; 6 of 40 "
+                    "since phases 15l-n came, 12 since phase 15 came, to "
+                    "keep the script inside its time limit; its kernel-B "
+                    "count is then held to phase 6's tree served at the "
+                    "same depth)")
+    ap.add_argument("--layers10", type=int, default=2,
+                    help="depth of the MoE run (10a; 2 of moonshot's 48 "
+                    "layers since phases 15l-n came, 4 since phases 15e-f "
+                    "came, 8 since phase 15 came, to keep the script inside "
+                    "its time limit; 16 fit one 80 GB card in float32 "
+                    "before quantization)")
     ap.add_argument("--layers11", type=int, default=8,
                     help="depth of the full-width training run (11a; 8 of "
                     "granite's 40 layers: float32 weights, grads and AdamW "
                     "moments of 40 layers do not fit one card)")
-    ap.add_argument("--layers12", type=int, default=4,
-                    help="depth of the sliding-window + MoE run (12b; 4 of "
-                    "mixtral's 32 layers since phase 15 came, to keep the "
-                    "script inside its time limit; 32 layers of float32 "
-                    "weights are ~180 GB)")
+    ap.add_argument("--layers12", type=int, default=2,
+                    help="depth of the sliding-window + MoE run (12b; 2 of "
+                    "mixtral's 32 layers since phases 15l-n came, 4 since "
+                    "phase 15 came, to keep the script inside its time "
+                    "limit; 32 layers of float32 weights are ~180 GB)")
     ap.add_argument("--layers12a", type=int, default=8,
                     help="depth of the MLA run (12a; 8 of minicpm3's 62 "
                     "layers since phase 15i came, to keep the script inside "
                     "its time limit; 15i serves the same width "
                     "tensor-parallel)")
-    ap.add_argument("--layers13", type=int, default=24,
-                    help="depth of the rwkv run (13a; 24 = the full model)")
+    ap.add_argument("--layers13", type=int, default=4,
+                    help="depth of the rwkv run (13a; 4 of rwkv's 24 layers "
+                    "since phase 15m came, to keep the script inside its "
+                    "time limit: 15m serves the same width tensor-parallel; "
+                    "24 = the full model)")
     ap.add_argument("--layers15", type=int, default=4,
                     help="depth of the one-rank mesh run (15a; 4 of "
                     "granite's 40 layers)")
-    ap.add_argument("--train-steps", type=int, default=600,
+    ap.add_argument("--train-steps", type=int, default=300,
                     help="training steps of the trained models of 11b and "
-                    "11c (ii)")
+                    "11c (ii) (300 since phases 15l-n came, 600 before, to "
+                    "keep the script inside its time limit)")
     ap.add_argument("--capture-sync-probe", action="store_true",
                     help="only print what another thread's stream and "
                     "device synchronization do to a CUDA-graph capture "
@@ -8761,6 +9300,11 @@ def main():
                     "and the sliding-window ring under tensor-parallel "
                     "serving, MLA training, on four gloo ranks sharing the "
                     "card); prints no ok line")
+    ap.add_argument("--recurrent-parallel", action="store_true",
+                    help="only build, then run phases 15l, 15m and 15n "
+                    "(mamba and rwkv under tensor-parallel serving, rwkv "
+                    "training, on four gloo ranks sharing the card); prints "
+                    "no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -8798,6 +9342,9 @@ def main():
         return 1
     if args.mla_ring_parallel:
         phase15ijk(dev, args.seed, card)
+        return 1
+    if args.recurrent_parallel:
+        phase15lmn(dev, args.seed, card)
         return 1
     if args.agreement_variants:
         agreement_variants(dev, args.seed, args.layers, args.layers7)
@@ -8935,7 +9482,8 @@ def main():
                             m, n, l15["ep_capacity_rows"])
                            for m, n in l15.pop("ep_local_shapes")
                            if (m, n) in moe_local_banks],
-                        phase15ij=_phase15ij_cells(l15.pop("mla_ring")))
+                        phase15ij=_phase15ij_cells(l15.pop("mla_ring")),
+                        phase15lm=_phase15lm_cells(l15.pop("recurrent")))
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
@@ -8943,7 +9491,7 @@ def main():
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
             "launch_shapes_compared", "phase12", "phase13", "phase14",
-            "phase15", "phase15ij")},
+            "phase15", "phase15ij", "phase15lm")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (

@@ -380,17 +380,21 @@ def routing_gather(t: torch.Tensor, routing) -> torch.Tensor:
 
 def full_tensor(x):
     """The whole tensor of a DTensor on every rank (a plain tensor is
-    returned as it is). On NCCL this is ``DTensor.full_tensor``; on a gloo
-    group the shards are gathered through the host and put in place here
+    returned as it is). On NCCL, or on the host, this is
+    ``DTensor.full_tensor``; for CUDA shards on a gloo group, and for a
+    strided shard (``sharding.MeshSharding.split``: its layout is read by
+    the port's own ``shard_index``, not left to the torch version's), the
+    shards are gathered (through the host on gloo) and put in place here
     (even shards only: the sharding rules shard a dim only where the mesh
     axes divide it)."""
     from torch.distributed.tensor import DTensor
-    from repro_torch.distributed.sharding import shard_index
+    from repro_torch.distributed.sharding import placement_split, shard_index
     if not isinstance(x, DTensor):
         return x
     mesh = x.device_mesh
     local = x.to_local()
-    if not local.is_cuda or dist.get_backend() != "gloo":
+    if placement_split(x) == 1 and (not local.is_cuda
+                                    or dist.get_backend() != "gloo"):
         return x.full_tensor()
     sizes = tuple(mesh.mesh.shape)
     n = mesh.mesh.numel()

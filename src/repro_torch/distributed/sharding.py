@@ -28,21 +28,23 @@ enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
 every axis of the mesh is usable.
 
 Tensor-parallel execution over 'model' (Megatron-style for the GQA and
-MLA transformer, expert-parallel for MoE): :func:`activate_mesh` installs the
-mesh the forward runs on, and the reference's activation constraints
-become the collectives GSPMD inserts at the same points
-(:func:`shard_act`, :func:`to_model`, :func:`shard_logits`: identities
-without an active mesh or with 'model' 1). Each rank computes on plain
-local tensors: :func:`tp_local` turns a whole fp or quantized tree into
-this rank's shards (an MoE bank cut at expert boundaries, the router
-whole), :func:`tp_place` a whole fp tree into DTensors (what the train
-step and the checkpointer take). Only the 'model' entries of the rules
-apply; a tree sharded over 'data' (FSDP), an expert count 'model' does
-not divide, MLA latent ranks it does not divide, mamba, rwkv, the
-encoder-decoder, speculative verify, the paged KV layout and a 'model'
-axis that does not divide the KV heads or the FFN width raise
-``NotImplementedError`` (:func:`check_tensor_parallel`). MLA and the
-sliding-window ring run there (``models.attention``).
+MLA transformer and the mamba and rwkv mixers, expert-parallel for MoE):
+:func:`activate_mesh` installs the mesh the forward runs on, and the
+reference's activation constraints become the collectives GSPMD inserts
+at the same points (:func:`shard_act`, :func:`to_model`,
+:func:`shard_logits`: identities without an active mesh or with 'model'
+1). Each rank computes on plain local tensors: :func:`tp_local` turns a
+whole fp or quantized tree into this rank's shards (an MoE bank cut at
+expert boundaries, the router whole), :func:`tp_place` a whole fp tree
+into DTensors (what the train step and the checkpointer take). Only the
+'model' entries of the rules apply, with two exceptions of mamba's
+(``models.mamba``): ``x_proj`` is row-parallel over ``d_inner``, and
+``in_proj``'s x and z halves are each cut on 'model' (a strided shard,
+``MeshSharding.split``). A tree sharded over 'data' (FSDP), an expert
+count 'model' does not divide, MLA latent ranks or a mamba ``d_inner`` it
+does not divide, the encoder-decoder, speculative verify, the paged KV
+layout and a 'model' axis that does not divide the heads or the FFN
+width raise ``NotImplementedError`` (:func:`check_tensor_parallel`).
 
 MoE routing under data parallelism: the reference routes the global batch
 (GSPMD), so a data-parallel step installs a :class:`RoutingGroup` of the
@@ -145,12 +147,35 @@ def logical_to_mesh(logical: Sequence[Optional[str]], shape: Sequence[int],
     return tuple(out)
 
 
-def to_placements(spec: Spec, mesh) -> Tuple:
+def _is_strided(p) -> bool:
+    """Whether a placement is a strided shard (``_StridedShard``, which
+    some torch versions derive from ``Shard`` and others do not)."""
+    return type(p).__name__ == "_StridedShard"
+
+
+def _split_of(p) -> int:
+    """A placement's split factor: that of a strided shard, else 1."""
+    return int(p.split_factor) if _is_strided(p) else 1
+
+
+def _shard_dim(p) -> Optional[int]:
+    """The tensor dim a placement splits (a ``Shard`` or a strided
+    shard), or None."""
+    from torch.distributed.tensor import Shard
+    return p.dim if _is_strided(p) or isinstance(p, Shard) else None
+
+
+def to_placements(spec: Spec, mesh, split: int = 1) -> Tuple:
     """DTensor placements on ``mesh`` for ``spec``: ``Shard(d)`` on every
-    mesh dim that splits tensor dim ``d``, ``Replicate()`` on the others.
-    DTensor splits in mesh-dim order, which is the spec's major-to-minor
-    order only while a tuple entry lists its axes in mesh order: asserted."""
+    mesh dim that splits tensor dim ``d`` (with ``split`` above 1, a
+    strided shard: the dim is ``split`` equal blocks and each rank holds
+    its shard of every block, in block order), ``Replicate()`` on the
+    others. DTensor splits in mesh-dim order, which is the spec's
+    major-to-minor order only while a tuple entry lists its axes in mesh
+    order: asserted."""
     from torch.distributed.tensor import Replicate, Shard
+    if split > 1:
+        from torch.distributed.tensor.placement_types import _StridedShard
     names = list(mesh.mesh_dim_names)
     out = [Replicate() for _ in names]
     for d, entry in enumerate(spec):
@@ -162,36 +187,61 @@ def to_placements(spec: Spec, mesh) -> Tuple:
             raise ValueError(f"spec entry {entry} lists mesh axes out of "
                              f"mesh order {tuple(names)}")
         for p in pos:
-            out[p] = Shard(d)
+            out[p] = Shard(d) if split == 1 else \
+                _StridedShard(d, split_factor=split)
     return tuple(out)
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSharding:
-    """A spec on a mesh (the reference's ``NamedSharding``)."""
+    """A spec on a mesh (the reference's ``NamedSharding``); ``split``
+    above 1 makes its shards strided (:func:`to_placements`)."""
     mesh: Any
     spec: Spec
+    split: int = 1
 
     @property
     def placements(self) -> Tuple:
-        return to_placements(self.spec, self.mesh)
+        return to_placements(self.spec, self.mesh, self.split)
 
 
-def shard_index(shape, placements, mesh_sizes, coord) -> Tuple[slice, ...]:
-    """The slices of a tensor of ``shape`` that the rank at mesh coordinate
-    ``coord`` holds under DTensor ``placements`` (even shards: the rules
-    shard a dim only where the mesh axes divide it). Mesh dims sharding one
-    tensor dim split it in mesh-dim order, major to minor."""
-    from torch.distributed.tensor import Shard
+def shard_index(shape, placements, mesh_sizes, coord) -> Tuple:
+    """The index of the part of a tensor of ``shape`` that the rank at mesh
+    coordinate ``coord`` holds under DTensor ``placements`` (even shards:
+    the rules shard a dim only where the mesh axes divide it): a slice a
+    dim, or for a strided shard of split ``s`` the positions of its shard
+    of each of the dim's ``s`` blocks (a CPU ``LongTensor``). Mesh dims
+    sharding one tensor dim split it in mesh-dim order, major to minor."""
     idx = []
     for d in range(len(shape)):
-        k, n = 0, 1
+        k, n, split = 0, 1, 1
         for md, p in enumerate(placements):
-            if isinstance(p, Shard) and p.dim == d:
+            if _shard_dim(p) == d:
                 k, n = k * mesh_sizes[md] + coord[md], n * mesh_sizes[md]
-        step = shape[d] // n
-        idx.append(slice(k * step, (k + 1) * step))
+                split = max(split, _split_of(p))
+        block = shape[d] // split
+        step = block // n
+        if split == 1:
+            idx.append(slice(k * step, (k + 1) * step))
+        else:
+            idx.append(torch.cat([torch.arange(j * block + k * step,
+                                               j * block + (k + 1) * step)
+                                  for j in range(split)]))
     return tuple(idx)
+
+
+def unstride(t: torch.Tensor, dim: int, n: int, split: int
+             ) -> torch.Tensor:
+    """The whole tensor from ``n`` ranks' strided shards of split
+    ``split`` concatenated along ``dim`` in rank order (each shard its
+    part of every block, in block order)."""
+    if split == 1:
+        return t
+    dim = dim % t.ndim
+    shape = tuple(t.shape)
+    v = t.reshape(shape[:dim] + (n, split, shape[dim] // (n * split))
+                  + shape[dim + 1:])
+    return v.transpose(dim, dim + 1).reshape(shape)
 
 
 def place(t: torch.Tensor, sharding: MeshSharding, device=None):
@@ -511,6 +561,30 @@ def to_model(x: torch.Tensor) -> torch.Tensor:
     return copy_to_model(x, g)
 
 
+def model_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x``, this rank's partial sum of a quantity every 'model' rank
+    uses whole (mamba's ``x_proj`` product over its ``d_inner`` channels,
+    rwkv's ``ln_x`` sum of squares over its heads' channels), summed over
+    'model' forward and backward (:func:`to_model`, then
+    :func:`shard_act`): each rank uses the sum on its own channels, so
+    each rank's gradient of it is partial. Identity without a 'model'
+    axis above 1."""
+    return shard_act(to_model(x))
+
+
+def local_slice(t: torch.Tensor, width: int, dim: int = 0) -> torch.Tensor:
+    """A replicated leaf that this rank uses in part (mamba's ``conv_b``,
+    ``dt_bias``, ``a_log`` and ``d_skip`` on its ``d_inner`` channels,
+    rwkv's ``u`` and ``ln_x`` gain on its heads): through :func:`to_model`
+    (its gradient summed over 'model', so whole on every rank), then this
+    rank's ``width`` entries along ``dim``, ``[k·width, (k+1)·width)`` at
+    'model' coordinate ``k``. ``t`` as it is where it holds ``width``."""
+    tp, k, _ = model_axis()
+    if tp == 1 or t.shape[dim] == width:
+        return t
+    return to_model(t).narrow(dim, k * width, width)
+
+
 def gather_cols(x: torch.Tensor, width: int) -> torch.Tensor:
     """A column-parallel product's output, whole on every rank: this
     rank's ``(..., width / tp)`` columns all-gathered over 'model'
@@ -594,16 +668,20 @@ def check_tensor_parallel(cfg, mesh) -> None:
     the pipeline's collapsed ``(E·out, in)`` bank inside an expert), MLA
     latent ranks (``q_lora``, ``kv_lora + rope_dim``) it does not divide
     (the rules leave ``q_down`` / ``kv_down`` whole there, and a whole
-    product's gradient would be summed over 'model' once per rank), mamba
-    or rwkv blocks, the encoder-decoder, or a 'model' axis that does not
-    divide the KV heads (the reference's rule splits inside a head there)
-    or the FFN width."""
+    product's gradient would be summed over 'model' once per rank), a
+    mamba ``d_inner`` it does not divide (the same, for ``in_proj``,
+    ``conv_w``, ``x_proj``, ``dt_proj`` and ``out_proj``), the
+    encoder-decoder, or a 'model' axis that does not divide the heads
+    (rwkv's, or the q and KV heads: the reference's rule splits inside a
+    head there) or the FFN width."""
     tp = mesh_axis_sizes(mesh).get("model", 1)
     if tp == 1:
         return
     plan = cfg.block_pattern or ()
     n_experts = cfg.moe.n_experts if cfg.moe is not None else 0
     m = cfg.mla
+    d_inner = cfg.mamba.expand * cfg.d_model if "m" in plan else 0
+    rwkv_heads = cfg.d_model // cfg.rwkv_head_dim if cfg.rwkv else 0
     cases = (
         (n_experts % tp != 0, f"{n_experts} experts on a 'model' axis of "
                               f"{tp} (the reference's 'expert_ff' "
@@ -612,10 +690,12 @@ def check_tensor_parallel(cfg, mesh) -> None:
          f"MLA latent ranks on a 'model' axis of {tp} (q_lora "
          f"{m and m.q_lora}, kv_lora + rope_dim "
          f"{m and m.kv_lora + m.rope_dim})"),
-        ("m" in plan, "mamba ('d_inner')"),
-        (cfg.rwkv, "rwkv"),
+        (d_inner % tp != 0, f"mamba's d_inner {d_inner} on a 'model' axis "
+                            f"of {tp}"),
         (cfg.is_encdec, "the encoder-decoder"),
-        (cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp != 0,
+        (rwkv_heads % tp != 0, f"rwkv's {rwkv_heads} heads on a 'model' "
+                               f"axis of {tp}"),
+        (not cfg.rwkv and (cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp),
          f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads on a 'model' axis of "
          f"{tp} (the reference's rule splits inside a head there)"),
         (cfg.d_ff % tp != 0, f"d_ff {cfg.d_ff} on a 'model' axis of {tp}"),
@@ -633,6 +713,14 @@ def _tp_spec(spec: Spec) -> Spec:
     return tuple(one(e) for e in spec)
 
 
+# where the port's tensor-parallel layout leaves the reference's rules
+# (models.mamba): x_proj is row-parallel over d_inner (the rules cut its
+# outputs), and in_proj's two halves, x and z, are each cut on 'model'
+# (the rules cut its output contiguously: rank 0 would hold x, rank 1 z)
+_TP_ROW_PARALLEL = {"x_proj"}
+_TP_PAIRED = {"in_proj"}
+
+
 def make_tp_shardings(mesh, tree: Any) -> Any:
     """``MeshSharding`` tree of a params tree's tensor-parallel layout:
     the 'model' entries of :func:`make_param_shardings` (the 'data' FSDP
@@ -641,18 +729,25 @@ def make_tp_shardings(mesh, tree: Any) -> Any:
     stays whole (every rank routes every token; the rules would put its
     input dim on 'model'); an expert bank is cut on its expert dim, which
     the pipeline's ``(E·out, in)`` codes and their scale rows carry
-    major, so a 'model' axis dividing E cuts them at expert boundaries."""
+    major, so a 'model' axis dividing E cuts them at expert boundaries.
+    mamba's ``x_proj`` takes the row-parallel rule, and ``in_proj``'s
+    output dim (its codes' and scales' rows) a strided shard of split 2:
+    each rank the same columns of x and of z."""
     from repro_torch.quant.qtypes import QuantizedTensor
 
     def one(path, leaf):
         if "router" in path:
             return MeshSharding(mesh, (None,) * len(leaf.shape))
+        node = path[-2] if len(path) >= 2 else ""
+        if node in _TP_ROW_PARALLEL:
+            path = path[:-2] + ("out_proj", path[-1])
+        split = 2 if node in _TP_PAIRED else 1
         if isinstance(leaf, QuantizedTensor):
-            return tuple(MeshSharding(mesh, _tp_spec(s.spec)) for s in
+            return tuple(MeshSharding(mesh, _tp_spec(s.spec), split) for s in
                          quantized_tensor_shardings(mesh, path, leaf))
         spec = logical_to_mesh(param_sharding_rules(path, leaf), leaf.shape,
                                mesh, _PARAM_RULES)
-        return MeshSharding(mesh, _tp_spec(spec))
+        return MeshSharding(mesh, _tp_spec(spec), split)
     return _map_with_path(one, tree)
 
 
@@ -727,13 +822,26 @@ def _get_path(tree: Any, path: Tuple[str, ...]) -> Any:
 
 def placement_spec(t) -> Spec:
     """The spec of a DTensor's placements (mesh axes in mesh order)."""
-    from torch.distributed.tensor import Shard
     spec = [[] for _ in range(t.ndim)]
     for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
-        if isinstance(p, Shard):
+        if _shard_dim(p) is not None:
             spec[p.dim].append(name)
     return tuple(None if not a else a[0] if len(a) == 1 else tuple(a)
                  for a in spec)
+
+
+def placement_split(t) -> int:
+    """The split factor of a DTensor's strided shard (1: none)."""
+    return max((_split_of(p) for p in t.placements), default=1)
+
+
+def model_shard(t) -> Optional[Tuple[int, int]]:
+    """``(dim, split)`` of the shard a DTensor's 'model' axis cuts (None:
+    the leaf is whole on every 'model' rank)."""
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if name == "model" and _shard_dim(p) is not None:
+            return p.dim, _split_of(p)
+    return None
 
 
 def shardings_of(tree: Any) -> Any:
@@ -741,5 +849,6 @@ def shardings_of(tree: Any) -> Any:
     leaves): what restores a checkpoint onto the same layout."""
     from torch.distributed.tensor import DTensor
     return _map_with_path(
-        lambda _, t: MeshSharding(t.device_mesh, placement_spec(t))
+        lambda _, t: MeshSharding(t.device_mesh, placement_spec(t),
+                                  placement_split(t))
         if isinstance(t, DTensor) else None, tree)

@@ -12,6 +12,23 @@ Shapes follow mamba-1: d_inner = expand·d_model, depthwise causal conv
 The mixer is torch ops (the reference's is jnp ops, not Pallas); its four
 projections go through ``linear``, so a quantized tree runs them on the
 dequant-matmul kernel.
+
+Tensor-parallel over 'model' (``distributed.sharding``), each rank runs
+its ``d_inner / tp`` channels: ``in_proj`` holds this rank's columns of x
+and the same columns of z (a strided cut of its output, so no collective
+runs between ``in_proj`` and the conv), ``conv_w`` and ``dt_proj`` are
+cut on ``d_inner`` as the reference's rules cut them, and ``out_proj`` is
+row-parallel (the block sums its partial output). ``x_proj`` is
+row-parallel over ``d_inner``, its ``(B, S, dt_rank + 2·d_state)``
+partial sums summed over 'model' forward and backward
+(``sharding.model_sum``: each rank uses dt, B and C on its own channels).
+The reference's rules cut ``x_proj``'s
+outputs instead, which would need ``xc`` gathered whole (``d_inner``
+values a token) before it and ``dt``, B and C gathered after: a layout
+that differs, not different numbers. The replicated ``conv_b``,
+``dt_bias``, ``a_log`` and ``d_skip`` enter through ``to_model`` and are
+sliced to the local channels (``sharding.local_slice``); the state holds
+the local channels (the reference's cache rule, 'd_inner' on 'model').
 """
 from __future__ import annotations
 
@@ -21,6 +38,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import local_slice, model_sum
 from repro_torch.models.layers import _init_dense, linear
 
 
@@ -50,8 +68,10 @@ def init_mamba(generator, d_model: int, d_state: int = 16, d_conv: int = 4,
 
 
 def _ssm_inputs(params, xc: torch.Tensor, dt_rank: int, d_state: int):
-    """xc: (..., d_inner) post-conv. Returns (a, bx, c) per position."""
-    dbc = linear(params["x_proj"], xc)
+    """xc: (..., d_inner) post-conv. Returns (a, bx, c) per position.
+    Under 'model' ``xc`` holds this rank's channels and ``x_proj``'s
+    partial sums are summed (see the module docstring)."""
+    dbc = model_sum(linear(params["x_proj"], xc))
     dt = dbc[..., :dt_rank]
     b = dbc[..., dt_rank:dt_rank + d_state]
     c = dbc[..., dt_rank + d_state:]
@@ -123,7 +143,9 @@ def mamba(params, x: torch.Tensor, *, d_state: int = 16,
     stack passes it from the config.
     """
     b, s, d = x.shape
-    d_inner = params["dt_bias"].shape[0]
+    d_inner = params["conv_w"].shape[1]          # this rank's channels
+    params = dict(params, **{k: local_slice(params[k], d_inner) for k in
+                             ("conv_b", "dt_bias", "a_log", "d_skip")})
     if dt_rank is None:
         dt_rank = params["dt_proj"]["w"].shape[0]
     xz = linear(params["in_proj"], x)
@@ -187,8 +209,11 @@ def mamba(params, x: torch.Tensor, *, d_state: int = 16,
 
 
 def init_mamba_state(batch: int, d_model: int, d_state: int = 16,
-                     d_conv: int = 4, expand: int = 2, device=None) -> Dict:
-    d_inner = expand * d_model
+                     d_conv: int = 4, expand: int = 2, device=None,
+                     d_inner: Optional[int] = None) -> Dict:
+    """The zero state of ``d_inner`` channels (default ``expand·d_model``;
+    under 'model' this rank's)."""
+    d_inner = d_inner or expand * d_model
     f32 = dict(dtype=torch.float32, device=device)
     return {"h": torch.zeros((batch, d_inner, d_state), **f32),
             "conv": torch.zeros((batch, d_conv - 1, d_inner), **f32)}

@@ -17,6 +17,22 @@ Recurrence per head (state S: (D_k, D_v)):
 Neither form is a hand-written kernel: they are torch ops (the reference's
 are jnp ops, not Pallas). The projections go through ``linear``, so a
 quantized tree runs them on the dequant-matmul kernel.
+
+Tensor-parallel over 'model' (``distributed.sharding``), as the
+reference's rules cut the tree: the time mix runs this rank's heads
+(``wr`` / ``wk`` / ``wv`` / ``wg`` column-parallel, the head count read
+off ``wr``'s local width, ``wo`` row-parallel: the block sums its partial
+output) on a wkv state of its heads. The decay LoRA is replicated, so
+``w_raw`` is whole on every rank and each takes its channels; ``u``,
+``w0``, the lerp factors and the LoRA's kernels enter through ``to_model``
+(each rank uses them in part, so their gradients are summed over 'model'
+once). ``ln_x`` normalizes a whole ``d_model`` row that the heads cut: the
+row's sum of squares is summed over 'model' forward and backward
+(``sharding.model_sum``), a ``(B, S, 1)`` collective. The channel mix's
+``wk`` is column-parallel and ``wv`` row-parallel, summed here; ``wr``,
+column-parallel by the rules, is gathered whole (``gather_cols``) before
+its sigmoid multiplies the sum, so the channel mix returns its output
+whole. The token-shift rows stay whole.
 """
 from __future__ import annotations
 
@@ -25,7 +41,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import (gather_cols, local_slice,
+                                              model_axis, model_sum,
+                                              shard_act, to_model)
 from repro_torch.models.layers import _init_dense, init_norm, linear, rms_norm
+from repro_torch.quant.qtypes import QuantizedTensor
 
 LOG_W_MIN = -2.0   # per-step log-decay clamp (see module docstring)
 
@@ -63,15 +83,44 @@ def _token_shift(x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     return torch.cat([x_prev[:, None], x[:, :-1]], dim=1)
 
 
+def _used_in_part(node):
+    """A replicated leaf (or dense kernel's node) that each 'model' rank
+    uses in part, through ``to_model``; a quantized kernel (no gradient)
+    as it is."""
+    if isinstance(node, torch.Tensor):
+        return to_model(node)
+    w = node.get("w")
+    if isinstance(w, torch.Tensor) and not isinstance(w, QuantizedTensor):
+        return dict(node, w=to_model(w))
+    return node
+
+
 def _mix_streams(p, x: torch.Tensor, xx: torch.Tensor) -> Dict:
     """RWKV6-style data-dependent lerp for the five streams."""
     dx = xx - x
-    outs = {s: x + dx * p["mu"][s].to(x.dtype) for s in ("r", "k", "v", "g")}
-    outs["w"] = x + dx * p["mu"]["d"].to(x.dtype)
+    mu = {s: _used_in_part(v).to(x.dtype) for s, v in p["mu"].items()}
+    outs = {s: x + dx * mu[s] for s in ("r", "k", "v", "g")}
+    outs["w"] = x + dx * mu["d"]
     # decay gets the extra data-dependent LoRA term (the "Finch" novelty)
-    lora = torch.tanh(linear(p["w_lora_a"], outs["w"]))
-    outs["w_raw"] = p["w0"].to(x.dtype) + linear(p["w_lora_b"], lora)
+    lora = torch.tanh(linear(_used_in_part(p["w_lora_a"]), outs["w"]))
+    outs["w_raw"] = _used_in_part(p["w0"]).to(x.dtype) + \
+        linear(_used_in_part(p["w_lora_b"]), lora)
     return outs
+
+
+def _ln_x(p, o: torch.Tensor, width: int, eps: float = 1e-6
+          ) -> torch.Tensor:
+    """``ln_x``: a plain RMSNorm over the ``width`` channels of ``o``'s
+    rows; under 'model' ``o`` holds this rank's channels, and the rows'
+    sum of squares is summed over the ranks (``rms_norm``'s arithmetic
+    otherwise)."""
+    if o.shape[-1] == width:
+        return rms_norm(p, o, eps)
+    dt = o.dtype
+    of = o.to(torch.float32)
+    var = model_sum((of * of).sum(dim=-1, keepdim=True)) / width
+    g = local_slice(p["gain"], o.shape[-1]).to(torch.float32)
+    return (of * torch.rsqrt(var + eps) * g).to(dt)
 
 
 def _heads(x: torch.Tensor, head_dim: int) -> torch.Tensor:
@@ -125,7 +174,6 @@ def rwkv_timemix(p, x: torch.Tensor, *, head_dim: int = 64,
                  state: Optional[Dict] = None, mode: str = "train",
                  chunk: int = 32) -> Tuple[torch.Tensor, Optional[Dict]]:
     b, s, d = x.shape
-    h = d // head_dim
     # train/prefill start a sequence: the entry state is zeros by definition
     # (prefill must not read a cache's stale state). "chunk" is the prefill
     # continuation: it folds the carried token-shift row and wkv state
@@ -136,14 +184,20 @@ def rwkv_timemix(p, x: torch.Tensor, *, head_dim: int = 64,
         else state["x_tm"].to(x.dtype)
     xx = _token_shift(x, x_prev)
     mix = _mix_streams(p, x, xx)
-    r = _heads(linear(p["wr"], mix["r"]), head_dim)
+    r = linear(p["wr"], mix["r"])
+    dl = r.shape[-1]                         # this rank's heads' channels
+    h = dl // head_dim
+    r = _heads(r, head_dim)
     k = _heads(linear(p["wk"], mix["k"]), head_dim)
     v = _heads(linear(p["wv"], mix["v"]), head_dim)
     g = F.silu(linear(p["wg"], mix["g"]))
-    logw = torch.clamp(-torch.exp(mix["w_raw"].to(torch.float32)),
-                       LOG_W_MIN, -1e-4)
+    # w_raw is whole on every rank (the LoRA is replicated): this rank's
+    # channels, the LoRA's leaves carrying the gradient (_used_in_part)
+    k0 = model_axis()[1] * dl
+    logw = torch.clamp(-torch.exp(mix["w_raw"][..., k0:k0 + dl].to(
+        torch.float32)), LOG_W_MIN, -1e-4)
     logw = _heads(logw, head_dim)
-    u = p["u"].to(torch.float32)
+    u = local_slice(p["u"], h).to(torch.float32)
 
     s0 = torch.zeros((b, h, head_dim, head_dim), dtype=torch.float32,
                      device=x.device) if seq_start else state["wkv"]
@@ -152,9 +206,9 @@ def rwkv_timemix(p, x: torch.Tensor, *, head_dim: int = 64,
         o, s_fin = wkv_scan(rf, kf, vf, logw, u, s0)
     else:
         o, s_fin = wkv_chunked(rf, kf, vf, logw, u, s0, chunk)
-    o = o.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+    o = o.transpose(1, 2).reshape(b, s, dl).to(x.dtype)
     # ln_x is a plain RMSNorm whatever the stack's norm_plus_one says
-    o = rms_norm(p["ln_x"], o) * g
+    o = _ln_x(p["ln_x"], o, d) * g
     out = linear(p["wo"], o)
     new_state = None
     if mode in ("prefill", "decode", "chunk"):
@@ -181,10 +235,12 @@ def rwkv_channelmix(p, x: torch.Tensor, *, state: Optional[Dict] = None,
         else state["x_cm"].to(x.dtype)
     xx = _token_shift(x, x_prev)
     dx = xx - x
-    xk = x + dx * p["mu"]["k"].to(x.dtype)
-    xr = x + dx * p["mu"]["r"].to(x.dtype)
+    xk = x + dx * _used_in_part(p["mu"]["k"]).to(x.dtype)
+    xr = x + dx * _used_in_part(p["mu"]["r"]).to(x.dtype)
     kk = torch.square(F.relu(linear(p["wk"], xk)))
-    out = torch.sigmoid(linear(p["wr"], xr)) * linear(p["wv"], kk)
+    # under 'model': wv's partial sums summed, wr's columns gathered whole
+    out = torch.sigmoid(gather_cols(linear(p["wr"], xr), x.shape[-1])) * \
+        shard_act(linear(p["wv"], kk))
     new_state = {"x_cm": x[:, -1]} \
         if mode in ("prefill", "decode", "chunk") else None
     return out, new_state

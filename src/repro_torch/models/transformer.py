@@ -17,13 +17,14 @@ says so, a mixture of experts (``models.moe``). A mamba or rwkv layer's
 cache is its recurrent state (``models.mamba``, ``models.rwkv``).
 
 Tensor-parallel (under ``distributed.sharding.activate_mesh`` with a
-'model' axis above 1, attention blocks: GQA, sliding-window and MLA): the
-normed input of the attention and of the FFN enters the column-parallel
-products through ``to_model``, and each block's row-parallel partial sum
-``h`` is summed over 'model' before the residual add (``shard_act``;
-summing after the add would count ``x`` once per rank). An MoE FFN is
-expert-parallel there: its partial output (this rank's experts) is summed
-the same way.
+'model' axis above 1; every block kind): the normed input of the mixer
+(attention, mamba, rwkv's time and channel mix) and of the FFN enters the
+column-parallel products through ``to_model``, and each block's
+row-parallel partial sum ``h`` is summed over 'model' before the residual
+add (``shard_act``; summing after the add would count ``x`` once per
+rank). rwkv's channel mix sums its own (its ``wr`` gate multiplies the
+sum) and returns its output whole. An MoE FFN is expert-parallel there:
+its partial output (this rank's experts) is summed the same way.
 
 An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
 cross-attention over the encoder output (``xln``, ``xattn``: x +=
@@ -122,13 +123,13 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
     po = cfg.norm_plus_one
     if kind == "rwkv":
         h, st_tm = rwkv_lib.rwkv_timemix(
-            p["tm"], rms_norm(p["ln1"], x, plus_one=po),
+            p["tm"], to_model(rms_norm(p["ln1"], x, plus_one=po)),
             head_dim=cfg.rwkv_head_dim, chunk=cfg.rwkv_chunk, state=cache,
             mode=mode)
-        x = x + h
+        x = x + shard_act(h)
         h, st_cm = rwkv_lib.rwkv_channelmix(
-            p["cm"], rms_norm(p["ln2"], x, plus_one=po), state=cache,
-            mode=mode)
+            p["cm"], to_model(rms_norm(p["ln2"], x, plus_one=po)),
+            state=cache, mode=mode)
         x = x + h
         new_cache = None
         if st_tm is not None:
@@ -149,13 +150,13 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
         h, new_cache = attn_lib.attention(
             p["attn"], to_model(norm(p["ln1"], x)), cfg=cfg, rope=rope,
             mode=mode, cache=cache, pos=pos, block_tables=block_tables)
-        h = shard_act(h)
     else:  # mamba
         h, new_cache = mamba_lib.mamba(
-            p["mixer"], norm(p["ln1"], x), d_state=cfg.mamba.d_state,
-            state=cache, mode=mode, chunk=cfg.mamba_chunk,
+            p["mixer"], to_model(norm(p["ln1"], x)),
+            d_state=cfg.mamba.d_state, state=cache, mode=mode,
+            chunk=cfg.mamba_chunk,
             dt_rank=cfg.mamba.dt_rank or max(1, cfg.d_model // 16))
-    x = x + h
+    x = x + shard_act(h)
     if "xattn" in p:
         x = x + attn_lib.cross_attention(
             p["xattn"], rms_norm(p["xln"], x, plus_one=po), enc_out, cfg=cfg)
@@ -252,23 +253,27 @@ def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
     ``conv`` tail), an MLA stack's compressed cache (taken before
     ``quantize_kv`` is read, as in the reference: an MLA cache stays in the
     model dtype whatever ``quantize_kv`` says), else K/V, a ring of
-    ``min(max_len, window)`` slots under a sliding window."""
+    ``min(max_len, window)`` slots under a sliding window. Under a
+    'model' axis the heads and channels are this rank's: the KV heads,
+    rwkv's wkv heads and mamba's ``d_inner`` (the token-shift rows and an
+    MLA cache stay whole)."""
+    tp = model_axis()[0]
     if kind == "rwkv":
         d, hd = cfg.d_model, cfg.rwkv_head_dim
         return {"x_tm": torch.zeros((batch, d), dtype=dtype, device=device),
                 "x_cm": torch.zeros((batch, d), dtype=dtype, device=device),
-                "wkv": torch.zeros((batch, d // hd, hd, hd),
+                "wkv": torch.zeros((batch, d // hd // tp, hd, hd),
                                    dtype=torch.float32, device=device)}
     if kind == "m":
         m = cfg.mamba
-        return mamba_lib.init_mamba_state(batch, cfg.d_model, m.d_state,
-                                          m.d_conv, m.expand, device=device)
+        return mamba_lib.init_mamba_state(
+            batch, cfg.d_model, m.d_state, m.d_conv, m.expand,
+            device=device, d_inner=m.expand * cfg.d_model // tp)
     if cfg.mla is not None:
         # whole on every rank under 'model' (see models.attention)
         return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
                                        device=device)
-    return attn_lib.init_kv_cache(batch, max_len,
-                                  cfg.n_kv_heads // model_axis()[0],
+    return attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads // tp,
                                   cfg.head_dim, dtype, quantize_kv,
                                   cfg.window, device=device)
 

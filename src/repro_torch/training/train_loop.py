@@ -280,7 +280,8 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     from repro_torch.distributed.sharding import (RoutingGroup,
                                                   activate_mesh,
                                                   activate_routing,
-                                                  shard_index, tp_not_ported)
+                                                  model_shard, shard_index,
+                                                  tp_not_ported, unstride)
     n_pods, n_data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
     if tp > 1 and not isinstance(mesh, DeviceMesh):
         raise ValueError("a tensor-parallel step runs on a DeviceMesh of "
@@ -333,12 +334,9 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
             x, mesh, t.placements, run_check=False, shape=t.shape,
             stride=t.stride()) if isinstance(t, DTensor) else x, local, like)
 
-    def shard_dim(t) -> Optional[int]:
-        """The dim a DTensor's 'model' shard splits (None: whole)."""
-        for p in getattr(t, "placements", ()):
-            if isinstance(p, Shard):
-                return p.dim
-        return None
+    def shard_of(t) -> Optional[Tuple[int, int]]:
+        """``(dim, split)`` of a DTensor's 'model' shard (None: whole)."""
+        return model_shard(t) if isinstance(t, DTensor) else None
 
     def grads_of(local, batch, timer):
         with activate_mesh(mesh), activate_routing(routing):
@@ -356,7 +354,7 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         sq = torch.zeros(2, dtype=torch.float32,
                          device=tree_leaves(grads)[0].device)
         for g, t in zip(tree_leaves(grads), tree_leaves(like)):
-            sq[1 if shard_dim(t) is None else 0] += torch.sum(
+            sq[1 if shard_of(t) is None else 0] += torch.sum(
                 torch.square(g.to(torch.float32)))
         part_sq = sq[:1].clone()
         dgroup.all_reduce(part_sq, model_group)
@@ -411,10 +409,13 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
 
     def logical(grads, like):
         """Each leaf's gradient whole: gathered over 'model' along the dim
-        its shard splits."""
+        its shard splits (a strided shard's blocks put back in order)."""
         def one(g, t):
-            d = shard_dim(t)
-            return g if d is None else dgroup.gather_dim(g, d, model_group)
+            sh = shard_of(t)
+            if sh is None:
+                return g
+            return unstride(dgroup.gather_dim(g, sh[0], model_group),
+                            sh[0], tp, sh[1])
         return tree_map(one, grads, like)
 
     def pod_step(params, opt_state, err, batch):

@@ -142,8 +142,9 @@ _OUT_OF_SCOPE = {
     # fallback, M7c.1b); a dividing axis is expert-parallel
     "moe": ("moonshot-v1-16b-a3b", dict(moe=MoEConfig(6, 2)), (1, 4),
             "6 experts on a 'model' axis of 4"),
-    "mamba": ("jamba-1.5-large-398b", dict(moe=None), (1, 2), "mamba"),
-    "rwkv": ("rwkv6-1.6b", {}, (1, 2), "rwkv"),
+    # a mamba d_inner 'model' does not divide (2 x 65 on 4)
+    "d_inner": ("jamba-1.5-large-398b", dict(moe=None, d_model=65), (1, 4),
+                "mamba's d_inner 130 on a 'model' axis of 4"),
     "encdec": ("seamless-m4t-medium", {}, (1, 2), "the encoder-decoder"),
     "kv_heads": ("granite-3-8b", None, (16, 16), "32 q / 8 KV heads on a "
                  "'model' axis of 16"),
