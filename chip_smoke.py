@@ -673,7 +673,7 @@ def _b_case(dev, gen, m, n, bits, per_group, copies=1):
 def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                    experts=None, plans=None, phase12=None, phase13=None,
                    phase14=None, phase15=None, phase15ij=None,
-                   phase15lm=None):
+                   phase15lm=None, phase15o=None):
     """Kernel B against its plain version at the main paths' shapes, a
     ragged N and a ragged M, every variant and dtype (also at the prefill
     instances' 17, 43 and 64 rows: a chunk tail, a ragged chunk, a whole
@@ -703,8 +703,9 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     N, rows) cells timed with float32 activations
     (:func:`kernel_b_phase14_times`); ``phase15`` (label, M, N, rows): 15e's
     local weight shapes, timed so in float32 and in bfloat16;
-    ``phase15ij`` and ``phase15lm`` (label, M, N, rows): 15i-j's and
-    15l-m's local shapes, timed so in float32 (their paths' dtype)."""
+    ``phase15ij``, ``phase15lm`` and ``phase15o`` (label, M, N, rows):
+    15i-j's, 15l-m's and 15o's local shapes, timed so in float32 (their
+    paths' dtype)."""
     from repro_torch.kernels import dequant_matmul as dm
     from repro_torch.kernels import ops
 
@@ -836,6 +837,8 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
     # 15l-m's cells without the older variant beside them (time)
     phase15lm_timed = None if phase15lm is None else \
         kernel_b_phase14_times(dev, gen, phase15lm, old=False)["cells"]
+    phase15o_timed = None if phase15o is None else \
+        kernel_b_phase14_times(dev, gen, phase15o, old=False)["cells"]
     # comparisons and timings are not the path's launches
     ops.set_launch_counts(launches_before)
     entry = dict(KERNEL_B, variants=list(dm.VARIANTS),
@@ -869,6 +872,7 @@ def check_kernel_b(dev, gen, decode_batches, prefill_rows, draft_rows=(),
                  phase12=phase12_timed, phase13=phase13_timed,
                  phase14=phase14_timed, phase15=phase15_timed,
                  phase15ij=phase15ij_timed, phase15lm=phase15lm_timed,
+                 phase15o=phase15o_timed,
                  shapes=shapes, **tot)
     return entry
 
@@ -1795,9 +1799,9 @@ def _steps_cut(steps):
     steps they ran before the cut, else the cut and why it was made."""
     if steps == TRAIN_STEPS_BEFORE:
         return None
-    return {"train_steps": f"{TRAIN_STEPS_BEFORE} -> {steps} (cut when "
-                           f"phases 15l-n came, to keep the script inside "
-                           f"its time limit)"}
+    return {"train_steps": f"{TRAIN_STEPS_BEFORE} -> {steps} (cut to 300 "
+                           f"when phases 15l-n came, to 200 when 15o came, "
+                           f"to keep the script inside its time limit)"}
 
 
 def _depth_cut(layers, full=40):
@@ -7017,10 +7021,10 @@ def _p15_plain(dev, seed):
     return plain
 
 
-def _four_ranks_beside(dev, fn, args, here):
-    """``fn(*args)`` on four gloo rank processes sharing the card
-    (``run_local``, on a thread) while ``here()`` runs in this process:
-    (the ranks' results, their seconds, ``here()``'s result)."""
+def _four_ranks_beside(dev, fn, args, here, ranks=4):
+    """``fn(*args)`` on four (or ``ranks``) gloo rank processes sharing
+    the card (``run_local``, on a thread) while ``here()`` runs in this
+    process: (the ranks' results, their seconds, ``here()``'s result)."""
     import threading
     from repro_torch.distributed.group import run_local
     four = {}
@@ -7028,7 +7032,7 @@ def _four_ranks_beside(dev, fn, args, here):
     def run_four():
         t0 = time.perf_counter()
         try:
-            four["ranks"] = run_local(fn, 4, backend="gloo",
+            four["ranks"] = run_local(fn, ranks, backend="gloo",
                                       device=dev.type, args=args,
                                       timeout=900)
         except BaseException as e:          # raised on this thread below
@@ -7205,13 +7209,19 @@ def phase15bcd(dev, seed, card):
 # sharing the card, as 15b-d)
 # ---------------------------------------------------------------------------
 
-# 15e's depths: 4 and 2 before 15g-h came, 2 and 1 since (the script's
-# time limit; widths unchanged)
-P15E_LAYERS = 2          # 15e's granite at full width (of 40)
+# depths cut when phase 15o came (the script's time limit; widths
+# unchanged), each in its phase's line
+P15_CUTS = {"15e": "granite 2 -> 1 of 40 layers (4 before 15g-h came)",
+            "15f": "granite 2 -> 1 of 40 layers",
+            "15i": "minicpm3 4 -> 2 of 62 layers",
+            "15k": "minicpm3 2 -> 1 of 62 layers",
+            "15m": "rwkv6-1.6b 4 -> 2 of 24 layers",
+            "15n": "rwkv6-1.6b 2 -> 1 of 24 layers"}
+P15E_LAYERS = 1          # 15e's granite at full width (of 40)
 P15E_SMALL = 1           # 15e's free-running token gates and int4 per-group
 P15E_PROMPT = (8, 256)   # 15e's prefill: 8 rows of 256 tokens
 P15E_STEPS = 16          # 15e's greedy decode steps
-P15F_LAYERS = 2          # 15f's granite at full width (of 40)
+P15F_LAYERS = 1          # 15f's granite at full width (of 40)
 P15F_STEPS = 5
 P15F_BATCH = (4, 256)
 # AdamW's update moves by up to lr * dg / eps when a gradient element
@@ -7302,15 +7312,28 @@ def _slab_launches(buckets, ndev, d, slice_rows=None):
     return n
 
 
+def _per_rank(n, unit, tp):
+    """A rank's width of ``n`` units of ``unit`` on a 'model' axis of
+    ``tp``: its replica group's shard, ``n / gcd(n, tp)`` units
+    (``sharding.replica_groups``; ``n / tp`` where ``tp`` divides ``n``)."""
+    return n // math.gcd(n, tp) * unit
+
+
 def _tp_local_shapes(cfg, tp):
     """{(M, N): launches a forward} of kernel B on a rank's local shards
-    (``tp`` ranks): the seven projections of each layer."""
-    d, f = cfg.d_model, cfg.d_ff
-    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    (``tp`` ranks): the seven projections of each layer (heads and FFN
+    columns on replica groups where 'model' does not divide them), and
+    an untied head (vocab-parallel where 'model' divides the vocabulary)."""
+    d = cfg.d_model
+    q = _per_rank(cfg.n_heads, cfg.head_dim, tp)
+    kv = _per_rank(cfg.n_kv_heads, cfg.head_dim, tp)
+    f = _per_rank(cfg.d_ff, 1, tp)
     out = collections.Counter()
-    for m, n in ((q // tp, d), (kv // tp, d), (kv // tp, d), (d, q // tp),
-                 (f // tp, d), (f // tp, d), (d, f // tp)):
+    for m, n in ((q, d), (kv, d), (kv, d), (d, q), (f, d), (f, d), (d, f)):
         out[(m, n)] += cfg.n_layers
+    if not cfg.tie_embeddings:
+        v = cfg.vocab
+        out[(v // tp if v % tp == 0 else v, d)] += 1
     return dict(out)
 
 
@@ -7396,7 +7419,7 @@ def _serve_case_vs_one_rank(dev, model, tree, mesh, prompt, chunks, steps,
             if forced and ref is not None else None]
     dist.broadcast_object_list(feed, src=0)
     feed = None if feed[0] is None else [t.to(dev) for t in feed[0]]
-    local = tp_local(tree, mesh) if local is None else local
+    local = tp_local(tree, mesh, cfg=model.cfg) if local is None else local
     _reset_launches(dmod, pa, paq, sf)
     c0 = dict(group.MODEL_COLLECTIVES)
     dist.barrier()
@@ -7515,7 +7538,7 @@ def _p15f_rank(dev, seed, ref_path):
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model = _tp_granite(P15F_LAYERS)
     mesh = make_mesh((2, 2), ("data", "model"))
-    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
     _free(dev)
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**P15F_OPT), mesh=mesh)
@@ -7664,8 +7687,10 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
     emit({"phase": "15e tensor-parallel serving, 4 ranks sharing the card "
                    "(gloo), mesh (data 1, model 4), granite-3-8b SQuant w8 "
                    f"at full width, {P15E_LAYERS} layers (w4: "
-                   f"{P15E_SMALL}; 4 and 2 before 15g-h came, cut for the "
-                   "script's time limit)", "card": card, "backend": "gloo",
+                   f"{P15E_SMALL}; 4 and 2 before 15g-h came, 2 and 1 "
+                   "before 15o came, cut for the script's time limit)",
+          "reduced": P15_CUTS["15e"],
+          "card": card, "backend": "gloo",
           "ranks": 4, "prompt": list(P15E_PROMPT), "decode_steps": P15E_STEPS,
           "quantize_ms_by_rank": [r["quantize_ms"] for r in es],
           "kernel_a_by_rank": [r["kernel_a"] for r in es],
@@ -7691,7 +7716,8 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
              for k in fs[0]["split_ms"][-1]}
     emit({"phase": "15f tensor-parallel training, 4 ranks sharing the card "
                    "(gloo), mesh (data 2, model 2), granite-3-8b at full "
-                   f"width, {P15F_LAYERS} layers, float32", "card": card,
+                   f"width, {P15F_LAYERS} layers, float32",
+          "reduced": P15_CUTS["15f"], "card": card,
           "backend": "gloo", "ranks": 4, "steps": P15F_STEPS,
           "global_batch": list(P15F_BATCH), "optimizer": P15F_OPT,
           "losses": fs[0]["losses"], "one_rank_losses": plain_losses,
@@ -7835,7 +7861,7 @@ def _p15h_rank(dev, seed, ref_path):
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model = _ep_moonshot(P15H_LAYERS)
     mesh = make_mesh((2, 2), ("data", "model"))
-    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
     _free(dev)
     batches = [tl.to_device(b, dev) for b in _p15h_batches()]
     binding = tl.make_train_step(_ep_moonshot(P15H_LAYERS,
@@ -8091,7 +8117,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
 # the same processes)
 # ---------------------------------------------------------------------------
 
-P15I_LAYERS = 4          # 15i's minicpm3 at full width (of 62)
+P15I_LAYERS = 2          # 15i's minicpm3 at full width (of 62)
 P15I_SMALL = 1           # 15i's int4 case and its free-running tokens
 P15I_PROMPT = (8, 256)   # 15i's prefill
 P15I_CHUNKS = 1          # 15i's 64-token chunks after the prefill
@@ -8100,7 +8126,7 @@ P15J_LAYERS = 1          # 15j's mixtral at full width (of 32)
 P15J_PROMPT = (1, 4096)  # 15j's prefill: fills the 4096-slot ring
 P15J_CHUNKS = 2          # 15j's 64-token chunks: the ring's continuation
 P15J_STEPS = 16          # 15j's greedy decode steps
-P15K_LAYERS = 2          # 15k's minicpm3 at full width (of 62)
+P15K_LAYERS = 1          # 15k's minicpm3 at full width (of 62)
 P15K_STEPS = 5
 P15K_BATCH = (4, 256)
 P15K_OPT = P15F_OPT
@@ -8132,14 +8158,14 @@ def _mla_local_shapes(cfg, tp, forwards, decodes):
     steps: q_down, q_up, kv_down, kv_up, wo, wi, wg and wdown each layer
     of each forward, but no ``kv_up`` at an absorbed decode step (its
     products there are torch ops)."""
-    m, d, f, h = cfg.mla, cfg.d_model, cfg.d_ff, cfg.n_heads
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    f = _per_rank(cfg.d_ff, 1, tp)
     out = collections.Counter()
-    kv_up = (h * (m.nope_dim + m.v_dim) // tp, m.kv_lora)
-    for mn in ((m.q_lora // tp, d), (h * (m.nope_dim + m.rope_dim) // tp,
-                                    m.q_lora),
+    kv_up = (_per_rank(h, m.nope_dim + m.v_dim, tp), m.kv_lora)
+    for mn in ((m.q_lora // tp, d),
+               (_per_rank(h, m.nope_dim + m.rope_dim, tp), m.q_lora),
                ((m.kv_lora + m.rope_dim) // tp, d), kv_up,
-               (d, h * m.v_dim // tp), (f // tp, d), (f // tp, d),
-               (d, f // tp)):
+               (d, _per_rank(h, m.v_dim, tp)), (f, d), (f, d), (d, f)):
         out[mn] += cfg.n_layers * forwards
     if m.absorb:
         out[kv_up] -= cfg.n_layers * decodes
@@ -8263,71 +8289,173 @@ def _p15i_rank(dev, seed):
     return out
 
 
-def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole, bits=8):
-    """``model``'s tree made on the card one leaf at a time (every rank
-    the same values: one generator from ``seed``, leaves in tree order),
-    each quantizable leaf quantized SQuant ``bits`` over ``qmesh``'s
-    ranks' row slabs as it is made (kernel A on this rank's slab),
-    gathered whole and cut to this rank's ``tp_local`` shard, its float32
-    freed before the next: an (in, out) kernel or an (experts, in, out)
-    bank at ``_init_dense``'s std, the embedding and norms as ``LM.init``
-    makes them, each router as ``init_moe`` does, each mamba mixer's conv,
-    dt bias, A and D from ``init_mamba`` itself (its four projections
-    dropped). The float32 tree never exists whole on a rank. Returns
-    (this rank's local tree, the whole quantized tree where
-    ``keep_whole`` else None, kernel A's buckets, its launches and the
-    scale pass's)."""
-    from repro_torch.core.pipeline import _flatten, _rebuild, is_quantizable
-    from repro_torch.distributed.sharding import tp_local
-    from repro_torch.models import mamba as mamba_lib
-    from repro_torch.models.layers import (_init_dense, init_embedding,
-                                           init_norm)
-    cfg = model.cfg
+def _block_generator(dev, seed, *key):
+    """A generator on ``dev`` seeded from ``seed`` and the integers of
+    ``key`` (a leaf's index in tree order, a block's): the random values
+    of one block of one leaf, the same on every rank that makes it."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    h = seed
+    for k in key:
+        h = (h * 1_000_003 + k + 1) % (2 ** 62)
+    gen.manual_seed(h)
+    return gen
+
+
+def _mamba_vectors(gen, cfg, dev):
+    """A mamba mixer's conv, dt bias, A and D as ``init_mamba`` makes them
+    (its four projections left out)."""
+    mc, f32 = cfg.mamba, dict(dtype=torch.float32, device=dev)
+    d_inner = mc.expand * cfg.d_model
+    a = torch.arange(1, mc.d_state + 1, **f32)[None].repeat(d_inner, 1)
+    lo, hi = math.log(1e-3), math.log(1e-1)
+    u = torch.rand((d_inner,), generator=gen, **f32) * (hi - lo) + lo
+    return {"conv_w": torch.randn((mc.d_conv, d_inner), generator=gen,
+                                  **f32).mul_(1.0 / math.sqrt(mc.d_conv)),
+            "conv_b": torch.zeros((d_inner,), **f32),
+            "dt_bias": torch.log(torch.expm1(torch.exp(u))),
+            "a_log": torch.log(a), "d_skip": torch.ones((d_inner,), **f32)}
+
+
+def _slab_quantized(dev, shape, bits, qmesh, make_piece):
+    """A quantizable leaf of ``shape`` ((in, out) or (experts, in, out))
+    quantized SQuant ``bits`` with only this rank's row slab made: the
+    slab's rows of the pipeline's ``(E·out, in)`` view split as
+    ``core.dispatch.quantize_codes_sharded`` splits them (its pieces,
+    ``slab_pieces``), each piece made by ``make_piece(i, b0, b1, c0, n)``
+    (float32, the stored layout of experts ``b0 .. b1 - 1``' columns ``c0
+    .. c0 + n - 1``) and quantized alone by ``quantize_tree`` (kernel A:
+    a flip and a scale pass a piece; output channels are independent, so
+    the codes are the whole leaf's rows), then all-gathered over
+    ``qmesh``. Returns (the whole ``QuantizedTensor``, the leaf's bucket
+    as ``quantize_tree(mesh=)`` would report it, kernel A's launches and
+    the scale pass's)."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.dispatch import shard_rows, slab_pieces
+    from repro_torch.distributed import group as dgroup
+    from repro_torch.quant.qtypes import QuantizedTensor
+    dmod, pa, paq, sf = _kernel_modules()
+    inn, out = shape[-2], shape[-1]
+    rows = out * (shape[0] if len(shape) == 3 else 1)
+    ndev = qmesh.shape[0]
+    d = qmesh.get_local_rank("data")
+    slabs = shard_rows(rows, ndev)
+    per = sum(slabs[0])
+    r0 = min(d * per, rows)
+    codes, scales, route, key = [], [], None, None
+    _reset_launches(dmod, pa, paq, sf)
+    for i, (b0, b1, c0, n) in enumerate(slab_pieces(r0, r0 + slabs[d][0],
+                                                    out)):
+        w = make_piece(i, b0, b1, c0, n)
+        if len(shape) == 2:
+            w = w[0]
+        q, rep = pipeline.quantize_tree({"w": w}, method="squant", bits=bits,
+                                        device=dev)
+        del w
+        codes.append(q["w"].data.reshape(-1, q["w"].data.shape[-1]))
+        scales.append(q["w"].scale.reshape(-1, 1).to(torch.float32))
+        key, route = rep.buckets[0].key, rep.buckets[0].route
+    _sync_dev(dev)
+    launches = {"squant_flip": sf.launches, "squant_scale": sf.scale_launches}
+    cols = (inn + 1) // 2 if bits <= 4 else inn
+    if slabs[d][1]:
+        codes.append(torch.zeros((slabs[d][1], cols), dtype=torch.int8,
+                                 device=dev))
+        scales.append(torch.zeros((slabs[d][1], 1), dtype=torch.float32,
+                                  device=dev))
+    all_c = torch.empty((ndev * per, cols), dtype=torch.int8, device=dev)
+    all_s = torch.empty((ndev * per, 1), dtype=torch.float32, device=dev)
+    group = qmesh.get_group("data")
+    dgroup.all_gather_into(all_c, torch.cat(codes), group)
+    dgroup.all_gather_into(all_s, torch.cat(scales), group)
+    del codes, scales
+    qt = QuantizedTensor(data=all_c[:rows].contiguous(),
+                         scale=all_s[:rows].contiguous(), bits=bits,
+                         group_size=None, shape=(rows, inn))
+    # the whole leaf's bucket key (a rank whose slab holds no row reports
+    # none; rank 0's always holds some)
+    tail = key.split(")x", 1)[1] if key else ""
+    return qt, (f"({rows},{inn})x{tail}", 1, route), launches
+
+
+def _leafwise_tp(dev, model, seed, qmesh, mesh, keep_whole, bits=8):
+    """``model``'s tree made on the card one leaf at a time, each rank
+    making only what it quantizes or keeps, from per-block seeds
+    (:func:`_block_generator`: the leaf's index in tree order and the
+    block's, so every rank that makes a block makes the same values): a
+    quantizable leaf's row slab of ``qmesh``'s ranks, quantized SQuant
+    ``bits`` there (kernel A, :func:`_slab_quantized`) and gathered whole
+    as codes (int8), then cut to this rank's ``tp_local`` shard (``cfg``:
+    replica groups where 'model' does not divide the heads or FFN
+    columns); the embedding in blocks of ``ceil(vocab / ranks)`` rows, of
+    which a vocab-parallel rank makes its own and a replicated one all;
+    norms as ``LM.init`` makes them, each router as ``init_moe`` does, each
+    mamba mixer's conv, dt bias, A and D as ``init_mamba`` does. A dense
+    kernel or an expert bank is ``_init_dense``'s std over its slab; the
+    float32 leaf never exists whole on a rank. ``mesh``'s 'model' axis
+    spans ``qmesh``'s ranks. Returns (this rank's local tree, the whole
+    quantized tree where ``keep_whole`` else None: rank 0's one-rank
+    reference, made from the same blocks, kernel A's buckets, its launches
+    and the scale pass's)."""
+    from repro_torch.core.pipeline import _flatten, _rebuild, is_quantizable
+    from repro_torch.distributed.sharding import (activate_mesh, tp_local,
+                                                  vocab_parallel)
+    from repro_torch.models.layers import _init_dense, init_norm
+    cfg = model.cfg
+    ndev = qmesh.shape[0]
+    if mesh.shape[mesh.mesh_dim_names.index("model")] != ndev:
+        raise ValueError("_leafwise_tp: 'model' must span the quantize mesh")
+    k = mesh.get_local_rank("model")
     meta = model.init(None, device="meta")
     local, whole, buckets, mixers = [], [], [], {}
     launches = {"squant_flip": 0, "squant_scale": 0}
-    for path, m in _flatten(meta):
+    for li, (path, m) in enumerate(_flatten(meta)):
         shape = tuple(m.shape)
         if is_quantizable(path, m):
-            w = torch.randn(shape, generator=gen, dtype=m.dtype,
-                            device=dev).mul_(1.0 / math.sqrt(shape[-2]))
-            q, bk, n = _quantized_on_slabs({"w": w}, bits, qmesh, dev)
-            del w
-            leaf = q["w"]
-            buckets += bk
-            for k in launches:
-                launches[k] += n[k]
+            std = 1.0 / math.sqrt(shape[-2])
+
+            def piece(i, b0, b1, c0, n, li=li, shape=shape, std=std):
+                g = _block_generator(dev, seed, li, k, i)
+                return torch.randn((b1 - b0, shape[-2], n), generator=g,
+                                   dtype=m.dtype, device=dev).mul_(std)
+            leaf, bk, n = _slab_quantized(dev, shape, bits, qmesh, piece)
+            buckets.append(bk)
+            for key in launches:
+                launches[key] += n[key]
         elif path[-1] == "gain":
             leaf = init_norm(shape[0], plus_one=cfg.norm_plus_one,
                              device=dev)["gain"]
         elif path == ("embedding", "embedding"):
-            leaf = init_embedding(gen, shape[0], shape[1], m.dtype,
-                                  device=dev)["embedding"]
+            per = -(-shape[0] // ndev)
+            with activate_mesh(mesh):
+                mine_only = vocab_parallel(shape[0]) and not keep_whole
+            blocks = [k] if mine_only else range(ndev)
+            leaf = torch.cat([torch.randn(
+                (min(per, shape[0] - j * per), shape[1]),
+                generator=_block_generator(dev, seed, li, j), dtype=m.dtype,
+                device=dev).mul_(0.02) for j in blocks])
         elif "router" in path:
-            leaf = _init_dense(gen, shape[0], shape[1], scale=0.02,
-                               device=dev)["w"]
+            leaf = _init_dense(_block_generator(dev, seed, li), shape[0],
+                               shape[1], scale=0.02, device=dev)["w"]
         elif "mixer" in path:
             if path[:-1] not in mixers:
-                mc = cfg.mamba
-                mixers = {path[:-1]: {k: v for k, v in mamba_lib.init_mamba(
-                    gen, cfg.d_model, mc.d_state, mc.d_conv, mc.expand,
-                    mc.dt_rank, device=dev).items()
-                    if not isinstance(v, dict)}}
+                mixers = {path[:-1]: _mamba_vectors(
+                    _block_generator(dev, seed, li), cfg, dev)}
             leaf = mixers[path[:-1]][path[-1]]
         else:
             raise ValueError(f"no rule makes the leaf {path} {shape}")
-        nest = leaf
-        for k in reversed(path):
-            nest = {k: nest}
-        cut = tp_local(nest, mesh)
-        for k in path:
-            cut = cut[k]
+        if path == ("embedding", "embedding") and leaf.shape[0] != shape[0]:
+            cut = leaf                       # this rank's vocabulary rows
+        else:
+            cut = leaf
+            for key in reversed(path):
+                cut = {key: cut}
+            cut = tp_local(cut, mesh, cfg=cfg)
+            for key in path:
+                cut = cut[key]
         local.append(cut)
         if keep_whole:
             whole.append(leaf)
-        del leaf, nest
+        del leaf, cut
         _free(dev)
     del mixers
     return (_rebuild(meta, iter(local)),
@@ -8388,10 +8516,61 @@ def _p15k_batches():
     return _markov(P15K_BATCH, P15K_STEPS, 17)
 
 
+def _blockwise_fp(dev, model, seed, tp, mesh=None):
+    """``model``'s float32 tree made from per-block seeds
+    (:func:`_block_generator`): a leaf that 'model' cuts on a (data 1,
+    model ``tp``) mesh (``make_tp_shardings`` with the config) is ``tp``
+    blocks along the cut dim, every other leaf one block; kernels at
+    ``_init_dense``'s std, the embedding and an untied head at 0.02, norms
+    as ``init_norm`` makes them. With ``mesh`` (a ``DeviceMesh`` of that
+    shape): this rank's ``tp_place`` tree of DTensors, each rank making only
+    its blocks; without: the whole tree (the one-rank reference), the same
+    values."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.core.pipeline import _flatten, _rebuild
+    from repro_torch.distributed.sharding import (AbstractMesh, MeshSharding,
+                                                  _get_path,
+                                                  make_tp_shardings)
+    from repro_torch.models.layers import init_norm
+    cfg = model.cfg
+    meta = model.init(None, device="meta")
+    specs = make_tp_shardings(AbstractMesh((1, tp), ("data", "model")), meta,
+                              cfg)
+    mine = None if mesh is None else mesh.get_local_rank("model")
+    leaves = []
+    for li, (path, m) in enumerate(_flatten(meta)):
+        shape, spec = tuple(m.shape), _get_path(specs, path).spec
+        if path[-1] == "gain":
+            leaf = init_norm(shape[0], plus_one=cfg.norm_plus_one,
+                             device=dev)["gain"]
+        elif path[-1] in ("w", "embedding"):
+            std = 0.02 if path[0] in ("embedding", "lm_head") else \
+                1.0 / math.sqrt(shape[-2])
+            d = spec.index("model") if "model" in spec else None
+            part = shape if d is None else \
+                shape[:d] + (shape[d] // tp,) + shape[d + 1:]
+            blocks = [0] if d is None else range(tp) if mine is None \
+                else [mine]
+            leaf = torch.cat([torch.randn(
+                part, generator=_block_generator(dev, seed, li, j),
+                dtype=m.dtype, device=dev).mul_(std) for j in blocks],
+                dim=d or 0)
+        else:
+            raise ValueError(f"no rule makes the leaf {path} {shape}")
+        if mesh is not None:
+            leaf = DTensor.from_local(
+                leaf, mesh, MeshSharding(mesh, spec).placements,
+                run_check=False, shape=shape,
+                stride=torch.empty(shape, device="meta").stride())
+        leaves.append(leaf)
+    return _rebuild(meta, iter(leaves))
+
+
 def _tp_train_vs_saved(dev, seed, model, batches, opt_cfg, ref_path, what,
-                       node):
-    """A tensor-parallel train step on (data 2, model 2) on this rank of
-    four (15k, 15n): its metrics and split over ``batches``, and its final
+                       node, shape=(2, 2)):
+    """A tensor-parallel train step on a (data, model) mesh of ``shape``
+    on this rank (15k and 15n: (data 2, model 2) of four; 15o (v): (data
+    1, model 16)): its metrics and split over ``batches``, and its final
     shards against the one-rank parameters the script's process saved at
     ``ref_path`` (:func:`_one_rank_train_saved`); the local shapes of the
     leaves under ``node`` (a path into the tree)."""
@@ -8400,8 +8579,8 @@ def _tp_train_vs_saved(dev, seed, model, batches, opt_cfg, ref_path, what,
     from repro_torch.distributed.sharding import shard_index, tp_place
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    mesh = make_mesh((2, 2), ("data", "model"))
-    placed = tp_place(_tp_params(model, dev, seed), mesh)
+    mesh = make_mesh(shape, ("data", "model"))
+    placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
     _free(dev)
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**opt_cfg), mesh=mesh)
@@ -8590,6 +8769,7 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
                    f"w8 at full width, {P15I_LAYERS} of 62 layers (int4: "
                    f"{P15I_SMALL}), 10 of 40 heads a rank, the compressed "
                    "cache whole, vocab-parallel tied embedding and head",
+          "reduced": P15_CUTS["15i"],
           "card": card, "backend": "gloo", "ranks": 4,
           "prompt": list(P15I_PROMPT), "chunks": [P15_CHUNK] * P15I_CHUNKS,
           "decode_steps": P15I_STEPS,
@@ -8660,7 +8840,8 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
     emit({"phase": "15k MLA tensor-parallel training, 4 ranks sharing the "
                    "card (gloo), mesh (data 2, model 2), minicpm3-4b at full "
                    f"width, {P15K_LAYERS} of 62 layers, float32 (mixtral's "
-                   "step: CPU tests only)", "card": card,
+                   "step: CPU tests only)", "reduced": P15_CUTS["15k"],
+          "card": card,
           "backend": "gloo", "ranks": 4, "steps": P15K_STEPS,
           "global_batch": list(P15K_BATCH), "optimizer": P15K_OPT,
           "losses": k_s[0]["losses"], "one_rank_losses": plain_losses,
@@ -8694,8 +8875,8 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
                                        r["cases"].values()) for r in j_s],
             "plans": {"15i": i_s[0]["plans"], "15j": j_s[0]["plans"]},
             "mla_local_shapes": mla_shapes, "swa_local_shapes": swa_shapes,
-            "mla_kv_up": (mla.n_heads * (mla.mla.nope_dim + mla.mla.v_dim)
-                          // 4, mla.mla.kv_lora),
+            "mla_kv_up": (_per_rank(mla.n_heads, mla.mla.nope_dim
+                                    + mla.mla.v_dim, 4), mla.mla.kv_lora),
             "swa_capacity_rows": math.ceil(
                 P15J_PROMPT[0] * P15J_PROMPT[1] * swa.moe.top_k
                 * swa.moe.capacity_factor / e),
@@ -8735,12 +8916,12 @@ def _phase15ij_cells(mr):
 
 P15L_LAYERS = 2          # 15l's jamba: RECURRENT_ISOLATED's ("m", "a") cut
 P15L_SMALL = 1           # 15l's int4 case: one mamba layer
-P15M_LAYERS = 4          # 15m's rwkv6-1.6b at full width (of 24)
+P15M_LAYERS = 2          # 15m's rwkv6-1.6b at full width (of 24)
 P15M_SMALL = 1           # 15m's int4 case
 P15LM_PROMPT = (8, 256)  # 15l-m's prefill
 P15LM_CHUNKS = 1         # 15l-m's 64-token chunks after the prefill
 P15LM_STEPS = 16         # 15l-m's greedy decode steps
-P15N_LAYERS = 2          # 15n's rwkv6-1.6b at full width (of 24)
+P15N_LAYERS = 1          # 15n's rwkv6-1.6b at full width (of 24)
 P15N_STEPS = 5
 P15N_BATCH = (4, 256)
 P15N_OPT = P15F_OPT
@@ -8800,17 +8981,17 @@ def _recurrent_local_shapes(cfg, tp):
     return dict(out)
 
 
-def _strided_probe(dev, mesh):
+def _strided_probe(dev, mesh, cfg):
     """The paired cut of mamba's ``in_proj`` on this torch and card: a
     (16, 32) tensor placed as ``tp_local`` / ``tp_place`` place
-    ``in_proj`` (a strided shard of split 2 on 'model'), its AdamW moment
+    ``in_proj`` of config ``cfg`` (a strided shard of split 2 on 'model'), its AdamW moment
     (``zeros_like``) on the same placements, and gathered back whole
     (``group.full_tensor``, through the host on gloo)."""
     from repro_torch.distributed.group import full_tensor
     from repro_torch.distributed.sharding import make_tp_shardings, place
     from repro_torch.training.optimizer import adamw_init
     t = torch.arange(16 * 32, dtype=torch.float32, device=dev).view(16, 32)
-    sh = make_tp_shardings(mesh, {"in_proj": {"w": t}})["in_proj"]["w"]
+    sh = make_tp_shardings(mesh, {"in_proj": {"w": t}}, cfg)["in_proj"]["w"]
     dt = place(t, sh)
     k, n = mesh.get_local_rank("model"), mesh.shape[1]
     per = 16 // n
@@ -8861,7 +9042,7 @@ def _p15l_rank(dev, seed):
     model, small = _tp_jamba(P15L_LAYERS), _tp_jamba(P15L_SMALL)
     mesh = make_mesh((1, world), ("data", "model"))
     qmesh = make_quantize_mesh(world)
-    out = {"rank": rank, "strided_probe": _strided_probe(dev, mesh)}
+    out = {"rank": rank, "strided_probe": _strided_probe(dev, mesh, model.cfg)}
     torch.cuda.reset_peak_memory_stats(dev)
     dist.barrier()
     t0 = time.perf_counter()
@@ -8913,12 +9094,12 @@ def _p15m_rank(dev, seed):
     mesh = make_mesh((1, world), ("data", "model"))
     prompt, chunks = _prompt_and_chunks(dev, seed, model.cfg.vocab)
     bf = torch.bfloat16
-    local = tp_local(whole, mesh)
+    local = tp_local(whole, mesh, cfg=model.cfg)
     cases = (("w8 float32", model, whole, local, True),
              ("w8 bfloat16", _tp_rwkv(P15M_LAYERS, "bfloat16"),
               _retyped(whole, bf), _retyped(local, bf), True),
              (f"w4 float32 {P15M_SMALL} layer", small, w4,
-              tp_local(w4, mesh), False))
+              tp_local(w4, mesh, cfg=small.cfg), False))
     out["cases"], out["plans"] = _serve_cases(dev, mesh, prompt, chunks,
                                               cases)
     del whole, w4, local, cases
@@ -9100,6 +9281,7 @@ def _p15lmn_report(ranks, plain, plain_s, card, four_s, t_phase):
                    f"w8 at full width, {P15M_LAYERS} of 24 layers (int4: "
                    f"{P15M_SMALL}), float32; 8 of 32 heads a rank, the "
                    "decay LoRA whole, 16 384 of 65 536 vocabulary rows",
+          "reduced": P15_CUTS["15m"],
           "card": card, "backend": "gloo", "ranks": 4,
           "prompt": list(P15LM_PROMPT), "chunks": [P15_CHUNK] * P15LM_CHUNKS,
           "decode_steps": P15LM_STEPS,
@@ -9125,7 +9307,8 @@ def _p15lmn_report(ranks, plain, plain_s, card, four_s, t_phase):
     emit({"phase": "15n rwkv tensor-parallel training, 4 ranks sharing the "
                    "card (gloo), mesh (data 2, model 2), rwkv6-1.6b at full "
                    f"width, {P15N_LAYERS} of 24 layers, float32 (jamba's "
-                   "step: CPU tests only)", "card": card,
+                   "step: CPU tests only)", "reduced": P15_CUTS["15n"],
+          "card": card,
           "backend": "gloo", "ranks": 4, "steps": P15N_STEPS,
           "global_batch": list(P15N_BATCH), "optimizer": P15N_OPT,
           "losses": n_s[0]["losses"], "one_rank_losses": plain_losses,
@@ -9182,18 +9365,477 @@ def _phase15lm_cells(rec):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15o: heads and FFN widths 'model' 16 does not divide (replica
+# groups), sixteen gloo ranks sharing the card
+# ---------------------------------------------------------------------------
+
+P15O_RANKS = 16          # the production mesh's 'model' axis (16 x 16)
+P15O_LAYERS = 1          # each model's depth: granite of 40, minitron of
+#                          32, minicpm3 of 62
+P15O_PROMPT = (4, 64)    # shard_logits gathers whole logits on every rank
+P15O_CHUNKS = 1
+P15O_STEPS = 16
+P15O_TRAIN_LAYERS = 1    # 15o (iv): granite's train-step gradients
+P15O_TRAIN_STEPS = 3     # batches, each on the same parameters
+P15O_TRAIN_BATCH = (2, 128)
+P15O_OPT = P15F_OPT
+P15O_STEP_GATE = 1e-6    # losses and grad norms, relative, against one rank
+P15O_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_torch_train_step.py
+# 15o (v): the whole train step (norm, clip, AdamW) at 'model' 16 on
+# granite's reduced config with 6 q / 2 KV heads and d_ff 130, each on
+# replica groups of 8 ranks (tests/torch_tp_workers.py's case at 'model'
+# 4); the clip binds, so the step's own norm scales every update
+P15O_GROUPS = dict(dtype="float32", n_layers=2, d_model=128, n_heads=6,
+                   n_kv_heads=2, head_dim=32, d_ff=130, vocab=P15_DATA_VOCAB)
+P15O_GROUP_STEPS = 3
+P15O_GROUP_BATCH = (8, 64)
+P15O_GROUP_OPT = dict(lr=3e-3, warmup_steps=0, decay_steps=10, eps=1e-3,
+                      clip_norm=0.05)
+
+
+def _tp_minitron(layers, dtype="float32"):
+    """minitron-4b (arXiv:2407.14679) at full width and ``layers`` layers
+    in ``dtype``: 24 q / 8 KV heads of 128, d_ff 9216, an untied head over
+    256 000 tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(get_config("minitron-4b"),
+                                           n_layers=layers, dtype=dtype))
+
+
+# 15o's models: (key, model-making function), each at P15O_LAYERS
+P15O_MODELS = (("granite", _tp_granite), ("minitron", _tp_minitron),
+               ("minicpm3", _tp_minicpm3))
+
+
+def _p15o_shapes(cfg, tp, forwards):
+    """{(M, N): launches} of kernel B on a rank's 15o shards over
+    ``forwards`` forwards (the last :data:`P15O_STEPS` of them decode
+    steps)."""
+    if cfg.mla is not None:
+        return _mla_local_shapes(cfg, tp, forwards, P15O_STEPS)
+    return {k: v * forwards for k, v in _tp_local_shapes(cfg, tp).items()}
+
+
+def _p15o_batches():
+    return _markov(P15O_TRAIN_BATCH, P15O_TRAIN_STEPS, 23)
+
+
+def _tp_granite_groups():
+    """granite-3-8b's reduced config at :data:`P15O_GROUPS` (15o (v))."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(
+        get_config("granite-3-8b", reduced=True), **P15O_GROUPS))
+
+
+def _p15o_group_batches():
+    return _markov(P15O_GROUP_BATCH, P15O_GROUP_STEPS, 29)
+
+
+def _p15o_rank(dev, seed, ref_path):
+    """15o on this rank of sixteen (see :func:`phase15o`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    mesh = make_mesh((1, world), ("data", "model"))
+    qmesh = make_quantize_mesh(world)
+    forwards = 1 + P15O_CHUNKS + P15O_STEPS
+    bf = torch.bfloat16
+    out = {"rank": rank}
+    for key, build in P15O_MODELS:
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model = build(P15O_LAYERS)
+        dist.barrier()
+        t1 = time.perf_counter()
+        local, whole, buckets, kernel_a = _leafwise_tp(
+            dev, model, seed, qmesh, mesh, keep_whole=rank == 0)
+        _sync_dev(dev)
+        row = {"build_and_quantize_ms": (time.perf_counter() - t1) * 1e3,
+               "build_peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+               "local_gb": _tree_bytes(local) / 1e9, "buckets": buckets,
+               "kernel_a": kernel_a}
+        rng = np.random.default_rng(seed)
+        vocab = model.cfg.vocab
+        prompt = torch.from_numpy(rng.integers(0, vocab, size=P15O_PROMPT)
+                                  ).to(dev)
+        chunks = [torch.from_numpy(rng.integers(
+            0, vocab, size=(P15O_PROMPT[0], P15_CHUNK))).to(dev)
+            for _ in range(P15O_CHUNKS)]
+        # (name, model, whole tree (rank 0), local tree)
+        cases = (("w8 float32", model, whole, local),
+                 ("w8 bfloat16", build(P15O_LAYERS, "bfloat16"),
+                  whole and _retyped(whole, bf), _retyped(local, bf)))
+        row["cases"] = {}
+        dm._plans.clear()
+        for name, m, tree, loc in cases:
+            row["cases"][name] = _serve_case_vs_one_rank(
+                dev, m, tree, mesh, prompt, chunks, P15O_STEPS, True,
+                _p15o_shapes(m.cfg, world, forwards), local=loc)
+        row["plans"] = dm.cached_plans()
+        del local, whole, cases
+        _free(dev)
+        row["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        row["seconds"] = time.perf_counter() - t0
+        out[key] = row
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["train"] = _p15o_grads_rank(dev, seed, ref_path, mesh)
+    out["train"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["group_step"] = _tp_train_vs_saved(
+        dev, seed, _tp_granite_groups(), _p15o_group_batches(),
+        P15O_GROUP_OPT, ref_path + ".step", "15o (v)",
+        ("stack", "list", "0", "b0"), shape=(1, world))
+    out["group_step"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _p15o_grads_rank(dev, seed, ref_path, mesh):
+    """15o (iv) on this rank: granite's tensor-parallel train step's
+    gradients (``step.averaged_grads``: the loss, gradients and global
+    grad norm the step updates with) on each batch of
+    :func:`_p15o_batches`, all on the same parameters, made blockwise
+    (:func:`_blockwise_fp`); the loss and the step's grad norm of each,
+    and the first batch's gradient shards against the one-rank gradients
+    saved at ``ref_path``."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import shard_index
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig
+    model = _tp_granite(P15O_TRAIN_LAYERS)
+    placed = _blockwise_fp(dev, model, seed, mesh.shape[1], mesh)
+    step = tl.make_train_step(model, AdamWConfig(**P15O_OPT), mesh=mesh)
+    flat = dict(_leaves(placed))
+    losses, norms, step_ms, worst, worst_rel = [], [], [], 0.0, 0.0
+    dist.barrier()
+    for i, b in enumerate(_p15o_batches()):
+        b = tl.to_device(b, dev)
+        _sync_dev(dev)
+        t0 = time.perf_counter()
+        loss, met, grads = step.averaged_grads(placed, b)
+        norms.append(float(met["grad_norm"]))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
+                        "15o (iv)'s one-rank gradients")
+            ref = torch.load(ref_path, mmap=True, map_location="cpu")
+            for k, g in _leaves(grads).items():
+                t = flat[k]
+                want = ref[k][shard_index(t.shape, t.placements,
+                                          tuple(mesh.shape),
+                                          mesh.get_coordinate())]
+                # a few MB at a time: sixteen ranks share the card
+                big = dif = 0.0
+                for r0 in range(0, g.shape[0], 2048):
+                    w = want[r0:r0 + 2048].to(dev)
+                    d = (g[r0:r0 + 2048] - w).abs()
+                    worst = max(worst, float((
+                        d - P15O_GRAD_TOL["rtol"] * w.abs()
+                        - P15O_GRAD_TOL["atol"]).max()))
+                    big = max(big, float(w.abs().max()))
+                    dif = max(dif, float(d.max()))
+                    del w, d
+                worst_rel = max(worst_rel, dif / max(big, 1e-30))
+            del ref
+        del grads
+    local = {k: tuple(t.to_local().shape) for k, t in flat.items()
+             if "/attn/" in k}
+    del placed, flat
+    _free(dev)
+    return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "grads_excess_over_grad_tol": worst,
+            "grads_max_rel_err": worst_rel, "local_attention": local,
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _p15o_one_rank_grads(dev, seed, ref_path):
+    """15o (iv)'s one-rank side: granite's whole tree of the same blocks,
+    the loss and global grad norm of each batch, the first batch's
+    gradients saved to ``ref_path`` (then ``ref_path + ".done"``); then
+    (v)'s one-rank steps (:func:`_one_rank_train_saved`, saved to
+    ``ref_path + ".step"``). Returns both sides' losses and norms."""
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import global_norm
+    model = _tp_granite(P15O_TRAIN_LAYERS)
+    params = _blockwise_fp(dev, model, seed, P15O_RANKS)
+    losses, norms = [], []
+    for i, b in enumerate(_p15o_batches()):
+        loss, _, g = tl._value_and_grad(model.train_loss, params,
+                                        tl.to_device(b, dev))
+        losses.append(float(loss))
+        norms.append(float(global_norm(g)))
+        if i == 0:
+            torch.save({k: v.cpu() for k, v in _leaves(g).items()},
+                       ref_path)
+        del g
+    del params
+    _free(dev)
+    open(ref_path + ".done", "w").close()
+    group = _one_rank_train_saved(dev, seed, _tp_granite_groups(),
+                                  _p15o_group_batches(), P15O_GROUP_OPT,
+                                  ref_path + ".step")
+    return (losses, norms), group
+
+
+def _p15o_ranks(seed, ref_path):
+    """15o on one rank of sixteen sharing the card over gloo (run by
+    ``run_local``)."""
+    from repro_torch.distributed import group
+    torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
+    return _p15o_rank(group.device(), seed, ref_path)
+
+
+def phase15o(dev, seed, card):
+    """15o (``--heads-parallel`` alone; in the full script after 15b-n):
+    heads and FFN widths that the production mesh's 'model' axis of 16
+    does not divide, on sixteen gloo ranks sharing the card (one
+    ``run_local``) beside (iv)'s one-rank step here. Each rank holds its
+    replica group's shard (``sharding.replica_groups``): a count ``n`` of
+    q heads, KV heads or FFN columns is ``gcd(n, 16)`` shards, each held
+    by ``16 / gcd`` ranks, and only the first rank of a q (or FFN) group
+    adds its row-parallel product.
+
+    (i) granite-3-8b, (ii) minitron-4b (arXiv:2407.14679) and (iii)
+    minicpm3-4b (MLA, 40 heads) at full width and :data:`P15O_LAYERS`
+    layer, float32, made and quantized SQuant w8 leaf by leaf, each rank
+    making only its row slab (:func:`_leafwise_tp`), on (data 1, model
+    16): granite 2 of 32 q heads and one of 8 KV heads a rank (two ranks
+    a KV head), 800 of 12 800 FFN columns, its head replicated (vocab
+    49 155); minitron 3 of 24 q heads and one KV head a rank, each shared
+    by two ranks, 576 of 9 216 FFN columns, 16 000 of 256 000 vocabulary
+    rows and of its untied head; minicpm3 5 of 40 heads a rank (two ranks
+    each), 400 of 6 400 FFN columns. A prefill of :data:`P15O_PROMPT`,
+    one 64-token chunk and 16 greedy decode steps under
+    ``activate_mesh`` against the one-rank forward on rank 0 (its tokens
+    fed to every rank), w8 float32 and bfloat16.
+
+    (iv) granite's train step at :data:`P15O_TRAIN_LAYERS` layer in
+    float32 on (data 1, model 16): its gradients (``step.averaged_grads``,
+    what the step updates with) on :data:`P15O_TRAIN_STEPS` batches of
+    :data:`P15O_TRAIN_BATCH`, each rank making only its shards from
+    per-block seeds (:func:`_blockwise_fp`), its KV-head leaves whole on
+    every rank (``tp_place``'s ``Replicate``) and narrowed in the forward;
+    the one-rank gradients of the same blocks run here first; the grad
+    norm is the step's own (``averaged_grads``' metrics). The AdamW
+    update is not run at this width on the card: it does not fit (its
+    vocabulary 49 155 leaves the float32 embedding, 0.8 GB, whole on every
+    rank, and with its gradient, two moments and the update's new copies
+    that is ~6 GB a rank; minitron's vocab-parallel tree still needs ~4.6
+    GB: both ran out of memory on the card).
+
+    (v) the whole train step (the step's norm, the clip, which binds, and
+    the AdamW update) at 'model' 16 on granite's reduced config
+    (:data:`P15O_GROUPS`: 6 q / 2 KV heads and d_ff 130, each on replica
+    groups of 8 ranks, their leaves whole on every rank), 3 steps against
+    the one-rank steps run here first.
+
+    Gates: every rank's kernel-B launches by local weight shape as the
+    shards imply and kernel A's as the slabs imply, every rank the same
+    logits and tokens, w8 float32 logits within 1e-4 of the one-rank
+    forward's largest |logit| (bfloat16 reported); (iv)'s losses and grad
+    norms within :data:`P15O_STEP_GATE` relative of the one-rank ones and
+    every rank's gradient shards of the first batch within
+    :data:`P15O_GRAD_TOL`; (v)'s losses and the step's grad norms within
+    :data:`P15O_STEP_GATE` and every rank's final shards (the replica
+    groups' whole leaves) within ``STEP_TOL`` of the one-rank parameters.
+    Every rank's peak memory is reported."""
+    import tempfile
+    import shutil
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_p15o_")
+    ref_path = os.path.join(work, "one_rank.pt")
+
+    try:
+        t0 = time.perf_counter()
+        plain = _p15o_one_rank_grads(dev, seed, ref_path)
+        plain_s = time.perf_counter() - t0
+        ranks, n_s, _ = _four_ranks_beside(
+            dev, _p15o_ranks, (seed, ref_path), lambda: None,
+            ranks=P15O_RANKS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return _p15o_report(ranks, plain, plain_s, card, n_s, t_phase)
+
+
+def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
+    """15o's gates and lines from the sixteen ranks' results and (iv)'s
+    one-rank ``plain`` (losses, grad norms) run here in ``plain_s``;
+    returns the launches, plans and local shapes :func:`drive_phase15`
+    reports."""
+    tp = len(ranks)
+    note = "sixteen CUDA contexts share one card and every collective is " \
+           "staged through host memory over gloo: agreement and launch " \
+           "counts, not a speed-up over one rank"
+    labels = {"granite": "(i) granite-3-8b, 2 of 32 q heads, 1 of 8 KV "
+                         "heads (2 ranks a KV head), 800 of 12 800 FFN "
+                         "columns a rank, the head replicated",
+              "minitron": "(ii) minitron-4b (arXiv:2407.14679), 3 of 24 q "
+                          "heads and 1 of 8 KV heads (2 ranks each), 576 "
+                          "of 9 216 FFN columns, 16 000 of 256 000 "
+                          "vocabulary rows a rank",
+              "minicpm3": "(iii) minicpm3-4b (MLA), 5 of 40 heads (2 ranks "
+                          "each), 400 of 6 400 FFN columns a rank"}
+    out = {"squant_flip": [], "squant_scale": [], "dequant_matmul": [],
+           "plans": {}, "local_shapes": {}}
+    for key, build in P15O_MODELS:
+        rows = [dict(r[key], rank=r["rank"]) for r in ranks]
+        for r in rows:
+            want_a = _slab_launches(r["buckets"], tp, r["rank"])
+            if r["kernel_a"] != want_a:
+                raise AssertionError(f"15o {key}: rank {r['rank']} kernel A "
+                                     f"{r['kernel_a']}, the slabs imply "
+                                     f"{want_a}")
+        _serve_rows_agree(rows, f"15o {key}")
+        c0 = rows[0]["cases"]
+        err = c0["w8 float32"]["max_abs_err_over_max_logit"]
+        cfg = build(P15O_LAYERS).cfg
+        shapes = _p15o_shapes(cfg, tp, 1)
+        emit({"phase": f"15o heads and FFN widths 'model' 16 does not "
+                       f"divide, {tp} ranks sharing the card (gloo), mesh "
+                       f"(data 1, model {tp}), {labels[key]}; SQuant w8 at "
+                       f"full width, {P15O_LAYERS} layer, float32, made and "
+                       f"quantized leaf by leaf on the ranks' slabs",
+              "card": card, "backend": "gloo", "ranks": tp,
+              "prompt": list(P15O_PROMPT),
+              "chunks": [P15_CHUNK] * P15O_CHUNKS,
+              "decode_steps": P15O_STEPS,
+              "local_shapes": sorted(f"{m}x{n}" for m, n in shapes),
+              "kernel_a_by_rank": [r["kernel_a"] for r in rows],
+              "build_and_quantize_ms_by_rank": [
+                  r["build_and_quantize_ms"] for r in rows],
+              "build_peak_gb_by_rank": [r["build_peak_gb"] for r in rows],
+              "local_tree_gb_by_rank": [r["local_gb"] for r in rows],
+              "cases": {n: _serve_cell(c0[n]) for n in c0},
+              "gate": "w8 float32 logits within 1e-4 of the one-rank "
+                      "forward's largest |logit|, fed the one-rank tokens; "
+                      "bfloat16 reported",
+              "peak_gb_by_rank": [r["peak_gb"] for r in rows],
+              "seconds_by_rank": [r["seconds"] for r in rows],
+              "note": note})
+        if not err <= 1e-4:
+            raise AssertionError(f"15o {key}: w8 float32 logits {err} of "
+                                 f"the largest, over 1e-4")
+        out["squant_flip"].append([r["kernel_a"]["squant_flip"]
+                                   for r in rows])
+        out["squant_scale"].append([r["kernel_a"]["squant_scale"]
+                                    for r in rows])
+        out["dequant_matmul"].append([sum(c["kernel_b"] for c in
+                                          r["cases"].values()) for r in rows])
+        out["plans"][f"15o {key}"] = rows[0]["plans"]
+        out["local_shapes"][key] = sorted(shapes)
+    # the per-model lists summed by rank
+    for k in ("squant_flip", "squant_scale", "dequant_matmul"):
+        out[k] = [sum(v) for v in zip(*out[k])]
+    (plain_losses, plain_norms), group = plain
+    t_s = [r["train"] for r in ranks]
+    worst_loss = max(abs(a - b) / abs(b) for r in t_s
+                     for a, b in zip(r["losses"], plain_losses))
+    worst_norm = max(abs(a - b) / abs(b) for r in t_s
+                     for a, b in zip(r["grad_norms"], plain_norms))
+    excess = max(r["grads_excess_over_grad_tol"] for r in t_s)
+    emit({"phase": f"15o (iv) granite-3-8b train-step gradients on replica "
+                   f"groups, {tp} ranks sharing the card (gloo), mesh (data "
+                   f"1, model {tp}), full width, {P15O_TRAIN_LAYERS} of 40 "
+                   f"layers, float32; the KV heads' leaves whole on every "
+                   f"rank; the step's gradients and grad norm, the AdamW "
+                   f"update not run at this width (its state does not fit "
+                   f"sixteen ranks on one card; (v) runs it)", "card": card,
+          "backend": "gloo", "ranks": tp, "batches": P15O_TRAIN_STEPS,
+          "global_batch": list(P15O_TRAIN_BATCH),
+          "losses": t_s[0]["losses"], "one_rank_losses": plain_losses,
+          "grad_norms": t_s[0]["grad_norms"],
+          "one_rank_grad_norms": plain_norms,
+          "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm, "gate": P15O_STEP_GATE,
+          "grads_max_excess_over_grad_tol": excess,
+          "grad_tol": P15O_GRAD_TOL,
+          "grads_max_rel_err_by_rank": [r["grads_max_rel_err"]
+                                        for r in t_s],
+          "local_attention_shards": t_s[0]["local_attention"],
+          "ms_by_batch_rank0": t_s[0]["step_ms"],
+          "peak_gb_by_rank": [r["peak_gb"] for r in t_s],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in t_s],
+          "run_local_seconds": n_s,
+          "seconds_since_the_ranks_started": time.perf_counter() - t_phase,
+          "note": note})
+    if not (worst_loss <= P15O_STEP_GATE and worst_norm <= P15O_STEP_GATE
+            and excess <= 0):
+        raise AssertionError(f"15o (iv): losses {worst_loss}, grad norms "
+                             f"{worst_norm}, gradients over GRAD_TOL by "
+                             f"{excess}")
+    g_losses, g_norms = group
+    g_s = [r["group_step"] for r in ranks]
+    g_loss = max(abs(a - b) / abs(b) for r in g_s
+                 for a, b in zip(r["losses"], g_losses))
+    g_norm = max(abs(a - b) / abs(b) for r in g_s
+                 for a, b in zip(r["grad_norms"], g_norms))
+    g_excess = max(r["shards_excess_over_step_tol"] for r in g_s)
+    emit({"phase": f"15o (v) the train step with its norm, clip and AdamW "
+                   f"update on replica groups, {tp} ranks sharing the card "
+                   f"(gloo), mesh (data 1, model {tp}): granite-3-8b's "
+                   f"reduced config with 6 q / 2 KV heads and d_ff 130 "
+                   f"(each on replica groups of 8 ranks, their leaves whole "
+                   f"on every rank), float32", "card": card,
+          "backend": "gloo", "ranks": tp, "config": P15O_GROUPS,
+          "opt": P15O_GROUP_OPT, "steps": P15O_GROUP_STEPS,
+          "global_batch": list(P15O_GROUP_BATCH),
+          "losses": g_s[0]["losses"], "one_rank_losses": g_losses,
+          "grad_norms": g_s[0]["grad_norms"], "one_rank_grad_norms": g_norms,
+          "max_rel_diff_loss": g_loss, "max_rel_diff_grad_norm": g_norm,
+          "gate": P15O_STEP_GATE,
+          "shards_max_excess_over_step_tol": g_excess,
+          "step_tol": STEP_TOL, "local_shards": g_s[0]["local_shards"],
+          "ms_by_step_rank0": g_s[0]["step_ms"],
+          "split_ms_rank0": g_s[0]["split_ms"],
+          "seconds_by_rank": [r["seconds"] for r in g_s], "note": note})
+    if not (g_loss <= P15O_STEP_GATE and g_norm <= P15O_STEP_GATE
+            and g_excess <= 0):
+        raise AssertionError(f"15o (v): losses {g_loss}, grad norms "
+                             f"{g_norm}, shards over STEP_TOL by {g_excess}")
+    return out
+
+
+def _phase15o_cells(o):
+    """Phase 2's kernel-B cells of 15o (label, M, N, rows), timed with
+    float32 activations (the path's dtype): each local weight shape of
+    the three models' shards at the decode batch and the prefill's
+    rows."""
+    b, rows = P15O_PROMPT[0], P15O_PROMPT[0] * P15O_PROMPT[1]
+    out = []
+    for key, shapes in o["local_shapes"].items():
+        for m, n in shapes:
+            out += [(f"15o {key} local {m}x{n} decode", m, n, b),
+                    (f"15o {key} local {m}x{n} prefill", m, n, rows)]
+    return out
+
+
 def drive_phase15(dev, seed, layers, card, memory):
-    """Phase 15 (15a, 15b-d, 15e-f, 15g-h, 15i-k, 15l-n), memory gated
-    like a phase's; returns the kernels' launches by part, and 15e's,
-    15g's, 15i's, 15j's, 15l's and 15m's kernel-B launch shapes (``plans``)
-    and local weight shapes for phase 2."""
+    """Phase 15 (15a, 15b-d, 15e-f, 15g-h, 15i-k, 15l-n, 15o), memory
+    gated like a phase's; returns the kernels' launches by part, and
+    15e's, 15g's, 15i's, 15j's, 15l's, 15m's and 15o's kernel-B launch
+    shapes (``plans``) and local weight shapes for phase 2."""
     t0 = time.perf_counter()
     a = phase15a(dev, seed, layers)
     phase_memory("15a", memory)
     bcd = phase15bcd(dev, seed, card)
     ef, gh, mr, rec = bcd["tp"], bcd["ep"], bcd["mr"], bcd["rec"]
     phase_memory("15b-n", memory)
-    emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0})
+    t_o = time.perf_counter()
+    o = phase15o(dev, seed, card)
+    phase_memory("15o", memory)
+    emit({"phase": "15 seconds", "seconds": time.perf_counter() - t0,
+          "15o_seconds": time.perf_counter() - t_o})
     return {"squant_flip": {"15a": a["squant_flip"],
                             "15b_by_rank": bcd["squant_flip"],
                             "15e_by_rank": ef["squant_flip"],
@@ -9201,7 +9843,8 @@ def drive_phase15(dev, seed, layers, card, memory):
                             "15i_by_rank": mr["squant_flip"],
                             "15j_by_rank": mr["squant_flip_15j"],
                             "15l_by_rank": rec["squant_flip_15l"],
-                            "15m_by_rank": rec["squant_flip_15m"]},
+                            "15m_by_rank": rec["squant_flip_15m"],
+                            "15o_by_rank": o["squant_flip"]},
             "squant_scale": {"15a": a["squant_scale"],
                              "15b_by_rank": bcd["squant_scale"],
                              "15e_by_rank": ef["squant_scale"],
@@ -9209,20 +9852,22 @@ def drive_phase15(dev, seed, layers, card, memory):
                              "15i_by_rank": mr["squant_scale"],
                              "15j_by_rank": mr["squant_scale_15j"],
                              "15l_by_rank": rec["squant_scale_15l"],
-                             "15m_by_rank": rec["squant_scale_15m"]},
+                             "15m_by_rank": rec["squant_scale_15m"],
+                             "15o_by_rank": o["squant_scale"]},
             "dequant_matmul": {"15a": a["dequant_matmul"],
                                "15e_by_rank": ef["dequant_matmul"],
                                "15g_by_rank": gh["dequant_matmul"],
                                "15i_by_rank": mr["dequant_matmul"],
                                "15j_by_rank": mr["dequant_matmul_15j"],
                                "15l_by_rank": rec["dequant_matmul_15l"],
-                               "15m_by_rank": rec["dequant_matmul_15m"]},
+                               "15m_by_rank": rec["dequant_matmul_15m"],
+                               "15o_by_rank": o["dequant_matmul"]},
             "plans": {"15e": ef["plans"], "15g": gh["plans"],
-                      **mr["plans"], **rec["plans"]},
+                      **mr["plans"], **rec["plans"], **o["plans"]},
             "local_shapes": ef["local_shapes"],
             "ep_local_shapes": gh["local_shapes"],
             "ep_capacity_rows": gh["capacity_rows"],
-            "mla_ring": mr, "recurrent": rec}
+            "mla_ring": mr, "recurrent": rec, "heads": o}
 
 
 def main():
@@ -9246,9 +9891,10 @@ def main():
                     "keep the script inside its time limit; its kernel-B "
                     "count is then held to phase 6's tree served at the "
                     "same depth)")
-    ap.add_argument("--layers10", type=int, default=2,
-                    help="depth of the MoE run (10a; 2 of moonshot's 48 "
-                    "layers since phases 15l-n came, 4 since phases 15e-f "
+    ap.add_argument("--layers10", type=int, default=1,
+                    help="depth of the MoE run (10a; 1 of moonshot's 48 "
+                    "layers since phase 15o came, 2 since phases 15l-n "
+                    "came, 4 since phases 15e-f "
                     "came, 8 since phase 15 came, to keep the script inside "
                     "its time limit; 16 fit one 80 GB card in float32 "
                     "before quantization)")
@@ -9274,10 +9920,11 @@ def main():
     ap.add_argument("--layers15", type=int, default=4,
                     help="depth of the one-rank mesh run (15a; 4 of "
                     "granite's 40 layers)")
-    ap.add_argument("--train-steps", type=int, default=300,
+    ap.add_argument("--train-steps", type=int, default=200,
                     help="training steps of the trained models of 11b and "
-                    "11c (ii) (300 since phases 15l-n came, 600 before, to "
-                    "keep the script inside its time limit)")
+                    "11c (ii) (200 since phase 15o came, 300 since phases "
+                    "15l-n came, 600 before, to keep the script inside its "
+                    "time limit)")
     ap.add_argument("--capture-sync-probe", action="store_true",
                     help="only print what another thread's stream and "
                     "device synchronization do to a CUDA-graph capture "
@@ -9305,6 +9952,11 @@ def main():
                     "(mamba and rwkv under tensor-parallel serving, rwkv "
                     "training, on four gloo ranks sharing the card); prints "
                     "no ok line")
+    ap.add_argument("--heads-parallel", action="store_true",
+                    help="only build, then run phase 15o (heads and FFN "
+                    "widths 'model' 16 does not divide: granite, minitron "
+                    "and minicpm3 serving, granite training, on sixteen "
+                    "gloo ranks sharing the card); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -9345,6 +9997,11 @@ def main():
         return 1
     if args.recurrent_parallel:
         phase15lmn(dev, args.seed, card)
+        return 1
+    if args.heads_parallel:
+        t0 = time.perf_counter()
+        phase15o(dev, args.seed, card)
+        emit({"phase": "15o seconds", "seconds": time.perf_counter() - t0})
         return 1
     if args.agreement_variants:
         agreement_variants(dev, args.seed, args.layers, args.layers7)
@@ -9483,7 +10140,8 @@ def main():
                            for m, n in l15.pop("ep_local_shapes")
                            if (m, n) in moe_local_banks],
                         phase15ij=_phase15ij_cells(l15.pop("mla_ring")),
-                        phase15lm=_phase15lm_cells(l15.pop("recurrent")))
+                        phase15lm=_phase15lm_cells(l15.pop("recurrent")),
+                        phase15o=_phase15o_cells(l15.pop("heads")))
     kc, kd = check_kernels_cd(dev, gen, path_lengths, moe_lengths, s11["c"])
     emit({"phase": "2 kernels vs plain versions", "squant_flip": {
         k: ka[k] for k in ("tie_rule", "max_abs_err", "tolerance",
@@ -9491,7 +10149,7 @@ def main():
         "dequant_matmul": {k: kb[k] for k in (
             "comparisons", "max_rel_err", "tolerance",
             "launch_shapes_compared", "phase12", "phase13", "phase14",
-            "phase15", "phase15ij", "phase15lm")},
+            "phase15", "phase15ij", "phase15lm", "phase15o")},
         "paged_attention": {k: kc[k] for k in (
             "max_abs_err", "max_abs_err_float32", "tolerance", "trained")},
         "paged_attention_quant": {k: kd[k] for k in (

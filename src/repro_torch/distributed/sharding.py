@@ -40,11 +40,30 @@ into DTensors (what the train step and the checkpointer take). Only the
 'model' entries of the rules apply, with two exceptions of mamba's
 (``models.mamba``): ``x_proj`` is row-parallel over ``d_inner``, and
 ``in_proj``'s x and z halves are each cut on 'model' (a strided shard,
-``MeshSharding.split``). A tree sharded over 'data' (FSDP), an expert
-count 'model' does not divide, MLA latent ranks or a mamba ``d_inner`` it
-does not divide, the encoder-decoder, speculative verify, the paged KV
-layout and a 'model' axis that does not divide the heads or the FFN
-width raise ``NotImplementedError`` (:func:`check_tensor_parallel`).
+``MeshSharding.split``).
+
+Heads and FFN widths the 'model' axis does not divide take replica groups
+(:func:`replica_groups`): a count ``n`` (q heads, KV heads, FFN columns)
+on a 'model' axis of ``tp`` is ``g = gcd(n, tp)`` contiguous shards, each
+held by ``r = tp / g`` consecutive ranks (rank ``k`` holds shard ``k //
+r``); ``r`` is 1, the plain cut, where ``tp`` divides ``n``. The shards
+nest (``gcd(n_kv, tp)`` divides ``gcd(n_heads, tp)``), so a rank's q
+heads lie over its KV shard's heads. Only the first rank of a q (or FFN)
+replica group adds its row-parallel partial product; the others add exact
+zeros (:func:`first_replica`). :func:`tp_local` cuts such a leaf to the
+rank's group shard; :func:`tp_place` holds it
+whole on every rank (``Replicate`` on 'model'), and the forward narrows it
+through :func:`to_model` (:func:`group_slice`), so each use's gradient is
+summed over 'model' once. The reference cuts the flattened ``heads ·
+head_dim`` dim instead, inside a head, and reshards by GSPMD; its cache
+rule puts 'model' on ``head_dim`` where the KV heads do not divide. The
+numbers are the same; the memory layout differs.
+
+A tree sharded over 'data' (FSDP), an expert count 'model' does not
+divide, MLA latent ranks, a mamba ``d_inner``, or rwkv heads or an rwkv
+channel-mix width it does not divide, the encoder-decoder, speculative
+verify and the paged KV layout raise ``NotImplementedError``
+(:func:`check_tensor_parallel`).
 
 MoE routing under data parallelism: the reference routes the global batch
 (GSPMD), so a data-parallel step installs a :class:`RoutingGroup` of the
@@ -585,6 +604,45 @@ def local_slice(t: torch.Tensor, width: int, dim: int = 0) -> torch.Tensor:
     return to_model(t).narrow(dim, k * width, width)
 
 
+def replica_groups(n: int, tp: int) -> Tuple[int, int]:
+    """``(g, r)`` of a count ``n`` (q heads, KV heads, FFN columns) on a
+    'model' axis of ``tp``: ``g = gcd(n, tp)`` contiguous shards of ``n /
+    g`` units, each held by ``r = tp / g`` consecutive ranks; the rank at
+    'model' coordinate ``k`` holds shard ``k // r``. ``r`` is 1 where
+    ``tp`` divides ``n``."""
+    g = math.gcd(n, tp)
+    return g, tp // g
+
+
+def group_slice(t: torch.Tensor, n: int, width: int, dim: int
+                ) -> torch.Tensor:
+    """A leaf cut by ``n`` units (``width`` entries along ``dim`` when
+    whole) as this rank's replica-group shard (:func:`replica_groups`): a
+    whole fp leaf (:func:`tp_place`'s ``Replicate``) through
+    :func:`to_model` (each rank's gradient of it is partial: summed over
+    'model'), then shard ``k // r`` of ``g`` along ``dim``, as
+    :func:`local_slice` narrows at ``k``. ``t`` as it is where 'model'
+    divides ``n`` (the plain cut), where it already holds the shard
+    (:func:`tp_local`'s tree) and for a quantized leaf (always
+    :func:`tp_local`'s cut)."""
+    tp, k, _ = model_axis()
+    g, r = replica_groups(n, tp)
+    if r == 1 or not isinstance(t, torch.Tensor) or t.shape[dim] != width:
+        return t
+    local = width // g
+    return to_model(t).narrow(dim, (k // r) * local, local)
+
+
+def first_replica(n: int) -> bool:
+    """Whether this rank is the first of its replica group for ``n`` units
+    (:func:`replica_groups`): the one rank of the group whose row-parallel
+    partial product enters the sum over 'model' (the others add exact
+    zeros). True without a 'model' axis above 1 and where it divides
+    ``n``."""
+    tp, k, _ = model_axis()
+    return k % replica_groups(n, tp)[1] == 0
+
+
 def gather_cols(x: torch.Tensor, width: int) -> torch.Tensor:
     """A column-parallel product's output, whole on every rank: this
     rank's ``(..., width / tp)`` columns all-gathered over 'model'
@@ -671,9 +729,11 @@ def check_tensor_parallel(cfg, mesh) -> None:
     product's gradient would be summed over 'model' once per rank), a
     mamba ``d_inner`` it does not divide (the same, for ``in_proj``,
     ``conv_w``, ``x_proj``, ``dt_proj`` and ``out_proj``), the
-    encoder-decoder, or a 'model' axis that does not divide the heads
-    (rwkv's, or the q and KV heads: the reference's rule splits inside a
-    head there) or the FFN width."""
+    encoder-decoder, or rwkv heads or an rwkv channel-mix width it does
+    not divide. q and KV heads (GQA or MLA) and a dense FFN width that
+    'model' does not divide run on replica groups
+    (:func:`replica_groups`): the reference's rule cuts inside a head
+    there, the port keeps heads whole."""
     tp = mesh_axis_sizes(mesh).get("model", 1)
     if tp == 1:
         return
@@ -695,10 +755,9 @@ def check_tensor_parallel(cfg, mesh) -> None:
         (cfg.is_encdec, "the encoder-decoder"),
         (rwkv_heads % tp != 0, f"rwkv's {rwkv_heads} heads on a 'model' "
                                f"axis of {tp}"),
-        (not cfg.rwkv and (cfg.n_kv_heads % tp != 0 or cfg.n_heads % tp),
-         f"{cfg.n_heads} q / {cfg.n_kv_heads} KV heads on a 'model' axis of "
-         f"{tp} (the reference's rule splits inside a head there)"),
-        (cfg.d_ff % tp != 0, f"d_ff {cfg.d_ff} on a 'model' axis of {tp}"),
+        (cfg.rwkv and cfg.d_ff % tp != 0, f"rwkv's channel-mix d_ff "
+                                          f"{cfg.d_ff} on a 'model' axis "
+                                          f"of {tp}"),
     )
     for hit, what in cases:
         if hit:
@@ -721,23 +780,66 @@ _TP_ROW_PARALLEL = {"x_proj"}
 _TP_PAIRED = {"in_proj"}
 
 
-def make_tp_shardings(mesh, tree: Any) -> Any:
-    """``MeshSharding`` tree of a params tree's tensor-parallel layout:
-    the 'model' entries of :func:`make_param_shardings` (the 'data' FSDP
-    entries replicated). A ``QuantizedTensor`` leaf gets a ``(codes,
-    scale)`` pair (:func:`quantized_tensor_shardings`). An MoE router
-    stays whole (every rank routes every token; the rules would put its
-    input dim on 'model'); an expert bank is cut on its expert dim, which
-    the pipeline's ``(E·out, in)`` codes and their scale rows carry
-    major, so a 'model' axis dividing E cuts them at expert boundaries.
-    mamba's ``x_proj`` takes the row-parallel rule, and ``in_proj``'s
-    output dim (its codes' and scales' rows) a strided shard of split 2:
-    each rank the same columns of x and of z."""
+def group_units(path: Tuple[str, ...], cfg) -> Optional[Tuple[int, bool]]:
+    """``(n, row_parallel)`` of a dense leaf that 'model' cuts by whole
+    units (:func:`replica_groups`): a GQA block's ``wq`` / ``wo`` (the q
+    heads) and ``wk`` / ``wv`` (the KV heads), an MLA block's ``q_up``,
+    ``kv_up`` and ``wo`` (its heads), a dense FFN's ``wi`` / ``wg`` /
+    ``wdown`` (``d_ff`` columns); None for every other leaf. ``path``
+    ends in the leaf's name (``w``, ``w_q``, ``w_q4``, ``w_scale``)."""
+    if len(path) < 3:
+        return None
+    node, block = path[-2], path[-3]
+    if block == "attn" and cfg.mla is not None:
+        if node in ("q_up", "kv_up", "wo"):
+            return cfg.n_heads, node == "wo"
+    elif block == "attn":
+        if node in ("wq", "wo"):
+            return cfg.n_heads, node == "wo"
+        if node in ("wk", "wv"):
+            return cfg.n_kv_heads, False
+    elif block == "ffn" and node in ("wi", "wg", "wdown"):
+        return cfg.d_ff, node == "wdown"
+    return None
+
+
+def _grouped(path, mesh, cfg) -> Optional[Tuple[int, int, bool]]:
+    """``(g, r, row_parallel)`` of a leaf cut by whole units
+    (:func:`group_units`) under ``mesh``'s 'model' axis (``r`` 1 for the
+    plain cut), else None."""
+    units = group_units(path, cfg)
+    if units is None:
+        return None
+    g, r = replica_groups(units[0], mesh_axis_sizes(mesh).get("model", 1))
+    return g, r, units[1]
+
+
+def make_tp_shardings(mesh, tree: Any, cfg) -> Any:
+    """``MeshSharding`` tree of the params tree of config ``cfg`` in its
+    tensor-parallel layout: the 'model' entries of
+    :func:`make_param_shardings` (the 'data' FSDP entries replicated). A
+    ``QuantizedTensor`` leaf gets a ``(codes, scale)`` pair
+    (:func:`quantized_tensor_shardings`). An MoE router stays whole
+    (every rank routes every token; the rules would put its input dim on
+    'model'); an expert bank is cut on its expert dim, which the
+    pipeline's ``(E·out, in)`` codes and their scale rows carry major, so
+    a 'model' axis dividing E cuts them at expert boundaries. mamba's
+    ``x_proj`` takes the row-parallel rule, and ``in_proj``'s output dim
+    (its codes' and scales' rows) a strided shard of split 2: each rank
+    the same columns of x and of z. A leaf cut by heads or FFN columns
+    that 'model' does not divide (:func:`group_units`) is whole on every
+    rank (``Replicate``): the forward narrows it to the rank's
+    replica-group shard (:func:`group_slice`), where the reference's rule
+    would cut inside a head."""
     from repro_torch.quant.qtypes import QuantizedTensor
 
     def one(path, leaf):
-        if "router" in path:
-            return MeshSharding(mesh, (None,) * len(leaf.shape))
+        grouped = _grouped(path, mesh, cfg)
+        if "router" in path or (grouped is not None and grouped[1] > 1):
+            whole = MeshSharding(mesh, (None,) * len(leaf.shape))
+            if isinstance(leaf, QuantizedTensor):
+                return whole, MeshSharding(mesh, (None,) * leaf.scale.ndim)
+            return whole
         node = path[-2] if len(path) >= 2 else ""
         if node in _TP_ROW_PARALLEL:
             path = path[:-2] + ("out_proj", path[-1])
@@ -758,9 +860,16 @@ def _local(t: torch.Tensor, sharding: MeshSharding) -> torch.Tensor:
                          mesh.get_coordinate())].contiguous()
 
 
+def _split_error(path, tp: int, what: str, cols: int) -> ValueError:
+    return ValueError(f"{'/'.join(path)}: a 'model' axis of {tp} splits a "
+                      f"{what} of its {cols} input columns")
+
+
 def _local_quantized(qt, shardings, path):
-    """This rank's ``QuantizedTensor`` of a whole one: codes and scale rows
-    of a column-parallel leaf, the codes' columns of a row-parallel one
+    """This rank's ``QuantizedTensor`` of a whole one that is not cut by
+    heads or FFN columns (:func:`_group_local` cuts those: an expert bank,
+    mamba's and rwkv's leaves, the head): codes and scale rows of a
+    column-parallel leaf, the codes' columns of a row-parallel one
     with the per-group scale's columns of the same groups (a per-channel
     scale stays whole: it scales each partial product exactly). A shard
     never splits a group or a packed int4 byte."""
@@ -776,9 +885,7 @@ def _local_quantized(qt, shardings, path):
         if cols % unit:
             what = f"group of {qt.group_size}" if qt.group_size \
                 else "packed byte"
-            raise ValueError(f"{'/'.join(path)}: a 'model' axis of {tp} "
-                             f"splits a {what} of its "
-                             f"{math.prod(qt.shape[1:])} input columns")
+            raise _split_error(path, tp, what, math.prod(qt.shape[1:]))
         if qt.scale.shape[-1] > 1:           # per-group: this rank's groups
             g = qt.scale.shape[-1] // tp
             k = sh_q.mesh.get_local_rank("model")
@@ -789,16 +896,71 @@ def _local_quantized(qt, shardings, path):
                            group_size=qt.group_size, shape=(out, cols))
 
 
-def tp_local(tree: Any, mesh) -> Any:
-    """This rank's tensor-parallel tree of a whole fp or quantized tree
-    (plain tensors, pipeline ``QuantizedTensor``s or the ``w_q``/``w_q4``/
-    ``w_scale`` serving format), every rank holding the whole tree: each
-    leaf sliced to this rank's shard of :func:`make_tp_shardings`, nothing
-    sent. What the forward runs on under :func:`activate_mesh`."""
+def _group_cut(t: torch.Tensor, dim: int, g: int, s: int) -> torch.Tensor:
+    """Shard ``s`` of ``g`` equal contiguous parts of ``t`` along ``dim``."""
+    w = t.shape[dim] // g
+    return t.narrow(dim, s * w, w).contiguous()
+
+
+def _group_local(leaf, path, mesh, grouped):
+    """This rank's replica-group shard of a whole leaf cut by heads or FFN
+    columns (:func:`_grouped`; the plain cut where ``r`` is 1):
+    an fp ``(in, out)`` kernel by columns (column-parallel) or rows
+    (row-parallel); a ``QuantizedTensor`` or the serving format's ``w_q`` /
+    ``w_q4`` / ``w_scale`` (``(out, in)``-major) by codes' and scale rows,
+    or by the codes' input columns with a per-group scale's columns of the
+    same groups (a per-channel scale whole). A shard never splits a group
+    or a packed int4 byte: ``ValueError``."""
     from repro_torch.quant.qtypes import QuantizedTensor
-    shardings = make_tp_shardings(mesh, tree)
+    g, r, row = grouped
+    tp = mesh_axis_sizes(mesh)["model"]
+    s = mesh.get_local_rank("model") // r
+    if isinstance(leaf, QuantizedTensor):
+        out, cols = leaf.shape[0], math.prod(leaf.shape[1:])
+        if not row:
+            return QuantizedTensor(
+                data=_group_cut(leaf.data, 0, g, s),
+                scale=_group_cut(leaf.scale, 0, g, s), bits=leaf.bits,
+                group_size=leaf.group_size, shape=(out // g, cols))
+        unit = leaf.group_size or (2 if leaf.packed else 1)
+        if cols % (g * unit):
+            what = f"group of {leaf.group_size}" if leaf.group_size \
+                else "packed byte"
+            raise _split_error(path, tp, what, cols)
+        scale = leaf.scale if leaf.scale.shape[-1] == 1 else \
+            _group_cut(leaf.scale, -1, g, s)
+        return QuantizedTensor(data=_group_cut(leaf.data, -1, g, s),
+                               scale=scale, bits=leaf.bits,
+                               group_size=leaf.group_size,
+                               shape=(out, cols // g))
+    name = path[-1]
+    if name == "w":                                # fp (in, out)
+        return _group_cut(leaf, -2 if row else -1, g, s)
+    if not row:                                    # (out, in)-major rows
+        return _group_cut(leaf, -2, g, s)
+    if name == "w_scale" and leaf.shape[-1] == 1:  # per-channel: whole
+        return leaf
+    if leaf.shape[-1] % g:
+        raise _split_error(path, tp, "group" if name == "w_scale"
+                           else "packed byte", leaf.shape[-1])
+    return _group_cut(leaf, -1, g, s)
+
+
+def tp_local(tree: Any, mesh, cfg) -> Any:
+    """This rank's tensor-parallel tree of a whole fp or quantized tree of
+    config ``cfg`` (plain tensors, pipeline ``QuantizedTensor``s or the
+    ``w_q``/``w_q4``/``w_scale`` serving format), every rank holding the
+    whole tree: each leaf sliced to this rank's shard of
+    :func:`make_tp_shardings`, nothing sent; a leaf cut by heads or FFN
+    columns to this rank's replica-group shard (:func:`replica_groups`).
+    What the forward runs on under :func:`activate_mesh`."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+    shardings = make_tp_shardings(mesh, tree, cfg)
 
     def one(path, leaf):
+        grouped = _grouped(path, mesh, cfg)
+        if grouped is not None:
+            return _group_local(leaf, path, mesh, grouped)
         sh = _get_path(shardings, path)
         if isinstance(leaf, QuantizedTensor):
             return _local_quantized(leaf, sh, path)
@@ -806,12 +968,13 @@ def tp_local(tree: Any, mesh) -> Any:
     return _map_with_path(one, tree)
 
 
-def tp_place(tree: Any, mesh) -> Any:
-    """A whole fp tree as DTensors on its tensor-parallel layout
-    (:func:`make_tp_shardings`): each rank keeps its shard, nothing is
-    sent. What the tensor-parallel train step and the checkpointer take."""
+def tp_place(tree: Any, mesh, cfg) -> Any:
+    """A whole fp tree of config ``cfg`` as DTensors on its
+    tensor-parallel layout (:func:`make_tp_shardings`): each rank keeps
+    its shard, nothing is sent. What the tensor-parallel train step and
+    the checkpointer take."""
     return _zip_map(lambda t, sh: place(t, sh) if isinstance(sh, MeshSharding)
-                    else t, tree, make_tp_shardings(mesh, tree))
+                    else t, tree, make_tp_shardings(mesh, tree, cfg))
 
 
 def _get_path(tree: Any, path: Tuple[str, ...]) -> Any:

@@ -12,10 +12,10 @@ Examples:
 ``--pod-compress``) over the ranks of the process group, so it raises below
 256 (512) ranks, as the reference's does; on it the step is
 tensor-parallel over the 16-way 'model' axis (the parameters placed by
-``distributed.sharding.tp_place``), which takes a dense config whose KV
-heads and FFN width 16 divides and raises ``NotImplementedError`` for any
-other. ``--pod-compress`` without it trains plainly (the step has no 'pod'
-axis to compress over).
+``distributed.sharding.tp_place``; heads and FFN widths 16 does not
+divide on replica groups), and raises ``NotImplementedError`` for a
+config ``check_tensor_parallel`` refuses. ``--pod-compress`` without it
+trains plainly (the step has no 'pod' axis to compress over).
 """
 from __future__ import annotations
 
@@ -71,7 +71,7 @@ def main(argv=None):
                            pod_compress=args.pod_compress, mesh=mesh)
     if mesh is not None:
         from repro_torch.distributed.sharding import tp_place
-        params = tp_place(params, mesh)
+        params = tp_place(params, mesh, cfg=cfg)
     trainer = Trainer(model, ocfg,
                       TrainerConfig(total_steps=args.steps,
                                     checkpoint_every=args.ckpt_every,

@@ -35,7 +35,14 @@ Grouped-query attention reads its q and KV head counts from the local
 weights' widths, so under tensor-parallel execution (``distributed.
 sharding``) it runs this rank's heads on a cache (or ring) of this rank's
 KV heads; its row-parallel ``wo`` product comes back as partial sums,
-which the block sums over 'model' (``models.transformer``). The ring's
+which the block sums over 'model' (``models.transformer``). Where 'model'
+does not divide the q or KV heads (or MLA's heads), the heads lie on
+replica groups (``sharding.replica_groups``): ranks that share a KV shard
+hold the same K/V heads, and of the ranks that share a q shard only the
+first adds its ``wo`` product (the others add exact zeros). The
+reference cuts the flattened ``heads · head_dim`` dim there, inside a
+head, and puts 'model' on its cache's ``head_dim``: the port keeps heads
+whole, a memory layout that differs, not different numbers. The ring's
 slot arithmetic is per position and its masks per head, so it runs on the
 local heads unchanged. MLA reads its head count from ``q_up``'s local
 width: ``q_down`` and ``kv_down`` are column-parallel over the latent
@@ -61,7 +68,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.distributed.sharding import gather_cols, to_model
+from repro_torch.distributed.sharding import (first_replica, gather_cols,
+                                              group_slice, to_model)
 from repro_torch.models.layers import (_init_dense, apply_rotary,
                                        by_position, init_norm, linear,
                                        linear_by_position, rms_norm)
@@ -334,6 +342,31 @@ def causal_mask(s: int, t: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
+# heads under tensor-parallel execution
+# ---------------------------------------------------------------------------
+
+def _local_heads(params, cfg, cuts) -> Dict[str, Any]:
+    """``params`` with each fp kernel of ``cuts`` (``(name, heads, width a
+    head, dim)``) narrowed to this rank's replica-group shard of its heads
+    (``sharding.group_slice``: a whole leaf, the train step's, through
+    ``to_model``; a ``tp_local`` shard or a quantized leaf as it is)."""
+    out = dict(params)
+    for name, n, unit, dim in cuts:
+        if "w" in params[name]:
+            out[name] = dict(params[name], w=group_slice(
+                params[name]["w"], n, n * unit, dim))
+    return out
+
+
+def _one_copy(y: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """A row-parallel ``wo`` product, entering the sum over 'model' once a
+    head: the first rank of each q replica group keeps it, the others add
+    exact zeros (multiplied, so the graph and its collectives stay the
+    same on every rank)."""
+    return y if first_replica(n_heads) else y * 0.0
+
+
+# ---------------------------------------------------------------------------
 # public entry point
 # ---------------------------------------------------------------------------
 
@@ -391,8 +424,14 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     hd = cfg.head_dim
     cos_t, sin_t = rope                      # (s, hd/2) for current tokens
     # the head counts are the local weights' widths: under tensor-parallel
-    # execution this rank's q and KV heads (contiguous column shards keep
+    # execution this rank's q and KV heads, on replica groups where 'model'
+    # does not divide them (sharding.replica_groups: rank k's q shard
+    # k // r_q lies over its KV shard k // r_kv; contiguous shards keep
     # GQA's grouping, q heads j*rep .. (j+1)*rep-1 over KV head j)
+    params = _local_heads(params, cfg, (("wq", cfg.n_heads, hd, -1),
+                                        ("wk", cfg.n_kv_heads, hd, -1),
+                                        ("wv", cfg.n_kv_heads, hd, -1),
+                                        ("wo", cfg.n_heads, hd, -2)))
     q = lin(params["wq"], x).reshape(b, s, -1, hd)
     k = lin(params["wk"], x).reshape(b, s, -1, hd)
     v = lin(params["wv"], x).reshape(b, s, -1, hd)
@@ -519,7 +558,7 @@ def attention(params, x, *, cfg, rope, mode: str = "prefill",
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(b, s, -1)
-    return lin(params["wo"], out), cache
+    return _one_copy(lin(params["wo"], out), cfg.n_heads), cache
 
 
 # ---------------------------------------------------------------------------
@@ -553,6 +592,12 @@ def _mla_attention(params, x, *, cfg, rope, mode, cache, pos):
     b, s, _ = x.shape
     cos_t, sin_t = rope                      # (s, rope_dim/2)
     qk_dim = m.nope_dim + m.rope_dim
+    # the heads of q_up, kv_up and wo are this rank's (replica groups
+    # where 'model' does not divide them, see attention)
+    params = _local_heads(params, cfg, (
+        ("q_up", cfg.n_heads, qk_dim, -1),
+        ("kv_up", cfg.n_heads, m.nope_dim + m.v_dim, -1),
+        ("wo", cfg.n_heads, m.v_dim, -2)))
 
     # under 'model' the down-projections are column-parallel over the
     # latent ranks: their outputs are gathered whole (q_norm and kv_norm
@@ -617,7 +662,7 @@ def _mla_attention(params, x, *, cfg, rope, mode, cache, pos):
     else:
         raise ValueError(f"unknown attention mode {mode!r}")
     out = out.reshape(b, s, h * m.v_dim)
-    return linear(params["wo"], out), cache
+    return _one_copy(linear(params["wo"], out), cfg.n_heads), cache
 
 
 def _mla_absorbed_decode(params, qfull, ckv_all, krope_all, mask, scale,

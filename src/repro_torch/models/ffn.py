@@ -3,7 +3,10 @@
 Under tensor-parallel execution the hidden ``h`` is this rank's ``d_ff /
 tp`` columns (column-parallel ``wi``/``wg``), and the row-parallel
 ``wdown`` product comes back as partial sums, which the block sums over
-'model' (``models.transformer``)."""
+'model' (``models.transformer``). Where 'model' does not divide ``d_ff``
+the columns lie on replica groups (``sharding.replica_groups``): ``gcd(d_ff,
+tp)`` shards, each held by ``tp / gcd`` ranks, of which only the first
+adds its ``wdown`` product (the others add exact zeros)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -11,6 +14,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import first_replica, group_slice
 from repro_torch.models.layers import _init_dense, linear
 
 
@@ -24,10 +28,17 @@ def init_ffn(generator, d_model: int, d_ff: int, kind: str = "swiglu",
             "wdown": _init_dense(generator, d_ff, d_model, device=device)}
 
 
-def ffn(params, x: torch.Tensor, kind: str = "swiglu",
-        lin=linear) -> torch.Tensor:
+def ffn(params, x: torch.Tensor, kind: str = "swiglu", lin=linear, *,
+        d_ff: int) -> torch.Tensor:
     """``lin``: the dense product (the verify forward passes one that runs
-    position by position, ``layers.by_position``)."""
+    position by position, ``layers.by_position``). ``d_ff``: the whole
+    width; under tensor-parallel execution whole fp kernels, the train
+    step's, are narrowed to this rank's replica-group shard of the columns
+    (``sharding.group_slice``), and only the first rank of the group keeps
+    its ``wdown`` product."""
+    params = {k: dict(v, w=group_slice(v["w"], d_ff, d_ff,
+                                       -2 if k == "wdown" else -1))
+              if "w" in v else v for k, v in params.items()}
     if kind == "swiglu":
         h = F.silu(lin(params["wg"], x)) * lin(params["wi"], x)
     elif kind == "geglu":
@@ -37,4 +48,5 @@ def ffn(params, x: torch.Tensor, kind: str = "swiglu",
         h = F.gelu(lin(params["wi"], x), approximate="tanh")
     else:  # relu
         h = F.relu(lin(params["wi"], x))
-    return lin(params["wdown"], h)
+    y = lin(params["wdown"], h)
+    return y if first_replica(d_ff) else y * 0.0

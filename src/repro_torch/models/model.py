@@ -9,7 +9,8 @@ Under ``distributed.sharding.activate_mesh`` with a 'model' axis above 1
 the forward runs tensor-parallel on this rank's local tree
 (``sharding.tp_local``): a vocab-parallel embedding and head where 'model'
 divides the vocabulary, the logits gathered whole before the loss, a
-cache (or sliding-window ring) of this rank's KV heads, an MLA stack's
+cache (or sliding-window ring) of this rank's KV heads (its replica
+group's where 'model' does not divide them), an MLA stack's
 whole compressed cache, or a mamba or rwkv state of this rank's channels
 or heads (:meth:`LM.init_cache`), and an MoE layer on this rank's experts
 (``models.moe``).

@@ -23,8 +23,11 @@ column-parallel products through ``to_model``, and each block's
 row-parallel partial sum ``h`` is summed over 'model' before the residual
 add (``shard_act``; summing after the add would count ``x`` once per
 rank). rwkv's channel mix sums its own (its ``wr`` gate multiplies the
-sum) and returns its output whole. An MoE FFN is expert-parallel there:
-its partial output (this rank's experts) is summed the same way.
+sum) and returns its output whole. Heads and FFN widths 'model' does not
+divide lie on replica groups (``sharding.replica_groups``; the attention's
+and the FFN's own docstrings), so each still adds one copy to the sum. An
+MoE FFN is expert-parallel there: its partial output (this rank's
+experts) is summed the same way.
 
 An encoder-decoder config (``cfg.is_encdec``) gives each decoder block a
 cross-attention over the encoder output (``xln``, ``xattn``: x +=
@@ -44,7 +47,8 @@ import torch.utils.checkpoint
 from repro_torch.distributed.sharding import (activate_mesh,
                                               activate_routing, current_mesh,
                                               current_routing, model_axis,
-                                              shard_act, to_model)
+                                              replica_groups, shard_act,
+                                              to_model)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ffn as ffn_lib
 from repro_torch.models import mamba as mamba_lib
@@ -182,7 +186,8 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
             y, aux = moe(h2)
             x = x + shard_act(y)
     else:
-        h = ffn_lib.ffn(p["ffn"], to_model(h2), cfg.ffn_kind, lin=lin)
+        h = ffn_lib.ffn(p["ffn"], to_model(h2), cfg.ffn_kind, lin=lin,
+                        d_ff=cfg.d_ff)
         x = x + shard_act(h)
     return x, new_cache, aux
 
@@ -256,7 +261,10 @@ def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
     ``min(max_len, window)`` slots under a sliding window. Under a
     'model' axis the heads and channels are this rank's: the KV heads,
     rwkv's wkv heads and mamba's ``d_inner`` (the token-shift rows and an
-    MLA cache stay whole)."""
+    MLA cache stay whole). The KV heads are this rank's replica-group
+    shard: ``n_kv / gcd(n_kv, tp)`` heads (``sharding.replica_groups``),
+    held alike by the ``tp / gcd(n_kv, tp)`` ranks that share them, where
+    the reference's cache rule puts 'model' on ``head_dim`` instead."""
     tp = model_axis()[0]
     if kind == "rwkv":
         d, hd = cfg.d_model, cfg.rwkv_head_dim
@@ -273,7 +281,8 @@ def init_layer_cache(cfg, batch: int, max_len: int, kind: str,
         # whole on every rank under 'model' (see models.attention)
         return attn_lib.init_mla_cache(batch, max_len, cfg, dtype,
                                        device=device)
-    return attn_lib.init_kv_cache(batch, max_len, cfg.n_kv_heads // tp,
+    kv = cfg.n_kv_heads // replica_groups(cfg.n_kv_heads, tp)[0]
+    return attn_lib.init_kv_cache(batch, max_len, kv,
                                   cfg.head_dim, dtype, quantize_kv,
                                   cfg.window, device=device)
 
@@ -388,7 +397,7 @@ def apply_encoder(enc, frames, *, cfg) -> torch.Tensor:
         h = rms_norm(pp["ln1"], x)
         x = x + attn_lib.cross_attention(pp["attn"], h, h, cfg=cfg)
         return x + ffn_lib.ffn(pp["ffn"], rms_norm(pp["ln2"], x),
-                               cfg.ffn_kind)
+                               cfg.ffn_kind, d_ff=cfg.d_ff)
 
     remat = cfg.remat and torch.is_grad_enabled()
     x = frames

@@ -21,10 +21,14 @@
   of ``distributed.sharding.tp_place``'s layout, each rank computes on its
   shards (an MoE rank on its experts), and the collectives run where the
   reference annotates its activations; it composes with the data
-  parallelism and the pod compression above. An expert count 'model' does
-  not divide, MLA, mamba, rwkv, the encoder-decoder, the sliding-window
-  ring, a 'model' axis that does not divide the KV heads or the FFN width,
-  and a tree sharded over 'data' (FSDP) raise ``NotImplementedError``.
+  parallelism and the pod compression above. Heads and FFN widths 'model'
+  does not divide are held whole on every rank (``tp_place``'s
+  ``Replicate``) and narrowed to each rank's replica-group
+  shard in the forward, so their gradients come back whole like any
+  replicated leaf's. An expert count 'model' does not divide, the
+  encoder-decoder, the other cases ``sharding.check_tensor_parallel``
+  names, and a tree sharded over 'data' (FSDP) raise
+  ``NotImplementedError``.
 
 ``Trainer`` owns the loop: checkpoint every N steps, restart from the newest
 checkpoint, preemption handling (SIGTERM → checkpoint + clean exit) and a
@@ -125,7 +129,8 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     all-reduces, compress and ring where it compresses, update), measured
     between synchronizations of the device. A mesh's step without
     compression also has ``step.averaged_grads(params, batch)``: the loss,
-    metrics and gradients it would update with.
+    metrics (with the global ``grad_norm``) and gradients it would update
+    with.
     """
     sizes = {}
     if mesh is not None:
@@ -397,8 +402,13 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
             """``(loss, metrics, grads)`` the step updates ``params``
             with on ``batch``: averaged over the data-parallel ranks, the
             gradients this rank's plain tensors (its shards where 'model'
-            is above 1)."""
-            return averaged(params, batch, _Timer(False, tp))[1:]
+            is above 1), ``metrics["grad_norm"]`` the global norm the step
+            clips them by."""
+            _, loss, metrics, grads = averaged(params, batch,
+                                               _Timer(False, tp))
+            gnorm = tp_norm(grads, params)
+            return loss, dict(metrics, grad_norm=global_norm(grads)
+                              if gnorm is None else gnorm), grads
 
         step.timed, step.split_ms = False, {}
         step.averaged_grads = averaged_grads

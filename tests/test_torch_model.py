@@ -188,7 +188,7 @@ def test_ffn_kinds_match(rng, kind):
     x = rng.normal(size=(2, 5, 8)).astype(np.float32)
     want = jffn(jax.tree_util.tree_map(jnp.asarray, p), jnp.asarray(x), kind)
     got = tffn(convert.from_jax_params(p, device="cpu"), torch.from_numpy(x),
-               kind)
+               kind, d_ff=32)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 

@@ -9,11 +9,16 @@ in the checkpointable ``w_q4`` / ``w_scale`` form), int4 with one scale
 per 128-group (at 'model' 2), tied and untied heads, a vocabulary
 'model' divides (vocab-parallel embedding and head) and one it does not
 (257, replicated like granite's 49 155), qk-norm with a GeGLU FFN, and
-bfloat16. Each
+bfloat16; at 'model' 4 also the replica-group cases
+(``torch_tp_workers.GROUP_CASES``: 8 q / 2 KV heads, 6 q / 2 KV, MLA with
+6 heads, ``d_ff`` 130), whose heads or FFN columns 4 does not divide.
+Each
 rank's prefill, chunked-prefill and decode logits match the one-rank
 forward within ``rtol=atol=1e-5`` in float32 and ``2e-2`` in bfloat16; the
 TP-local codes and scales are bit-equal slices of the whole tree, the
 per-group scales of a row-parallel leaf cut at its groups."""
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -36,7 +41,8 @@ TPS = (2, 4)
 
 def _names(tp):
     return [n for n, (_, q) in W.FORWARD_CASES.items()
-            if not (q and q[2:] and tp > W.W4G_MAX_TP)]
+            if not (q and q[2:] and tp > W.W4G_MAX_TP)
+            and (n not in W.GROUP_CASES or tp == W.GROUP_TP)]
 
 
 @pytest.fixture(scope="module")
@@ -87,33 +93,47 @@ def test_quantized_shards_are_slices_of_the_whole_tree(ranks, tp):
     slices of ``quantize_tree(mesh=None)``'s bit for bit: column-parallel
     leaves by rows with their scale rows, row-parallel leaves by input
     columns (packed int4 by bytes) with a per-channel scale whole and a
-    per-group one cut at this rank's groups."""
+    per-group one cut at this rank's groups; a leaf whose heads 'model'
+    does not divide at its replica group's shard, the same on the ranks
+    that share it."""
     compared = 0
     for name in _names(tp):
         if name not in ranks[tp][0]["quant"]:
             continue
-        _, whole = W.case_tree(name)
+        model, whole = W.case_tree(name)
+        cfg = model.cfg
         for r in ranks[tp]:
             k = r["coord"][1]
             for path, (codes, scale, shape) in r["quant"][name].items():
                 qt = W._at(whole, path.split("/"))
-                row_parallel = path.split("/")[-2] in ("wo", "wdown")
+                node = path.split("/")[-2]
+                row_parallel = node in ("wo", "wdown")
+                # the shards: tp of them, or gcd(units, tp) on replica
+                # groups of tp / gcd ranks (rank k holds shard k // r)
+                units = cfg.n_heads if node in ("wq", "wo") else cfg.d_ff
+                n = math.gcd(units, tp)
+                j = k // (tp // n)
                 if path.startswith("lm_head") and qt.shape[0] % tp:
                     want_c, want_s = qt.data, qt.scale   # replicated head
                     assert shape == qt.shape
-                elif row_parallel:
-                    c = qt.data.shape[1] // tp
-                    want_c = qt.data[:, k * c:(k + 1) * c]
-                    g = qt.scale.shape[1] // tp if qt.scale.shape[1] > 1 \
-                        else None
-                    want_s = qt.scale if g is None else \
-                        qt.scale[:, k * g:(k + 1) * g]
-                    assert shape == (qt.shape[0], qt.shape[1] // tp)
-                else:
+                elif path.startswith("lm_head"):
                     m = qt.data.shape[0] // tp
                     want_c = qt.data[k * m:(k + 1) * m]
                     want_s = qt.scale[k * m:(k + 1) * m]
                     assert shape == (qt.shape[0] // tp, qt.shape[1])
+                elif row_parallel:
+                    c = qt.data.shape[1] // n
+                    want_c = qt.data[:, j * c:(j + 1) * c]
+                    g = qt.scale.shape[1] // n if qt.scale.shape[1] > 1 \
+                        else None
+                    want_s = qt.scale if g is None else \
+                        qt.scale[:, j * g:(j + 1) * g]
+                    assert shape == (qt.shape[0], qt.shape[1] // n)
+                else:
+                    m = qt.data.shape[0] // n
+                    want_c = qt.data[j * m:(j + 1) * m]
+                    want_s = qt.scale[j * m:(j + 1) * m]
+                    assert shape == (qt.shape[0] // n, qt.shape[1])
                 np.testing.assert_array_equal(codes, want_c.numpy())
                 np.testing.assert_array_equal(scale, want_s.numpy())
                 compared += 1
@@ -129,6 +149,12 @@ def test_cache_and_out_of_scope_modes(ranks, tp):
     for r in ranks[tp]:
         assert r["cache_k_shape"] == (1, 4, W.TP_TINY["n_kv_heads"] // tp,
                                       W.TP_TINY["head_dim"])
+        # two ranks share each of the 2 KV heads at 'model' 4: one head a
+        # rank, not 2 // 4 = 0
+        for name, shape in r["group_cache_k_shape"].items():
+            kv = dict(W.TP_TINY, **W.GROUP_CASES[name][0])["n_kv_heads"]
+            assert tp == W.GROUP_TP and shape == (
+                1, 4, kv // math.gcd(kv, tp), W.TP_TINY["head_dim"]), name
         for mode in ("verify", "paged_decode"):
             assert r["raised"][mode].startswith(
                 "not ported yet: speculative verify and the paged KV "
@@ -146,10 +172,11 @@ _OUT_OF_SCOPE = {
     "d_inner": ("jamba-1.5-large-398b", dict(moe=None, d_model=65), (1, 4),
                 "mamba's d_inner 130 on a 'model' axis of 4"),
     "encdec": ("seamless-m4t-medium", {}, (1, 2), "the encoder-decoder"),
-    "kv_heads": ("granite-3-8b", None, (16, 16), "32 q / 8 KV heads on a "
-                 "'model' axis of 16"),
-    "d_ff": ("granite-3-8b", dict(d_ff=130, n_kv_heads=4), (1, 4),
-             "d_ff 130"),
+    # heads and an FFN width 'model' does not divide run on replica groups
+    # (sharding.replica_groups): past the check, the step wants a
+    # DeviceMesh of live ranks
+    "kv_heads": ("granite-3-8b", None, (16, 16), None),
+    "d_ff": ("granite-3-8b", dict(d_ff=130, n_kv_heads=4), (1, 4), None),
 }
 
 
@@ -157,13 +184,23 @@ _OUT_OF_SCOPE = {
 def test_out_of_scope_configs_raise(case):
     """Each case tensor-parallel execution does not take raises its named
     ``NotImplementedError`` from ``check_tensor_parallel`` and from
-    ``make_train_step`` (granite's 8 KV heads on the production mesh's
-    'model' axis of 16 through an ``AbstractMesh``, at full width)."""
+    ``make_train_step``; granite's 8 KV heads on the production mesh's
+    'model' axis of 16 (through an ``AbstractMesh``, at full width) and a
+    ``d_ff`` of 130 on 4 pass the check, and the step raises only that it
+    runs on a ``DeviceMesh``."""
     import dataclasses
     arch, over, shape, what = _OUT_OF_SCOPE[case]
     cfg = get_config(arch) if over is None else dataclasses.replace(
         get_config(arch, reduced=True), **over)
     mesh = AbstractMesh(shape, ("data", "model"))
+    if what is None:
+        check_tensor_parallel(cfg, mesh)
+        for kw in (dict(mesh=mesh), dict(pod_compress=True, mesh=AbstractMesh(
+                (2,) + shape, ("pod", "data", "model")))):
+            with pytest.raises(ValueError, match="runs on a DeviceMesh"):
+                tloop.make_train_step(build_model(cfg), topt.AdamWConfig(),
+                                      **kw)
+        return
     match = "not ported yet: " + what
     with pytest.raises(NotImplementedError, match=match):
         check_tensor_parallel(cfg, mesh)
@@ -175,3 +212,33 @@ def test_out_of_scope_configs_raise(case):
                               pod_compress=True, mesh=AbstractMesh(
                                   (2,) + shape, ("pod", "data", "model")))
     check_tensor_parallel(cfg, AbstractMesh((2, 1), ("data", "model")))
+
+
+# the production mesh's 'model' 16 (launch/mesh.make_production_mesh):
+# every config of the zoo passes but mixtral (its 8 experts, M7c.1b) and
+# seamless (the encoder-decoder, M7c.5)
+_AT_16 = {"mixtral-8x7b": "8 experts on a 'model' axis of 16",
+          "seamless-m4t-medium": "the encoder-decoder"}
+
+
+@pytest.mark.parametrize("arch", ["chameleon-34b", "gemma-7b", "granite-3-8b",
+                                  "jamba-1.5-large-398b", "minicpm3-4b",
+                                  "minitron-4b", "mixtral-8x7b",
+                                  "moonshot-v1-16b-a3b", "rwkv6-1.6b",
+                                  "seamless-m4t-medium"])
+def test_production_model_axis_sweep(arch):
+    """``check_tensor_parallel`` at full width on ``AbstractMesh((1, 16),
+    ("data", "model"))``: granite, chameleon, jamba and minitron (8 KV
+    heads, minitron's 24 q heads too) and minicpm3 (40 MLA heads) pass on
+    replica groups beside gemma, moonshot and rwkv; mixtral raises only
+    its experts' error and seamless only the encoder-decoder's."""
+    from repro_torch.configs import list_archs
+    assert arch in list_archs()
+    cfg = get_config(arch)
+    mesh = AbstractMesh((1, 16), ("data", "model"))
+    if arch not in _AT_16:
+        check_tensor_parallel(cfg, mesh)
+        return
+    with pytest.raises(NotImplementedError,
+                       match="not ported yet: " + _AT_16[arch]):
+        check_tensor_parallel(cfg, mesh)

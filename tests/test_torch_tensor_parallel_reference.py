@@ -16,7 +16,11 @@ together (``torch_ep_workers.reference_moe_ranks``), reduced minicpm3
 over 'model'), and reduced mixtral with 8 q / 4 KV heads on sequences of
 48 tokens past its 32-token window (expert-parallel, routed over both
 'data' ranks, ``capacity_factor`` 1.0), all held to the same tolerances
-(``torch_mla_ring_workers.reference_ranks``)."""
+(``torch_mla_ring_workers.reference_ranks``). On a (1, 4) mesh of the
+same four devices it runs granite's model with 8 q / 2 KV heads, and with
+6 q / 2 KV and ``d_ff`` 130 (``torch_tp_workers.REF_GROUP_OVER``), which
+it cuts inside a head; the port runs them on replica groups on (data 1,
+model 4), held to the same tolerances."""
 import dataclasses
 import textwrap
 
@@ -52,7 +56,10 @@ _REFERENCE = textwrap.dedent(f"""
     mesh = make_mesh((2, 2), ("data", "model"))
     activate_mesh(mesh)
 
-    def run(cfg, pre, s=16):
+    def run(cfg, pre, s=16, m=None):
+        if m is not None:
+            activate_mesh(m)
+        mesh = m or globals()["mesh"]
         model = build_model(cfg)
         params = model.init(jax.random.PRNGKey(0))
         params = jax.device_put(params, make_param_shardings(mesh, params))
@@ -84,9 +91,17 @@ _REFERENCE = textwrap.dedent(f"""
     ring = get_config("mixtral-8x7b", reduced=True)
     ring = dataclasses.replace(ring, moe=dataclasses.replace(
         ring.moe, capacity_factor={MR.BINDING_CF!r}), **{_RING_OVER!r})
-    np.savez(OUT, **run(cfg, ""), **run(moe, "moe_"),
-             **run(mla, "mla_", {MR.REF_SEQ["mla"]!r}),
-             **run(ring, "ring_", {MR.REF_SEQ["ring"]!r}))
+    out = dict(**run(cfg, ""), **run(moe, "moe_"),
+               **run(mla, "mla_", {MR.REF_SEQ["mla"]!r}),
+               **run(ring, "ring_", {MR.REF_SEQ["ring"]!r}))
+    # heads (and an FFN width) 'model' 4 does not divide: the reference
+    # cuts the flattened heads * head_dim dim, inside a head, on a (1, 4)
+    # mesh of the same four devices
+    mesh14 = make_mesh((1, 4), ("data", "model"))
+    for name, over in {W.REF_GROUP_OVER!r}.items():
+        out.update(run(dataclasses.replace(cfg, **over), "grp_" + name + "_",
+                       m=mesh14))
+    np.savez(OUT, **out)
 """)
 
 
@@ -120,11 +135,24 @@ def both(reference):
     path = str(d / "params.pt")
     torch.save(tparams, path)
     want_grads = _want_grads(jparams, ref)
+    groups, group_want = {}, {}
+    for name, over in W.REF_GROUP_OVER.items():
+        pre = f"grp_{name}_"
+        r = {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+        gparams = jax_build_model(dataclasses.replace(
+            jcfg, **over)).init(jax.random.PRNGKey(0))
+        gpath = str(d / f"grp_{name}_params.pt")
+        torch.save(convert.from_jax_params(jax.device_get(gparams),
+                                           device="cpu"), gpath)
+        groups[name] = (gpath, r["tokens"], {"tokens": r["tokens"],
+                                             "labels": r["labels"]})
+        group_want[name] = (r, _want_grads(gparams, ref, pre))
     port = run_local(W.reference_ranks, 4, backend="gloo", device="cpu",
                      args=(path, ref["tokens"], {"tokens": ref["tokens"],
-                                                 "labels": ref["labels"]}),
+                                                 "labels": ref["labels"]},
+                           groups),
                      timeout=600, store_dir=str(d))[0]
-    return ref, want_grads, port
+    return ref, want_grads, port, group_want
 
 
 @pytest.fixture(scope="module")
@@ -161,13 +189,13 @@ def mla_ring_both(reference):
 
 
 def test_prefill_logits_match_reference(both):
-    ref, _, port = both
+    ref, _, port, _ = both
     np.testing.assert_allclose(port["logits"], ref["logits"], rtol=1e-5,
                                atol=1e-5)
 
 
 def test_loss_and_grads_match_reference(both):
-    ref, want, port = both
+    ref, want, port, _ = both
     np.testing.assert_allclose(port["loss"], float(ref["loss"]), rtol=1e-5,
                                atol=0)
     assert sorted(port["grads"]) == sorted(want)
@@ -177,10 +205,41 @@ def test_loss_and_grads_match_reference(both):
 
 
 def test_train_step_metrics_match_reference(both):
-    ref, _, port = both
+    ref, _, port, _ = both
     np.testing.assert_allclose(port["step"]["loss"], float(ref["step_loss"]),
                                rtol=1e-5, atol=0)
     np.testing.assert_allclose(port["step"]["grad_norm"],
+                               float(ref["step_grad_norm"]), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("name", list(W.REF_GROUP_OVER))
+def test_replica_group_forward_and_grads_match_reference(both, name):
+    """8 q / 2 KV heads, and 6 q / 2 KV with ``d_ff`` 130, on (data 1,
+    model 4): the reference cuts inside a head (GSPMD), the port runs
+    replica groups; the prefill logits within 1e-5, the loss within 1e-5
+    relative, the gradients within ``GRAD_TOL``."""
+    _, _, port, group_want = both
+    ref, want = group_want[name]
+    got = port["groups"][name]
+    np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["loss"], float(ref["loss"]), rtol=1e-5,
+                               atol=0)
+    assert sorted(got["grads"]) == sorted(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(got["grads"][k], g, **GRAD_TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("name", list(W.REF_GROUP_OVER))
+def test_replica_group_train_step_metrics_match_reference(both, name):
+    _, _, port, group_want = both
+    ref, _ = group_want[name]
+    got = port["groups"][name]["step"]
+    np.testing.assert_allclose(got["loss"], float(ref["step_loss"]),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got["grad_norm"],
                                float(ref["step_grad_norm"]), rtol=1e-4,
                                atol=0)
 

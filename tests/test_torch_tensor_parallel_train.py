@@ -6,18 +6,24 @@ Four gloo rank processes (one ``distributed.group.run_local``) train
 embedding) from ``tp_place``'s DTensor tree: on (data 2, model 2), also
 with ``clip_norm`` active (a norm that counted the replicated leaves once
 per 'model' rank would clip differently), and on (data 1, model 4), three
-steps each: losses and grad norms within 1e-4 relative of the one-rank
-step, the averaged gradients of the first batch within ``GRAD_TOL`` and
-each rank's parameter shards within ``STEP_TOL`` of the one-rank
-parameters' slices (``tests/test_torch_train_step.py``'s tolerances; the
-AdamW ``eps`` of these cases is explained in ``torch_tp_workers``). The
+steps each, and on (data 1, model 4) with heads and an FFN width 4 does
+not divide (``torch_tp_workers.GROUP_TRAIN_OVER``: 8 q / 2 KV heads; 6
+q / 2 KV with ``d_ff`` 130, on replica groups): losses and grad norms
+within 1e-4 relative of the one-rank step, the averaged gradients of the
+first batch within ``GRAD_TOL`` and each rank's parameter shards within
+``STEP_TOL`` of the one-rank parameters' slices
+(``tests/test_torch_train_step.py``'s tolerances; the AdamW ``eps`` of
+these cases is explained in ``torch_tp_workers``). The
 pod-compressed step on (pod 2, data 1, model 2) learns as the reference's
 ``tests/test_distributed.py::test_pod_compressed_training_learns``
 asserts, keeps the logical error-feedback layout, and tracks the
 non-tensor-parallel pod step (losses, and the first step's error-feedback
 rows within one int8 quantum). A ``Trainer`` on (data 1, model 2) saves,
 stops and resumes to the losses of an uninterrupted run, and a tree
-sharded over 'data' (FSDP) is refused by name."""
+sharded over 'data' (FSDP) is refused by name. The replica-group model's
+checkpoint saved at 'model' 4 restores bit-equal at 2 and 1, and the
+save at 2 back at 4; its pod-compressed step at 'model' 2 (one KV head,
+``d_ff`` 129, whole on both ranks) tracks the plain pod step."""
 import numpy as np
 import pytest
 import torch
@@ -40,8 +46,9 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("name", list(W.TRAIN_CASES))
 def test_train_step_matches_one_rank(ranks, name):
     ocfg = W.TRAIN_CASES[name][2]
-    losses, norms, params = W.one_rank_train(ocfg, W.TRAIN_STEPS)
-    grads = W.one_rank_grads()
+    losses, norms, params = W.one_rank_train(ocfg, W.TRAIN_STEPS,
+                                             over=W.train_over(name))
+    grads = W.one_rank_grads(over=W.train_over(name))
     if "clip" in name:
         assert min(norms) > ocfg["clip_norm"]        # the clip is active
     for r in ranks:
@@ -73,6 +80,44 @@ def test_model_shards_split_the_sharded_leaves(ranks):
     assert shards[blk + "ffn/wdown/w"][1] == ((f // 4, f // 2), (0, d))
     assert shards["embedding/embedding"][1] == ((16, 32), (0, d))
     assert shards[blk + "ln1/gain"][1] == ((0, d),)
+
+
+@pytest.mark.parametrize("where", ["model2", "one_rank", "back4"])
+def test_replica_group_checkpoint_restores_bit_equal(ranks, where):
+    """Leaves cut by heads or FFN columns 'model' does not divide are held
+    whole (``Replicate``) on 'model' 4 and cut plainly on 2, and the
+    checkpoint holds the logical arrays: restored at 'model' 2, on one
+    rank, and from the 'model' 2 save back at 4, every leaf equals the
+    saved tree's bit for bit."""
+    want = ranks[0]["group_ckpt"]["saved"]
+    holders = {"model2": ranks[:2], "one_rank": ranks[:1],
+               "back4": ranks}[where]
+    for r in holders:
+        got = r["group_ckpt"][where]
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    # wq's 6 heads: whole on 'model' 4 (replica groups), cut in three-head
+    # shards on 'model' 2
+    assert "Shard" not in ranks[0]["group_ckpt"]["placements4"]
+    assert "Shard(dim=1)" in ranks[0]["group_ckpt"]["placements2"]
+    for r in ranks[:2]:
+        m = r["group_ckpt"]["model2_opt_m"]
+        assert all(not m[k].any() and m[k].shape == v.shape
+                   for k, v in want.items())
+
+
+def test_pod_compressed_replica_groups_track_plain_pod(ranks):
+    """The pod-compressed step on (pod 2, data 1, model 2) with one KV head
+    and ``d_ff`` 129 (each whole on both 'model' ranks) keeps the logical
+    error-feedback layout and tracks the plain pod step's losses within
+    1e-4 relative."""
+    plain = ranks[0]["pod_plain_group"]
+    for r in ranks:
+        tp = r["pod_tp_group"]
+        assert tp["err"] == plain["err"]
+        np.testing.assert_allclose(tp["losses"], plain["losses"], rtol=1e-4,
+                                   atol=0)
 
 
 def test_pod_compressed_on_model_learns(ranks):

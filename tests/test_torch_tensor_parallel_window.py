@@ -120,8 +120,9 @@ def test_check_tensor_parallel_takes_the_ring(tp):
     """mixtral at full width (8 experts, 32 q / 8 KV heads, window 4096)
     runs tensor-parallel at 'model' 2 and 4, and ``make_train_step``
     (plain and pod-compressed) takes it; at the production mesh's 16 its
-    8 experts (M7c.1b) and, with those out of the way, its 8 KV heads raise
-    their named ``NotImplementedError``."""
+    8 experts (M7c.1b) raise their named ``NotImplementedError``, and with
+    those out of the way its 8 KV heads pass on replica groups (two ranks
+    a KV head)."""
     cfg = get_config("mixtral-8x7b")
     mesh = AbstractMesh((1, tp), ("data", "model"))
     if tp == 16:
@@ -129,9 +130,7 @@ def test_check_tensor_parallel_takes_the_ring(tp):
                            match="not ported yet: 8 experts on a 'model' "
                                  "axis of 16"):
             check_tensor_parallel(cfg, mesh)
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet: 32 q / 8 KV heads"):
-            check_tensor_parallel(dataclasses.replace(cfg, moe=None), mesh)
+        check_tensor_parallel(dataclasses.replace(cfg, moe=None), mesh)
         return
     check_tensor_parallel(cfg, mesh)
     # past the check: the step then wants a DeviceMesh of live ranks

@@ -260,7 +260,7 @@ def forward_ranks(tp, params_path, names):
     out = {"rank": dist.get_rank(), "coord": tuple(mesh.get_coordinate()),
            "logits": {}, "routes": {}, "banks": {}}
     for name in names:
-        local = tp_local(fwd_tree(name, params, qmesh), mesh)
+        local = tp_local(fwd_tree(name, params, qmesh), mesh, model.cfg)
         with activate_mesh(mesh):
             out["logits"][name], out["routes"][name] = forward_with_routes(
                 model, local)
@@ -350,7 +350,7 @@ def train_ranks(params_path):
     out = {"rank": dist.get_rank(), "cases": {}}
     for name, (shape, axes, mb) in TRAIN_CASES.items():
         mesh = make_mesh(shape, axes)
-        placed = tp_place(params, mesh)
+        placed = tp_place(params, mesh, model.cfg)
         step = tl.make_train_step(model, AdamWConfig(**TPW._STEP),
                                   microbatches=mb, mesh=mesh)
         _, _, g = step.averaged_grads(placed, batches[0])
@@ -365,7 +365,7 @@ def train_ranks(params_path):
     mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
     err = tl.init_pod_error(params, 2)
     shapes = [tuple(e.shape) for e in tree_leaves(err)]
-    placed = tp_place(params, mesh)
+    placed = tp_place(params, mesh, model.cfg)
     step = tl.make_train_step(model, AdamWConfig(**TPW._STEP),
                               pod_compress=True, mesh=mesh)
     _, _, err, met = step(placed, adamw_init(placed), err, batches[0])
@@ -395,10 +395,10 @@ def reference_moe_ranks(params_path, tokens, batch):
     toks = torch.from_numpy(tokens)
     with activate_mesh(mesh):
         logits, _ = model.forward(
-            tp_local(params, mesh), {"tokens": toks}, mode="prefill",
+            tp_local(params, mesh, model.cfg), {"tokens": toks}, mode="prefill",
             caches=model.init_cache(toks.shape[0], toks.shape[1],
                                     device="cpu"))
-    placed = tp_place(params, mesh)
+    placed = tp_place(params, mesh, model.cfg)
     step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
     b = tl.to_device(batch, "cpu")
     loss, _, g = step.averaged_grads(placed, b)
@@ -427,9 +427,10 @@ def checkpoint_ranks(params_path, ckpt_dir):
     from repro_torch.training.optimizer import adamw_init
     torch.set_num_threads(1)
     params = torch.load(params_path)
+    cfg = config(TRAIN_OVER)
     bank = ("stack", "list", "0", "b0", "moe", "wg", "w")
     mesh4 = make_mesh((1, 4), ("data", "model"))
-    placed = tp_place(params, mesh4)
+    placed = tp_place(params, mesh4, cfg)
     opt = adamw_init(placed)
     ck = Checkpointer(ckpt_dir, async_save=False)
     ck.save(1, placed, opt)
@@ -437,7 +438,7 @@ def checkpoint_ranks(params_path, ckpt_dir):
            "local4": tuple(TPW._at(placed, bank).to_local().shape)}
     mesh2 = make_mesh((1, 2), ("data", "model"))
     if mesh2.get_coordinate() is not None:
-        like = tp_place(params, mesh2)
+        like = tp_place(params, mesh2, cfg)
         got, got_opt, _ = ck.restore(
             1, shardings=(shardings_of(like), shardings_of(
                 adamw_init(like))), template=(like, adamw_init(like)),

@@ -164,20 +164,22 @@ def forward_ranks(tp, mla_names, ring_names):
     for name in mla_names:
         model, whole = mla_case(name, qmesh)
         with activate_mesh(mesh):
-            out["mla"][name] = TPW.forward_suite(model, tp_local(whole, mesh))
+            out["mla"][name] = TPW.forward_suite(
+                model, tp_local(whole, mesh, model.cfg))
     for name in ring_names:
         model = ring_model()
         whole = quantized(params_of(model), RING_CASES[name], qmesh)
         with activate_mesh(mesh):
             out["ring"][name], out["routes"][name] = ring_suite(
-                model, tp_local(whole, mesh))
+                model, tp_local(whole, mesh, model.cfg))
     model, whole = mla_case("fp")
-    local = tp_local(whole, mesh)
+    local = tp_local(whole, mesh, model.cfg)
     out["mla_shapes"] = {k: tuple(v.shape) for k, v in TPW._leaves(
         local["stack"]["list"][0]["b0"]["attn"])}
     if tp > W4G_MAX_TP:
         try:
-            tp_local(mla_case("w4_group_scales")[1], mesh)
+            m4, t4 = mla_case("w4_group_scales")
+            tp_local(t4, mesh, m4.cfg)
         except ValueError as e:
             out["w4g_split_group"] = str(e)
     with activate_mesh(mesh):
@@ -245,7 +247,7 @@ def _tp_train(kind, mesh):
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     import torch_ep_workers as EP
     model = train_model(kind)
-    placed = tp_place(params_of(model), mesh)
+    placed = tp_place(params_of(model), mesh, model.cfg)
     batches = [tl.to_device(b, "cpu") for b in train_batches(kind)]
     step = tl.make_train_step(model, AdamWConfig(**TPW._STEP), mesh=mesh)
     _, _, g = step.averaged_grads(placed, batches[0])
@@ -272,7 +274,7 @@ def _pod_losses(mesh, steps, tp):
     err = tl.init_pod_error(params, 2)
     shapes = [tuple(e.shape) for e in tree_leaves(err)]
     if tp:
-        params = tp_place(params, mesh)
+        params = tp_place(params, mesh, model.cfg)
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**TPW.POD_OPT),
                               pod_compress=True, mesh=mesh)
@@ -384,9 +386,9 @@ def reference_ranks(cases):
         toks = torch.from_numpy(tokens)
         with activate_mesh(mesh):
             logits, _ = model.forward(
-                tp_local(params, mesh), {"tokens": toks}, mode="prefill",
+                tp_local(params, mesh, model.cfg), {"tokens": toks}, mode="prefill",
                 caches=model.init_cache(*toks.shape, device="cpu"))
-        placed = tp_place(params, mesh)
+        placed = tp_place(params, mesh, model.cfg)
         step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
         b = tl.to_device(batch, "cpu")
         loss, _, g = step.averaged_grads(placed, b)

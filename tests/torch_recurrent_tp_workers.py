@@ -211,7 +211,7 @@ def forward_ranks(tp, names):
     for kind in KINDS:
         for name in names:
             model, whole = case(kind, name, qmesh)
-            local = tp_local(whole, mesh)
+            local = tp_local(whole, mesh, model.cfg)
             with activate_mesh(mesh):
                 key = f"{kind}_{name}"
                 out["logits"][key], out["routes"][key] = suite(model, local)
@@ -219,7 +219,7 @@ def forward_ranks(tp, names):
                 qt = TPW._at(local, MIXER_LEAVES[kind] + ("in_proj", "w"))
                 out["in_proj_w8"] = (qt.data.numpy(), qt.scale.numpy())
         model, whole = case(kind, "fp")
-        local = tp_local(whole, mesh)
+        local = tp_local(whole, mesh, model.cfg)
         out["shapes"][kind] = _shapes(TPW._at(local, MIXER_LEAVES[kind]))
         with activate_mesh(mesh):
             c = model.init_cache(2, 8, device="cpu")["list"][0]["b0"]
@@ -238,7 +238,8 @@ def forward_ranks(tp, names):
                 model.cfg, TPW._at(local, MIXER_LEAVES[kind]), mesh)
         if tp > W4G_MAX_TP:
             try:
-                tp_local(case(kind, "w4g")[1], mesh)
+                m4, t4 = case(kind, "w4g")
+                tp_local(t4, mesh, m4.cfg)
             except ValueError as e:
                 out["raised"][kind] = str(e)
     return out
@@ -312,7 +313,7 @@ def _tp_train(kind, mesh):
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     import torch_ep_workers as EP
     model = train_model(kind)
-    placed = tp_place(params_of(model), mesh)
+    placed = tp_place(params_of(model), mesh, model.cfg)
     batches = [tl.to_device(b, "cpu") for b in train_batches()]
     step = tl.make_train_step(model, AdamWConfig(**TPW._STEP), mesh=mesh)
     _, _, g = step.averaged_grads(placed, batches[0])
@@ -339,7 +340,7 @@ def _pod_losses(kind, mesh, tp):
     err = tl.init_pod_error(params, 2)
     shapes = [tuple(e.shape) for e in tree_leaves(err)]
     if tp:
-        params = tp_place(params, mesh)
+        params = tp_place(params, mesh, model.cfg)
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**TPW.POD_OPT),
                               pod_compress=True, mesh=mesh)
@@ -403,9 +404,10 @@ def checkpoint_ranks(ckpt_dir):
     from repro_torch.training.optimizer import adamw_init
     import torch_ep_workers as EP
     torch.set_num_threads(1)
-    params = params_of(train_model("jamba"))
+    model = train_model("jamba")
+    params = params_of(model)
     mesh4 = make_mesh((1, 4), ("data", "model"))
-    placed = tp_place(params, mesh4)
+    placed = tp_place(params, mesh4, model.cfg)
     opt = adamw_init(placed)
     ck = Checkpointer(ckpt_dir, async_save=False)
     ck.save(1, placed, opt)
@@ -416,7 +418,7 @@ def checkpoint_ranks(ckpt_dir):
            "dtensor_gather": w.full_tensor().numpy().copy()}
     mesh2 = make_mesh((1, 2), ("data", "model"))
     if mesh2.get_coordinate() is not None:
-        like = tp_place(params, mesh2)
+        like = tp_place(params, mesh2, model.cfg)
         got, got_opt, _ = ck.restore(
             1, shardings=(shardings_of(like), shardings_of(
                 adamw_init(like))), template=(like, adamw_init(like)),
@@ -476,9 +478,9 @@ def reference_ranks(cases):
         toks = torch.from_numpy(tokens)
         with activate_mesh(mesh):
             logits, _ = model.forward(
-                tp_local(params, mesh), {"tokens": toks}, mode="prefill",
+                tp_local(params, mesh, model.cfg), {"tokens": toks}, mode="prefill",
                 caches=model.init_cache(*toks.shape, device="cpu"))
-        placed = tp_place(params, mesh)
+        placed = tp_place(params, mesh, model.cfg)
         step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
         b = tl.to_device(batch, "cpu")
         loss, _, g = step.averaged_grads(placed, b)

@@ -7,12 +7,19 @@ The model is granite's dense GQA stack at test widths: d_model 128, 8 q /
 4 KV heads of 32, d_ff 512, 2 layers, float32 unless a case says
 otherwise, so 'model' axes of 2 and 4 divide every sharded dim and an
 int4 128-group shard of ``wo``/``wdown`` at 'model' 2 holds whole groups.
+The cases of :data:`GROUP_CASES` (at 'model' 4 only) take heads or an FFN
+width that 'model' 4 does not divide, on replica groups
+(``sharding.replica_groups``): 8 q / 2 KV heads (two ranks share each KV
+head), 6 q / 2 KV (two ranks share each q shard too), minicpm3's MLA with
+6 heads, and ``d_ff`` 130.
 """
 import dataclasses
 import os
 
 import numpy as np
 import torch
+
+from repro_torch.configs.base import MLAConfig
 
 TP_TINY = dict(dtype="float32", n_layers=2, d_model=128, n_heads=8,
                n_kv_heads=4, head_dim=32, d_ff=512)
@@ -43,6 +50,17 @@ FORWARD_CASES = {
                                   (4, 128, "group_scales")),
 }
 W4G_MAX_TP = 2        # wo's 256 input columns hold whole 128-groups up to 2
+GROUP_TP = 4          # the 'model' size the replica-group cases run at
+MLA_H6 = dict(arch="minicpm3-4b", n_heads=6, n_kv_heads=6, d_ff=256,
+              mla=MLAConfig(q_lora=128, kv_lora=128, nope_dim=16,
+                            rope_dim=8, v_dim=32))
+GROUP_CASES = {
+    "q8_kv2_fp": (dict(vocab=256, n_kv_heads=2), None),
+    "q6_kv2_w8": (dict(vocab=256, n_heads=6, n_kv_heads=2), (8, None)),
+    "mla_h6_w8": (dict(MLA_H6, vocab=256), (8, None)),
+    "dff130_fp": (dict(vocab=256, d_ff=130), None),
+}
+FORWARD_CASES.update(GROUP_CASES)
 
 
 def group_scale_tree(params, bits, group_size):
@@ -71,12 +89,12 @@ def group_scale_tree(params, bits, group_size):
     return one(params)
 
 
-def tiny_model(seed=0, **over):
-    """granite at :data:`TP_TINY` (and ``over``), params from ``seed`` on
-    the CPU."""
+def tiny_model(seed=0, arch="granite-3-8b", **over):
+    """``arch`` (granite) at :data:`TP_TINY` (and ``over``), params from
+    ``seed`` on the CPU."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
-    cfg = dataclasses.replace(get_config("granite-3-8b", reduced=True),
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
                               **dict(TP_TINY, **over))
     model = build_model(cfg)
     return model, model.init(torch.Generator().manual_seed(seed),
@@ -170,7 +188,7 @@ def forward_ranks(tp, names):
            "logits": {}, "quant": {}}
     for name in names:
         model, whole = case_tree(name, qmesh)
-        local = tp_local(whole, mesh)
+        local = tp_local(whole, mesh, cfg=model.cfg)
         with activate_mesh(mesh):
             out["logits"][name] = forward_suite(model, local)
         if FORWARD_CASES[name][1] not in (None, (4, 128, "serving")):
@@ -180,11 +198,12 @@ def forward_ranks(tp, names):
     raised = {}
     if tp > W4G_MAX_TP:             # a shard of wo would split a 128-group
         try:
-            tp_local(case_tree("untied_v256_w4_group_scales")[1], mesh)
+            m4, t4 = case_tree("untied_v256_w4_group_scales")
+            tp_local(t4, mesh, m4.cfg)
         except ValueError as e:
             raised["w4g_split_group"] = str(e)
     model, whole = case_tree("tied_v256_fp")
-    local = tp_local(whole, mesh)
+    local = tp_local(whole, mesh, model.cfg)
     with activate_mesh(mesh):
         caches = model.init_cache(2, 32, device="cpu")
         caches["pos"] = torch.zeros(2, dtype=torch.int64)
@@ -205,6 +224,11 @@ def forward_ranks(tp, names):
         out["cache_k_shape"] = tuple(
             model.init_cache(1, 4, device="cpu")["list"][0]["b0"]["k"]
             .shape)
+        out["group_cache_k_shape"] = {
+            n: tuple(tiny_model(**GROUP_CASES[n][0])[0].init_cache(
+                1, 4, device="cpu")["list"][0]["b0"]["k"].shape)
+            for n in names if n in GROUP_CASES and "mla" not in
+            GROUP_CASES[n][0]}
     return out
 
 
@@ -276,7 +300,25 @@ TRAIN_CASES = {     # name -> (mesh shape, axis names, AdamW overrides)
                           dict(_STEP, clip_norm=0.05)),
     "data1_model4": ((1, 4), ("data", "model"), _STEP),
 }
+# replica groups at 'model' 4 (config overrides): two ranks share each KV
+# head (their partial K/V gradients summed), and two ranks share each q
+# shard and each of d_ff 130's two FFN shards (one of them adds zeros)
+GROUP_TRAIN_OVER = {
+    "data1_model4_q8_kv2": dict(TRAIN_OVER, n_kv_heads=2),
+    "data1_model4_q6_kv2_dff130": dict(TRAIN_OVER, n_heads=6, n_kv_heads=2,
+                                       d_ff=130),
+}
+TRAIN_CASES.update({n: ((1, 4), ("data", "model"), _STEP)
+                    for n in GROUP_TRAIN_OVER})
+# the pod step's replica groups at 'model' 2: one KV head and d_ff 129,
+# each whole on both ranks
+POD_GROUP_OVER = dict(TRAIN_OVER, n_kv_heads=1, d_ff=129)
 POD_OPT = dict(lr=3e-3, warmup_steps=0, decay_steps=100)
+
+
+def train_over(name):
+    """The config overrides of training case ``name``."""
+    return GROUP_TRAIN_OVER.get(name, TRAIN_OVER)
 
 
 def one_rank_grads(over=TRAIN_OVER):
@@ -329,7 +371,7 @@ def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER):
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model, params = tiny_model(**over)
-    placed = tp_place(params, mesh)
+    placed = tp_place(params, mesh, cfg=model.cfg)
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**ocfg), mesh=mesh)
     _, grads = averaged_grads(model, mesh, placed, tl.to_device(
@@ -343,7 +385,7 @@ def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER):
     return losses, norms, _shards(placed), grads
 
 
-def _pod_run(mesh, steps, tp):
+def _pod_run(mesh, steps, tp, over=TRAIN_OVER):
     """The pod-compressed step on ``mesh`` (tensor-parallel when ``tp``):
     its losses, the error buffers' leaf order and shapes, and this rank's
     pod and its error-feedback row after the first step."""
@@ -351,11 +393,11 @@ def _pod_run(mesh, steps, tp):
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                                 tree_leaves)
-    model, params = tiny_model(**TRAIN_OVER)
+    model, params = tiny_model(**over)
     err = tl.init_pod_error(params, 2)
     shapes = [tuple(e.shape) for e in tree_leaves(err)]
     if tp:
-        params = tp_place(params, mesh)
+        params = tp_place(params, mesh, cfg=model.cfg)
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**POD_OPT),
                               pod_compress=True, mesh=mesh)
@@ -405,16 +447,72 @@ def _trainer_run(mesh, ckpt, total, steps_before=None):
             async_checkpoint=False, log_every=100), train_step=step,
             device="cpu")
         data = iter(train_batches(model.cfg.vocab, total)[len(history):])
-        _, _, info = trainer.run(tp_place(params, mesh), data)
+        _, _, info = trainer.run(tp_place(params, mesh, model.cfg), data)
         history += info["history"]
     return history
 
 
+def _group_checkpoint(ckpt):
+    """The 6 q / 2 KV, ``d_ff`` 130 model's params and AdamW state
+    ``tp_place``d on (data 1, model 4) (its head- and FFN-cut leaves whole
+    on every rank, ``Replicate``) saved (collective), restored with
+    ``restore(shardings=)`` onto (data 1, model 2) (ranks 0 and 1; saved
+    again from there) and onto one rank (rank 0), then the 'model' 2 save
+    restored onto 'model' 4: each restored tree gathered whole, as numpy,
+    and the placements of ``wq`` on each mesh."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import (gather_tree, shardings_of,
+                                                  tp_place)
+    from repro_torch.training.optimizer import adamw_init
+
+    def np_tree(tree):
+        return {k: v.detach().numpy().copy() for k, v in _leaves(tree)}
+
+    def restore(ck, like):
+        got, got_opt, _ = ck.restore(
+            1, shardings=(shardings_of(like), shardings_of(
+                adamw_init(like))), template=(like, adamw_init(like)),
+            device="cpu")
+        return got, got_opt
+
+    wq = ("stack", "list", "0", "b0", "attn", "wq", "w")
+    model, params = tiny_model(
+        **GROUP_TRAIN_OVER["data1_model4_q6_kv2_dff130"])
+    cfg = model.cfg
+    mesh4 = make_mesh((1, 4), ("data", "model"))
+    placed = tp_place(params, mesh4, cfg=cfg)
+    ck4 = Checkpointer(os.path.join(ckpt, "4"), async_save=False)
+    ck4.save(1, placed, adamw_init(placed))
+    out = {"placements4": repr(_at(placed, wq).placements)}
+    mesh2 = make_mesh((1, 2), ("data", "model"))
+    ck2 = Checkpointer(os.path.join(ckpt, "2"), async_save=False)
+    if mesh2.get_coordinate() is not None:
+        got, got_opt = restore(ck4, tp_place(params, mesh2, cfg=cfg))
+        out["placements2"] = repr(_at(got, wq).placements)
+        out["model2"] = np_tree(gather_tree(got))
+        out["model2_opt_m"] = np_tree(gather_tree(got_opt["m"]))
+        ck2.save(1, got, got_opt)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        one, _, _ = ck4.restore(1, template=(params, adamw_init(params)),
+                                device="cpu")
+        out["one_rank"] = np_tree(one)
+        out["saved"] = np_tree(params)
+    back, _ = restore(ck2, placed)
+    out["back4"] = np_tree(gather_tree(back))
+    dist.barrier()
+    return out
+
+
 def train_ranks(ckpt_dir):
     """The training cases on four gloo ranks: :data:`TRAIN_CASES`; the
+    replica-group model's checkpoint (:func:`_group_checkpoint`); the
     pod-compressed step on (pod 2, data 1, model 2) for :data:`POD_STEPS`
     steps and for :data:`TRAIN_STEPS` beside the non-tensor-parallel pod
-    step on (pod 2, data 1) (ranks 0 and 1); a ``Trainer`` on (data 1,
+    step on (pod 2, data 1) (ranks 0 and 1), also at
+    :data:`POD_GROUP_OVER`; a ``Trainer`` on (data 1,
     model 2) (ranks 0 and 1) run through and stopped then resumed; and
     the FSDP placement the step refuses."""
     import torch.distributed as dist
@@ -427,13 +525,19 @@ def train_ranks(ckpt_dir):
     out = {"rank": rank, "cases": {}}
     for name, (shape, names, ocfg) in TRAIN_CASES.items():
         mesh = make_mesh(shape, names)
-        out["cases"][name] = _tp_train(mesh, ocfg, TRAIN_STEPS)
+        out["cases"][name] = _tp_train(mesh, ocfg, TRAIN_STEPS,
+                                       over=train_over(name))
+    out["group_ckpt"] = _group_checkpoint(os.path.join(ckpt_dir, "group"))
     pod_mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
     out["pod_learn"] = _pod_run(pod_mesh, POD_STEPS, True)["losses"]
     out["pod_tp"] = _pod_run(pod_mesh, TRAIN_STEPS, True)
+    out["pod_tp_group"] = _pod_run(pod_mesh, TRAIN_STEPS, True,
+                                   over=POD_GROUP_OVER)
     plain_pod = make_mesh((2, 1), ("pod", "data"))
     if plain_pod.get_coordinate() is not None:
         out["pod_plain"] = _pod_run(plain_pod, TRAIN_STEPS, False)
+        out["pod_plain_group"] = _pod_run(plain_pod, TRAIN_STEPS, False,
+                                          over=POD_GROUP_OVER)
     tp2 = make_mesh((1, 2), ("data", "model"))
     if tp2.get_coordinate() is not None:
         out["trainer_through"] = _trainer_run(
@@ -469,7 +573,7 @@ def mesh_option_ranks():
                               ((1, 1, 2), ("pod", "data", "model"), True)):
         mesh = make_mesh(shape, names)
         model, params = tiny_model(**TRAIN_OVER)
-        placed = tp_place(params, mesh)
+        placed = tp_place(params, mesh, model.cfg)
         opt = adamw_init(placed)
         step = tl.make_train_step(model, AdamWConfig(**_STEP),
                                   pod_compress=pod, mesh=mesh)
@@ -481,33 +585,51 @@ def mesh_option_ranks():
     return out
 
 
-def reference_ranks(params_path, tokens, batch):
-    """The port's side of the reference comparison on (data 2, model 2):
-    prefill logits of ``tokens`` on the TP-local tree, and the averaged
-    loss and gradients of ``batch`` and one step's metrics (a DTensor tree
-    gathered) from ``tp_place``'s, as rank 0 holds them."""
-    import torch.distributed as dist
-    from repro_torch.distributed.group import make_mesh
+# the reference comparison's replica groups, on a (data 1, model 4) mesh
+REF_GROUP_OVER = {"q8_kv2": dict(n_kv_heads=2),
+                  "q6_kv2_dff130": dict(n_heads=6, n_kv_heads=2, d_ff=130)}
+
+
+def _reference_side(model, params, mesh, tokens, batch):
+    """Prefill logits of ``tokens`` on ``params``' TP-local tree under
+    ``mesh``, and the averaged loss and gradients of ``batch`` and one
+    step's metrics from its ``tp_place``d tree (gathered)."""
     from repro_torch.distributed.sharding import (activate_mesh, tp_local,
                                                   tp_place)
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    torch.set_num_threads(1)
-    model, _ = tiny_model(**TRAIN_OVER)
-    params = torch.load(params_path)
-    mesh = make_mesh((2, 2), ("data", "model"))
     toks = torch.from_numpy(tokens)
     with activate_mesh(mesh):
         logits, _ = model.forward(
-            tp_local(params, mesh), {"tokens": toks}, mode="prefill",
-            caches=model.init_cache(toks.shape[0], toks.shape[1],
-                                    device="cpu"))
-    placed = tp_place(params, mesh)
+            tp_local(params, mesh, cfg=model.cfg), {"tokens": toks},
+            mode="prefill", caches=model.init_cache(
+                toks.shape[0], toks.shape[1], device="cpu"))
+    placed = tp_place(params, mesh, cfg=model.cfg)
     step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
     b = tl.to_device(batch, "cpu")
     loss, grads = averaged_grads(model, mesh, placed, b)
     grads = {k: v.numpy() for k, v in _leaves(grads)}
     _, _, met = step(placed, adamw_init(placed), b)
-    out = {"logits": logits.numpy(), "loss": float(loss), "grads": grads,
-           "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
+    return {"logits": logits.numpy(), "loss": float(loss), "grads": grads,
+            "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
+
+
+def reference_ranks(params_path, tokens, batch, groups=None):
+    """The port's side of the reference comparison on (data 2, model 2)
+    (:func:`_reference_side`), and of each of ``groups`` (name ->
+    (params path, tokens, batch): :data:`REF_GROUP_OVER`'s models) on
+    (data 1, model 4), as rank 0 holds them."""
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    torch.set_num_threads(1)
+    model, _ = tiny_model(**TRAIN_OVER)
+    out = _reference_side(model, torch.load(params_path),
+                          make_mesh((2, 2), ("data", "model")), tokens,
+                          batch)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    out["groups"] = {}
+    for name, (path, toks, b) in (groups or {}).items():
+        model, _ = tiny_model(**dict(TRAIN_OVER, **REF_GROUP_OVER[name]))
+        out["groups"][name] = _reference_side(model, torch.load(path), mesh,
+                                              toks, b)
     return out if dist.get_rank() == 0 else None
