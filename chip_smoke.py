@@ -238,7 +238,15 @@ It needs one CUDA device, ``nvcc`` and nothing from the network. It
    losses and grad norms within 1e-4 relative, every rank's parameter
    shards within the port's train-step tolerance of the one-rank
    parameters' slices, the step split into grads, the collectives over
-   'model', the data all-reduce, the norm and the update.
+   'model', the data all-reduce, the norm and the update; (g-n) MoE, MLA,
+   the ring, mamba and rwkv the same way (their functions' docstrings);
+   (o) sixteen ranks on (data 1, model 16): granite, minitron, minicpm3
+   and mixtral-8x7b (its 8 experts on the 'expert_ff' fallback: every
+   expert's 896 of 14 336 FFN columns a rank) at full width and one
+   layer, served against one rank, and granite's and mixtral's train
+   steps; (p-q) seamless-m4t-medium at full width and 2 + 2 layers on
+   (data 1, model 4), its encoder and cross-attention on 4 of 16 heads a
+   rank, served over random frames and trained against one rank.
 The phases run in the order 1, 4, 3, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
 2, 5: the short w4 run pays the one-time start-up costs, and phase 2 times
 the kernels at the shapes phases 3, 6, 8 and 10 produced and compares
@@ -1810,9 +1818,9 @@ def _depth_cut(layers, full=40):
     if layers == full:
         return None
     return {"n_layers": f"{full} -> {layers} (phases 8 and 9a were cut "
-                        f"to 12 when phase 15 came and to 6 when phases "
-                        f"15l-n came, to keep the script within its time "
-                        f"limit)"}
+                        f"to 12 when phase 15 came, to 6 when phases 15l-n "
+                        f"came and to 4 when 15o (vi)-(vii) and 15p-q came, "
+                        f"to keep the script within its time limit)"}
 
 
 _PHASE_CLOCK = [time.perf_counter()]   # when the last phase_memory ran
@@ -5032,7 +5040,9 @@ def drive_swa(dev, seed, layers):
                      f"{SWA_ARCH} w8", "model": cfg.name, "layers": layers,
             "full_depth": layers == full.n_layers,
             "reduced": None if layers == full.n_layers else
-            {"n_layers": f"{full.n_layers} -> {layers}"},
+            {"n_layers": f"{full.n_layers} -> {layers} (6 until phase 15 "
+                         f"came, 4 until 15l-n came, 2 until 15o (vi)-(vii) "
+                         f"and 15p-q came)"},
             "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
             "window": cfg.window, "ring_slots": ring,
             "moe": dataclasses.asdict(cfg.moe), "weight_bits": 8,
@@ -6583,6 +6593,7 @@ def drive_phase14(dev, seed, card, memory):
 # pod-compressed training) on the one card
 # ---------------------------------------------------------------------------
 
+P15B_LAYERS = 1                    # 15b: granite's layers (of 40)
 P15_RING_FLOATS = 100_000_000      # 15c: floats a rank contributes
 P15_TRAIN_STEPS = 30               # 15d
 # 15d's Markov stream runs over the first 512 token ids of the model's
@@ -6784,6 +6795,8 @@ def phase15a(dev, seed, layers):
     _free(dev)
     line = {"phase": "15a one-rank NCCL mesh, granite-3-8b w8",
             "backend": backend, "ranks": 1, "layers": layers,
+            "reduced": {"n_layers": f"40 -> {layers} (4 until 15o (vi)-(vii) "
+                                    f"and 15p-q came)"},
             "d_model": model.cfg.d_model, "d_ff": model.cfg.d_ff,
             "group_and_mesh_ms": group_ms, "quantize_ms": quantize_ms,
             "quant_report": rep.summary(),
@@ -7083,14 +7096,20 @@ def phase15bcd(dev, seed, card):
         plain_k = _p15k_one_rank(dev, seed, ref_path_k)
         t3 = time.perf_counter()
         plain_n = _p15n_one_rank(dev, seed, ref_path_n)
+        t4 = time.perf_counter()
+        # last: the ranks' 15q waits for it, so its state and theirs never
+        # share the card
+        plain_q = _p15q_one_rank(dev, seed, ref_path + ".q")
         return (plain, plain_f, t1 - t0, plain_h, t2 - t1, plain_k, t3 - t2,
-                plain_n, time.perf_counter() - t3)
+                plain_n, t4 - t3, plain_q, time.perf_counter() - t4)
 
     try:
         ranks, four_s, (plain, plain_f, plain_f_s, plain_h, plain_h_s,
-                        plain_k, plain_k_s, plain_n, plain_n_s) = \
+                        plain_k, plain_k_s, plain_n, plain_n_s, plain_q,
+                        plain_q_s) = \
             _four_ranks_beside(dev, _p15_ranks, (
-                seed, 2, ckpt, P15_RING_FLOATS, P15_TRAIN_STEPS, ref_path,
+                seed, P15B_LAYERS, ckpt, P15_RING_FLOATS, P15_TRAIN_STEPS,
+                ref_path,
                 ref_path_h, ref_path_k, ref_path_n), here)
         saved = _digests_of_checkpoint(ckpt, dev)
         restored = [r["restore"] for r in ranks if r["restore"] is not None]
@@ -7124,10 +7143,11 @@ def phase15bcd(dev, seed, card):
             raise AssertionError(f"15b: rank {r['rank']}'s restored leaves "
                                  f"differ from the saved ones")
     emit({"phase": "15b sharded quantization on 4 ranks sharing the card "
-                   "(gloo), granite-3-8b w8 at full width, 2 layers; "
-                   "checkpoint from the 4-rank mesh restored on a 2-rank "
-                   "elastic mesh",
-          "backend": "gloo", "ranks": 4, "layers": 2,
+                   f"(gloo), granite-3-8b w8 at full width, {P15B_LAYERS} "
+                   "layer; checkpoint from the 4-rank mesh restored on a "
+                   "2-rank elastic mesh",
+          "backend": "gloo", "ranks": 4, "layers": P15B_LAYERS,
+          "reduced": P15_CUTS["15b"],
           "buckets": r0["buckets"], "shards": want,
           "leaves_bit_equal_to_mesh_none": r0["leaves_bit_equal"],
           "quantize_ms_by_rank": [r["quantize_ms"] for r in ranks],
@@ -7192,7 +7212,7 @@ def phase15bcd(dev, seed, card):
     if not all(gates.values()):
         raise AssertionError(f"15d: the learning contract failed: {gates}")
     ef = _p15ef_report([r["tp"] for r in ranks], plain_f, plain_f_s, card,
-                       four_s, t_phase)
+                       four_s, t_phase, plain_q, plain_q_s)
     gh = _p15gh_report([r["ep"] for r in ranks], plain_h, plain_h_s, card,
                        four_s, t_phase)
     mr = _p15ijk_report([r["mr"] for r in ranks], plain_k, plain_k_s, card,
@@ -7211,11 +7231,17 @@ def phase15bcd(dev, seed, card):
 
 # depths cut when phase 15o came (the script's time limit; widths
 # unchanged), each in its phase's line
-P15_CUTS = {"15e": "granite 2 -> 1 of 40 layers (4 before 15g-h came)",
+P15_CUTS = {"15b": "granite 2 -> 1 of 40 layers (when 15o (vi)-(vii) and "
+                   "15p-q came)",
+            "15e": "granite 2 -> 1 of 40 layers (4 before 15g-h came)",
             "15f": "granite 2 -> 1 of 40 layers",
-            "15i": "minicpm3 4 -> 2 of 62 layers",
+            "15g": "moonshot 2 -> 1 of 48 layers (when 15o (vi)-(vii) and "
+                   "15p-q came)",
+            "15i": "minicpm3 4 -> 2 of 62 layers, 2 -> 1 when 15o (vi)-(vii) "
+                   "and 15p-q came",
             "15k": "minicpm3 2 -> 1 of 62 layers",
-            "15m": "rwkv6-1.6b 4 -> 2 of 24 layers",
+            "15m": "rwkv6-1.6b 4 -> 2 of 24 layers, 2 -> 1 when 15o "
+                   "(vi)-(vii) and 15p-q came",
             "15n": "rwkv6-1.6b 2 -> 1 of 24 layers"}
 P15E_LAYERS = 1          # 15e's granite at full width (of 40)
 P15E_SMALL = 1           # 15e's free-running token gates and int4 per-group
@@ -7230,6 +7256,7 @@ P15F_BATCH = (4, 256)
 # parameter gate at STEP_TOL runs eps 1e-3 (tests/torch_tp_workers.py)
 P15F_OPT = dict(lr=1e-4, warmup_steps=0, decay_steps=10, eps=1e-3)
 STEP_TOL = dict(rtol=1e-4, atol_rms=1e-5)   # tests/test_torch_train_step.py
+GRAD_TOL = dict(rtol=2e-4, atol=2e-5)       # the same file's
 
 
 def _tp_granite(layers, dtype="float32"):
@@ -7347,32 +7374,42 @@ def _by_weight_shape(by_shape):
 
 
 def _tp_serve(dev, model, tree, prompt, steps, forced=None, mesh=None,
-              chunks=()):
-    """A prefill of ``prompt`` on the contiguous cache, the token blocks
-    of ``chunks`` continued at the clock after it (``prefill_chunk``),
-    then ``steps`` greedy decode steps (fed ``forced`` where given), under
-    ``mesh`` (None: one rank): the last-row logits of every forward
-    (float32, on the device), the tokens picked, every routing's expert
-    indices (an MoE stack's), the prefill's, each chunk's and each step's
-    ms and a step's tensor-parallel collectives' ms."""
+              chunks=(), frames=None):
+    """A prefill of ``prompt`` on the contiguous cache (over the encoder
+    ``frames`` of an encoder-decoder), the token blocks of ``chunks``
+    continued at the clock after it (``prefill_chunk``; an
+    encoder-decoder's chunk forward over the cache's encoder output, the
+    reference's forward mode), then ``steps`` greedy decode steps (fed
+    ``forced`` where given), under ``mesh`` (None: one rank): the last-row
+    logits of every forward (float32, on the device), the tokens picked,
+    every routing's expert indices (an MoE stack's), the prefill's, each
+    chunk's and each step's ms and a step's tensor-parallel collectives'
+    ms."""
     from repro_torch.distributed import group
     from repro_torch.distributed.sharding import activate_mesh
     from repro_torch.models.moe import recording_routes
     b, s = prompt.shape
     rows = s + sum(c.shape[1] for c in chunks) + steps + 1
     logits, toks, chunk_ms, step_ms, coll_ms = [], [], [], [], []
+    enc = {} if frames is None else {"enc_frames": frames}
     with activate_mesh(mesh), recording_routes() as routes:
         cache = model.init_cache(b, rows, device=dev)
         _sync_dev(dev)
         t0 = time.perf_counter()
-        lg, cache = model.prefill(tree, {"tokens": prompt}, cache)
+        lg, cache = model.prefill(tree, {"tokens": prompt, **enc}, cache)
         _sync_dev(dev)
         prefill_ms = (time.perf_counter() - t0) * 1e3
         for c in chunks:
             logits.append(lg.float())
             toks.append(lg.argmax(-1))
             t0 = time.perf_counter()
-            lg, cache = model.prefill_chunk(tree, {"tokens": c}, cache)
+            if frames is None:
+                lg, cache = model.prefill_chunk(tree, {"tokens": c}, cache)
+            else:
+                lg, cache = model.forward(
+                    tree, {"tokens": c, "enc_out": cache["enc_out"]},
+                    mode="chunk", caches=cache)
+                lg = lg[:, -1]
             _sync_dev(dev)
             chunk_ms.append((time.perf_counter() - t0) * 1e3)
         for i in range(steps + 1):
@@ -7398,12 +7435,13 @@ def _routes_digest(routes):
 
 
 def _serve_case_vs_one_rank(dev, model, tree, mesh, prompt, chunks, steps,
-                            forced, want_shapes, local=None):
-    """One serving case of 15e, 15g, 15i or 15j on this rank: the one-rank forward on the
-    whole ``tree`` (rank 0), its decode tokens fed to every rank where
+                            forced, want_shapes, local=None, frames=None):
+    """One serving case of phase 15 on this rank: the one-rank forward on
+    the whole ``tree`` (rank 0), its decode tokens fed to every rank where
     ``forced``, then the tensor-parallel forward on this rank's shards
-    under ``mesh`` (``local``, or ``tp_local`` of ``tree``). Returns the
-    case's row: kernel B's
+    under ``mesh`` (``local``, or ``tp_local`` of ``tree``), over the
+    encoder ``frames`` of an encoder-decoder. Returns the case's row:
+    kernel B's
     launches by local weight shape and variant against ``want_shapes``,
     the times, digests, and (rank 0) the agreement with the one-rank
     forward."""
@@ -7414,7 +7452,8 @@ def _serve_case_vs_one_rank(dev, model, tree, mesh, prompt, chunks, steps,
     dmod, pa, paq, sf = _kernel_modules()
     ref = None
     if dist.get_rank() == 0:
-        ref = _tp_serve(dev, model, tree, prompt, steps, chunks=chunks)
+        ref = _tp_serve(dev, model, tree, prompt, steps, chunks=chunks,
+                        frames=frames)
     feed = [[t.cpu() for t in ref["tokens"][len(chunks):-1]]
             if forced and ref is not None else None]
     dist.broadcast_object_list(feed, src=0)
@@ -7424,7 +7463,7 @@ def _serve_case_vs_one_rank(dev, model, tree, mesh, prompt, chunks, steps,
     c0 = dict(group.MODEL_COLLECTIVES)
     dist.barrier()
     got = _tp_serve(dev, model, local, prompt, steps, forced=feed,
-                    mesh=mesh, chunks=chunks)
+                    mesh=mesh, chunks=chunks, frames=frames)
     row = {"launches_by_weight_shape": {
                f"{k[0]}x{k[1]}": v for k, v in
                _by_weight_shape(dmod.launches_by_shape).items()},
@@ -7574,22 +7613,177 @@ def _p15f_rank(dev, seed, ref_path):
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
+P15P_LAYERS = 2          # 15p's seamless: 2 + 2 of its 12 + 12 layers
+P15P_PROMPT = (4, 64)    # 15p's prefill, over 64 / 4 random frames a row
+P15P_STEPS = 16          # 15p's greedy decode steps
+P15Q_LAYERS = 2          # 15q's seamless train step: 2 + 2 layers
+P15Q_STEPS = 3
+P15Q_BATCH = (4, 128)    # tokens; 128 / 4 random frames a row
+P15Q_OPT = P15F_OPT
+# 15q's whole step (AdamW) runs on (data 2, model 2), where the vocabulary
+# is vocab-parallel: at 'model' 4 the replicated float32 embedding and head
+# (1.05 GB each) make a rank's step ~18 GB, and four of them beside the
+# script's process ran out of the card's memory (PERF.md, 15q)
+P15Q_STEP_MESH = (2, 2)
+
+
+def _tp_seamless(layers, dtype="float32"):
+    """seamless-m4t-medium at full width, ``layers`` encoder and
+    ``layers`` decoder layers, in ``dtype``: 16 heads of 64, d_ff 4 096,
+    an untied head over 256 206 tokens (2 x 128 103: vocab-parallel at
+    'model' 2, replicated at 4)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    return build_model(dataclasses.replace(
+        get_config(SEAMLESS_ARCH), n_layers=layers, encoder_layers=layers,
+        dtype=dtype))
+
+
+def _encdec_local_shapes(cfg, tp, forwards, encodes):
+    """{(M, N): launches} of kernel B on a rank's local seamless shards
+    (``tp`` ranks) over ``forwards`` forwards, ``encodes`` of them running
+    the encoder: each encoder layer's q, k, v, o, wi and wdown, each
+    decoder layer's self-attention q, k, v, o, cross-attention q, k, v, o,
+    wi and wdown, and the untied head (vocab-parallel where 'model'
+    divides the vocabulary)."""
+    d, v = cfg.d_model, cfg.vocab
+    h = _per_rank(cfg.n_heads, cfg.head_dim, tp)
+    kv = _per_rank(cfg.n_kv_heads, cfg.head_dim, tp)
+    f = _per_rank(cfg.d_ff, 1, tp)
+    out = collections.Counter()
+    for mn in ((h, d), (h, d), (h, d), (d, h), (f, d), (d, f)):
+        out[mn] += cfg.encoder_layers * encodes
+    for mn in ((h, d), (kv, d), (kv, d), (d, h), (h, d), (h, d), (h, d),
+               (d, h), (f, d), (d, f)):
+        out[mn] += cfg.n_layers * forwards
+    out[(v // tp if v % tp == 0 else v, d)] += forwards
+    return dict(out)
+
+
+def _frames(seed, b, t, d):
+    """Random float32 encoder frames ``(b, t, d)`` (numpy)."""
+    import numpy as np
+    return np.random.default_rng(seed).standard_normal(
+        (b, t, d)).astype(np.float32)
+
+
+def _p15p_rank(dev, seed):
+    """15p on this rank of four (see :func:`phase15ef`): host numbers."""
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.kernels import dequant_matmul as dm
+    from repro_torch.launch.mesh import make_quantize_mesh
+    rank, world = dist.get_rank(), dist.get_world_size()
+    model = _tp_seamless(P15P_LAYERS)
+    cfg = model.cfg
+    params = _tp_params(model, dev, seed)
+    dist.barrier()
+    t0 = time.perf_counter()
+    whole, buckets, kernel_a = _quantized_on_slabs(
+        params, 8, make_quantize_mesh(world), dev)
+    out = {"rank": rank, "quantize_ms": (time.perf_counter() - t0) * 1e3,
+           "buckets": buckets, "kernel_a": kernel_a}
+    del params
+    _free(dev)
+    mesh = make_mesh((1, world), ("data", "model"))
+    rng = np.random.default_rng(seed)
+    b, s = P15P_PROMPT
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, size=(b, s))).to(dev)
+    chunks = [torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            size=(b, P15_CHUNK))).to(dev)]
+    frames = torch.from_numpy(_frames(seed, b, s // cfg.enc_ratio,
+                                      cfg.d_model)).to(dev)
+    want = _encdec_local_shapes(cfg, world, 1 + len(chunks) + P15P_STEPS, 1)
+    cases = (("w8 float32", model, whole),
+             ("w8 bfloat16", _tp_seamless(P15P_LAYERS, "bfloat16"),
+              _retyped(whole, torch.bfloat16)))
+    out["cases"] = {}
+    dm._plans.clear()
+    for name, m, tree in cases:
+        out["cases"][name] = _serve_case_vs_one_rank(
+            dev, m, tree, mesh, prompt, chunks, P15P_STEPS, True, want,
+            frames=frames)
+    out["plans"] = dm.cached_plans()
+    del whole, cases
+    _free(dev)
+    return out
+
+
+def _p15q_batches(d):
+    """15q's batches: Markov tokens over the first
+    :data:`P15_DATA_VOCAB` ids and random float32 frames."""
+    b, s = P15Q_BATCH
+    return [dict(bt, enc_frames=_frames(37 + i, b, s // 4, d))
+            for i, bt in enumerate(_markov(P15Q_BATCH, P15Q_STEPS, 31))]
+
+
+def _p15q_rank(dev, seed, ref_path):
+    """15q on this rank of four, started after the one-rank side has run
+    and freed its memory: seamless's tensor-parallel step on (data 1,
+    model 4), its first batch's gradients and grad norm
+    (``step.averaged_grads``) against the one-rank ones saved at
+    ``ref_path + ".grads"``; then the whole step (norm, AdamW) on
+    :data:`P15Q_STEP_MESH` against the one-rank steps saved at
+    ``ref_path`` (:func:`_tp_train_vs_saved`)."""
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import tp_place
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig
+    _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
+                "15q's one-rank gradients and parameters")
+    model = _tp_seamless(P15Q_LAYERS)
+    batches = _p15q_batches(model.cfg.d_model)
+    mesh = make_mesh((1, 4), ("data", "model"))
+    placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
+    step = tl.make_train_step(model, AdamWConfig(**P15Q_OPT), mesh=mesh)
+    loss, met, grads = step.averaged_grads(placed,
+                                           tl.to_device(batches[0], dev))
+    ref = torch.load(ref_path + ".grads", mmap=True, map_location="cpu")
+    out = {"loss": float(loss), "grad_norm": float(met["grad_norm"])}
+    out["grads_excess_over_grad_tol"], out["grads_max_rel_err"] = \
+        _grads_vs_saved(dev, grads, placed, ref, mesh, GRAD_TOL)
+    out["grads_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del ref, grads, placed
+    _free(dev)
+    out["step"] = _tp_train_vs_saved(
+        dev, seed, model, batches, P15Q_OPT, ref_path, "15q",
+        ("encoder", "layers", "0"), shape=P15Q_STEP_MESH)
+    return out
+
+
+def _p15q_one_rank(dev, seed, ref_path):
+    """15q's one-rank side: the first batch's gradients, loss and grad
+    norm (:func:`_one_rank_grads_saved`, at ``ref_path + ".grads"``), then
+    the plain steps (:func:`_one_rank_train_saved`, at ``ref_path``)."""
+    model = _tp_seamless(P15Q_LAYERS)
+    batches = _p15q_batches(model.cfg.d_model)
+    params = _tp_params(model, dev, seed)
+    grads = _one_rank_grads_saved(dev, model, params, batches[:1],
+                                  ref_path + ".grads")
+    return {"grads": grads, "step": _one_rank_train_saved(
+        dev, seed, model, batches, P15Q_OPT, ref_path, params=params)}
+
+
 def _p15ef_ranks(seed, ref_path):
-    """15e, then 15f, on one rank of four sharing the card over gloo (run
-    by ``run_local``)."""
+    """15e, 15f, 15p, then 15q, on one rank of four sharing the card over
+    gloo (run by ``run_local``); 15q's one-rank step saved at ``ref_path
+    + ".q"``."""
     from repro_torch.distributed import group
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
     dev = group.device()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    e = _p15e_rank(dev, seed)
-    e["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
-    e["seconds"] = time.perf_counter() - t0
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    f = _p15f_rank(dev, seed, ref_path)
-    f["seconds"] = time.perf_counter() - t0
-    return {"e": e, "f": f}
+    out = {}
+    for key, fn, args in (("e", _p15e_rank, (seed,)),
+                          ("f", _p15f_rank, (seed, ref_path)),
+                          ("p", _p15p_rank, (seed,)),
+                          ("q", _p15q_rank, (seed, ref_path + ".q"))):
+        _free(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out[key] = fn(dev, *args)
+        out[key]["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+        out[key]["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def _p15f_one_rank(dev, seed, ref_path):
@@ -7640,7 +7834,22 @@ def phase15ef(dev, seed, card):
     tokens; the plain one-rank step trains here, in this process, while
     the ranks run 15e. Gates: losses and grad norms within 1e-4 relative
     of the one-rank step's, every rank's parameter shards within
-    ``STEP_TOL`` of the one-rank parameters' slices."""
+    ``STEP_TOL`` of the one-rank parameters' slices.
+
+    15p, the encoder-decoder serving under 'model': seamless-m4t-medium
+    at full width and :data:`P15P_LAYERS` + :data:`P15P_LAYERS` of its 12
+    + 12 layers in float32, quantized SQuant w8 over the ranks' slabs, on
+    (data 1, model 4): 4 of 16 heads of every encoder layer,
+    self-attention and cross-attention, 1 024 of 4 096 FFN columns, the
+    embedding and head replicated (vocab 256 206), the encoder output and
+    the cache's ``enc_out`` whole; random frames encoded, a prefill of
+    :data:`P15P_PROMPT`, one 64-token chunk over the cache's encoder
+    output and 16 decode steps, w8 float32 and bfloat16, against the
+    one-rank forward on rank 0. Gates as 15e's (float32 within 1e-4).
+
+    15q, its train step on (data 1, model 4): :data:`P15Q_STEPS` steps of
+    :data:`P15Q_BATCH` tokens over random frames against the plain
+    one-rank step trained here first. Gates as 15f's."""
     import tempfile
     import shutil
 
@@ -7650,21 +7859,26 @@ def phase15ef(dev, seed, card):
 
     def here():
         t0 = time.perf_counter()
-        return _p15f_one_rank(dev, seed, ref_path), time.perf_counter() - t0
+        plain_f = _p15f_one_rank(dev, seed, ref_path)
+        t1 = time.perf_counter()
+        plain_q = _p15q_one_rank(dev, seed, ref_path + ".q")
+        return plain_f, t1 - t0, plain_q, time.perf_counter() - t1
 
     try:
-        ranks, four_s, (plain, plain_s) = _four_ranks_beside(
-            dev, _p15ef_ranks, (seed, ref_path), here)
+        ranks, four_s, (plain, plain_s, plain_q, plain_q_s) = \
+            _four_ranks_beside(dev, _p15ef_ranks, (seed, ref_path), here)
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    return _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase)
+    return _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase,
+                         plain_q, plain_q_s)
 
 
-def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
-    """15e-f's gates and lines from the four ranks' results and the
-    one-rank step's ``plain`` (losses, grad norms) run here in
-    ``plain_s``; returns the launches and shapes :func:`drive_phase15`
-    reports."""
+def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase, plain_q,
+                  plain_q_s):
+    """15e-f's and 15p-q's gates and lines from the four ranks' results
+    and the one-rank steps' ``plain`` and ``plain_q`` (losses, grad
+    norms) run here in ``plain_s`` and ``plain_q_s``; returns the
+    launches and shapes :func:`drive_phase15` reports."""
     plain_losses, plain_norms = plain
     es, fs = [r["e"] for r in ranks], [r["f"] for r in ranks]
 
@@ -7735,13 +7949,107 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
     if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0):
         raise AssertionError(f"15f: losses {worst_loss}, grad norms "
                              f"{worst_norm}, shards over STEP_TOL by {excess}")
+    encdec = _p15pq_report([r["p"] for r in ranks], [r["q"] for r in ranks],
+                           plain_q, plain_q_s, card)
     local = _tp_local_shapes(_tp_granite(P15E_LAYERS).cfg, 4)
-    return {"squant_flip": [r["kernel_a"]["squant_flip"] for r in es],
-            "squant_scale": [r["kernel_a"]["squant_scale"] for r in es],
-            "dequant_matmul": [sum(c["kernel_b"] for c in r["cases"].values())
-                               for r in es],
-            "plans": es[0]["plans"],
-            "local_shapes": sorted(local)}
+    return {k: [r["e"]["kernel_a"][k] + r["p"]["kernel_a"][k]
+                for r in ranks] for k in ("squant_flip", "squant_scale")} | {
+        "dequant_matmul": [sum(c["kernel_b"] for x in (r["e"], r["p"])
+                               for c in x["cases"].values()) for r in ranks],
+        "plans": es[0]["plans"], "plans_15p": encdec["plans"],
+        "local_shapes": sorted(local),
+        "encdec_local_shapes": encdec["local_shapes"]}
+
+
+def _p15pq_report(ps, qs, plain, plain_s, card):
+    """15p's and 15q's gates and lines (see :func:`phase15ef`)."""
+    for r in ps:
+        want_a = _slab_launches(ps[0]["buckets"], 4, r["rank"])
+        if r["kernel_a"] != want_a:
+            raise AssertionError(f"15p: rank {r['rank']} kernel A "
+                                 f"{r['kernel_a']}, the slabs imply {want_a}")
+    _serve_rows_agree(ps, "15p")
+    c0 = ps[0]["cases"]
+    err = c0["w8 float32"]["max_abs_err_over_max_logit"]
+    cfg = _tp_seamless(P15P_LAYERS).cfg
+    shapes = _encdec_local_shapes(cfg, 4, 1, 1)
+    note = ("four CUDA contexts share one card and every collective is "
+            "staged through host memory over gloo: agreement and launch "
+            "counts, not a speed-up over one rank")
+    emit({"phase": "15p the encoder-decoder under tensor-parallel serving, "
+                   "4 ranks sharing the card (gloo), mesh (data 1, model 4), "
+                   "seamless-m4t-medium SQuant w8 at full width, "
+                   f"{P15P_LAYERS} + {P15P_LAYERS} of 12 + 12 layers, "
+                   "float32: 4 of 16 heads of every encoder, self- and "
+                   "cross-attention layer, 1 024 of 4 096 FFN columns, the "
+                   "embedding and head replicated (vocab 256 206), the "
+                   "encoder output whole on every rank",
+          "reduced": f"seamless 12 + 12 -> {P15P_LAYERS} + {P15P_LAYERS} "
+                     f"layers", "card": card, "backend": "gloo", "ranks": 4,
+          "prompt": list(P15P_PROMPT), "frames_a_row":
+          P15P_PROMPT[1] // cfg.enc_ratio, "chunks": [P15_CHUNK],
+          "decode_steps": P15P_STEPS,
+          "local_shapes": sorted(f"{m}x{n}" for m, n in shapes),
+          "quantize_ms_by_rank": [r["quantize_ms"] for r in ps],
+          "kernel_a_by_rank": [r["kernel_a"] for r in ps],
+          "cases": {n: _serve_cell(c0[n]) for n in c0},
+          "gate": "w8 float32 logits within 1e-4 of the one-rank forward's "
+                  "largest |logit|, fed the one-rank tokens; bfloat16 "
+                  "reported",
+          "peak_gb_by_rank": [r["peak_gb"] for r in ps],
+          "seconds_by_rank": [r["seconds"] for r in ps], "note": note})
+    if not err <= 1e-4:
+        raise AssertionError(f"15p: w8 float32 logits {err} of the largest, "
+                             f"over 1e-4")
+    (g_losses, g_norms), (q_losses, q_norms) = plain["grads"], plain["step"]
+    g_loss = max(abs(r["loss"] - g_losses[0]) / abs(g_losses[0])
+                 for r in qs)
+    g_norm = max(abs(r["grad_norm"] - g_norms[0]) / abs(g_norms[0])
+                 for r in qs)
+    g_excess = max(r["grads_excess_over_grad_tol"] for r in qs)
+    st = [r["step"] for r in qs]
+    loss = max(abs(a - b) / abs(b) for r in st
+               for a, b in zip(r["losses"], q_losses))
+    norm = max(abs(a - b) / abs(b) for r in st
+               for a, b in zip(r["grad_norms"], q_norms))
+    excess = max(r["shards_excess_over_step_tol"] for r in st)
+    emit({"phase": "15q the encoder-decoder's tensor-parallel train step, 4 "
+                   "ranks sharing the card (gloo), seamless-m4t-medium at "
+                   f"full width, {P15Q_LAYERS} + {P15Q_LAYERS} layers, "
+                   "float32, over random frames: its gradients on (data 1, "
+                   "model 4), the whole step (AdamW) on (data "
+                   f"{P15Q_STEP_MESH[0]}, model {P15Q_STEP_MESH[1]})",
+          "reduced": f"seamless 12 + 12 -> {P15Q_LAYERS} + {P15Q_LAYERS} "
+                     f"layers", "card": card, "backend": "gloo", "ranks": 4,
+          "steps": P15Q_STEPS, "global_batch": list(P15Q_BATCH),
+          "optimizer": P15Q_OPT,
+          "model4_loss": qs[0]["loss"], "one_rank_loss": g_losses[0],
+          "model4_grad_norm": qs[0]["grad_norm"],
+          "one_rank_grad_norm": g_norms[0],
+          "model4_max_rel_diff_loss": g_loss,
+          "model4_max_rel_diff_grad_norm": g_norm,
+          "model4_grads_max_excess_over_grad_tol": g_excess,
+          "model4_grads_max_rel_err_by_rank": [r["grads_max_rel_err"]
+                                               for r in qs],
+          "model4_grads_peak_gb_by_rank": [r["grads_peak_gb"] for r in qs],
+          "grad_tol": GRAD_TOL, "step_mesh": list(P15Q_STEP_MESH),
+          "losses": st[0]["losses"], "one_rank_losses": q_losses,
+          "grad_norms": st[0]["grad_norms"], "one_rank_grad_norms": q_norms,
+          "max_rel_diff_loss": loss, "max_rel_diff_grad_norm": norm,
+          "shards_max_excess_over_step_tol": excess,
+          "local_encoder_layer_step_mesh": st[0]["local_shards"],
+          "ms_by_step_rank0": st[0]["step_ms"],
+          "split_ms_rank0": st[0]["split_ms"],
+          "peak_gb_by_rank": [r["peak_gb"] for r in qs],
+          "one_rank_seconds": plain_s,
+          "seconds_by_rank": [r["seconds"] for r in qs], "note": note})
+    if not (max(g_loss, g_norm, loss, norm) <= 1e-4
+            and max(g_excess, excess) <= 0):
+        raise AssertionError(f"15q: 'model' 4 loss {g_loss}, norm {g_norm}, "
+                             f"gradients over GRAD_TOL by {g_excess}; steps' "
+                             f"losses {loss}, norms {norm}, shards over "
+                             f"STEP_TOL by {excess}")
+    return {"plans": ps[0]["plans"], "local_shapes": sorted(shapes)}
 
 
 # ---------------------------------------------------------------------------
@@ -7749,7 +8057,7 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase):
 # the card, after 15e-f in the same processes)
 # ---------------------------------------------------------------------------
 
-P15G_LAYERS = 2          # 15g's moonshot at full width (of 48)
+P15G_LAYERS = 1          # 15g's moonshot at full width (of 48)
 P15G_SMALL = 1           # 15g's int4 per-group case
 P15G_PROMPT = (4, 64)    # 15g's prefill (the vocab-parallel logits of every
                          # position are gathered whole: 4 x 64 x 163 840)
@@ -7775,13 +8083,18 @@ def _ep_moonshot(layers, dtype="float32", cf=None):
 
 def _ep_local_shapes(cfg, tp):
     """{(M, N): launches a forward} of kernel B on a rank's local shards
-    (``tp`` ranks) of an MoE stack: q, k, v, o, and each local expert's
-    wi, wg and wdown."""
-    d, f = cfg.d_model, cfg.d_ff
-    q, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    e = cfg.moe.n_experts // tp
+    (``tp`` ranks) of an MoE stack: q, k, v, o (heads on replica groups
+    where 'model' does not divide them), and each local expert's wi, wg
+    and wdown: E / tp whole experts, or, where 'model' does not divide
+    the experts (the 'expert_ff' fallback), every expert's d_ff / tp FFN
+    columns."""
+    from repro_torch.distributed.sharding import expert_ff
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    q = _per_rank(cfg.n_heads, cfg.head_dim, tp)
+    kv = _per_rank(cfg.n_kv_heads, cfg.head_dim, tp)
+    e, f = (e, f // tp) if expert_ff(e, tp) else (e // tp, f)
     out = collections.Counter()
-    for (m, n), k in (((q // tp, d), 1), ((kv // tp, d), 2), ((d, q // tp), 1),
+    for (m, n), k in (((q, d), 1), ((kv, d), 2), ((d, q), 1),
                       ((f, d), 2 * e), ((d, f), e)):
         out[(m, n)] += k * cfg.n_layers
     return dict(out)
@@ -8021,10 +8334,8 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
     # 15g gates
     buckets = gs[0]["buckets"]
     cfg = _ep_moonshot(P15G_LAYERS).cfg
-    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
-    slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
     for r in gs:
-        want_a = _slab_launches(buckets, 4, r["rank"], slices)
+        want_a = _slab_launches(buckets, 4, r["rank"], _bank_slices(cfg))
         if r["kernel_a"] != want_a:
             raise AssertionError(f"15g: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
@@ -8043,6 +8354,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
                    f"SQuant w8 at full width, {P15G_LAYERS} of 48 layers "
                    f"(int4 per-group: {P15G_SMALL}), 16 of 64 experts a "
                    "rank, vocab-parallel tied embedding and head",
+          "reduced": P15_CUTS["15g"],
           "card": card, "backend": "gloo", "ranks": 4,
           "prompt": list(P15G_PROMPT), "decode_steps": P15G_STEPS,
           "quantize_ms_by_rank": [r["quantize_ms"] for r in gs],
@@ -8117,7 +8429,7 @@ def _p15gh_report(ranks, plain, plain_s, card, four_s, t_phase):
 # the same processes)
 # ---------------------------------------------------------------------------
 
-P15I_LAYERS = 2          # 15i's minicpm3 at full width (of 62)
+P15I_LAYERS = 1          # 15i's minicpm3 at full width (of 62)
 P15I_SMALL = 1           # 15i's int4 case and its free-running tokens
 P15I_PROMPT = (8, 256)   # 15i's prefill
 P15I_CHUNKS = 1          # 15i's 64-token chunks after the prefill
@@ -8144,12 +8456,12 @@ def _tp_minicpm3(layers, dtype="float32", absorb=False):
         mla=dataclasses.replace(cfg.mla, absorb=absorb)))
 
 
-def _tp_mixtral(layers):
-    """mixtral-8x7b at full width and ``layers`` layers in float32."""
+def _tp_mixtral(layers, dtype="float32"):
+    """mixtral-8x7b at full width and ``layers`` layers in ``dtype``."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import build_model
     return build_model(dataclasses.replace(get_config(SWA_ARCH),
-                                           n_layers=layers, dtype="float32"))
+                                           n_layers=layers, dtype=dtype))
 
 
 def _mla_local_shapes(cfg, tp, forwards, decodes):
@@ -8567,20 +8879,25 @@ def _blockwise_fp(dev, model, seed, tp, mesh=None):
 
 
 def _tp_train_vs_saved(dev, seed, model, batches, opt_cfg, ref_path, what,
-                       node, shape=(2, 2)):
+                       node, shape=(2, 2), placed=None):
     """A tensor-parallel train step on a (data, model) mesh of ``shape``
-    on this rank (15k and 15n: (data 2, model 2) of four; 15o (v): (data
-    1, model 16)): its metrics and split over ``batches``, and its final
-    shards against the one-rank parameters the script's process saved at
-    ``ref_path`` (:func:`_one_rank_train_saved`); the local shapes of the
-    leaves under ``node`` (a path into the tree)."""
+    on this rank (15k and 15n: (data 2, model 2) of four; 15o (v) and
+    (vii): (data 1, model 16); 15q: (data 1, model 4)) from ``placed``
+    (default: ``tp_place`` of the seed's ``LM.init``): its metrics and
+    split over ``batches``, and its final shards against the one-rank
+    parameters the script's process saved at ``ref_path``
+    (:func:`_one_rank_train_saved`); the local shapes of the leaves under
+    ``node`` (a path into the tree)."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
     from repro_torch.distributed.sharding import shard_index, tp_place
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    mesh = make_mesh(shape, ("data", "model"))
-    placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
+    if placed is None:
+        mesh = make_mesh(shape, ("data", "model"))
+        placed = tp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
+    else:
+        mesh = next(iter(_leaves(placed).values())).device_mesh
     _free(dev)
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**opt_cfg), mesh=mesh)
@@ -8606,11 +8923,12 @@ def _tp_train_vs_saved(dev, seed, model, batches, opt_cfg, ref_path, what,
     for k, t in _leaves(placed).items():
         idx = shard_index(t.shape, t.placements, sizes,
                           mesh.get_coordinate())
-        want = ref[k][idx].to(dev)
-        rms = float(ref[k].double().square().mean().sqrt())
+        want = ref["params"][k][idx].to(dev)
         excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
-                  - STEP_TOL["atol_rms"] * rms).max()
+                  - STEP_TOL["atol_rms"] * ref["rms"][k]).max()
         worst = max(worst, float(excess))
+        del want
+    del ref
     sub = placed
     for k in node:
         sub = sub[int(k)] if isinstance(sub, list) else sub[k]
@@ -8630,14 +8948,17 @@ def _p15k_rank(dev, seed, ref_path):
                               ("stack", "list", "0", "b0", "attn"))
 
 
-def _one_rank_train_saved(dev, seed, model, batches, opt_cfg, ref_path):
+def _one_rank_train_saved(dev, seed, model, batches, opt_cfg, ref_path,
+                          params=None):
     """The plain one-rank step on the same global batches as
-    :func:`_tp_train_vs_saved`'s: its losses and grad norms; its final
-    parameters saved to ``ref_path`` (then ``ref_path + ".done"``) for the
-    ranks."""
+    :func:`_tp_train_vs_saved`'s, from ``params`` (default: the seed's
+    ``LM.init``): its losses and grad norms; its final parameters and each
+    leaf's root mean square saved to ``ref_path`` (then ``ref_path +
+    ".done"``) for the ranks."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    params = _tp_params(model, dev, seed)
+    if params is None:
+        params = _tp_params(model, dev, seed)
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**opt_cfg))
     losses, norms = [], []
@@ -8646,8 +8967,11 @@ def _one_rank_train_saved(dev, seed, model, batches, opt_cfg, ref_path):
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
     del opt
-    torch.save({k: v.cpu() for k, v in _leaves(params).items()}, ref_path)
-    del params
+    flat = _leaves(params)
+    torch.save({"params": {k: v.cpu() for k, v in flat.items()},
+                "rms": {k: float(v.double().square().mean().sqrt())
+                        for k, v in flat.items()}}, ref_path)
+    del params, flat
     _free(dev)
     open(ref_path + ".done", "w").close()
     return losses, norms
@@ -8793,10 +9117,8 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
 
     # 15j gates
     swa = _tp_mixtral(P15J_LAYERS).cfg
-    e, d, f = swa.moe.n_experts, swa.d_model, swa.d_ff
-    slices = {f"({e * f},{d})": f, f"({e * d},{f})": d}
     for r in j_s:
-        want_a = _slab_launches(r["buckets"], 4, r["rank"], slices)
+        want_a = _slab_launches(r["buckets"], 4, r["rank"], _bank_slices(swa))
         if r["kernel_a"] != want_a:
             raise AssertionError(f"15j: rank {r['rank']} kernel A "
                                  f"{r['kernel_a']}, the slabs imply {want_a}")
@@ -8879,7 +9201,7 @@ def _p15ijk_report(ranks, plain, plain_s, card, four_s, t_phase):
                                     + mla.mla.v_dim, 4), mla.mla.kv_lora),
             "swa_capacity_rows": math.ceil(
                 P15J_PROMPT[0] * P15J_PROMPT[1] * swa.moe.top_k
-                * swa.moe.capacity_factor / e),
+                * swa.moe.capacity_factor / swa.moe.n_experts),
             "mla_expand_rows": P15I_PROMPT[0] * (
                 P15I_PROMPT[1] + P15_CHUNK * P15I_CHUNKS + P15I_STEPS + 1)}
 
@@ -8916,7 +9238,7 @@ def _phase15ij_cells(mr):
 
 P15L_LAYERS = 2          # 15l's jamba: RECURRENT_ISOLATED's ("m", "a") cut
 P15L_SMALL = 1           # 15l's int4 case: one mamba layer
-P15M_LAYERS = 2          # 15m's rwkv6-1.6b at full width (of 24)
+P15M_LAYERS = 1          # 15m's rwkv6-1.6b at full width (of 24)
 P15M_SMALL = 1           # 15m's int4 case
 P15LM_PROMPT = (8, 256)  # 15l-m's prefill
 P15LM_CHUNKS = 1         # 15l-m's 64-token chunks after the prefill
@@ -9381,7 +9703,6 @@ P15O_TRAIN_STEPS = 3     # batches, each on the same parameters
 P15O_TRAIN_BATCH = (2, 128)
 P15O_OPT = P15F_OPT
 P15O_STEP_GATE = 1e-6    # losses and grad norms, relative, against one rank
-P15O_GRAD_TOL = dict(rtol=2e-4, atol=2e-5)   # tests/test_torch_train_step.py
 # 15o (v): the whole train step (norm, clip, AdamW) at 'model' 16 on
 # granite's reduced config with 6 q / 2 KV heads and d_ff 130, each on
 # replica groups of 8 ranks (tests/torch_tp_workers.py's case at 'model'
@@ -9404,9 +9725,15 @@ def _tp_minitron(layers, dtype="float32"):
                                            n_layers=layers, dtype=dtype))
 
 
-# 15o's models: (key, model-making function), each at P15O_LAYERS
+# 15o's models: (key, model-making function), each at P15O_LAYERS;
+# mixtral's 8 experts on 'model' 16 take the 'expert_ff' fallback
 P15O_MODELS = (("granite", _tp_granite), ("minitron", _tp_minitron),
-               ("minicpm3", _tp_minicpm3))
+               ("minicpm3", _tp_minicpm3), ("mixtral", _tp_mixtral))
+# 15o (vii): mixtral's AdamW update runs on the card only where a rank's
+# predicted state, ~7 x its float32 parameters (the functional update
+# holds the old and new parameters and moments at once), fits this
+# budget: sixteen ranks share the card's 80 GB
+P15O_RANK_BUDGET_GB = 4.0
 
 
 def _p15o_shapes(cfg, tp, forwards):
@@ -9415,7 +9742,39 @@ def _p15o_shapes(cfg, tp, forwards):
     steps)."""
     if cfg.mla is not None:
         return _mla_local_shapes(cfg, tp, forwards, P15O_STEPS)
+    if cfg.moe is not None:
+        return _swa_local_shapes(cfg, tp, forwards)
     return {k: v * forwards for k, v in _tp_local_shapes(cfg, tp).items()}
+
+
+def _bank_slices(cfg):
+    """:func:`_slab_launches`' ``slice_rows`` of an MoE stack's expert
+    banks: the rows of one expert's slice of each ``(E·out,in)`` bucket
+    (None for a dense stack)."""
+    if cfg.moe is None:
+        return None
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.d_ff
+    return {f"({e * f},{d})": f, f"({e * d},{f})": d}
+
+
+def _rank_params(model, tp):
+    """The parameters a rank holds of ``model``'s ``tp_place`` tree on
+    (data 1, model ``tp``): a leaf 'model' cuts a ``tp``-th, a leaf it
+    holds whole (replica groups, the router, the norms) whole."""
+    from repro_torch.core.pipeline import _flatten
+    from repro_torch.distributed.sharding import (AbstractMesh, _get_path,
+                                                  make_tp_shardings)
+    meta = model.init(None, device="meta")
+    specs = make_tp_shardings(AbstractMesh((1, tp), ("data", "model")), meta,
+                              model.cfg)
+    return sum(m.numel() // (tp if "model" in _get_path(specs, p).spec
+                             else 1) for p, m in _flatten(meta))
+
+
+def _p15o_update_gb(model, tp):
+    """15o (vii)'s predicted peak of a rank's train step with the AdamW
+    update, GB: 7 x its float32 parameters (:func:`_rank_params`)."""
+    return 7 * 4 * _rank_params(model, tp) / 1e9
 
 
 def _p15o_batches():
@@ -9495,6 +9854,87 @@ def _p15o_rank(dev, seed, ref_path):
         P15O_GROUP_OPT, ref_path + ".step", "15o (v)",
         ("stack", "list", "0", "b0"), shape=(1, world))
     out["group_step"]["seconds"] = time.perf_counter() - t0
+    _free(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out["mixtral_train"] = _p15o_mixtral_train_rank(dev, seed, ref_path,
+                                                    mesh)
+    out["mixtral_train"]["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _grads_vs_saved(dev, grads, placed, ref, mesh, tol):
+    """This rank's gradient shards (``grads``, plain tensors laid out as
+    ``placed``'s DTensors) against the one-rank gradients ``ref`` (a
+    mapped file's dict, whole leaves): the largest excess over ``tol``
+    and the largest difference over the leaf's largest |gradient|,
+    compared a few MB at a time (sixteen ranks share the card)."""
+    from repro_torch.distributed.sharding import shard_index
+    flat = _leaves(placed)
+    worst = worst_rel = 0.0
+    for k, g in _leaves(grads).items():
+        t = flat[k]
+        want = ref[k][shard_index(t.shape, t.placements, tuple(mesh.shape),
+                                  mesh.get_coordinate())]
+        big = dif = 0.0
+        for r0 in range(0, g.shape[0], 2048):
+            w = want[r0:r0 + 2048].to(dev)
+            d = (g[r0:r0 + 2048] - w).abs()
+            worst = max(worst, float((d - tol["rtol"] * w.abs()
+                                      - tol["atol"]).max()))
+            big = max(big, float(w.abs().max()))
+            dif = max(dif, float(d.max()))
+            del w, d
+        worst_rel = max(worst_rel, dif / max(big, 1e-30))
+    return worst, worst_rel
+
+
+def _p15o_mixtral_train_rank(dev, seed, ref_path, mesh):
+    """15o (vii) on this rank: mixtral's train step at full width and
+    :data:`P15O_TRAIN_LAYERS` layer, float32, on (data 1, model 16), its
+    8 experts on the 'expert_ff' fallback (every expert's 896 of 14 336
+    FFN columns a rank) and its KV heads on replica groups of two, made
+    blockwise (:func:`_blockwise_fp`): the first batch's gradients and
+    the step's grad norm (``step.averaged_grads``) against the one-rank
+    ones saved at ``ref_path + ".mixtral"``; then, where the predicted
+    state fits (:func:`_p15o_update_gb`), :data:`P15O_TRAIN_STEPS` whole
+    steps (norm, AdamW) against the one-rank steps saved at ``ref_path +
+    ".mixtral_step"`` (:func:`_tp_train_vs_saved`)."""
+    import torch.distributed as dist
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig
+    model = _tp_mixtral(P15O_TRAIN_LAYERS)
+    tp = mesh.shape[1]
+    placed = _blockwise_fp(dev, model, seed, tp, mesh)
+    step = tl.make_train_step(model, AdamWConfig(**P15O_OPT), mesh=mesh)
+    b0 = tl.to_device(_p15o_batches()[0], dev)
+    dist.barrier()
+    _sync_dev(dev)
+    t0 = time.perf_counter()
+    loss, met, grads = step.averaged_grads(placed, b0)
+    _sync_dev(dev)
+    out = {"loss": float(loss), "grad_norm": float(met["grad_norm"]),
+           "grads_ms": (time.perf_counter() - t0) * 1e3,
+           "predicted_update_gb": _p15o_update_gb(model, tp),
+           "rank_params": _rank_params(model, tp)}
+    _wait_until(lambda: os.path.exists(ref_path + ".mixtral.done"), 900,
+                "15o (vii)'s one-rank gradients")
+    ref = torch.load(ref_path + ".mixtral", mmap=True, map_location="cpu")
+    out["grads_excess_over_grad_tol"], out["grads_max_rel_err"] = \
+        _grads_vs_saved(dev, grads, placed, ref, mesh, GRAD_TOL)
+    out["local_moe"] = {k: tuple(t.to_local().shape) for k, t in
+                        _leaves(placed).items() if "/moe/" in k}
+    out["grads_peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    del ref, grads
+    _free(dev)
+    if out["predicted_update_gb"] <= P15O_RANK_BUDGET_GB:
+        out["step"] = _tp_train_vs_saved(
+            dev, seed, model, _p15o_batches(), P15O_OPT,
+            ref_path + ".mixtral_step", "15o (vii)",
+            ("stack", "list", "0", "b0", "moe"), placed=placed)
+    del placed
+    _free(dev)
+    out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
     return out
 
 
@@ -9507,7 +9947,6 @@ def _p15o_grads_rank(dev, seed, ref_path, mesh):
     and the first batch's gradient shards against the one-rank gradients
     saved at ``ref_path``."""
     import torch.distributed as dist
-    from repro_torch.distributed.sharding import shard_index
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig
     model = _tp_granite(P15O_TRAIN_LAYERS)
@@ -9528,23 +9967,8 @@ def _p15o_grads_rank(dev, seed, ref_path, mesh):
             _wait_until(lambda: os.path.exists(ref_path + ".done"), 900,
                         "15o (iv)'s one-rank gradients")
             ref = torch.load(ref_path, mmap=True, map_location="cpu")
-            for k, g in _leaves(grads).items():
-                t = flat[k]
-                want = ref[k][shard_index(t.shape, t.placements,
-                                          tuple(mesh.shape),
-                                          mesh.get_coordinate())]
-                # a few MB at a time: sixteen ranks share the card
-                big = dif = 0.0
-                for r0 in range(0, g.shape[0], 2048):
-                    w = want[r0:r0 + 2048].to(dev)
-                    d = (g[r0:r0 + 2048] - w).abs()
-                    worst = max(worst, float((
-                        d - P15O_GRAD_TOL["rtol"] * w.abs()
-                        - P15O_GRAD_TOL["atol"]).max()))
-                    big = max(big, float(w.abs().max()))
-                    dif = max(dif, float(d.max()))
-                    del w, d
-                worst_rel = max(worst_rel, dif / max(big, 1e-30))
+            worst, worst_rel = _grads_vs_saved(dev, grads, placed, ref, mesh,
+                                               GRAD_TOL)
             del ref
         del grads
     local = {k: tuple(t.to_local().shape) for k, t in flat.items()
@@ -9557,33 +9981,55 @@ def _p15o_grads_rank(dev, seed, ref_path, mesh):
             "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
 
 
-def _p15o_one_rank_grads(dev, seed, ref_path):
-    """15o (iv)'s one-rank side: granite's whole tree of the same blocks,
-    the loss and global grad norm of each batch, the first batch's
-    gradients saved to ``ref_path`` (then ``ref_path + ".done"``); then
-    (v)'s one-rank steps (:func:`_one_rank_train_saved`, saved to
-    ``ref_path + ".step"``). Returns both sides' losses and norms."""
+def _one_rank_grads_saved(dev, model, params, batches, path):
+    """The one-rank loss and global grad norm of each of ``batches`` on
+    ``params``, the first batch's gradients saved to ``path`` (then
+    ``path + ".done"``)."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import global_norm
-    model = _tp_granite(P15O_TRAIN_LAYERS)
-    params = _blockwise_fp(dev, model, seed, P15O_RANKS)
     losses, norms = [], []
-    for i, b in enumerate(_p15o_batches()):
+    for i, b in enumerate(batches):
         loss, _, g = tl._value_and_grad(model.train_loss, params,
                                         tl.to_device(b, dev))
         losses.append(float(loss))
         norms.append(float(global_norm(g)))
         if i == 0:
-            torch.save({k: v.cpu() for k, v in _leaves(g).items()},
-                       ref_path)
+            torch.save({k: v.cpu() for k, v in _leaves(g).items()}, path)
         del g
+    _free(dev)
+    open(path + ".done", "w").close()
+    return losses, norms
+
+
+def _p15o_one_rank_grads(dev, seed, ref_path):
+    """15o (iv)'s one-rank side: granite's whole tree of the same blocks,
+    the loss and global grad norm of each batch, the first batch's
+    gradients saved to ``ref_path`` (then ``ref_path + ".done"``); then
+    (v)'s one-rank steps (:func:`_one_rank_train_saved`, saved to
+    ``ref_path + ".step"``); then (vii)'s: mixtral's whole tree of the
+    same blocks, its first batch's gradients (``ref_path + ".mixtral"``)
+    and, where a rank's predicted state fits, its steps (``ref_path +
+    ".mixtral_step"``). Returns each part's losses and norms."""
+    model = _tp_granite(P15O_TRAIN_LAYERS)
+    params = _blockwise_fp(dev, model, seed, P15O_RANKS)
+    grads = _one_rank_grads_saved(dev, model, params, _p15o_batches(),
+                                  ref_path)
     del params
     _free(dev)
-    open(ref_path + ".done", "w").close()
     group = _one_rank_train_saved(dev, seed, _tp_granite_groups(),
                                   _p15o_group_batches(), P15O_GROUP_OPT,
                                   ref_path + ".step")
-    return (losses, norms), group
+    model = _tp_mixtral(P15O_TRAIN_LAYERS)
+    params = _blockwise_fp(dev, model, seed, P15O_RANKS)
+    mixtral = {"grads": _one_rank_grads_saved(
+        dev, model, params, _p15o_batches()[:1], ref_path + ".mixtral")}
+    if _p15o_update_gb(model, P15O_RANKS) <= P15O_RANK_BUDGET_GB:
+        mixtral["step"] = _one_rank_train_saved(
+            dev, seed, model, _p15o_batches(), P15O_OPT,
+            ref_path + ".mixtral_step", params=params)
+    del params
+    _free(dev)
+    return grads, group, mixtral
 
 
 def _p15o_ranks(seed, ref_path):
@@ -9638,16 +10084,32 @@ def phase15o(dev, seed, card):
     groups of 8 ranks, their leaves whole on every rank), 3 steps against
     the one-rank steps run here first.
 
+    (vi) mixtral-8x7b (arXiv:2401.04088) served as (i)-(iii) are: its 8
+    experts, which 16 does not divide, on the 'expert_ff' fallback (every
+    rank holds every expert's 896 of 14 336 FFN columns: 3 x 8 kernel-B
+    expert launches a layer a forward, ``wdown`` row-parallel), 2 of 32 q
+    heads and one of 8 KV heads a rank (two ranks a KV head), 2 000 of
+    32 000 vocabulary rows.
+
+    (vii) mixtral's train step at :data:`P15O_TRAIN_LAYERS` layer in
+    float32, made blockwise: the first batch's gradients and the step's
+    grad norm against the one-rank ones; then, where a rank's predicted
+    state (7 x its float32 parameters, :func:`_p15o_update_gb`) fits
+    :data:`P15O_RANK_BUDGET_GB`, the whole step (norm, AdamW) for
+    :data:`P15O_TRAIN_STEPS` steps against the one-rank steps, both
+    one-rank parts run here first.
+
     Gates: every rank's kernel-B launches by local weight shape as the
     shards imply and kernel A's as the slabs imply, every rank the same
     logits and tokens, w8 float32 logits within 1e-4 of the one-rank
     forward's largest |logit| (bfloat16 reported); (iv)'s losses and grad
     norms within :data:`P15O_STEP_GATE` relative of the one-rank ones and
     every rank's gradient shards of the first batch within
-    :data:`P15O_GRAD_TOL`; (v)'s losses and the step's grad norms within
+    :data:`GRAD_TOL`; (v)'s losses and the step's grad norms within
     :data:`P15O_STEP_GATE` and every rank's final shards (the replica
-    groups' whole leaves) within ``STEP_TOL`` of the one-rank parameters.
-    Every rank's peak memory is reported."""
+    groups' whole leaves) within ``STEP_TOL`` of the one-rank parameters;
+    (vii)'s as (iv)'s and, where the update ran, as (v)'s. Every rank's
+    peak memory is reported."""
     import tempfile
     import shutil
 
@@ -9684,13 +10146,21 @@ def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
                           "of 9 216 FFN columns, 16 000 of 256 000 "
                           "vocabulary rows a rank",
               "minicpm3": "(iii) minicpm3-4b (MLA), 5 of 40 heads (2 ranks "
-                          "each), 400 of 6 400 FFN columns a rank"}
+                          "each), 400 of 6 400 FFN columns a rank",
+              "mixtral": "(vi) mixtral-8x7b (arXiv:2401.04088), its 8 "
+                         "experts on the 'expert_ff' fallback: every "
+                         "expert's 896 of 14 336 FFN columns a rank (3 x 8 "
+                         "expert launches a layer a forward), 2 of 32 q "
+                         "heads, 1 of 8 KV heads (2 ranks a KV head), 2 000 "
+                         "of 32 000 vocabulary rows a rank"}
     out = {"squant_flip": [], "squant_scale": [], "dequant_matmul": [],
            "plans": {}, "local_shapes": {}}
     for key, build in P15O_MODELS:
         rows = [dict(r[key], rank=r["rank"]) for r in ranks]
+        cfg = build(P15O_LAYERS).cfg
         for r in rows:
-            want_a = _slab_launches(r["buckets"], tp, r["rank"])
+            want_a = _slab_launches(r["buckets"], tp, r["rank"],
+                                    _bank_slices(cfg))
             if r["kernel_a"] != want_a:
                 raise AssertionError(f"15o {key}: rank {r['rank']} kernel A "
                                      f"{r['kernel_a']}, the slabs imply "
@@ -9698,10 +10168,9 @@ def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
         _serve_rows_agree(rows, f"15o {key}")
         c0 = rows[0]["cases"]
         err = c0["w8 float32"]["max_abs_err_over_max_logit"]
-        cfg = build(P15O_LAYERS).cfg
         shapes = _p15o_shapes(cfg, tp, 1)
-        emit({"phase": f"15o heads and FFN widths 'model' 16 does not "
-                       f"divide, {tp} ranks sharing the card (gloo), mesh "
+        emit({"phase": f"15o heads, FFN widths and experts 'model' 16 does "
+                       f"not divide, {tp} ranks sharing the card (gloo), mesh "
                        f"(data 1, model {tp}), {labels[key]}; SQuant w8 at "
                        f"full width, {P15O_LAYERS} layer, float32, made and "
                        f"quantized leaf by leaf on the ranks' slabs",
@@ -9736,7 +10205,7 @@ def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
     # the per-model lists summed by rank
     for k in ("squant_flip", "squant_scale", "dequant_matmul"):
         out[k] = [sum(v) for v in zip(*out[k])]
-    (plain_losses, plain_norms), group = plain
+    (plain_losses, plain_norms), group, mixtral = plain
     t_s = [r["train"] for r in ranks]
     worst_loss = max(abs(a - b) / abs(b) for r in t_s
                      for a, b in zip(r["losses"], plain_losses))
@@ -9758,7 +10227,7 @@ def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
           "max_rel_diff_loss": worst_loss,
           "max_rel_diff_grad_norm": worst_norm, "gate": P15O_STEP_GATE,
           "grads_max_excess_over_grad_tol": excess,
-          "grad_tol": P15O_GRAD_TOL,
+          "grad_tol": GRAD_TOL,
           "grads_max_rel_err_by_rank": [r["grads_max_rel_err"]
                                         for r in t_s],
           "local_attention_shards": t_s[0]["local_attention"],
@@ -9803,7 +10272,72 @@ def _p15o_report(ranks, plain, plain_s, card, n_s, t_phase):
             and g_excess <= 0):
         raise AssertionError(f"15o (v): losses {g_loss}, grad norms "
                              f"{g_norm}, shards over STEP_TOL by {g_excess}")
+    _p15o_mixtral_report([r["mixtral_train"] for r in ranks], mixtral, card,
+                         note)
     return out
+
+
+def _p15o_mixtral_report(m_s, plain, card, note):
+    """15o (vii)'s line and gates: each rank's first-batch loss and grad
+    norm within :data:`P15O_STEP_GATE` of the one-rank ones and its
+    gradient shards within :data:`GRAD_TOL`; where the update ran,
+    (v)'s gates on its steps."""
+    tp = len(m_s)
+    (g_losses, g_norms) = plain["grads"]
+    loss = max(abs(r["loss"] - g_losses[0]) / abs(g_losses[0]) for r in m_s)
+    norm = max(abs(r["grad_norm"] - g_norms[0]) / abs(g_norms[0])
+               for r in m_s)
+    excess = max(r["grads_excess_over_grad_tol"] for r in m_s)
+    pred = m_s[0]["predicted_update_gb"]
+    line = {"phase": f"15o (vii) mixtral-8x7b train step, its 8 experts on "
+                     f"the 'expert_ff' fallback, {tp} ranks sharing the card "
+                     f"(gloo), mesh (data 1, model {tp}), full width, "
+                     f"{P15O_TRAIN_LAYERS} of 32 layers, float32",
+            "card": card, "backend": "gloo", "ranks": tp,
+            "global_batch": list(P15O_TRAIN_BATCH),
+            "rank_params": m_s[0]["rank_params"],
+            "predicted_update_gb_a_rank": pred,
+            "budget_gb_a_rank": P15O_RANK_BUDGET_GB,
+            "update_run": "step" in m_s[0],
+            "loss": m_s[0]["loss"], "one_rank_loss": g_losses[0],
+            "grad_norm": m_s[0]["grad_norm"], "one_rank_grad_norm": g_norms[0],
+            "max_rel_diff_loss": loss, "max_rel_diff_grad_norm": norm,
+            "gate": P15O_STEP_GATE,
+            "grads_max_excess_over_grad_tol": excess,
+            "grad_tol": GRAD_TOL,
+            "grads_max_rel_err_by_rank": [r["grads_max_rel_err"]
+                                          for r in m_s],
+            "local_moe_shards": m_s[0]["local_moe"],
+            "grads_ms_by_rank": [r["grads_ms"] for r in m_s],
+            "grads_peak_gb_by_rank": [r["grads_peak_gb"] for r in m_s],
+            "peak_gb_by_rank": [r["peak_gb"] for r in m_s],
+            "seconds_by_rank": [r["seconds"] for r in m_s], "note": note}
+    gates = [loss <= P15O_STEP_GATE, norm <= P15O_STEP_GATE, excess <= 0]
+    if "step" in m_s[0]:
+        st = [r["step"] for r in m_s]
+        s_losses, s_norms = plain["step"]
+        s_loss = max(abs(a - b) / abs(b) for r in st
+                     for a, b in zip(r["losses"], s_losses))
+        s_norm = max(abs(a - b) / abs(b) for r in st
+                     for a, b in zip(r["grad_norms"], s_norms))
+        s_excess = max(r["shards_excess_over_step_tol"] for r in st)
+        line.update({"steps": P15O_TRAIN_STEPS, "opt": P15O_OPT,
+                     "losses": st[0]["losses"], "one_rank_losses": s_losses,
+                     "grad_norms": st[0]["grad_norms"],
+                     "one_rank_grad_norms": s_norms,
+                     "steps_max_rel_diff_loss": s_loss,
+                     "steps_max_rel_diff_grad_norm": s_norm,
+                     "shards_max_excess_over_step_tol": s_excess,
+                     "step_tol": STEP_TOL,
+                     "ms_by_step_rank0": st[0]["step_ms"],
+                     "split_ms_rank0": st[0]["split_ms"],
+                     "step_peak_gb_by_rank": [r["peak_gb"] for r in st]})
+        gates += [s_loss <= P15O_STEP_GATE, s_norm <= P15O_STEP_GATE,
+                  s_excess <= 0]
+    emit(line)
+    if not all(gates):
+        raise AssertionError(f"15o (vii): gates {gates} (losses, norms, "
+                             f"gradients; the steps' losses, norms, shards)")
 
 
 def _phase15o_cells(o):
@@ -9862,9 +10396,11 @@ def drive_phase15(dev, seed, layers, card, memory):
                                "15l_by_rank": rec["dequant_matmul_15l"],
                                "15m_by_rank": rec["dequant_matmul_15m"],
                                "15o_by_rank": o["dequant_matmul"]},
-            "plans": {"15e": ef["plans"], "15g": gh["plans"],
-                      **mr["plans"], **rec["plans"], **o["plans"]},
+            "plans": {"15e": ef["plans"], "15p": ef["plans_15p"],
+                      "15g": gh["plans"], **mr["plans"], **rec["plans"],
+                      **o["plans"]},
             "local_shapes": ef["local_shapes"],
+            "encdec_local_shapes": ef["encdec_local_shapes"],
             "ep_local_shapes": gh["local_shapes"],
             "ep_capacity_rows": gh["capacity_rows"],
             "mla_ring": mr, "recurrent": rec, "heads": o}
@@ -9880,17 +10416,17 @@ def main():
                     help="depth of the w4 main-path run")
     ap.add_argument("--layers7", type=int, default=4,
                     help="depth of the int8-KV continuous run")
-    ap.add_argument("--layers8", type=int, default=6,
+    ap.add_argument("--layers8", type=int, default=4,
                     help="depth of the speculative run (w8 verifier, w4 "
-                    "drafter; 6 of 40 since phases 15l-n came, 12 since "
-                    "phase 15 came, to keep the script inside its time "
-                    "limit)")
-    ap.add_argument("--layers9", type=int, default=6,
-                    help="depth of the native checkpoint run (9a; 6 of 40 "
-                    "since phases 15l-n came, 12 since phase 15 came, to "
-                    "keep the script inside its time limit; its kernel-B "
-                    "count is then held to phase 6's tree served at the "
-                    "same depth)")
+                    "drafter; 4 of 40 since 15o (vi)-(vii) and 15p-q came, "
+                    "6 since phases 15l-n came, 12 since phase 15 came, to "
+                    "keep the script inside its time limit)")
+    ap.add_argument("--layers9", type=int, default=4,
+                    help="depth of the native checkpoint run (9a; 4 of 40 "
+                    "since 15o (vi)-(vii) and 15p-q came, 6 since phases "
+                    "15l-n came, 12 since phase 15 came, to keep the script "
+                    "inside its time limit; its kernel-B count is then held "
+                    "to phase 6's tree served at the same depth)")
     ap.add_argument("--layers10", type=int, default=1,
                     help="depth of the MoE run (10a; 1 of moonshot's 48 "
                     "layers since phase 15o came, 2 since phases 15l-n "
@@ -9902,11 +10438,12 @@ def main():
                     help="depth of the full-width training run (11a; 8 of "
                     "granite's 40 layers: float32 weights, grads and AdamW "
                     "moments of 40 layers do not fit one card)")
-    ap.add_argument("--layers12", type=int, default=2,
-                    help="depth of the sliding-window + MoE run (12b; 2 of "
-                    "mixtral's 32 layers since phases 15l-n came, 4 since "
-                    "phase 15 came, to keep the script inside its time "
-                    "limit; 32 layers of float32 weights are ~180 GB)")
+    ap.add_argument("--layers12", type=int, default=1,
+                    help="depth of the sliding-window + MoE run (12b; 1 of "
+                    "mixtral's 32 layers since 15o (vi)-(vii) and 15p-q "
+                    "came, 2 since phases 15l-n came, 4 since phase 15 "
+                    "came, to keep the script inside its time limit; 32 "
+                    "layers of float32 weights are ~180 GB)")
     ap.add_argument("--layers12a", type=int, default=8,
                     help="depth of the MLA run (12a; 8 of minicpm3's 62 "
                     "layers since phase 15i came, to keep the script inside "
@@ -9917,9 +10454,11 @@ def main():
                     "since phase 15m came, to keep the script inside its "
                     "time limit: 15m serves the same width tensor-parallel; "
                     "24 = the full model)")
-    ap.add_argument("--layers15", type=int, default=4,
-                    help="depth of the one-rank mesh run (15a; 4 of "
-                    "granite's 40 layers)")
+    ap.add_argument("--layers15", type=int, default=2,
+                    help="depth of the one-rank mesh run (15a; 2 of "
+                    "granite's 40 layers since 15o (vi)-(vii) and 15p-q "
+                    "came, 4 before, to keep the script inside its time "
+                    "limit)")
     ap.add_argument("--train-steps", type=int, default=200,
                     help="training steps of the trained models of 11b and "
                     "11c (ii) (200 since phase 15o came, 300 since phases "
@@ -9935,9 +10474,10 @@ def main():
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="only build, then run phases 15e and 15f "
-                    "(tensor-parallel serving and training on four gloo "
-                    "ranks sharing the card); prints no ok line")
+                    help="only build, then run phases 15e, 15f, 15p and 15q "
+                    "(tensor-parallel serving and training of granite and "
+                    "of the encoder-decoder on four gloo ranks sharing the "
+                    "card); prints no ok line")
     ap.add_argument("--expert-parallel", action="store_true",
                     help="only build, then run phases 15g and 15h "
                     "(expert-parallel MoE serving and training on four "
@@ -9953,10 +10493,11 @@ def main():
                     "training, on four gloo ranks sharing the card); prints "
                     "no ok line")
     ap.add_argument("--heads-parallel", action="store_true",
-                    help="only build, then run phase 15o (heads and FFN "
-                    "widths 'model' 16 does not divide: granite, minitron "
-                    "and minicpm3 serving, granite training, on sixteen "
-                    "gloo ranks sharing the card); prints no ok line")
+                    help="only build, then run phase 15o (heads, FFN "
+                    "widths and experts 'model' 16 does not divide: "
+                    "granite, minitron, minicpm3 and mixtral serving, "
+                    "granite and mixtral training, on sixteen gloo ranks "
+                    "sharing the card); prints no ok line")
     ap.add_argument("--profile", action="store_true",
                     help="also trace a few decode steps and admission chunk "
                     "forwards (the paged ones captured and eager), a verify "
@@ -10132,6 +10673,9 @@ def main():
                         phase15=[(f"15e local {m}x{n} decode", m, n,
                                   P15E_PROMPT[0])
                                  for m, n in l15.pop("local_shapes")]
+                        + [(f"15p local {m}x{n} decode", m, n,
+                            P15P_PROMPT[0])
+                           for m, n in l15.pop("encdec_local_shapes")]
                         + [(f"15g local {m}x{n} decode", m, n,
                             P15G_PROMPT[0])
                            for m, n in l15["ep_local_shapes"]]

@@ -28,7 +28,8 @@ enclosing ``shard_map`` maps manually; the port has no ``shard_map``, so
 every axis of the mesh is usable.
 
 Tensor-parallel execution over 'model' (Megatron-style for the GQA and
-MLA transformer and the mamba and rwkv mixers, expert-parallel for MoE):
+MLA transformer, the encoder-decoder and the mamba and rwkv mixers,
+expert-parallel for MoE):
 :func:`activate_mesh` installs the mesh the forward runs on, and the
 reference's activation constraints become the collectives GSPMD inserts
 at the same points (:func:`shard_act`, :func:`to_model`,
@@ -40,7 +41,17 @@ into DTensors (what the train step and the checkpointer take). Only the
 'model' entries of the rules apply, with two exceptions of mamba's
 (``models.mamba``): ``x_proj`` is row-parallel over ``d_inner``, and
 ``in_proj``'s x and z halves are each cut on 'model' (a strided shard,
-``MeshSharding.split``).
+``MeshSharding.split``); and one of MoE's, below.
+
+An expert count the 'model' axis does not divide takes the reference's
+'expert_ff' fallback (:func:`expert_ff`): every rank holds every expert,
+cut to its ``d_ff / tp`` FFN columns, ``wi`` / ``wg`` column-parallel
+(the pipeline's ``(E·d_ff, d)`` codes a strided shard of split E: rank
+``k`` holds rows ``e·d_ff + [k·d_ff/tp, (k+1)·d_ff/tp)`` of every expert
+``e``) and ``wdown`` row-parallel (its ``d_ff`` input columns, at whole
+groups), so each expert's product is a partial sum the block sums over
+'model'. The reference's rule cuts ``wdown`` on its output dim ``d``
+instead; the numbers are the same, the memory layout differs.
 
 Heads and FFN widths the 'model' axis does not divide take replica groups
 (:func:`replica_groups`): a count ``n`` (q heads, KV heads, FFN columns)
@@ -59,10 +70,10 @@ head_dim`` dim instead, inside a head, and reshards by GSPMD; its cache
 rule puts 'model' on ``head_dim`` where the KV heads do not divide. The
 numbers are the same; the memory layout differs.
 
-A tree sharded over 'data' (FSDP), an expert count 'model' does not
-divide, MLA latent ranks, a mamba ``d_inner``, or rwkv heads or an rwkv
-channel-mix width it does not divide, the encoder-decoder, speculative
-verify and the paged KV layout raise ``NotImplementedError``
+A tree sharded over 'data' (FSDP), MLA latent ranks, a mamba
+``d_inner``, rwkv heads or an rwkv channel-mix width that 'model' does
+not divide, an expert count and expert FFN width it divides neither of,
+speculative verify and the paged KV layout raise ``NotImplementedError``
 (:func:`check_tensor_parallel`).
 
 MoE routing under data parallelism: the reference routes the global batch
@@ -704,11 +715,22 @@ def current_routing() -> Optional[RoutingGroup]:
     return g if g is not None and g.size > 1 else None
 
 
+def expert_ff(n_experts: int, tp: int) -> bool:
+    """Whether an MoE of ``n_experts`` takes the reference's 'expert_ff'
+    fallback on a 'model' axis of ``tp``: 'model' does not divide the
+    experts, so it cuts every expert's FFN columns instead."""
+    return n_experts % tp != 0
+
+
 def local_experts(n_experts: int) -> Tuple[int, int]:
     """``(first, count)`` of the experts this rank holds under the active
     'model' axis: the rank at 'model' coordinate ``k`` of ``tp`` holds
-    experts ``[k·E/tp, (k+1)·E/tp)`` (``(0, E)`` without one)."""
+    experts ``[k·E/tp, (k+1)·E/tp)`` where 'model' divides ``E``, and all
+    of them, each cut to its FFN columns, where it does not
+    (:func:`expert_ff`; ``(0, E)`` without a 'model' axis)."""
     tp, k, _ = model_axis()
+    if expert_ff(n_experts, tp):
+        return 0, n_experts
     per = n_experts // tp
     return k * per, per
 
@@ -721,38 +743,38 @@ def tp_not_ported(what: str) -> str:
 def check_tensor_parallel(cfg, mesh) -> None:
     """Raise ``NotImplementedError("not ported yet: …")`` where the port
     cannot run ``cfg`` tensor-parallel on ``mesh`` (a ``DeviceMesh`` or an
-    :class:`AbstractMesh`): an MoE whose expert count the 'model' axis does
-    not divide (the reference falls back to 'expert_ff' there, which cuts
-    the pipeline's collapsed ``(E·out, in)`` bank inside an expert), MLA
-    latent ranks (``q_lora``, ``kv_lora + rope_dim``) it does not divide
-    (the rules leave ``q_down`` / ``kv_down`` whole there, and a whole
-    product's gradient would be summed over 'model' once per rank), a
-    mamba ``d_inner`` it does not divide (the same, for ``in_proj``,
-    ``conv_w``, ``x_proj``, ``dt_proj`` and ``out_proj``), the
-    encoder-decoder, or rwkv heads or an rwkv channel-mix width it does
-    not divide. q and KV heads (GQA or MLA) and a dense FFN width that
-    'model' does not divide run on replica groups
+    :class:`AbstractMesh`): an MoE whose expert count and expert FFN
+    width the 'model' axis divides neither of (the reference leaves the
+    bank whole there, and each rank's whole product would be summed once
+    per rank), MLA latent ranks (``q_lora``, ``kv_lora + rope_dim``) it
+    does not divide (the rules leave ``q_down`` / ``kv_down`` whole there,
+    and a whole product's gradient would be summed over 'model' once per
+    rank), a mamba ``d_inner`` it does not divide (the same, for
+    ``in_proj``, ``conv_w``, ``x_proj``, ``dt_proj`` and ``out_proj``), or
+    rwkv heads or an rwkv channel-mix width it does not divide. q and KV
+    heads (GQA, MLA, the encoder's and the cross-attention's) and a dense
+    FFN width that 'model' does not divide run on replica groups
     (:func:`replica_groups`): the reference's rule cuts inside a head
-    there, the port keeps heads whole."""
+    there, the port keeps heads whole. An expert count it does not divide
+    takes the 'expert_ff' fallback (:func:`expert_ff`)."""
     tp = mesh_axis_sizes(mesh).get("model", 1)
     if tp == 1:
         return
     plan = cfg.block_pattern or ()
-    n_experts = cfg.moe.n_experts if cfg.moe is not None else 0
-    m = cfg.mla
+    moe, m = cfg.moe, cfg.mla
     d_inner = cfg.mamba.expand * cfg.d_model if "m" in plan else 0
     rwkv_heads = cfg.d_model // cfg.rwkv_head_dim if cfg.rwkv else 0
     cases = (
-        (n_experts % tp != 0, f"{n_experts} experts on a 'model' axis of "
-                              f"{tp} (the reference's 'expert_ff' "
-                              f"fallback, M7c.1b)"),
+        (moe is not None and expert_ff(moe.n_experts, tp)
+         and cfg.d_ff % tp != 0,
+         f"{moe and moe.n_experts} experts and their FFN width {cfg.d_ff} "
+         f"on a 'model' axis of {tp}"),
         (m is not None and (m.q_lora % tp or (m.kv_lora + m.rope_dim) % tp),
          f"MLA latent ranks on a 'model' axis of {tp} (q_lora "
          f"{m and m.q_lora}, kv_lora + rope_dim "
          f"{m and m.kv_lora + m.rope_dim})"),
         (d_inner % tp != 0, f"mamba's d_inner {d_inner} on a 'model' axis "
                             f"of {tp}"),
-        (cfg.is_encdec, "the encoder-decoder"),
         (rwkv_heads % tp != 0, f"rwkv's {rwkv_heads} heads on a 'model' "
                                f"axis of {tp}"),
         (cfg.rwkv and cfg.d_ff % tp != 0, f"rwkv's channel-mix d_ff "
@@ -784,13 +806,19 @@ def group_units(path: Tuple[str, ...], cfg) -> Optional[Tuple[int, bool]]:
     """``(n, row_parallel)`` of a dense leaf that 'model' cuts by whole
     units (:func:`replica_groups`): a GQA block's ``wq`` / ``wo`` (the q
     heads) and ``wk`` / ``wv`` (the KV heads), an MLA block's ``q_up``,
-    ``kv_up`` and ``wo`` (its heads), a dense FFN's ``wi`` / ``wg`` /
-    ``wdown`` (``d_ff`` columns); None for every other leaf. ``path``
-    ends in the leaf's name (``w``, ``w_q``, ``w_q4``, ``w_scale``)."""
+    ``kv_up`` and ``wo`` (its heads), a cross-attention's or an encoder
+    layer's four (its heads, K/V at ``n_heads``), a dense FFN's ``wi`` /
+    ``wg`` / ``wdown`` (``d_ff`` columns, the encoder's too); None for
+    every other leaf. ``path`` ends in the leaf's name (``w``, ``w_q``,
+    ``w_q4``, ``w_scale``)."""
     if len(path) < 3:
         return None
     node, block = path[-2], path[-3]
-    if block == "attn" and cfg.mla is not None:
+    if block == "xattn" or block == "attn" and path[0] == "encoder":
+        # cross-attention and the encoder's: K/V at n_heads
+        if node in ("wq", "wk", "wv", "wo"):
+            return cfg.n_heads, node == "wo"
+    elif block == "attn" and cfg.mla is not None:
         if node in ("q_up", "kv_up", "wo"):
             return cfg.n_heads, node == "wo"
     elif block == "attn":
@@ -803,15 +831,52 @@ def group_units(path: Tuple[str, ...], cfg) -> Optional[Tuple[int, bool]]:
     return None
 
 
-def _grouped(path, mesh, cfg) -> Optional[Tuple[int, int, bool]]:
-    """``(g, r, row_parallel)`` of a leaf cut by whole units
+def _grouped(path, mesh, cfg) -> Optional[Tuple[int, int, bool, int]]:
+    """``(g, r, row_parallel, experts)`` of a leaf cut by whole units
     (:func:`group_units`) under ``mesh``'s 'model' axis (``r`` 1 for the
-    plain cut), else None."""
+    plain cut, ``experts`` 1), or of an expert bank's ``wi`` / ``wg`` /
+    ``wdown`` under the 'expert_ff' fallback (:func:`expert_ff`: ``(tp,
+    1, wdown, E)``, every expert's FFN columns cut alike), else None."""
+    tp = mesh_axis_sizes(mesh).get("model", 1)
     units = group_units(path, cfg)
-    if units is None:
-        return None
-    g, r = replica_groups(units[0], mesh_axis_sizes(mesh).get("model", 1))
-    return g, r, units[1]
+    if units is not None:
+        return replica_groups(units[0], tp) + (units[1], 1)
+    if "moe" in path and len(path) >= 2 and \
+            path[-2] in ("wi", "wg", "wdown") and tp > 1 and \
+            expert_ff(cfg.moe.n_experts, tp):
+        return tp, 1, path[-2] == "wdown", cfg.moe.n_experts
+    return None
+
+
+def _cut_spec(ndim: int, dim: int) -> Spec:
+    """A spec that puts 'model' on ``dim`` of an ``ndim``-dim leaf."""
+    return tuple("model" if i == dim % ndim else None for i in range(ndim))
+
+
+def _expert_ff_sharding(mesh, path, leaf, grouped):
+    """:func:`make_tp_shardings`' entry of an expert bank's leaf under the
+    'expert_ff' fallback (``grouped`` of :func:`_grouped`): the fp ``(E,
+    in, out)`` kernel on its ``d_ff`` dim; the serving form's ``(E, out,
+    in)`` codes on theirs, a per-channel ``w_scale`` of ``wdown`` whole; a
+    ``QuantizedTensor``'s ``(E·d_ff, d)`` codes and scale rows of ``wi`` /
+    ``wg`` a strided shard of split E, ``wdown``'s ``(E·d, d_ff)`` codes on
+    their columns (:func:`tp_local` cuts a per-group scale's columns)."""
+    from repro_torch.quant.qtypes import QuantizedTensor
+    row, experts = grouped[2], grouped[3]
+    if isinstance(leaf, QuantizedTensor):
+        if row:
+            return (MeshSharding(mesh, (None, "model")),
+                    MeshSharding(mesh, (None,) * leaf.scale.ndim))
+        return (MeshSharding(mesh, ("model", None), experts),
+                MeshSharding(mesh, _cut_spec(leaf.scale.ndim, 0), experts))
+    name = path[-1]
+    if name == "w":
+        return MeshSharding(mesh, _cut_spec(leaf.ndim, -2 if row else -1))
+    if not row:
+        return MeshSharding(mesh, _cut_spec(leaf.ndim, -2))
+    if name == "w_scale" and leaf.shape[-1] == 1:
+        return MeshSharding(mesh, (None,) * leaf.ndim)
+    return MeshSharding(mesh, _cut_spec(leaf.ndim, -1))
 
 
 def make_tp_shardings(mesh, tree: Any, cfg) -> Any:
@@ -823,7 +888,9 @@ def make_tp_shardings(mesh, tree: Any, cfg) -> Any:
     (every rank routes every token; the rules would put its input dim on
     'model'); an expert bank is cut on its expert dim, which the
     pipeline's ``(E·out, in)`` codes and their scale rows carry major, so
-    a 'model' axis dividing E cuts them at expert boundaries. mamba's
+    a 'model' axis dividing E cuts them at expert boundaries; one that
+    does not divide E cuts every expert's FFN columns (the 'expert_ff'
+    fallback, :func:`_expert_ff_sharding`). mamba's
     ``x_proj`` takes the row-parallel rule, and ``in_proj``'s output dim
     (its codes' and scales' rows) a strided shard of split 2: each rank
     the same columns of x and of z. A leaf cut by heads or FFN columns
@@ -835,6 +902,8 @@ def make_tp_shardings(mesh, tree: Any, cfg) -> Any:
 
     def one(path, leaf):
         grouped = _grouped(path, mesh, cfg)
+        if grouped is not None and grouped[3] > 1:
+            return _expert_ff_sharding(mesh, path, leaf, grouped)
         if "router" in path or (grouped is not None and grouped[1] > 1):
             whole = MeshSharding(mesh, (None,) * len(leaf.shape))
             if isinstance(leaf, QuantizedTensor):
@@ -896,8 +965,18 @@ def _local_quantized(qt, shardings, path):
                            group_size=qt.group_size, shape=(out, cols))
 
 
-def _group_cut(t: torch.Tensor, dim: int, g: int, s: int) -> torch.Tensor:
-    """Shard ``s`` of ``g`` equal contiguous parts of ``t`` along ``dim``."""
+def _group_cut(t: torch.Tensor, dim: int, g: int, s: int,
+               blocks: int = 1) -> torch.Tensor:
+    """Shard ``s`` of ``g`` equal contiguous parts of ``t`` along ``dim``;
+    with ``blocks`` above 1, shard ``s`` of each of the dim's ``blocks``
+    equal blocks, in block order (a strided shard)."""
+    if blocks > 1:
+        dim %= t.ndim
+        shape = tuple(t.shape)
+        v = t.reshape(shape[:dim] + (blocks, shape[dim] // blocks)
+                      + shape[dim + 1:])
+        return _group_cut(v, dim + 1, g, s).reshape(
+            shape[:dim] + (-1,) + shape[dim + 1:])
     w = t.shape[dim] // g
     return t.narrow(dim, s * w, w).contiguous()
 
@@ -910,18 +989,23 @@ def _group_local(leaf, path, mesh, grouped):
     ``w_q4`` / ``w_scale`` (``(out, in)``-major) by codes' and scale rows,
     or by the codes' input columns with a per-group scale's columns of the
     same groups (a per-channel scale whole). A shard never splits a group
-    or a packed int4 byte: ``ValueError``."""
+    or a packed int4 byte: ``ValueError``. An expert bank under the
+    'expert_ff' fallback (``experts`` above 1) is cut alike in every
+    expert: its fp ``(E, in, out)`` kernel and serving ``(E, out, in)``
+    codes on their ``d_ff`` dim, a ``QuantizedTensor``'s ``(E·d_ff, d)``
+    rows in each expert's block."""
     from repro_torch.quant.qtypes import QuantizedTensor
-    g, r, row = grouped
+    g, r, row, experts = grouped
     tp = mesh_axis_sizes(mesh)["model"]
     s = mesh.get_local_rank("model") // r
     if isinstance(leaf, QuantizedTensor):
         out, cols = leaf.shape[0], math.prod(leaf.shape[1:])
         if not row:
             return QuantizedTensor(
-                data=_group_cut(leaf.data, 0, g, s),
-                scale=_group_cut(leaf.scale, 0, g, s), bits=leaf.bits,
-                group_size=leaf.group_size, shape=(out // g, cols))
+                data=_group_cut(leaf.data, 0, g, s, experts),
+                scale=_group_cut(leaf.scale, 0, g, s, experts),
+                bits=leaf.bits, group_size=leaf.group_size,
+                shape=(out // g, cols))
         unit = leaf.group_size or (2 if leaf.packed else 1)
         if cols % (g * unit):
             what = f"group of {leaf.group_size}" if leaf.group_size \
@@ -952,8 +1036,9 @@ def tp_local(tree: Any, mesh, cfg) -> Any:
     ``w_q``/``w_q4``/``w_scale`` serving format), every rank holding the
     whole tree: each leaf sliced to this rank's shard of
     :func:`make_tp_shardings`, nothing sent; a leaf cut by heads or FFN
-    columns to this rank's replica-group shard (:func:`replica_groups`).
-    What the forward runs on under :func:`activate_mesh`."""
+    columns to this rank's replica-group shard (:func:`replica_groups`),
+    an expert bank under the 'expert_ff' fallback to its FFN columns of
+    every expert. What the forward runs on under :func:`activate_mesh`."""
     from repro_torch.quant.qtypes import QuantizedTensor
     shardings = make_tp_shardings(mesh, tree, cfg)
 

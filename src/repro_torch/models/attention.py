@@ -61,6 +61,9 @@ decoder's rows over the encoder output, full multi-head and unmasked (or
 under an encoder mask), projecting K/V from it at every call. Operands of
 mixed dtypes promote as ``jnp`` promotes them (:func:`_promote`): a
 bfloat16 decoder over a float32 encoder output runs in float32 from there.
+Under 'model' it runs this rank's heads over the whole encoder output,
+which every rank holds (the reference's cache rule keeps ``enc_out``
+whole on 'model' too).
 """
 from __future__ import annotations
 
@@ -719,17 +722,29 @@ def cross_attention(params, x, enc_out, *, cfg,
     ``enc_out`` at every call (a decode step recomputes them; there is no
     cross-KV cache, as in the reference). ``x`` and ``enc_out`` may differ
     in dtype: the products promote as ``jnp`` does, so a bfloat16 ``x``
-    over a float32 ``enc_out`` gives a float32 result."""
+    over a float32 ``enc_out`` gives a float32 result.
+
+    Under tensor-parallel execution (``distributed.sharding``) it runs
+    this rank's heads, read off ``wq``'s local width (a whole fp leaf, the
+    train step's, narrowed to the rank's replica-group shard): ``x`` and
+    the whole ``enc_out`` enter through the caller's ``to_model``, ``wq`` /
+    ``wk`` / ``wv`` are column-parallel by heads, and ``wo``'s row-parallel
+    product comes back as this rank's partial sum (one copy a head) for
+    the caller's ``shard_act``."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     t = enc_out.shape[1]
-    q = linear(params["wq"], x).reshape(b, s, cfg.n_heads, hd)
-    k = linear(params["wk"], enc_out).reshape(b, t, cfg.n_heads, hd)
-    v = linear(params["wv"], enc_out).reshape(b, t, cfg.n_heads, hd)
+    n = cfg.n_heads
+    params = _local_heads(params, cfg, (("wq", n, hd, -1), ("wk", n, hd, -1),
+                                        ("wv", n, hd, -1), ("wo", n, hd, -2)))
+    q = linear(params["wq"], x).reshape(b, s, -1, hd)
+    h = q.shape[2]                           # this rank's heads
+    k = linear(params["wk"], enc_out).reshape(b, t, h, hd)
+    v = linear(params["wv"], enc_out).reshape(b, t, h, hd)
     if enc_mask is not None:
         mask = torch.where(enc_mask, 0.0, NEG_INF)[:, None, None, None, :]
         out = _grouped_attention(q, k, v, mask, hd ** -0.5)
     else:
         out = _chunked_attention(q, k, v, scale=hd ** -0.5, causal=False,
                                  q_chunk=cfg.attn_q_chunk)
-    return linear(params["wo"], out.reshape(b, s, cfg.n_heads * hd))
+    return _one_copy(linear(params["wo"], out.reshape(b, s, h * hd)), n)

@@ -12,8 +12,11 @@ divides the vocabulary, the logits gathered whole before the loss, a
 cache (or sliding-window ring) of this rank's KV heads (its replica
 group's where 'model' does not divide them), an MLA stack's
 whole compressed cache, or a mamba or rwkv state of this rank's channels
-or heads (:meth:`LM.init_cache`), and an MoE layer on this rank's experts
-(``models.moe``).
+or heads (:meth:`LM.init_cache`), an MoE layer on this rank's experts or,
+where 'model' does not divide them, on every expert's share of its FFN
+columns (``models.moe``), and an encoder-decoder's encoder and
+cross-attention on this rank's heads over an encoder output (and a
+cache's ``enc_out``) whole on every rank.
 """
 from __future__ import annotations
 
@@ -202,10 +205,13 @@ class LM:
         enc_out = batch.get("enc_out")
         if enc_out is None:
             enc_out = self._encode(params, batch)
-        x, new_caches, aux = apply_stack(params["stack"], x, cfg=self.cfg,
-                                         rope=rope, mode=mode, caches=caches,
-                                         pos=pos, enc_out=enc_out,
-                                         block_tables=block_tables)
+        # under 'model' every cross-attention projects this rank's K/V
+        # heads from the whole encoder output: its gradient is summed over
+        # 'model' once, after every layer's part
+        x, new_caches, aux = apply_stack(
+            params["stack"], x, cfg=self.cfg, rope=rope, mode=mode,
+            caches=caches, pos=pos, block_tables=block_tables,
+            enc_out=None if enc_out is None else sharding.to_model(enc_out))
         if new_caches is not None:
             new_caches["pos"] = pos + s
             if block_tables is not None:
@@ -235,7 +241,8 @@ class LM:
         above 1, of this rank's KV heads); an encoder-decoder's also
         ``"enc_out"``, zeros of ``(batch, max(1, max_len // enc_ratio),
         d_model)`` in the model dtype (a prefill replaces it with the
-        encoder output it computed, in that output's dtype)."""
+        encoder output it computed, in that output's dtype), whole on
+        every 'model' rank, as the reference's cache rule keeps it."""
         device = torch.device("cuda" if device is None else device)
         dt = _dtype(self.cfg)
         c = init_cache(self.cfg, batch, max_len, quantize_kv, dt,

@@ -44,6 +44,14 @@ input and the gates enter through ``to_model``, so their gradients (and
 the router's, through the gates) come out whole on every rank; the
 router's own input and the aux loss do not, as every rank computes them
 whole.
+
+Where 'model' does not divide the experts (``sharding.expert_ff``, the
+reference's 'expert_ff' fallback) every rank holds all E experts, each cut
+to its ``d_ff / tp`` FFN columns (``wi`` / ``wg`` column-parallel,
+``wdown`` row-parallel): it dispatches every token to every expert as one
+rank does and returns each expert's partial product over its columns,
+summed by the same ``shard_act``. The routing, the router and the aux
+loss are as above.
 """
 from __future__ import annotations
 
@@ -190,7 +198,7 @@ def moe_ffn(params, x: torch.Tensor, *, n_experts: int, top_k: int,
 
     # dispatch (T, E, C) / combine (T, E, C), accumulated over the K
     # routing slots, for this rank's experts (all of them without a
-    # 'model' axis)
+    # 'model' axis and under the 'expert_ff' fallback)
     e0, ne = sharding.local_experts(n_experts)
     gates = sharding.to_model(gate_vals)
     dt = x.dtype

@@ -36,6 +36,10 @@ the model an encoder (:func:`init_encoder`, :func:`apply_encoder`):
 bidirectional attention blocks over precomputed frame embeddings, held as a
 list of layers ``{"layers": [layer, ...], "final_norm": ...}`` (the
 reference stacks them; ``convert.from_jax_params`` unrolls its tree).
+Under 'model' the encoder's layers and each cross-attention run like the
+decoder's blocks (this rank's heads and FFN columns, the partial sums
+summed before the residual add); the encoder's output is whole on every
+rank.
 """
 from __future__ import annotations
 
@@ -162,8 +166,11 @@ def apply_block(p, x, *, cfg, kind: str, use_moe: bool, rope, mode: str,
             dt_rank=cfg.mamba.dt_rank or max(1, cfg.d_model // 16))
     x = x + shard_act(h)
     if "xattn" in p:
-        x = x + attn_lib.cross_attention(
-            p["xattn"], rms_norm(p["xln"], x, plus_one=po), enc_out, cfg=cfg)
+        # enc_out, whole on every rank, entered through to_model once
+        # (models.model)
+        x = x + shard_act(attn_lib.cross_attention(
+            p["xattn"], to_model(rms_norm(p["xln"], x, plus_one=po)),
+            enc_out, cfg=cfg))
     h2 = norm(p["ln2"], x)
     if use_moe:
         # dropless at decode and verify: with no capacity competition each
@@ -392,18 +399,29 @@ def apply_encoder(enc, frames, *, cfg) -> torch.Tensor:
     attention, no rotary (the reference computes a rope it never uses) and
     norms without ``plus_one``, as in the reference. With ``cfg.remat`` and
     autograd recording, each layer runs under ``torch.utils.checkpoint``
-    (the reference's ``jax.checkpoint`` of its scan body)."""
+    (the reference's ``jax.checkpoint`` of its scan body). Under 'model'
+    each layer runs this rank's heads and FFN columns, as a decoder block
+    does (:func:`apply_block`), and the output is whole on every rank."""
     def body(pp, x):
-        h = rms_norm(pp["ln1"], x)
-        x = x + attn_lib.cross_attention(pp["attn"], h, h, cfg=cfg)
-        return x + ffn_lib.ffn(pp["ffn"], rms_norm(pp["ln2"], x),
-                               cfg.ffn_kind, d_ff=cfg.d_ff)
+        h = to_model(rms_norm(pp["ln1"], x))
+        x = x + shard_act(attn_lib.cross_attention(pp["attn"], h, h,
+                                                   cfg=cfg))
+        return x + shard_act(ffn_lib.ffn(
+            pp["ffn"], to_model(rms_norm(pp["ln2"], x)), cfg.ffn_kind,
+            d_ff=cfg.d_ff))
 
+    # the backward pass may recompute a layer on another thread (CUDA's
+    # autograd worker): it runs under the mesh active here
+    mesh = current_mesh()
+
+    def recompute(pp, x):
+        with activate_mesh(mesh):
+            return body(pp, x)
     remat = cfg.remat and torch.is_grad_enabled()
     x = frames
     for pp in enc["layers"]:
         if remat:
-            x = torch.utils.checkpoint.checkpoint(body, pp, x,
+            x = torch.utils.checkpoint.checkpoint(recompute, pp, x,
                                                   use_reentrant=False)
         else:
             x = body(pp, x)

@@ -16,8 +16,11 @@
   in-pod reduction over 'data', then ``grad_compression``'s int8 ring over
   'pod';
 * tensor parallelism over 'model' (a mesh whose 'model' axis is larger
-  than 1), Megatron-style for the dense GQA transformer and
-  expert-parallel for MoE: the parameters and AdamW moments are DTensors
+  than 1), Megatron-style for the dense GQA transformer and the
+  encoder-decoder (whose ``enc_frames`` batches split over 'data' as the
+  tokens do) and expert-parallel for MoE (every expert's FFN columns
+  where 'model' does not divide the experts, the reference's
+  'expert_ff' fallback): the parameters and AdamW moments are DTensors
   of ``distributed.sharding.tp_place``'s layout, each rank computes on its
   shards (an MoE rank on its experts), and the collectives run where the
   reference annotates its activations; it composes with the data
@@ -25,10 +28,8 @@
   does not divide are held whole on every rank (``tp_place``'s
   ``Replicate``) and narrowed to each rank's replica-group
   shard in the forward, so their gradients come back whole like any
-  replicated leaf's. An expert count 'model' does not divide, the
-  encoder-decoder, the other cases ``sharding.check_tensor_parallel``
-  names, and a tree sharded over 'data' (FSDP) raise
-  ``NotImplementedError``.
+  replicated leaf's. The cases ``sharding.check_tensor_parallel`` names
+  and a tree sharded over 'data' (FSDP) raise ``NotImplementedError``.
 
 ``Trainer`` owns the loop: checkpoint every N steps, restart from the newest
 checkpoint, preemption handling (SIGTERM → checkpoint + clean exit) and a

@@ -13,8 +13,15 @@ Each rank picks every token's experts as one rank does, at every MoE layer
 of every forward, and its prefill, chunked-prefill and decode logits match
 within ``rtol=atol=1e-5``. Each rank's banks are its experts' slices of the
 whole tree, bit for bit (the pipeline's ``(E·out, in)`` codes and scale
-rows, the serving form's expert dim), and the router is whole. An expert
-count 'model' does not divide raises its named ``NotImplementedError``."""
+rows, the serving form's expert dim), and the router is whole.
+
+The 'expert_ff' fallback: 6 experts on (data 1, model 4) (``d_ff`` 512),
+the same four trees on the port's ``init``, hold the same gates; each
+rank's banks hold every expert's quarter of the FFN columns (``wi`` /
+``wg`` rows of each expert's block, ``wdown``'s input columns with a
+per-group scale's columns of the same groups). Only an expert count and
+an expert FFN width 'model' divides neither of raises its named
+``NotImplementedError``."""
 import dataclasses
 
 import numpy as np
@@ -39,23 +46,30 @@ def setup(tmp_path_factory):
     d = tmp_path_factory.mktemp("ep")
     path = str(d / "params.pt")
     _, _, params = W.reference_params(W.FWD_OVER, None, path)
+    ff_path = str(d / "ff_params.pt")
+    ff = W.port_params(W.FF_OVER, W.FF_EXPERTS, ff_path)
     ranks = {tp: run_local(W.forward_ranks, 4, backend="gloo", device="cpu",
-                           args=(tp, path, list(W.FWD_CASES)), timeout=600,
+                           args=(tp, path, _names(tp), ff_path), timeout=600,
                            store_dir=str(d))
              for tp in TPS}
-    return params, ranks
+    return params, ranks, ff
+
+
+def _names(tp):
+    return list(W.FWD_CASES) + (list(W.FF_CASES) if tp == W.FF_TP else [])
+
+
+_CASES = [(tp, n) for tp in TPS for n in _names(tp)]
 
 
 @pytest.fixture(scope="module")
 def one_rank(setup):
-    params, _ = setup
-    model = W.model_of(W.FWD_OVER)
-    return {n: W.forward_with_routes(model, W.fwd_tree(n, params))
-            for n in W.FWD_CASES}
+    params, _, ff = setup
+    return {n: W.forward_with_routes(W.fwd_model(n), W.fwd_tree(
+        n, ff if n in W.FF_CASES else params)) for n in _names(W.FF_TP)}
 
 
-@pytest.mark.parametrize("tp,name", [(tp, n) for tp in TPS
-                                     for n in W.FWD_CASES])
+@pytest.mark.parametrize("tp,name", _CASES)
 def test_forward_matches_one_rank(setup, one_rank, tp, name):
     want, _ = one_rank[name]
     for r in setup[1][tp]:
@@ -66,8 +80,7 @@ def test_forward_matches_one_rank(setup, one_rank, tp, name):
                                        err_msg=f"rank {r['rank']} {mode}")
 
 
-@pytest.mark.parametrize("tp,name", [(tp, n) for tp in TPS
-                                     for n in W.FWD_CASES])
+@pytest.mark.parametrize("tp,name", _CASES)
 def test_expert_picks_match_one_rank(setup, one_rank, tp, name):
     """Every routing of every forward (2 MoE layers x 6 forwards) picks
     the one-rank forward's experts for every token, on every rank."""
@@ -86,7 +99,7 @@ def test_banks_are_the_ranks_experts(setup, tp):
     of every bank: the pipeline's ``(E·out, in)`` codes and scale rows,
     the serving form's ``(E, out, in)`` codes and ``w_scale`` by expert,
     fp banks by expert; the router whole."""
-    params, ranks = setup
+    params, ranks, _ = setup
     e = W.config(W.FWD_OVER).moe.n_experts
     per = e // tp
     for name in W.FWD_CASES:
@@ -115,6 +128,62 @@ def test_banks_are_the_ranks_experts(setup, tp):
                     np.testing.assert_array_equal(scale, want_s)
 
 
+def test_expert_ff_banks_are_every_experts_columns(setup):
+    """Under the 'expert_ff' fallback (6 experts on 'model' 4) the rank at
+    'model' coordinate k holds every expert's FFN columns [k·f/4,
+    (k+1)·f/4): ``wi``'s fp ``(E, d, f/4)``, the serving form's ``(E,
+    f/4, d)`` codes and ``w_scale`` rows, the pipeline's ``(E·f/4, d)``
+    codes and scale rows (each expert's block of rows, in expert order);
+    ``wdown``'s fp ``(E, f/4, d)``, the serving form's input columns (bytes
+    of int4) with its per-channel ``w_scale`` whole, the pipeline's
+    ``(E·d, f/4)`` codes with a per-group scale's columns of the same
+    groups; the router whole."""
+    _, ranks, ff = setup
+    e, f = W.FF_EXPERTS, W.FF_OVER["d_ff"]
+    tp = W.FF_TP
+    compared = 0
+    for name in W.FF_CASES:
+        whole = W.fwd_tree(name, ff)
+        for r in ranks[tp]:
+            k = r["coord"][1]
+            for path, (codes, scale, shape) in r["banks"][name].items():
+                node = W.bank_node(whole, path.split("/"))
+                wc, ws, wshape = W._bank_parts(node)
+                if path.endswith("router/w"):
+                    assert np.array_equal(codes, wc) and shape == wshape
+                    continue
+                down = "/wdown/" in path
+                if isinstance(node, torch.Tensor):        # fp (E, in, out)
+                    c = wc.shape[1 if down else 2] // tp
+                    want_c = wc[:, k * c:(k + 1) * c] if down else \
+                        wc[:, :, k * c:(k + 1) * c]
+                    want_s = None
+                elif isinstance(node, dict):              # (E, out, in)
+                    c = wc.shape[2 if down else 1] // tp
+                    want_c = wc[:, :, k * c:(k + 1) * c] if down else \
+                        wc[:, k * c:(k + 1) * c]
+                    want_s = ws if down else ws[:, k * c:(k + 1) * c]
+                elif down:                                # (E·d, f)
+                    c = wc.shape[1] // tp
+                    want_c = wc[:, k * c:(k + 1) * c]
+                    g = ws.shape[1] // tp
+                    want_s = ws if ws.shape[1] == 1 else \
+                        ws[:, k * g:(k + 1) * g]
+                    assert shape == (wshape[0], wshape[1] // tp)
+                else:                                     # (E·f, d)
+                    c = f // tp
+                    want_c = wc.reshape(e, f, -1)[:, k * c:(k + 1) * c] \
+                        .reshape(e * c, -1)
+                    want_s = ws.reshape(e, f, -1)[:, k * c:(k + 1) * c] \
+                        .reshape(e * c, -1)
+                    assert shape == (wshape[0] // tp,) + wshape[1:]
+                np.testing.assert_array_equal(codes, want_c)
+                if want_s is not None:
+                    np.testing.assert_array_equal(scale, want_s)
+                compared += 1
+    assert compared == 2 * len(W.FF_CASES) * tp
+
+
 @pytest.mark.parametrize("tp", TPS)
 def test_model_ranks_and_data_replicas_agree(setup, tp):
     """Every rank ends with the same whole logits, bit for bit."""
@@ -129,20 +198,23 @@ def test_model_ranks_and_data_replicas_agree(setup, tp):
 @pytest.mark.parametrize("experts,tp", [(6, 4), (4, 8), (8, 16)])
 def test_experts_not_divided_by_model_raise(experts, tp):
     """Where 'model' does not divide the expert count the reference falls
-    back to 'expert_ff' (M7c.1b, not ported): ``check_tensor_parallel`` and
-    ``make_train_step`` raise its named ``NotImplementedError``; a
-    dividing 'model' axis passes."""
-    base = W.config(dict(n_heads=16, n_kv_heads=16, d_model=256, d_ff=256))
+    back to 'expert_ff' (its expert FFN width): the check passes where
+    'model' divides that width (the fallback) and raises its named
+    ``NotImplementedError`` from ``check_tensor_parallel`` and
+    ``make_train_step`` where it divides neither (the reference leaves
+    the bank whole); a dividing 'model' axis passes either way."""
+    base = W.config(dict(n_heads=16, n_kv_heads=16, d_model=256, d_ff=258))
     cfg = dataclasses.replace(base, moe=dataclasses.replace(
         base.moe, n_experts=experts))
     mesh = AbstractMesh((1, tp), ("data", "model"))
-    match = (f"not ported yet: {experts} experts on a 'model' axis of "
-             f"{tp}")
+    match = (f"not ported yet: {experts} experts and their FFN width 258 "
+             f"on a 'model' axis of {tp}")
     with pytest.raises(NotImplementedError, match=match):
         check_tensor_parallel(cfg, mesh)
     with pytest.raises(NotImplementedError, match=match):
         tloop.make_train_step(build_model(cfg), topt.AdamWConfig(),
                               mesh=mesh)
+    check_tensor_parallel(dataclasses.replace(cfg, d_ff=256), mesh)
     divides = dataclasses.replace(cfg, moe=dataclasses.replace(
         cfg.moe, n_experts=2 * tp))
     check_tensor_parallel(divides, mesh)

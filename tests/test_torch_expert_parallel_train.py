@@ -14,7 +14,11 @@ each rank's parameter shards within ``STEP_TOL`` of the one-rank
 parameters' slices (``tests/test_torch_tensor_parallel_train.py``'s
 tolerances and AdamW ``eps``). The pod-compressed step on (pod 2, data 1,
 model 2) reports each pod's batch routed alone, its loss and ``moe_aux``
-averaged over the pods, and keeps the logical error-feedback shapes."""
+averaged over the pods, and keeps the logical error-feedback shapes.
+The 'expert_ff' fallback trains on the port's ``init`` with 6 experts on
+(data 1, model 4) and with 3 on (data 2, model 2), routed over both data
+ranks, within the same tolerances, each bank's shard every expert's part
+of its FFN columns."""
 import numpy as np
 import pytest
 import torch
@@ -32,21 +36,26 @@ def setup(tmp_path_factory):
     d = tmp_path_factory.mktemp("ep_train")
     path = str(d / "params.pt")
     _, _, params = W.reference_params(W.TRAIN_OVER, W.BINDING_CF, path)
+    ff_paths = {e: str(d / f"ff{e}_params.pt") for e in W.FF_TRAIN_EXPERTS}
+    ff = {e: W.port_params(W.TRAIN_OVER, e, p, W.BINDING_CF)
+          for e, p in ff_paths.items()}
     ranks = run_local(W.train_ranks, 4, backend="gloo", device="cpu",
-                      args=(path,), timeout=600, store_dir=str(d))
-    return params, ranks
+                      args=(path, ff_paths), timeout=600, store_dir=str(d))
+    return params, ranks, ff
 
 
 @pytest.fixture(scope="module")
 def one_rank(setup):
-    params = setup[0]
-    return {mb: W.one_rank_train(params, mb) for mb in (1, 2)}
+    params, _, ff = setup
+    return {(mb, e): W.one_rank_train(params if e is None else ff[e], mb,
+                                      experts=e)
+            for _, _, mb, e in W.TRAIN_CASES.values()}
 
 
 @pytest.mark.parametrize("name", list(W.TRAIN_CASES))
 def test_train_step_matches_one_rank(setup, one_rank, name):
-    mb = W.TRAIN_CASES[name][2]
-    losses, norms, params, grads = one_rank[mb]
+    mb, experts = W.TRAIN_CASES[name][2:]
+    losses, norms, params, grads = one_rank[(mb, experts)]
     for r in setup[1]:
         tl, tn, shards, tg = r["cases"][name]
         np.testing.assert_allclose(tl, losses, rtol=1e-4, atol=0)
@@ -82,6 +91,24 @@ def test_shards_are_the_ranks_experts(setup):
         assert shards[blk + "ln2/gain"][1] == ((0, d),)
         assert shards["embedding/embedding"][1] == ((16 * k, 16 * k + 16),
                                                     (0, d))
+
+
+def test_expert_ff_shards_are_every_experts_columns(setup):
+    """On (data 1, model 4) with 6 experts each bank's shard is every
+    expert's quarter of the FFN columns (``wi`` / ``wg`` on their last
+    dim, ``wdown`` on its rows), the router whole."""
+    cfg = W.config(W.TRAIN_OVER)
+    d, f, e = cfg.d_model, cfg.d_ff, W.FF_EXPERTS
+    q = f // 4
+    blk = "stack/list/0/b0/"
+    for r in setup[1]:
+        shards = r["cases"]["ff_data1_model4"][2]
+        k = r["rank"]
+        assert shards[blk + "moe/wi/w"][1] == ((0, e), (0, d),
+                                               (k * q, k * q + q))
+        assert shards[blk + "moe/wdown/w"][1] == ((0, e), (k * q, k * q + q),
+                                                  (0, d))
+        assert shards[blk + "moe/router/w"][1] == ((0, d), (0, e))
 
 
 def test_pod_compressed_routes_each_pod(setup):

@@ -11,7 +11,11 @@ per 128-group (at 'model' 2), tied and untied heads, a vocabulary
 (257, replicated like granite's 49 155), qk-norm with a GeGLU FFN, and
 bfloat16; at 'model' 4 also the replica-group cases
 (``torch_tp_workers.GROUP_CASES``: 8 q / 2 KV heads, 6 q / 2 KV, MLA with
-6 heads, ``d_ff`` 130), whose heads or FFN columns 4 does not divide.
+6 heads, ``d_ff`` 130), whose heads or FFN columns 4 does not divide;
+and at both sizes the encoder-decoder (``torch_tp_workers.ENCDEC_CASES``:
+reduced seamless over random frames, fp and w8, its vocabulary
+vocab-parallel at 2 and replicated at 4), whose encoder output and cache
+``enc_out`` are whole on every rank.
 Each
 rank's prefill, chunked-prefill and decode logits match the one-rank
 forward within ``rtol=atol=1e-5`` in float32 and ``2e-2`` in bfloat16; the
@@ -110,7 +114,8 @@ def test_quantized_shards_are_slices_of_the_whole_tree(ranks, tp):
                 row_parallel = node in ("wo", "wdown")
                 # the shards: tp of them, or gcd(units, tp) on replica
                 # groups of tp / gcd ranks (rank k holds shard k // r)
-                units = cfg.n_heads if node in ("wq", "wo") else cfg.d_ff
+                units = cfg.d_ff if node in ("wi", "wg", "wdown") \
+                    else cfg.n_heads
                 n = math.gcd(units, tp)
                 j = k // (tp // n)
                 if path.startswith("lm_head") and qt.shape[0] % tp:
@@ -142,13 +147,18 @@ def test_quantized_shards_are_slices_of_the_whole_tree(ranks, tp):
 
 @pytest.mark.parametrize("tp", TPS)
 def test_cache_and_out_of_scope_modes(ranks, tp):
-    """The contiguous cache holds this rank's KV heads; speculative verify
-    and the paged KV layout raise their named ``NotImplementedError``; at
-    'model' 4 an int4 shard of ``wo``'s 256 input columns would split a
-    128-group, and ``tp_local`` refuses it."""
+    """The contiguous cache holds this rank's KV heads (an
+    encoder-decoder's ``enc_out`` whole); speculative verify and the paged
+    KV layout raise their named ``NotImplementedError``; at 'model' 4 an
+    int4 shard of ``wo``'s 256 input columns would split a 128-group, and
+    ``tp_local`` refuses it."""
+    over = W.ENCDEC_OVER
     for r in ranks[tp]:
         assert r["cache_k_shape"] == (1, 4, W.TP_TINY["n_kv_heads"] // tp,
                                       W.TP_TINY["head_dim"])
+        assert r["encdec_cache_shapes"] == (
+            (1, 8, over["n_kv_heads"] // tp, over["head_dim"]),
+            (1, 2, W.TP_TINY["d_model"]))
         # two ranks share each of the 2 KV heads at 'model' 4: one head a
         # rank, not 2 // 4 = 0
         for name, shape in r["group_cache_k_shape"].items():
@@ -164,14 +174,15 @@ def test_cache_and_out_of_scope_modes(ranks, tp):
 
 
 _OUT_OF_SCOPE = {
-    # the experts 'model' does not divide (the reference's 'expert_ff'
-    # fallback, M7c.1b); a dividing axis is expert-parallel
-    "moe": ("moonshot-v1-16b-a3b", dict(moe=MoEConfig(6, 2)), (1, 4),
-            "6 experts on a 'model' axis of 4"),
+    # the experts 'model' does not divide take the reference's 'expert_ff'
+    # fallback (every expert's FFN columns); a dividing axis is
+    # expert-parallel
+    "moe": ("moonshot-v1-16b-a3b", dict(moe=MoEConfig(6, 2)), (1, 4), None),
     # a mamba d_inner 'model' does not divide (2 x 65 on 4)
     "d_inner": ("jamba-1.5-large-398b", dict(moe=None, d_model=65), (1, 4),
                 "mamba's d_inner 130 on a 'model' axis of 4"),
-    "encdec": ("seamless-m4t-medium", {}, (1, 2), "the encoder-decoder"),
+    # the encoder and the cross-attention run this rank's heads
+    "encdec": ("seamless-m4t-medium", {}, (1, 2), None),
     # heads and an FFN width 'model' does not divide run on replica groups
     # (sharding.replica_groups): past the check, the step wants a
     # DeviceMesh of live ranks
@@ -185,8 +196,9 @@ def test_out_of_scope_configs_raise(case):
     """Each case tensor-parallel execution does not take raises its named
     ``NotImplementedError`` from ``check_tensor_parallel`` and from
     ``make_train_step``; granite's 8 KV heads on the production mesh's
-    'model' axis of 16 (through an ``AbstractMesh``, at full width) and a
-    ``d_ff`` of 130 on 4 pass the check, and the step raises only that it
+    'model' axis of 16 (through an ``AbstractMesh``, at full width), a
+    ``d_ff`` of 130 on 4, 6 experts on 4 (the 'expert_ff' fallback) and
+    the encoder-decoder pass the check, and the step raises only that it
     runs on a ``DeviceMesh``."""
     import dataclasses
     arch, over, shape, what = _OUT_OF_SCOPE[case]
@@ -215,10 +227,9 @@ def test_out_of_scope_configs_raise(case):
 
 
 # the production mesh's 'model' 16 (launch/mesh.make_production_mesh):
-# every config of the zoo passes but mixtral (its 8 experts, M7c.1b) and
-# seamless (the encoder-decoder, M7c.5)
-_AT_16 = {"mixtral-8x7b": "8 experts on a 'model' axis of 16",
-          "seamless-m4t-medium": "the encoder-decoder"}
+# every config of the zoo passes (mixtral's 8 experts on the 'expert_ff'
+# fallback); an entry would name a config's expected error
+_AT_16 = {}
 
 
 @pytest.mark.parametrize("arch", ["chameleon-34b", "gemma-7b", "granite-3-8b",
@@ -230,11 +241,14 @@ def test_production_model_axis_sweep(arch):
     """``check_tensor_parallel`` at full width on ``AbstractMesh((1, 16),
     ("data", "model"))``: granite, chameleon, jamba and minitron (8 KV
     heads, minitron's 24 q heads too) and minicpm3 (40 MLA heads) pass on
-    replica groups beside gemma, moonshot and rwkv; mixtral raises only
-    its experts' error and seamless only the encoder-decoder's."""
+    replica groups beside gemma, moonshot and rwkv, mixtral (8 experts)
+    on the 'expert_ff' fallback, and seamless with its encoder; and every
+    config passes at 'model' 2, 4 and 8."""
     from repro_torch.configs import list_archs
     assert arch in list_archs()
     cfg = get_config(arch)
+    for tp in (2, 4, 8):
+        check_tensor_parallel(cfg, AbstractMesh((1, tp), ("data", "model")))
     mesh = AbstractMesh((1, 16), ("data", "model"))
     if arch not in _AT_16:
         check_tensor_parallel(cfg, mesh)

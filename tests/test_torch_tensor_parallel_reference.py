@@ -20,7 +20,13 @@ over 'model'), and reduced mixtral with 8 q / 4 KV heads on sequences of
 same four devices it runs granite's model with 8 q / 2 KV heads, and with
 6 q / 2 KV and ``d_ff`` 130 (``torch_tp_workers.REF_GROUP_OVER``), which
 it cuts inside a head; the port runs them on replica groups on (data 1,
-model 4), held to the same tolerances."""
+model 4), held to the same tolerances. On that mesh it also runs
+reduced moonshot with 6 experts, which 'model' 4 does not divide: the
+reference cuts its banks' 'expert_ff' dim (``wdown`` on its output), the
+port every expert's FFN columns (``wdown`` row-parallel); and reduced
+seamless over random frames (``torch_tp_workers.REF_MODEL4_OVER``'s
+encoder-decoder: its encoder and cross-attention on 2 of 8 heads a rank,
+the head replicated), both held to the same tolerances."""
 import dataclasses
 import textwrap
 
@@ -65,10 +71,16 @@ _REFERENCE = textwrap.dedent(f"""
         params = jax.device_put(params, make_param_shardings(mesh, params))
         batch = {{k: jnp.asarray(v) for k, v in
                  next(markov_batches(8, s, cfg.vocab, seed=1)).items()}}
+        extra = {{}}
+        if cfg.is_encdec:            # random frames, s / 4 of them
+            extra["enc_frames"] = jnp.asarray(np.random.default_rng(
+                5).standard_normal((8, s // 4, cfg.d_model)).astype(
+                np.float32))
+            batch.update(extra)
         toks = batch["tokens"]
-        logits = jax.jit(lambda p, t, c: model.forward(
-            p, {{"tokens": t}}, mode="prefill", caches=c)[0])(
-            params, toks, model.init_cache(*toks.shape))
+        logits = jax.jit(lambda p, t, e, c: model.forward(
+            p, {{"tokens": t, **e}}, mode="prefill", caches=c)[0])(
+            params, toks, extra, model.init_cache(*toks.shape))
         (loss, _), grads = jax.jit(jax.value_and_grad(
             model.train_loss, has_aux=True))(params, batch)
         _, _, met = jax.jit(make_train_step(model, AdamWConfig()))(
@@ -76,6 +88,7 @@ _REFERENCE = textwrap.dedent(f"""
         leaves = jax.tree_util.tree_leaves(jax.device_get(grads))
         out = dict(tokens=np.asarray(toks), labels=np.asarray(
             batch["labels"]), logits=np.asarray(logits),
+            **{{k: np.asarray(v) for k, v in extra.items()}},
             loss=np.asarray(loss), step_loss=np.asarray(met["loss"]),
             step_grad_norm=np.asarray(met["grad_norm"]),
             **{{f"g{{i}}": np.asarray(g) for i, g in enumerate(leaves)}})
@@ -96,11 +109,17 @@ _REFERENCE = textwrap.dedent(f"""
                **run(ring, "ring_", {MR.REF_SEQ["ring"]!r}))
     # heads (and an FFN width) 'model' 4 does not divide: the reference
     # cuts the flattened heads * head_dim dim, inside a head, on a (1, 4)
-    # mesh of the same four devices
+    # mesh of the same four devices; and the encoder-decoder there
     mesh14 = make_mesh((1, 4), ("data", "model"))
-    for name, over in {W.REF_GROUP_OVER!r}.items():
-        out.update(run(dataclasses.replace(cfg, **over), "grp_" + name + "_",
-                       m=mesh14))
+    for name, over in {W.REF_MODEL4_OVER!r}.items():
+        over = dict(over)
+        base = dataclasses.replace(get_config(
+            over.pop("arch", "granite-3-8b"), reduced=True), **{_OVER!r})
+        out.update(run(dataclasses.replace(base, **over),
+                       "grp_" + name + "_", m=mesh14))
+    # experts 'model' 4 does not divide: the 'expert_ff' fallback
+    out.update(run(dataclasses.replace(moe, moe=dataclasses.replace(
+        moe.moe, n_experts={EP.FF_EXPERTS!r})), "moeff_", m=mesh14))
     np.savez(OUT, **out)
 """)
 
@@ -126,8 +145,15 @@ def _want_grads(jparams, ref, pre=""):
 
 
 @pytest.fixture(scope="module")
-def both(reference):
+def port(reference):
+    """The wanted results and the port's, for every model of the
+    subprocess, from one set of four gloo rank processes
+    (``torch_tp_workers.reference_all_ranks``): granite's (and the
+    (1, 4) models') under ``"tp"``, moonshot's (and the 'expert_ff'
+    fallback's) under ``"moe"``, minicpm3's and the ring's under
+    ``"mr"``."""
     ref, d = reference
+    # granite on (2, 2), and the (1, 4) models
     jcfg = dataclasses.replace(jax_get_config("granite-3-8b", reduced=True),
                                **_OVER)
     jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
@@ -136,56 +162,75 @@ def both(reference):
     torch.save(tparams, path)
     want_grads = _want_grads(jparams, ref)
     groups, group_want = {}, {}
-    for name, over in W.REF_GROUP_OVER.items():
+    for name, over in W.REF_MODEL4_OVER.items():
         pre = f"grp_{name}_"
         r = {k[len(pre):]: v for k, v in ref.items() if k.startswith(pre)}
+        over = dict(over)
+        gcfg = dataclasses.replace(jax_get_config(
+            over.pop("arch", "granite-3-8b"), reduced=True), **_OVER)
         gparams = jax_build_model(dataclasses.replace(
-            jcfg, **over)).init(jax.random.PRNGKey(0))
+            gcfg, **over)).init(jax.random.PRNGKey(0))
         gpath = str(d / f"grp_{name}_params.pt")
         torch.save(convert.from_jax_params(jax.device_get(gparams),
                                            device="cpu"), gpath)
-        groups[name] = (gpath, r["tokens"], {"tokens": r["tokens"],
-                                             "labels": r["labels"]})
+        groups[name] = (gpath, r["tokens"], {
+            k: r[k] for k in ("tokens", "labels", "enc_frames") if k in r})
         group_want[name] = (r, _want_grads(gparams, ref, pre))
-    port = run_local(W.reference_ranks, 4, backend="gloo", device="cpu",
-                     args=(path, ref["tokens"], {"tokens": ref["tokens"],
-                                                 "labels": ref["labels"]},
-                           groups),
-                     timeout=600, store_dir=str(d))[0]
-    return ref, want_grads, port, group_want
-
-
-@pytest.fixture(scope="module")
-def moe_both(reference):
-    ref, d = reference
-    ref = {k[4:]: v for k, v in ref.items() if k.startswith("moe_")}
-    path = str(d / "moe_params.pt")
-    _, jparams, _ = EP.reference_params(_MOE_OVER, EP.BINDING_CF, path)
-    port = run_local(EP.reference_moe_ranks, 4, backend="gloo",
-                     device="cpu", args=(path, ref["tokens"],
-                                         {"tokens": ref["tokens"],
-                                          "labels": ref["labels"]}),
-                     timeout=600, store_dir=str(d))[0]
-    return ref, _want_grads(jax.device_get(jparams), ref), port
-
-
-@pytest.fixture(scope="module")
-def mla_ring_both(reference):
-    """Reduced minicpm3's and the ring's reference results, wanted
-    gradients and the port's (one ``run_local`` for both), by kind."""
-    ref, d = reference
-    cases, refs, want = {}, {}, {}
+    tp_args = (path, ref["tokens"], {"tokens": ref["tokens"],
+                                     "labels": ref["labels"]}, groups)
+    # moonshot on (2, 2), and 6 experts on (1, 4)
+    moe_ref = {k[4:]: v for k, v in ref.items() if k.startswith("moe_")}
+    ff_ref = {k[6:]: v for k, v in ref.items() if k.startswith("moeff_")}
+    moe_path = str(d / "moe_params.pt")
+    _, moe_jparams, _ = EP.reference_params(_MOE_OVER, EP.BINDING_CF,
+                                            moe_path)
+    ff_path = str(d / "moeff_params.pt")
+    _, ff_jparams, _ = EP.reference_params(_MOE_OVER, EP.BINDING_CF, ff_path,
+                                           experts=EP.FF_EXPERTS)
+    moe_args = (moe_path, moe_ref["tokens"],
+                {"tokens": moe_ref["tokens"], "labels": moe_ref["labels"]},
+                (ff_path, ff_ref["tokens"], {"tokens": ff_ref["tokens"],
+                                             "labels": ff_ref["labels"]}))
+    # minicpm3 and the ring on (2, 2)
+    cases, mr_refs, mr_want = {}, {}, {}
     for kind in ("mla", "ring"):
         r = {k[len(kind) + 1:]: v for k, v in ref.items()
              if k.startswith(kind + "_")}
-        path = str(d / f"{kind}_params.pt")
-        jparams = MR.reference_params(kind, path)
-        cases[kind] = (path, r["tokens"], {"tokens": r["tokens"],
-                                           "labels": r["labels"]})
-        refs[kind], want[kind] = r, _want_grads(jax.device_get(jparams), r)
-    port = run_local(MR.reference_ranks, 4, backend="gloo", device="cpu",
-                     args=(cases,), timeout=600, store_dir=str(d))[0]
-    return {k: (refs[k], want[k], port[k]) for k in cases}
+        mpath = str(d / f"{kind}_params.pt")
+        mjparams = MR.reference_params(kind, mpath)
+        cases[kind] = (mpath, r["tokens"], {"tokens": r["tokens"],
+                                            "labels": r["labels"]})
+        mr_refs[kind] = r
+        mr_want[kind] = _want_grads(jax.device_get(mjparams), r)
+    tp, moe, mr = run_local(W.reference_all_ranks, 4, backend="gloo",
+                            device="cpu", args=(tp_args, moe_args, (cases,)),
+                            timeout=900, store_dir=str(d))[0]
+    return {"tp": (ref, want_grads, tp, group_want),
+            "moe": (moe_ref, _want_grads(jax.device_get(moe_jparams),
+                                         moe_ref), moe,
+                    {"ff": (ff_ref, _want_grads(jax.device_get(ff_jparams),
+                                                ff_ref), moe["ff"])}),
+            "mr": {k: (mr_refs[k], mr_want[k], mr[k]) for k in cases}}
+
+
+@pytest.fixture(scope="module")
+def both(port):
+    return port["tp"]
+
+
+@pytest.fixture(scope="module")
+def moe_both(port):
+    """Reduced moonshot's (4 experts on (2, 2)) reference results, wanted
+    gradients and the port's; under ``"ff"`` the same for 6 experts on (1,
+    4), the 'expert_ff' fallback."""
+    return port["moe"]
+
+
+@pytest.fixture(scope="module")
+def mla_ring_both(port):
+    """Reduced minicpm3's and the ring's reference results, wanted
+    gradients and the port's, by kind."""
+    return port["mr"]
 
 
 def test_prefill_logits_match_reference(both):
@@ -245,13 +290,13 @@ def test_replica_group_train_step_metrics_match_reference(both, name):
 
 
 def test_moe_prefill_logits_match_reference(moe_both):
-    ref, _, port = moe_both
+    ref, _, port, _ = moe_both
     np.testing.assert_allclose(port["logits"], ref["logits"], rtol=1e-5,
                                atol=1e-5)
 
 
 def test_moe_loss_and_grads_match_reference(moe_both):
-    ref, want, port = moe_both
+    ref, want, port, _ = moe_both
     np.testing.assert_allclose(port["loss"], float(ref["loss"]), rtol=1e-5,
                                atol=0)
     assert sorted(port["grads"]) == sorted(want)
@@ -261,12 +306,47 @@ def test_moe_loss_and_grads_match_reference(moe_both):
 
 
 def test_moe_train_step_metrics_match_reference(moe_both):
-    ref, _, port = moe_both
+    ref, _, port, _ = moe_both
     np.testing.assert_allclose(port["step"]["loss"], float(ref["step_loss"]),
                                rtol=1e-5, atol=0)
     np.testing.assert_allclose(port["step"]["grad_norm"],
                                float(ref["step_grad_norm"]), rtol=1e-4,
                                atol=0)
+
+
+def _held_to_reference(ref, want, got):
+    """Prefill logits within 1e-5, the loss within 1e-5 relative, the
+    gradients within ``GRAD_TOL``, the step's loss and grad norm within
+    1e-5 and 1e-4 relative."""
+    np.testing.assert_allclose(got["logits"], ref["logits"], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got["loss"], float(ref["loss"]), rtol=1e-5,
+                               atol=0)
+    assert sorted(got["grads"]) == sorted(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(got["grads"][k], g, **GRAD_TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["step"]["loss"], float(ref["step_loss"]),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got["step"]["grad_norm"],
+                               float(ref["step_grad_norm"]), rtol=1e-4,
+                               atol=0)
+
+
+def test_expert_ff_matches_reference(moe_both):
+    """6 experts on (data 1, model 4): the reference's 'expert_ff'
+    fallback (GSPMD) against the port's every-expert FFN-column cut."""
+    _held_to_reference(*moe_both[3]["ff"])
+
+
+def test_encdec_matches_reference(both):
+    """The encoder-decoder on (data 1, model 4) over random frames: the
+    reference's GSPMD forward, gradients and step against the port's
+    encoder and cross-attention on this rank's heads."""
+    _, _, port, group_want = both
+    ref, want = group_want["encdec"]
+    assert any(k.startswith("encoder/") for k in want)
+    _held_to_reference(ref, want, port["groups"]["encdec"])
 
 
 @pytest.mark.parametrize("kind", ["mla", "ring"])

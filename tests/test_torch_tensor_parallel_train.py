@@ -23,7 +23,11 @@ stops and resumes to the losses of an uninterrupted run, and a tree
 sharded over 'data' (FSDP) is refused by name. The replica-group model's
 checkpoint saved at 'model' 4 restores bit-equal at 2 and 1, and the
 save at 2 back at 4; its pod-compressed step at 'model' 2 (one KV head,
-``d_ff`` 129, whole on both ranks) tracks the plain pod step."""
+``d_ff`` 129, whole on both ranks) tracks the plain pod step. The
+encoder-decoder (reduced seamless over random frames, vocabulary 66:
+vocab-parallel at 'model' 2, replicated at 4) trains on (data 2, model
+2) and (data 1, model 4) within the same tolerances, and its checkpoint
+saved at 'model' 4 restores bit-equal at 2 and 1 and back at 4."""
 import numpy as np
 import pytest
 import torch
@@ -103,6 +107,28 @@ def test_replica_group_checkpoint_restores_bit_equal(ranks, where):
     assert "Shard(dim=1)" in ranks[0]["group_ckpt"]["placements2"]
     for r in ranks[:2]:
         m = r["group_ckpt"]["model2_opt_m"]
+        assert all(not m[k].any() and m[k].shape == v.shape
+                   for k, v in want.items())
+
+
+@pytest.mark.parametrize("where", ["model2", "one_rank", "back4"])
+def test_encdec_checkpoint_restores_bit_equal(ranks, where):
+    """The encoder-decoder's params and AdamW state placed on 'model' 4
+    (the encoder's and the cross-attention's heads cut like the
+    decoder's), restored at 'model' 2, on one rank, and from the 'model'
+    2 save back at 4: every leaf equals the saved tree's bit for bit."""
+    ck = [r["encdec_ckpt"] for r in ranks]
+    want = ck[0]["saved"]
+    assert any(k.startswith("encoder/") for k in want)
+    holders = {"model2": ck[:2], "one_rank": ck[:1], "back4": ck}[where]
+    for c in holders:
+        got = c[where]
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k].dtype == v.dtype and np.array_equal(got[k], v), k
+    assert "Shard(dim=1)" in ck[0]["placements4"]
+    for c in ck[:2]:
+        m = c["model2_opt_m"]
         assert all(not m[k].any() and m[k].shape == v.shape
                    for k, v in want.items())
 

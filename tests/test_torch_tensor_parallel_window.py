@@ -16,7 +16,6 @@ on (data 2, model 2), its MoE layers routed over both 'data' ranks at
 capacity factor 1.0 (capacity binds), and on (data 1, model 4), over
 48-token sequences past the window, matches the one-rank step (losses,
 grad norms, gradients at ``GRAD_TOL``, shards at ``STEP_TOL``)."""
-import dataclasses
 
 import numpy as np
 import pytest
@@ -118,20 +117,12 @@ def test_train_step_matches_one_rank(ranks, one_rank_train, name):
 @pytest.mark.parametrize("tp", (2, 4, 16))
 def test_check_tensor_parallel_takes_the_ring(tp):
     """mixtral at full width (8 experts, 32 q / 8 KV heads, window 4096)
-    runs tensor-parallel at 'model' 2 and 4, and ``make_train_step``
-    (plain and pod-compressed) takes it; at the production mesh's 16 its
-    8 experts (M7c.1b) raise their named ``NotImplementedError``, and with
-    those out of the way its 8 KV heads pass on replica groups (two ranks
-    a KV head)."""
+    runs tensor-parallel at 'model' 2, 4 and the production mesh's 16, and
+    ``make_train_step`` (plain and pod-compressed) takes it: at 16 its 8
+    experts take the 'expert_ff' fallback and its 8 KV heads lie on
+    replica groups (two ranks a KV head)."""
     cfg = get_config("mixtral-8x7b")
     mesh = AbstractMesh((1, tp), ("data", "model"))
-    if tp == 16:
-        with pytest.raises(NotImplementedError,
-                           match="not ported yet: 8 experts on a 'model' "
-                                 "axis of 16"):
-            check_tensor_parallel(cfg, mesh)
-        check_tensor_parallel(dataclasses.replace(cfg, moe=None), mesh)
-        return
     check_tensor_parallel(cfg, mesh)
     # past the check: the step then wants a DeviceMesh of live ranks
     with pytest.raises(ValueError, match="runs on a DeviceMesh"):

@@ -12,6 +12,12 @@ run at ``capacity_factor`` 1.0, so capacity binds: each expert's buffer
 holds the mean load (half the tokens), and the experts above it drop
 tokens. (At 0.5 every expert binds, every density is 1/4 and ``moe_aux``
 is exactly 1 on any split of the batch.)
+
+The 'expert_ff' fallback (an expert count 'model' does not divide: every
+rank holds every expert, cut to its FFN columns) runs 6 experts on
+'model' 4 (:data:`FF_EXPERTS`, :data:`FF_TP`; the forward at ``d_ff``
+512, so int4 128-groups of ``wdown`` hold whole) and 3 on (data 2, model
+2) for training routed over the data ranks, on the port's own ``init``.
 """
 import dataclasses
 
@@ -30,11 +36,17 @@ TRAIN_OVER = dict(dtype="float32", n_layers=2, vocab=64)
 # the heads and the vocabulary
 FWD_OVER = dict(dtype="float32", n_layers=2, d_model=128, n_heads=4,
                 n_kv_heads=4, head_dim=128, d_ff=256, vocab=256)
+# the 'expert_ff' fallback's forward: 6 experts on 'model' 4, wdown's 512
+# input columns 128 a rank (whole int4 128-groups)
+FF_EXPERTS = 6
+FF_TP = 4
+FF_OVER = dict(FWD_OVER, d_ff=512)
 
 
-def config(over, cf=None, jax=False):
-    """Reduced moonshot with ``over`` (and ``capacity_factor`` ``cf``), the
-    port's config or, with ``jax``, the reference's."""
+def config(over, cf=None, jax=False, experts=None):
+    """Reduced moonshot with ``over`` (and ``capacity_factor`` ``cf``,
+    ``experts`` experts), the port's config or, with ``jax``, the
+    reference's."""
     if jax:
         from repro.configs import get_config
     else:
@@ -42,22 +54,33 @@ def config(over, cf=None, jax=False):
     cfg = get_config(ARCH, reduced=True)
     moe = cfg.moe if cf is None else dataclasses.replace(
         cfg.moe, capacity_factor=cf)
+    if experts is not None:
+        moe = dataclasses.replace(moe, n_experts=experts)
     return dataclasses.replace(cfg, moe=moe, **over)
 
 
-def model_of(over, cf=None):
+def model_of(over, cf=None, experts=None):
     from repro_torch.models.model import build_model
-    return build_model(config(over, cf))
+    return build_model(config(over, cf, experts=experts))
 
 
-def reference_params(over, cf, path):
-    """The reference's ``init`` (key 0) at ``over``, its params carried
-    over to the port and saved at ``path``: ``(jax model, jax params,
-    port params)``."""
+def port_params(over, experts, path, cf=None):
+    """The port's ``init`` (seed 0) of reduced moonshot at ``over`` with
+    ``experts`` experts, saved at ``path`` and returned."""
+    params = model_of(over, cf, experts).init(
+        torch.Generator().manual_seed(0), device="cpu")
+    torch.save(params, path)
+    return params
+
+
+def reference_params(over, cf, path, experts=None):
+    """The reference's ``init`` (key 0) at ``over`` (with ``experts``
+    experts), its params carried over to the port and saved at ``path``:
+    ``(jax model, jax params, port params)``."""
     import jax
     from repro.models.model import build_model
     from repro_torch import convert
-    jmodel = build_model(config(over, cf, jax=True))
+    jmodel = build_model(config(over, cf, jax=True, experts=experts))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tparams = convert.from_jax_params(jax.device_get(jparams), device="cpu")
     torch.save(tparams, path)
@@ -155,6 +178,8 @@ FWD_CASES = {
     "w4_serving": (4, 128, "serving"),
     "w4_group_scales": (4, 128, "group_scales"),
 }
+# the same trees of the 'expert_ff' fallback's model, at 'model' FF_TP only
+FF_CASES = {"ff_" + k: v for k, v in FWD_CASES.items()}
 BANK_PATHS = (("stack", "list", "0", "b0", "moe", "wi", "w"),
               ("stack", "list", "1", "b0", "moe", "wdown", "w"),
               ("stack", "list", "0", "b0", "moe", "router", "w"))
@@ -198,7 +223,7 @@ def fwd_tree(name, params, mesh=None):
     where a quantize mesh is given."""
     from repro_torch.core import pipeline
     from repro_torch.distributed.sharding import gather_tree
-    quant = FWD_CASES[name]
+    quant = {**FWD_CASES, **FF_CASES}[name]
     if quant is None:
         return params
     bits, gs = quant[:2]
@@ -241,12 +266,20 @@ def _bank_parts(node):
     return node.numpy(), None, tuple(node.shape)
 
 
-def forward_ranks(tp, params_path, names):
+def fwd_model(name):
+    """The forward case's model: the 'expert_ff' fallback's for
+    :data:`FF_CASES`, else :data:`FWD_OVER`'s."""
+    if name in FF_CASES:
+        return model_of(FF_OVER, experts=FF_EXPERTS)
+    return model_of(FWD_OVER)
+
+
+def forward_ranks(tp, params_path, names, ff_path=None):
     """Every case of ``names`` on a ``(world / tp, tp)`` ('data', 'model')
-    mesh: the whole tree quantized over the group's ranks, cut by
-    ``tp_local``, the suite run under the mesh. Returns the rank's logits
-    and expert picks by case, its local banks of :data:`BANK_PATHS`, and
-    the 'model' collectives of a decode step."""
+    mesh (the cases of :data:`FF_CASES` on the params at ``ff_path``): the
+    whole tree quantized over the group's ranks, cut by ``tp_local``, the
+    suite run under the mesh. Returns the rank's logits and expert picks
+    by case, and its local banks of :data:`BANK_PATHS`."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
     from repro_torch.distributed.sharding import activate_mesh, tp_local
@@ -255,12 +288,14 @@ def forward_ranks(tp, params_path, names):
     world = dist.get_world_size()
     mesh = make_mesh((world // tp, tp), ("data", "model"))
     qmesh = make_quantize_mesh(world)
-    model = model_of(FWD_OVER)
-    params = torch.load(params_path)
+    params = {False: torch.load(params_path),
+              True: torch.load(ff_path) if ff_path else None}
     out = {"rank": dist.get_rank(), "coord": tuple(mesh.get_coordinate()),
            "logits": {}, "routes": {}, "banks": {}}
     for name in names:
-        local = tp_local(fwd_tree(name, params, qmesh), mesh, model.cfg)
+        model = fwd_model(name)
+        local = tp_local(fwd_tree(name, params[name in FF_CASES], qmesh),
+                         mesh, model.cfg)
         with activate_mesh(mesh):
             out["logits"][name], out["routes"][name] = forward_with_routes(
                 model, local)
@@ -274,20 +309,25 @@ def forward_ranks(tp, params_path, names):
 # ---------------------------------------------------------------------------
 
 TRAIN_STEPS = 3
-# name -> (mesh shape, axis names, microbatches)
+# name -> (mesh shape, axis names, microbatches, experts: None for the
+# reduced config's 4 on the reference's init, else the port's init with
+# that many, which 'model' does not divide: the 'expert_ff' fallback)
 TRAIN_CASES = {
-    "data2_model2": ((2, 2), ("data", "model"), 1),
-    "data2_model2_mb2": ((2, 2), ("data", "model"), 2),
-    "data1_model4": ((1, 4), ("data", "model"), 1),
+    "data2_model2": ((2, 2), ("data", "model"), 1, None),
+    "data2_model2_mb2": ((2, 2), ("data", "model"), 2, None),
+    "data1_model4": ((1, 4), ("data", "model"), 1, None),
+    "ff_data1_model4": ((1, 4), ("data", "model"), 1, FF_EXPERTS),
+    "ff_data2_model2": ((2, 2), ("data", "model"), 1, 3),
 }
+FF_TRAIN_EXPERTS = (FF_EXPERTS, 3)
 
 
-def one_rank_train(params, microbatches, steps=TRAIN_STEPS):
+def one_rank_train(params, microbatches, steps=TRAIN_STEPS, experts=None):
     """The plain one-rank step's losses, grad norms and final params, and
     its gradients of the first batch."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    model = model_of(TRAIN_OVER, BINDING_CF)
+    model = model_of(TRAIN_OVER, BINDING_CF, experts)
     batches = [tl.to_device(b, "cpu") for b in
                batch_of(model.cfg.vocab, n=steps)]
     _, _, g = tl._accumulate_grads(model.train_loss, params, batches[0],
@@ -329,9 +369,10 @@ def _whole_grads(mesh, placed, local_grads):
         stride=t.stride()), local_grads, placed))
 
 
-def train_ranks(params_path):
-    """Every case of :data:`TRAIN_CASES`: the expert-parallel step's
-    averaged gradients of the first batch (gathered whole), then
+def train_ranks(params_path, ff_paths=None):
+    """Every case of :data:`TRAIN_CASES` (the 'expert_ff' ones on the
+    params at ``ff_paths[experts]``): the expert-parallel step's averaged
+    gradients of the first batch (gathered whole), then
     :data:`TRAIN_STEPS` steps' losses, grad norms and this rank's final
     shards; and the pod-compressed step on (pod 2, data 1, model 2): its
     first step's loss and ``moe_aux``, and that its error-feedback
@@ -348,10 +389,15 @@ def train_ranks(params_path):
     batches = [tl.to_device(b, "cpu") for b in
                batch_of(model.cfg.vocab, n=TRAIN_STEPS)]
     out = {"rank": dist.get_rank(), "cases": {}}
-    for name, (shape, axes, mb) in TRAIN_CASES.items():
+    for name, (shape, axes, mb, experts) in TRAIN_CASES.items():
+        if experts is not None and not ff_paths:
+            continue
         mesh = make_mesh(shape, axes)
-        placed = tp_place(params, mesh, model.cfg)
-        step = tl.make_train_step(model, AdamWConfig(**TPW._STEP),
+        m = model if experts is None else model_of(TRAIN_OVER, BINDING_CF,
+                                                   experts)
+        p = params if experts is None else torch.load(ff_paths[experts])
+        placed = tp_place(p, mesh, m.cfg)
+        step = tl.make_train_step(m, AdamWConfig(**TPW._STEP),
                                   microbatches=mb, mesh=mesh)
         _, _, g = step.averaged_grads(placed, batches[0])
         grads = _np(_whole_grads(mesh, placed, g))
@@ -377,21 +423,31 @@ def train_ranks(params_path):
     return out
 
 
-def reference_moe_ranks(params_path, tokens, batch):
+def reference_moe_ranks(params_path, tokens, batch, ff=None):
     """The port's side of the reference (GSPMD) comparison on (data 2,
     model 2): prefill logits of ``tokens`` on the expert-parallel local
     tree, and the step's averaged loss and gradients of ``batch``
-    (gathered whole) and one step's metrics, as rank 0 holds them."""
+    (gathered whole) and one step's metrics, as rank 0 holds them; with
+    ``ff`` ((params path, tokens, batch) of :data:`FF_EXPERTS` experts),
+    the same on (data 1, model 4) under the 'expert_ff' fallback, as
+    ``"ff"``."""
     import torch.distributed as dist
+    torch.set_num_threads(1)
+    out = _reference_moe_side(params_path, tokens, batch, (2, 2))
+    if ff is not None:
+        out["ff"] = _reference_moe_side(*ff, (1, 4), FF_EXPERTS)
+    return out if dist.get_rank() == 0 else None
+
+
+def _reference_moe_side(params_path, tokens, batch, shape, experts=None):
     from repro_torch.distributed.group import make_mesh
     from repro_torch.distributed.sharding import (activate_mesh, tp_local,
                                                   tp_place)
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
-    torch.set_num_threads(1)
-    model = model_of(TRAIN_OVER, BINDING_CF)
+    model = model_of(TRAIN_OVER, BINDING_CF, experts)
     params = torch.load(params_path)
-    mesh = make_mesh((2, 2), ("data", "model"))
+    mesh = make_mesh(shape, ("data", "model"))
     toks = torch.from_numpy(tokens)
     with activate_mesh(mesh):
         logits, _ = model.forward(
@@ -404,21 +460,32 @@ def reference_moe_ranks(params_path, tokens, batch):
     loss, _, g = step.averaged_grads(placed, b)
     grads = _np(_whole_grads(mesh, placed, g))
     _, _, met = step(placed, adamw_init(placed), b)
-    out = {"logits": logits.numpy(), "loss": float(loss), "grads": grads,
-           "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
-    return out if dist.get_rank() == 0 else None
+    return {"logits": logits.numpy(), "loss": float(loss), "grads": grads,
+            "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
 
 
 # ---------------------------------------------------------------------------
 # checkpoint of an expert-placed tree
 # ---------------------------------------------------------------------------
 
-def checkpoint_ranks(params_path, ckpt_dir):
+def checkpoint_ranks(params_path, ckpt_dir, ff_path=None):
     """A ``tp_place``d tree and its AdamW state on (data 1, model 4)
     saved (collective), then restored with ``restore(shardings=)`` onto
     (data 1, model 2) (ranks 0 and 1) and onto one rank (rank 0, plain
     tensors): each restored leaf gathered whole, as numpy, and the local
-    shard shapes of an expert bank on each mesh."""
+    shard shapes of an expert bank on each mesh; with ``ff_path``, the
+    same (keys ``ff_...``) for the 'expert_ff' fallback's
+    :data:`FF_EXPERTS` experts on 'model' 4, whose restore on 'model' 2
+    cuts the banks by experts instead."""
+    out = _checkpoint_ranks(params_path, ckpt_dir, config(TRAIN_OVER))
+    if ff_path:
+        ff = _checkpoint_ranks(ff_path, ckpt_dir + "_ff", config(
+            TRAIN_OVER, experts=FF_EXPERTS))
+        out.update({"ff_" + k: v for k, v in ff.items() if k != "rank"})
+    return out
+
+
+def _checkpoint_ranks(params_path, ckpt_dir, cfg):
     import torch.distributed as dist
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.distributed.group import make_mesh
@@ -427,15 +494,16 @@ def checkpoint_ranks(params_path, ckpt_dir):
     from repro_torch.training.optimizer import adamw_init
     torch.set_num_threads(1)
     params = torch.load(params_path)
-    cfg = config(TRAIN_OVER)
     bank = ("stack", "list", "0", "b0", "moe", "wg", "w")
     mesh4 = make_mesh((1, 4), ("data", "model"))
     placed = tp_place(params, mesh4, cfg)
     opt = adamw_init(placed)
     ck = Checkpointer(ckpt_dir, async_save=False)
     ck.save(1, placed, opt)
+    down = bank[:-2] + ("wdown", "w")
     out = {"rank": dist.get_rank(),
-           "local4": tuple(TPW._at(placed, bank).to_local().shape)}
+           "local4": tuple(TPW._at(placed, bank).to_local().shape),
+           "local4_down": tuple(TPW._at(placed, down).to_local().shape)}
     mesh2 = make_mesh((1, 2), ("data", "model"))
     if mesh2.get_coordinate() is not None:
         like = tp_place(params, mesh2, cfg)
@@ -444,6 +512,7 @@ def checkpoint_ranks(params_path, ckpt_dir):
                 adamw_init(like))), template=(like, adamw_init(like)),
             device="cpu")
         out["local2"] = tuple(TPW._at(got, bank).to_local().shape)
+        out["local2_down"] = tuple(TPW._at(got, down).to_local().shape)
         whole = gather_tree(got)
         out["model2"] = _np(whole)
         out["model2_opt_m"] = _np(gather_tree(got_opt["m"]))

@@ -11,7 +11,11 @@ The cases of :data:`GROUP_CASES` (at 'model' 4 only) take heads or an FFN
 width that 'model' 4 does not divide, on replica groups
 (``sharding.replica_groups``): 8 q / 2 KV heads (two ranks share each KV
 head), 6 q / 2 KV (two ranks share each q shard too), minicpm3's MLA with
-6 heads, and ``d_ff`` 130.
+6 heads, and ``d_ff`` 130. The cases of :data:`ENCDEC_CASES` run the
+encoder-decoder (reduced seamless, 2 + 2 layers at d_model 128, 8 heads of
+16, ``d_ff`` 256) at both sizes over random frames: its vocabulary of 258
+= 2 x 129 is vocab-parallel at 'model' 2 and replicated at 4, as
+seamless's 256 206 is at 2 and at 4, 8 and 16.
 """
 import dataclasses
 import os
@@ -61,6 +65,13 @@ GROUP_CASES = {
     "dff130_fp": (dict(vocab=256, d_ff=130), None),
 }
 FORWARD_CASES.update(GROUP_CASES)
+# the encoder-decoder: seamless's encoder and cross-attention under
+# 'model' (its self-attention K/V at n_heads, as the full config's 16 / 16)
+ENCDEC_OVER = dict(arch="seamless-m4t-medium", n_heads=8, n_kv_heads=8,
+                   head_dim=16, d_ff=256, vocab=258)
+ENCDEC_CASES = {"encdec_fp": (ENCDEC_OVER, None),
+                "encdec_w8": (ENCDEC_OVER, (8, None))}
+FORWARD_CASES.update(ENCDEC_CASES)
 
 
 def group_scale_tree(params, bits, group_size):
@@ -127,26 +138,47 @@ def prompt(vocab, b=2, s=12, seed=3):
     return torch.from_numpy(rng.integers(0, vocab, size=(b, s)))
 
 
+def frames(cfg, b, t, seed=5):
+    """Random float32 encoder frames ``(b, t, d_model)``."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (b, t, cfg.d_model)).astype(np.float32))
+
+
 def forward_suite(model, tree):
     """Float32 numpy logits of a prefill, a chunked prefill (8 + 4 rows)
     and three decode steps after the prefill, on a contiguous cache; run
-    under whatever mesh is active."""
+    under whatever mesh is active. An encoder-decoder's prefill and first
+    chunk encode random frames, its second chunk and the decode steps
+    attend the cache's encoder output (also returned, as ``enc_out``):
+    the reference's forward modes (its ``prefill_chunk`` takes no
+    encoder-decoder)."""
     toks = prompt(model.cfg.vocab)
     b, s = toks.shape
+    encdec = model.cfg.is_encdec
+    enc = {"enc_frames": frames(model.cfg, b, 6)} if encdec else {}
     out = {}
-    logits, caches = model.forward(tree, {"tokens": toks}, mode="prefill",
+    logits, caches = model.forward(tree, {"tokens": toks, **enc},
+                                   mode="prefill",
                                    caches=model.init_cache(b, 32,
                                                            device="cpu"))
     out["prefill"] = logits.float().numpy()
+    if encdec:
+        out["enc_out"] = caches["enc_out"].float().numpy()
     nxt = prompt(model.cfg.vocab, s=3, seed=4)
     for j in range(3):
         lg, caches = model.decode_step(tree, nxt[:, j:j + 1], caches)
         out[f"decode{j}"] = lg.float().numpy()
     caches = model.init_cache(b, 32, device="cpu")
-    lg, caches = model.prefill_chunk(tree, {"tokens": toks[:, :8]}, caches)
-    out["chunk0"] = lg.float().numpy()
-    lg, caches = model.prefill_chunk(tree, {"tokens": toks[:, 8:]}, caches)
-    out["chunk1"] = lg.float().numpy()
+    for j, part in enumerate((toks[:, :8], toks[:, 8:])):
+        if encdec:
+            batch = dict(enc) if j == 0 else {"enc_out": caches["enc_out"]}
+            lg, caches = model.forward(tree, dict(batch, tokens=part),
+                                       mode="chunk", caches=caches)
+            lg = lg[:, -1]
+        else:
+            lg, caches = model.prefill_chunk(tree, {"tokens": part}, caches)
+        out[f"chunk{j}"] = lg.float().numpy()
     return out
 
 
@@ -154,7 +186,13 @@ QUANT_PATHS = (("stack", "list", "0", "b0", "attn", "wq", "w"),
                ("stack", "list", "0", "b0", "attn", "wo", "w"),
                ("stack", "list", "1", "b0", "ffn", "wdown", "w"),
                ("stack", "list", "1", "b0", "ffn", "wg", "w"),
-               ("lm_head", "w"))
+               ("lm_head", "w"),
+               # the encoder-decoder's cross-attention and encoder
+               ("stack", "list", "1", "b0", "xattn", "wv", "w"),
+               ("stack", "list", "0", "b0", "xattn", "wo", "w"),
+               ("encoder", "layers", "0", "attn", "wk", "w"),
+               ("encoder", "layers", "1", "ffn", "wi", "w"),
+               ("encoder", "layers", "1", "ffn", "wdown", "w"))
 
 
 def _at(tree, path):
@@ -229,6 +267,9 @@ def forward_ranks(tp, names):
                 1, 4, device="cpu")["list"][0]["b0"]["k"].shape)
             for n in names if n in GROUP_CASES and "mla" not in
             GROUP_CASES[n][0]}
+        cache = tiny_model(**ENCDEC_OVER)[0].init_cache(1, 8, device="cpu")
+        out["encdec_cache_shapes"] = (tuple(cache["list"][0]["b0"]["k"].shape),
+                                      tuple(cache["enc_out"].shape))
     return out
 
 
@@ -241,10 +282,17 @@ TRAIN_STEPS = 3
 POD_STEPS = 60
 
 
-def train_batches(vocab, n, b=8, s=16, seed=1):
+def train_batches(vocab, n, b=8, s=16, seed=1, cfg=None):
+    """``n`` synthetic batches (numpy tokens and labels); an
+    encoder-decoder ``cfg``'s also carry random ``enc_frames`` of ``s /
+    4`` frames."""
     from repro_torch.data.synthetic import markov_batches
-    return [bt for bt, _ in zip(markov_batches(b, s, vocab, seed=seed),
-                                range(n))]
+    out = [bt for bt, _ in zip(markov_batches(b, s, vocab, seed=seed),
+                               range(n))]
+    if cfg is not None and cfg.is_encdec:
+        for i, bt in enumerate(out):
+            bt["enc_frames"] = frames(cfg, b, s // 4, seed=seed + i).numpy()
+    return out
 
 
 def _leaves(tree, path=()):
@@ -277,7 +325,7 @@ def one_rank_train(ocfg, steps, clip=None, over=TRAIN_OVER):
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**ocfg))
     losses, norms = [], []
-    for b in train_batches(model.cfg.vocab, steps):
+    for b in train_batches(model.cfg.vocab, steps, cfg=model.cfg):
         params, opt, met = step(params, opt, tl.to_device(b, "cpu"))
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
@@ -307,8 +355,14 @@ GROUP_TRAIN_OVER = {
     "data1_model4_q8_kv2": dict(TRAIN_OVER, n_kv_heads=2),
     "data1_model4_q6_kv2_dff130": dict(TRAIN_OVER, n_heads=6, n_kv_heads=2,
                                        d_ff=130),
+    # the encoder-decoder, its vocabulary 66 = 2 x 33 vocab-parallel at
+    # 'model' 2 and replicated at 4, remat on (each encoder layer and
+    # decoder block recomputed under the mesh)
+    "encdec_data2_model2": dict(ENCDEC_OVER, vocab=66),
+    "encdec_data1_model4": dict(ENCDEC_OVER, vocab=66),
 }
-TRAIN_CASES.update({n: ((1, 4), ("data", "model"), _STEP)
+TRAIN_CASES.update({n: ((2, 2) if "data2" in n else (1, 4),
+                        ("data", "model"), _STEP)
                     for n in GROUP_TRAIN_OVER})
 # the pod step's replica groups at 'model' 2: one KV head and d_ff 129,
 # each whole on both ranks
@@ -325,7 +379,8 @@ def one_rank_grads(over=TRAIN_OVER):
     """The one-rank gradients of the first training batch."""
     from repro_torch.training import train_loop as tl
     model, params = tiny_model(**over)
-    batch = tl.to_device(train_batches(model.cfg.vocab, 1)[0], "cpu")
+    batch = tl.to_device(train_batches(model.cfg.vocab, 1, cfg=model.cfg)[0],
+                         "cpu")
     _, _, g = tl._value_and_grad(model.train_loss, params, batch)
     return {k: v.numpy() for k, v in _leaves(g)}
 
@@ -375,10 +430,10 @@ def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER):
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**ocfg), mesh=mesh)
     _, grads = averaged_grads(model, mesh, placed, tl.to_device(
-        train_batches(model.cfg.vocab, 1)[0], "cpu"))
+        train_batches(model.cfg.vocab, 1, cfg=model.cfg)[0], "cpu"))
     grads = {k: v.numpy() for k, v in _leaves(grads)}
     losses, norms = [], []
-    for b in train_batches(model.cfg.vocab, steps):
+    for b in train_batches(model.cfg.vocab, steps, cfg=model.cfg):
         placed, opt, met = step(placed, opt, tl.to_device(b, "cpu"))
         losses.append(float(met["loss"]))
         norms.append(float(met["grad_norm"]))
@@ -452,10 +507,12 @@ def _trainer_run(mesh, ckpt, total, steps_before=None):
     return history
 
 
-def _group_checkpoint(ckpt):
-    """The 6 q / 2 KV, ``d_ff`` 130 model's params and AdamW state
-    ``tp_place``d on (data 1, model 4) (its head- and FFN-cut leaves whole
-    on every rank, ``Replicate``) saved (collective), restored with
+def _group_checkpoint(ckpt, name="data1_model4_q6_kv2_dff130"):
+    """The model of :data:`GROUP_TRAIN_OVER`'s ``name`` (the 6 q / 2 KV,
+    ``d_ff`` 130 one, or the encoder-decoder): its params and AdamW state
+    ``tp_place``d on (data 1, model 4) (leaves cut by heads or FFN
+    columns 4 does not divide whole on every rank, ``Replicate``) saved
+    (collective), restored with
     ``restore(shardings=)`` onto (data 1, model 2) (ranks 0 and 1; saved
     again from there) and onto one rank (rank 0), then the 'model' 2 save
     restored onto 'model' 4: each restored tree gathered whole, as numpy,
@@ -478,8 +535,7 @@ def _group_checkpoint(ckpt):
         return got, got_opt
 
     wq = ("stack", "list", "0", "b0", "attn", "wq", "w")
-    model, params = tiny_model(
-        **GROUP_TRAIN_OVER["data1_model4_q6_kv2_dff130"])
+    model, params = tiny_model(**GROUP_TRAIN_OVER[name])
     cfg = model.cfg
     mesh4 = make_mesh((1, 4), ("data", "model"))
     placed = tp_place(params, mesh4, cfg=cfg)
@@ -508,7 +564,8 @@ def _group_checkpoint(ckpt):
 
 def train_ranks(ckpt_dir):
     """The training cases on four gloo ranks: :data:`TRAIN_CASES`; the
-    replica-group model's checkpoint (:func:`_group_checkpoint`); the
+    replica-group model's and the encoder-decoder's checkpoints
+    (:func:`_group_checkpoint`); the
     pod-compressed step on (pod 2, data 1, model 2) for :data:`POD_STEPS`
     steps and for :data:`TRAIN_STEPS` beside the non-tensor-parallel pod
     step on (pod 2, data 1) (ranks 0 and 1), also at
@@ -528,6 +585,8 @@ def train_ranks(ckpt_dir):
         out["cases"][name] = _tp_train(mesh, ocfg, TRAIN_STEPS,
                                        over=train_over(name))
     out["group_ckpt"] = _group_checkpoint(os.path.join(ckpt_dir, "group"))
+    out["encdec_ckpt"] = _group_checkpoint(os.path.join(ckpt_dir, "encdec"),
+                                           "encdec_data1_model4")
     pod_mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
     out["pod_learn"] = _pod_run(pod_mesh, POD_STEPS, True)["losses"]
     out["pod_tp"] = _pod_run(pod_mesh, TRAIN_STEPS, True)
@@ -588,20 +647,29 @@ def mesh_option_ranks():
 # the reference comparison's replica groups, on a (data 1, model 4) mesh
 REF_GROUP_OVER = {"q8_kv2": dict(n_kv_heads=2),
                   "q6_kv2_dff130": dict(n_heads=6, n_kv_heads=2, d_ff=130)}
+# the models the reference comparison runs on that mesh: the replica
+# groups and the encoder-decoder (its vocabulary 66 replicated at 'model'
+# 4, 2 of 8 heads a rank)
+REF_MODEL4_OVER = dict(REF_GROUP_OVER,
+                       encdec=dict(GROUP_TRAIN_OVER["encdec_data1_model4"]))
 
 
 def _reference_side(model, params, mesh, tokens, batch):
-    """Prefill logits of ``tokens`` on ``params``' TP-local tree under
-    ``mesh``, and the averaged loss and gradients of ``batch`` and one
-    step's metrics from its ``tp_place``d tree (gathered)."""
+    """Prefill logits of ``tokens`` (over ``batch``'s ``enc_frames``, an
+    encoder-decoder's) on ``params``' TP-local tree under ``mesh``, and
+    the averaged loss and gradients of ``batch`` and one step's metrics
+    from its ``tp_place``d tree (gathered)."""
     from repro_torch.distributed.sharding import (activate_mesh, tp_local,
                                                   tp_place)
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     toks = torch.from_numpy(tokens)
+    inputs = {"tokens": toks}
+    if "enc_frames" in batch:
+        inputs["enc_frames"] = torch.from_numpy(batch["enc_frames"])
     with activate_mesh(mesh):
         logits, _ = model.forward(
-            tp_local(params, mesh, cfg=model.cfg), {"tokens": toks},
+            tp_local(params, mesh, cfg=model.cfg), inputs,
             mode="prefill", caches=model.init_cache(
                 toks.shape[0], toks.shape[1], device="cpu"))
     placed = tp_place(params, mesh, cfg=model.cfg)
@@ -617,7 +685,7 @@ def _reference_side(model, params, mesh, tokens, batch):
 def reference_ranks(params_path, tokens, batch, groups=None):
     """The port's side of the reference comparison on (data 2, model 2)
     (:func:`_reference_side`), and of each of ``groups`` (name ->
-    (params path, tokens, batch): :data:`REF_GROUP_OVER`'s models) on
+    (params path, tokens, batch): :data:`REF_MODEL4_OVER`'s models) on
     (data 1, model 4), as rank 0 holds them."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
@@ -629,7 +697,21 @@ def reference_ranks(params_path, tokens, batch, groups=None):
     mesh = make_mesh((1, 4), ("data", "model"))
     out["groups"] = {}
     for name, (path, toks, b) in (groups or {}).items():
-        model, _ = tiny_model(**dict(TRAIN_OVER, **REF_GROUP_OVER[name]))
+        model, _ = tiny_model(**dict(TRAIN_OVER, **REF_MODEL4_OVER[name]))
         out["groups"][name] = _reference_side(model, torch.load(path), mesh,
                                               toks, b)
+    return out if dist.get_rank() == 0 else None
+
+
+def reference_all_ranks(tp_args, moe_args, mr_args):
+    """The port's sides of the reference comparison in one set of rank
+    processes: :func:`reference_ranks` of ``tp_args``,
+    ``torch_ep_workers.reference_moe_ranks`` of ``moe_args`` and
+    ``torch_mla_ring_workers.reference_ranks`` of ``mr_args``, as rank 0
+    holds them."""
+    import torch.distributed as dist
+    import torch_ep_workers as EP
+    import torch_mla_ring_workers as MR
+    out = (reference_ranks(*tp_args), EP.reference_moe_ranks(*moe_args),
+           MR.reference_ranks(*mr_args))
     return out if dist.get_rank() == 0 else None
