@@ -1819,8 +1819,9 @@ def _depth_cut(layers, full=40):
         return None
     return {"n_layers": f"{full} -> {layers} (phases 8 and 9a were cut "
                         f"to 12 when phase 15 came, to 6 when phases 15l-n "
-                        f"came and to 4 when 15o (vi)-(vii) and 15p-q came, "
-                        f"to keep the script within its time limit)"}
+                        f"came, to 4 when 15o (vi)-(vii) and 15p-q came "
+                        f"and to 2 when 15f (ii) came, to keep the script "
+                        f"within its time limit)"}
 
 
 _PHASE_CLOCK = [time.perf_counter()]   # when the last phase_memory ran
@@ -7572,7 +7573,7 @@ def _p15f_rank(dev, seed, ref_path):
     one-rank parameters the script's process saved at ``ref_path``."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import shard_index, tp_place
+    from repro_torch.distributed.sharding import tp_place
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model = _tp_granite(P15F_LAYERS)
@@ -7595,6 +7596,18 @@ def _p15f_rank(dev, seed, ref_path):
         splits.append(dict(step.split_ms))
     del opt
     _free(dev)
+    return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+            "split_ms": splits, "shards_excess_over_step_tol":
+            _shards_excess(dev, placed, mesh, ref_path),
+            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+
+def _shards_excess(dev, placed, mesh, ref_path):
+    """The most any of this rank's shards of ``placed`` exceeds
+    ``STEP_TOL`` of the one-rank parameters the script's process saved at
+    ``ref_path`` (waited for), at the shard's index (over 'model' and, FSDP,
+    'data'): at most 0 passes."""
+    from repro_torch.distributed.sharding import shard_index
     _wait_until(lambda: os.path.exists(ref_path + ".done"), 600,
                 "15f's one-rank parameters")
     ref = torch.load(ref_path, mmap=True, map_location="cpu")
@@ -7608,9 +7621,87 @@ def _p15f_rank(dev, seed, ref_path):
         excess = ((t.to_local() - want).abs() - STEP_TOL["rtol"] * want.abs()
                   - STEP_TOL["atol_rms"] * rms).max()
         worst = max(worst, float(excess))
+    return worst
+
+
+# 15f (ii)'s prediction (PERF.md §6): a rank's FSDP state at the
+# functional AdamW's ~28 B a parameter, 150 M parameters a rank
+P15F2_PREDICTED_GB = 4.2
+
+
+def _fsdp_per_step(placed, n_data):
+    """The 'data' collectives one FSDP step implies for ``placed``
+    (``group.gather_data``: a period gathered twice, in the forward and
+    the backward's recompute, and reduce-scattered once; the embedding
+    gathered and reduce-scattered once a use, twice where the head is
+    tied; an untied head once): calls and bytes by kind, a gather's bytes
+    its 16-byte-padded shards times the 'data' size, a reduce-scatter's
+    their float32 elements times it."""
+    from repro_torch.distributed.sharding import data_shard
+
+    def units(tree):
+        mine = [t.to_local() for t in _leaves(tree).values()
+                if data_shard(t) is not None]
+        return (sum(-(-x.numel() * x.element_size() // 16) * 16
+                    for x in mine), sum(x.numel() for x in mine))
+    blocks = [u for u in (units(p) for p in placed["stack"]["list"]) if u[1]]
+    emb = units(placed["embedding"])
+    uses = [emb] * (1 if "lm_head" in placed else 2) + \
+        [units(placed.get("lm_head", {}))] * ("lm_head" in placed)
+    uses = [u for u in uses if u[1]]
+    return {"gather": {"calls": 2 * len(blocks) + len(uses),
+                       "bytes": n_data * (2 * sum(b[0] for b in blocks)
+                                          + sum(u[0] for u in uses))},
+            "reduce_scatter": {"calls": len(blocks) + len(uses),
+                               "bytes": 4 * n_data * (
+                                   sum(b[1] for b in blocks)
+                                   + sum(u[1] for u in uses))}}
+
+
+def _p15f2_rank(dev, seed, ref_path):
+    """15f (ii) on this rank of four: 15f's step on (data 2, model 2) with
+    the parameters and AdamW moments FSDP-placed (``fsdp_place``: every
+    kernel's and the embedding's 'fsdp' dim over 'data'), on 15f's
+    batches: its metrics, split and 'data' collectives a step (beside what
+    the layout implies), and its final shards against 15f's one-rank
+    parameters at the FSDP shard's index."""
+    import torch.distributed as dist
+    from repro_torch.distributed import group as dgroup
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import fsdp_place
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    model = _tp_granite(P15F_LAYERS)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    placed = fsdp_place(_tp_params(model, dev, seed), mesh, cfg=model.cfg)
+    _free(dev)
+    local_params = sum(t.to_local().numel()
+                       for t in _leaves(placed).values())
+    want = _fsdp_per_step(placed, 2)
+    opt = adamw_init(placed)
+    step = tl.make_train_step(model, AdamWConfig(**P15F_OPT), mesh=mesh)
+    step.timed = True
+    losses, norms, step_ms, splits, counted = [], [], [], [], []
+    dist.barrier()
+    for b in _p15f_batches():
+        b = tl.to_device(b, dev)
+        _sync_dev(dev)
+        c0 = {k: dict(v) for k, v in dgroup.DATA_COLLECTIVES.items()}
+        t0 = time.perf_counter()
+        placed, opt, met = step(placed, opt, b)
+        losses.append(float(met["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(met["grad_norm"]))
+        splits.append(dict(step.split_ms))
+        counted.append({k: {c: v[c] - c0[k][c] for c in ("calls", "bytes")}
+                        for k, v in dgroup.DATA_COLLECTIVES.items()})
+    del opt
+    _free(dev)
     return {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
-            "split_ms": splits, "shards_excess_over_step_tol": worst,
-            "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+            "split_ms": splits, "local_params": local_params,
+            "data_collectives": counted, "data_collectives_implied": want,
+            "shards_excess_over_step_tol":
+            _shards_excess(dev, placed, mesh, ref_path)}
 
 
 P15P_LAYERS = 2          # 15p's seamless: 2 + 2 of its 12 + 12 layers
@@ -7766,15 +7857,16 @@ def _p15q_one_rank(dev, seed, ref_path):
 
 
 def _p15ef_ranks(seed, ref_path):
-    """15e, 15f, 15p, then 15q, on one rank of four sharing the card over
-    gloo (run by ``run_local``); 15q's one-rank step saved at ``ref_path
-    + ".q"``."""
+    """15e, 15f (i) and (ii), 15p, then 15q, on one rank of four sharing
+    the card over gloo (run by ``run_local``); 15q's one-rank step saved
+    at ``ref_path + ".q"``."""
     from repro_torch.distributed import group
     torch.backends.cuda.matmul.allow_tf32 = False     # float32 means float32
     dev = group.device()
     out = {}
     for key, fn, args in (("e", _p15e_rank, (seed,)),
                           ("f", _p15f_rank, (seed, ref_path)),
+                          ("f2", _p15f2_rank, (seed, ref_path)),
                           ("p", _p15p_rank, (seed,)),
                           ("q", _p15q_rank, (seed, ref_path + ".q"))):
         _free(dev)
@@ -7834,7 +7926,13 @@ def phase15ef(dev, seed, card):
     tokens; the plain one-rank step trains here, in this process, while
     the ranks run 15e. Gates: losses and grad norms within 1e-4 relative
     of the one-rank step's, every rank's parameter shards within
-    ``STEP_TOL`` of the one-rank parameters' slices.
+    ``STEP_TOL`` of the one-rank parameters' slices. 15f (ii), the same
+    step with the parameters and AdamW moments FSDP-placed
+    (``fsdp_place``: 'data' on every kernel's and the embedding's 'fsdp'
+    dim, a period gathered at a time, the gradients reduce-scattered), on
+    the same batches: the same gates at the FSDP shards' index, each
+    step's 'data' collectives (calls and bytes) what the layout implies,
+    and every rank's peak below 15f (i)'s.
 
     15p, the encoder-decoder serving under 'model': seamless-m4t-medium
     at full width and :data:`P15P_LAYERS` + :data:`P15P_LAYERS` of its 12
@@ -7949,6 +8047,7 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase, plain_q,
     if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0):
         raise AssertionError(f"15f: losses {worst_loss}, grad norms "
                              f"{worst_norm}, shards over STEP_TOL by {excess}")
+    _p15f2_report([r["f2"] for r in ranks], fs, plain, card)
     encdec = _p15pq_report([r["p"] for r in ranks], [r["q"] for r in ranks],
                            plain_q, plain_q_s, card)
     local = _tp_local_shapes(_tp_granite(P15E_LAYERS).cfg, 4)
@@ -7959,6 +8058,59 @@ def _p15ef_report(ranks, plain, plain_s, card, four_s, t_phase, plain_q,
         "plans": es[0]["plans"], "plans_15p": encdec["plans"],
         "local_shapes": sorted(local),
         "encdec_local_shapes": encdec["local_shapes"]}
+
+
+def _p15f2_report(f2s, fs, plain, card):
+    """15f (ii)'s gates and line: the FSDP step's losses and norms within
+    1e-4 relative of the one-rank step's, every rank's shards within
+    ``STEP_TOL``, its 'data' collectives a step what the layout implies,
+    and each rank's peak below 15f (i)'s (the same step replicated over
+    'data')."""
+    plain_losses, plain_norms = plain
+    worst_loss = max(abs(a - b) / abs(b) for r in f2s
+                     for a, b in zip(r["losses"], plain_losses))
+    worst_norm = max(abs(a - b) / abs(b) for r in f2s
+                     for a, b in zip(r["grad_norms"], plain_norms))
+    excess = max(r["shards_excess_over_step_tol"] for r in f2s)
+    counts_ok = all(c == r["data_collectives_implied"]
+                    for r in f2s for c in r["data_collectives"])
+    peaks = [r["peak_gb"] for r in f2s]
+    peaks_i = [r["peak_gb"] for r in fs]
+    below = all(a < b for a, b in zip(peaks, peaks_i))
+    split = {k: _percentiles([s[k] for s in f2s[0]["split_ms"][1:]])["p50"]
+             for k in f2s[0]["split_ms"][-1]}
+    emit({"phase": "15f (ii) FSDP (ZeRO-3) training, 4 ranks sharing the "
+                   "card (gloo), mesh (data 2, model 2), granite-3-8b at "
+                   f"full width, {P15F_LAYERS} layers, float32, parameters "
+                   "and AdamW moments sharded over 'data' (fsdp_place)",
+          "reduced": P15_CUTS["15f"], "card": card, "backend": "gloo",
+          "ranks": 4, "steps": P15F_STEPS, "global_batch": list(P15F_BATCH),
+          "optimizer": P15F_OPT, "losses": f2s[0]["losses"],
+          "one_rank_losses": plain_losses,
+          "grad_norms": f2s[0]["grad_norms"],
+          "max_rel_diff_loss": worst_loss,
+          "max_rel_diff_grad_norm": worst_norm,
+          "shards_max_excess_over_step_tol": excess,
+          "local_params_by_rank": [r["local_params"] for r in f2s],
+          "data_collectives_a_step_rank0": f2s[0]["data_collectives"][-1],
+          "data_collectives_implied_rank0":
+              f2s[0]["data_collectives_implied"],
+          "data_collectives_as_implied": counts_ok,
+          "step_ms_p50_steps_2_on":
+              _percentiles(f2s[0]["step_ms"][1:])["p50"],
+          "split_ms_p50_rank0": split,
+          "peak_gb_by_rank": peaks, "peak_gb_by_rank_15f_i": peaks_i,
+          "predicted_state_gb": P15F2_PREDICTED_GB,
+          "seconds_by_rank": [r["seconds"] for r in f2s],
+          "gate": "losses and norms within 1e-4 relative of the one-rank "
+                  "step, shards within STEP_TOL, 'data' collectives as "
+                  "the layout implies, every rank's peak below 15f (i)'s"})
+    if not (worst_loss <= 1e-4 and worst_norm <= 1e-4 and excess <= 0
+            and counts_ok and below):
+        raise AssertionError(
+            f"15f (ii): losses {worst_loss}, grad norms {worst_norm}, "
+            f"shards over STEP_TOL by {excess}, collectives as implied "
+            f"{counts_ok}, peaks {peaks} against 15f (i)'s {peaks_i}")
 
 
 def _p15pq_report(ps, qs, plain, plain_s, card):
@@ -10416,14 +10568,16 @@ def main():
                     help="depth of the w4 main-path run")
     ap.add_argument("--layers7", type=int, default=4,
                     help="depth of the int8-KV continuous run")
-    ap.add_argument("--layers8", type=int, default=4,
+    ap.add_argument("--layers8", type=int, default=2,
                     help="depth of the speculative run (w8 verifier, w4 "
-                    "drafter; 4 of 40 since 15o (vi)-(vii) and 15p-q came, "
+                    "drafter; 2 of 40 since 15f (ii) came, 4 since 15o "
+                    "(vi)-(vii) and 15p-q came, "
                     "6 since phases 15l-n came, 12 since phase 15 came, to "
                     "keep the script inside its time limit)")
-    ap.add_argument("--layers9", type=int, default=4,
-                    help="depth of the native checkpoint run (9a; 4 of 40 "
-                    "since 15o (vi)-(vii) and 15p-q came, 6 since phases "
+    ap.add_argument("--layers9", type=int, default=2,
+                    help="depth of the native checkpoint run (9a; 2 of 40 "
+                    "since 15f (ii) came, 4 since 15o (vi)-(vii) and 15p-q "
+                    "came, 6 since phases "
                     "15l-n came, 12 since phase 15 came, to keep the script "
                     "inside its time limit; its kernel-B count is then held "
                     "to phase 6's tree served at the same depth)")
@@ -10444,14 +10598,16 @@ def main():
                     "came, 2 since phases 15l-n came, 4 since phase 15 "
                     "came, to keep the script inside its time limit; 32 "
                     "layers of float32 weights are ~180 GB)")
-    ap.add_argument("--layers12a", type=int, default=8,
-                    help="depth of the MLA run (12a; 8 of minicpm3's 62 "
-                    "layers since phase 15i came, to keep the script inside "
+    ap.add_argument("--layers12a", type=int, default=4,
+                    help="depth of the MLA run (12a; 4 of minicpm3's 62 "
+                    "layers since 15f (ii) came, 8 since phase 15i came, to "
+                    "keep the script inside "
                     "its time limit; 15i serves the same width "
                     "tensor-parallel)")
-    ap.add_argument("--layers13", type=int, default=4,
-                    help="depth of the rwkv run (13a; 4 of rwkv's 24 layers "
-                    "since phase 15m came, to keep the script inside its "
+    ap.add_argument("--layers13", type=int, default=2,
+                    help="depth of the rwkv run (13a; 2 of rwkv's 24 layers "
+                    "since 15f (ii) came, 4 since phase 15m came, to keep "
+                    "the script inside its "
                     "time limit: 15m serves the same width tensor-parallel; "
                     "24 = the full model)")
     ap.add_argument("--layers15", type=int, default=2,
@@ -10474,9 +10630,10 @@ def main():
                     "plain version, and with float32 activations (and "
                     "--profile, if given); prints no ok line")
     ap.add_argument("--tensor-parallel", action="store_true",
-                    help="only build, then run phases 15e, 15f, 15p and 15q "
-                    "(tensor-parallel serving and training of granite and "
-                    "of the encoder-decoder on four gloo ranks sharing the "
+                    help="only build, then run phases 15e, 15f (i) and "
+                    "(ii), 15p and 15q (tensor-parallel serving and "
+                    "training of granite, its FSDP training, and the "
+                    "encoder-decoder's on four gloo ranks sharing the "
                     "card); prints no ok line")
     ap.add_argument("--expert-parallel", action="store_true",
                     help="only build, then run phases 15g and 15h "

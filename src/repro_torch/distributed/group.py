@@ -28,10 +28,11 @@ The backend is an explicit choice, never a fallback:
 Gloo moves host memory: on torch 2.11 a gloo ``send`` of a CUDA tensor fails
 ("writev ... Bad address") and takes the group's connections down with it.
 So every collective below that is handed a CUDA tensor on a gloo group
-(:func:`all_gather_into`, :func:`all_reduce`, :func:`ring_hop`,
-:func:`full_tensor`) stages it through a pinned host buffer: a copy to the
-host, the collective there, a copy back. The copies wait for the device, so
-on that path a collective is a host synchronization; on NCCL it is not.
+(:func:`all_gather_into`, :func:`all_reduce`, :func:`reduce_scatter_into`,
+:func:`ring_hop`, :func:`full_tensor`) stages it through a pinned host
+buffer: a copy to the host, the collective there, a copy back. The copies
+wait for the device, so on that path a collective is a host
+synchronization; on NCCL it is not.
 DTensor's own collectives do not stage, which is why :func:`full_tensor`
 gathers a DTensor's shards itself instead of calling
 ``DTensor.full_tensor`` on a gloo group.
@@ -43,6 +44,10 @@ sub-group of a mesh (Megatron's f and g, and the logits' gather):
 under data parallelism (``sharding.RoutingGroup``) uses two over the
 routing ranks, ``(E,)``-sized: :func:`routing_sum` (summed forward and
 backward) and :func:`routing_gather`; ``ROUTING_COLLECTIVES`` counts them.
+FSDP over 'data' uses one: :func:`gather_data` (an all-gather of a
+period's shards forward, a float32 reduce-scatter of their gradients
+backward, :func:`reduce_scatter_into`); ``DATA_COLLECTIVES`` counts its
+calls, milliseconds and bytes by kind.
 """
 from __future__ import annotations
 
@@ -219,6 +224,33 @@ def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
     return t
 
 
+def reduce_scatter_into(out: torch.Tensor, t: torch.Tensor, group=None
+                        ) -> torch.Tensor:
+    """``out``: this rank's part of ``t`` summed over the group, where
+    ``t`` is the group's size of equal parts along dim 0 in group-rank
+    order (``reduce_scatter_tensor``)."""
+    if _staged(t, group):
+        h = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        dist.reduce_scatter_tensor(h, _host(t), group=group)
+        out.copy_(h, non_blocking=True)
+    else:
+        dist.reduce_scatter_tensor(out, t.contiguous(), group=group)
+    return out
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's part of ``t`` summed over the group, ``t`` cut into the
+    group's size of equal parts along ``dim`` in group-rank order (the
+    inverse of :func:`gather_dim`'s layout; no copy of a contiguous ``t``
+    cut on dim 0)."""
+    n = dist.get_world_size(group)
+    dim = dim % t.ndim
+    parts = t.unflatten(dim, (n, -1)).movedim(dim, 0).contiguous()
+    out = torch.empty(parts.shape[1:], dtype=t.dtype, device=t.device)
+    reduce_scatter_into(out.view(-1), parts.view(-1), group)
+    return out
+
+
 def ring_hop(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor],
              group) -> None:
     """One ring hop over ``group``: every rank sends ``send`` to the next
@@ -243,12 +275,15 @@ def ring_hop(send: Sequence[torch.Tensor], recv: Sequence[torch.Tensor],
 
 
 def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
-    """The group's ``t`` concatenated along ``dim`` in group-rank order."""
+    """The group's ``t`` concatenated along ``dim`` in group-rank order
+    (on dim 0, a view of the gathered buffer: no copy)."""
     n = dist.get_world_size(group)
     dim = dim % t.ndim
     parts = torch.empty((n,) + tuple(t.shape), dtype=t.dtype,
                         device=t.device)
     all_gather_into(parts.view(-1), t.contiguous().view(-1), group)
+    if dim == 0:
+        return parts.view((-1,) + tuple(t.shape[1:]))
     return torch.cat(parts.unbind(0), dim=dim)
 
 
@@ -260,11 +295,18 @@ def gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 MODEL_COLLECTIVES = {"calls": 0, "ms": 0.0}
 # the MoE routing collectives over a data-parallel routing group, the same
 ROUTING_COLLECTIVES = {"calls": 0, "ms": 0.0}
+# FSDP's collectives over 'data' (gather_data), the same, by kind: a
+# gather's bytes are the gathered buffer's, a reduce-scatter's its float32
+# input's (the group's size times this rank's part)
+DATA_COLLECTIVES = {"gather": {"calls": 0, "ms": 0.0, "bytes": 0},
+                    "reduce_scatter": {"calls": 0, "ms": 0.0, "bytes": 0}}
 
 
-def _counted(fn, t: torch.Tensor, *args, counter=MODEL_COLLECTIVES):
+def _counted(fn, t: torch.Tensor, *args, counter=MODEL_COLLECTIVES,
+             nbytes: int = 0):
     """``fn(t, *args)``, a collective over the group ``args[-1]`` (or the
-    groups of a tuple there), counted and timed in ``counter``."""
+    groups of a tuple there), counted and timed in ``counter`` (and its
+    ``nbytes`` added where the counter keeps bytes)."""
     groups = args[-1] if isinstance(args[-1], tuple) else (args[-1],)
     if any(_staged(t, g) for g in groups):
         torch.cuda.current_stream(t.device).synchronize()
@@ -272,6 +314,8 @@ def _counted(fn, t: torch.Tensor, *args, counter=MODEL_COLLECTIVES):
     out = fn(t, *args)
     counter["calls"] += 1
     counter["ms"] += (time.perf_counter() - t0) * 1e3
+    if "bytes" in counter:
+        counter["bytes"] += nbytes
     return out
 
 
@@ -376,6 +420,64 @@ def routing_gather(t: torch.Tensor, routing) -> torch.Tensor:
     gradient)."""
     return _counted(_gather_over, t.detach(), tuple(routing.groups),
                     counter=ROUTING_COLLECTIVES)
+
+
+def _pad16(n: int) -> int:
+    return -n % 16
+
+
+class _GatherData(torch.autograd.Function):
+    """FSDP's gather of a group of shards over 'data': their bytes in one
+    all-gather forward (each shard's segment padded to 16 bytes, so every
+    dtype's view is aligned), the gradients' float32 sums back to each
+    rank's shards in one reduce-scatter backward."""
+
+    @staticmethod
+    def forward(ctx, group, dims, *shards):
+        n = dist.get_world_size(group)
+        ctx.group, ctx.n, ctx.dims = group, n, dims
+        ctx.meta = [(s.shape, s.dtype) for s in shards]
+        segs = []
+        for s in shards:
+            b = s.detach().contiguous().view(-1).view(torch.uint8)
+            segs += [b, b.new_zeros(_pad16(b.numel()))]
+        flat = torch.cat(segs).unsqueeze(0)
+        parts = _counted(gather_dim, flat, 0, group,      # (n, bytes)
+                         counter=DATA_COLLECTIVES["gather"],
+                         nbytes=n * flat.numel())
+        out, off = [], 0
+        for s, d in zip(shards, dims):
+            nb = s.numel() * s.element_size()
+            out.append(torch.cat([parts[i, off:off + nb].view(s.dtype)
+                                  .view(s.shape) for i in range(n)], dim=d))
+            off += nb + _pad16(nb)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        n = ctx.n
+        rows = torch.cat([torch.stack([c.reshape(-1) for c in
+                                       g.to(torch.float32).chunk(n, dim=d)])
+                          for g, d in zip(grads, ctx.dims)], dim=1)
+        mine = _counted(reduce_scatter_dim, rows, 0, ctx.group,
+                        counter=DATA_COLLECTIVES["reduce_scatter"],
+                        nbytes=rows.numel() * rows.element_size()).view(-1)
+        out, off = [], 0
+        for shape, dtype in ctx.meta:
+            k = math.prod(shape)
+            out.append(mine[off:off + k].view(shape).to(dtype))
+            off += k
+        return (None, None) + tuple(out)
+
+
+def gather_data(shards: Sequence[torch.Tensor], dims: Sequence[int], group
+                ) -> List[torch.Tensor]:
+    """FSDP's gather over 'data' (``group``): each of
+    ``shards`` concatenated along its dim of ``dims`` over the group, in
+    group-rank order, in one all-gather; backward, each gradient summed
+    over the group in float32 and cut back to this rank's shard, in one
+    reduce-scatter. ``DATA_COLLECTIVES`` counts both."""
+    return list(_GatherData.apply(group, tuple(dims), *shards))
 
 
 def full_tensor(x):

@@ -70,11 +70,27 @@ head_dim`` dim instead, inside a head, and reshards by GSPMD; its cache
 rule puts 'model' on ``head_dim`` where the KV heads do not divide. The
 numbers are the same; the memory layout differs.
 
-A tree sharded over 'data' (FSDP), MLA latent ranks, a mamba
-``d_inner``, rwkv heads or an rwkv channel-mix width that 'model' does
-not divide, an expert count and expert FFN width it divides neither of,
-speculative verify and the paged KV layout raise ``NotImplementedError``
-(:func:`check_tensor_parallel`).
+MLA latent ranks, a mamba ``d_inner``, rwkv heads or an rwkv channel-mix
+width that 'model' does not divide, an expert count and expert FFN width
+it divides neither of, speculative verify and the paged KV layout raise
+``NotImplementedError`` (:func:`check_tensor_parallel`).
+
+FSDP (ZeRO-3) over 'data' for training: :func:`fsdp_place` places a
+whole fp tree on the 'model' layout above plus the 'data' entries that
+:func:`make_tp_shardings` leaves out (:func:`make_fsdp_shardings`): the
+dim the reference's rule marks ``"fsdp"`` takes 'data' where 'data'
+divides it. Where the port's 'model' layout already cuts that dim
+(mamba's row-parallel ``x_proj``, the 'expert_ff' fallback's
+row-parallel ``wdown``), 'data' goes on the leaf's other matrix dim
+instead; the reference's rule would cut both on one dim. The numbers are
+the same; the memory layout differs. Vectors and norm gains stay
+replicated, and a quantized leaf keeps its 'model' layout. For the dense
+GQA tree the layout is :func:`make_param_shardings`' own. The train step
+installs an :class:`FsdpPlan` (:func:`activate_fsdp`) of the local
+shards and the dims they cut; :func:`gather_params` gathers a period's
+(or the embedding's, the head's) shards over 'data' where the forward
+uses them (``group.gather_data``: one all-gather forward, one float32
+reduce-scatter of the gradients backward).
 
 MoE routing under data parallelism: the reference routes the global batch
 (GSPMD), so a data-parallel step installs a :class:`RoutingGroup` of the
@@ -197,12 +213,12 @@ def _shard_dim(p) -> Optional[int]:
 
 def to_placements(spec: Spec, mesh, split: int = 1) -> Tuple:
     """DTensor placements on ``mesh`` for ``spec``: ``Shard(d)`` on every
-    mesh dim that splits tensor dim ``d`` (with ``split`` above 1, a
-    strided shard: the dim is ``split`` equal blocks and each rank holds
-    its shard of every block, in block order), ``Replicate()`` on the
-    others. DTensor splits in mesh-dim order, which is the spec's
-    major-to-minor order only while a tuple entry lists its axes in mesh
-    order: asserted."""
+    mesh dim that splits tensor dim ``d`` (with ``split`` above 1, the
+    'model' axis's shard is strided: the dim is ``split`` equal blocks and
+    each rank holds its shard of every block, in block order),
+    ``Replicate()`` on the others. DTensor splits in mesh-dim order, which
+    is the spec's major-to-minor order only while a tuple entry lists its
+    axes in mesh order: asserted."""
     from torch.distributed.tensor import Replicate, Shard
     if split > 1:
         from torch.distributed.tensor.placement_types import _StridedShard
@@ -217,7 +233,7 @@ def to_placements(spec: Spec, mesh, split: int = 1) -> Tuple:
             raise ValueError(f"spec entry {entry} lists mesh axes out of "
                              f"mesh order {tuple(names)}")
         for p in pos:
-            out[p] = Shard(d) if split == 1 else \
+            out[p] = Shard(d) if split == 1 or names[p] != "model" else \
                 _StridedShard(d, split_factor=split)
     return tuple(out)
 
@@ -225,7 +241,7 @@ def to_placements(spec: Spec, mesh, split: int = 1) -> Tuple:
 @dataclasses.dataclass(frozen=True)
 class MeshSharding:
     """A spec on a mesh (the reference's ``NamedSharding``); ``split``
-    above 1 makes its shards strided (:func:`to_placements`)."""
+    above 1 makes its 'model' shard strided (:func:`to_placements`)."""
     mesh: Any
     spec: Spec
     split: int = 1
@@ -715,6 +731,48 @@ def current_routing() -> Optional[RoutingGroup]:
     return g if g is not None and g.size > 1 else None
 
 
+@dataclasses.dataclass(frozen=True)
+class FsdpPlan:
+    """What an FSDP train step's forward gathers: the 'data' process group
+    (``None``: the default group), and ``{id(local shard): the dim its
+    'data' shard cuts}`` of the tensors the step hands the forward."""
+    group: Any
+    dims: Dict[int, int]
+
+
+def activate_fsdp(plan: Optional[FsdpPlan]):
+    """Install ``plan`` as this thread's FSDP plan (None: nothing is
+    gathered); used as a context manager, the previous one comes back on
+    exit."""
+    prev = current_fsdp()
+    _STATE.fsdp = plan
+    return _Active("fsdp", prev)
+
+
+def current_fsdp() -> Optional[FsdpPlan]:
+    """This thread's FSDP plan, or None."""
+    return getattr(_STATE, "fsdp", None)
+
+
+def gather_params(tree: Any) -> Any:
+    """``tree`` (a period's parameters, the embedding, the head) with every
+    shard of the active :class:`FsdpPlan` gathered over 'data' along its
+    dim, in one collective (``group.gather_data``: the gradients come back
+    reduce-scattered to the shards); ``tree`` as it is without a plan or
+    with no shard of the plan in it."""
+    plan = current_fsdp()
+    if plan is None:
+        return tree
+    mine = [t for _, t in _paths(tree)
+            if isinstance(t, torch.Tensor) and id(t) in plan.dims]
+    if not mine:
+        return tree
+    from repro_torch.distributed.group import gather_data
+    whole = gather_data(mine, [plan.dims[id(t)] for t in mine], plan.group)
+    by_id = {id(t): w for t, w in zip(mine, whole)}
+    return _map_with_path(lambda _, t: by_id.get(id(t), t), tree)
+
+
 def expert_ff(n_experts: int, tp: int) -> bool:
     """Whether an MoE of ``n_experts`` takes the reference's 'expert_ff'
     fallback on a 'model' axis of ``tp``: 'model' does not divide the
@@ -743,7 +801,8 @@ def tp_not_ported(what: str) -> str:
 def check_tensor_parallel(cfg, mesh) -> None:
     """Raise ``NotImplementedError("not ported yet: …")`` where the port
     cannot run ``cfg`` tensor-parallel on ``mesh`` (a ``DeviceMesh`` or an
-    :class:`AbstractMesh`): an MoE whose expert count and expert FFN
+    :class:`AbstractMesh`; its 'data' axis, FSDP included, takes any
+    config): an MoE whose expert count and expert FFN
     width the 'model' axis divides neither of (the reference leaves the
     bank whole there, and each rank's whole product would be summed once
     per rank), MLA latent ranks (``q_lora``, ``kv_lora + rope_dim``) it
@@ -1062,6 +1121,56 @@ def tp_place(tree: Any, mesh, cfg) -> Any:
                     else t, tree, make_tp_shardings(mesh, tree, cfg))
 
 
+def _fsdp_dim(path, leaf, mesh) -> Optional[int]:
+    """The dim of ``leaf`` that the reference's rules put 'data' on (the
+    ``"fsdp"`` entry, where 'data' divides it), or None."""
+    spec = logical_to_mesh(param_sharding_rules(path, leaf), leaf.shape,
+                           mesh, _PARAM_RULES)
+    for d, e in enumerate(spec):
+        if "data" in (e if isinstance(e, tuple) else (e,)):
+            return d
+    return None
+
+
+def make_fsdp_shardings(mesh, tree: Any, cfg) -> Any:
+    """``MeshSharding`` tree of the fp params tree of config ``cfg`` in its
+    FSDP (ZeRO-3) layout: :func:`make_tp_shardings`' 'model' layout, and
+    'data' on the dim the reference's rule marks ``"fsdp"`` where 'data'
+    divides it; where that dim is the one 'model' cuts (mamba's
+    row-parallel ``x_proj``, the 'expert_ff' fallback's ``wdown``), on
+    the leaf's other matrix dim if 'data' divides that one. Vectors and
+    norm gains stay replicated; a ``QuantizedTensor`` keeps its
+    tensor-parallel pair."""
+    shardings = make_tp_shardings(mesh, tree, cfg)
+    n = mesh_axis_sizes(mesh).get("data", 1)
+
+    def one(path, leaf):
+        sh = _get_path(shardings, path)
+        if n == 1 or not isinstance(sh, MeshSharding):
+            return sh
+        dim = _fsdp_dim(path, leaf, mesh)
+        if dim is None:
+            return sh
+        spec = list(sh.spec)
+        if spec[dim] is not None:
+            dim = leaf.ndim - 1 if dim == leaf.ndim - 2 else leaf.ndim - 2
+            if spec[dim] is not None or leaf.shape[dim] % n:
+                return sh
+        spec[dim] = "data"
+        return MeshSharding(mesh, tuple(spec), sh.split)
+    return _map_with_path(one, tree)
+
+
+def fsdp_place(tree: Any, mesh, cfg) -> Any:
+    """A whole fp tree of config ``cfg`` as DTensors on its FSDP layout
+    (:func:`make_fsdp_shardings`): each rank keeps its shard, nothing is
+    sent. What the train step shards its parameters and AdamW moments
+    over 'data' with (``adamw_init`` of the placed tree places the
+    moments alike)."""
+    return _zip_map(lambda t, sh: place(t, sh) if isinstance(sh, MeshSharding)
+                    else t, tree, make_fsdp_shardings(mesh, tree, cfg))
+
+
 def _get_path(tree: Any, path: Tuple[str, ...]) -> Any:
     for k in path:
         tree = tree[int(k)] if isinstance(tree, (list, tuple)) else tree[k]
@@ -1089,6 +1198,18 @@ def model_shard(t) -> Optional[Tuple[int, int]]:
     for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
         if name == "model" and _shard_dim(p) is not None:
             return p.dim, _split_of(p)
+    return None
+
+
+def data_shard(t) -> Optional[int]:
+    """The dim a DTensor's 'data' axis cuts (FSDP; None: the leaf is whole
+    on every 'data' rank). A strided 'data' shard raises ``ValueError``
+    (no layout of the port makes one)."""
+    for name, p in zip(t.device_mesh.mesh_dim_names, t.placements):
+        if name == "data" and _shard_dim(p) is not None:
+            if _is_strided(p):
+                raise ValueError("a strided shard over 'data'")
+            return p.dim
     return None
 
 

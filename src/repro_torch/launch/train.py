@@ -10,12 +10,14 @@ Examples:
 
 ``--production`` builds the production mesh (16×16, or 2×16×16 with
 ``--pod-compress``) over the ranks of the process group, so it raises below
-256 (512) ranks, as the reference's does; on it the step is
-tensor-parallel over the 16-way 'model' axis (the parameters placed by
-``distributed.sharding.tp_place``; heads and FFN widths 16 does not
-divide on replica groups), and raises ``NotImplementedError`` for a
-config ``check_tensor_parallel`` refuses. ``--pod-compress`` without it
-trains plainly (the step has no 'pod' axis to compress over).
+256 (512) ranks, as the reference's does; on it the parameters and AdamW
+moments are sharded with the framework rules
+(``distributed.sharding.fsdp_place``): tensor-parallel over the 16-way
+'model' axis (heads and FFN widths 16 does not divide on replica
+groups) and FSDP (ZeRO-3) over 'data', and the step raises
+``NotImplementedError`` for a config ``check_tensor_parallel`` refuses.
+``--pod-compress`` without it trains plainly (the step has no 'pod' axis
+to compress over).
 """
 from __future__ import annotations
 
@@ -70,8 +72,8 @@ def main(argv=None):
     step = make_train_step(model, ocfg, microbatches=args.microbatches,
                            pod_compress=args.pod_compress, mesh=mesh)
     if mesh is not None:
-        from repro_torch.distributed.sharding import tp_place
-        params = tp_place(params, mesh, cfg=cfg)
+        from repro_torch.distributed.sharding import fsdp_place
+        params = fsdp_place(params, mesh, cfg=cfg)
     trainer = Trainer(model, ocfg,
                       TrainerConfig(total_steps=args.steps,
                                     checkpoint_every=args.ckpt_every,

@@ -17,6 +17,12 @@ where 'model' does not divide them, on every expert's share of its FFN
 columns (``models.moe``), and an encoder-decoder's encoder and
 cross-attention on this rank's heads over an encoder output (and a
 cache's ``enc_out``) whole on every rank.
+
+Under a train step's FSDP plan (``sharding.activate_fsdp``) the
+embedding and an untied head are gathered over 'data' where they are used
+(``sharding.gather_params``; norm gains are never cut over 'data'), the
+stack's periods in ``transformer.apply_stack``; a tied embedding is
+gathered once for the lookup and once for the logits.
 """
 from __future__ import annotations
 
@@ -105,7 +111,8 @@ class LM:
 
     # ------------------------------------------------------------- forward
     def _embed(self, params, tokens):
-        x = embed(params["embedding"], tokens, self.cfg.vocab)
+        x = embed(sharding.gather_params(params["embedding"]), tokens,
+                  self.cfg.vocab)
         if self.cfg.emb_scale:
             x = x * torch.tensor(math.sqrt(float(self.cfg.d_model)),
                                  dtype=torch.float32).to(x.dtype)
@@ -115,11 +122,14 @@ class LM:
         x = rms_norm(params["final_norm"], x, plus_one=self.cfg.norm_plus_one)
         if sharding.vocab_parallel(self.cfg.vocab):
             x = sharding.to_model(x)
+        # under FSDP a tied embedding is gathered again here (per use: the
+        # lookup's backward keeps nothing of it, so the gathered copy lives
+        # from this product through its backward only)
         if self.cfg.tie_embeddings:
-            w = params["embedding"]["embedding"]
+            w = sharding.gather_params(params["embedding"])["embedding"]
             logits = x @ w.T.to(x.dtype)
         else:
-            logits = linear(params["lm_head"], x)
+            logits = linear(sharding.gather_params(params["lm_head"]), x)
         return sharding.shard_logits(logits, self.cfg.vocab)
 
     def _encode(self, params, batch):

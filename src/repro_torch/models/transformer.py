@@ -40,6 +40,15 @@ Under 'model' the encoder's layers and each cross-attention run like the
 decoder's blocks (this rank's heads and FFN columns, the partial sums
 summed before the residual add); the encoder's output is whole on every
 rank.
+
+FSDP (ZeRO-3) over 'data' (under a train step's
+``distributed.sharding.activate_fsdp``): each period's parameters, and
+each encoder layer's, are gathered over 'data' where it starts
+(``sharding.gather_params``), inside its remat region, so the backward's
+recompute gathers them again instead of keeping them, and their
+gradients leave as this rank's reduce-scattered shards. Under FSDP a
+period always recomputes, whatever ``cfg.remat`` says: a rank holds its
+shards and one period's gathered leaves, never the whole gathered tree.
 """
 from __future__ import annotations
 
@@ -48,9 +57,10 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.distributed.sharding import (activate_mesh,
-                                              activate_routing, current_mesh,
-                                              current_routing, model_axis,
+from repro_torch.distributed.sharding import (activate_fsdp, activate_mesh,
+                                              activate_routing, current_fsdp,
+                                              current_mesh, current_routing,
+                                              gather_params, model_axis,
                                               replica_groups, shard_act,
                                               to_model)
 from repro_torch.models import attention as attn_lib
@@ -330,6 +340,7 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
     train = mode == "train"
 
     def run_period(pp, xin, pc):
+        pp = gather_params(pp)
         aux_sum = torch.zeros((), dtype=torch.float32, device=xin.device) \
             if train else None
         new_c = {}
@@ -346,13 +357,17 @@ def apply_stack(stack, x, *, cfg, rope, mode: str, caches, pos,
                 new_c[f"b{i}"] = c_out
         return xin, new_c, aux_sum
 
-    remat = train and cfg.remat and torch.is_grad_enabled()
     # the backward pass may recompute a period on another thread (CUDA's
-    # autograd worker): it runs under the mesh and routing group active here
-    mesh, routing = current_mesh(), current_routing()
+    # autograd worker): it runs under the mesh, routing group and FSDP plan
+    # active here
+    mesh, routing, fsdp = current_mesh(), current_routing(), current_fsdp()
+    # under FSDP a period always recomputes: what frees its gathered leaves
+    remat = train and (cfg.remat or fsdp is not None) and \
+        torch.is_grad_enabled()
 
     def recompute(p_, x_):
-        with activate_mesh(mesh), activate_routing(routing):
+        with activate_mesh(mesh), activate_routing(routing), \
+                activate_fsdp(fsdp):
             return run_period(p_, x_, None)[::2]
     new_list = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
@@ -403,6 +418,7 @@ def apply_encoder(enc, frames, *, cfg) -> torch.Tensor:
     each layer runs this rank's heads and FFN columns, as a decoder block
     does (:func:`apply_block`), and the output is whole on every rank."""
     def body(pp, x):
+        pp = gather_params(pp)
         h = to_model(rms_norm(pp["ln1"], x))
         x = x + shard_act(attn_lib.cross_attention(pp["attn"], h, h,
                                                    cfg=cfg))
@@ -411,13 +427,13 @@ def apply_encoder(enc, frames, *, cfg) -> torch.Tensor:
             d_ff=cfg.d_ff))
 
     # the backward pass may recompute a layer on another thread (CUDA's
-    # autograd worker): it runs under the mesh active here
-    mesh = current_mesh()
+    # autograd worker): it runs under the mesh and FSDP plan active here
+    mesh, fsdp = current_mesh(), current_fsdp()
 
     def recompute(pp, x):
-        with activate_mesh(mesh):
+        with activate_mesh(mesh), activate_fsdp(fsdp):
             return body(pp, x)
-    remat = cfg.remat and torch.is_grad_enabled()
+    remat = (cfg.remat or fsdp is not None) and torch.is_grad_enabled()
     x = frames
     for pp in enc["layers"]:
         if remat:

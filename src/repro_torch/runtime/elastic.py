@@ -5,7 +5,8 @@ Policy: keep the model axis as close to the preferred TP degree as the
 rank count allows (TP must divide the head/ffn dims), put the rest in
 data (FSDP/DP), and add the pod axis only for multi-pod counts. Checkpoints
 are shard-agnostic (see checkpoint/checkpointer.py), so a restore onto the
-new mesh is just ``restore(..., shardings=make_param_shardings(new_mesh))``.
+new mesh is just ``restore(..., shardings=make_param_shardings(new_mesh))``
+(or a train step's ``sharding.make_fsdp_shardings(new_mesh, tree, cfg)``).
 """
 from __future__ import annotations
 

@@ -5,12 +5,13 @@
   gradients summed in float32);
 * data parallelism over a mesh (``mesh=``): every rank is handed the
   global batch, takes its slice over the ('pod', 'data') axes, and the
-  gradients are averaged over those ranks in float32 (the numbers of the
-  reference's FSDP over 'data', up to the order of the gradient sum). A
-  rank's microbatch i is its slice of the reference's microbatch i (global
-  rows ``[i·n/M, (i+1)·n/M)``), and an MoE layer routes the tokens the
-  reference routes together (``sharding.RoutingGroup``: the global batch,
-  a pod's batch under ``pod_compress``), not each rank's alone;
+  gradients are averaged over those ranks in float32 (up to the order of
+  the gradient sum, the reference's numbers, whichever layout holds the
+  parameters). A rank's microbatch i is its slice of the reference's
+  microbatch i (global rows ``[i·n/M, (i+1)·n/M)``), and an MoE layer
+  routes the tokens the reference routes together
+  (``sharding.RoutingGroup``: the global batch, a pod's batch under
+  ``pod_compress``), not each rank's alone;
 * the int8 cross-pod gradient all-reduce with error feedback
   (``pod_compress=True`` on a mesh with a 'pod' axis of 2 or more): float32
   in-pod reduction over 'data', then ``grad_compression``'s int8 ring over
@@ -29,7 +30,15 @@
   ``Replicate``) and narrowed to each rank's replica-group
   shard in the forward, so their gradients come back whole like any
   replicated leaf's. The cases ``sharding.check_tensor_parallel`` names
-  and a tree sharded over 'data' (FSDP) raise ``NotImplementedError``.
+  raise ``NotImplementedError``;
+* FSDP (ZeRO-3) over 'data', at any 'model' size (1 included): the
+  parameters and AdamW moments are DTensors of
+  ``distributed.sharding.fsdp_place``'s layout (or of the rules' own,
+  ``reshard_serving_tree``, for the dense model), each rank holds and
+  updates its shards, the forward gathers a period's shards over 'data'
+  where it starts (``sharding.gather_params``) and their gradients come
+  back reduce-scattered. The replicated layout (``tp_place``, or plain
+  tensors where 'model' is 1) keeps a whole replica a data rank.
 
 ``Trainer`` owns the loop: checkpoint every N steps, restart from the newest
 checkpoint, preemption handling (SIGTERM → checkpoint + clean exit) and a
@@ -113,8 +122,9 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     float32).
 
     ``mesh`` (a ``DeviceMesh``; every rank of it runs the step on the same
-    global batch and keeps its own replica of the parameters): the step is
-    data-parallel over the mesh's 'pod' and 'data' axes. With
+    global batch): the step is data-parallel over the mesh's 'pod' and
+    'data' axes, each data rank holding a replica of the parameters or,
+    placed by ``distributed.sharding.fsdp_place``, its FSDP shards. With
     ``pod_compress`` and a 'pod' axis of 2 or more it returns
     ``train_step(params, opt_state, err, batch) → (params, opt_state,
     err, metrics)``: pod-local float32 gradients (all-reduced over
@@ -124,11 +134,12 @@ def make_train_step(model, opt_cfg: AdamWConfig, *, microbatches: int = 1,
     a 'pod' axis of 2 or more ``pod_compress`` is ignored, as in the
     reference. A 'model' axis above 1 makes the step tensor-parallel
     (:func:`_parallel_step`): ``params`` and ``opt_state``'s moments are
-    then DTensor trees of ``distributed.sharding.tp_place``'s layout on
-    ``mesh``, and come back so. Set ``step.timed = True`` on a mesh's step
-    to have each call leave its split in ``step.split_ms`` (grads, the
-    all-reduces, compress and ring where it compresses, update), measured
-    between synchronizations of the device. A mesh's step without
+    then DTensor trees of ``distributed.sharding.tp_place``'s or
+    ``fsdp_place``'s layout on ``mesh``, and come back so. Set
+    ``step.timed = True`` on a mesh's step to have each call leave its
+    split in ``step.split_ms`` (grads, the all-reduces, the FSDP gathers
+    and reduce-scatters, compress and ring where it compresses, update),
+    measured between synchronizations of the device. A mesh's step without
     compression also has ``step.averaged_grads(params, batch)``: the loss,
     metrics (with the global ``grad_norm``) and gradients it would update
     with.
@@ -188,20 +199,30 @@ def _grads(loss_fn, params, batch, microbatches, grad_reduce_dtype):
     return loss, metrics, grads
 
 
-def _reduce_mean(grads, groups, n: int):
+def _reduce_mean(grads, groups, n: int, fsdp=None, fsdp_groups=()):
     """The tree's mean over ``n`` ranks, in float32: one all-reduce of the
-    flattened tree over each of ``groups`` in turn (together the ranks)."""
+    flattened tree over each of ``groups`` in turn (together the ranks).
+    The leaves where ``fsdp`` (a tree of bools) is True are FSDP shards
+    whose gradients the reduce-scatter already summed over 'data': they
+    are all-reduced over ``fsdp_groups`` only (the 'pod' ranks), in one
+    all-reduce of their own."""
     from repro_torch.distributed import group as dgroup
     leaves = tree_leaves(grads)
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in leaves])
-    for g in groups:
-        dgroup.all_reduce(flat, g)
-    flat = flat / n
-    by_leaf, off = {}, 0
-    for x in leaves:
-        by_leaf[id(x)] = flat[off:off + x.numel()].reshape(x.shape) \
-            .to(x.dtype)
-        off += x.numel()
+    sharded = [False] * len(leaves) if fsdp is None else tree_leaves(fsdp)
+    by_leaf = {}
+    for mine, gs in ((False, groups), (True, fsdp_groups)):
+        part = [x for x, f in zip(leaves, sharded) if f == mine]
+        if not part:
+            continue
+        flat = torch.cat([x.reshape(-1).to(torch.float32) for x in part])
+        for g in gs:
+            dgroup.all_reduce(flat, g)
+        flat = flat / n
+        off = 0
+        for x in part:
+            by_leaf[id(x)] = flat[off:off + x.numel()].reshape(x.shape) \
+                .to(x.dtype)
+            off += x.numel()
     return tree_map(lambda x: by_leaf[id(x)], grads)
 
 
@@ -232,14 +253,18 @@ class _Timer:
     """Host-clock split of a step between device synchronizations (only
     while ``on``). The tensor-parallel collectives of the forward and
     backward (``group.MODEL_COLLECTIVES``) are taken out of "grads" into
-    "model_all_reduce" where 'model' is above 1."""
+    "model_all_reduce" where 'model' is above 1, and FSDP's
+    (``group.DATA_COLLECTIVES``) into "data_gather" and "reduce_scatter"
+    where the step gathers over 'data'."""
 
-    def __init__(self, on: bool, tp: int):
+    def __init__(self, on: bool, tp: int, fsdp: bool = False):
         from repro_torch.distributed import group as dgroup
-        self.on, self.tp, self.ms = on, tp, {}
+        self.on, self.tp, self.fsdp, self.ms = on, tp, fsdp, {}
         self.device = dgroup.device() if on else None
         self._coll = dgroup.MODEL_COLLECTIVES
+        self._data = dgroup.DATA_COLLECTIVES
         self._c0 = self._coll["ms"]
+        self._d0 = {k: c["ms"] for k, c in self._data.items()}
         self._t = time.perf_counter() if on else 0.0
 
     def mark(self, name: str) -> None:
@@ -256,6 +281,12 @@ class _Timer:
             model_ms = self._coll["ms"] - self._c0
             self.ms["model_all_reduce"] = model_ms
             self.ms["grads"] -= model_ms
+        if self.on and self.fsdp:
+            for name, key in (("data_gather", "gather"),
+                              ("reduce_scatter", "reduce_scatter")):
+                ms = self._data[key]["ms"] - self._d0[key]
+                self.ms[name] = ms
+                self.ms["grads"] -= ms
         return self.ms
 
 
@@ -269,25 +300,33 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     reference annotates its activations. The gradients, each rank's
     shard's, are averaged over the 'data' (and 'pod') ranks that share its
     'model' coordinate. A replicated leaf's gradient is already whole and
-    equal on every 'model' rank (copy-to-model's backward sums it), so the
-    global norm counts it once and the shards' squares summed over
-    'model'.
+    equal on every 'model' rank (copy-to-model's backward sums it).
+
+    A leaf placed with a shard over 'data' (FSDP, ``sharding.fsdp_place``)
+    enters the forward as this rank's shard, listed in the step's
+    ``sharding.FsdpPlan``: the forward gathers it over 'data' where it is
+    used and its gradient comes back reduce-scattered, already summed over
+    'data', so the averaging divides it by the data-parallel world and
+    all-reduces it over 'pod' only. The global norm sums each leaf's
+    squares over the axes that cut it: 'model' and 'data', 'data' alone,
+    'model' alone, or none (a whole leaf, counted once).
 
     With ``compress`` the cross-pod leg is the int8 ring on the logical
     gradients, as the reference's ``compress_local`` flattens them: the
     in-pod float32 reduction over 'data', each leaf's gradient gathered
-    over 'model', compressed with the pod's logical error-feedback row
-    (:func:`init_pod_error`'s shapes), the ring over 'pod', ``/ n_pods``,
-    then this rank's slice taken back. ``step.timed = True`` leaves each
-    call's split in ``step.split_ms``."""
+    over 'data' and 'model', compressed with the pod's logical
+    error-feedback row (:func:`init_pod_error`'s shapes), the ring over
+    'pod', ``/ n_pods``, then this rank's slice taken back.
+    ``step.timed = True`` leaves each call's split in ``step.split_ms``."""
     from torch.distributed.device_mesh import DeviceMesh
     from torch.distributed.tensor import DTensor, Shard
     from repro_torch.distributed import group as dgroup
-    from repro_torch.distributed.sharding import (RoutingGroup,
+    from repro_torch.distributed.sharding import (FsdpPlan, RoutingGroup,
+                                                  activate_fsdp,
                                                   activate_mesh,
                                                   activate_routing,
-                                                  model_shard, shard_index,
-                                                  tp_not_ported, unstride)
+                                                  data_shard, model_shard,
+                                                  shard_index, unstride)
     n_pods, n_data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
     if tp > 1 and not isinstance(mesh, DeviceMesh):
         raise ValueError("a tensor-parallel step runs on a DeviceMesh of "
@@ -316,21 +355,23 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     rows = (n_pods, n_data, pod, dat) if compress else (1, world, 0, part)
 
     def unplace(tree):
-        """This rank's plain tensors: a DTensor's local shard, a plain
-        tensor (a data-parallel replica) as it is."""
+        """This rank's plain tensors: a DTensor's local shard (over 'model'
+        and, FSDP, 'data'), a plain tensor (a data-parallel replica) as it
+        is."""
         def one(t):
             if not isinstance(t, DTensor):
                 if tp > 1:
                     raise ValueError("the tensor-parallel step takes trees "
                                      "placed on its mesh by "
-                                     "sharding.tp_place")
+                                     "sharding.tp_place or fsdp_place")
                 return t
             if t.device_mesh != mesh:
                 raise ValueError("a DTensor placed on another mesh")
             if any(isinstance(p, Shard) for name, p in
-                   zip(mesh.mesh_dim_names, t.placements) if name != "model"):
-                raise NotImplementedError(tp_not_ported(
-                    "FSDP (ZeRO-3) over 'data'"))
+                   zip(mesh.mesh_dim_names, t.placements)
+                   if name not in ("model", "data")):
+                raise ValueError("a DTensor sharded over an axis other "
+                                 "than 'data' and 'model'")
             return t.to_local()
         return tree_map(one, tree)
 
@@ -344,27 +385,58 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         """``(dim, split)`` of a DTensor's 'model' shard (None: whole)."""
         return model_shard(t) if isinstance(t, DTensor) else None
 
-    def grads_of(local, batch, timer):
+    def fsdp_dim(t) -> Optional[int]:
+        """The dim a leaf's 'data' shard cuts (None: whole over 'data';
+        a 'data' axis of 1 cuts nothing)."""
+        return data_shard(t) if n_data > 1 and isinstance(t, DTensor) \
+            else None
+
+    def grads_of(local, like, batch, timer):
+        dims = [fsdp_dim(t) for t in tree_leaves(like)]
+
+        def fsdp_loss(p, b):
+            plan = None
+            if any(d is not None for d in dims):
+                plan = FsdpPlan(data_group, {
+                    id(x): d for x, d in zip(tree_leaves(p), dims)
+                    if d is not None})
+            with activate_fsdp(plan):
+                return loss_fn(p, b)
         with activate_mesh(mesh), activate_routing(routing):
-            out = _grads(loss_fn, local,
+            out = _grads(fsdp_loss, local,
                          _local_batch(batch, *rows, microbatches),
                          microbatches, grad_reduce_dtype)
         timer.mark("grads")
         return out
 
+    def is_fsdp(like) -> bool:
+        return any(fsdp_dim(t) is not None for t in tree_leaves(like))
+
+    def reduce_mean(grads, like, groups, n, fsdp_groups):
+        return _reduce_mean(grads, groups, n,
+                            tree_map(lambda t: fsdp_dim(t) is not None,
+                                     like), fsdp_groups)
+
     def tp_norm(grads, like):
         """The logical tree's global norm from this rank's shards (None
-        where 'model' is 1: ``adamw_update`` takes the tree's own)."""
-        if tp == 1:
+        where nothing is sharded: ``adamw_update`` takes the tree's own).
+        Squares of leaves cut by 'model' and 'data', by 'data' alone and
+        by 'model' alone are summed over the axes that cut them."""
+        if tp == 1 and not is_fsdp(like):
             return None
-        sq = torch.zeros(2, dtype=torch.float32,
+        sq = torch.zeros(4, dtype=torch.float32,
                          device=tree_leaves(grads)[0].device)
         for g, t in zip(tree_leaves(grads), tree_leaves(like)):
-            sq[1 if shard_of(t) is None else 0] += torch.sum(
-                torch.square(g.to(torch.float32)))
-        part_sq = sq[:1].clone()
-        dgroup.all_reduce(part_sq, model_group)
-        return torch.sqrt(part_sq[0] + sq[1])
+            k = 2 * (tp > 1 and shard_of(t) is not None) + \
+                (fsdp_dim(t) is not None)
+            sq[k] += torch.sum(torch.square(g.to(torch.float32)))
+        over_data = torch.stack([sq[3], sq[1]])      # model+data, data
+        if n_data > 1:
+            dgroup.all_reduce(over_data, data_group)
+        over_model = torch.stack([over_data[0], sq[2]])  # ..., model
+        if tp > 1:
+            dgroup.all_reduce(over_model, model_group)
+        return torch.sqrt(over_model.sum() + over_data[1] + sq[0])
 
     def update(params, opt_state, local, grads, loss, metrics, gnorm):
         """AdamW on the local trees, placed back as ``params`` and
@@ -380,16 +452,17 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     if not compress:
         def averaged(params, batch, timer):
             local = unplace(params)
-            loss, metrics, grads = grads_of(local, batch, timer)
+            loss, metrics, grads = grads_of(local, params, batch, timer)
             if world > 1:
-                grads = _reduce_mean(grads, dp_groups, world)
+                grads = reduce_mean(grads, params, dp_groups, world,
+                                    [pod_group] if n_pods > 1 else [])
                 loss, metrics = _mean_metrics(loss, metrics, dp_groups,
                                               world)
             timer.mark("data_all_reduce")
             return local, loss, metrics, grads
 
         def step(params, opt_state, batch):
-            timer = _Timer(step.timed, tp)
+            timer = _Timer(step.timed, tp, is_fsdp(params))
             local, loss, metrics, grads = averaged(params, batch, timer)
             gnorm = tp_norm(grads, params)
             timer.mark("grad_norm")
@@ -403,8 +476,9 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
             """``(loss, metrics, grads)`` the step updates ``params``
             with on ``batch``: averaged over the data-parallel ranks, the
             gradients this rank's plain tensors (its shards where 'model'
-            is above 1), ``metrics["grad_norm"]`` the global norm the step
-            clips them by."""
+            is above 1 or the tree is FSDP-placed),
+            ``metrics["grad_norm"]`` the global norm the step clips them
+            by."""
             _, loss, metrics, grads = averaged(params, batch,
                                                _Timer(False, tp))
             gnorm = tp_norm(grads, params)
@@ -419,10 +493,14 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
     coord = mesh.get_coordinate()
 
     def logical(grads, like):
-        """Each leaf's gradient whole: gathered over 'model' along the dim
-        its shard splits (a strided shard's blocks put back in order)."""
+        """Each leaf's gradient whole: gathered over 'data' along the dim
+        its FSDP shard cuts, then over 'model' along the dim its shard
+        splits (a strided shard's blocks put back in order)."""
         def one(g, t):
-            sh = shard_of(t)
+            d = fsdp_dim(t)
+            if d is not None:
+                g = dgroup.gather_dim(g, d, data_group)
+            sh = shard_of(t) if tp > 1 else None
             if sh is None:
                 return g
             return unstride(dgroup.gather_dim(g, sh[0], model_group),
@@ -430,14 +508,15 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         return tree_map(one, grads, like)
 
     def pod_step(params, opt_state, err, batch):
-        timer = _Timer(pod_step.timed, tp)
+        sharded = tp > 1 or is_fsdp(params)
+        timer = _Timer(pod_step.timed, tp, is_fsdp(params))
         local = unplace(params)
-        loss, metrics, grads = grads_of(local, batch, timer)
+        loss, metrics, grads = grads_of(local, params, batch, timer)
         if n_data > 1:                  # the in-pod float32 reduction
-            grads = _reduce_mean(grads, [data_group], n_data)
+            grads = reduce_mean(grads, params, [data_group], n_data, [])
         loss, metrics = _mean_metrics(loss, metrics, dp_groups, world)
         timer.mark("in_pod_all_reduce")
-        if tp > 1:
+        if sharded:
             grads = logical(grads, params)
             timer.mark("model_gather")
         mine = tree_map(lambda e: e[pod:pod + 1], err)
@@ -450,9 +529,10 @@ def _parallel_step(model, opt_cfg, mesh, sizes, loss_fn, stacked,
         for e, m in zip(tree_leaves(new_err), tree_leaves(new_mine)):
             e[pod:pod + 1] = m
         full = unflatten_grads(reduced / n_pods, params)
-        shards = full if tp == 1 else tree_map(
+        shards = full if not sharded else tree_map(
             lambda f, t: f[shard_index(f.shape, t.placements, mesh_sizes,
-                                       coord)], full, params)
+                                       coord)]
+            if isinstance(t, DTensor) else f, full, params)
         params, opt_state, metrics = update(params, opt_state, local, shards,
                                             loss, metrics, global_norm(full))
         timer.mark("update")

@@ -18,7 +18,9 @@ averaged over the pods, and keeps the logical error-feedback shapes.
 The 'expert_ff' fallback trains on the port's ``init`` with 6 experts on
 (data 1, model 4) and with 3 on (data 2, model 2), routed over both data
 ranks, within the same tolerances, each bank's shard every expert's part
-of its FFN columns."""
+of its FFN columns. The step FSDP-placed over 'data' (``fsdp_place``:
+each bank's and the router's input dim) on (data 2, model 2), routed over
+both data ranks, matches the one-rank step alike."""
 import numpy as np
 import pytest
 import torch

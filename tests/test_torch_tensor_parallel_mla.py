@@ -17,7 +17,9 @@ float32 and ``2e-2`` in bfloat16. Each rank holds its heads' columns of
 tensor-parallel train step on (data 2, model 2) and (data 1, model 4)
 matches the one-rank step (losses, grad norms, gradients at ``GRAD_TOL``,
 shards at ``STEP_TOL``), and the pod-compressed step on (pod 2, data 1,
-model 2) tracks the plain pod step."""
+model 2) tracks the plain pod step. The same step with the parameters
+and moments FSDP-placed over 'data' (``fsdp_place``) on (data 2, model 2)
+matches the one-rank step alike."""
 import dataclasses
 
 import numpy as np

@@ -22,7 +22,10 @@ both 'data' ranks at capacity factor 1.0, and on (data 1, model 4)
 matches the one-rank step (losses, grad norms, gradients at ``GRAD_TOL``,
 shards at ``STEP_TOL``), and jamba's pod-compressed step on (pod 2, data
 1, model 2), where ``in_proj``'s gradient is gathered across its strided
-shards, tracks the plain pod step."""
+shards, tracks the plain pod step. The same step FSDP-placed over 'data'
+(``fsdp_place``: ``x_proj``'s 'data' shard on its output dim, 'model'
+cutting its input) on (data 2, model 2) matches the one-rank step
+alike."""
 import dataclasses
 
 import numpy as np

@@ -14,7 +14,8 @@ and reduced rwkv (``torch_recurrent_tp_workers``) over 16-token sequences
 (two chunks of the chunked scan and of the chunkwise WKV). Logits within
 1e-5, the loss within 1e-5 relative, the gradients within ``GRAD_TOL``
 (``tests/test_torch_train_step.py``), the step's loss and grad norm within
-1e-5 and 1e-4 relative."""
+1e-5 and 1e-4 relative; the same step from ``fsdp_place``'s layout (FSDP
+over 'data') held to the same reference outputs."""
 import textwrap
 
 import jax
@@ -145,5 +146,28 @@ def test_train_step_metrics_match_reference(both, kind):
     np.testing.assert_allclose(port["step"]["loss"], float(ref["step_loss"]),
                                rtol=1e-5, atol=0)
     np.testing.assert_allclose(port["step"]["grad_norm"],
+                               float(ref["step_grad_norm"]), rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_fsdp_step_matches_reference(both, kind):
+    """The same step from ``fsdp_place``'s layout (FSDP over 'data': the
+    reference's ``make_param_shardings`` puts 'data' on the same dims but
+    for ``x_proj``, which the port's row-parallel cut moves to its output
+    dim): the loss within 1e-5 relative, the gradients within
+    ``GRAD_TOL``, the step's loss and grad norm within 1e-5 and 1e-4
+    relative of the reference's GSPMD run."""
+    ref, want, port = both[kind]
+    got = port["fsdp"]
+    np.testing.assert_allclose(got["loss"], float(ref["loss"]), rtol=1e-5,
+                               atol=0)
+    assert sorted(got["grads"]) == sorted(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(got["grads"][k], g, **GRAD_TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["step"]["loss"], float(ref["step_loss"]),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got["step"]["grad_norm"],
                                float(ref["step_grad_norm"]), rtol=1e-4,
                                atol=0)

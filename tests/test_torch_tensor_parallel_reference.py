@@ -26,7 +26,12 @@ reference cuts its banks' 'expert_ff' dim (``wdown`` on its output), the
 port every expert's FFN columns (``wdown`` row-parallel); and reduced
 seamless over random frames (``torch_tp_workers.REF_MODEL4_OVER``'s
 encoder-decoder: its encoder and cross-attention on 2 of 8 heads a rank,
-the head replicated), both held to the same tolerances."""
+the head replicated), both held to the same tolerances. The port's
+(data 2, model 2) step also runs FSDP over 'data' (``fsdp_place``'s
+layout; for the dense model also the rules' own, ``reshard_serving_tree``,
+which is ``make_param_shardings``' layout the reference's GSPMD run
+trains on) for the dense, MoE, MLA and ring models, held to the same
+reference outputs at the same tolerances."""
 import dataclasses
 import textwrap
 
@@ -375,3 +380,47 @@ def test_mla_ring_train_step_metrics_match_reference(mla_ring_both, kind):
     np.testing.assert_allclose(port["step"]["grad_norm"],
                                float(ref["step_grad_norm"]), rtol=1e-4,
                                atol=0)
+
+
+@pytest.mark.parametrize("layout", ["fsdp", "rules"])
+def test_fsdp_step_matches_reference(both, layout):
+    """The dense model's step on (data 2, model 2) from ``fsdp_place``'s
+    layout and from the rules' own (``reshard_serving_tree``), FSDP over
+    'data' as the reference's GSPMD run places it
+    (``make_param_shardings``): the averaged loss within 1e-5 relative,
+    the gradients within ``GRAD_TOL``, the step's loss and grad norm within
+    1e-5 and 1e-4 relative."""
+    ref, want, port, _ = both
+    _held_step(ref, want, port[layout])
+
+
+def _held_step(ref, want, got):
+    """The loss, gradients and step metrics of :func:`_held_to_reference`
+    (the forward's logits are the tensor-parallel side's)."""
+    np.testing.assert_allclose(got["loss"], float(ref["loss"]), rtol=1e-5,
+                               atol=0)
+    assert sorted(got["grads"]) == sorted(want)
+    for k, g in want.items():
+        np.testing.assert_allclose(got["grads"][k], g, **GRAD_TOL,
+                                   err_msg=k)
+    np.testing.assert_allclose(got["step"]["loss"], float(ref["step_loss"]),
+                               rtol=1e-5, atol=0)
+    np.testing.assert_allclose(got["step"]["grad_norm"],
+                               float(ref["step_grad_norm"]), rtol=1e-4,
+                               atol=0)
+
+
+def test_moe_fsdp_step_matches_reference(moe_both):
+    """Reduced moonshot's step on (data 2, model 2) from ``fsdp_place``'s
+    layout (the banks' and the router's input dim over 'data', routed over
+    both data ranks) against the reference's GSPMD run."""
+    ref, want, port, _ = moe_both
+    _held_step(ref, want, port["fsdp"])
+
+
+@pytest.mark.parametrize("kind", ["mla", "ring"])
+def test_mla_ring_fsdp_step_matches_reference(mla_ring_both, kind):
+    """Reduced minicpm3's and the ring's step on (data 2, model 2) from
+    ``fsdp_place``'s layout against the reference's GSPMD run."""
+    ref, want, port = mla_ring_both[kind]
+    _held_step(ref, want, port["fsdp"])

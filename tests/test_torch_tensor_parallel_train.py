@@ -19,15 +19,30 @@ pod-compressed step on (pod 2, data 1, model 2) learns as the reference's
 asserts, keeps the logical error-feedback layout, and tracks the
 non-tensor-parallel pod step (losses, and the first step's error-feedback
 rows within one int8 quantum). A ``Trainer`` on (data 1, model 2) saves,
-stops and resumes to the losses of an uninterrupted run, and a tree
-sharded over 'data' (FSDP) is refused by name. The replica-group model's
-checkpoint saved at 'model' 4 restores bit-equal at 2 and 1, and the
+stops and resumes to the losses of an uninterrupted run. The
+replica-group model's checkpoint saved at 'model' 4 restores bit-equal at
+2 and 1, and the
 save at 2 back at 4; its pod-compressed step at 'model' 2 (one KV head,
 ``d_ff`` 129, whole on both ranks) tracks the plain pod step. The
 encoder-decoder (reduced seamless over random frames, vocabulary 66:
 vocab-parallel at 'model' 2, replicated at 4) trains on (data 2, model
 2) and (data 1, model 4) within the same tolerances, and its checkpoint
-saved at 'model' 4 restores bit-equal at 2 and 1 and back at 4."""
+saved at 'model' 4 restores bit-equal at 2 and 1 and back at 4.
+
+FSDP (ZeRO-3) over 'data' (``sharding.fsdp_place``, the cases named
+``fsdp_...``): on (data 2, model 2), also with the clip active, on (data
+4, model 1), with replica groups at 'model' 2 (one KV head, ``d_ff`` 129)
+and for the encoder-decoder, within the same tolerances of the one-rank
+step; the rules' own layout (``reshard_serving_tree``) equals
+``fsdp_place``'s for the dense model and trains alike; the
+pod-compressed step on (pod 2, data 2, model 1) FSDP-placed tracks the
+same step on replicas; an FSDP checkpoint (params and moments after one
+step) restores bit-equal on (data 1, model 2) and on one rank; a
+``Trainer`` on FSDP-placed parameters resumes to the same losses; and a
+step's 'data' gathers and reduce-scatters (``group.DATA_COLLECTIVES``)
+are two gathers and one reduce-scatter a period and encoder layer and
+one of each a use of the embedding and head, their bytes as the layout
+implies."""
 import numpy as np
 import pytest
 import torch
@@ -47,16 +62,16 @@ def ranks(tmp_path_factory):
                      args=(str(d),), timeout=600, store_dir=str(d))
 
 
-@pytest.mark.parametrize("name", list(W.TRAIN_CASES))
-def test_train_step_matches_one_rank(ranks, name):
-    ocfg = W.TRAIN_CASES[name][2]
-    losses, norms, params = W.one_rank_train(ocfg, W.TRAIN_STEPS,
-                                             over=W.train_over(name))
-    grads = W.one_rank_grads(over=W.train_over(name))
-    if "clip" in name:
+def _held_to_one_rank(results, ocfg, over):
+    """Every rank's ``(losses, norms, shards, grads)`` against the one-rank
+    step's: losses and norms within 1e-4 relative, gradients within
+    ``GRAD_TOL``, shards within ``STEP_TOL`` of the one-rank parameters'
+    slices."""
+    losses, norms, params = W.one_rank_train(ocfg, W.TRAIN_STEPS, over=over)
+    grads = W.one_rank_grads(over=over)
+    if "clip_norm" in ocfg:
         assert min(norms) > ocfg["clip_norm"]        # the clip is active
-    for r in ranks:
-        tl, tn, shards, tg = r["cases"][name]
+    for rank, (tl, tn, shards, tg) in results:
         np.testing.assert_allclose(tl, losses, rtol=1e-4, atol=0)
         np.testing.assert_allclose(tn, norms, rtol=1e-4, atol=0)
         assert sorted(tg) == sorted(grads)
@@ -69,7 +84,13 @@ def test_train_step_matches_one_rank(ranks, name):
             np.testing.assert_allclose(
                 local, want, rtol=STEP_TOL["rtol"],
                 atol=STEP_TOL["atol_rms"] * rms,
-                err_msg=f"rank {r['rank']} {k}")
+                err_msg=f"rank {rank} {k}")
+
+
+@pytest.mark.parametrize("name", list(W.TRAIN_CASES))
+def test_train_step_matches_one_rank(ranks, name):
+    _held_to_one_rank([(r["rank"], r["cases"][name]) for r in ranks],
+                      W.TRAIN_CASES[name][2], W.train_over(name))
 
 
 def test_model_shards_split_the_sharded_leaves(ranks):
@@ -210,7 +231,116 @@ def test_trainer_resumes_to_the_same_losses(ranks):
     assert "trainer_through" not in ranks[2]
 
 
-def test_fsdp_placement_is_refused(ranks):
+def test_reference_layout_tree_trains_like_one_rank(ranks):
+    """The dense model placed by the rules' own FSDP layout
+    (``reshard_serving_tree``: the reference's ``make_param_shardings``),
+    which ``fsdp_place`` equals leaf for leaf, trains on (data 2, model 2)
+    to the one-rank step's losses, norms, gradients and parameters."""
+    assert all(r["rules_is_fsdp"] for r in ranks)
+    _held_to_one_rank([(r["rank"], r["rules"]) for r in ranks], W._STEP,
+                      W.TRAIN_OVER)
+
+
+def test_fsdp_shards_cut_data_and_model(ranks):
+    """On (data 2, model 2) a column-parallel kernel is cut on its input
+    dim over 'data' and its output dim over 'model', a row-parallel one
+    the other way round, the vocab-parallel embedding on its vocabulary
+    over 'model' and its width over 'data', a norm gain whole; on (data 4,
+    model 1) every kernel's 'fsdp' dim is a quarter."""
+    d, f = W.TP_TINY["d_model"], W.TP_TINY["d_ff"]
+    blk = "stack/list/0/b0/"
     for r in ranks:
-        assert r["fsdp_raised"].startswith(
-            "not ported yet: FSDP (ZeRO-3) over 'data'")
+        dat, mod = r["rank"] // 2, r["rank"] % 2
+        sh = r["cases"]["fsdp_data2_model2"][2]
+        assert sh[blk + "ffn/wi/w"][1] == (
+            (dat * d // 2, (dat + 1) * d // 2),
+            (mod * f // 2, (mod + 1) * f // 2))
+        assert sh[blk + "ffn/wdown/w"][1] == (
+            (mod * f // 2, (mod + 1) * f // 2),
+            (dat * d // 2, (dat + 1) * d // 2))
+        assert sh["embedding/embedding"][1] == (
+            (mod * 32, (mod + 1) * 32), (dat * d // 2, (dat + 1) * d // 2))
+        assert sh[blk + "ln1/gain"][1] == ((0, d),)
+        sh4 = r["cases"]["fsdp_data4_model1"][2]
+        q = r["rank"]
+        assert sh4[blk + "ffn/wi/w"][1] == ((q * d // 4, (q + 1) * d // 4),
+                                            (0, f))
+        assert sh4[blk + "ffn/wdown/w"][1] == ((0, f),
+                                               (q * d // 4, (q + 1) * d // 4))
+
+
+@pytest.mark.parametrize("where", ["data1_model2", "one_rank"])
+def test_fsdp_checkpoint_restores_bit_equal(ranks, where):
+    """The dense model's params and AdamW state after one FSDP step on
+    (data 2, model 2) (the moments not zero), saved, hold the logical
+    arrays: restored onto ``fsdp_place``'s layout on (data 1, model 2)
+    (no 'data' cut: 'model' alone) and onto one rank, every leaf of the
+    params and both moments equals the saved tree's bit for bit."""
+    ck = [r["fsdp_ckpt"] for r in ranks]
+    want = ck[0]["saved"]
+    for c in ck[1:]:
+        for part, tree in want.items():
+            assert all(np.array_equal(c["saved"][part][k], v)
+                       for k, v in tree.items())
+    assert "Shard(dim=0)" in ck[0]["placements22"]       # 'data'
+    assert "Shard(dim=1)" in ck[0]["placements22"]       # 'model'
+    assert any(want["m"][k].any() for k in want["m"])
+    holders = ck[:2] if where == "data1_model2" else ck[:1]
+    for c in holders:
+        got = c[where]
+        for part, tree in want.items():
+            assert sorted(got[part]) == sorted(tree)
+            for k, v in tree.items():
+                assert got[part][k].dtype == v.dtype and \
+                    np.array_equal(got[part][k], v), (part, k)
+    if where == "data1_model2":
+        assert "Shard(dim=0)" not in ck[0]["placements12"]
+
+
+def test_fsdp_pod_compressed_tracks_replicated(ranks):
+    """The pod-compressed step on (pod 2, data 2, model 1) with its
+    parameters and moments FSDP-placed tracks the same step on plain
+    replicas: the same logical error-feedback layout, losses within 1e-4
+    relative."""
+    for r in ranks:
+        f, p = r["pod_fsdp"], r["pod_replicated"]
+        assert f["err"] == p["err"] == ranks[0]["pod_plain"]["err"]
+        np.testing.assert_allclose(f["losses"], p["losses"], rtol=1e-4,
+                                   atol=0)
+
+
+def test_fsdp_trainer_resumes_to_the_same_losses(ranks):
+    """A ``Trainer`` on FSDP-placed parameters on (data 2, model 2) saves,
+    stops and resumes (restoring onto the same placements) to the losses
+    of an uninterrupted run."""
+    for r in ranks:
+        assert len(r["trainer_fsdp_through"]) == 4
+        assert r["trainer_fsdp_resumed"] == r["trainer_fsdp_through"]
+
+
+@pytest.mark.parametrize("name", ["fsdp_data2_model2",
+                                  "fsdp_encdec_data2_model2"])
+def test_fsdp_gathers_one_period_at_a_time(ranks, name):
+    """One FSDP step's 'data' collectives are what a gather a period (and
+    an encoder layer) implies: two gathers of each (the forward and the
+    backward's recompute) and one reduce-scatter, and one gather and one
+    reduce-scatter a use of the embedding (twice where it is tied) and
+    of an untied head; their bytes the padded shards times the 'data'
+    size (the reduce-scatter's in float32). No gather spans more than one
+    period, so no rank holds the whole gathered tree."""
+    for r in ranks:
+        c = r["collectives"][name]
+        n = c["data"]
+        blocks = [b for b in c["blocks"] if b[1]]
+        assert len(blocks) == len(c["blocks"]) >= 2
+        uses = [c["embedding"]] * (2 if c["tied"] else 1) + \
+            ([c["head"]] if c["head"][1] else [])
+        assert all(u[1] for u in uses)
+        want_gather = {"calls": 2 * len(blocks) + len(uses),
+                       "bytes": n * (2 * sum(b[0] for b in blocks)
+                                     + sum(u[0] for u in uses))}
+        want_rs = {"calls": len(blocks) + len(uses),
+                   "bytes": 4 * n * (sum(b[1] for b in blocks)
+                                     + sum(u[1] for u in uses))}
+        assert c["counted"] == {"gather": want_gather,
+                                "reduce_scatter": want_rs}

@@ -15,7 +15,8 @@ tokens. Each rank's logits match the one-rank forward within
 on (data 2, model 2), its MoE layers routed over both 'data' ranks at
 capacity factor 1.0 (capacity binds), and on (data 1, model 4), over
 48-token sequences past the window, matches the one-rank step (losses,
-grad norms, gradients at ``GRAD_TOL``, shards at ``STEP_TOL``)."""
+grad norms, gradients at ``GRAD_TOL``, shards at ``STEP_TOL``), also
+FSDP-placed over 'data' (``fsdp_place``) on (data 2, model 2)."""
 
 import numpy as np
 import pytest

@@ -318,6 +318,9 @@ TRAIN_CASES = {
     "data1_model4": ((1, 4), ("data", "model"), 1, None),
     "ff_data1_model4": ((1, 4), ("data", "model"), 1, FF_EXPERTS),
     "ff_data2_model2": ((2, 2), ("data", "model"), 1, 3),
+    # FSDP over 'data' (``sharding.fsdp_place``: the banks' d dim, the
+    # router's input dim), routed over both data ranks
+    "fsdp_data2_model2": ((2, 2), ("data", "model"), 1, None),
 }
 FF_TRAIN_EXPERTS = (FF_EXPERTS, 3)
 
@@ -396,7 +399,7 @@ def train_ranks(params_path, ff_paths=None):
         m = model if experts is None else model_of(TRAIN_OVER, BINDING_CF,
                                                    experts)
         p = params if experts is None else torch.load(ff_paths[experts])
-        placed = tp_place(p, mesh, m.cfg)
+        placed = TPW.placed_tree(p, mesh, m.cfg, TPW.layout_of(name))
         step = tl.make_train_step(m, AdamWConfig(**TPW._STEP),
                                   microbatches=mb, mesh=mesh)
         _, _, g = step.averaged_grads(placed, batches[0])
@@ -427,22 +430,25 @@ def reference_moe_ranks(params_path, tokens, batch, ff=None):
     """The port's side of the reference (GSPMD) comparison on (data 2,
     model 2): prefill logits of ``tokens`` on the expert-parallel local
     tree, and the step's averaged loss and gradients of ``batch``
-    (gathered whole) and one step's metrics, as rank 0 holds them; with
+    (gathered whole) and one step's metrics, as rank 0 holds them, and
+    (under ``"fsdp"``) the same step's from ``fsdp_place``'s layout; with
     ``ff`` ((params path, tokens, batch) of :data:`FF_EXPERTS` experts),
     the same on (data 1, model 4) under the 'expert_ff' fallback, as
     ``"ff"``."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     out = _reference_moe_side(params_path, tokens, batch, (2, 2))
+    out["fsdp"] = _reference_moe_side(params_path, tokens, batch, (2, 2),
+                                      layout="fsdp")
     if ff is not None:
         out["ff"] = _reference_moe_side(*ff, (1, 4), FF_EXPERTS)
     return out if dist.get_rank() == 0 else None
 
 
-def _reference_moe_side(params_path, tokens, batch, shape, experts=None):
+def _reference_moe_side(params_path, tokens, batch, shape, experts=None,
+                        layout="tp"):
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import (activate_mesh, tp_local,
-                                                  tp_place)
+    from repro_torch.distributed.sharding import activate_mesh, tp_local
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model = model_of(TRAIN_OVER, BINDING_CF, experts)
@@ -454,7 +460,7 @@ def _reference_moe_side(params_path, tokens, batch, shape, experts=None):
             tp_local(params, mesh, model.cfg), {"tokens": toks}, mode="prefill",
             caches=model.init_cache(toks.shape[0], toks.shape[1],
                                     device="cpu"))
-    placed = tp_place(params, mesh, model.cfg)
+    placed = TPW.placed_tree(params, mesh, model.cfg, layout)
     step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
     b = tl.to_device(batch, "cpu")
     loss, _, g = step.averaged_grads(placed, b)

@@ -254,7 +254,9 @@ TRAIN_VOCAB = 64                 # 'model' 2 and 4 divide it: vocab-parallel
 TRAIN_SEQ = 16                   # two chunks of the chunked scan / WKV
 # name -> (mesh shape, axis names)
 TRAIN_CASES = {"data2_model2": ((2, 2), ("data", "model")),
-               "data1_model4": ((1, 4), ("data", "model"))}
+               "data1_model4": ((1, 4), ("data", "model")),
+               # FSDP over 'data' (``sharding.fsdp_place``)
+               "fsdp_data2_model2": ((2, 2), ("data", "model"))}
 
 
 def train_model(kind):
@@ -304,16 +306,15 @@ def shards(tree):
     return out
 
 
-def _tp_train(kind, mesh):
-    """The tensor-parallel step's averaged gradients of the first batch
-    (gathered whole), then its losses, grad norms and this rank's final
-    shards over :data:`TRAIN_STEPS` steps."""
-    from repro_torch.distributed.sharding import tp_place
+def _tp_train(kind, mesh, layout="tp"):
+    """The tensor-parallel (or, by ``layout``, FSDP) step's averaged
+    gradients of the first batch (gathered whole), then its losses, grad
+    norms and this rank's final shards over :data:`TRAIN_STEPS` steps."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     import torch_ep_workers as EP
     model = train_model(kind)
-    placed = tp_place(params_of(model), mesh, model.cfg)
+    placed = TPW.placed_tree(params_of(model), mesh, model.cfg, layout)
     batches = [tl.to_device(b, "cpu") for b in train_batches()]
     step = tl.make_train_step(model, AdamWConfig(**TPW._STEP), mesh=mesh)
     _, _, g = step.averaged_grads(placed, batches[0])
@@ -364,7 +365,7 @@ def train_ranks():
     for kind in KINDS:
         for name, (shape, axes) in TRAIN_CASES.items():
             out["cases"][f"{kind}_{name}"] = _tp_train(
-                kind, make_mesh(shape, axes))
+                kind, make_mesh(shape, axes), TPW.layout_of(name))
     out["pod_tp"] = _pod_losses("jamba", make_mesh(
         (2, 1, 2), ("pod", "data", "model")), True)
     plain = make_mesh((2, 1), ("pod", "data"))
@@ -460,11 +461,11 @@ def reference_ranks(cases):
     for each ``kind -> (params path, tokens, batch)`` of ``cases``: the
     prefill logits of ``tokens`` on the tensor-parallel local tree, the
     step's averaged loss and gradients of ``batch`` (gathered whole) and
-    one step's metrics, as rank 0 holds them."""
+    one step's metrics, from ``tp_place``'s layout and (under ``"fsdp"``)
+    from ``fsdp_place``'s, as rank 0 holds them."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import (activate_mesh, tp_local,
-                                                  tp_place)
+    from repro_torch.distributed.sharding import activate_mesh, tp_local
     from repro_torch.models.model import build_model
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
@@ -480,13 +481,18 @@ def reference_ranks(cases):
             logits, _ = model.forward(
                 tp_local(params, mesh, model.cfg), {"tokens": toks}, mode="prefill",
                 caches=model.init_cache(*toks.shape, device="cpu"))
-        placed = tp_place(params, mesh, model.cfg)
-        step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
-        b = tl.to_device(batch, "cpu")
-        loss, _, g = step.averaged_grads(placed, b)
-        grads = EP._np(EP._whole_grads(mesh, placed, g))
-        _, _, met = step(placed, adamw_init(placed), b)
-        out[kind] = {"logits": logits.numpy(), "loss": float(loss),
-                     "grads": grads, "step": {k: float(met[k]) for k in
-                                              ("loss", "grad_norm")}}
+        out[kind] = {"logits": logits.numpy()}
+        for layout in ("tp", "fsdp"):
+            placed = TPW.placed_tree(params, mesh, model.cfg, layout)
+            step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
+            b = tl.to_device(batch, "cpu")
+            loss, _, g = step.averaged_grads(placed, b)
+            grads = EP._np(EP._whole_grads(mesh, placed, g))
+            _, _, met = step(placed, adamw_init(placed), b)
+            side = {"loss": float(loss), "grads": grads, "step": {
+                k: float(met[k]) for k in ("loss", "grad_norm")}}
+            if layout == "tp":
+                out[kind].update(side)
+            else:
+                out[kind]["fsdp"] = side
     return out if dist.get_rank() == 0 else None

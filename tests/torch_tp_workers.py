@@ -368,11 +368,31 @@ TRAIN_CASES.update({n: ((2, 2) if "data2" in n else (1, 4),
 # each whole on both ranks
 POD_GROUP_OVER = dict(TRAIN_OVER, n_kv_heads=1, d_ff=129)
 POD_OPT = dict(lr=3e-3, warmup_steps=0, decay_steps=100)
+# FSDP (ZeRO-3) over 'data' (``sharding.fsdp_place``), cases named
+# "fsdp_...": on (data 2, model 2), also with the clip active; pure ZeRO-3
+# on (data 4, model 1); replica groups at 'model' 2 (one KV head, d_ff
+# 129, whole on both 'model' ranks and cut over 'data'); the
+# encoder-decoder
+FSDP_TRAIN_OVER = {"fsdp_data2_model2": TRAIN_OVER,
+                   "fsdp_data2_model2_clip": TRAIN_OVER,
+                   "fsdp_data4_model1": TRAIN_OVER,
+                   "fsdp_data2_model2_groups": POD_GROUP_OVER,
+                   "fsdp_encdec_data2_model2":
+                       GROUP_TRAIN_OVER["encdec_data2_model2"]}
+TRAIN_CASES.update({n: ((4, 1) if "data4" in n else (2, 2),
+                        ("data", "model"),
+                        dict(_STEP, clip_norm=0.05) if "clip" in n else _STEP)
+                    for n in FSDP_TRAIN_OVER})
 
 
 def train_over(name):
     """The config overrides of training case ``name``."""
-    return GROUP_TRAIN_OVER.get(name, TRAIN_OVER)
+    return {**GROUP_TRAIN_OVER, **FSDP_TRAIN_OVER}.get(name, TRAIN_OVER)
+
+
+def layout_of(name):
+    """The parameter layout of training case ``name`` (:func:`placed_tree`)."""
+    return "fsdp" if name.startswith("fsdp_") else "tp"
 
 
 def one_rank_grads(over=TRAIN_OVER):
@@ -419,18 +439,37 @@ def averaged_grads(model, mesh, placed, batch):
     return float(mean(loss.detach())), gather_tree(grads)
 
 
-def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER):
-    """The tensor-parallel step's losses, grad norms and final shards, and
-    its averaged gradients of the first batch, gathered."""
-    from repro_torch.distributed.sharding import tp_place
+def placed_tree(params, mesh, cfg, layout="tp"):
+    """``params`` placed on ``mesh``: ``tp_place``'s replicated-over-'data'
+    layout ("tp"), ``fsdp_place``'s FSDP layout ("fsdp"), or the rules'
+    own (``reshard_serving_tree``, "rules": the dense model's FSDP
+    layout)."""
+    from repro_torch.distributed import sharding
+    if layout == "rules":
+        return sharding.reshard_serving_tree(params, mesh)
+    place = sharding.fsdp_place if layout == "fsdp" else sharding.tp_place
+    return place(params, mesh, cfg)
+
+
+def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER, layout="tp"):
+    """The tensor-parallel (or, by ``layout``, FSDP) step's losses, grad
+    norms and final shards, and its averaged gradients of the first batch,
+    gathered: from public pieces for the "tp" layout
+    (:func:`averaged_grads`), else ``step.averaged_grads``."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     model, params = tiny_model(**over)
-    placed = tp_place(params, mesh, cfg=model.cfg)
+    placed = placed_tree(params, mesh, model.cfg, layout)
     opt = adamw_init(placed)
     step = tl.make_train_step(model, AdamWConfig(**ocfg), mesh=mesh)
-    _, grads = averaged_grads(model, mesh, placed, tl.to_device(
-        train_batches(model.cfg.vocab, 1, cfg=model.cfg)[0], "cpu"))
+    first = tl.to_device(train_batches(model.cfg.vocab, 1, cfg=model.cfg)[0],
+                         "cpu")
+    if layout == "tp":
+        _, grads = averaged_grads(model, mesh, placed, first)
+    else:
+        import torch_ep_workers as EP
+        grads = EP._whole_grads(mesh, placed,
+                                step.averaged_grads(placed, first)[2])
     grads = {k: v.numpy() for k, v in _leaves(grads)}
     losses, norms = [], []
     for b in train_batches(model.cfg.vocab, steps, cfg=model.cfg):
@@ -440,11 +479,11 @@ def _tp_train(mesh, ocfg, steps, over=TRAIN_OVER):
     return losses, norms, _shards(placed), grads
 
 
-def _pod_run(mesh, steps, tp, over=TRAIN_OVER):
-    """The pod-compressed step on ``mesh`` (tensor-parallel when ``tp``):
-    its losses, the error buffers' leaf order and shapes, and this rank's
-    pod and its error-feedback row after the first step."""
-    from repro_torch.distributed.sharding import tp_place
+def _pod_run(mesh, steps, tp, over=TRAIN_OVER, layout="tp"):
+    """The pod-compressed step on ``mesh`` (its params placed by
+    :func:`placed_tree`'s ``layout`` when ``tp``, else plain tensors): its
+    losses, the error buffers' leaf order and shapes, and this rank's pod
+    and its error-feedback row after the first step."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                                 tree_leaves)
@@ -452,7 +491,7 @@ def _pod_run(mesh, steps, tp, over=TRAIN_OVER):
     err = tl.init_pod_error(params, 2)
     shapes = [tuple(e.shape) for e in tree_leaves(err)]
     if tp:
-        params = tp_place(params, mesh, cfg=model.cfg)
+        params = placed_tree(params, mesh, model.cfg, layout)
     opt = adamw_init(params)
     step = tl.make_train_step(model, AdamWConfig(**POD_OPT),
                               pod_compress=True, mesh=mesh)
@@ -486,10 +525,10 @@ def pod_block_scales(pod, n_pods=2):
     return (flat.reshape(-1, gc.BLOCK).abs().amax(1) / 127).numpy()
 
 
-def _trainer_run(mesh, ckpt, total, steps_before=None):
-    """A ``Trainer`` on ``mesh`` to ``total`` steps (stopped after
-    ``steps_before`` first and started again, where given): the losses."""
-    from repro_torch.distributed.sharding import tp_place
+def _trainer_run(mesh, ckpt, total, steps_before=None, layout="tp"):
+    """A ``Trainer`` on ``mesh`` (the params placed by :func:`placed_tree`'s
+    ``layout``) to ``total`` steps (stopped after ``steps_before`` first
+    and started again, where given): the losses."""
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig
     model, params = tiny_model(**TRAIN_OVER)
@@ -502,9 +541,103 @@ def _trainer_run(mesh, ckpt, total, steps_before=None):
             async_checkpoint=False, log_every=100), train_step=step,
             device="cpu")
         data = iter(train_batches(model.cfg.vocab, total)[len(history):])
-        _, _, info = trainer.run(tp_place(params, mesh, model.cfg), data)
+        _, _, info = trainer.run(placed_tree(params, mesh, model.cfg,
+                                             layout), data)
         history += info["history"]
     return history
+
+
+def _fsdp_checkpoint(ckpt):
+    """The dense model's params and AdamW state ``fsdp_place``d on (data
+    2, model 2), after one step (moments not zero), saved (collective),
+    then restored with ``restore(shardings=)`` onto ``fsdp_place``'s
+    layout on (data 1, model 2) (ranks 0 and 1) and onto one rank (rank
+    0): each restored tree gathered whole, as numpy, beside the saved
+    trees gathered whole; and the placements of ``wq`` on each mesh."""
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import (fsdp_place, gather_tree,
+                                                  shardings_of)
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+
+    def np_tree(tree):
+        return {k: v.detach().numpy().copy() for k, v in _leaves(tree)}
+
+    def np_state(p, opt):
+        return {"params": np_tree(gather_tree(p)),
+                "m": np_tree(gather_tree(opt["m"])),
+                "v": np_tree(gather_tree(opt["v"]))}
+
+    wq = ("stack", "list", "0", "b0", "attn", "wq", "w")
+    model, params = tiny_model(**TRAIN_OVER)
+    mesh = make_mesh((2, 2), ("data", "model"))
+    placed = fsdp_place(params, mesh, model.cfg)
+    step = tl.make_train_step(model, AdamWConfig(**_STEP), mesh=mesh)
+    placed, opt, _ = step(placed, adamw_init(placed), tl.to_device(
+        train_batches(model.cfg.vocab, 1)[0], "cpu"))
+    ck = Checkpointer(ckpt, async_save=False)
+    ck.save(1, placed, opt)
+    out = {"saved": np_state(placed, opt),
+           "placements22": repr(_at(placed, wq).placements)}
+    mesh2 = make_mesh((1, 2), ("data", "model"))
+    if mesh2.get_coordinate() is not None:
+        like = fsdp_place(params, mesh2, model.cfg)
+        got, got_opt, _ = ck.restore(
+            1, shardings=(shardings_of(like), shardings_of(
+                adamw_init(like))), template=(like, adamw_init(like)),
+            device="cpu")
+        out["placements12"] = repr(_at(got, wq).placements)
+        out["data1_model2"] = np_state(got, got_opt)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        one, one_opt, _ = ck.restore(
+            1, template=(params, adamw_init(params)), device="cpu")
+        out["one_rank"] = {"params": np_tree(one), "m": np_tree(one_opt["m"]),
+                           "v": np_tree(one_opt["v"])}
+    dist.barrier()
+    return out
+
+
+def fsdp_collectives(name):
+    """One step of training case ``name`` (an FSDP one) from a fresh
+    ``fsdp_place``: ``DATA_COLLECTIVES``' calls and bytes the step added,
+    by kind, and what the layout implies for one gather of a period (or
+    encoder layer) and of the embedding or head: the periods and layers
+    with a 'data' shard, the tied or untied head, the 'data' size, and the
+    padded bytes of each gather's shards (``group.gather_data``: 16-byte
+    segments)."""
+    from repro_torch.distributed import group as dgroup
+    from repro_torch.distributed.group import make_mesh
+    from repro_torch.distributed.sharding import data_shard
+    from repro_torch.training import train_loop as tl
+    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    shape, axes, ocfg = TRAIN_CASES[name]
+    mesh = make_mesh(shape, axes)
+    model, params = tiny_model(**train_over(name))
+    placed = placed_tree(params, mesh, model.cfg, "fsdp")
+    step = tl.make_train_step(model, AdamWConfig(**ocfg), mesh=mesh)
+
+    def units(tree):
+        """Padded bytes and elements of the 'data'-sharded local shards of
+        ``tree``."""
+        mine = [t.to_local() for _, t in _leaves(tree)
+                if data_shard(t) is not None]
+        return (sum(-(-x.numel() * x.element_size() // 16) * 16
+                    for x in mine), sum(x.numel() for x in mine))
+    blocks = [units(p) for p in placed["stack"]["list"]]
+    blocks += [units(p) for p in placed.get("encoder", {}).get("layers", [])]
+    before = {k: dict(v) for k, v in dgroup.DATA_COLLECTIVES.items()}
+    step(placed, adamw_init(placed), tl.to_device(
+        train_batches(model.cfg.vocab, 1, cfg=model.cfg)[0], "cpu"))
+    after = dgroup.DATA_COLLECTIVES
+    return {"counted": {k: {c: after[k][c] - before[k][c]
+                            for c in ("calls", "bytes")} for k in after},
+            "data": shape[0], "blocks": blocks,
+            "embedding": units(placed["embedding"]),
+            "head": units(placed.get("lm_head", {})),
+            "tied": model.cfg.tie_embeddings}
 
 
 def _group_checkpoint(ckpt, name="data1_model4_q6_kv2_dff130"):
@@ -563,35 +696,53 @@ def _group_checkpoint(ckpt, name="data1_model4_q6_kv2_dff130"):
 
 
 def train_ranks(ckpt_dir):
-    """The training cases on four gloo ranks: :data:`TRAIN_CASES`; the
-    replica-group model's and the encoder-decoder's checkpoints
-    (:func:`_group_checkpoint`); the
-    pod-compressed step on (pod 2, data 1, model 2) for :data:`POD_STEPS`
-    steps and for :data:`TRAIN_STEPS` beside the non-tensor-parallel pod
-    step on (pod 2, data 1) (ranks 0 and 1), also at
-    :data:`POD_GROUP_OVER`; a ``Trainer`` on (data 1,
-    model 2) (ranks 0 and 1) run through and stopped then resumed; and
-    the FSDP placement the step refuses."""
+    """The training cases on four gloo ranks: :data:`TRAIN_CASES` (the
+    FSDP ones from ``fsdp_place``); the rules' own FSDP layout
+    (``reshard_serving_tree``) on (data 2, model 2); the replica-group
+    model's and the encoder-decoder's checkpoints
+    (:func:`_group_checkpoint`) and an FSDP one (:func:`_fsdp_checkpoint`);
+    the pod-compressed step on (pod 2, data 1, model 2) for
+    :data:`POD_STEPS` steps and for :data:`TRAIN_STEPS` beside the
+    non-tensor-parallel pod step on (pod 2, data 1) (ranks 0 and 1), also
+    at :data:`POD_GROUP_OVER`, and on (pod 2, data 2, model 1) FSDP-placed
+    beside the same step replicated; a ``Trainer`` on (data 1, model 2)
+    (ranks 0 and 1) and one FSDP-placed on (data 2, model 2), each run
+    through and stopped then resumed; and each step's FSDP collectives
+    (:func:`fsdp_collectives`)."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
-    from repro_torch.distributed.sharding import reshard_serving_tree
-    from repro_torch.training import train_loop as tl
-    from repro_torch.training.optimizer import AdamWConfig, adamw_init
+    from repro_torch.distributed.sharding import (fsdp_place,
+                                                  shardings_of)
     torch.set_num_threads(1)
     rank = dist.get_rank()
     out = {"rank": rank, "cases": {}}
     for name, (shape, names, ocfg) in TRAIN_CASES.items():
         mesh = make_mesh(shape, names)
         out["cases"][name] = _tp_train(mesh, ocfg, TRAIN_STEPS,
-                                       over=train_over(name))
+                                       over=train_over(name),
+                                       layout=layout_of(name))
+    # the rules' own layout (the reference's make_param_shardings) of the
+    # dense model is fsdp_place's, and trains
+    mesh = make_mesh((2, 2), ("data", "model"))
+    model, params = tiny_model(**TRAIN_OVER)
+    out["rules_is_fsdp"] = all(
+        (a.spec, a.split) == (b.spec, b.split) for a, b in zip(
+            _leaves_of(shardings_of(placed_tree(params, mesh, model.cfg,
+                                                "rules"))),
+            _leaves_of(shardings_of(fsdp_place(params, mesh, model.cfg)))))
+    out["rules"] = _tp_train(mesh, _STEP, TRAIN_STEPS, layout="rules")
     out["group_ckpt"] = _group_checkpoint(os.path.join(ckpt_dir, "group"))
     out["encdec_ckpt"] = _group_checkpoint(os.path.join(ckpt_dir, "encdec"),
                                            "encdec_data1_model4")
+    out["fsdp_ckpt"] = _fsdp_checkpoint(os.path.join(ckpt_dir, "fsdp"))
     pod_mesh = make_mesh((2, 1, 2), ("pod", "data", "model"))
     out["pod_learn"] = _pod_run(pod_mesh, POD_STEPS, True)["losses"]
     out["pod_tp"] = _pod_run(pod_mesh, TRAIN_STEPS, True)
     out["pod_tp_group"] = _pod_run(pod_mesh, TRAIN_STEPS, True,
                                    over=POD_GROUP_OVER)
+    pod22 = make_mesh((2, 2, 1), ("pod", "data", "model"))
+    out["pod_fsdp"] = _pod_run(pod22, TRAIN_STEPS, True, layout="fsdp")
+    out["pod_replicated"] = _pod_run(pod22, TRAIN_STEPS, False)
     plain_pod = make_mesh((2, 1), ("pod", "data"))
     if plain_pod.get_coordinate() is not None:
         out["pod_plain"] = _pod_run(plain_pod, TRAIN_STEPS, False)
@@ -603,18 +754,19 @@ def train_ranks(ckpt_dir):
             tp2, os.path.join(ckpt_dir, "through"), 4)
         out["trainer_resumed"] = _trainer_run(
             tp2, os.path.join(ckpt_dir, "resumed"), 4, steps_before=2)
-    # a tree placed by the full rules (FSDP over 'data') is refused
-    mesh = make_mesh((2, 2), ("data", "model"))
-    model, params = tiny_model(**TRAIN_OVER)
-    fsdp = reshard_serving_tree(params, mesh)
-    step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
-    try:
-        step(fsdp, adamw_init(fsdp),
-             tl.to_device(train_batches(64, 1)[0], "cpu"))
-    except NotImplementedError as e:
-        out["fsdp_raised"] = str(e)
+    out["trainer_fsdp_through"] = _trainer_run(
+        mesh, os.path.join(ckpt_dir, "fsdp_through"), 4, layout="fsdp")
+    out["trainer_fsdp_resumed"] = _trainer_run(
+        mesh, os.path.join(ckpt_dir, "fsdp_resumed"), 4, steps_before=2,
+        layout="fsdp")
+    out["collectives"] = {n: fsdp_collectives(n) for n in
+                          ("fsdp_data2_model2", "fsdp_encdec_data2_model2")}
     dist.barrier()
     return out
+
+
+def _leaves_of(tree):
+    return [v for _, v in _leaves(tree)]
 
 
 def mesh_option_ranks():
@@ -654,13 +806,14 @@ REF_MODEL4_OVER = dict(REF_GROUP_OVER,
                        encdec=dict(GROUP_TRAIN_OVER["encdec_data1_model4"]))
 
 
-def _reference_side(model, params, mesh, tokens, batch):
+def _reference_side(model, params, mesh, tokens, batch, layouts=("tp",)):
     """Prefill logits of ``tokens`` (over ``batch``'s ``enc_frames``, an
     encoder-decoder's) on ``params``' TP-local tree under ``mesh``, and
     the averaged loss and gradients of ``batch`` and one step's metrics
-    from its ``tp_place``d tree (gathered)."""
-    from repro_torch.distributed.sharding import (activate_mesh, tp_local,
-                                                  tp_place)
+    from its tree placed by each of ``layouts`` (:func:`placed_tree`;
+    gathered): the first's at the top level, the others' under their
+    names."""
+    from repro_torch.distributed.sharding import activate_mesh, tp_local
     from repro_torch.training import train_loop as tl
     from repro_torch.training.optimizer import AdamWConfig, adamw_init
     toks = torch.from_numpy(tokens)
@@ -672,28 +825,42 @@ def _reference_side(model, params, mesh, tokens, batch):
             tp_local(params, mesh, cfg=model.cfg), inputs,
             mode="prefill", caches=model.init_cache(
                 toks.shape[0], toks.shape[1], device="cpu"))
-    placed = tp_place(params, mesh, cfg=model.cfg)
-    step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
+    out = {"logits": logits.numpy()}
     b = tl.to_device(batch, "cpu")
-    loss, grads = averaged_grads(model, mesh, placed, b)
-    grads = {k: v.numpy() for k, v in _leaves(grads)}
-    _, _, met = step(placed, adamw_init(placed), b)
-    return {"logits": logits.numpy(), "loss": float(loss), "grads": grads,
-            "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
+    for layout in layouts:
+        placed = placed_tree(params, mesh, model.cfg, layout)
+        step = tl.make_train_step(model, AdamWConfig(), mesh=mesh)
+        if layout == "tp":
+            loss, grads = averaged_grads(model, mesh, placed, b)
+        else:
+            import torch_ep_workers as EP
+            loss, _, g = step.averaged_grads(placed, b)
+            grads = EP._whole_grads(mesh, placed, g)
+        _, _, met = step(placed, adamw_init(placed), b)
+        side = {"loss": float(loss),
+                "grads": {k: v.numpy() for k, v in _leaves(grads)},
+                "step": {k: float(met[k]) for k in ("loss", "grad_norm")}}
+        if layout == layouts[0]:
+            out.update(side)
+        else:
+            out[layout] = side
+    return out
 
 
 def reference_ranks(params_path, tokens, batch, groups=None):
     """The port's side of the reference comparison on (data 2, model 2)
-    (:func:`_reference_side`), and of each of ``groups`` (name ->
-    (params path, tokens, batch): :data:`REF_MODEL4_OVER`'s models) on
-    (data 1, model 4), as rank 0 holds them."""
+    (:func:`_reference_side`, the step from ``tp_place``'s,
+    ``fsdp_place``'s and the rules' own layouts), and of each of
+    ``groups`` (name -> (params path, tokens, batch):
+    :data:`REF_MODEL4_OVER`'s models) on (data 1, model 4), as rank 0
+    holds them."""
     import torch.distributed as dist
     from repro_torch.distributed.group import make_mesh
     torch.set_num_threads(1)
     model, _ = tiny_model(**TRAIN_OVER)
     out = _reference_side(model, torch.load(params_path),
                           make_mesh((2, 2), ("data", "model")), tokens,
-                          batch)
+                          batch, ("tp", "fsdp", "rules"))
     mesh = make_mesh((1, 4), ("data", "model"))
     out["groups"] = {}
     for name, (path, toks, b) in (groups or {}).items():
